@@ -1,0 +1,51 @@
+"""The port stands alone: importing every module of ``theanompi_tpu_torch``
+pulls in neither ``jax`` nor the JAX package.  Checked in a fresh
+interpreter, because this test process has imported both already."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PROBE = r"""
+import importlib, pkgutil, sys
+import theanompi_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "theanompi_tpu" or m.startswith("theanompi_tpu."))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    r = subprocess.run([sys.executable, "-c", PROBE], cwd=REPO,
+                       capture_output=True, text=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=REPO))
+    assert r.returncode == 0, r.stdout + r.stderr
+    n_modules = int(r.stdout.split()[0])
+    assert n_modules >= 15, r.stdout
+
+
+def test_port_sources_name_no_jax_import():
+    """No module of the port so much as mentions an import of jax or of the
+    JAX package (a lazy import inside a function would escape the probe)."""
+    import theanompi_tpu_torch as pkg
+    root = pkg.__path__[0]
+    for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+        rel = info.name.split(".", 1)[1].replace(".", os.sep)
+        path = os.path.join(root, rel, "__init__.py") if info.ispkg \
+            else os.path.join(root, rel + ".py")
+        with open(path) as f:
+            for line in f:
+                s = line.strip()
+                assert not s.startswith(("import jax", "from jax",
+                                         "import theanompi_tpu.",
+                                         "from theanompi_tpu.",
+                                         "from theanompi_tpu import")), \
+                    f"{path}: {s}"

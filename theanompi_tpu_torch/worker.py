@@ -1,0 +1,73 @@
+"""Worker main loop.
+
+Counterpart of ``theanompi_tpu/worker.py``: the epoch/batch driver that
+compiles the model's steps, applies ``scale_lr`` and ``adjust_hyperp``,
+calls ``model.train_iter`` each iteration, runs the per-epoch validation
+loop and prints through the recorder.  Tracing, chaos, the watchdog, device
+profiling and checkpoints are not ported yet.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+from .base import MeshProcess
+from .parallel.exchanger import get_exchanger
+from .utils.recorder import Recorder
+
+
+class Worker(MeshProcess):
+    """Generic rule-driven worker (≙ reference ``BSP_Worker`` et al.)."""
+
+    rule = "bsp"
+
+    def __init__(self, config: Optional[dict] = None):
+        super().__init__(config)
+        for k in ("ckpt_dir", "trace_dir", "chaos", "stall_timeout",
+                  "lease_dir", "metrics_addr", "tracing", "telemetry"):
+            if self.config.get(k):
+                raise NotImplementedError(f"config {k!r} is not ported yet")
+        self.get_internode_comm()
+        self.recorder = Recorder(self.config)
+        self.exchanger = get_exchanger(self.config.get("rule", self.rule),
+                                       self.config)
+
+    def run(self, model) -> Recorder:
+        """The reference's ``run(model)`` epoch/batch loop."""
+        config = self.config
+        self.recorder.start()
+        model.compile_iter_fns(self.exchanger)
+        self.recorder.end("compile")
+        if config.get("scale_lr", True) and self.size > 1:
+            model.scale_lr(self.size)
+
+        count = 0
+        epochs = config.get("epochs", model.epochs)
+        t0 = time.time()
+        self.recorder.reset_rate()
+        for epoch in range(epochs):
+            model.adjust_hyperp(epoch)
+            model.data.shuffle_data(epoch + model.seed)
+            for _ in range(model.data.n_batch_train):
+                count += 1
+                model.train_iter(count, self.recorder)
+                self.recorder.print_train_info(count)
+            model.begin_val()
+            for _ in range(model.data.n_batch_val):
+                model.val_iter(count, self.recorder)
+            model.end_val()
+            self.recorder.print_val_info(count)
+            if config.get("record_dir"):
+                self.recorder.save(config["record_dir"])
+        if self.verbose:
+            print(f"training finished in {time.time() - t0:.1f}s "
+                  f"({epochs} epochs)", flush=True)
+        return self.recorder
+
+
+class BSP_Worker(Worker):
+    rule = "bsp"
+
+
+WORKERS = {"bsp": BSP_Worker}

@@ -9,7 +9,6 @@
 """
 
 import os
-import subprocess
 import sys
 
 import jax
@@ -180,22 +179,9 @@ def test_session_api_trains_on_cpu():
 
 
 def _run_ranks(world, bs, tmp_path, tag):
-    init = "file://" + str(tmp_path / f"store_{tag}")
-    out = tmp_path / f"params_{tag}.npz"
-    env = dict(os.environ,
-               PYTHONPATH=os.pathsep.join(
-                   [HERE, os.path.dirname(HERE),
-                    os.environ.get("PYTHONPATH", "")]))
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.join(HERE, "torch_port_helper.py"),
-         str(r), str(world), init, str(bs), str(out)],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        for r in range(world)]
-    logs = [p.communicate(timeout=120)[0].decode() for p in procs]
-    for p, log in zip(procs, logs):
-        assert p.returncode == 0, log
-    with np.load(out) as z:
-        return {k: z[k] for k in z.files}
+    """Rank 0's parameters after one epoch of ``TinyLRNNet`` at ``world``
+    gloo ranks of batch ``bs``."""
+    return helper.run_ranks("train", world, tmp_path, tag, bs)[0]
 
 
 def test_bsp_two_gloo_ranks_equal_one_rank_on_double_batch(tmp_path):

@@ -74,6 +74,7 @@ class ModelBase:
             if self.optimizer == "momentum" \
             else get_optimizer(self.optimizer, weight_decay=self.weight_decay)
         self.opt_state = None
+        self.extra = {}
         self.train_fn = None
         self.val_fn = None
         self.exchanger = None
@@ -135,6 +136,7 @@ class ModelBase:
         self.exchanger = exchanger or BSP_Exchanger(self.config)
         self.exchanger.prepare(self, dist.get_world_size())
         self.opt_state = self.opt.init(self.params)
+        self.extra = self.exchanger.extra_state_template()
         self.train_fn = steps.build_train_step(self, self.exchanger)
         self.val_fn = steps.build_val_step(self)
 

@@ -1,0 +1,308 @@
+"""Sign compression for the onebit exchange wire.
+
+Counterpart of the onebit half of ``theanompi_tpu/ops/compress.py``: the
+sign pack and its inverse, the fused error-feedback encode, the residual,
+and the decode with a weighted accumulate over workers.
+
+**Wire layout** (the JAX package's, unchanged): a float32 vector ``c`` of
+length ``n`` (``n % PACK_ALIGN == 0``) is viewed as blocks of
+``BLOCK_ROWS × LANES`` = 256 × 128.  Within a block, bit ``b`` of packed
+word ``[r, l]`` (``r < 8``) is the sign bit of row ``8b + r``, lane ``l``:
+``1`` where ``c >= 0`` (``+0.0`` and ``-0.0`` alike), ``0`` where ``c < 0``
+or NaN.  The packed shape is ``[n // 4096, 128]``, n/8 bytes.
+
+**Words are ``torch.int32``** holding the uint32 words' bits (two's
+complement): PyTorch has no ``<<`` for uint32 on the CPU, and gloo's
+collectives refuse uint32.  ``.numpy().view(np.uint32)`` reads them as the
+JAX package's words.
+
+Each function has two implementations:
+
+* ``*_plain`` — the JAX package's jnp oracles in torch ops, line for line
+  (words computed in int64, stored as int32).  What a CPU tensor runs, and
+  what ``chip_smoke.py`` and the card tests hold the kernels against.
+* ``*_cuda`` — the hand-written Hopper kernels of ``csrc/compress.cu``:
+  B3 :func:`pack_signs_cuda`, B4 :func:`unpack_signs_wsum_cuda`,
+  B5 :func:`pack_signs_encode_cuda`, B6 :func:`signed_residual_cuda`.
+  Each counts its launches in ``.launches``.
+
+The public functions (the JAX names) choose by the tensors' device alone:
+CPU → plain, CUDA → the kernel (or an error), anything else → an error.
+Nothing falls back.  Scales stay tensors on the device: no wrapper reads a
+value back to the host.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _kernel_build
+
+BLOCK_ROWS = 256
+LANES = 128
+PACK_ALIGN = BLOCK_ROWS * LANES          # 32768 elements per block
+_WORDS_PER_BLOCK = 8                     # packed rows per block
+
+
+def _check_flat(name: str, *ts: torch.Tensor) -> int:
+    """1-D float32 vectors of one length, a multiple of PACK_ALIGN."""
+    n = ts[0].shape[0] if ts[0].dim() == 1 else -1
+    for t in ts:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: dtype {t.dtype}; takes float32")
+        if t.dim() != 1 or t.shape[0] != n:
+            raise ValueError(f"{name}: takes 1-D vectors of one length, got "
+                             f"{[tuple(u.shape) for u in ts]}")
+    if n % PACK_ALIGN:
+        raise ValueError(f"{name}: length {n} is not a multiple of "
+                         f"{PACK_ALIGN} (flatten_tree(pad_to_multiple_of="
+                         f"PACK_ALIGN) upstream)")
+    return n
+
+
+def _check_words(name: str, packed: torch.Tensor, rank: int) -> None:
+    """int32 words of ``rank`` dims ending in [m, LANES], m % 8 == 0."""
+    if packed.dtype != torch.int32:
+        raise TypeError(f"{name}: packed words of dtype {packed.dtype}; "
+                        f"takes int32")
+    if packed.dim() != rank or packed.shape[-1] != LANES or \
+            packed.shape[-2] % _WORDS_PER_BLOCK:
+        raise ValueError(f"{name}: packed shape {tuple(packed.shape)}; takes "
+                         f"{'[W, ' if rank == 3 else '['}m, {LANES}] with "
+                         f"m % {_WORDS_PER_BLOCK} == 0")
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the jnp oracles in torch ops)
+# ---------------------------------------------------------------------------
+
+def _shifts(device) -> torch.Tensor:
+    return torch.arange(32, dtype=torch.int64, device=device).reshape(
+        1, 32, 1, 1)
+
+
+def pack_signs_plain(c: torch.Tensor) -> torch.Tensor:
+    """f32 [n] → int32 [n // 4096, 128] in the wire layout
+    (``pack_signs_jnp``)."""
+    n = _check_flat("pack_signs_plain", c)
+    nb = n // PACK_ALIGN
+    bits = (c >= 0).to(torch.int64).reshape(nb, 32, _WORDS_PER_BLOCK, LANES)
+    # bit positions are disjoint across the reduced axis, so sum == OR
+    words = torch.sum(bits << _shifts(c.device), dim=1)
+    words = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
+    return words.to(torch.int32).reshape(nb * _WORDS_PER_BLOCK, LANES)
+
+
+def unpack_signs_plain(packed: torch.Tensor) -> torch.Tensor:
+    """int32 [m, 128] → f32 [32·m·128] of ±1 (``unpack_signs_jnp``)."""
+    _check_words("unpack_signs_plain", packed, 2)
+    nb = packed.shape[0] // _WORDS_PER_BLOCK
+    p = packed.to(torch.int64).reshape(nb, 1, _WORDS_PER_BLOCK, LANES)
+    bits = (p >> _shifts(packed.device)) & 1
+    return (bits.to(torch.float32) * 2.0 - 1.0).reshape(-1)
+
+
+def unpack_signs_weighted_sum_plain(all_packed: torch.Tensor,
+                                    scales: torch.Tensor) -> torch.Tensor:
+    """[W, m, 128] words, f32 [W] scales → Σ_w scales[w]·signs[w]
+    (``unpack_signs_weighted_sum_jnp``)."""
+    _check_words("unpack_signs_weighted_sum_plain", all_packed, 3)
+    w = all_packed.shape[0]
+    decoded = torch.stack([unpack_signs_plain(p) for p in all_packed])
+    return torch.sum(decoded * scales.reshape(w, 1), dim=0)
+
+
+def pack_signs_encode_plain(flat: torch.Tensor, state: torch.Tensor):
+    """``c = flat + state`` → (packed signs of c, |c|)
+    (``pack_signs_encode_jnp``)."""
+    _check_flat("pack_signs_encode_plain", flat, state)
+    c = flat + state
+    return pack_signs_plain(c), torch.abs(c)
+
+
+def signed_residual_plain(absc: torch.Tensor, packed: torch.Tensor,
+                          scale: torch.Tensor) -> torch.Tensor:
+    """New error state ``c − scale·sign(c)`` as
+    ``where(bit, |c| − scale, scale − |c|)`` (``signed_residual_jnp``; bit
+    for bit the unfused formula, c == 0 giving bit 1)."""
+    _check_flat("signed_residual_plain", absc)
+    sign_pos = unpack_signs_plain(packed) > 0
+    return torch.where(sign_pos, absc - scale, scale - absc)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = _kernel_build.load("compress")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.pack_signs.argtypes = [p, p, ll, p]
+    lib.pack_signs_encode.argtypes = [p, p, p, p, ll, p]
+    lib.signed_residual.argtypes = [p, p, p, p, ll, p]
+    lib.unpack_signs_wsum.argtypes = [p, p, p, i, ll, p]
+    for f in (lib.pack_signs, lib.pack_signs_encode, lib.signed_residual,
+              lib.unpack_signs_wsum):
+        f.restype = ctypes.c_int
+    return lib
+
+
+def _on_card(name: str, *ts: torch.Tensor) -> torch.device:
+    dev = ts[0].device
+    for t in ts:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: tensor on {t.device}, the kernel takes "
+                             f"CUDA tensors (the *_plain version is the CPU "
+                             f"path)")
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensor of strides {t.stride()} is not "
+                             f"contiguous")
+    return dev
+
+
+def _launch(name: str, dev: torch.device, fn, *args) -> None:
+    with torch.cuda.device(dev):
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def _check_scales(name: str, scale: torch.Tensor, count: int) -> None:
+    if scale.dtype != torch.float32 or scale.numel() != count:
+        raise ValueError(f"{name}: takes {count} float32 scale(s), got "
+                         f"{scale.dtype} {tuple(scale.shape)}")
+
+
+def pack_signs_cuda(c: torch.Tensor) -> torch.Tensor:
+    """Kernel B3: sign pack of a CUDA f32 vector."""
+    n = _check_flat("pack_signs_cuda", c)
+    dev = _on_card("pack_signs_cuda", c)
+    words = torch.empty((n // (32 * LANES), LANES), dtype=torch.int32,
+                        device=dev)
+    _launch("pack_signs_cuda", dev, _lib().pack_signs, c.data_ptr(),
+            words.data_ptr(), n)
+    pack_signs_cuda.launches += 1
+    return words
+
+
+def pack_signs_encode_cuda(flat: torch.Tensor, state: torch.Tensor):
+    """Kernel B5: ``c = flat + state`` → (packed signs of c, |c|), c kept in
+    registers."""
+    n = _check_flat("pack_signs_encode_cuda", flat, state)
+    dev = _on_card("pack_signs_encode_cuda", flat, state)
+    words = torch.empty((n // (32 * LANES), LANES), dtype=torch.int32,
+                        device=dev)
+    absc = torch.empty_like(flat)
+    _launch("pack_signs_encode_cuda", dev, _lib().pack_signs_encode,
+            flat.data_ptr(), state.data_ptr(), words.data_ptr(),
+            absc.data_ptr(), n)
+    pack_signs_encode_cuda.launches += 1
+    return words, absc
+
+
+def signed_residual_cuda(absc: torch.Tensor, packed: torch.Tensor,
+                         scale: torch.Tensor) -> torch.Tensor:
+    """Kernel B6: new error state from |c|, the packed bits and the scalar
+    scale, read on the device."""
+    n = _check_flat("signed_residual_cuda", absc)
+    _check_words("signed_residual_cuda", packed, 2)
+    if packed.shape[0] * 32 * LANES != n:
+        raise ValueError(f"signed_residual_cuda: {tuple(packed.shape)} words "
+                         f"for {n} elements")
+    _check_scales("signed_residual_cuda", scale, 1)
+    dev = _on_card("signed_residual_cuda", absc, packed, scale)
+    out = torch.empty_like(absc)
+    _launch("signed_residual_cuda", dev, _lib().signed_residual,
+            absc.data_ptr(), packed.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), n)
+    signed_residual_cuda.launches += 1
+    return out
+
+
+def unpack_signs_wsum_cuda(all_packed: torch.Tensor,
+                           scales: torch.Tensor) -> torch.Tensor:
+    """Kernel B4: [W, m, 128] words and f32 [W] scales →
+    Σ_w 2·scale_w·bit_w − Σ_w scale_w, f32 [32·m·128]."""
+    _check_words("unpack_signs_wsum_cuda", all_packed, 3)
+    w, m, _ = all_packed.shape
+    _check_scales("unpack_signs_wsum_cuda", scales, w)
+    dev = _on_card("unpack_signs_wsum_cuda", all_packed, scales)
+    out = torch.empty(32 * m * LANES, dtype=torch.float32, device=dev)
+    _launch("unpack_signs_wsum_cuda", dev, _lib().unpack_signs_wsum,
+            all_packed.data_ptr(), scales.data_ptr(), out.data_ptr(), w, m)
+    unpack_signs_wsum_cuda.launches += 1
+    return out
+
+
+# launch counts: each wrapper adds one where it launches its kernel
+pack_signs_cuda.launches = 0
+pack_signs_encode_cuda.launches = 0
+signed_residual_cuda.launches = 0
+unpack_signs_wsum_cuda.launches = 0
+
+KERNELS = (pack_signs_cuda, unpack_signs_wsum_cuda, pack_signs_encode_cuda,
+           signed_residual_cuda)
+
+
+# ---------------------------------------------------------------------------
+# public API: by device
+# ---------------------------------------------------------------------------
+
+def _route(name: str, t: torch.Tensor, plain, kernel):
+    if t.device.type == "cuda":
+        return kernel
+    if t.device.type == "cpu":
+        return plain
+    raise ValueError(f"{name}: no implementation for device {t.device}")
+
+
+def pack_signs(c: torch.Tensor) -> torch.Tensor:
+    """Sign bits of ``c`` (>= 0 → 1), 32 per int32 word:
+    f32 [n] → [n // 4096, 128], n % PACK_ALIGN == 0."""
+    return _route("pack_signs", c, pack_signs_plain, pack_signs_cuda)(c)
+
+
+def unpack_signs_weighted_sum(all_packed: torch.Tensor,
+                              scales: torch.Tensor) -> torch.Tensor:
+    """Decode [W, m, 128] packed buffers into Σ_w scales[w]·signs[w],
+    f32 [32·m·128]."""
+    return _route("unpack_signs_weighted_sum", all_packed,
+                  unpack_signs_weighted_sum_plain,
+                  unpack_signs_wsum_cuda)(all_packed, scales.float())
+
+
+def unpack_signs(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_signs`: [m, 128] → f32 ±1 [32·m·128]; on the
+    card B4 with one worker of scale 1, as the JAX package."""
+    if packed.device.type == "cpu":
+        return unpack_signs_plain(packed)
+    one = torch.ones(1, dtype=torch.float32, device=packed.device)
+    return unpack_signs_weighted_sum(packed[None], one)
+
+
+def unpack_signs_weighted_mean(all_packed: torch.Tensor, scales: torch.Tensor,
+                               size: int) -> torch.Tensor:
+    """The worker mean Σ_w (scales[w]/size)·signs[w], the ``/size`` folded
+    into the [W] scales."""
+    return unpack_signs_weighted_sum(all_packed, scales.float() / size)
+
+
+def pack_signs_encode(flat: torch.Tensor, state: torch.Tensor):
+    """Fused onebit encode: ``c = flat + state`` → (packed signs of c,
+    |c|)."""
+    return _route("pack_signs_encode", flat, pack_signs_encode_plain,
+                  pack_signs_encode_cuda)(flat, state)
+
+
+def signed_residual(absc: torch.Tensor, packed: torch.Tensor,
+                    scale: torch.Tensor) -> torch.Tensor:
+    """New onebit error state ``c − scale·sign(c)`` from |c|, the packed
+    sign bits and the scalar ``scale`` (a tensor)."""
+    return _route("signed_residual", absc, signed_residual_plain,
+                  signed_residual_cuda)(absc, packed, scale)

@@ -79,8 +79,9 @@ def _mean_over_ranks(t: torch.Tensor, size: int) -> torch.Tensor:
 
 def build_train_step(model, exchanger) -> Callable:
     """``train_fn(batch, lr, count) -> (cost, err)``: one step of this rank,
-    updating ``model.params`` and ``model.opt_state`` in place.  The
-    returned metrics are means over the ranks, device scalars."""
+    updating ``model.params``, ``model.opt_state`` and ``model.extra`` (the
+    exchanger's per-rank state).  The returned metrics are means over the
+    ranks, device scalars."""
     n_subb = int(getattr(model, "n_subb", 1))
     size = exchanger.size
 
@@ -88,8 +89,8 @@ def build_train_step(model, exchanger) -> Callable:
         gen = step_generator(model.seed + 2, model.rank, count, model.device)
         cost, err, grads = _accumulate_grads(
             model.loss_and_metrics, model.params, batch, gen, n_subb)
-        model.params, model.opt_state = exchanger.step_update(
-            model.params, model.opt_state, grads, lr)
+        model.params, model.opt_state, model.extra = exchanger.step_update(
+            model.params, model.opt_state, grads, model.extra, lr)
         m = _mean_over_ranks(torch.stack([cost, err]), size)
         return m[0], m[1]
 

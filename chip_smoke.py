@@ -33,8 +33,25 @@
 9. Profiles VGG-16 onebit steps the same way, with the per-step device time
    of B4+B5+B6 and of the flatten copy, and checks that one exchange reads
    nothing back to the host (CUDA sync debug mode).
-10. Prints ``{"kernels": [...]}``, then the card, then the last line
-    ``{"ok": true, "device": {...}}``.
+10. Topk (B7/B8): at VGG-16's padded shape, c2 [16890, 8192] with k = 82
+    (all-zero rows, planted ties, ±0.0), holds the encode and the decode
+    (1, 4 and 8 workers) against their plain versions bit for bit; times
+    each beside its plain version, its byte bound and a library yardstick
+    (``torch.topk`` for the selection alone; one accumulating
+    ``index_put_`` for the scatter alone).
+11. Factor pack (B9): at each of VGG-16's 16 compressible weight shapes,
+    both products of a PowerSGD step (``Aᵀ q`` and ``A p``, rank 2)
+    against the plain version within the float32 dot-product bound, pad
+    rows exactly 0; per-step sums of the kernel's time, its bound, the
+    plain version's and ``torch.matmul``'s (TF32 off).
+12. Drives VGG-16 under ``exch_strategy='topk'`` and ``'powersgd'`` the
+    way step 8 drives onebit (8 steps, a validation batch, launch counts:
+    8 B7 + 8 B8, and 2 × 16 × 8 = 256 B9, nothing else), profiles each,
+    and runs one exchange of each under CUDA's sync debug mode: the topk
+    exchange must make the host wait on nothing; PowerSGD's waits (its
+    ``torch.linalg.qr`` might read back) are counted and printed.
+13. Prints ``{"kernels": [...]}`` (B1–B9), then the card, then the last
+    line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script exits non-zero and prints no result.
 TF32 is off for the whole run (float32 comparisons need it off; the main
@@ -61,7 +78,9 @@ import torch.nn.functional as F  # noqa: E402
 from theanompi_tpu_torch import BSP  # noqa: E402
 from theanompi_tpu_torch.ops import _kernel_build  # noqa: E402
 from theanompi_tpu_torch.ops import compress as cmp_ops  # noqa: E402
+from theanompi_tpu_torch.ops import factor_pack as fp_ops  # noqa: E402
 from theanompi_tpu_torch.ops import lrn as lrn_ops  # noqa: E402
+from theanompi_tpu_torch.utils.helper_funcs import tree_map  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, at its 700 W limit): device memory
 # rate, and float32 outside the tensor cores (the kernels' math is f32)
@@ -94,6 +113,12 @@ VGG_LR = 0.001
 # decode widths held against the plain version: the main path's (1 rank)
 # and stacked buffers of 4 and 8 ranks
 DECODE_WORKERS = (1, 4, 8)
+# the topk wire of VGG-16: TopK's chunk and k = round(0.01 · chunk)
+TOPK_CHUNK, TOPK_K = 8192, 82
+POWERSGD_RANK = 2
+
+ALL_KERNELS = ((lrn_ops.lrn_fwd_cuda, lrn_ops.lrn_bwd_cuda) + cmp_ops.KERNELS
+               + fp_ops.KERNELS)
 
 
 def card_line() -> str:
@@ -104,15 +129,19 @@ def card_line() -> str:
 
 
 def time_ms(fn, reps: int = 10, inner: int = 10, warmup: int = 3) -> float:
-    """Device time of one call: CUDA events around ``inner`` calls in a row
-    (so the stream never waits on the host between them), divided by
-    ``inner``; the median of ``reps`` such runs, after warm-up."""
+    """Device time of one call: CUDA events around ``inner`` calls in a row,
+    divided by ``inner``; the median of ``reps`` such runs, after warm-up.
+    Each run first queues a ~5 ms device sleep, so the host has enqueued
+    all ``inner`` calls before the card reaches the first: the stream
+    never waits on the host between them, and a kernel shorter than its
+    launch's host cost is still timed on the device."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(10_000_000)         # cycles: ~5 ms at 1.98 GHz
         a.record()
         for _ in range(inner):
             fn()
@@ -153,13 +182,18 @@ def bound(nbytes: float, flops: float) -> dict:
 
 
 def zero_launches() -> None:
-    for k in (lrn_ops.lrn_fwd_cuda, lrn_ops.lrn_bwd_cuda) + cmp_ops.KERNELS:
+    for k in ALL_KERNELS:
         k.launches = 0
 
 
 def launch_counts() -> dict:
-    return {k.__name__: k.launches for k in
-            (lrn_ops.lrn_fwd_cuda, lrn_ops.lrn_bwd_cuda) + cmp_ops.KERNELS}
+    return {k.__name__: k.launches for k in ALL_KERNELS}
+
+
+def expect(**launches) -> dict:
+    """Launch counts of a main path: those named, 0 for every other
+    kernel."""
+    return dict({k.__name__: 0 for k in ALL_KERNELS}, **launches)
 
 
 def lrn_phase():
@@ -325,6 +359,153 @@ def compress_phase():
     return out
 
 
+def topk_phase(n_true: int):
+    """B7/B8 at VGG-16's padded shape [16890, 8192], k = 82: bit for bit
+    against the plain versions (B8 at 1, 4 and 8 stacked workers, with the
+    /size mean), times, byte bounds, library yardsticks."""
+    rows = -(-n_true // TOPK_CHUNK)
+    n, k = rows * TOPK_CHUNK, TOPK_K
+    g = torch.Generator(device="cuda").manual_seed(2)
+    c2 = torch.randn(rows, TOPK_CHUNK, generator=g, device="cuda")
+    c2.view(-1)[n_true:] = 0.0              # the pad, as the wire has it
+    c2[::997] = 0.0                         # all-zero rows (+0.0 and −0.0)
+    c2[::997, 1::3] = -0.0
+    c2[1::997, ::4] = 0.5                   # planted equal magnitudes
+    c2[1::997, 2::8] = -0.5
+    c2[2::997, ::2] = -c2[2::997, 1::2]     # pairs of equal |c|
+    c2[3::997, 5::7] = -0.0                 # −0.0 inside a row
+    zero_launches()
+    kv, ki, ks = cmp_ops.topk_encode_cuda(c2, k)
+    torch.cuda.synchronize()
+    checked = launch_counts()
+    pv, pi, ps = cmp_ops.topk_encode_plain(c2, k)
+    check_bits("B7 values", kv.view(torch.int16), pv.view(torch.int16))
+    check_bits("B7 offsets", ki, pi)
+    err7 = check_bits("B7 state", ks, ps)
+    del pv, pi, ps
+    torch.cuda.empty_cache()
+
+    base = (torch.arange(rows, device="cuda") * TOPK_CHUNK).reshape(rows, 1)
+    dense = torch.empty(n, device="cuda")
+    decode = []
+    for w in DECODE_WORKERS:
+        # w ranks' rows (row-rolled copies: a rank's offsets in a row stay
+        # distinct), decoded into their mean (÷ w; no division at w = 1)
+        av = torch.stack([kv.roll(i, 0) for i in range(w)])
+        ai = torch.stack([ki.roll(i, 0) for i in range(w)])
+        got = cmp_ops.topk_decode_cuda(av, ai, TOPK_CHUNK, w)
+        want = cmp_ops.topk_decode_plain(av, ai, TOPK_CHUNK, w)
+        torch.cuda.synchronize()
+        e = check_bits(f"B8 W={w}", got, want)
+        del got, want
+        gidx = (ai.long() + base).reshape(-1)
+        fv = av.float().reshape(-1)
+        decode.append({
+            "workers": w, "max_abs_err": e,
+            "ms": time_ms(lambda: cmp_ops.topk_decode_cuda(av, ai, TOPK_CHUNK,
+                                                           w)),
+            "plain_ms": time_ms(lambda: cmp_ops.topk_decode_plain(
+                av, ai, TOPK_CHUNK, w), reps=5, inner=2, warmup=1),
+            # the scatter alone: no bf16 cast, no global-index arithmetic,
+            # no ÷ w, atomics' order of adds
+            "library_ms": time_ms(lambda: dense.zero_().index_put_(
+                (gidx,), fv, accumulate=True)),
+            # read w·rows·k (bf16 + int16), write 4n; one add per slot and
+            # one division per element when w > 1
+            **bound(4 * w * rows * k + 4 * n,
+                    w * rows * k + (n if w > 1 else 0))})
+        del av, ai, gidx, fv
+        torch.cuda.empty_cache()
+    out = {"rows": rows, "chunk": TOPK_CHUNK, "k": k, "n": n,
+           "checked_launches": checked, "decode": decode,
+           "topk_decode_cuda": dict(decode[0], max_abs_err=max(
+               d["max_abs_err"] for d in decode)),
+           "topk_encode_cuda": {
+               "max_abs_err": err7, "ms": time_ms(
+                   lambda: cmp_ops.topk_encode_cuda(c2, k)),
+               "plain_ms": time_ms(lambda: cmp_ops.topk_encode_plain(c2, k),
+                                   reps=5, inner=2, warmup=1),
+               # the selection alone (an |c| pass, then k largest in
+               # torch's tie order): no bf16 values, no int16 offsets, no
+               # residual state
+               "library_ms": time_ms(lambda: torch.topk(c2.abs(), k, dim=1)),
+               # read 4n, write the state 4n and 4 bytes a slot; an abs and
+               # a compare per element select the row's k largest
+               **bound(8 * n + 4 * rows * k, 2 * n)}}
+    del c2, kv, ki, ks, dense, base
+    torch.cuda.empty_cache()
+    return out
+
+
+def vgg16_factor_shapes():
+    """``A = leaf.reshape(shape[0], -1)`` of each VGG-16 weight PowerSGD
+    compresses at rank 2 (min(rows, cols) > 8: all 13 convs and 3 FCs)."""
+    from theanompi_tpu_torch.models.vggnet_16 import _VGG16_BLOCKS, _vgg_stack
+    out = []
+    for layer in _vgg_stack(_VGG16_BLOCKS, "bfloat16", 1000).layers:
+        if hasattr(layer, "kernel"):
+            kh, kw = layer.kernel
+            out.append((layer.out_ch, layer.in_ch * kh * kw))
+        elif hasattr(layer, "n_in"):
+            out.append((layer.n_out, layer.n_in))
+    assert len(out) == 16 and all(min(s) > 4 * POWERSGD_RANK for s in out)
+    return out
+
+
+def factor_pack_phase():
+    """B9 at each of VGG-16's 16 compressible shapes, both products of a
+    PowerSGD step at rank 2, against the plain version within the float32
+    dot-product bound 2·γ_n·(|m| @ |q|), γ_n = n·u/(1 − n·u), u = 2⁻²⁴ (each
+    side's sum of n products in its own order); pad rows exactly +0.
+    Per-step sums of the times and bounds (each product reads A once)."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    u = 2.0 ** -24
+    r = POWERSGD_RANK
+    products = []
+    for co, rest in vgg16_factor_shapes():
+        a = torch.randn(co, rest, generator=g, device="cuda") * 0.01
+        # P = Aᵀ q (rows: rest) and Q' = A p (rows: co)
+        for transpose, inner, n_out in ((True, co, rest), (False, rest, co)):
+            q = torch.randn(inner, r, generator=g, device="cuda")
+            got = fp_ops.matmul_pack_cuda(a, q, transpose=transpose)
+            want = fp_ops.matmul_pack_plain(a, q, transpose=transpose)
+            m = a.t() if transpose else a
+            tol = 2 * inner * u / (1 - inner * u) * (m.abs() @ q.abs())
+            err = (got[:n_out] - want[:n_out]).abs()
+            pad = got[n_out:]
+            if not bool(torch.isfinite(got).all()) or \
+                    bool((err > tol).any()) or bool(pad.any()) or \
+                    bool(torch.signbit(pad).any()):
+                raise AssertionError(
+                    f"B9 [{co}, {rest}] transpose={transpose}: max |diff| "
+                    f"{float(err.max()):.3e}, max diff/bound "
+                    f"{float((err / tol).max()):.3f}, pad "
+                    f"{pad.abs().max() if pad.numel() else 0}")
+            products.append({
+                "shape": [co, rest], "transpose": transpose,
+                "rows_pad": got.shape[0], "max_abs_err": float(err.max()),
+                "err_over_bound": float((err / tol).max()),
+                "ms": time_ms(lambda: fp_ops.matmul_pack_cuda(
+                    a, q, transpose=transpose)),
+                "plain_ms": time_ms(lambda: fp_ops.matmul_pack_plain(
+                    a, q, transpose=transpose)),
+                "library_ms": time_ms(lambda: m @ q),
+                # read A and q, write the padded tile; 2r flops per A element
+                **bound(4 * (co * rest + inner * r + got.shape[0] * r),
+                        2 * r * co * rest)})
+            del got, want, tol, err, q
+        del a
+        torch.cuda.empty_cache()
+    step = {k: sum(p[k] for p in products)
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms",
+                      "ops_ms")}
+    step["bound_by"] = "bytes" if step["bytes_ms"] >= step["ops_ms"] \
+        else "operations"
+    return {"rank": r, "per_step": step, "products": products,
+            "max_abs_err": max(p["max_abs_err"] for p in products),
+            "max_err_over_bound": max(p["err_over_bound"] for p in products)}
+
+
 def alexnet_reference_phase():
     """Full-width AlexNet, float32, batch 2: logits through the kernels on
     the card against the same weights through the plain versions on the
@@ -381,45 +562,66 @@ def run_main_path(modelfile, modelclass, want_launches, **cfg):
 
 def alexnet_main_path_phase():
     # two LRNs per forward (train steps + validation batches), per backward
-    want = dict({k.__name__: 0 for k in cmp_ops.KERNELS},
-                lrn_fwd_cuda=2 * (STEPS + VAL_BATCHES), lrn_bwd_cuda=2 * STEPS)
+    want = expect(lrn_fwd_cuda=2 * (STEPS + VAL_BATCHES),
+                  lrn_bwd_cuda=2 * STEPS)
     _, out = run_main_path("theanompi_tpu_torch.models.alex_net", "AlexNet",
                            want, batch_size=BATCH, synthetic_batches=STEPS,
                            printFreq=STEPS // 2)
     return out
 
 
-def vgg_main_path_phase(n_padded: int):
-    # the onebit exchange: B5, B6, B4 once per training step; no LRN, no B3
-    want = {"lrn_fwd_cuda": 0, "lrn_bwd_cuda": 0, "pack_signs_cuda": 0,
-            "pack_signs_encode_cuda": VGG_STEPS,
-            "signed_residual_cuda": VGG_STEPS,
-            "unpack_signs_wsum_cuda": VGG_STEPS}
+# each VGG-16 main path's kernels, per training step: the onebit exchange
+# runs B5, B6, B4; topk B7, B8; PowerSGD B9 twice per compressible leaf
+# (16 of them); no path runs LRN or B3
+VGG_PATHS = {
+    "onebit": dict(pack_signs_encode_cuda=1, signed_residual_cuda=1,
+                   unpack_signs_wsum_cuda=1),
+    "topk": dict(topk_encode_cuda=1, topk_decode_cuda=1),
+    "powersgd": dict(matmul_pack_cuda=2 * 16),
+}
+
+
+def state_tensors(state) -> list:
+    """A strategy state's tensors (a flat tensor, or a per-leaf list)."""
+    if isinstance(state, torch.Tensor):
+        return [state]
+    return [t for d in state for t in d.values()]
+
+
+def vgg_main_path_phase(strategy: str, state_shape):
+    """VGG-16 under ``strategy`` for VGG_STEPS steps: launch counts, and
+    the strategy's state finite, on the card and nonzero (``state_shape``:
+    the flat state's shape, or the number of leaves of a per-leaf one)."""
+    want = expect(**{k: n * VGG_STEPS for k, n in VGG_PATHS[strategy].items()})
     model, out = run_main_path(
         "theanompi_tpu_torch.models.vggnet_16", "VGGNet_16", want,
-        exch_strategy="onebit", batch_size=VGG_BATCH, learning_rate=VGG_LR,
+        exch_strategy=strategy, batch_size=VGG_BATCH, learning_rate=VGG_LR,
         synthetic_batches=VGG_STEPS, printFreq=VGG_STEPS // 2)
-    ef = model.extra["strat"]
-    if ef.shape != (n_padded,) or ef.device.type != "cuda" or \
-            not bool(torch.isfinite(ef).all()) or not bool(ef.any()):
-        raise AssertionError(f"error-feedback state {tuple(ef.shape)} on "
-                             f"{ef.device}, finite "
-                             f"{bool(torch.isfinite(ef).all())}")
-    out["ef_abs_mean"] = float(ef.abs().mean())
-    del model, ef
+    st = model.extra["strat"]
+    ts = state_tensors(st)
+    shape = tuple(st.shape) if isinstance(st, torch.Tensor) else len(st)
+    if shape != state_shape or {t.device.type for t in ts} != {"cuda"} or \
+            not all(bool(torch.isfinite(t).all()) for t in ts) or \
+            not any(bool(t.any()) for t in ts):
+        raise AssertionError(f"{strategy} state {shape} on "
+                             f"{ {t.device.type for t in ts} }, finite "
+                             f"{[bool(torch.isfinite(t).all()) for t in ts]}")
+    out["state_abs_mean"] = float(sum(t.abs().sum() for t in ts)
+                                  / sum(t.numel() for t in ts))
+    del model, st, ts
     gc.collect()                 # the model and its exchanger refer to each other
     torch.cuda.empty_cache()
     return out
 
 
 def exchange_sync_check(model) -> list:
-    """One onebit exchange of a gradient-shaped tree under CUDA's sync
-    debug mode: the warnings of every operation that made the host wait
-    for the card (an ``.item()``, a copy to the host).  None expected."""
+    """One exchange of the model's strategy on a gradient-shaped tree under
+    CUDA's sync debug mode: the warnings of every operation that made the
+    host wait for the card (an ``.item()``, a copy to the host)."""
     grads = {k: {n: torch.randn_like(p) for n, p in d.items()}
              for k, d in model.params.items()}
     strat = model.exchanger.strategy
-    state = model.extra["strat"].clone()
+    state = tree_map(torch.clone, model.extra["strat"])
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -481,7 +683,7 @@ def step_profile_phase(modelfile, modelclass, batch, groups, steps, warmup=2,
         t = getattr(e, "self_device_time_total", 0)
         if t > 0 and str(e.device_type).endswith("CUDA") and \
                 not e.key.startswith("Activity Buffer"):
-            by_kernel.append({"name": e.key[:90],
+            by_kernel.append({"name": e.key[:240], "key": e.key,
                               "ms_per_step": t / 1e3 / steps,
                               "calls_per_step": e.count / steps})
     by_kernel.sort(key=lambda r: -r["ms_per_step"])
@@ -492,11 +694,13 @@ def step_profile_phase(modelfile, modelclass, batch, groups, steps, warmup=2,
            "wall_ms_per_step": wall_ms, "img_per_s": batch * 1e3 / wall_ms,
            "host_ms_per_step": host, "device_busy_ms_per_step": busy,
            "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
-           "top_kernels": by_kernel[:15]}
+           "top_kernels": [{k: v for k, v in r.items() if k != "key"}
+                           for r in by_kernel[:15]]}
     for label, subs in groups.items():
+        # matched on the whole kernel name (a template's tail included)
         out[f"{label}_ms_per_step"] = sum(
             r["ms_per_step"] for r in by_kernel
-            if any(s in r["name"] for s in subs))
+            if any(s in r["key"] for s in subs))
     if after:
         out["after"] = extra
     return out
@@ -512,6 +716,21 @@ def print_profile(p: dict, card: str, groups) -> None:
           + ", ".join(f"{g} {p[g + '_ms_per_step']:.3f} ms" for g in groups)
           + f" on {card}", flush=True)
 
+
+# what each library yardstick computes, and what of the kernel's work it
+# leaves out (B3–B6 have none: no single PyTorch call computes them)
+LIBRARY = {
+    "lrn_fwd": "F.local_response_norm on the NCHW view",
+    "lrn_bwd": "autograd of F.local_response_norm (forward included)",
+    "topk_encode": "torch.topk(c2.abs(), 82, dim=1): the selection alone, in "
+                   "torch's tie order; no bf16 values, int16 offsets or "
+                   "residual state",
+    "topk_decode": "zero_() + one index_put_(accumulate=True) over all "
+                   "workers' global indices: the scatter alone, atomics' "
+                   "order; no bf16 cast, no index arithmetic, no / size",
+    "matmul_pack": "torch.matmul (TF32 off) of the same operands, the "
+                   "transposed one as a view: no zero-padded tile",
+}
 
 # (label, wrapper, TPU kernel it replaces)
 KERNEL_ROWS = (
@@ -531,37 +750,63 @@ KERNEL_ROWS = (
     ("signed_residual", cmp_ops.signed_residual_cuda,
      "theanompi_tpu_torch/csrc/compress.cu",
      "theanompi_tpu/ops/compress.py:307 _residual_pallas"),
+    ("topk_encode", cmp_ops.topk_encode_cuda,
+     "theanompi_tpu_torch/csrc/compress.cu",
+     "theanompi_tpu/ops/compress.py:362 _topk_encode_pallas"),
+    ("topk_decode", cmp_ops.topk_decode_cuda,
+     "theanompi_tpu_torch/csrc/compress.cu",
+     "theanompi_tpu/ops/compress.py:402 _topk_decode_pallas"),
+    ("matmul_pack", fp_ops.matmul_pack_cuda,
+     "theanompi_tpu_torch/csrc/factor_pack.cu",
+     "theanompi_tpu/ops/factor_pack.py:66 _matmul_pack_pallas"),
 )
+TIMED = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+         "library_ms")
 
 
-def kernel_entries(lrn, comp, alex, vgg) -> list:
+def kernel_entries(lrn, comp, topk, fpack, alex, vggs) -> list:
     out = []
     for label, fn, source, replaces in KERNEL_ROWS:
+        name = fn.__name__
         e = {"name": label, "route": "cuda", "source": source,
-             "replaces": replaces}
+             "replaces": replaces, "library": LIBRARY.get(label)}
         if label.startswith("lrn_"):
             kind = label[4:]
             timed = [r for r in lrn[kind] if "ms" in r]
             tot = lambda k: sum(r[k] for r in timed)  # one step: lrn1 + lrn2
-            e.update(launches=alex["launches"][fn.__name__],
+            e.update(launches=alex["launches"][name],
                      max_abs_err=max(r["max_abs_err"] for r in lrn[kind]),
                      ms=tot("ms"), plain_ms=tot("plain_ms"),
                      bound_ms=tot("bound_ms"),
                      bound_by="bytes" if tot("bytes_ms") >= tot("ops_ms")
                      else "operations",
                      library_ms=tot("library_ms"), shapes=lrn[kind])
+        elif label == "matmul_pack":
+            # per PowerSGD step: both products at each of the 16 shapes
+            e.update(launches=vggs["powersgd"]["launches"][name],
+                     launches_from="VGG-16 powersgd main path",
+                     max_abs_err=fpack["max_abs_err"],
+                     max_err_over_bound=fpack["max_err_over_bound"],
+                     per="one step: 32 products",
+                     **{k: fpack["per_step"][k] for k in TIMED[1:]})
+        elif label.startswith("topk_"):
+            e.update(launches=vggs["topk"]["launches"][name],
+                     launches_from="VGG-16 topk main path",
+                     rows=topk["rows"], chunk=topk["chunk"], k=topk["k"],
+                     **{k: topk[name][k] for k in TIMED})
+            if label == "topk_decode":
+                e["by_workers"] = topk["decode"]
         else:
-            r = comp[fn.__name__]
+            r = comp[name]
             if label == "pack_signs":
                 # on no training path: the compress phase's check launch
-                e.update(launches=comp["checked_launches"][fn.__name__],
+                e.update(launches=comp["checked_launches"][name],
                          launches_from="compress phase")
             else:
-                e.update(launches=vgg["launches"][fn.__name__],
+                e.update(launches=vggs["onebit"]["launches"][name],
                          launches_from="VGG-16 onebit main path")
-            e.update({k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                        "bound_ms", "bound_by")},
-                     library_ms=None, n=comp["n"])
+            e.update({k: r[k] for k in TIMED[:-1]}, library_ms=None,
+                     n=comp["n"])
             if label == "unpack_signs_wsum":
                 e["by_workers"] = comp["decode"]
         out.append(e)
@@ -587,6 +832,22 @@ def main() -> int:
          "unpack_signs_wsum_cuda")) + "; decode by W: " + ", ".join(
         f"{d['workers']}: {d['ms']:.4f} ms" for d in comp["decode"]),
         flush=True)
+    topk = topk_phase(comp["n_true"])
+    print(f"topk [{topk['rows']}, {topk['chunk']}] k={topk['k']}: encode "
+          f"{topk['topk_encode_cuda']['ms']:.4f} ms (bound "
+          f"{topk['topk_encode_cuda']['bound_ms']:.4f}, plain "
+          f"{topk['topk_encode_cuda']['plain_ms']:.3f}, torch.topk "
+          f"{topk['topk_encode_cuda']['library_ms']:.3f}); decode by W: "
+          + ", ".join(f"{d['workers']}: {d['ms']:.4f} ms (bound "
+                      f"{d['bound_ms']:.4f}, index_put_ "
+                      f"{d['library_ms']:.4f})" for d in topk["decode"]),
+          flush=True)
+    fpack = factor_pack_phase()
+    st = fpack["per_step"]
+    print(f"factor pack, one PowerSGD step (32 products): {st['ms']:.4f} ms "
+          f"(bound {st['bound_ms']:.4f}, plain {st['plain_ms']:.4f}, "
+          f"torch.matmul {st['library_ms']:.4f}); max diff/bound "
+          f"{fpack['max_err_over_bound']:.3f}", flush=True)
     ref_err = alexnet_reference_phase()
     print(f"AlexNet f32 logits card vs CPU: max |diff| {ref_err:.3e}",
           flush=True)
@@ -601,31 +862,49 @@ def main() -> int:
                                    PROFILE_STEPS)
     print_profile(alex_prof, card, alex_groups)
 
-    vgg = vgg_main_path_phase(comp["n"])
-    print(f"main path: VGG-16 BSP onebit batch {VGG_BATCH}, {VGG_STEPS} "
-          f"steps, costs {[round(c, 4) for c in vgg['costs']]}, "
-          f"{vgg['img_per_s']:.1f} img/s, launches {vgg['launches']}",
-          flush=True)
-    vgg_groups = {"onebit_kernels": ("encode_kernel", "residual_kernel",
-                                     "unpack_wsum_kernel"),
-                  "flatten_copy": ("CatArrayBatchedCopy",)}
-    vgg_prof = step_profile_phase(
-        "theanompi_tpu_torch.models.vggnet_16", "VGGNet_16", VGG_BATCH,
-        vgg_groups, PROFILE_STEPS, after=exchange_sync_check,
-        exch_strategy="onebit", learning_rate=VGG_LR)
-    print_profile(vgg_prof, card, vgg_groups)
-    if vgg_prof["after"]:
-        raise AssertionError("the onebit exchange made the host wait: "
-                             f"{vgg_prof['after']}")
+    vggs, profs = {}, {"alexnet": alex_prof}
+    for strategy, shape, groups in (
+            ("onebit", (comp["n"],),
+             {"onebit_kernels": ("encode_kernel", "residual_kernel",
+                                 "unpack_wsum_kernel"),
+              "flatten_copy": ("CatArrayBatchedCopy",)}),
+            ("topk", (topk["n"],),
+             {"topk_kernels": ("topk_encode_kernel", "topk_decode_kernel"),
+              # the JAX-order flatten (a copy per leaf) and the wire's
+              # small packing copies
+              "flatten_copy": ("direct_copy_kernel", "CatArrayBatchedCopy")}),
+            ("powersgd", 32,
+             {"factor_pack": ("rowdot_kernel", "coldot_kernel"),
+              "qr": ("geqr", "orgqr", "ormqr", "larf", "householder")})):
+        vggs[strategy] = vgg = vgg_main_path_phase(strategy, shape)
+        print(f"main path: VGG-16 BSP {strategy} batch {VGG_BATCH}, "
+              f"{VGG_STEPS} steps, costs "
+              f"{[round(c, 4) for c in vgg['costs']]}, "
+              f"{vgg['img_per_s']:.1f} img/s, launches "
+              f"{ {k: v for k, v in vgg['launches'].items() if v} }",
+              flush=True)
+        profs[strategy] = prof = step_profile_phase(
+            "theanompi_tpu_torch.models.vggnet_16", "VGGNet_16", VGG_BATCH,
+            groups, PROFILE_STEPS, after=exchange_sync_check,
+            exch_strategy=strategy, learning_rate=VGG_LR)
+        print_profile(prof, card, groups)
+        if strategy == "powersgd":
+            # torch.linalg.qr's waits are a finding, printed and kept
+            print(f"powersgd exchange: the host waited {len(prof['after'])} "
+                  f"times: {prof['after'][:4]}", flush=True)
+        elif prof["after"]:
+            raise AssertionError(f"the {strategy} exchange made the host "
+                                 f"wait: {prof['after']}")
 
-    kernels = kernel_entries(lrn, comp, alex, vgg)
+    kernels = kernel_entries(lrn, comp, topk, fpack, alex, vggs)
     total_s = time.time() - t_all
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump({"kernels": kernels, "compress": comp,
-                   "main": {"alexnet": alex, "vgg16_onebit": vgg},
-                   "profile": {"alexnet": alex_prof, "vgg16_onebit": vgg_prof},
-                   "card": card, "build_s": build_s, "total_s": total_s,
+        json.dump({"kernels": kernels, "compress": comp, "topk": topk,
+                   "factor_pack": fpack,
+                   "main": dict({"alexnet": alex},
+                                **{f"vgg16_{k}": v for k, v in vggs.items()}),
+                   "profile": profs, "card": card, "build_s": build_s, "total_s": total_s,
                    "alexnet_ref_err": ref_err}, f, indent=1)
     print(f"all phases passed in {total_s:.1f}s", flush=True)
     print(json.dumps({"kernels": [

@@ -131,13 +131,42 @@ def test_bsp_exchanger_carries_the_strategy_state(cpu_group):
             assert new["strat"].any()
 
 
+@pytest.mark.parametrize("name", ["topk", "powersgd1"])
+def test_bsp_exchanger_carries_topk_and_powersgd_state(cpu_group, name):
+    """topk's state is a flat tensor padded to its chunk; PowerSGD's a
+    list over the leaves of ``{"q", "e"}``: ``extra_state_template``
+    makes it and ``step_update`` hands the strategy's new one back, of
+    the same structure."""
+    r = np.random.RandomState(3)
+    params = {"fc": {"w": torch.from_numpy(r.randn(8, 12).astype(np.float32)),
+                     "b": torch.zeros(8)}}
+
+    class _M:
+        opt = type("O", (), {"update": staticmethod(
+            lambda g, s, p, lr: (p, s))})
+    _M.params = params
+    ex = X.BSP_Exchanger({"exch_strategy": name})
+    ex.prepare(_M(), 1)
+    extra = ex.extra_state_template()
+    grads = {"fc": {"w": params["fc"]["w"] * 0.5, "b": torch.ones(8)}}
+    _, _, new = ex.step_update(params, (), grads, extra, 0.1)
+    if name == "topk":
+        assert extra["strat"].shape == new["strat"].shape == (8192,)
+        assert new["strat"].any()
+    else:
+        assert [s["e"].shape for s in extra["strat"]] == \
+            [(8, 12), (0, 0)]
+        assert [s["q"].shape for s in new["strat"]] == [(8, 1), (0, 1)]
+        assert new["strat"][0]["e"].shape == (8, 12)
+
+
 def test_bucketed_wire_raises():
     with pytest.raises(NotImplementedError, match="bucket"):
         X.BSP_Exchanger({"exch_strategy": "onebit", "bucket_bytes": 1 << 20})
 
 
 def test_unknown_names_raise():
-    for name in ("topk", "powersgd"):
+    for name in ("ring", "asa16"):
         with pytest.raises(ValueError, match=name):
             S.get_strategy(name)
     with pytest.raises(ValueError, match="easgd"):

@@ -14,14 +14,16 @@ process, one per rank of a gloo group:
 
 trains one epoch of the model (default ``TinyLRNNet`` under
 ``allreduce``) under ``BSP`` and writes each rank's final parameters (and
-the strategy's state, if it has one) to ``<out>_r<rank>.npz``;
+the strategy's state, if it has one: a flat state as ``extra/strat``, a
+per-leaf list as ``extra/strat/<i>/<key>``) to ``<out>_r<rank>.npz``;
 
-    python tests/torch_port_helper.py onebit <rank> <world> <init_method> \
-        <out>
+    python tests/torch_port_helper.py onebit|topk|powersgd <rank> <world> \
+        <init_method> <out>
 
-runs one ``OneBit`` exchange of a gradient tree of ``TinyVGGNet``'s shapes
-drawn from the seed ``100 + rank`` and writes the flat input, the decoded
-mean and the new error state to ``<out>_r<rank>.npz``.
+runs one exchange of that strategy (``topk`` with a chunk of 256,
+``powersgd`` at rank 1) of a gradient tree of ``TinyVGGNet``'s shapes
+drawn from the seed ``100 + rank`` and writes the flat input (the port's
+flat order), the decoded mean and the new state to ``<out>_r<rank>.npz``.
 """
 
 import os
@@ -126,15 +128,27 @@ def train(rank, world, init_method, out, bs, modelclass="TinyLRNNet",
               scale_lr=False, printFreq=1000, verbose=False)
     rule.wait()
     model = rule.model
-    extra = {"extra/strat": model.extra["strat"].numpy()} \
-        if "strat" in model.extra else {}
-    _save(f"{out}_r{rank}.npz", model.host_params(), **extra)
+    _save(f"{out}_r{rank}.npz", model.host_params(),
+          **_state_arrays(model.extra.get("strat")))
 
 
-def onebit(rank, world, init_method, out):
+def _state_arrays(state, prefix="extra/strat"):
+    """A strategy state as npz entries: a tensor as ``prefix``, a per-leaf
+    list of dicts leaf by leaf as ``prefix/<i>/<key>``."""
+    if state is None:
+        return {}
+    if isinstance(state, list):
+        return {f"{prefix}/{i}/{k}": v.numpy() for i, d in enumerate(state)
+                for k, v in d.items()}
+    return {prefix: state.numpy()}
+
+
+def exchange(strategy, rank, world, init_method, out):
+    """One exchange of ``strategy`` over a gloo group of ``world`` ranks
+    (``topk``: chunk 256; ``powersgd``: rank 1)."""
     import torch
     from theanompi_tpu_torch.base import MeshProcess
-    from theanompi_tpu_torch.parallel.strategies import OneBit
+    from theanompi_tpu_torch.parallel import strategies as S
     from theanompi_tpu_torch.utils.helper_funcs import flatten_tree, tree_map
     proc = MeshProcess({"device": "cpu", "rank": int(rank),
                         "n_workers": int(world), "init_method": init_method,
@@ -145,11 +159,13 @@ def onebit(rank, world, init_method, out):
         r = np.random.RandomState(100 + int(rank))
         grads = tree_map(lambda p: torch.from_numpy(
             r.randn(*p.shape).astype(np.float32)), shapes)
-        strat = OneBit()
+        strat = {"onebit": S.OneBit, "topk": lambda: S.TopK(chunk=256),
+                 "powersgd": lambda: S.PowerSGD(rank=1)}[strategy]()
         flat = flatten_tree(grads, pad_to_multiple_of=32768)
         mean, state = strat(grads, strat.init_state(grads), size=int(world))
         np.savez(f"{out}_r{rank}.npz", flat=flat.numpy(),
-                 mean=flatten_tree(mean).numpy(), state=state.numpy())
+                 mean=flatten_tree(mean).numpy(),
+                 **_state_arrays(state, "state"))
     finally:
         proc.close()
 
@@ -178,8 +194,10 @@ def run_ranks(mode, world, tmp_path, tag, *args, timeout=120):
 
 
 def main(argv):
-    modes = {"train": train, "onebit": onebit}
-    modes[argv[0]](*argv[1:])
+    if argv[0] == "train":
+        train(*argv[1:])
+    else:
+        exchange(*argv)
     return 0
 
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .utils.helper_funcs import tree_map
+from .utils.helper_funcs import get_leaf, jax_leaf_paths, leaf_paths, tree_map
 
 
 def _to_port(a) -> np.ndarray:
@@ -34,20 +34,10 @@ def params_from_jax(tree):
     return tree_map(_to_port, tree)
 
 
-def _jax_leaf_order(tree):
-    """``(path, leaf)`` in ``jax.tree.leaves`` order: dict keys sorted."""
-    if isinstance(tree, dict):
-        return [(((k,) + p), l) for k in sorted(tree)
-                for p, l in _jax_leaf_order(tree[k])]
-    return [((), tree)]
-
-
-def _port_leaf_paths(tree, path=()):
-    """Leaf paths in the port's ``tree_leaves`` order (insertion order)."""
-    if isinstance(tree, dict):
-        return [p for k, v in tree.items()
-                for p in _port_leaf_paths(v, path + (k,))]
-    return [path]
+def _check_same_leaves(name, jax_params, like):
+    if sorted(jax_leaf_paths(jax_params)) != sorted(leaf_paths(like)):
+        raise ValueError(f"{name}: the port tree and the JAX tree hold "
+                         f"different leaves")
 
 
 def flat_from_jax(flat, jax_params, like) -> np.ndarray:
@@ -56,19 +46,38 @@ def flat_from_jax(flat, jax_params, like) -> np.ndarray:
     (``flatten_tree`` of ``like``, the port's tree: its own key order,
     PyTorch layouts).  A pad region past the leaves is kept as it is.
 
-    The error-feedback state of the compressed wire is such a vector; a
-    checkpoint written by the JAX package carries it."""
+    The onebit error-feedback state is such a vector; a checkpoint written
+    by the JAX package carries it.  (The topk state needs no conversion:
+    the port keeps it in the JAX order, ``helper_funcs.flatten_tree_jax``.)"""
+    _check_same_leaves("flat_from_jax", jax_params, like)
     flat = np.asarray(flat, dtype=np.float32)
     segs, ofs = {}, 0
-    for path, leaf in _jax_leaf_order(jax_params):
-        shape = np.shape(leaf)
+    for path in jax_leaf_paths(jax_params):
+        shape = np.shape(get_leaf(jax_params, path))
         n = int(np.prod(shape))
         segs[path] = _to_port(flat[ofs:ofs + n].reshape(shape))
         ofs += n
-    paths = _port_leaf_paths(like)
-    if sorted(paths) != sorted(segs):
-        raise ValueError("flat_from_jax: the port tree and the JAX tree hold "
-                         "different leaves")
-    return np.concatenate([segs[p].reshape(-1) for p in paths] + [flat[ofs:]])
+    return np.concatenate([segs[p].reshape(-1) for p in leaf_paths(like)]
+                          + [flat[ofs:]])
 
 
+def powersgd_state_from_jax(jstate, jax_params, like) -> list:
+    """The JAX package's PowerSGD state (a list of ``{"q", "e"}`` in its
+    sorted leaf order; ``e`` is the leaf's ``[rows, cols]`` matrix) → the
+    port's (the same list in the port's leaf order, ``e`` in the port
+    leaf's shape).  ``q`` is ``[cols, rank]`` in both and is kept as it is;
+    ``e`` is reshaped to the JAX leaf's shape and converted like a
+    parameter.  Incompressible leaves keep their empty state."""
+    _check_same_leaves("powersgd_state_from_jax", jax_params, like)
+    paths = jax_leaf_paths(jax_params)
+    if len(jstate) != len(paths):
+        raise ValueError(f"powersgd_state_from_jax: {len(jstate)} states "
+                         f"for {len(paths)} leaves")
+    by_path = {}
+    for path, st in zip(paths, jstate):
+        q = np.asarray(st["q"], dtype=np.float32).copy()
+        e = np.asarray(st["e"], dtype=np.float32)
+        if e.size:
+            e = _to_port(e.reshape(np.shape(get_leaf(jax_params, path))))
+        by_path[path] = {"q": q, "e": e.copy()}
+    return [by_path[p] for p in leaf_paths(like)]

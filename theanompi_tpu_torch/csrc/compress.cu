@@ -1,11 +1,14 @@
-// Onebit compressed-wire kernels for Hopper (sm_90a): sign pack (B3),
-// weighted decode (B4), fused encode (B5) and residual (B6).
+// Compressed-wire kernels for Hopper (sm_90a).  Onebit: sign pack (B3),
+// weighted decode (B4), fused encode (B5) and residual (B6).  Topk: fused
+// encode (B7) and decode (B8), described at their kernels below.
 //
 // Replace the TPU kernels of theanompi_tpu/ops/compress.py:
 //   B3 pack_signs           <- _pack_pallas        (compress.py:200)
 //   B4 unpack_signs_wsum    <- _unpack_wsum_pallas (compress.py:234)
 //   B5 pack_signs_encode    <- _encode_pallas      (compress.py:268)
 //   B6 signed_residual      <- _residual_pallas    (compress.py:307)
+//   B7 topk_encode          <- _topk_encode_pallas (compress.py:362)
+//   B8 topk_decode          <- _topk_decode_pallas (compress.py:402)
 //
 // Wire layout (compress.py:35-48): a float32 vector of n elements,
 // n % 32768 == 0, is viewed as blocks of 256 rows x 128 lanes.  Packed word
@@ -44,7 +47,9 @@
 // returns cudaGetLastError() so the Python wrapper can raise on a refused
 // launch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -143,6 +148,160 @@ unpack_wsum_kernel(const uint32_t* __restrict__ packed,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Topk (B7, B8).  The flat error-fed vector is viewed as [rows, chunk]
+// (chunk <= 32768, so offsets fit int16); each row ships its k largest |c|
+// as bf16 values and int16 offsets.
+//
+// B7, encode.  Oracle topk_encode_jnp: slots in descending |c|, the lower
+// offset first on ties (lax.top_k), values rounded to bf16 to nearest
+// even, and the state is c with v - float(bf16(v)) written at each
+// selected offset.  One block of 256 threads per row; the row sits in
+// shared memory (chunk floats) with one "taken" bit per element.  Thread t
+// owns the elements t, t + 256, ... and keeps in registers the best
+// (|c|, offset) among its untaken ones.  Each of the k passes is one
+// block-wide argmax over those 256 candidates (warp shuffles, then the 8
+// warp winners through shared memory, double-buffered so one barrier per
+// pass suffices); the winner's owner alone writes the slot, the residual
+// and the taken bit, and rescans its own elements.  A taken element never
+// competes again, whatever its residual (an all-zero row would otherwise
+// pick offset 0 k times).  Comparisons on (|c| desc, offset asc) equal the
+// stable descending sort of the plain version.
+//
+// Bound: the row is read once and the state written once (8 bytes per
+// element); the k passes add k block reductions per row, latency that the
+// other resident blocks of the SM hide in part.  This simple design
+// serializes the passes within a row; a radix select on the float bits is
+// the faster design a later change can take.
+//
+// B8, decode.  Oracle topk_decode_jnp: dense[r·chunk + off] += val over
+// workers in order, then / size when size != 1.  One block per row: the
+// row accumulates in shared memory worker by worker (a worker's offsets in
+// a row are distinct, so its adds never collide; a barrier separates
+// workers), then each element is stored once, divided by size with an
+// IEEE division (__fdiv_rn), as the oracle divides.  Every element sees
+// the plain version's sequence of roundings, so B8 equals it bit for bit
+// at any worker count.  Bound: the dense output's 4 bytes per element.
+// ---------------------------------------------------------------------------
+
+constexpr int kTopkThreads = 256;
+constexpr int kTopkWarps = kTopkThreads / 32;
+
+// (va, ia) before (vb, ib): larger magnitude, then lower offset
+__device__ __forceinline__ bool ahead(float va, int ia, float vb, int ib) {
+  return va > vb || (va == vb && ia < ib);
+}
+
+// best untaken (|row[j]|, j) over the elements j = t, t + 256, ...
+__device__ __forceinline__ void rescan(const float* row, const uint32_t* taken,
+                                       int chunk, int t, float& bv, int& bi) {
+  bv = -1.f;                     // below every |c|: some element stays untaken
+  bi = INT_MAX;
+  for (int j = t; j < chunk; j += kTopkThreads) {
+    if ((taken[j >> 5] >> (j & 31)) & 1u) continue;
+    const float a = fabsf(row[j]);
+    if (a > bv) {                // strict: the lowest offset among equals
+      bv = a;
+      bi = j;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kTopkThreads)
+topk_encode_kernel(const float* __restrict__ c2, __nv_bfloat16* __restrict__ vals,
+                   int16_t* __restrict__ idx, float* __restrict__ state,
+                   int chunk, int k) {
+  extern __shared__ float smem[];
+  float* row = smem;                                         // [chunk]
+  uint32_t* taken = reinterpret_cast<uint32_t*>(smem + chunk);  // [chunk/32]
+  __shared__ float wv[2][kTopkWarps];
+  __shared__ int wi[2][kTopkWarps];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const size_t base = static_cast<size_t>(blockIdx.x) * chunk;
+  const size_t slot0 = static_cast<size_t>(blockIdx.x) * k;
+  for (int j = t; j < chunk; j += kTopkThreads) row[j] = c2[base + j];
+  for (int j = t; j < (chunk + 31) / 32; j += kTopkThreads) taken[j] = 0u;
+  __syncthreads();
+  float bv;
+  int bi;
+  rescan(row, taken, chunk, t, bv, bi);
+  for (int s = 0; s < k; ++s) {
+    float v = bv;
+    int i = bi;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, v, o);
+      const int oi = __shfl_xor_sync(0xffffffffu, i, o);
+      if (ahead(ov, oi, v, i)) {
+        v = ov;
+        i = oi;
+      }
+    }
+    // buffer s & 1 is rewritten only at pass s + 2, after every thread
+    // passed pass s + 1's barrier, so it has read this pass's entries
+    const int b = s & 1;
+    if (lane == 0) {
+      wv[b][warp] = v;
+      wi[b][warp] = i;
+    }
+    __syncthreads();
+    v = wv[b][0];
+    i = wi[b][0];
+#pragma unroll
+    for (int w = 1; w < kTopkWarps; ++w)
+      if (ahead(wv[b][w], wi[b][w], v, i)) {
+        v = wv[b][w];
+        i = wi[b][w];
+      }
+    if ((i & (kTopkThreads - 1)) == t) {       // this thread owns the winner
+      const float x = row[i];
+      const __nv_bfloat16 h = __float2bfloat16_rn(x);
+      vals[slot0 + s] = h;
+      idx[slot0 + s] = static_cast<int16_t>(i);
+      row[i] = __fsub_rn(x, __bfloat162float(h));
+      taken[i >> 5] |= 1u << (i & 31);
+      rescan(row, taken, chunk, t, bv, bi);
+    }
+  }
+  __syncthreads();
+  for (int j = t; j < chunk; j += kTopkThreads) state[base + j] = row[j];
+}
+
+__global__ void __launch_bounds__(kTopkThreads)
+topk_decode_kernel(const __nv_bfloat16* __restrict__ vals,
+                   const int16_t* __restrict__ idx, float* __restrict__ out,
+                   int n_workers, size_t rows, int k, int chunk, int size) {
+  extern __shared__ float acc[];                             // [chunk]
+  const int t = threadIdx.x;
+  const size_t r = blockIdx.x;
+  for (int j = t; j < chunk; j += kTopkThreads) acc[j] = 0.f;
+  __syncthreads();
+  for (int w = 0; w < n_workers; ++w) {
+    const size_t o = (static_cast<size_t>(w) * rows + r) * k;
+    for (int s = t; s < k; s += kTopkThreads) {
+      const int j = idx[o + s];
+      acc[j] = __fadd_rn(acc[j], __bfloat162float(vals[o + s]));
+    }
+    __syncthreads();
+  }
+  float* dst = out + r * chunk;
+  if (size != 1) {
+    const float d = static_cast<float>(size);
+    for (int j = t; j < chunk; j += kTopkThreads) dst[j] = __fdiv_rn(acc[j], d);
+  } else {
+    for (int j = t; j < chunk; j += kTopkThreads) dst[j] = acc[j];
+  }
+}
+
+// dynamic shared memory past the default 48 KB needs the opt-in
+template <typename Kernel>
+int allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes)));
+}
+
 inline int finish() { return static_cast<int>(cudaGetLastError()); }
 
 }  // namespace
@@ -183,6 +342,32 @@ int unpack_signs_wsum(const uint32_t* packed, const float* scales, float* out,
     unpack_wsum_kernel<<<static_cast<unsigned>(m / kWordRows),
                          dim3(kLanes, kWordRows), 0, stream>>>(
         packed, scales, out, n_workers, static_cast<size_t>(m));
+  return finish();
+}
+
+// c2 [rows, chunk] -> vals bf16 [rows, k], idx int16 [rows, k], state
+// [rows, chunk]; 1 <= k <= chunk <= 32768 (the wrapper checks)
+int topk_encode(const float* c2, __nv_bfloat16* vals, int16_t* idx,
+                float* state, long long rows, int chunk, int k,
+                cudaStream_t stream) {
+  const size_t smem = (static_cast<size_t>(chunk) + (chunk + 31) / 32) * 4;
+  if (const int rc = allow_smem(topk_encode_kernel, smem)) return rc;
+  if (rows > 0)
+    topk_encode_kernel<<<static_cast<unsigned>(rows), kTopkThreads, smem,
+                         stream>>>(c2, vals, idx, state, chunk, k);
+  return finish();
+}
+
+// vals bf16 / idx int16 [W, rows, k] -> out [rows * chunk]
+int topk_decode(const __nv_bfloat16* vals, const int16_t* idx, float* out,
+                int n_workers, long long rows, int k, int chunk, int size,
+                cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(chunk) * 4;
+  if (const int rc = allow_smem(topk_decode_kernel, smem)) return rc;
+  if (rows > 0)
+    topk_decode_kernel<<<static_cast<unsigned>(rows), kTopkThreads, smem,
+                         stream>>>(vals, idx, out, n_workers,
+                                   static_cast<size_t>(rows), k, chunk, size);
   return finish();
 }
 

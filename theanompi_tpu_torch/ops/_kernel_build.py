@@ -10,6 +10,11 @@ The build runs at first use, never at import.  A failed build raises; there
 is no fallback.  :func:`build` starts one ``nvcc`` per source, all at once,
 so callers that need every kernel (``chip_smoke.py``) pay for the slowest
 compile only.
+
+:func:`on_card`, :func:`launch` and :func:`route` are what the op modules'
+wrappers share: the checks a kernel's tensors must pass, a launch on the
+current stream that raises on a refused launch, and the choice between a
+kernel and its plain version by device alone.
 """
 
 from __future__ import annotations
@@ -20,7 +25,9 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -96,3 +103,40 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(build([name])[name])
         return _libs[name]
+
+
+def on_card(name: str, *ts: torch.Tensor) -> torch.device:
+    """The one CUDA device of contiguous tensors ``ts``; raises otherwise
+    (a kernel wrapper never runs the plain version)."""
+    dev = ts[0].device
+    for t in ts:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: tensor on {t.device}, the kernel takes "
+                             f"CUDA tensors (the *_plain version is the CPU "
+                             f"path)")
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensor of strides {t.stride()} is not "
+                             f"contiguous")
+    return dev
+
+
+def launch(name: str, dev: torch.device, fn, *args) -> None:
+    """``fn(*args, stream)`` on ``dev``'s current stream; raises with the
+    CUDA error a refused launch returns."""
+    with torch.cuda.device(dev):
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def route(name: str, t: torch.Tensor, plain: Callable,
+          kernel: Callable) -> Callable:
+    """``kernel`` for a CUDA tensor, ``plain`` for a CPU one, an error for
+    any other device: the public ops choose by device alone."""
+    if t.device.type == "cuda":
+        return kernel
+    if t.device.type == "cpu":
+        return plain
+    raise ValueError(f"{name}: no implementation for device {t.device}")

@@ -1,8 +1,11 @@
-"""Sign compression for the onebit exchange wire.
+"""Compression for the onebit and topk exchange wires.
 
-Counterpart of the onebit half of ``theanompi_tpu/ops/compress.py``: the
-sign pack and its inverse, the fused error-feedback encode, the residual,
-and the decode with a weighted accumulate over workers.
+Counterpart of ``theanompi_tpu/ops/compress.py``.  Onebit: the sign pack
+and its inverse, the fused error-feedback encode, the residual, and the
+decode with a weighted accumulate over workers.  Topk: the chunk-row encode
+(k largest |·| per row, bf16 values, int16 offsets, the bf16 rounding
+residual written back) and the decode that scatter-adds every worker's
+rows into the dense vector.
 
 **Wire layout** (the JAX package's, unchanged): a float32 vector ``c`` of
 length ``n`` (``n % PACK_ALIGN == 0``) is viewed as blocks of
@@ -23,7 +26,8 @@ Each function has two implementations:
   what ``chip_smoke.py`` and the card tests hold the kernels against.
 * ``*_cuda`` — the hand-written Hopper kernels of ``csrc/compress.cu``:
   B3 :func:`pack_signs_cuda`, B4 :func:`unpack_signs_wsum_cuda`,
-  B5 :func:`pack_signs_encode_cuda`, B6 :func:`signed_residual_cuda`.
+  B5 :func:`pack_signs_encode_cuda`, B6 :func:`signed_residual_cuda`,
+  B7 :func:`topk_encode_cuda`, B8 :func:`topk_decode_cuda`.
   Each counts its launches in ``.launches``.
 
 The public functions (the JAX names) choose by the tensors' device alone:
@@ -40,11 +44,15 @@ import functools
 import torch
 
 from . import _kernel_build
+from ._kernel_build import launch as _launch
+from ._kernel_build import on_card as _on_card
+from ._kernel_build import route as _route
 
 BLOCK_ROWS = 256
 LANES = 128
 PACK_ALIGN = BLOCK_ROWS * LANES          # 32768 elements per block
 _WORDS_PER_BLOCK = 8                     # packed rows per block
+TOPK_MAX_CHUNK = 1 << 15                 # int16 offsets: 0 .. 32767
 
 
 def _check_flat(name: str, *ts: torch.Tensor) -> int:
@@ -133,6 +141,69 @@ def signed_residual_plain(absc: torch.Tensor, packed: torch.Tensor,
     return torch.where(sign_pos, absc - scale, scale - absc)
 
 
+def _check_topk_rows(name: str, c2: torch.Tensor, k: int) -> None:
+    """float32 [rows, chunk], chunk ≤ TOPK_MAX_CHUNK, 1 ≤ k ≤ chunk."""
+    if c2.dtype != torch.float32:
+        raise TypeError(f"{name}: dtype {c2.dtype}; takes float32")
+    if c2.dim() != 2 or not 0 < c2.shape[1] <= TOPK_MAX_CHUNK:
+        raise ValueError(f"{name}: takes [rows, chunk] with chunk ≤ "
+                         f"{TOPK_MAX_CHUNK} (int16 offsets), got "
+                         f"{tuple(c2.shape)}")
+    if not 1 <= k <= c2.shape[1]:
+        raise ValueError(f"{name}: k = {k} for chunk {c2.shape[1]}")
+
+
+def _check_topk_wire(name: str, all_vals: torch.Tensor,
+                     all_idx: torch.Tensor, chunk: int) -> None:
+    """bf16 values and int16 offsets of one shape [W, rows, k]."""
+    if all_vals.dtype != torch.bfloat16 or all_idx.dtype != torch.int16:
+        raise TypeError(f"{name}: takes bfloat16 values and int16 offsets, "
+                        f"got {all_vals.dtype} and {all_idx.dtype}")
+    if all_vals.dim() != 3 or all_vals.shape != all_idx.shape:
+        raise ValueError(f"{name}: takes values and offsets of one shape "
+                         f"[W, rows, k], got {tuple(all_vals.shape)} and "
+                         f"{tuple(all_idx.shape)}")
+    if not 0 < chunk <= TOPK_MAX_CHUNK or all_vals.shape[2] > chunk:
+        raise ValueError(f"{name}: chunk {chunk} for k = "
+                         f"{all_vals.shape[2]} (chunk ≤ {TOPK_MAX_CHUNK})")
+
+
+def topk_encode_plain(c2: torch.Tensor, k: int):
+    """Per chunk row of ``c2`` [rows, chunk]: the k largest |·| as (bf16
+    values, int16 offsets), and the new state, ``c2`` with the bf16
+    rounding residual written at the selected offsets
+    (``topk_encode_jnp``).  Slots are in descending |·|, the lower offset
+    first on ties, as ``lax.top_k``: a stable descending sort, since
+    ``torch.topk`` promises no order among ties (|−0.0| == |+0.0| is a
+    tie)."""
+    _check_topk_rows("topk_encode_plain", c2, k)
+    idx = torch.sort(c2.abs(), dim=1, descending=True,
+                     stable=True).indices[:, :k]
+    vals = torch.gather(c2, 1, idx)
+    wire_vals = vals.to(torch.bfloat16)
+    residual = vals - wire_vals.float()
+    return wire_vals, idx.to(torch.int16), c2.scatter(1, idx, residual)
+
+
+def topk_decode_plain(all_vals: torch.Tensor, all_idx: torch.Tensor,
+                      chunk: int, size: int = 1) -> torch.Tensor:
+    """Every worker's rows scatter-added into the dense f32 [rows·chunk],
+    worker by worker (a worker's offsets in a row are distinct), then
+    divided by ``size`` when it is not 1 (``topk_decode_jnp``: the same
+    per-element order of adds, and a division, not a product with
+    1/size)."""
+    _check_topk_wire("topk_decode_plain", all_vals, all_idx, chunk)
+    w, rows, k = all_vals.shape
+    base = (torch.arange(rows, dtype=torch.int64, device=all_vals.device)
+            * chunk).reshape(rows, 1)
+    dense = torch.zeros(rows * chunk, dtype=torch.float32,
+                        device=all_vals.device)
+    for i in range(w):
+        dense.index_add_(0, (all_idx[i].long() + base).reshape(-1),
+                         all_vals[i].float().reshape(-1))
+    return dense / size if size != 1 else dense
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -145,32 +216,12 @@ def _lib():
     lib.pack_signs_encode.argtypes = [p, p, p, p, ll, p]
     lib.signed_residual.argtypes = [p, p, p, p, ll, p]
     lib.unpack_signs_wsum.argtypes = [p, p, p, i, ll, p]
+    lib.topk_encode.argtypes = [p, p, p, p, ll, i, i, p]
+    lib.topk_decode.argtypes = [p, p, p, i, ll, i, i, i, p]
     for f in (lib.pack_signs, lib.pack_signs_encode, lib.signed_residual,
-              lib.unpack_signs_wsum):
+              lib.unpack_signs_wsum, lib.topk_encode, lib.topk_decode):
         f.restype = ctypes.c_int
     return lib
-
-
-def _on_card(name: str, *ts: torch.Tensor) -> torch.device:
-    dev = ts[0].device
-    for t in ts:
-        if t.device.type != "cuda":
-            raise ValueError(f"{name}: tensor on {t.device}, the kernel takes "
-                             f"CUDA tensors (the *_plain version is the CPU "
-                             f"path)")
-        if t.device != dev:
-            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: tensor of strides {t.stride()} is not "
-                             f"contiguous")
-    return dev
-
-
-def _launch(name: str, dev: torch.device, fn, *args) -> None:
-    with torch.cuda.device(dev):
-        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
 def _check_scales(name: str, scale: torch.Tensor, count: int) -> None:
@@ -240,27 +291,50 @@ def unpack_signs_wsum_cuda(all_packed: torch.Tensor,
     return out
 
 
+def topk_encode_cuda(c2: torch.Tensor, k: int):
+    """Kernel B7: per chunk row, k block-wide argmax passes over the row
+    held in shared memory → (bf16 values, int16 offsets, new state)."""
+    _check_topk_rows("topk_encode_cuda", c2, k)
+    dev = _on_card("topk_encode_cuda", c2)
+    rows, chunk = c2.shape
+    vals = torch.empty((rows, k), dtype=torch.bfloat16, device=dev)
+    idx = torch.empty((rows, k), dtype=torch.int16, device=dev)
+    state = torch.empty_like(c2)
+    _launch("topk_encode_cuda", dev, _lib().topk_encode, c2.data_ptr(),
+            vals.data_ptr(), idx.data_ptr(), state.data_ptr(), rows, chunk, k)
+    topk_encode_cuda.launches += 1
+    return vals, idx, state
+
+
+def topk_decode_cuda(all_vals: torch.Tensor, all_idx: torch.Tensor,
+                     chunk: int, size: int = 1) -> torch.Tensor:
+    """Kernel B8: each row accumulated in shared memory worker by worker,
+    then stored once (÷ size when size ≠ 1)."""
+    _check_topk_wire("topk_decode_cuda", all_vals, all_idx, chunk)
+    dev = _on_card("topk_decode_cuda", all_vals, all_idx)
+    w, rows, k = all_vals.shape
+    out = torch.empty(rows * chunk, dtype=torch.float32, device=dev)
+    _launch("topk_decode_cuda", dev, _lib().topk_decode, all_vals.data_ptr(),
+            all_idx.data_ptr(), out.data_ptr(), w, rows, k, chunk, int(size))
+    topk_decode_cuda.launches += 1
+    return out
+
+
 # launch counts: each wrapper adds one where it launches its kernel
 pack_signs_cuda.launches = 0
 pack_signs_encode_cuda.launches = 0
 signed_residual_cuda.launches = 0
 unpack_signs_wsum_cuda.launches = 0
+topk_encode_cuda.launches = 0
+topk_decode_cuda.launches = 0
 
 KERNELS = (pack_signs_cuda, unpack_signs_wsum_cuda, pack_signs_encode_cuda,
-           signed_residual_cuda)
+           signed_residual_cuda, topk_encode_cuda, topk_decode_cuda)
 
 
 # ---------------------------------------------------------------------------
 # public API: by device
 # ---------------------------------------------------------------------------
-
-def _route(name: str, t: torch.Tensor, plain, kernel):
-    if t.device.type == "cuda":
-        return kernel
-    if t.device.type == "cpu":
-        return plain
-    raise ValueError(f"{name}: no implementation for device {t.device}")
-
 
 def pack_signs(c: torch.Tensor) -> torch.Tensor:
     """Sign bits of ``c`` (>= 0 → 1), 32 per int32 word:
@@ -306,3 +380,19 @@ def signed_residual(absc: torch.Tensor, packed: torch.Tensor,
     sign bits and the scalar ``scale`` (a tensor)."""
     return _route("signed_residual", absc, signed_residual_plain,
                   signed_residual_cuda)(absc, packed, scale)
+
+
+def topk_encode(c2: torch.Tensor, k: int):
+    """Fused topk encode of ``c2`` [rows, chunk]: per chunk row the k
+    largest |·| as (bf16 values, int16 offsets), and the new error state
+    with the bf16 rounding residual written at the selected offsets."""
+    return _route("topk_encode", c2, topk_encode_plain,
+                  topk_encode_cuda)(c2, k)
+
+
+def topk_decode(all_vals: torch.Tensor, all_idx: torch.Tensor, chunk: int,
+                size: int = 1) -> torch.Tensor:
+    """Fused topk decode: every worker's [W, rows, k] wire rows summed into
+    the dense f32 [rows·chunk], ÷ size."""
+    return _route("topk_decode", all_vals, topk_decode_plain,
+                  topk_decode_cuda)(all_vals, all_idx, chunk, size)

@@ -4,10 +4,11 @@ Counterpart of ``theanompi_tpu/parallel/exchanger.py`` for the local
 ``Exchanger`` and ``BSP_Exchanger`` in ``exch_mode='grads'``: the selected
 strategy averages the gradients over the ranks inside the step, then every
 rank applies the same update — N ranks train as one rank on the N-fold
-batch.  A stateful strategy's per-rank state (onebit's error feedback)
-rides in the model's ``extra["strat"]``, as in the JAX package.
-``exch_mode='params'``, the bucketed wire and the async rules are not
-ported yet.
+batch.  A stateful strategy's per-rank state rides in the model's
+``extra["strat"]``, as in the JAX package: a flat tensor (the error
+feedback of onebit and topk) or a per-leaf list of ``{"q", "e"}``
+(PowerSGD).  ``exch_mode='params'``, the bucketed wire and the async rules
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -62,12 +63,16 @@ class BSP_Exchanger(Exchanger):
 
     def extra_state_template(self) -> Dict[str, Any]:
         """``{"strat": state}`` on the model's device for a stateful
-        strategy, else ``{}``."""
+        strategy (whatever structure its ``init_state`` makes: a tensor or
+        a per-leaf list), else ``{}``."""
         if self.strategy.stateful:
             return {"strat": self.strategy.init_state(self.model.params)}
         return {}
 
     def step_update(self, params, opt_state, grads, extra, lr):
+        """The strategy's mean of ``grads`` (its state in and out of
+        ``extra["strat"]`` as the strategy returns it), then the optimizer
+        update."""
         grads, strat = self.strategy(grads, extra.get("strat", ()),
                                      size=self.size)
         if "strat" in extra:

@@ -1,29 +1,34 @@
 """Collective exchange strategies.
 
 Counterpart of ``theanompi_tpu/parallel/strategies.py`` for ``NoComm``,
-``AllReduce`` (with its bfloat16 wire) and ``OneBit`` (the sign-compressed
-wire with error feedback), on ``torch.distributed``: NCCL for tensors on the
-card, gloo for CPU tensors, whichever group the process initialized
-(``base.MeshProcess``).
+``AllReduce`` (with its bfloat16 wire) and the compressed wires with error
+feedback, ``OneBit`` (signs), ``TopK`` (the largest entries of each chunk)
+and ``PowerSGD`` (low-rank factors), on ``torch.distributed``: NCCL for
+tensors on the card, gloo for CPU tensors, whichever group the process
+initialized (``base.MeshProcess``).
 
 Every strategy is called as ``strategy(tree, state, size=N)`` and returns
 ``(mean_tree, new_state)``: the **mean** of its input tree over the ranks,
 and its per-rank state for the next step (``()`` for a stateless
-strategy; ``init_state(params)`` makes the first).  ``NoComm`` and
-``AllReduce`` reduce in place: the gradient tensors they are handed hold
-the mean on return.
+strategy; ``init_state(params)`` makes the first: a flat tensor for onebit
+and topk, a per-leaf list for PowerSGD).  ``NoComm`` and ``AllReduce``
+reduce in place: the gradient tensors they are handed hold the mean on
+return.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
 
 from ..ops import compress as compress_ops
-from ..utils.helper_funcs import (flatten_tree, tree_leaves, tree_size,
-                                  unflatten_like)
+from ..ops import factor_pack
+from ..utils.helper_funcs import (flatten_tree, flatten_tree_jax, tree_leaves,
+                                  tree_map, tree_size, unflatten_like,
+                                  unflatten_like_jax)
 
 
 class Strategy:
@@ -124,8 +129,176 @@ class OneBit(Strategy):
         return unflatten_like(tree, mean), new_state
 
 
-def get_strategy(name: str) -> Strategy:
-    """Resolve a strategy by its reference-compatible config string."""
+def _gather_topk_wire(vals: torch.Tensor, idx: torch.Tensor, size: int):
+    """All ranks' (bf16 values, int16 offsets) [rows, k], in rank order.
+
+    Neither NCCL nor gloo gathers int16, so each slot travels as one int32
+    word holding the value's bits and the offset's (the int16 pair
+    ``[value, offset]`` read as one word): 4 bytes per slot, the JAX
+    package's wire bytes."""
+    wire = torch.stack([vals.view(torch.int16), idx], dim=-1)   # [rows, k, 2]
+    got = _all_gather(wire.view(torch.int32).squeeze(-1), size)
+    pairs = got.view(torch.int16).unflatten(-1, (-1, 2))     # [size, rows, k, 2]
+    return (pairs[..., 0].view(torch.bfloat16).contiguous(),
+            pairs[..., 1].contiguous())
+
+
+class TopK(Strategy):
+    """Chunk-local top-k sparsification with error feedback
+    (BASELINE.json config 5, beside onebit).
+
+    ``c = g + state`` in the JAX package's flat order
+    (``helper_funcs.flatten_tree_jax``) is viewed as ``[n / chunk, chunk]``
+    rows; each rank sends the ``k_c = ratio·chunk`` largest |c| of every
+    row as bf16 values and int16 offsets, and keeps ``c`` with the bf16
+    rounding residual written over the sent entries as the next step's
+    state.  Every rank decodes the same gathered rows into the same mean.
+    On the card the encode and the decode are the kernels B7 and B8 of
+    ``ops/compress.py``.  Wire bytes per rank: 4·k_c per row, ~5.5 MB a
+    step for VGG-16 (onebit: 17.3 MB; float32: 553 MB)."""
+
+    name = "topk"
+    stateful = True
+    flattens = True
+
+    CHUNK = 8192          # ≤ 2^15 for int16 offsets
+
+    def __init__(self, ratio: float = 0.01, k: Optional[int] = None,
+                 chunk: Optional[int] = None):
+        self.ratio = ratio
+        self.k = k                    # per-row override (mostly for tests)
+        self.chunk = int(chunk or self.CHUNK)
+        # signed int16 offsets: anything past 2^15 − 1 would wrap negative
+        assert self.chunk <= 1 << 15, "int16 offsets need chunk ≤ 32768"
+
+    def init_state(self, params) -> torch.Tensor:
+        n = tree_size(params)
+        dev = tree_leaves(params)[0].device
+        return torch.zeros(n + (-n) % self.chunk, dtype=torch.float32,
+                           device=dev)
+
+    def _k_c(self) -> int:
+        """Selected entries per chunk row."""
+        return self.k or max(1, int(round(self.chunk * self.ratio)))
+
+    @torch.no_grad()
+    def __call__(self, tree, state, *, size: int):
+        c = flatten_tree_jax(tree, pad_to_multiple_of=self.chunk)
+        c.add_(state)                                  # c = flat + state
+        wire_vals, wire_idx, new_c2 = compress_ops.topk_encode(
+            c.view(-1, self.chunk), self._k_c())
+        all_vals, all_idx = _gather_topk_wire(wire_vals, wire_idx, size)
+        mean = compress_ops.topk_decode(all_vals, all_idx, self.chunk, size)
+        return unflatten_like_jax(tree, mean), new_c2.view(-1)
+
+
+class PowerSGD(Strategy):
+    """Rank-r low-rank compression with error feedback (PowerSGD, Vogels
+    et al. 2019, arXiv:1905.13727).  Per matrix-shaped leaf, with the
+    leaf's error ``e`` and a shared warm-started ``Q``:
+
+        M' = M + e;  P = mean(M' Q);  P̂ = qr(P).Q;  Q' = mean(M'ᵀ P̂)
+        M̂ = P̂ Q'ᵀ;   e' = M' − M̂
+
+    The JAX package's ``M`` is its leaf in its layout,
+    ``leaf.reshape(-1, shape[-1])``.  The port keeps the leaf in PyTorch's
+    layout, ``A = leaf.reshape(shape[0], -1)``, which is that ``M``
+    transposed (for a conv, with M's rows permuted, which P̂'s span and so
+    M̂ do not depend on).  So ``P = Aᵀ Q``, ``Q' = A P̂`` and
+    ``M̂ᵀ = Q' P̂ᵀ``: the products B9 of ``ops/factor_pack.py`` takes with
+    a transpose flag.  ``e`` keeps the leaf's own shape.  All P factors
+    travel in one zero-padded staging buffer and one ``all_reduce``, then
+    all Q factors likewise; leaves too small to win (vectors, and
+    min(rows, cols) ≤ 4r) are reduced exactly.  ``torch.linalg.qr`` and
+    the decode product ``Q' P̂ᵀ`` are library calls, as in the JAX package
+    they are XLA's.
+
+    State: a list over the leaves in the port's order (``tree_leaves``),
+    ``{"q": [cols, r], "e": leaf shape}``, empty for an incompressible
+    leaf.  The first ``q`` of leaf ``i`` is drawn from a generator seeded
+    ``1905 + i`` on the CPU, the same on every rank (the JAX package's
+    distribution; other bits)."""
+
+    stateful = True
+    flattens = False
+
+    def __init__(self, rank: int = 2):
+        self.rank = int(rank)
+        assert self.rank >= 1
+        self.name = f"powersgd{self.rank}"
+
+    def _compressible(self, shape) -> bool:
+        """The JAX package's ``min(rows, cols) > 4r`` on its matrix: cols =
+        ``shape[0]`` and rows = the rest in the port's layout."""
+        if len(shape) < 2:
+            return False
+        return min(math.prod(shape[1:]), int(shape[0])) > 4 * self.rank
+
+    def init_state(self, params) -> list:
+        state = []
+        for i, l in enumerate(tree_leaves(params)):
+            if self._compressible(l.shape):
+                gen = torch.Generator().manual_seed(1905 + i)
+                q = torch.randn((l.shape[0], self.rank), generator=gen)
+                state.append({"q": q.to(l.device),
+                              "e": torch.zeros(l.shape, dtype=torch.float32,
+                                               device=l.device)})
+            else:
+                state.append({
+                    "q": torch.zeros((0, self.rank), device=l.device),
+                    "e": torch.zeros((0, 0), device=l.device)})
+        return state
+
+    @torch.no_grad()
+    def __call__(self, tree, state, *, size: int):
+        inv = 1.0 / size
+        leaves = tree_leaves(tree)
+        assert len(leaves) == len(state), (len(leaves), len(state))
+        out = list(leaves)
+        new_state = list(state)
+        comp = [i for i, g in enumerate(leaves)
+                if self._compressible(g.shape)]
+
+        def stacked_mean(tiles):
+            buf = tiles[0] if len(tiles) == 1 else torch.cat(tiles)
+            dist.all_reduce(buf)
+            return buf.mul_(inv)
+
+        if comp:
+            # A' = g + e, [cols, rows]: the JAX package's M' transposed
+            mats = {i: (leaves[i].float() + state[i]["e"]).reshape(
+                leaves[i].shape[0], -1) for i in comp}
+            p_tiles = [factor_pack.matmul_pack(mats[i], state[i]["q"],
+                                               transpose=True) for i in comp]
+            p_all = stacked_mean(p_tiles)
+            phs, off = {}, 0
+            for i, t in zip(comp, p_tiles):
+                rows = mats[i].shape[1]
+                phs[i] = torch.linalg.qr(p_all[off:off + rows]).Q.contiguous()
+                off += t.shape[0]
+            q_tiles = [factor_pack.matmul_pack(mats[i], phs[i]) for i in comp]
+            q_all = stacked_mean(q_tiles)
+            off = 0
+            for i, t in zip(comp, q_tiles):
+                g = leaves[i]
+                qn = q_all[off:off + g.shape[0]]
+                off += t.shape[0]
+                mhat = qn @ phs[i].t()                 # M̂ᵀ, [cols, rows]
+                out[i] = mhat.view(g.shape).to(g.dtype)
+                new_state[i] = {"q": qn,
+                                "e": (mats[i] - mhat).view(g.shape)}
+
+        for i, g in enumerate(leaves):
+            if i not in comp:
+                dist.all_reduce(g)
+                g.mul_(inv)
+        it = iter(out)
+        return tree_map(lambda _: next(it), tree), new_state
+
+
+def get_strategy(name: str, **kwargs) -> Strategy:
+    """Resolve a strategy by its reference-compatible config string;
+    ``kwargs`` go to ``topk`` and ``powersgd``."""
     name = name.lower()
     table = {
         "none": NoComm,
@@ -137,7 +310,14 @@ def get_strategy(name: str) -> Strategy:
         "bf16": lambda: AllReduce(wire_dtype=torch.bfloat16),
         "onebit": OneBit,
         "compressed": OneBit,
+        "topk": lambda: TopK(**kwargs),
+        "powersgd": lambda: PowerSGD(**kwargs),
     }
+    if name.startswith("powersgd") and name[8:].isdigit():
+        # 'powersgd4' etc.; an explicit rank kwarg must not silently lose
+        assert "rank" not in kwargs or int(kwargs["rank"]) == int(name[8:]), \
+            f"strategy name {name!r} conflicts with rank={kwargs['rank']}"
+        return PowerSGD(rank=int(name[8:]))
     try:
         return table[name]()
     except KeyError:

@@ -10,7 +10,15 @@ work on one (the compressed wire).
 ``"w"`` before its ``"b"``, each leaf flattened in its own (PyTorch) layout.
 The JAX package's ``jax.tree.leaves`` sorts dict keys and keeps HWIO /
 ``[in, out]`` weights, so its flat vector is a permutation of this one;
-``convert.flat_from_jax`` maps it onto the port's.
+``convert.flat_from_jax`` maps it onto the port's.  The onebit wire does
+not depend on the order and uses the port's.
+
+**JAX order.** :func:`flatten_tree_jax` and :func:`unflatten_like_jax` lay
+the same tree out as the JAX package's ``flatten_tree`` does: keys sorted
+at every level, 4-D conv weights as HWIO (``w.permute(2, 3, 1, 0)``), 2-D
+FC weights as ``[in, out]``.  The topk wire selects per fixed-size chunk of
+the flat vector, so its compressor, and its error state, are the JAX
+package's only in this order.
 """
 
 from __future__ import annotations
@@ -72,3 +80,96 @@ def unflatten_like(tree, flat: torch.Tensor):
         return v if v.dtype == l.dtype else v.to(l.dtype)
 
     return tree_map(take, tree)
+
+
+def jax_leaf_paths(tree, path=()):
+    """Leaf paths in ``jax.tree.leaves`` order: dict keys sorted."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in jax_leaf_paths(tree[k], path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in jax_leaf_paths(v, path + (i,))]
+    return [path]
+
+
+def get_leaf(tree, path):
+    """The leaf of ``tree`` at ``path`` (a tuple of keys and indices)."""
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def to_jax_layout(t: torch.Tensor) -> torch.Tensor:
+    """A view of a port-layout leaf in the JAX package's layout: OIHW →
+    HWIO, ``[out, in]`` → ``[in, out]``, vectors as they are."""
+    if t.dim() == 4:
+        return t.permute(2, 3, 1, 0)
+    if t.dim() == 2:
+        return t.t()
+    return t
+
+
+def from_jax_layout(t: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`to_jax_layout`: HWIO → OIHW, ``[in, out]`` →
+    ``[out, in]``, as a view."""
+    if t.dim() == 4:
+        return t.permute(3, 2, 0, 1)
+    if t.dim() == 2:
+        return t.t()
+    return t
+
+
+def _jax_shape(shape) -> tuple:
+    """The JAX layout's shape of a port-layout leaf of ``shape``."""
+    if len(shape) == 4:
+        o, i, h, w = shape
+        return (h, w, i, o)
+    if len(shape) == 2:
+        return (shape[1], shape[0])
+    return tuple(shape)
+
+
+def flatten_tree_jax(tree, pad_to_multiple_of: int = 1) -> torch.Tensor:
+    """All leaves as one float32 vector in the JAX package's flat order
+    and layouts (see the module docstring), zero-padded at the end to a
+    multiple of ``pad_to_multiple_of``: one copy per leaf into the
+    vector."""
+    leaves = [get_leaf(tree, p) for p in jax_leaf_paths(tree)]
+    n = sum(int(l.numel()) for l in leaves)
+    n_pad = n + (-n) % max(1, pad_to_multiple_of)
+    flat = torch.empty(n_pad, dtype=torch.float32, device=leaves[0].device)
+    ofs = 0
+    for l in leaves:
+        j = to_jax_layout(l)
+        flat[ofs:ofs + l.numel()].view(j.shape).copy_(j)
+        ofs += l.numel()
+    flat[n:].zero_()
+    return flat
+
+
+def unflatten_like_jax(tree, flat: torch.Tensor):
+    """Inverse of :func:`flatten_tree_jax`: each leaf of ``tree`` as a view
+    of ``flat`` in the port's shape (strided: a conv or FC weight is a
+    permuted view of its JAX-layout segment; a copy only where the leaf's
+    dtype differs); the pad is dropped."""
+    views, ofs = {}, 0
+    for p in jax_leaf_paths(tree):
+        l = get_leaf(tree, p)
+        n = int(l.numel())
+        v = from_jax_layout(flat[ofs:ofs + n].view(_jax_shape(l.shape)))
+        views[p] = v if v.dtype == l.dtype else v.to(l.dtype)
+        ofs += n
+    paths = iter(leaf_paths(tree))
+    return tree_map(lambda _: views[next(paths)], tree)
+
+
+def leaf_paths(tree, path=()):
+    """Leaf paths in :func:`tree_leaves` order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items()
+                for p in leaf_paths(v, path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in leaf_paths(v, path + (i,))]
+    return [path]

@@ -50,7 +50,26 @@
     and runs one exchange of each under CUDA's sync debug mode: the topk
     exchange must make the host wait on nothing; PowerSGD's waits (its
     ``torch.linalg.qr`` might read back) are counted and printed.
-13. Prints ``{"kernels": [...]}`` (B1–B9), then the card, then the last
+13. Flash attention (B10–B12): at the LM's shape [16, 8, 512, 64] bf16,
+    causal, on q, k, v and dO laid out as the model hands them (views of
+    [B, T, H, hd]), holds the forward and both backward kernels against
+    their plain versions; times each beside its plain version, its bound
+    and the library yardstick (``F.scaled_dot_product_attention(...,
+    is_causal=True)`` for B10, its autograd backward, dQ, dK and dV in one,
+    for B11 and B12; timed here only, the port never calls it).
+14. The LM at full width (d512, 8 heads, 8 layers, T512, vocab 32768) at
+    batch 2 on the card: loss and gradients of ``attn_impl='flash'``
+    (kernels, bf16) and ``'reference'`` (torch attention, bf16) from the
+    same parameters, each against the same model in float32; flash must
+    be as close to float32 as the bf16 reference, within a stated factor.
+15. Drives the LM main path: ``BSP().init(devices=1, modelfile=
+    'theanompi_tpu_torch.models.transformer_lm', modelclass='TransformerLM',
+    attn_impl='flash', batch_size=16, ...)``, Adam, 8 steps and a validation
+    batch; checks the costs, the params' device and the launch counts
+    (8·(8+1) B10, 8·8 B11, 8·8 B12, nothing else); profiles its steps
+    (tokens/s, host buckets, device busy, idle share, the flash kernels'
+    device time).
+16. Prints ``{"kernels": [...]}`` (B1–B12), then the card, then the last
     line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script exits non-zero and prints no result.
@@ -79,13 +98,16 @@ from theanompi_tpu_torch import BSP  # noqa: E402
 from theanompi_tpu_torch.ops import _kernel_build  # noqa: E402
 from theanompi_tpu_torch.ops import compress as cmp_ops  # noqa: E402
 from theanompi_tpu_torch.ops import factor_pack as fp_ops  # noqa: E402
+from theanompi_tpu_torch.ops import flash_attention as fa_ops  # noqa: E402
 from theanompi_tpu_torch.ops import lrn as lrn_ops  # noqa: E402
-from theanompi_tpu_torch.utils.helper_funcs import tree_map  # noqa: E402
+from theanompi_tpu_torch.utils.helper_funcs import (  # noqa: E402
+    tree_leaves, tree_map)
 
 # H100 SXM peaks (NVIDIA data sheet, at its 700 W limit): device memory
 # rate, and float32 outside the tensor cores (the kernels' math is f32)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12        # dense, tensor cores
 
 BATCH = 128
 STEPS = 8
@@ -117,8 +139,31 @@ DECODE_WORKERS = (1, 4, 8)
 TOPK_CHUNK, TOPK_K = 8192, 82
 POWERSGD_RANK = 2
 
+# the LM of scripts/perf_matrix_r5.sh's transformer_lm-b16-flash row
+# (LM_CFG of scripts/_bench_row.sh): d512, 8 heads, 8 layers, T512, vocab
+# 32768, batch 16, Adam at the model's lr 3e-3
+LM_CFG = dict(attn_impl="flash", d_model=512, n_head=8, n_layer=8,
+              seq_len=512, vocab=32768)
+LM_BATCH = 16
+LM_STEPS = 8
+LM_CHECK_BATCH = 2
+# the flash kernels against their plain versions: both round their f32
+# sums to bf16 once (summed in another order) and round p and dS to bf16
+# at the same points: one or two bf16 ulps (2^-8) of the outputs' scale
+FLASH_TOL = (2.0 ** -7, 2.0 ** -7)          # (rtol, atol / max|plain|)
+# the whole LM in bf16 against the same LM in float32, batch 2: at random
+# init every gradient leaf of the bf16 model is ~8% (relative L2) from the
+# float32 one whatever the attention (bf16 activations through 8 layers);
+# flash must be as close as the bf16 reference attention, within a factor
+# (it rounds p and dS to bf16 and takes di from the bf16 o, where the
+# reference attends in f32): its gradients no further than LM_GRAD_RATIO
+# times the reference's distance, its loss within LM_LOSS_RTOL (on an
+# H100 the bf16 losses are 1.1e-5 (flash) and 3.7e-6 (reference) from it)
+LM_LOSS_RTOL = 1e-4
+LM_GRAD_RATIO = 2.0
+
 ALL_KERNELS = ((lrn_ops.lrn_fwd_cuda, lrn_ops.lrn_bwd_cuda) + cmp_ops.KERNELS
-               + fp_ops.KERNELS)
+               + fp_ops.KERNELS + fa_ops.KERNELS)
 
 
 def card_line() -> str:
@@ -173,9 +218,10 @@ def check_bits(name, got, want) -> float:
     return 0.0
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float,
+          flops_per_s: float = F32_FLOPS_PER_S) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops), "bytes_ms": t_bytes,
             "ops_ms": t_ops,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -530,6 +576,144 @@ def alexnet_reference_phase():
                        1e-4)
 
 
+def flash_bytes_flops(b, h, t, d):
+    """Per kernel (B10, B11, B12): the bytes it must move (each input read
+    once, each output written once: bf16 [B, H, T, hd] tensors, f32 [B, H,
+    T] row stats) and the flops of its products over the causal pairs
+    t(t+1)/2 of each head (2·hd per pair and product: B10 q kᵀ and p v;
+    B11 q kᵀ, dO vᵀ, pᵀ dO and dSᵀ q; B12 q kᵀ, dO vᵀ and dS k)."""
+    x, stat = 2 * b * h * t * d, 4 * b * h * t
+    pair_flops = 2 * d * b * h * t * (t + 1) // 2
+    return {"flash_fwd_cuda": (4 * x + stat, 2 * pair_flops),
+            "flash_bwd_dkv_cuda": (6 * x + 2 * stat, 4 * pair_flops),
+            "flash_bwd_dq_cuda": (5 * x + 2 * stat, 3 * pair_flops)}
+
+
+def flash_phase():
+    """B10–B12 at the LM's main-path shape, bf16, causal, on q, k, v and dO
+    laid out as the model hands them (transposed views of [B, T, H, hd]):
+    each against its plain version within FLASH_TOL; times, bounds, and the
+    library yardsticks."""
+    b, t = LM_BATCH, LM_CFG["seq_len"]
+    h = LM_CFG["n_head"]
+    d = LM_CFG["d_model"] // h
+    g = torch.Generator(device="cuda").manual_seed(4)
+
+    def mk():
+        return torch.randn(b, t, h, d, generator=g, device="cuda").to(
+            torch.bfloat16).transpose(1, 2)
+
+    q, k, v, do = mk(), mk(), mk(), mk()
+    zero_launches()
+    o, lse = fa_ops.flash_fwd_cuda(q, k, v)
+    di = fa_ops.attention_di(o, do)
+    dk, dv = fa_ops.flash_bwd_dkv_cuda(q, k, v, do, lse, di)
+    dq = fa_ops.flash_bwd_dq_cuda(q, k, v, do, lse, di)
+    torch.cuda.synchronize()
+    checked = launch_counts()
+    po, plse = fa_ops.flash_fwd_plain(q, k, v)
+    pdq, pdk, pdv = fa_ops.flash_bwd_plain(q, k, v, o, lse, do)
+    err = {"flash_fwd_cuda": check_close("B10 o", o, po, *FLASH_TOL),
+           "flash_bwd_dkv_cuda": max(check_close("B11 dk", dk, pdk, *FLASH_TOL),
+                                     check_close("B11 dv", dv, pdv,
+                                                 *FLASH_TOL)),
+           "flash_bwd_dq_cuda": check_close("B12 dq", dq, pdq, *FLASH_TOL)}
+    # lse: f32 on both sides, the row max and sum taken in another order
+    lse_err = check_close("B10 lse", lse, plse, 1e-5, 1e-6)
+    if o.stride() != q.stride():
+        raise AssertionError(f"B10 o strides {o.stride()}, q {q.stride()}")
+    del po, plse, pdq, pdk, pdv
+
+    ql, kl, vl = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_out, (ql, kl, vl), do,
+                                   retain_graph=True)
+
+    def plain_bwd():
+        return fa_ops.flash_bwd_plain(q, k, v, o, lse, do)
+
+    bwd_plain_ms = time_ms(plain_bwd, reps=5, inner=2, warmup=1)
+    lib_bwd_ms = time_ms(lib_bwd)
+    sizes = flash_bytes_flops(b, h, t, d)
+    rows = {
+        "flash_fwd_cuda": (lambda: fa_ops.flash_fwd_cuda(q, k, v),
+                           time_ms(lambda: fa_ops.flash_fwd_plain(q, k, v),
+                                   reps=5, inner=2, warmup=1),
+                           time_ms(lib_fwd)),
+        "flash_bwd_dkv_cuda": (lambda: fa_ops.flash_bwd_dkv_cuda(
+            q, k, v, do, lse, di), bwd_plain_ms, lib_bwd_ms),
+        "flash_bwd_dq_cuda": (lambda: fa_ops.flash_bwd_dq_cuda(
+            q, k, v, do, lse, di), bwd_plain_ms, lib_bwd_ms),
+    }
+    out = {"shape": [b, h, t, d], "checked_launches": checked,
+           "lse_max_abs_err": lse_err,
+           "di_ms": time_ms(lambda: fa_ops.attention_di(o, do))}
+    for name, (kern, plain_ms, lib_ms) in rows.items():
+        out[name] = {"max_abs_err": err[name], "ms": time_ms(kern),
+                     "plain_ms": plain_ms, "library_ms": lib_ms,
+                     **bound(*sizes[name], BF16_FLOPS_PER_S)}
+    del q, k, v, do, o, lse, di, dk, dv, dq, ql, kl, vl, lib_out
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_check_phase():
+    """The LM at full width, batch 2, on the card: the loss and every
+    gradient leaf of ``attn_impl='flash'`` (kernels B10–B12, bf16) and of
+    ``'reference'`` (torch attention, bf16), from the same parameters and
+    batch, each against the same model in float32 (reference attention,
+    TF32 off).  Flash must be within LM_LOSS_RTOL of the float32 loss and,
+    leaf by leaf, no further from the float32 gradient than LM_GRAD_RATIO
+    times the bf16 reference's own distance."""
+    from theanompi_tpu_torch.models.transformer_lm import TransformerLM
+    cfg = dict(LM_CFG, batch_size=LM_CHECK_BATCH, synthetic_train=2,
+               synthetic_val=2, seed=0, verbose=False, device="cuda")
+    models = {"flash": TransformerLM(cfg),
+              "reference": TransformerLM(dict(cfg, attn_impl="reference")),
+              "float32": TransformerLM(dict(cfg, attn_impl="reference",
+                                            compute_dtype="float32"))}
+    src = tree_leaves(models["flash"].params)
+    with torch.no_grad():
+        for m in models.values():
+            for a, c in zip(tree_leaves(m.params), src):
+                a.copy_(c)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             models["flash"].data.next_train_batch(1).items()}
+    res = {}
+    for name, m in models.items():
+        cost, _ = m.loss_and_metrics(m.params, batch, None, True)
+        grads = torch.autograd.grad(cost, tree_leaves(m.params))
+        res[name] = (float(cost.detach()), [g.float() for g in grads])
+    del models, src
+    c32, g32 = res["float32"]
+
+    def rel(gs):
+        return [float((a - c).norm() / c.norm().clamp_min(1e-30))
+                for a, c in zip(gs, g32)]
+
+    (cf, gf), (cr, gr) = res["flash"], res["reference"]
+    rf, rr = rel(gf), rel(gr)
+    ratio = max(a / max(b, 1e-12) for a, b in zip(rf, rr))
+    del res, gf, gr, g32
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"loss_flash": cf, "loss_reference": cr, "loss_float32": c32,
+           "loss_rel_err": abs(cf - c32) / abs(c32),
+           "loss_rel_err_reference": abs(cr - c32) / abs(c32),
+           "grad_rel_l2_max": max(rf),
+           "grad_rel_l2_median": float(np.median(rf)),
+           "grad_rel_l2_max_reference": max(rr), "grad_ratio_max": ratio}
+    if not np.isfinite(cf) or out["loss_rel_err"] > LM_LOSS_RTOL or \
+            ratio > LM_GRAD_RATIO:
+        raise AssertionError(f"LM flash vs float32: {out}")
+    return out
+
+
 def run_main_path(modelfile, modelclass, want_launches, **cfg):
     """``BSP().init(devices=1, ...).wait()`` with every launch count set to
     0 just before and read just after; checks the costs, the params'
@@ -548,8 +732,7 @@ def run_main_path(modelfile, modelclass, want_launches, **cfg):
         raise AssertionError(f"{modelclass} cost not finite: {costs}")
     if not all(np.isfinite(r["val_cost"]) for r in rec.epoch_records):
         raise AssertionError(f"validation cost: {rec.epoch_records}")
-    devs = {p.device.type for d in rule.model.params.values()
-            for p in d.values()}
+    devs = {p.device.type for p in tree_leaves(rule.model.params)}
     if devs != {"cuda"}:
         raise AssertionError(f"params on {devs}")
     if launches != want_launches:
@@ -567,6 +750,27 @@ def alexnet_main_path_phase():
     _, out = run_main_path("theanompi_tpu_torch.models.alex_net", "AlexNet",
                            want, batch_size=BATCH, synthetic_batches=STEPS,
                            printFreq=STEPS // 2)
+    return out
+
+
+def lm_main_path_phase():
+    """The LM under BSP: 8 Adam steps and a validation batch, launches
+    counted.  Every layer's attention runs B10 forward (train and
+    validation) and B11 + B12 backward."""
+    n = LM_CFG["n_layer"]
+    want = expect(flash_fwd_cuda=n * (LM_STEPS + VAL_BATCHES),
+                  flash_bwd_dkv_cuda=n * LM_STEPS,
+                  flash_bwd_dq_cuda=n * LM_STEPS)
+    model, out = run_main_path(
+        "theanompi_tpu_torch.models.transformer_lm", "TransformerLM", want,
+        batch_size=LM_BATCH, synthetic_train=LM_BATCH * LM_STEPS,
+        synthetic_val=LM_BATCH * VAL_BATCHES, printFreq=LM_STEPS // 2,
+        **LM_CFG)
+    out["n_params"] = sum(p.numel() for p in tree_leaves(model.params))
+    out["tokens_per_s"] = out["img_per_s"] * LM_CFG["seq_len"]
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -618,8 +822,7 @@ def exchange_sync_check(model) -> list:
     """One exchange of the model's strategy on a gradient-shaped tree under
     CUDA's sync debug mode: the warnings of every operation that made the
     host wait for the card (an ``.item()``, a copy to the host)."""
-    grads = {k: {n: torch.randn_like(p) for n, p in d.items()}
-             for k, d in model.params.items()}
+    grads = tree_map(torch.randn_like, model.params)
     strat = model.exchanger.strategy
     state = tree_map(torch.clone, model.extra["strat"])
     torch.cuda.synchronize()
@@ -730,7 +933,15 @@ LIBRARY = {
                    "order; no bf16 cast, no index arithmetic, no / size",
     "matmul_pack": "torch.matmul (TF32 off) of the same operands, the "
                    "transposed one as a view: no zero-padded tile",
+    "flash_fwd": "F.scaled_dot_product_attention(q, k, v, is_causal=True) "
+                 "on the same views: o only, no lse",
+    "flash_bwd_dkv": "autograd of F.scaled_dot_product_attention: dQ, dK and "
+                     "dV in one call (di included), to set against B11 + B12",
+    "flash_bwd_dq": "the same call as flash_bwd_dkv's: dQ, dK and dV in one",
 }
+
+FLASH_SRC = "theanompi_tpu_torch/csrc/flash_attention.cu"
+FLASH_TPU = "jax/experimental/pallas/ops/tpu/flash_attention.py (jax 0.9.0)"
 
 # (label, wrapper, TPU kernel it replaces)
 KERNEL_ROWS = (
@@ -759,12 +970,20 @@ KERNEL_ROWS = (
     ("matmul_pack", fp_ops.matmul_pack_cuda,
      "theanompi_tpu_torch/csrc/factor_pack.cu",
      "theanompi_tpu/ops/factor_pack.py:66 _matmul_pack_pallas"),
+    # JAX's packaged kernel, which theanompi_tpu/models/layers.py:459-464
+    # calls for attn_impl='flash'
+    ("flash_fwd", fa_ops.flash_fwd_cuda, FLASH_SRC,
+     f"{FLASH_TPU}:589 _flash_attention_impl (pallas_call :758)"),
+    ("flash_bwd_dkv", fa_ops.flash_bwd_dkv_cuda, FLASH_SRC,
+     f"{FLASH_TPU}:941 _flash_attention_bwd_dkv (pallas_call :1121)"),
+    ("flash_bwd_dq", fa_ops.flash_bwd_dq_cuda, FLASH_SRC,
+     f"{FLASH_TPU}:1287 _flash_attention_bwd_dq (pallas_call :1456)"),
 )
 TIMED = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
          "library_ms")
 
 
-def kernel_entries(lrn, comp, topk, fpack, alex, vggs) -> list:
+def kernel_entries(lrn, comp, topk, fpack, flash, alex, vggs, lm) -> list:
     out = []
     for label, fn, source, replaces in KERNEL_ROWS:
         name = fn.__name__
@@ -789,6 +1008,10 @@ def kernel_entries(lrn, comp, topk, fpack, alex, vggs) -> list:
                      max_err_over_bound=fpack["max_err_over_bound"],
                      per="one step: 32 products",
                      **{k: fpack["per_step"][k] for k in TIMED[1:]})
+        elif label.startswith("flash_"):
+            e.update(launches=lm["launches"][name],
+                     launches_from="LM main path", shape=flash["shape"],
+                     **{k: flash[name][k] for k in TIMED})
         elif label.startswith("topk_"):
             e.update(launches=vggs["topk"]["launches"][name],
                      launches_from="VGG-16 topk main path",
@@ -896,13 +1119,45 @@ def main() -> int:
             raise AssertionError(f"the {strategy} exchange made the host "
                                  f"wait: {prof['after']}")
 
-    kernels = kernel_entries(lrn, comp, topk, fpack, alex, vggs)
+    flash = flash_phase()
+    print("flash attention %s bf16 causal: " % flash["shape"] + ", ".join(
+        f"{k[:-5]} {flash[k]['ms']:.4f} ms (bound {flash[k]['bound_ms']:.4f}, "
+        f"plain {flash[k]['plain_ms']:.3f}, SDPA {flash[k]['library_ms']:.4f}, "
+        f"max |diff| {flash[k]['max_abs_err']:.3e})" for k in
+        ("flash_fwd_cuda", "flash_bwd_dkv_cuda", "flash_bwd_dq_cuda"))
+        + f"; di {flash['di_ms']:.4f} ms", flush=True)
+    lm_check = lm_check_phase()
+    print(f"LM bf16 vs float32, batch {LM_CHECK_BATCH}: loss flash "
+          f"{lm_check['loss_flash']:.6f}, reference "
+          f"{lm_check['loss_reference']:.6f}, float32 "
+          f"{lm_check['loss_float32']:.6f}; gradient relative L2 flash max "
+          f"{lm_check['grad_rel_l2_max']:.3e}, reference max "
+          f"{lm_check['grad_rel_l2_max_reference']:.3e}, worst leaf ratio "
+          f"{lm_check['grad_ratio_max']:.3f}", flush=True)
+    lm = lm_main_path_phase()
+    print(f"main path: TransformerLM BSP flash batch {LM_BATCH}, {LM_STEPS} "
+          f"steps, {lm['n_params']} params, costs "
+          f"{[round(c, 4) for c in lm['costs']]}, "
+          f"{lm['tokens_per_s']:.0f} tokens/s, launches "
+          f"{ {k: v for k, v in lm['launches'].items() if v} } on {card}",
+          flush=True)
+    lm_groups = {"flash": ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
+                           "flash_bwd_dq_kernel")}
+    profs["lm"] = lm_prof = step_profile_phase(
+        "theanompi_tpu_torch.models.transformer_lm", "TransformerLM",
+        LM_BATCH, lm_groups, PROFILE_STEPS,
+        synthetic_train=LM_BATCH * (2 + 2 * PROFILE_STEPS), **LM_CFG)
+    lm_prof["tokens_per_s"] = lm_prof["img_per_s"] * LM_CFG["seq_len"]
+    print_profile(lm_prof, card, lm_groups)
+    print(f"LM step: {lm_prof['tokens_per_s']:.0f} tokens/s", flush=True)
+
+    kernels = kernel_entries(lrn, comp, topk, fpack, flash, alex, vggs, lm)
     total_s = time.time() - t_all
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"kernels": kernels, "compress": comp, "topk": topk,
-                   "factor_pack": fpack,
-                   "main": dict({"alexnet": alex},
+                   "factor_pack": fpack, "flash": flash, "lm_check": lm_check,
+                   "main": dict({"alexnet": alex, "lm": lm},
                                 **{f"vgg16_{k}": v for k, v in vggs.items()}),
                    "profile": profs, "card": card, "build_s": build_s, "total_s": total_s,
                    "alexnet_ref_err": ref_err}, f, indent=1)

@@ -1,7 +1,9 @@
 """The port's optimizers against the JAX package's, over several steps with
 a learning rate that changes between them (where ``torch.optim.SGD``'s
 momentum form would part from the JAX formula).  float32; rtol/atol 1e-6,
-a few ulps of the updated values."""
+a few ulps of the updated values (Adam's moments to rtol 1e-5: its
+bias-corrected step divides by √v, and the two packages fuse the moment
+updates differently)."""
 
 import jax
 import numpy as np
@@ -24,6 +26,8 @@ def _trees(seed):
     ("momentum", dict(mu=0.9, weight_decay=5e-4)),
     ("momentum", dict(mu=0.5, weight_decay=0.0)),
     ("sgd", dict(weight_decay=1e-3)),
+    ("adam", dict(weight_decay=0.0)),
+    ("adam", dict(b1=0.8, b2=0.99, eps=1e-6, weight_decay=1e-2)),
 ])
 def test_optimizer_steps_match_jax(name, kw):
     params, grads = _trees(0)
@@ -39,6 +43,12 @@ def test_optimizer_steps_match_jax(name, kw):
         for n in params[k]:
             np.testing.assert_allclose(tp[k][n].numpy(), np.asarray(jp[k][n]),
                                        rtol=1e-6, atol=1e-6)
+            if name == "adam":
+                for mo in ("m", "v"):
+                    np.testing.assert_allclose(
+                        ts[mo][k][n].numpy(), np.asarray(js[mo][k][n]),
+                        rtol=1e-5, atol=1e-7, err_msg=f"{mo} {k}/{n}")
+                assert ts["t"][k][n] == int(js["t"][k][n]) == len(grads)
 
 
 def test_update_is_in_place():
@@ -54,5 +64,17 @@ def test_update_is_in_place():
 
 
 def test_unknown_optimizer_raises():
-    with pytest.raises(ValueError, match="adam"):
-        TO.get_optimizer("adam")
+    with pytest.raises(ValueError, match="rmsprop"):
+        TO.get_optimizer("rmsprop")
+
+
+def test_adam_updates_in_place():
+    params, grads = _trees(2)
+    tp = jax.tree.map(torch.from_numpy, params)
+    o = TO.adam()
+    st = o.init(tp)
+    w, m = tp["a"]["w"], st["m"]["a"]["w"]
+    tp2, st2 = o.update(jax.tree.map(torch.from_numpy, grads[0]), st, tp,
+                        0.1)
+    assert tp2["a"]["w"] is w and st2["m"]["a"]["w"] is m
+    assert st2["t"]["a"]["w"] == 1 and st["t"]["a"]["w"] == 0

@@ -7,8 +7,12 @@ conv's output channels the same way (group g owns outputs
 ``g·out/groups .. (g+1)·out/groups``), so a conv converts by a plain
 transpose, and because the port flattens NHWC activations in (h, w, c)
 order, as the JAX package does, so does the FC after a ``Flatten`` (VGG's
-``fc6`` after ``[7, 7, 512]`` included).  Vectors (biases) are unchanged.
-A momentum velocity tree has the params' shapes and converts the same way.
+``fc6`` after ``[7, 7, 512]`` included).  The transformer's projections
+(``wq``, ``wk``, ``wv``, ``wo``, ``fc1``, ``fc2``, ``head``) are FC weights
+and transpose too; its embedding tables (the ``w`` of ``embed`` and
+``pos``) are ``[vocab, dim]`` in both packages and are kept.  Vectors
+(biases, LayerNorm) are unchanged.  A momentum velocity or Adam moment tree
+has the params' shapes and converts the same way.
 
 Input and output are trees (nested dicts) of numpy arrays.
 """
@@ -17,21 +21,35 @@ from __future__ import annotations
 
 import numpy as np
 
-from .utils.helper_funcs import get_leaf, jax_leaf_paths, leaf_paths, tree_map
+from .utils.helper_funcs import get_leaf, jax_leaf_paths, leaf_paths
+
+# layers whose 2-D weight is an embedding table, [vocab, dim] in both
+EMBEDDING_LAYERS = ("embed", "pos")
 
 
-def _to_port(a) -> np.ndarray:
+def _to_port(a, path) -> np.ndarray:
+    """One leaf at ``path`` (its keys from the root) in the port's layout."""
     a = np.asarray(a, dtype=np.float32)
     if a.ndim == 4:
         return np.ascontiguousarray(a.transpose(3, 2, 0, 1))
-    if a.ndim == 2:
+    if a.ndim == 2 and not (len(path) >= 2 and
+                            path[-2] in EMBEDDING_LAYERS):
         return np.ascontiguousarray(a.T)
     return a.copy()
 
 
+def _map_with_path(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_path(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(tree, path)
+
+
 def params_from_jax(tree):
-    """JAX layout → port layout (params or momentum velocity)."""
-    return tree_map(_to_port, tree)
+    """JAX layout → port layout (params, momentum velocity, Adam moments)."""
+    return _map_with_path(_to_port, tree)
 
 
 def _check_same_leaves(name, jax_params, like):
@@ -55,7 +73,7 @@ def flat_from_jax(flat, jax_params, like) -> np.ndarray:
     for path in jax_leaf_paths(jax_params):
         shape = np.shape(get_leaf(jax_params, path))
         n = int(np.prod(shape))
-        segs[path] = _to_port(flat[ofs:ofs + n].reshape(shape))
+        segs[path] = _to_port(flat[ofs:ofs + n].reshape(shape), path)
         ofs += n
     return np.concatenate([segs[p].reshape(-1) for p in leaf_paths(like)]
                           + [flat[ofs:]])
@@ -78,6 +96,6 @@ def powersgd_state_from_jax(jstate, jax_params, like) -> list:
         q = np.asarray(st["q"], dtype=np.float32).copy()
         e = np.asarray(st["e"], dtype=np.float32)
         if e.size:
-            e = _to_port(e.reshape(np.shape(get_leaf(jax_params, path))))
+            e = _to_port(e.reshape(np.shape(get_leaf(jax_params, path))), path)
         by_path[path] = {"q": q, "e": e.copy()}
     return [by_path[p] for p in leaf_paths(like)]

@@ -1,9 +1,10 @@
 """Layer library.
 
 Counterpart of ``theanompi_tpu/models/layers.py`` for the layers the CNN
-slice runs: ``init_weight``, ``Sequential``, ``Conv`` (with groups), ``FC``,
+slices run: ``init_weight``, ``Sequential``, ``Conv`` (with groups), ``FC``,
 ``Pool``, ``LRN``, ``Dropout``, ``Flatten``, ``Activation`` and the loss and
-error heads.
+error heads; and for the transformer LM's: ``LayerNorm``, ``Embedding`` and
+``MultiHeadAttention``.
 
 As in the JAX package a layer is a small object holding static
 hyperparameters; ``init(gen)`` returns its parameter tree and
@@ -15,7 +16,8 @@ hyperparameters; ``init(gen)`` returns its parameter tree and
   takes as they are) and views the result back, so the LRN kernels receive
   contiguous channel rows.
 * **Weights are in PyTorch's layout:** conv ``[out, in/groups, kh, kw]``,
-  FC ``[out, in]``.  ``convert.py`` maps the JAX trees onto them.
+  FC and attention projections ``[out, in]``; embedding tables stay
+  ``[vocab, dim]``.  ``convert.py`` maps the JAX trees onto them.
 * **Casts mirror the JAX layers'**, not autocast: conv and FC inputs and
   weights go to ``compute_dtype`` (bfloat16 by default) and the bias is
   added in that type; params stay float32; the loss is taken on float32
@@ -31,7 +33,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.flash_attention import flash_attention
 from ..ops.lrn import lrn as lrn_op
+from ..ops.ring_attention import attention_reference
 
 
 def as_dtype(d) -> torch.dtype:
@@ -305,6 +309,94 @@ class Activation(Layer):
 
     def apply(self, params, x, *, train=False, gen=None):
         return _activate(x, self.kind)
+
+
+class LayerNorm(Layer):
+    """Layer normalization over the trailing feature dim: f32 statistics
+    (population variance), output in the input's dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, name: str = "ln"):
+        self.dim, self.eps = dim, eps
+        self.name = name
+
+    def init(self, gen):
+        return {"scale": torch.ones(self.dim), "bias": torch.zeros(self.dim)}
+
+    def apply(self, params, x, *, train=False, gen=None):
+        y = F.layer_norm(x.float(), (self.dim,), params["scale"],
+                         params["bias"], self.eps)
+        return y.to(x.dtype)
+
+
+class Embedding(Layer):
+    """Token embedding lookup: a float32 ``[vocab, dim]`` table, output cast
+    to ``compute_dtype``."""
+
+    def __init__(self, vocab: int, dim: int, w_init=("normal", 0.02),
+                 compute_dtype=torch.bfloat16, name: str = "embed"):
+        self.vocab, self.dim = vocab, dim
+        self.w_init = w_init
+        self.compute_dtype = as_dtype(compute_dtype)
+        self.name = name
+
+    def init(self, gen):
+        return {"w": init_weight(gen, (self.vocab, self.dim), self.w_init)}
+
+    def apply(self, params, x, *, train=False, gen=None):
+        return params["w"].to(self.compute_dtype)[x.long()]
+
+
+class MultiHeadAttention(Layer):
+    """Causal multi-head self-attention over ``[B, T, D]``.
+
+    The q/k/v/o projections are products in ``compute_dtype`` with
+    ``[out, in]`` weights.  ``attn_impl='reference'`` attends through
+    :func:`ops.ring_attention.attention_reference` (torch ops);
+    ``'flash'`` through :func:`ops.flash_attention.flash_attention`, which on
+    a CUDA tensor always launches kernel B10 (and B11/B12 in the backward).
+    q, k and v reach it as ``[B, H, T, hd]`` views of the ``[B, T, D]``
+    products, and the kernels write its output laid out as ``[B, T, H, hd]``,
+    so on the card no copy is made on either side."""
+
+    def __init__(self, dim: int, n_head: int, causal: bool = True,
+                 w_init=("normal", 0.02), compute_dtype=torch.bfloat16,
+                 attn_impl: str = "reference", name: str = "attn"):
+        if dim % n_head:
+            raise ValueError(f"dim {dim} not divisible by n_head {n_head}")
+        if attn_impl not in ("reference", "flash"):
+            raise ValueError(f"attn_impl {attn_impl!r}; have 'reference', "
+                             f"'flash'")
+        self.dim, self.n_head, self.causal = dim, n_head, causal
+        self.w_init = w_init
+        self.compute_dtype = as_dtype(compute_dtype)
+        self.attn_impl = attn_impl
+        self.name = name
+
+    def _attend(self, q, k, v):
+        """[B, H, T, hd] → [B, H, T, hd] softmax attention."""
+        if self.attn_impl == "flash":
+            return flash_attention(q, k, v, causal=self.causal,
+                                   sm_scale=1.0 / (q.shape[-1] ** 0.5))
+        return attention_reference(q, k, v, causal=self.causal)
+
+    def init(self, gen):
+        mk = lambda: init_weight(gen, (self.dim, self.dim), self.w_init).t()
+        return {n: mk().contiguous() for n in ("wq", "wk", "wv", "wo")}
+
+    def _proj(self, params, x, name):
+        cd = self.compute_dtype
+        b, t, _ = x.shape
+        y = torch.matmul(x.to(cd), params[name].to(cd).t())
+        return y.view(b, t, self.n_head, -1).transpose(1, 2)   # [B,H,T,hd]
+
+    def apply(self, params, x, *, train=False, gen=None):
+        cd = self.compute_dtype
+        b, t, d = x.shape
+        o = self._attend(self._proj(params, x, "wq"),
+                         self._proj(params, x, "wk"),
+                         self._proj(params, x, "wv"))
+        o = o.transpose(1, 2).reshape(b, t, d)
+        return torch.matmul(o.to(cd), params["wo"].to(cd).t())
 
 
 # ---------------------------------------------------------------------------

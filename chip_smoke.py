@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --flash-times   # the flash kernels' times alone
 
 1. Fails (exit 2, no result) without CUDA; prints the card's name and power
    limit as ``nvidia-smi`` reports them.
@@ -50,13 +51,17 @@
     and runs one exchange of each under CUDA's sync debug mode: the topk
     exchange must make the host wait on nothing; PowerSGD's waits (its
     ``torch.linalg.qr`` might read back) are counted and printed.
-13. Flash attention (B10–B12): at the LM's shape [16, 8, 512, 64] bf16,
-    causal, on q, k, v and dO laid out as the model hands them (views of
-    [B, T, H, hd]), holds the forward and both backward kernels against
-    their plain versions; times each beside its plain version, its bound
-    and the library yardstick (``F.scaled_dot_product_attention(...,
+13. Flash attention (B10–B12): checks with ``cuobjdump -sass`` that every
+    build of B10 and B11 holds wgmma (``HGMMA``) and TMA loads
+    (``UTMALDG``); at the LM's shape [16, 8, 512, 64] bf16, causal, on q,
+    k, v and dO laid out as the model hands them (views of [B, T, H, hd]),
+    holds the forward and both backward kernels against their plain
+    versions; times each beside its plain version, its bound and the
+    library yardstick (``F.scaled_dot_product_attention(...,
     is_causal=True)`` for B10, its autograd backward, dQ, dK and dV in one,
-    for B11 and B12; timed here only, the port never calls it).
+    for B11 and B12; timed here only, the port never calls it), and the
+    host µs of each wrapper call; prints B10 and B11 beside their first,
+    WMMA versions.
 14. The LM at full width (d512, 8 heads, 8 layers, T512, vocab 32768) at
     batch 2 on the card: loss and gradients of ``attn_impl='flash'``
     (kernels, bf16) and ``'reference'`` (torch attention, bf16) from the
@@ -80,6 +85,7 @@ paths compute in bfloat16 and are unaffected).
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -161,6 +167,17 @@ FLASH_TOL = (2.0 ** -7, 2.0 ** -7)          # (rtol, atol / max|plain|)
 # H100 the bf16 losses are 1.1e-5 (flash) and 3.7e-6 (reference) from it)
 LM_LOSS_RTOL = 1e-4
 LM_GRAD_RATIO = 2.0
+# B10 and B11 before their Hopper redesign (the first, nvcuda::wmma
+# kernels), at the flash phase's shape: device ms from this script's flash
+# phase on that tree, and host µs per wrapper call, the least of two
+# `chip_smoke.py --flash-times` runs on it (host times of one call spread
+# by ±15 µs), both on an NVIDIA H100 80GB HBM3 at 700 W
+WMMA_FLASH = {"flash_fwd_cuda": {"ms": 0.0978, "host_us": 43.4},
+             "flash_bwd_dkv_cuda": {"ms": 0.1372, "host_us": 52.6}}
+# instructions the redesigned B10 and B11 must hold in every instantiation:
+# wgmma and TMA loads
+FLASH_SASS = {"flash_fwd_kernel": ("HGMMA", "UTMALDG"),
+              "flash_bwd_dkv_kernel": ("HGMMA", "UTMALDG")}
 
 ALL_KERNELS = ((lrn_ops.lrn_fwd_cuda, lrn_ops.lrn_bwd_cuda) + cmp_ops.KERNELS
                + fp_ops.KERNELS + fa_ops.KERNELS)
@@ -589,11 +606,63 @@ def flash_bytes_flops(b, h, t, d):
             "flash_bwd_dq_cuda": (5 * x + 2 * stat, 3 * pair_flops)}
 
 
-def flash_phase():
-    """B10–B12 at the LM's main-path shape, bf16, causal, on q, k, v and dO
-    laid out as the model hands them (transposed views of [B, T, H, hd]):
-    each against its plain version within FLASH_TOL; times, bounds, and the
-    library yardsticks."""
+def flash_sass_check(lib_path: str) -> dict:
+    """``cuobjdump -sass`` of the built flash library: every instantiation
+    (head dims 32, 64, 128) of ``flash_fwd_kernel`` and
+    ``flash_bwd_dkv_kernel`` must hold wgmma (``HGMMA``) and TMA load
+    (``UTMALDG``) instructions.  Raises if the tool is missing or an
+    instruction is absent; returns the counts per kernel."""
+    tool = os.path.join(os.path.dirname(_kernel_build.nvcc_path()),
+                        "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+    if tool is None:
+        raise AssertionError("cuobjdump not found: the flash SASS check "
+                             "cannot run")
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = {}
+        elif fn is not None:
+            for ins in ("HGMMA", "UTMALDG", "UTMASTG"):
+                if ins in line:
+                    counts[fn][ins] = counts[fn].get(ins, 0) + 1
+    out = {}
+    for kern, need in FLASH_SASS.items():
+        found = [c for f, c in counts.items() if kern in f]
+        if len(found) != len(fa_ops.HEAD_DIMS) or \
+                not all(c.get(ins) for c in found for ins in need):
+            raise AssertionError(f"{kern}: {len(found)} instantiations, "
+                                 f"SASS counts {found}; each needs {need}")
+        out[kern] = {ins: [c.get(ins, 0) for c in found]
+                     for ins in ("HGMMA", "UTMALDG", "UTMASTG")}
+    return out
+
+
+def host_us(fn, calls: int = 200, reps: int = 9) -> float:
+    """Host µs of one call of ``fn`` (a kernel wrapper: checks, tensor
+    maps, launch): ``calls`` calls in a row without a synchronize, the card
+    running behind; the least of ``reps`` runs (the host's cores are shared,
+    and other work only ever adds time)."""
+    for _ in range(5):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e6 / calls)
+    torch.cuda.synchronize()
+    return float(min(times))
+
+
+def flash_inputs():
+    """q, k, v and dO at the LM's main-path shape, bf16, laid out as the
+    model hands them (transposed views of [B, T, H, hd])."""
     b, t = LM_BATCH, LM_CFG["seq_len"]
     h = LM_CFG["n_head"]
     d = LM_CFG["d_model"] // h
@@ -603,7 +672,41 @@ def flash_phase():
         return torch.randn(b, t, h, d, generator=g, device="cuda").to(
             torch.bfloat16).transpose(1, 2)
 
-    q, k, v, do = mk(), mk(), mk(), mk()
+    return mk(), mk(), mk(), mk()
+
+
+def flash_calls(q, k, v, do, lse, di) -> dict:
+    return {"flash_fwd_cuda": lambda: fa_ops.flash_fwd_cuda(q, k, v),
+            "flash_bwd_dkv_cuda": lambda: fa_ops.flash_bwd_dkv_cuda(
+                q, k, v, do, lse, di),
+            "flash_bwd_dq_cuda": lambda: fa_ops.flash_bwd_dq_cuda(
+                q, k, v, do, lse, di)}
+
+
+def flash_times_main() -> int:
+    """``python3 chip_smoke.py --flash-times``: the flash kernels' device ms
+    and host µs per wrapper call at the flash phase's shape, nothing else
+    (for setting two trees' kernels side by side in one call)."""
+    card = card_line()
+    _kernel_build.build(["flash_attention"])
+    q, k, v, do = flash_inputs()
+    o, lse = fa_ops.flash_fwd_cuda(q, k, v)
+    di = fa_ops.attention_di(o, do)
+    out = {name: {"ms": time_ms(fn), "host_us": host_us(fn)}
+           for name, fn in flash_calls(q, k, v, do, lse, di).items()}
+    print(json.dumps({"flash_times": out, "card": card}))
+    return 0
+
+
+def flash_phase(lib_path: str):
+    """B10–B12 at the LM's main-path shape, bf16, causal, on q, k, v and dO
+    laid out as the model hands them (transposed views of [B, T, H, hd]):
+    the SASS check of B10 and B11; each kernel against its plain version
+    within FLASH_TOL; times, host µs per wrapper call, bounds, and the
+    library yardsticks."""
+    sass = flash_sass_check(lib_path)
+    q, k, v, do = flash_inputs()
+    b, h, t, d = q.shape
     zero_launches()
     o, lse = fa_ops.flash_fwd_cuda(q, k, v)
     di = fa_ops.attention_di(o, do)
@@ -640,22 +743,21 @@ def flash_phase():
     bwd_plain_ms = time_ms(plain_bwd, reps=5, inner=2, warmup=1)
     lib_bwd_ms = time_ms(lib_bwd)
     sizes = flash_bytes_flops(b, h, t, d)
-    rows = {
-        "flash_fwd_cuda": (lambda: fa_ops.flash_fwd_cuda(q, k, v),
-                           time_ms(lambda: fa_ops.flash_fwd_plain(q, k, v),
+    plain_lib = {
+        "flash_fwd_cuda": (time_ms(lambda: fa_ops.flash_fwd_plain(q, k, v),
                                    reps=5, inner=2, warmup=1),
                            time_ms(lib_fwd)),
-        "flash_bwd_dkv_cuda": (lambda: fa_ops.flash_bwd_dkv_cuda(
-            q, k, v, do, lse, di), bwd_plain_ms, lib_bwd_ms),
-        "flash_bwd_dq_cuda": (lambda: fa_ops.flash_bwd_dq_cuda(
-            q, k, v, do, lse, di), bwd_plain_ms, lib_bwd_ms),
+        "flash_bwd_dkv_cuda": (bwd_plain_ms, lib_bwd_ms),
+        "flash_bwd_dq_cuda": (bwd_plain_ms, lib_bwd_ms),
     }
     out = {"shape": [b, h, t, d], "checked_launches": checked,
-           "lse_max_abs_err": lse_err,
+           "lse_max_abs_err": lse_err, "sass": sass,
            "di_ms": time_ms(lambda: fa_ops.attention_di(o, do))}
-    for name, (kern, plain_ms, lib_ms) in rows.items():
+    for name, kern in flash_calls(q, k, v, do, lse, di).items():
+        plain_ms, lib_ms = plain_lib[name]
         out[name] = {"max_abs_err": err[name], "ms": time_ms(kern),
-                     "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "host_us": host_us(kern), "plain_ms": plain_ms,
+                     "library_ms": lib_ms,
                      **bound(*sizes[name], BF16_FLOPS_PER_S)}
     del q, k, v, do, o, lse, di, dk, dv, dq, ql, kl, vl, lib_out
     torch.cuda.empty_cache()
@@ -1011,6 +1113,7 @@ def kernel_entries(lrn, comp, topk, fpack, flash, alex, vggs, lm) -> list:
         elif label.startswith("flash_"):
             e.update(launches=lm["launches"][name],
                      launches_from="LM main path", shape=flash["shape"],
+                     host_us=flash[name]["host_us"],
                      **{k: flash[name][k] for k in TIMED})
         elif label.startswith("topk_"):
             e.update(launches=vggs["topk"]["launches"][name],
@@ -1119,13 +1222,22 @@ def main() -> int:
             raise AssertionError(f"the {strategy} exchange made the host "
                                  f"wait: {prof['after']}")
 
-    flash = flash_phase()
+    flash = flash_phase(libs["flash_attention"])
+    print("flash SASS (per head dim 32, 64, 128): " + "; ".join(
+        f"{k} " + ", ".join(f"{i} {n}" for i, n in c.items())
+        for k, c in flash["sass"].items()), flush=True)
     print("flash attention %s bf16 causal: " % flash["shape"] + ", ".join(
         f"{k[:-5]} {flash[k]['ms']:.4f} ms (bound {flash[k]['bound_ms']:.4f}, "
         f"plain {flash[k]['plain_ms']:.3f}, SDPA {flash[k]['library_ms']:.4f}, "
         f"max |diff| {flash[k]['max_abs_err']:.3e})" for k in
         ("flash_fwd_cuda", "flash_bwd_dkv_cuda", "flash_bwd_dq_cuda"))
         + f"; di {flash['di_ms']:.4f} ms", flush=True)
+    print("flash redesigned vs WMMA: " + ", ".join(
+        f"{k[:-5]} {flash[k]['ms']:.4f} ms (WMMA {r['ms']:.4f}), host "
+        f"{flash[k]['host_us']:.1f} us a call (WMMA {r['host_us']} us)"
+        for k, r in WMMA_FLASH.items())
+        + f"; flash_bwd_dq host {flash['flash_bwd_dq_cuda']['host_us']:.1f} us",
+        flush=True)
     lm_check = lm_check_phase()
     print(f"LM bf16 vs float32, batch {LM_CHECK_BATCH}: loss flash "
           f"{lm_check['loss_flash']:.6f}, reference "
@@ -1173,4 +1285,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(flash_times_main() if sys.argv[1:] == ["--flash-times"]
+             else main())

@@ -151,21 +151,11 @@ def card():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape,causal,strided", [
-    ((2, 2, 256, 64), True, False),
-    ((1, 2, 128, 32), True, False),
-    ((1, 2, 256, 128), True, False),
-    ((4, 8, 512, 64), True, True),     # q, k, v as the model hands them
-    ((2, 2, 256, 64), False, True),
-])
-def test_kernels_match_plain_on_card(card, shape, causal, strided):
-    """B10–B12 against the plain versions on the card (skips without one).
-    rtol/atol 2^-7 (of max|plain|): both sides round their f32 sums to bf16
-    once, summed in another order, and round p and dS to bf16 at the same
-    points — one or two bf16 ulps."""
+def _card_inputs(shape, strided, seed=0):
+    """q, k, v, dO on the card: contiguous, or as the model hands them
+    (transposed views of [B, T, H, hd])."""
     b, h, t, d = shape
-    g = torch.Generator(device="cuda").manual_seed(0)
+    g = torch.Generator(device="cuda").manual_seed(seed)
 
     def mk():
         if strided:
@@ -174,7 +164,27 @@ def test_kernels_match_plain_on_card(card, shape, causal, strided):
         return torch.randn(shape, generator=g, device="cuda").to(
             torch.bfloat16)
 
-    q, k, v, do = mk(), mk(), mk(), mk()
+    return mk(), mk(), mk(), mk()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal,strided", [
+    ((2, 2, 256, 64), True, False),
+    ((1, 2, 128, 32), True, False),
+    ((1, 2, 256, 128), True, False),
+    ((4, 8, 512, 64), True, True),     # q, k, v as the model hands them
+    ((2, 2, 256, 64), False, True),
+    ((2, 2, 192, 64), True, True),     # T a multiple of 64, not of 128
+    ((1, 3, 320, 32), False, True),
+    ((2, 2, 256, 128), False, True),   # hd 128, non-causal, strided
+    ((1, 4, 640, 64), True, True),     # B·H·T/64 = 40 CTAs < 132 SMs
+])
+def test_kernels_match_plain_on_card(card, shape, causal, strided):
+    """B10–B12 against the plain versions on the card (skips without one).
+    rtol/atol 2^-7 (of max|plain|): both sides round their f32 sums to bf16
+    once, summed in another order, and round p and dS to bf16 at the same
+    points — one or two bf16 ulps."""
+    q, k, v, do = _card_inputs(shape, strided)
     o, lse = F.flash_fwd_cuda(q, k, v, causal)
     di = F.attention_di(o, do)
     dk, dv = F.flash_bwd_dkv_cuda(q, k, v, do, lse, di, causal)
@@ -194,3 +204,27 @@ def test_kernels_match_plain_on_card(card, shape, causal, strided):
                                rtol=1e-5, atol=1e-5)
     if strided:
         assert o.stride() == q.stride()      # o comes back laid out like q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal", [
+    ((4, 8, 512, 64), True),
+    ((2, 2, 256, 128), False),
+])
+def test_kernels_are_deterministic_on_card(card, shape, causal):
+    """B10 and B11 sum each output tile in one CTA in a fixed order, with no
+    atomics: two runs on the same inputs give bit-identical o, lse, dk and
+    dv."""
+    q, k, v, do = _card_inputs(shape, strided=True)
+    o, lse = F.flash_fwd_cuda(q, k, v, causal)
+    di = F.attention_di(o, do)
+    dk, dv = F.flash_bwd_dkv_cuda(q, k, v, do, lse, di, causal)
+    o2, lse2 = F.flash_fwd_cuda(q, k, v, causal)
+    dk2, dv2 = F.flash_bwd_dkv_cuda(q, k, v, do, lse, di, causal)
+    torch.cuda.synchronize()
+    for name, a, b in (("o", o, o2), ("lse", lse, lse2), ("dk", dk, dk2),
+                       ("dv", dv, dv2)):
+        assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
+                           else a.view(torch.int32),
+                           b.view(torch.int16) if b.dtype == torch.bfloat16
+                           else b.view(torch.int32)), name

@@ -2,6 +2,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --flash-times   # the flash kernels' times alone
+    python3 chip_smoke.py --topk-times    # B7's time alone
+    python3 chip_smoke.py --flash-times --topk-times
 
 1. Fails (exit 2, no result) without CUDA; prints the card's name and power
    limit as ``nvidia-smi`` reports them.
@@ -35,11 +37,14 @@
    of B4+B5+B6 and of the flatten copy, and checks that one exchange reads
    nothing back to the host (CUDA sync debug mode).
 10. Topk (B7/B8): at VGG-16's padded shape, c2 [16890, 8192] with k = 82
-    (all-zero rows, planted ties, ±0.0), holds the encode and the decode
+    (all-zero rows, planted ties, ±0.0, and the radix select's stress rows:
+    |c| sharing their top 16 bits, more than k ties at the threshold after
+    the larger entries, subnormals, ±inf), holds the encode and the decode
     (1, 4 and 8 workers) against their plain versions bit for bit; times
     each beside its plain version, its byte bound and a library yardstick
     (``torch.topk`` for the selection alone; one accumulating
-    ``index_put_`` for the scatter alone).
+    ``index_put_`` for the scatter alone); prints B7 beside its first,
+    argmax-pass version.
 11. Factor pack (B9): at each of VGG-16's 16 compressible weight shapes,
     both products of a PowerSGD step (``Aᵀ q`` and ``A p``, rank 2)
     against the plain version within the float32 dot-product bound, pad
@@ -52,7 +57,7 @@
     exchange must make the host wait on nothing; PowerSGD's waits (its
     ``torch.linalg.qr`` might read back) are counted and printed.
 13. Flash attention (B10–B12): checks with ``cuobjdump -sass`` that every
-    build of B10 and B11 holds wgmma (``HGMMA``) and TMA loads
+    build of B10, B11 and B12 holds wgmma (``HGMMA``) and TMA loads
     (``UTMALDG``); at the LM's shape [16, 8, 512, 64] bf16, causal, on q,
     k, v and dO laid out as the model hands them (views of [B, T, H, hd]),
     holds the forward and both backward kernels against their plain
@@ -60,8 +65,8 @@
     library yardstick (``F.scaled_dot_product_attention(...,
     is_causal=True)`` for B10, its autograd backward, dQ, dK and dV in one,
     for B11 and B12; timed here only, the port never calls it), and the
-    host µs of each wrapper call; prints B10 and B11 beside their first,
-    WMMA versions.
+    host µs of each wrapper call; prints B10–B12 beside their first, WMMA
+    versions, and B11 + B12 beside SDPA's backward.
 14. The LM at full width (d512, 8 heads, 8 layers, T512, vocab 32768) at
     batch 2 on the card: loss and gradients of ``attn_impl='flash'``
     (kernels, bf16) and ``'reference'`` (torch attention, bf16) from the
@@ -167,17 +172,31 @@ FLASH_TOL = (2.0 ** -7, 2.0 ** -7)          # (rtol, atol / max|plain|)
 # H100 the bf16 losses are 1.1e-5 (flash) and 3.7e-6 (reference) from it)
 LM_LOSS_RTOL = 1e-4
 LM_GRAD_RATIO = 2.0
-# B10 and B11 before their Hopper redesign (the first, nvcuda::wmma
-# kernels), at the flash phase's shape: device ms from this script's flash
-# phase on that tree, and host µs per wrapper call, the least of two
+# B10–B12 before their Hopper redesign (the first, nvcuda::wmma kernels),
+# at the flash phase's shape: device ms from this script's flash phase on
+# that tree; host µs per wrapper call, for B10 and B11 the least of two
 # `chip_smoke.py --flash-times` runs on it (host times of one call spread
-# by ±15 µs), both on an NVIDIA H100 80GB HBM3 at 700 W
+# by ±15 µs), for B12 this script's flash phase; all on an NVIDIA H100
+# 80GB HBM3 at 700 W
 WMMA_FLASH = {"flash_fwd_cuda": {"ms": 0.0978, "host_us": 43.4},
-             "flash_bwd_dkv_cuda": {"ms": 0.1372, "host_us": 52.6}}
-# instructions the redesigned B10 and B11 must hold in every instantiation:
+             "flash_bwd_dkv_cuda": {"ms": 0.1372, "host_us": 52.6},
+             "flash_bwd_dq_cuda": {"ms": 0.1091, "host_us": 60.9}}
+# B7 before its radix select (k block-wide argmax passes a row), at the
+# topk phase's shape: device ms from this script's topk phase on that tree,
+# on the same card and limit
+ARGMAX_TOPK = {"topk_encode_cuda": {"ms": 3.8553}}
+# instructions the redesigned B10–B12 must hold in every instantiation:
 # wgmma and TMA loads
 FLASH_SASS = {"flash_fwd_kernel": ("HGMMA", "UTMALDG"),
-              "flash_bwd_dkv_kernel": ("HGMMA", "UTMALDG")}
+              "flash_bwd_dkv_kernel": ("HGMMA", "UTMALDG"),
+              "flash_bwd_dq_kernel": ("HGMMA", "UTMALDG")}
+# what each redesigned kernel is now, for the kernels line
+DESIGN = {"topk_encode": "radix select on the bits of |c|, lowest offsets on "
+                         "the threshold's ties, slots by rank count (k <= "
+                         "256) or bitonic sort",
+          "flash_fwd": "TMA ring, wgmma, softmax in registers, pipelined",
+          "flash_bwd_dkv": "TMA ring, wgmma, p and dS in registers",
+          "flash_bwd_dq": "TMA ring, wgmma, dS in registers"}
 
 ALL_KERNELS = ((lrn_ops.lrn_fwd_cuda, lrn_ops.lrn_bwd_cuda) + cmp_ops.KERNELS
                + fp_ops.KERNELS + fa_ops.KERNELS)
@@ -226,12 +245,20 @@ def check_close(name, got, want, rtol, atol_frac):
 
 
 def check_bits(name, got, want) -> float:
-    """Bit for bit (float tensors compared as their int32 bit patterns)."""
+    """Bit for bit (float tensors compared as their int32 bit patterns),
+    except that a NaN may carry another payload where both sides hold a
+    NaN (inf − inf in a residual, a sum of ±inf)."""
     g = got.view(torch.int32) if got.is_floating_point() else got
     w = want.view(torch.int32) if want.is_floating_point() else want
-    if g.shape != w.shape or not torch.equal(g, w):
+    if g.shape != w.shape:
+        raise AssertionError(f"{name}: shapes {tuple(g.shape)} and "
+                             f"{tuple(w.shape)}")
+    same = g == w
+    if got.is_floating_point():
+        same |= torch.isnan(got) & torch.isnan(want)
+    if not bool(same.all()):
         raise AssertionError(f"{name}: kernel differs from the plain version "
-                             f"in {int((g != w).sum())} elements")
+                             f"in {int((~same).sum())} elements")
     return 0.0
 
 
@@ -422,12 +449,14 @@ def compress_phase():
     return out
 
 
-def topk_phase(n_true: int):
-    """B7/B8 at VGG-16's padded shape [16890, 8192], k = 82: bit for bit
-    against the plain versions (B8 at 1, 4 and 8 stacked workers, with the
-    /size mean), times, byte bounds, library yardsticks."""
+def topk_inputs(n_true: int) -> torch.Tensor:
+    """c2 [16890, 8192] of VGG-16's padded length, random with planted rows
+    every 997th row: all-zero rows (+0.0 and −0.0), equal magnitudes, pairs
+    of equal |c|, −0.0 inside a row; and the radix select's stress rows:
+    |c| sharing their top 16 bits, more than k entries equal to the
+    threshold after (at higher offsets than) the strictly larger ones,
+    subnormals (with zeros), and ±inf among normal values."""
     rows = -(-n_true // TOPK_CHUNK)
-    n, k = rows * TOPK_CHUNK, TOPK_K
     g = torch.Generator(device="cuda").manual_seed(2)
     c2 = torch.randn(rows, TOPK_CHUNK, generator=g, device="cuda")
     c2.view(-1)[n_true:] = 0.0              # the pad, as the wire has it
@@ -437,6 +466,35 @@ def topk_phase(n_true: int):
     c2[1::997, 2::8] = -0.5
     c2[2::997, ::2] = -c2[2::997, 1::2]     # pairs of equal |c|
     c2[3::997, 5::7] = -0.0                 # −0.0 inside a row
+
+    def bits(lo, hi, n):                    # random bits with random signs
+        b = torch.randint(lo, hi, (n, TOPK_CHUNK), generator=g,
+                          device="cuda", dtype=torch.int32)
+        neg = torch.rand(n, TOPK_CHUNK, generator=g, device="cuda") < 0.5
+        return torch.where(neg, b | torch.iinfo(torch.int32).min,
+                           b).view(torch.float32)
+
+    n = c2[4::997].shape[0]
+    c2[4::997] = bits(0x3f800000, 0x3f810000, n)    # one top 16 bits
+    ties = TOPK_K // 2
+    c2[5::997] = torch.randn(n, TOPK_CHUNK, generator=g, device="cuda") * 0.01
+    c2[5::997, :ties] = 10.0 + torch.arange(ties, device="cuda")
+    c2[5::997, ties::2] = bits(0x40a00000, 0x40a00001, n)[:, ties::2]   # ±5
+    c2[6::997] = bits(1, 1 << 23, n)                # subnormals
+    c2[6::997, ::9] = 0.0
+    c2[7::997, 3::TOPK_CHUNK // 3] = float("inf")
+    c2[7::997, 5::TOPK_CHUNK // 4] = float("-inf")
+    return c2
+
+
+def topk_phase(n_true: int):
+    """B7/B8 at VGG-16's padded shape [16890, 8192], k = 82, on
+    :func:`topk_inputs`: bit for bit against the plain versions (B8 at 1, 4
+    and 8 stacked workers, with the /size mean), times, byte bounds,
+    library yardsticks."""
+    c2 = topk_inputs(n_true)
+    rows = c2.shape[0]
+    n, k = rows * TOPK_CHUNK, TOPK_K
     zero_launches()
     kv, ki, ks = cmp_ops.topk_encode_cuda(c2, k)
     torch.cuda.synchronize()
@@ -456,10 +514,14 @@ def topk_phase(n_true: int):
         # distinct), decoded into their mean (÷ w; no division at w = 1)
         av = torch.stack([kv.roll(i, 0) for i in range(w)])
         ai = torch.stack([ki.roll(i, 0) for i in range(w)])
+        # against the plain decode on the CPU: on the card its index_add_
+        # adds with float atomics, which flush subnormal values to zero
+        # (the subnormal stress rows send some); B8 keeps them, as the jnp
+        # oracle does
         got = cmp_ops.topk_decode_cuda(av, ai, TOPK_CHUNK, w)
-        want = cmp_ops.topk_decode_plain(av, ai, TOPK_CHUNK, w)
+        want = cmp_ops.topk_decode_plain(av.cpu(), ai.cpu(), TOPK_CHUNK, w)
         torch.cuda.synchronize()
-        e = check_bits(f"B8 W={w}", got, want)
+        e = check_bits(f"B8 W={w}", got.cpu(), want)
         del got, want
         gidx = (ai.long() + base).reshape(-1)
         fv = av.float().reshape(-1)
@@ -683,18 +745,48 @@ def flash_calls(q, k, v, do, lse, di) -> dict:
                 q, k, v, do, lse, di)}
 
 
-def flash_times_main() -> int:
-    """``python3 chip_smoke.py --flash-times``: the flash kernels' device ms
-    and host µs per wrapper call at the flash phase's shape, nothing else
-    (for setting two trees' kernels side by side in one call)."""
+def times_main(flags) -> int:
+    """``python3 chip_smoke.py --flash-times`` and/or ``--topk-times``: the
+    flash kernels' device ms and host µs per wrapper call at the flash
+    phase's shape, and B7's device ms at the topk phase's on three kinds of
+    rows, each first checked bit for bit against the plain version;
+    nothing else (for setting two trees' kernels side by side in one
+    call)."""
     card = card_line()
-    _kernel_build.build(["flash_attention"])
-    q, k, v, do = flash_inputs()
-    o, lse = fa_ops.flash_fwd_cuda(q, k, v)
-    di = fa_ops.attention_di(o, do)
-    out = {name: {"ms": time_ms(fn), "host_us": host_us(fn)}
-           for name, fn in flash_calls(q, k, v, do, lse, di).items()}
-    print(json.dumps({"flash_times": out, "card": card}))
+    out = {"card": card}
+    if "--flash-times" in flags:
+        _kernel_build.build(["flash_attention"])
+        q, k, v, do = flash_inputs()
+        o, lse = fa_ops.flash_fwd_cuda(q, k, v)
+        di = fa_ops.attention_di(o, do)
+        out["flash_times"] = {
+            name: {"ms": time_ms(fn), "host_us": host_us(fn)}
+            for name, fn in flash_calls(q, k, v, do, lse, di).items()}
+        del q, k, v, do, o, lse, di
+    if "--topk-times" in flags:
+        _kernel_build.build(["compress"])
+        c2 = topk_inputs(vgg16_sizes()[0])
+        # beside the topk phase's rows, two that crowd the select's
+        # histogram: all zero (one bin), and |c| sharing their top 16 bits
+        top16 = torch.randint(0x3f800000, 0x3f810000, c2.shape,
+                              generator=torch.Generator(
+                                  device="cuda").manual_seed(3),
+                              device="cuda", dtype=torch.int32)
+        by_rows = {}
+        for kind, x in (("planted", c2), ("zero", torch.zeros_like(c2)),
+                        ("top16", top16.view(torch.float32))):
+            kv, ki, ks = cmp_ops.topk_encode_cuda(x, TOPK_K)
+            pv, pi, ps = cmp_ops.topk_encode_plain(x, TOPK_K)
+            check_bits(f"B7 {kind} values", kv.view(torch.int16),
+                       pv.view(torch.int16))
+            check_bits(f"B7 {kind} offsets", ki, pi)
+            check_bits(f"B7 {kind} state", ks, ps)
+            del kv, ki, ks, pv, pi, ps
+            by_rows[kind] = time_ms(lambda: cmp_ops.topk_encode_cuda(
+                x, TOPK_K))
+        out["topk_times"] = {"topk_encode_cuda": {
+            "ms": by_rows.pop("planted"), "by_rows": by_rows}}
+    print(json.dumps(out))
     return 0
 
 
@@ -1091,6 +1183,8 @@ def kernel_entries(lrn, comp, topk, fpack, flash, alex, vggs, lm) -> list:
         name = fn.__name__
         e = {"name": label, "route": "cuda", "source": source,
              "replaces": replaces, "library": LIBRARY.get(label)}
+        if label in DESIGN:
+            e["design"] = DESIGN[label]
         if label.startswith("lrn_"):
             kind = label[4:]
             timed = [r for r in lrn[kind] if "ms" in r]
@@ -1166,8 +1260,11 @@ def main() -> int:
           f"{topk['topk_encode_cuda']['library_ms']:.3f}); decode by W: "
           + ", ".join(f"{d['workers']}: {d['ms']:.4f} ms (bound "
                       f"{d['bound_ms']:.4f}, index_put_ "
-                      f"{d['library_ms']:.4f})" for d in topk["decode"]),
-          flush=True)
+                      f"{d['library_ms']:.4f})" for d in topk["decode"])
+          + "; B7 radix select %.4f ms (the argmax passes, an earlier tree's "
+            "run: %.4f ms)" % (
+              topk["topk_encode_cuda"]["ms"],
+              ARGMAX_TOPK["topk_encode_cuda"]["ms"]), flush=True)
     fpack = factor_pack_phase()
     st = fpack["per_step"]
     print(f"factor pack, one PowerSGD step (32 products): {st['ms']:.4f} ms "
@@ -1232,12 +1329,13 @@ def main() -> int:
         f"max |diff| {flash[k]['max_abs_err']:.3e})" for k in
         ("flash_fwd_cuda", "flash_bwd_dkv_cuda", "flash_bwd_dq_cuda"))
         + f"; di {flash['di_ms']:.4f} ms", flush=True)
-    print("flash redesigned vs WMMA: " + ", ".join(
+    print("flash redesigned vs WMMA (an earlier tree's run): " + ", ".join(
         f"{k[:-5]} {flash[k]['ms']:.4f} ms (WMMA {r['ms']:.4f}), host "
         f"{flash[k]['host_us']:.1f} us a call (WMMA {r['host_us']} us)"
         for k, r in WMMA_FLASH.items())
-        + f"; flash_bwd_dq host {flash['flash_bwd_dq_cuda']['host_us']:.1f} us",
-        flush=True)
+        + "; B11 + B12 %.4f ms, SDPA backward %.4f ms" % (
+            flash["flash_bwd_dkv_cuda"]["ms"] + flash["flash_bwd_dq_cuda"]["ms"],
+            flash["flash_bwd_dq_cuda"]["library_ms"]), flush=True)
     lm_check = lm_check_phase()
     print(f"LM bf16 vs float32, batch {LM_CHECK_BATCH}: loss flash "
           f"{lm_check['loss_flash']:.6f}, reference "
@@ -1285,5 +1383,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(flash_times_main() if sys.argv[1:] == ["--flash-times"]
-             else main())
+    _flags = set(sys.argv[1:])
+    if not _flags <= {"--flash-times", "--topk-times"}:
+        sys.exit(f"chip_smoke: unknown arguments {sorted(_flags)}")
+    sys.exit(times_main(_flags) if _flags else main())

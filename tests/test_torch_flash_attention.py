@@ -212,18 +212,20 @@ def test_kernels_match_plain_on_card(card, shape, causal, strided):
     ((2, 2, 256, 128), False),
 ])
 def test_kernels_are_deterministic_on_card(card, shape, causal):
-    """B10 and B11 sum each output tile in one CTA in a fixed order, with no
-    atomics: two runs on the same inputs give bit-identical o, lse, dk and
-    dv."""
+    """B10, B11 and B12 sum each output tile in one CTA in a fixed order,
+    with no atomics: two runs on the same inputs give bit-identical o, lse,
+    dk, dv and dq."""
     q, k, v, do = _card_inputs(shape, strided=True)
     o, lse = F.flash_fwd_cuda(q, k, v, causal)
     di = F.attention_di(o, do)
     dk, dv = F.flash_bwd_dkv_cuda(q, k, v, do, lse, di, causal)
+    dq = F.flash_bwd_dq_cuda(q, k, v, do, lse, di, causal)
     o2, lse2 = F.flash_fwd_cuda(q, k, v, causal)
     dk2, dv2 = F.flash_bwd_dkv_cuda(q, k, v, do, lse, di, causal)
+    dq2 = F.flash_bwd_dq_cuda(q, k, v, do, lse, di, causal)
     torch.cuda.synchronize()
     for name, a, b in (("o", o, o2), ("lse", lse, lse2), ("dk", dk, dk2),
-                       ("dv", dv, dv2)):
+                       ("dv", dv, dv2), ("dq", dq, dq2)):
         assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
                            else a.view(torch.int32),
                            b.view(torch.int16) if b.dtype == torch.bfloat16

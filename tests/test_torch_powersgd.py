@@ -177,7 +177,7 @@ def test_world_one_exchange_is_the_algorithm(cpu_group):
         leaf = TH.get_leaf(jtree, p)
         e = port_st[p]["e"].numpy()
         st_j[p] = {"q": port_st[p]["q"].numpy(), "e": (
-            TH.to_jax_layout(torch.from_numpy(e)).reshape(
+            TH.to_jax_layout(torch.from_numpy(e), p).reshape(
                 -1, leaf.shape[-1]).numpy() if e.size else e)}
     want, (want_e,) = _reference([jtree], [st_j], 2)
     dense_before = ttree["fc"]["b"]
@@ -185,11 +185,11 @@ def test_world_one_exchange_is_the_algorithm(cpu_group):
     assert mean["fc"]["b"] is dense_before                   # in place
     for p in jpaths:
         np.testing.assert_allclose(
-            TH.to_jax_layout(TH.get_leaf(mean, p)).numpy(), want[p],
+            TH.to_jax_layout(TH.get_leaf(mean, p), p).numpy(), want[p],
             rtol=1e-4, atol=1e-5, err_msg=str(p))
     for p, s in zip(TH.leaf_paths(ttree), new):
         if p in want_e:
-            e = TH.to_jax_layout(s["e"]).reshape(want_e[p].shape).numpy()
+            e = TH.to_jax_layout(s["e"], p).reshape(want_e[p].shape).numpy()
             np.testing.assert_allclose(e, want_e[p], rtol=1e-4, atol=1e-5)
 
 
@@ -279,7 +279,8 @@ def test_powersgd_two_gloo_ranks_match_the_float64_composition(tmp_path):
     grads_j, states_j = [], []
     for r in ranks:
         g = TH.unflatten_like(like, torch.from_numpy(r["flat"]))
-        grads_j.append(TH.tree_map(lambda t: TH.to_jax_layout(t).numpy(), g))
+        grads_j.append({k: {n: TH.to_jax_layout(t, (k, n)).numpy()
+                            for n, t in d.items()} for k, d in g.items()})
         states_j.append({p: {"q": init[p]["q"].numpy(), "e": 0.0}
                          for p in paths})
     want, want_e = _reference(grads_j, states_j, 1)
@@ -288,11 +289,11 @@ def test_powersgd_two_gloo_ranks_match_the_float64_composition(tmp_path):
         mean = TH.unflatten_like(like, torch.from_numpy(r["mean"]))
         for p in paths:
             np.testing.assert_allclose(
-                TH.to_jax_layout(TH.get_leaf(mean, p)).numpy(), want[p],
+                TH.to_jax_layout(TH.get_leaf(mean, p), p).numpy(), want[p],
                 rtol=1e-4, atol=1e-5, err_msg=str(p))
         for p, s in zip(paths, _rank_states(r, len(paths))):
             if p in we:
-                e = TH.to_jax_layout(torch.from_numpy(s["e"])).reshape(
+                e = TH.to_jax_layout(torch.from_numpy(s["e"]), p).reshape(
                     we[p].shape).numpy()
                 np.testing.assert_allclose(e, we[p], rtol=1e-4, atol=1e-5)
 

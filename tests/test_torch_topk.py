@@ -13,7 +13,8 @@
 * topk over two gloo processes: each rank's mean against the oracles'
   composition of both ranks' inputs, and two ranks training with
   bit-identical parameters and different error states;
-* on the card (``cuda`` marker), B7 and B8 against the plain versions.
+* on the card (``cuda`` marker), B7 and B8 against the plain versions,
+  B7 also on the radix select's stress rows and on NaN.
 """
 
 import os
@@ -308,14 +309,54 @@ def test_topk_bsp_two_gloo_ranks_stay_identical(tmp_path):
     assert not np.allclose(r0["conv2/w"], init["conv2"]["w"])  # it trained
 
 
+def _stress_rows(chunk, k, seed):
+    """The radix select's hard rows: |c| that all share their top 16 bits;
+    more than k entries equal to the threshold, after (at higher offsets
+    than) the strictly larger ones; subnormals (and zeros); ±inf among
+    normal values."""
+    r = np.random.RandomState(seed)
+    sign = np.where(r.rand(4, chunk) < 0.5, -1.0, 1.0).astype(np.float32)
+    c = np.empty((4, chunk), np.float32)
+    c[0] = (np.uint32(0x3f800000) | r.randint(0, 1 << 16, chunk).astype(
+        np.uint32)).view(np.float32) * sign[0]
+    g = min(k // 2, chunk // 4)
+    c[1] = r.randn(chunk).astype(np.float32) * 0.01
+    c[1, :g] = 10.0 + np.arange(g)
+    c[1, g::2] = 5.0 * sign[1, g::2]             # ≥ 1.5 k ties above the rest
+    c[2] = r.randint(1, 1 << 23, chunk).astype(np.uint32).view(
+        np.float32) * sign[2]
+    c[2, ::9] = 0.0
+    c[3] = r.randn(chunk).astype(np.float32)
+    c[3, 3::chunk // 3] = np.inf
+    c[3, 5::chunk // 4] = -np.inf
+    return c
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit, except that a NaN may carry another payload where both
+    sides hold a NaN."""
+    ai = a.view(torch.int16 if a.element_size() == 2 else torch.int32)
+    bi = b.view(torch.int16 if b.element_size() == 2 else torch.int32)
+    both_nan = torch.isnan(a.float()) & torch.isnan(b.float())
+    return bool(((ai == bi) | both_nan).all())
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,chunk,k", [(64, 8192, 82), (3, 32768, 328),
-                                          (16, 256, 256), (40, 1000, 1)])
+@pytest.mark.parametrize("rows,chunk,k", [
+    (64, 8192, 82), (3, 32768, 328), (16, 256, 256), (40, 1000, 1),
+    (9, 8192, 1), (9, 1000, 300), (9, 1001, 7), (9, 4096, 4096),
+    (9, 32768, 32768)])
 def test_topk_kernels_match_plain_on_card(rows, chunk, k):
     """B7 equal to the plain encode bit for bit (value bits, offsets, new
-    state), with an all-zero row, planted ties and ±0.0; B8 equal to the
-    plain decode bit for bit at 1, 4 and 8 workers and with the /size
-    fold.  Chunk 32768 takes shared memory past 48 KB."""
+    state), with an all-zero row, planted ties and ±0.0, and, where there
+    are rows enough, the stress rows of ``_stress_rows`` (the state's NaN,
+    inf − inf at an infinite winner, may differ in payload); B8 equal to
+    the plain decode bit for bit at 1, 4 and 8 workers and with the /size
+    fold, the plain decode run on the CPU: on the card its ``index_add_``
+    adds with float atomics, which flush subnormal values to zero (the
+    stress rows send subnormals), where B8 and the jnp oracle keep them.  k = 1, k = chunk, k above 256 (the bitonic slot sort), chunk not
+    a multiple of 4 or of the block width; chunk 32768 takes shared memory
+    past 48 KB."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     r = np.random.RandomState(chunk)
@@ -324,17 +365,40 @@ def test_topk_kernels_match_plain_on_card(rows, chunk, k):
     c[0, 1::3] = -0.0
     c[1, ::4] = c[1, 0]
     c[-1, 7::11] = -c[-1, 7]
+    if rows >= 8:
+        c[2:6] = _stress_rows(chunk, k, chunk + 1)
     c2 = torch.from_numpy(c).cuda()
     kv, ki, ks = T.topk_encode_cuda(c2, k)
     pv, pi, ps = T.topk_encode_plain(c2, k)
     assert torch.equal(kv.view(torch.int16), pv.view(torch.int16))
     assert torch.equal(ki, pi)
-    assert torch.equal(ks.view(torch.int32), ps.view(torch.int32))
+    assert _same_bits(ks, ps)
     for w in (1, 4, 8):
         av = torch.stack([torch.roll(kv, i, 0) for i in range(w)])
         ai = torch.stack([torch.roll(ki, i, 0) for i in range(w)])
         for size in (1, w):
             got = T.topk_decode_cuda(av, ai, chunk, size)
-            want = T.topk_decode_plain(av, ai, chunk, size)
-            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-    assert torch.equal(T.topk_encode(c2, k)[2], ks)      # the public route
+            want = T.topk_decode_plain(av.cpu(), ai.cpu(), chunk, size)
+            assert _same_bits(got.cpu(), want)
+    assert _same_bits(T.topk_encode(c2, k)[2], ks)      # the public route
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 82, 300])
+def test_topk_encode_ranks_nan_first_on_card(k):
+    """NaN ranks above +inf and NaNs tie (the lower offset first), as in
+    the plain version's stable sort: the same offsets; values and state
+    equal but for NaN payloads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    c = np.random.RandomState(k).randn(4, 8192).astype(np.float32)
+    c[0, 100::1000] = np.nan
+    c[0, 7] = np.inf
+    c[1, ::2] = np.nan                                # more NaN than k
+    c[2, 5] = -np.nan
+    c2 = torch.from_numpy(c).cuda()
+    kv, ki, ks = T.topk_encode_cuda(c2, k)
+    pv, pi, ps = T.topk_encode_plain(c2, k)
+    assert torch.equal(ki, pi)
+    assert _same_bits(kv, pv) and _same_bits(ks, ps)
+    assert ki[1].tolist() == list(range(0, 2 * k, 2))

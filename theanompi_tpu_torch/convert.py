@@ -21,10 +21,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from .utils.helper_funcs import get_leaf, jax_leaf_paths, leaf_paths
-
-# layers whose 2-D weight is an embedding table, [vocab, dim] in both
-EMBEDDING_LAYERS = ("embed", "pos")
+from .utils.helper_funcs import (get_leaf, is_embedding_table,
+                                 jax_leaf_paths, leaf_paths)
 
 
 def _to_port(a, path) -> np.ndarray:
@@ -32,8 +30,7 @@ def _to_port(a, path) -> np.ndarray:
     a = np.asarray(a, dtype=np.float32)
     if a.ndim == 4:
         return np.ascontiguousarray(a.transpose(3, 2, 0, 1))
-    if a.ndim == 2 and not (len(path) >= 2 and
-                            path[-2] in EMBEDDING_LAYERS):
+    if a.ndim == 2 and not is_embedding_table(path):
         return np.ascontiguousarray(a.T)
     return a.copy()
 
@@ -83,9 +80,11 @@ def powersgd_state_from_jax(jstate, jax_params, like) -> list:
     """The JAX package's PowerSGD state (a list of ``{"q", "e"}`` in its
     sorted leaf order; ``e`` is the leaf's ``[rows, cols]`` matrix) → the
     port's (the same list in the port's leaf order, ``e`` in the port
-    leaf's shape).  ``q`` is ``[cols, rank]`` in both and is kept as it is;
-    ``e`` is reshaped to the JAX leaf's shape and converted like a
-    parameter.  Incompressible leaves keep their empty state."""
+    leaf's shape).  ``q`` is ``[cols of M, rank]`` in both packages, for
+    every leaf, and is kept as it is: the port multiplies it with its leaf
+    as M itself (an embedding table) or as Mᵀ (every other matrix); ``e``
+    is reshaped to the JAX leaf's shape and converted like a parameter.
+    Incompressible leaves keep their empty state."""
     _check_same_leaves("powersgd_state_from_jax", jax_params, like)
     paths = jax_leaf_paths(jax_params)
     if len(jstate) != len(paths):

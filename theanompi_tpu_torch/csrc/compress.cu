@@ -49,7 +49,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -153,26 +152,53 @@ unpack_wsum_kernel(const uint32_t* __restrict__ packed,
 // (chunk <= 32768, so offsets fit int16); each row ships its k largest |c|
 // as bf16 values and int16 offsets.
 //
-// B7, encode.  Oracle topk_encode_jnp: slots in descending |c|, the lower
-// offset first on ties (lax.top_k), values rounded to bf16 to nearest
-// even, and the state is c with v - float(bf16(v)) written at each
-// selected offset.  One block of 256 threads per row; the row sits in
-// shared memory (chunk floats) with one "taken" bit per element.  Thread t
-// owns the elements t, t + 256, ... and keeps in registers the best
-// (|c|, offset) among its untaken ones.  Each of the k passes is one
-// block-wide argmax over those 256 candidates (warp shuffles, then the 8
-// warp winners through shared memory, double-buffered so one barrier per
-// pass suffices); the winner's owner alone writes the slot, the residual
-// and the taken bit, and rescans its own elements.  A taken element never
-// competes again, whatever its residual (an all-zero row would otherwise
-// pick offset 0 k times).  Comparisons on (|c| desc, offset asc) equal the
-// stable descending sort of the plain version.
+// B7, encode: a radix select.  Oracle topk_encode_jnp: slots in descending
+// |c|, the lower offset first on ties (lax.top_k), values rounded to bf16 to
+// nearest even, and the state is c with v - float(bf16(v)) written at each
+// selected offset.  One block of 256 threads per row.  The row is read from
+// device memory once, into shared memory (one spare word after every 32, so
+// that thread t, which owns the contiguous offsets t E .. t E + E - 1 with
+// E = ceil(chunk / 256), reads them without bank conflicts), and written
+// back once, as the new state.  In between:
+//   * The key of an element is the bits of |c| (bits(c) & 0x7fffffff),
+//     which order like |c|: +0.0 and -0.0 both give 0, and every NaN is
+//     given one key above +inf, so NaN ranks first and NaNs tie, as in the
+//     plain version's stable descending sort.
+//   * Radix select over the 31 key bits in digits of 11, 11 and 9 bits from
+//     the top: a pass counts the digits of the elements whose higher digits
+//     equal the threshold's so far into a shared histogram, then a suffix
+//     scan finds the digit that holds the k-th largest key.  Each
+//     candidate adds one shared-memory atomic, even where a warp's lanes
+//     hit one bin: at VGG-16's [16890, 8192], k = 82 on an H100 (700 W)
+//     `chip_smoke.py --topk-times` read 0.593 ms on the topk phase's rows,
+//     0.728 on all-zero rows and 0.701 on rows whose |c| share their top 16
+//     bits, where aggregating a warp's equal bins through __match_any_sync
+//     read 0.949, 0.974 and 1.202 (the first digit holds the exponent and 3
+//     mantissa bits, so a gradient row spreads over tens of bins).  The
+//     times here compare copies of this file that differ only in the path
+//     named, run in one call, each twice.  The passes stop early once
+//     every element left in that digit is selected.  This gives a key prefix P and the count `need` of
+//     elements with prefix P to take (the others above P are all taken).
+//   * Tie-break: an ordered prefix count over the threads (one block scan)
+//     takes, of the elements with prefix P, the `need` lowest offsets.  So
+//     the k winners are known, and compacted into a list in offset order.
+//   * Slots: the list is ordered by (key desc, offset asc): for k <= 256
+//     each winner counts the winners ahead of it (its slot) from a copy of
+//     their keys, for larger k a bitonic sort of the list in shared memory
+//     (the bitonic sort alone read 0.743 ms on the topk phase's rows at
+//     k = 82, against 0.593 with the rank count).
+//   * The values and offsets are written once; the residual
+//     __fsub_rn(x, bf16(x)) goes into the shared row at the winners, and
+//     the row is stored as the new state.
+//
+// The row moves as float4 where chunk % 4 == 0 and both row pointers are
+// 16-byte aligned (the main path's case), else word by word (which alone
+// read 0.608 ms there, against 0.593).
 //
 // Bound: the row is read once and the state written once (8 bytes per
-// element); the k passes add k block reductions per row, latency that the
-// other resident blocks of the SM hide in part.  This simple design
-// serializes the passes within a row; a radix select on the float bits is
-// the faster design a later change can take.
+// element), plus 4 bytes a slot; the select does a few shared-memory passes
+// over the row, and other blocks resident on the SM cover one block's
+// passes with their loads.
 //
 // B8, decode.  Oracle topk_decode_jnp: dense[r·chunk + off] += val over
 // workers in order, then / size when size != 1.  One block per row: the
@@ -186,85 +212,206 @@ unpack_wsum_kernel(const uint32_t* __restrict__ packed,
 
 constexpr int kTopkThreads = 256;
 constexpr int kTopkWarps = kTopkThreads / 32;
+constexpr int kSelBins = 2048;                   // the widest digit: 11 bits
+constexpr int kRankSortMax = kTopkThreads;       // k up to this: rank counting
+constexpr uint16_t kNoSlot = 0xffff;             // bitonic padding
 
-// (va, ia) before (vb, ib): larger magnitude, then lower offset
-__device__ __forceinline__ bool ahead(float va, int ia, float vb, int ib) {
-  return va > vb || (va == vb && ia < ib);
+// |c|'s bits as an unsigned key that orders like |c|; every NaN one key
+// above +inf
+__device__ __forceinline__ uint32_t mag_key(float x) {
+  const uint32_t a = __float_as_uint(x) & 0x7fffffffu;
+  return a > 0x7f800000u ? 0x7fc00000u : a;
 }
 
-// best untaken (|row[j]|, j) over the elements j = t, t + 256, ...
-__device__ __forceinline__ void rescan(const float* row, const uint32_t* taken,
-                                       int chunk, int t, float& bv, int& bi) {
-  bv = -1.f;                     // below every |c|: some element stays untaken
-  bi = INT_MAX;
-  for (int j = t; j < chunk; j += kTopkThreads) {
-    if ((taken[j >> 5] >> (j & 31)) & 1u) continue;
-    const float a = fabsf(row[j]);
-    if (a > bv) {                // strict: the lowest offset among equals
-      bv = a;
-      bi = j;
-    }
+// shared-memory position of row offset j (a spare word after every 32),
+// and back
+__device__ __forceinline__ int row_pos(int j) { return j + (j >> 5); }
+__device__ __forceinline__ int row_offset(int p) { return p - p / 33; }
+
+// Exclusive prefix sum of v over the block's threads in thread order.
+// Every thread calls it; `scratch` holds kTopkWarps words.
+__device__ __forceinline__ uint32_t block_exclusive_sum(uint32_t v,
+                                                        uint32_t* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
   }
+  if (lane == 31) scratch[warp] = x;
+  __syncthreads();
+  uint32_t before = 0;
+#pragma unroll
+  for (int w = 0; w < kTopkWarps; ++w) before += w < warp ? scratch[w] : 0u;
+  __syncthreads();                 // scratch is free for the next call
+  return before + x - v;
 }
 
+// Slot order of two winners at shared positions a and b (kNoSlot last):
+// the larger key first, then the lower offset (positions order like
+// offsets).
+__device__ __forceinline__ bool slot_before(const float* row, uint32_t a,
+                                            uint32_t b) {
+  if (b == kNoSlot) return a != kNoSlot;
+  if (a == kNoSlot) return false;
+  const uint32_t ka = mag_key(row[a]), kb = mag_key(row[b]);
+  return ka > kb || (ka == kb && a < b);
+}
+
+// c2 [rows, chunk] -> vals, idx [rows, k], state [rows, chunk].  Dynamic
+// shared memory: the padded row (row_pos(chunk - 1) + 1 floats), the
+// histogram (kSelBins words), the winners' positions (list_len uint16).
 __global__ void __launch_bounds__(kTopkThreads)
 topk_encode_kernel(const float* __restrict__ c2, __nv_bfloat16* __restrict__ vals,
                    int16_t* __restrict__ idx, float* __restrict__ state,
-                   int chunk, int k) {
+                   int chunk, int k, int list_len, int vec4) {
   extern __shared__ float smem[];
-  float* row = smem;                                         // [chunk]
-  uint32_t* taken = reinterpret_cast<uint32_t*>(smem + chunk);  // [chunk/32]
-  __shared__ float wv[2][kTopkWarps];
-  __shared__ int wi[2][kTopkWarps];
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int row_len = row_pos(chunk - 1) + 1;
+  float* row = smem;
+  uint32_t* hist = reinterpret_cast<uint32_t*>(smem + row_len);
+  uint16_t* list = reinterpret_cast<uint16_t*>(hist + kSelBins);
+  __shared__ uint32_t scratch[kTopkWarps];
+  __shared__ uint32_t found[2];                  // the digit, the count above it
+  const int t = threadIdx.x;
   const size_t base = static_cast<size_t>(blockIdx.x) * chunk;
   const size_t slot0 = static_cast<size_t>(blockIdx.x) * k;
-  for (int j = t; j < chunk; j += kTopkThreads) row[j] = c2[base + j];
-  for (int j = t; j < (chunk + 31) / 32; j += kTopkThreads) taken[j] = 0u;
-  __syncthreads();
-  float bv;
-  int bi;
-  rescan(row, taken, chunk, t, bv, bi);
-  for (int s = 0; s < k; ++s) {
-    float v = bv;
-    int i = bi;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, v, o);
-      const int oi = __shfl_xor_sync(0xffffffffu, i, o);
-      if (ahead(ov, oi, v, i)) {
-        v = ov;
-        i = oi;
-      }
+
+  if (vec4) {                                    // chunk % 4 == 0, aligned
+    const float4* src = reinterpret_cast<const float4*>(c2 + base);
+#pragma unroll 4
+    for (int v = t; v < chunk / 4; v += kTopkThreads) {
+      const float4 x = src[v];
+      float* d = row + row_pos(4 * v);           // 4 v .. 4 v + 3: one group
+      d[0] = x.x;
+      d[1] = x.y;
+      d[2] = x.z;
+      d[3] = x.w;
     }
-    // buffer s & 1 is rewritten only at pass s + 2, after every thread
-    // passed pass s + 1's barrier, so it has read this pass's entries
-    const int b = s & 1;
-    if (lane == 0) {
-      wv[b][warp] = v;
-      wi[b][warp] = i;
+  } else {
+    for (int j = t; j < chunk; j += kTopkThreads) row[row_pos(j)] = c2[base + j];
+  }
+  __syncthreads();
+
+  const int per = (chunk + kTopkThreads - 1) / kTopkThreads;   // E
+  const int j0 = t * per, j1 = min(j0 + per, chunk);
+  uint32_t prefix = 0, mask = 0;                 // the threshold's digits so far
+  uint32_t need = k;                             // winners left among them
+#pragma unroll 1
+  for (int pass = 0; pass < 3; ++pass) {
+    const int shift = pass == 0 ? 20 : pass == 1 ? 9 : 0;
+    const int bins = pass == 2 ? 512 : kSelBins;
+    for (int i = t; i < bins; i += kTopkThreads) hist[i] = 0u;
+    __syncthreads();
+    for (int j = j0; j < j1; ++j) {
+      const uint32_t key = mag_key(row[row_pos(j)]);
+      if ((key & mask) == prefix)
+        atomicAdd(hist + ((key >> shift) & (bins - 1)), 1u);
     }
     __syncthreads();
-    v = wv[b][0];
-    i = wi[b][0];
-#pragma unroll
-    for (int w = 1; w < kTopkWarps; ++w)
-      if (ahead(wv[b][w], wi[b][w], v, i)) {
-        v = wv[b][w];
-        i = wi[b][w];
+    // thread u scans bins [bins - (u+1) w, bins - u w), w = bins / 256: the
+    // block's exclusive sum gives the count above them
+    const int w = bins / kTopkThreads, hi = bins - t * w;
+    uint32_t mine = 0;
+    for (int b = hi - w; b < hi; ++b) mine += hist[b];
+    uint32_t above = block_exclusive_sum(mine, scratch);
+    if (above < need && need <= above + mine) {  // exactly one thread
+      for (int b = hi - 1;; --b) {
+        if (above + hist[b] >= need) {
+          found[0] = b;
+          found[1] = above;
+          break;
+        }
+        above += hist[b];
       }
-    if ((i & (kTopkThreads - 1)) == t) {       // this thread owns the winner
-      const float x = row[i];
+    }
+    __syncthreads();
+    const uint32_t digit = found[0];
+    need -= found[1];
+    prefix |= digit << shift;
+    mask |= static_cast<uint32_t>(bins - 1) << shift;
+    const bool done = hist[digit] == need;       // all of the digit is taken
+    __syncthreads();                             // found and hist are reused
+    if (done) break;
+  }
+
+  // winners: every key whose masked prefix is above P, and of those equal to
+  // P the `need` lowest offsets; their positions into the list, in offset
+  // order
+  uint32_t n_gt = 0, n_eq = 0;
+  for (int j = j0; j < j1; ++j) {
+    const uint32_t m = mag_key(row[row_pos(j)]) & mask;
+    n_gt += m > prefix;
+    n_eq += m == prefix;
+  }
+  const uint32_t ex = block_exclusive_sum((n_gt << 16) | n_eq, scratch);
+  const uint32_t eq_before = ex & 0xffffu;
+  uint32_t pos = (ex >> 16) + min(eq_before, need);
+  uint32_t eq_seen = eq_before;
+  for (int j = j0; j < j1; ++j) {
+    const uint32_t m = mag_key(row[row_pos(j)]) & mask;
+    if (m > prefix || (m == prefix && eq_seen++ < need))
+      list[pos++] = static_cast<uint16_t>(row_pos(j));
+  }
+  for (int i = k + t; i < list_len; i += kTopkThreads) list[i] = kNoSlot;
+  __syncthreads();
+
+  if (k <= kRankSortMax) {
+    // each winner's slot: the winners ahead of it (the list is in offset
+    // order, so a tie is ahead when it comes earlier in the list); their
+    // keys go into the histogram's words, free now
+    uint32_t* keys = hist;
+    if (t < k) keys[t] = mag_key(row[list[t]]);
+    __syncthreads();
+    if (t < k) {
+      const uint32_t p = list[t], kt = keys[t];
+      uint32_t slot = 0;
+      for (int u = 0; u < k; ++u) {
+        const uint32_t ku = keys[u];
+        slot += ku > kt || (ku == kt && u < t);
+      }
+      const float x = row[p];
+      const __nv_bfloat16 h = __float2bfloat16_rn(x);
+      vals[slot0 + slot] = h;
+      idx[slot0 + slot] = static_cast<int16_t>(row_offset(p));
+      row[p] = __fsub_rn(x, __bfloat162float(h));
+    }
+  } else {
+    // bitonic sort of the list (list_len a power of two) into slot order
+    for (int size = 2; size <= list_len; size <<= 1) {
+      for (int stride = size >> 1; stride > 0; stride >>= 1) {
+        for (int i = t; i < list_len / 2; i += kTopkThreads) {
+          const int lo = 2 * i - (i & (stride - 1)), hi = lo + stride;
+          const uint32_t a = list[lo], b = list[hi];
+          if ((lo & size) == 0 ? slot_before(row, b, a) : slot_before(row, a, b)) {
+            list[lo] = b;
+            list[hi] = a;
+          }
+        }
+        __syncthreads();
+      }
+    }
+    for (int s = t; s < k; s += kTopkThreads) {
+      const uint32_t p = list[s];
+      const float x = row[p];
       const __nv_bfloat16 h = __float2bfloat16_rn(x);
       vals[slot0 + s] = h;
-      idx[slot0 + s] = static_cast<int16_t>(i);
-      row[i] = __fsub_rn(x, __bfloat162float(h));
-      taken[i >> 5] |= 1u << (i & 31);
-      rescan(row, taken, chunk, t, bv, bi);
+      idx[slot0 + s] = static_cast<int16_t>(row_offset(p));
+      row[p] = __fsub_rn(x, __bfloat162float(h));
     }
   }
   __syncthreads();
-  for (int j = t; j < chunk; j += kTopkThreads) state[base + j] = row[j];
+
+  if (vec4) {
+    float4* dst = reinterpret_cast<float4*>(state + base);
+#pragma unroll 4
+    for (int v = t; v < chunk / 4; v += kTopkThreads) {
+      const float* s = row + row_pos(4 * v);
+      dst[v] = make_float4(s[0], s[1], s[2], s[3]);
+    }
+  } else {
+    for (int j = t; j < chunk; j += kTopkThreads) state[base + j] = row[row_pos(j)];
+  }
 }
 
 __global__ void __launch_bounds__(kTopkThreads)
@@ -350,11 +497,23 @@ int unpack_signs_wsum(const uint32_t* packed, const float* scales, float* out,
 int topk_encode(const float* c2, __nv_bfloat16* vals, int16_t* idx,
                 float* state, long long rows, int chunk, int k,
                 cudaStream_t stream) {
-  const size_t smem = (static_cast<size_t>(chunk) + (chunk + 31) / 32) * 4;
+  // the winners' list: k entries, or k rounded up to a power of two for the
+  // bitonic sort
+  int list_len = k;
+  if (k > kRankSortMax) {
+    list_len = 1;
+    while (list_len < k) list_len <<= 1;
+  }
+  const size_t smem = static_cast<size_t>(chunk + (chunk - 1) / 32 + 1) * 4 +
+                      kSelBins * 4 + static_cast<size_t>(list_len) * 2;
+  const int vec4 = chunk % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(c2) |
+                     reinterpret_cast<uintptr_t>(state)) & 15) == 0;
   if (const int rc = allow_smem(topk_encode_kernel, smem)) return rc;
   if (rows > 0)
     topk_encode_kernel<<<static_cast<unsigned>(rows), kTopkThreads, smem,
-                         stream>>>(c2, vals, idx, state, chunk, k);
+                         stream>>>(c2, vals, idx, state, chunk, k, list_len,
+                                   vec4);
   return finish();
 }
 

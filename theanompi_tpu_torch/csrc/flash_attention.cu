@@ -37,54 +37,57 @@
 // its tensor cores on copies or on a shared-memory softmax lands far above
 // both.
 //
-// B10 and B11: Hopper design.  One CTA of 160 threads per (b*h, 64-row
-// output tile): warps 0-3 are one consumer warpgroup that owns the tile's 64
-// rows (wgmma's M), warp 4 is the producer, one lane of which issues every
-// copy.  64 rows and 64-key (or 64-query) tiles, because:
+// Hopper design, all three kernels.  One CTA of 160 threads per (b*h,
+// 64-row output tile): warps 0-3 are one consumer warpgroup that owns the
+// tile's 64 rows (wgmma's M), warp 4 is the producer, one lane of which
+// issues every copy.  64 rows and 64-key (or 64-query) tiles, because:
 //   * one consumer warpgroup needs no cross-warpgroup ordering, no
 //     setmaxnreg and no per-warpgroup causal skips; a 160-thread CTA may use
 //     255 registers a thread, and B11 keeps two f32 sums (ptxas: B11 168
-//     registers at hd 64, 227 at hd 128; B10 110 and 150; no spills);
-//   * a CTA takes 26-113 KB of shared memory; at hd 64, 3 (B10) or 2 (B11,
-//     by registers) CTAs share an SM, and one CTA's softmax overlaps
-//     another's products; at the LM's shape the grid is 1,024 CTAs on 132
-//     SMs;
+//     registers at hd 64, 227 at hd 128; B10 110 and 150; B12 122 and 154;
+//     no spills);
+//   * a CTA takes 26-133 KB of shared memory; at hd 64, 3 (B10, B12) or 2
+//     (B11, by registers) CTAs share an SM, and one CTA's elementwise pass
+//     overlaps another's products; at the LM's shape the grid is 1,024 CTAs
+//     on 132 SMs;
 //   * with T a multiple of 64 no tile is ragged, and the causal diagonal is
 //     exactly one tile.
-// Copies: the resident tile (B10 q; B11 k and v) is loaded once by TMA; the
-// streamed tiles (B10 k, v; B11 q, dO, and their lse and di rows by bulk
-// copy) come through a ring in shared memory (B10 3 stages, B11 2) with a
+// Copies: the resident tiles (B10 q; B11 k and v; B12 q and dO, and their
+// lse and di rows by bulk copy) are loaded once by TMA; the streamed tiles
+// (B10 and B12 k, v; B11 q, dO, and their lse and di rows by bulk copy)
+// come through a ring in shared memory (B10 and B12 3 stages, B11 2) with a
 // full/empty mbarrier pair per stage, so the next tiles' copies run under
 // the current tile's products.  The tensor maps are 4-D (hd, T, H, B) over
 // each view's own byte strides, with 128-byte swizzle (hd 64 and 128; hd 128
 // is two 64-column boxes) or 64-byte swizzle (hd 32), the layouts wgmma
 // reads without bank conflicts.  Tensor cores: every product is
 // wgmma.mma_async m64nNk16.  The score products (B10 s = q k^T; B11
-// s^T = k q^T and dP^T = v dO^T) take both operands from shared memory,
-// K-major.  The softmax runs on the f32 accumulator registers: a thread
-// holds parts of two rows, so a row max or sum is two quad shuffles; the
-// causal mask is added on the diagonal tile only, from each element's known
-// (row, column); tiles above the diagonal are skipped.  B10 rescales its o
-// accumulator in registers by exp(m_old - m_new).  p (B10) or p^T and dS^T
-// (B11) are rounded to bf16 in registers and fed straight back as wgmma's
-// register A operand (the m64nN f32 accumulator layout is the k16 A-fragment
-// layout, pairwise), against v, dO or q from shared memory as an MN-major B
-// operand: no score, p or dS ever goes through shared memory.  B10 is
-// software-pipelined: s_j = q k_j^T and o += p_{j-1} v_{j-1} are issued
-// together, and the softmax of s_j runs while the second product is on the
-// tensor cores.  B11 is not pipelined: holding the next tile's s^T and dP^T
-// beside p^T, dS^T, dK and dV takes more registers than a thread has at
-// hd 128 (it spills), and splitting a tile's products over more waits ran
-// slower on an H100, so it issues its four products in two batches per
-// tile.  Epilogue: the f32 sums are converted to bf16 into the (now free)
-// resident tile's swizzled shared memory and written by one TMA store
-// through the output's strides; B10's lse is written per row.  B10 starts
-// the longest rows first.
-//
-// B12 keeps the first, WMMA design for now: one block of 4 warps per
-// (64-row tile, b*h), each warp owning 16 rows; tiles copied through
-// registers into padded shared memory; nvcuda::wmma m16n16k16 products;
-// scores through a shared f32 scratch.
+// s^T = k q^T and dP^T = v dO^T; B12 s = q k^T and dP = dO v^T) take both
+// operands from shared memory, K-major.  The softmax (B10) or the p and dS
+// pass (B11, B12) runs on the f32 accumulator registers: a thread holds
+// parts of two rows, so a row max or sum is two quad shuffles; the causal
+// mask is added on the diagonal tile only, from each element's known (row,
+// column); tiles above the diagonal are skipped.  B10 rescales its o
+// accumulator in registers by exp(m_old - m_new).  p (B10), p^T and dS^T
+// (B11) or dS (B12) are rounded to bf16 in registers and fed straight back
+// as wgmma's register A operand (the m64nN f32 accumulator layout is the
+// k16 A-fragment layout, pairwise), against v, dO, q or k from shared
+// memory as an MN-major B operand: no score, p or dS ever goes through
+// shared memory.  B10 is software-pipelined: s_j = q k_j^T and
+// o += p_{j-1} v_{j-1} are issued together, and the softmax of s_j runs
+// while the second product is on the tensor cores.  B11 and B12 are not.
+// B11: holding the next tile's s^T and dP^T beside p^T, dS^T, dK and dV
+// takes more registers than a thread has at hd 128 (it spills), and
+// splitting a tile's products over more waits ran slower on an H100, so it
+// issues its four products in two batches per tile.  B12: B10's pipeline
+// (s_j and dP_j issued with dQ += dS_{j-1} k_{j-1}, the dS pass under the
+// second) fits (ptxas: 177 registers at hd 128, no spills) but was no
+// faster on an H100 (700 W) at the LM's shape: chip_smoke.py read 0.0282
+// ms for it and 0.0278-0.0282 across runs for the serial loop, a tie, so
+// B12 keeps the simpler two batches a tile (s and dP, then dS k).  Epilogue: the f32 sums are converted to
+// bf16 into the (now free) resident tile's swizzled shared memory and
+// written by one TMA store through the output's strides; B10's lse is
+// written per row.  B10 and B12 start the longest rows first.
 //
 // Inputs may be strided views (the model hands q, k, v as the transpose of a
 // [B, T, H, D] product): each tensor comes with its B, H and T strides in
@@ -99,18 +102,13 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 constexpr int kTile = 64;                  // rows of a q or k/v tile
-constexpr int kWarps = 4;                  // a warp owns 16 rows of the tile
-constexpr int kThreads = 32 * kWarps;
-constexpr int kPad = 8;                    // bf16 row padding (16 bytes)
 constexpr float kMask = -0.7f * 3.402823466e38f;   // DEFAULT_MASK_VALUE
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -119,13 +117,14 @@ struct Strided {                           // element strides of [B, H, T, D]
 };
 
 // ---------------------------------------------------------------------------
-// Hopper primitives (B10, B11): mbarriers, TMA, wgmma
+// Hopper primitives: mbarriers, TMA, wgmma
 // ---------------------------------------------------------------------------
 
 // depth of the streamed-tile rings: B10's pipelined loop holds two stages
-// while a third is loading
+// while a third is loading; B12 takes B10's ring
 constexpr int kFwdStages = 3;
 constexpr int kBwdStages = 2;
+constexpr int kDqStages = 3;
 constexpr int kHopperThreads = 160;        // consumer warpgroup + producer warp
 constexpr int kConsumers = 128;
 
@@ -711,195 +710,150 @@ __global__ void __launch_bounds__(kHopperThreads)
   store_tile<D>(dv, 1.f, 1.f, smem + L::kTileBytes, &map_dv, kj * kTile, h, b);
 }
 
-// ---------------------------------------------------------------------------
-// B12 (nvcuda::wmma): padded tiles, f32 score scratch
-// ---------------------------------------------------------------------------
-
 template <int D>
-struct Cfg {
-  static constexpr int kQLd = D + kPad;                      // bf16 tile rows
-  static constexpr int kPLd = kTile + kPad;                  // bf16 64-wide rows
-  static constexpr int kSLd = (D > kTile ? D : kTile) + 4;   // f32 scratch rows
-  static constexpr size_t kTileBytes = sizeof(bf16) * kTile * kQLd;
-  static constexpr size_t kPBytes = sizeof(bf16) * kTile * kPLd;
-  static constexpr size_t kSBytes = sizeof(float) * kTile * kSLd;
-};
+constexpr size_t bwd_dq_smem() {
+  // q (then dQ), dO, kDqStages x (k, v), the lse and di rows, the q/dO
+  // barrier and a full/empty pair a stage
+  return 1024 + Lay<D>::kTileBytes * (2 + 2 * kDqStages) +
+         2 * kTile * sizeof(float) + 8 * (1 + 2 * kDqStages);
+}
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBRow =
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBCol =
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// 64 rows x D of src (rows st elements apart) into dst (rows kQLd apart),
-// 16 bytes a thread, all threads of the block.
+// B12's s = q k^T and dP = dO v^T of the key tile at kt (k, then v): both
+// operands K-major along hd.
 template <int D>
-__device__ __forceinline__ void load_tile(const bf16* __restrict__ src,
-                                          long long st, bf16* dst) {
-  constexpr int kChunks = D / 8;
-  for (int c = threadIdx.x; c < kTile * kChunks; c += kThreads) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    *reinterpret_cast<uint4*>(dst + r * Cfg<D>::kQLd + col) =
-        *reinterpret_cast<const uint4*>(src + r * st + col);
+__device__ __forceinline__ void dq_scores(float (&sc)[32], float (&dp)[32],
+                                          uint32_t sq, uint32_t sdo,
+                                          uint32_t kt) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_n64(sc, desc_kmajor<D>(sq, kk), desc_kmajor<D>(kt, kk), kk);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_n64(dp, desc_kmajor<D>(sdo, kk),
+                 desc_kmajor<D>(kt + Lay<D>::kTileBytes, kk), kk);
+}
+
+// B12's elementwise pass on the accumulators (the thread's rows r0 and
+// r0 + 8, with their lse and di; keys 8 jb + cq + {0, 1} of n8 block jb):
+// p = exp(s scale + mask - lse), the mask on the diagonal tile only, and
+// dS = p (dP - di) scale, left in dp.
+__device__ __forceinline__ void dq_ds(const float (&sc)[32], float (&dp)[32],
+                                      const float (&ls)[2],
+                                      const float (&ds)[2], float scale,
+                                      bool diag, int r0, int cq) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {               // i = 4 jb + 2 half + e
+    const int half = (i >> 1) & 1;
+    float x = sc[i] * scale;
+    if (diag && 8 * (i >> 2) + cq + (i & 1) > r0 + 8 * half) x += kMask;
+    const float p = __expf(x - ls[half]);
+    dp[i] = p * (dp[i] - ds[half]) * scale;
   }
 }
 
-// 64 floats of a [B, H, T] row-stat tensor into shared memory.
-__device__ __forceinline__ void load_stat(const float* __restrict__ src,
-                                          float* dst) {
-  if (threadIdx.x < kTile) dst[threadIdx.x] = src[threadIdx.x];
+// dQ += dS k: dS (bf16 pairs) from registers, the k tile at kt as the
+// MN-major B operand; B10's p v with k for v.
+template <int D>
+__device__ __forceinline__ void dq_product(float (&dq)[D / 2],
+                                           const uint32_t (&da)[16],
+                                           uint32_t kt) {
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk)
+    wgmma_rs<D>(dq, da + 4 * kk, desc_mnmajor<D>(kt, kk));
 }
 
-// The warp's 16 x D f32 rows of src (rows kSLd apart) to bf16 rows of dst
-// (rows st elements apart), 8 values (16 bytes) a lane.
+// B12: dQ of the 64 query rows of tile qi of head (b, h).
 template <int D>
-__device__ __forceinline__ void store_rows(const float* src, bf16* dst,
-                                           long long st, int lane) {
-  constexpr int kChunks = D / 8;
-  for (int c = lane; c < 16 * kChunks; c += 32) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    const float* s = src + r * Cfg<D>::kSLd + col;
-    uint4 out;
-    __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&out);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o2[i] = __floats2bfloat162_rn(s[2 * i], s[2 * i + 1]);
-    *reinterpret_cast<uint4*>(dst + r * st + col) = out;
-  }
-}
-
-// acc (16 x D, D/16 fragments) into the warp's f32 scratch rows, then to
-// global bf16 rows.
-template <int D>
-__device__ __forceinline__ void write_acc(FragC* acc, float* sw, bf16* dst,
-                                          long long st, int lane) {
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n)
-    wmma::store_matrix_sync(sw + n * 16, acc[n], Cfg<D>::kSLd,
-                            wmma::mem_row_major);
-  __syncwarp();
-  store_rows<D>(sw, dst, st, lane);
-}
-
-// out (16 x 64, f32 scratch rows of the warp) = A_w B^T, where A_w is the
-// warp's 16 rows of tile a and B is the 64 rows of tile b, both [., D] bf16.
-template <int D>
-__device__ __forceinline__ void rows_times_tile_t(const bf16* a_rows,
-                                                  const bf16* b, float* out) {
-#pragma unroll
-  for (int n = 0; n < kTile / 16; ++n) {
-    FragC s;
-    wmma::fill_fragment(s, 0.f);
-#pragma unroll
-    for (int d = 0; d < D; d += 16) {
-      FragA fa;
-      FragBCol fb;
-      wmma::load_matrix_sync(fa, a_rows + d, Cfg<D>::kQLd);
-      wmma::load_matrix_sync(fb, b + n * 16 * Cfg<D>::kQLd + d, Cfg<D>::kQLd);
-      wmma::mma_sync(s, fa, fb, s);
-    }
-    wmma::store_matrix_sync(out + n * 16, s, Cfg<D>::kSLd, wmma::mem_row_major);
-  }
-}
-
-// acc[n] += P_w (16 x 64 bf16, rows kPLd apart) x tile[:, 16n:16n+16].
-template <int D>
-__device__ __forceinline__ void accumulate_rows_tile(FragC* acc,
-                                                     const bf16* p_rows,
-                                                     const bf16* tile) {
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-#pragma unroll
-    for (int kk = 0; kk < kTile; kk += 16) {
-      FragA fa;
-      FragBRow fb;
-      wmma::load_matrix_sync(fa, p_rows + kk, Cfg<D>::kPLd);
-      wmma::load_matrix_sync(fb, tile + kk * Cfg<D>::kQLd + n * 16,
-                             Cfg<D>::kQLd);
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
-  }
-}
-
-template <int D>
-size_t bwd_dq_smem() {
-  using C = Cfg<D>;
-  return 4 * C::kTileBytes + C::kPBytes + 2 * C::kSBytes +
-         2 * sizeof(float) * kTile;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const bf16* __restrict__ dout,
+__global__ void __launch_bounds__(kHopperThreads)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        const __grid_constant__ CUtensorMap map_do,
+                        const __grid_constant__ CUtensorMap map_dq,
                         const float* __restrict__ lse,
-                        const float* __restrict__ di, bf16* __restrict__ dq,
-                        Strided sq, Strided sk, Strided sv, Strided sdo,
-                        Strided sdq, int H, int T, float scale, int causal) {
-  using C = Cfg<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* dos = reinterpret_cast<bf16*>(smem + C::kTileBytes);
-  bf16* ks = reinterpret_cast<bf16*>(smem + 2 * C::kTileBytes);
-  bf16* vs = reinterpret_cast<bf16*>(smem + 3 * C::kTileBytes);
-  unsigned char* rest = smem + 4 * C::kTileBytes;
-  bf16* dss = reinterpret_cast<bf16*>(rest);                 // dS, bf16
-  float* ss = reinterpret_cast<float*>(rest + C::kPBytes);
-  float* dps = reinterpret_cast<float*>(rest + C::kPBytes + C::kSBytes);
-  float* ls = reinterpret_cast<float*>(rest + C::kPBytes + 2 * C::kSBytes);
-  float* dis = ls + kTile;
+                        const float* __restrict__ di, int H, int T,
+                        float scale, int causal) {
+  using L = Lay<D>;
+  constexpr uint32_t kStatBytes = kTile * sizeof(float);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const uint32_t sq = smem_addr(smem);                      // q, then dQ
+  const uint32_t sdo = sq + L::kTileBytes;                  // dO
+  const uint32_t ring = sdo + L::kTileBytes;                // stage s: k, v
+  const uint32_t stats = ring + kDqStages * 2 * L::kTileBytes;   // lse, di
+  const uint32_t bars = stats + 2 * kStatBytes;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + kDqStages + s); };
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tid = threadIdx.x;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int nt = T / kTile;
   const int qi = nt - 1 - blockIdx.y;          // the longest rows start first
-  const int r0 = warp * 16;
-  float* sw = ss + r0 * C::kSLd;
-  float* dpw = dps + r0 * C::kSLd;
-  bf16* dsw = dss + r0 * C::kPLd;
-  const bf16* kb = k + b * sk.b + h * sk.h;
-  const bf16* vb = v + b * sv.b + h * sv.h;
-  const long long row_t = static_cast<long long>(qi) * kTile;
-  const long long stat0 = static_cast<long long>(bh) * T + row_t;
+  const int n_kv = causal ? qi + 1 : nt;       // key tiles above the diagonal skipped
+  if (tid == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
 
-  load_tile<D>(q + b * sq.b + h * sq.h + row_t * sq.t, sq.t, qs);
-  load_tile<D>(dout + b * sdo.b + h * sdo.h + row_t * sdo.t, sdo.t, dos);
-  load_stat(lse + stat0, ls);
-  load_stat(di + stat0, dis);
-  FragC acc[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-
-  const int kend = causal ? qi + 1 : nt;
-  for (int kj = 0; kj < kend; ++kj) {
-    __syncthreads();
-    load_tile<D>(kb + static_cast<long long>(kj) * kTile * sk.t, sk.t, ks);
-    load_tile<D>(vb + static_cast<long long>(kj) * kTile * sv.t, sv.t, vs);
-    __syncthreads();
-    // s = q k^T and dP = dO v^T for the warp's 16 queries x 64 keys
-    rows_times_tile_t<D>(qs + r0 * C::kQLd, ks, sw);
-    rows_times_tile_t<D>(dos + r0 * C::kQLd, vs, dpw);
-    __syncwarp();
-    const bool diag = causal && kj == qi;
-    for (int rr = 0; rr < 16; ++rr) {
-      const int row = r0 + rr;
-      const float l_row = ls[row], di_row = dis[row];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int c = lane + 32 * half;       // the key
-        float x = sw[rr * C::kSLd + c] * scale;
-        if (diag && c > row) x += kMask;
-        const float p = __expf(x - l_row);
-        dsw[rr * C::kPLd + c] =
-            __float2bfloat16(p * (dpw[rr * C::kSLd + c] - di_row) * scale);
+  if (tid >= kConsumers) {                     // the producer warp
+    if (tid == kConsumers) {
+      const long long row = static_cast<long long>(bh) * T + qi * kTile;
+      mbar_expect(bars, 2 * L::kTileBytes + 2 * kStatBytes);
+      tma_load_tile<D>(sq, &map_q, bars, qi * kTile, h, b);
+      tma_load_tile<D>(sdo, &map_do, bars, qi * kTile, h, b);
+      bulk_load(stats, lse + row, kStatBytes, bars);
+      bulk_load(stats + kStatBytes, di + row, kStatBytes, bars);
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % kDqStages;
+        if (j >= kDqStages) mbar_wait(empty(s), (j / kDqStages - 1) & 1);
+        const uint32_t kt = ring + s * 2 * L::kTileBytes;
+        mbar_expect(full(s), 2 * L::kTileBytes);
+        tma_load_tile<D>(kt, &map_k, full(s), j * kTile, h, b);
+        tma_load_tile<D>(kt + L::kTileBytes, &map_v, full(s), j * kTile, h, b);
       }
     }
-    __syncwarp();
-    accumulate_rows_tile<D>(acc, dsw, ks);     // dQ += dS k
+    return;
   }
-  write_acc<D>(acc, sw, dq + b * sdq.b + h * sdq.h + (row_t + r0) * sdq.t,
-               sdq.t, lane);
+
+  // consumer warpgroup: the thread's rows r0 and r0 + 8 of the tile; its
+  // keys of n8 block jb are 8 jb + cq + {0, 1}
+  const int lane = tid % 32;
+  const int r0 = 16 * (tid / 32) + lane / 4, cq = 2 * (lane % 4);
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  mbar_wait(bars, 0);
+  const float* st = reinterpret_cast<const float*>(smem + (stats - sq));
+  const float ls[2] = {st[r0], st[r0 + 8]};                   // the rows' lse
+  const float ds[2] = {st[kTile + r0], st[kTile + r0 + 8]};   // and di
+
+  auto kv = [&](int j) { return ring + (j % kDqStages) * 2 * L::kTileBytes; };
+  float sc[32], dp[32];                        // s = q k^T, dP = dO v^T
+  uint32_t da[16];                             // dS in bf16, wgmma's A
+  for (int j = 0; j < n_kv; ++j) {
+    mbar_wait(full(j % kDqStages), (j / kDqStages) & 1);
+    wgmma_fence();
+    dq_scores<D>(sc, dp, sq, sdo, kv(j));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    dq_ds(sc, dp, ls, ds, scale, causal && j == qi, r0, cq);
+    to_a_frags(dp, da);
+    fence_regs(dq);
+    wgmma_fence();
+    dq_product<D>(dq, da, kv(j));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    mbar_arrive(empty(j % kDqStages));
+  }
+  store_tile<D>(dq, 1.f, 1.f, smem, &map_dq, qi * kTile, h, b);
 }
 
 template <typename K>
@@ -1005,15 +959,21 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* di, void* dq, const long long* s,
               int B, int H, int T, float scale, int causal,
               cudaStream_t stream) {
-  const size_t smem = bwd_dq_smem<D>();
+  // the stat rows come in by bulk copy: 16-byte aligned
+  if ((reinterpret_cast<uintptr_t>(lse) | reinterpret_cast<uintptr_t>(di)) & 15)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  CUtensorMap mq, mk, mv, mdo, mdq;
+  if (int e = make_map<D>(&mq, q, strided(s, 0), B, H, T)) return e;
+  if (int e = make_map<D>(&mk, k, strided(s, 1), B, H, T)) return e;
+  if (int e = make_map<D>(&mv, v, strided(s, 2), B, H, T)) return e;
+  if (int e = make_map<D>(&mdo, dout, strided(s, 3), B, H, T)) return e;
+  if (int e = make_map<D>(&mdq, dq, strided(s, 4), B, H, T)) return e;
+  constexpr size_t smem = bwd_dq_smem<D>();
   if (int e = prepare(flash_bwd_dq_kernel<D>, smem)) return e;
   const dim3 grid(B * H, T / kTile);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(di),
-      static_cast<bf16*>(dq), strided(s, 0), strided(s, 1), strided(s, 2),
-      strided(s, 3), strided(s, 4), H, T, scale, causal);
+  flash_bwd_dq_kernel<D><<<grid, kHopperThreads, smem, stream>>>(
+      mq, mk, mv, mdo, mdq, static_cast<const float*>(lse),
+      static_cast<const float*>(di), H, T, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,9 +10,11 @@ the CNN zoo::
                modelclass='TransformerLM', attn_impl='flash', ...)
 
 ``attn_impl='flash'`` runs every attention through the hand-written kernels
-B10–B12 on the card (``ops/flash_attention.py``); ``'reference'`` through
-torch ops.  Tensor, pipeline and sequence parallelism, ``remat``, real token
-files (``data_dir``), ``generate`` and the MoE model are not ported yet and
+B10–B12 on the card (``ops/flash_attention.py``), which take bfloat16 only:
+on a CUDA device another compute dtype is refused when the model is built
+(:func:`check_flash_dtype`); ``'reference'`` runs through torch ops.
+Tensor, pipeline and sequence parallelism, ``remat``, real token files
+(``data_dir``), ``generate`` and the MoE model are not ported yet and
 raise.
 """
 
@@ -85,6 +87,18 @@ class Block(L.Layer):
         return x + self.fc2.apply(params["fc2"], h)
 
 
+def check_flash_dtype(attn_impl: str, compute_dtype: torch.dtype,
+                      device) -> None:
+    """Refuse ``attn_impl='flash'`` with a compute dtype other than
+    bfloat16 on a CUDA device: the flash kernels B10–B12 take bfloat16
+    only.  On the CPU the plain versions compute any dtype."""
+    if attn_impl == "flash" and torch.device(device).type == "cuda" and \
+            compute_dtype != torch.bfloat16:
+        raise ValueError(f"attn_impl='flash' on {device} needs "
+                         f"compute_dtype bfloat16: the flash kernels B10-B12 "
+                         f"take bfloat16 only; got {compute_dtype}")
+
+
 class TransformerLM(ModelBase):
     batch_size = 16
     epochs = 10
@@ -116,6 +130,7 @@ class TransformerLM(ModelBase):
             raise ValueError(f"attn_impl='flash' needs seq_len a multiple of "
                              f"the kernel's 128-wide blocks; got "
                              f"{self.seq_len}")
+        check_flash_dtype(attn_impl, cd, self.device)
         self.embed = L.Embedding(self.vocab, self.d_model, compute_dtype=cd)
         self.pos = L.Embedding(self.seq_len, self.d_model, compute_dtype=cd,
                                name="pos")

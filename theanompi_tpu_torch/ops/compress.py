@@ -292,8 +292,10 @@ def unpack_signs_wsum_cuda(all_packed: torch.Tensor,
 
 
 def topk_encode_cuda(c2: torch.Tensor, k: int):
-    """Kernel B7: per chunk row, k block-wide argmax passes over the row
-    held in shared memory → (bf16 values, int16 offsets, new state)."""
+    """Kernel B7: per chunk row, a radix select on the bits of |c| over the
+    row held in shared memory, the lowest offsets taken on the threshold's
+    ties, the winners put in slot order → (bf16 values, int16 offsets, new
+    state).  NaN ranks above +inf, as in the plain version."""
     _check_topk_rows("topk_encode_cuda", c2, k)
     dev = _on_card("topk_encode_cuda", c2)
     rows, chunk = c2.shape

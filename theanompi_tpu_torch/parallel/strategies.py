@@ -26,7 +26,8 @@ import torch.distributed as dist
 
 from ..ops import compress as compress_ops
 from ..ops import factor_pack
-from ..utils.helper_funcs import (flatten_tree, flatten_tree_jax, tree_leaves,
+from ..utils.helper_funcs import (flatten_tree, flatten_tree_jax,
+                                  is_embedding_table, leaf_paths, tree_leaves,
                                   tree_map, tree_size, unflatten_like,
                                   unflatten_like_jax)
 
@@ -202,19 +203,22 @@ class PowerSGD(Strategy):
 
     The JAX package's ``M`` is its leaf in its layout,
     ``leaf.reshape(-1, shape[-1])``.  The port keeps the leaf in PyTorch's
-    layout, ``A = leaf.reshape(shape[0], -1)``, which is that ``M``
-    transposed (for a conv, with M's rows permuted, which P̂'s span and so
-    M̂ do not depend on).  So ``P = Aᵀ Q``, ``Q' = A P̂`` and
-    ``M̂ᵀ = Q' P̂ᵀ``: the products B9 of ``ops/factor_pack.py`` takes with
-    a transpose flag.  ``e`` keeps the leaf's own shape.  All P factors
+    layout, ``A = leaf.reshape(shape[0], -1)``.  For a conv or FC weight
+    that is ``M`` transposed (for a conv, with M's rows permuted, which P̂'s
+    span and so M̂ do not depend on), so ``P = Aᵀ Q``, ``Q' = A P̂`` and
+    ``M̂ᵀ = Q' P̂ᵀ``.  An embedding table (``helper_funcs.is_embedding_table``)
+    keeps its layout in both packages, so ``A`` is ``M`` itself and
+    ``P = A Q``, ``Q' = Aᵀ P̂``, ``M̂ = P̂ Q'ᵀ``.  The leaf's path decides
+    which; both are the products B9 of ``ops/factor_pack.py`` takes with a
+    transpose flag.  ``e`` keeps the leaf's own shape.  All P factors
     travel in one zero-padded staging buffer and one ``all_reduce``, then
     all Q factors likewise; leaves too small to win (vectors, and
     min(rows, cols) ≤ 4r) are reduced exactly.  ``torch.linalg.qr`` and
-    the decode product ``Q' P̂ᵀ`` are library calls, as in the JAX package
-    they are XLA's.
+    the decode product are library calls, as in the JAX package they are
+    XLA's.
 
     State: a list over the leaves in the port's order (``tree_leaves``),
-    ``{"q": [cols, r], "e": leaf shape}``, empty for an incompressible
+    ``{"q": [cols of M, r], "e": leaf shape}``, empty for an incompressible
     leaf.  The first ``q`` of leaf ``i`` is drawn from a generator seeded
     ``1905 + i`` on the CPU, the same on every rank (the JAX package's
     distribution; other bits)."""
@@ -228,18 +232,20 @@ class PowerSGD(Strategy):
         self.name = f"powersgd{self.rank}"
 
     def _compressible(self, shape) -> bool:
-        """The JAX package's ``min(rows, cols) > 4r`` on its matrix: cols =
-        ``shape[0]`` and rows = the rest in the port's layout."""
+        """The JAX package's ``min(rows, cols) > 4r`` on its matrix M, taken
+        on A (``shape[0]`` by the rest), which is M or Mᵀ."""
         if len(shape) < 2:
             return False
         return min(math.prod(shape[1:]), int(shape[0])) > 4 * self.rank
 
     def init_state(self, params) -> list:
         state = []
-        for i, l in enumerate(tree_leaves(params)):
+        for i, (path, l) in enumerate(zip(leaf_paths(params),
+                                          tree_leaves(params))):
             if self._compressible(l.shape):
+                cols = l.shape[1] if is_embedding_table(path) else l.shape[0]
                 gen = torch.Generator().manual_seed(1905 + i)
-                q = torch.randn((l.shape[0], self.rank), generator=gen)
+                q = torch.randn((cols, self.rank), generator=gen)
                 state.append({"q": q.to(l.device),
                               "e": torch.zeros(l.shape, dtype=torch.float32,
                                                device=l.device)})
@@ -258,6 +264,9 @@ class PowerSGD(Strategy):
         new_state = list(state)
         comp = [i for i, g in enumerate(leaves)
                 if self._compressible(g.shape)]
+        paths = leaf_paths(tree)
+        # A is M transposed, except for an embedding table, where it is M
+        flip = {i: not is_embedding_table(paths[i]) for i in comp}
 
         def stacked_mean(tiles):
             buf = tiles[0] if len(tiles) == 1 else torch.cat(tiles)
@@ -265,25 +274,32 @@ class PowerSGD(Strategy):
             return buf.mul_(inv)
 
         if comp:
-            # A' = g + e, [cols, rows]: the JAX package's M' transposed
+            # A' = g + e in the leaf's layout, [shape[0], rest]
             mats = {i: (leaves[i].float() + state[i]["e"]).reshape(
                 leaves[i].shape[0], -1) for i in comp}
+            # P = M' Q and Q' = M'ᵀ P̂, with M' = A'ᵀ or A'
+            m_shape = {i: mats[i].shape[::-1] if flip[i] else mats[i].shape
+                       for i in comp}
             p_tiles = [factor_pack.matmul_pack(mats[i], state[i]["q"],
-                                               transpose=True) for i in comp]
+                                               transpose=flip[i])
+                       for i in comp]
             p_all = stacked_mean(p_tiles)
             phs, off = {}, 0
             for i, t in zip(comp, p_tiles):
-                rows = mats[i].shape[1]
+                rows = m_shape[i][0]
                 phs[i] = torch.linalg.qr(p_all[off:off + rows]).Q.contiguous()
                 off += t.shape[0]
-            q_tiles = [factor_pack.matmul_pack(mats[i], phs[i]) for i in comp]
+            q_tiles = [factor_pack.matmul_pack(mats[i], phs[i],
+                                               transpose=not flip[i])
+                       for i in comp]
             q_all = stacked_mean(q_tiles)
             off = 0
             for i, t in zip(comp, q_tiles):
                 g = leaves[i]
-                qn = q_all[off:off + g.shape[0]]
+                qn = q_all[off:off + m_shape[i][1]]
                 off += t.shape[0]
-                mhat = qn @ phs[i].t()                 # M̂ᵀ, [cols, rows]
+                # M̂ in A's layout: M̂ᵀ = Q' P̂ᵀ, or M̂ = P̂ Q'ᵀ
+                mhat = qn @ phs[i].t() if flip[i] else phs[i] @ qn.t()
                 out[i] = mhat.view(g.shape).to(g.dtype)
                 new_state[i] = {"q": qn,
                                 "e": (mats[i] - mhat).view(g.shape)}

@@ -3,7 +3,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --flash-times   # the flash kernels' times alone
     python3 chip_smoke.py --topk-times    # B7's time alone
-    python3 chip_smoke.py --flash-times --topk-times
+    python3 chip_smoke.py --factor-times  # B9's PowerSGD passes alone
+    python3 chip_smoke.py --flash-times --topk-times --factor-times
 
 1. Fails (exit 2, no result) without CUDA; prints the card's name and power
    limit as ``nvidia-smi`` reports them.
@@ -45,14 +46,16 @@
     (``torch.topk`` for the selection alone; one accumulating
     ``index_put_`` for the scatter alone); prints B7 beside its first,
     argmax-pass version.
-11. Factor pack (B9): at each of VGG-16's 16 compressible weight shapes,
-    both products of a PowerSGD step (``Aᵀ q`` and ``A p``, rank 2)
-    against the plain version within the float32 dot-product bound, pad
-    rows exactly 0; per-step sums of the kernel's time, its bound, the
-    plain version's and ``torch.matmul``'s (TF32 off).
+11. Factor pack (B9): both passes of a PowerSGD step over VGG-16's 16
+    compressible weights (``Aᵀ q``, then ``A p``, rank 2), each one
+    grouped launch as the main path makes it, against the plain version
+    within the float32 dot-product bound, pad rows exactly +0, a rerun bit
+    for bit the same and each tile bit for bit the one-leaf entry's; times
+    each pass beside the sum of its 16 one-leaf launches, its bound, the
+    plain group and ``torch.matmul`` over its products (TF32 off).
 12. Drives VGG-16 under ``exch_strategy='topk'`` and ``'powersgd'`` the
     way step 8 drives onebit (8 steps, a validation batch, launch counts:
-    8 B7 + 8 B8, and 2 × 16 × 8 = 256 B9, nothing else), profiles each,
+    8 B7 + 8 B8, and 2 × 8 = 16 grouped B9, nothing else), profiles each,
     and runs one exchange of each under CUDA's sync debug mode: the topk
     exchange must make the host wait on nothing; PowerSGD's waits (its
     ``torch.linalg.qr`` might read back) are counted and printed.
@@ -185,6 +188,10 @@ WMMA_FLASH = {"flash_fwd_cuda": {"ms": 0.0978, "host_us": 43.4},
 # topk phase's shape: device ms from this script's topk phase on that tree,
 # on the same card and limit
 ARGMAX_TOPK = {"topk_encode_cuda": {"ms": 3.8553}}
+# B9 before its grouped redesign (one rowdot or coldot launch per leaf and
+# product), per PowerSGD step: device ms from this script's factor pack
+# phase on that tree, on the same card and limit
+ROWCOL_FACTOR = {"ms": 0.8050}
 # instructions the redesigned B10–B12 must hold in every instantiation:
 # wgmma and TMA loads
 FLASH_SASS = {"flash_fwd_kernel": ("HGMMA", "UTMALDG"),
@@ -196,7 +203,11 @@ DESIGN = {"topk_encode": "radix select on the bits of |c|, lowest offsets on "
                          "256) or bitonic sort",
           "flash_fwd": "TMA ring, wgmma, softmax in registers, pipelined",
           "flash_bwd_dkv": "TMA ring, wgmma, p and dS in registers",
-          "flash_bwd_dq": "TMA ring, wgmma, dS in registers"}
+          "flash_bwd_dq": "TMA ring, wgmma, dS in registers",
+          "matmul_pack": "one launch per factor pass over every leaf; each "
+                         "work item a cluster of 8 CTAs splitting its sums, "
+                         "added through distributed shared memory in rank "
+                         "order; float4 loads, 4 rows in flight"}
 
 ALL_KERNELS = ((lrn_ops.lrn_fwd_cuda, lrn_ops.lrn_bwd_cuda) + cmp_ops.KERNELS
                + fp_ops.KERNELS + fa_ops.KERNELS)
@@ -355,14 +366,6 @@ def vgg16_sizes():
     return n, n + (-n) % cmp_ops.PACK_ALIGN
 
 
-def decode_tol(w: int, scales: torch.Tensor):
-    """(rtol, atol) of B4 against the plain decode: the kernel's
-    Σ 2·s·bit − Σ s and the plain Σ ±s each round W times, every rounding
-    at most half an ulp of a partial sum ≤ Σ 2s: atol 4·W·2⁻²⁴·Σ s, rtol
-    one ulp.  Exactly equal at W = 1."""
-    return 2.0 ** -23, 4 * w * 2.0 ** -24 * float(scales.sum())
-
-
 def compress_phase():
     """B3–B6 at VGG-16's padded length: bit for bit against the plain
     versions (B4 within its bound at W > 1), times, bounds."""
@@ -406,7 +409,7 @@ def compress_phase():
         if w == 1:
             e = check_bits("B4 W=1", got, want)
         else:
-            rtol, atol = decode_tol(w, scales)
+            rtol, atol = cmp_ops.decode_tol(w, scales)
             e = check_close(f"B4 W={w}", got, want, rtol,
                             atol / float(want.abs().max()))
         del got, want
@@ -577,56 +580,104 @@ def vgg16_factor_shapes():
     return out
 
 
-def factor_pack_phase():
-    """B9 at each of VGG-16's 16 compressible shapes, both products of a
-    PowerSGD step at rank 2, against the plain version within the float32
-    dot-product bound 2·γ_n·(|m| @ |q|), γ_n = n·u/(1 − n·u), u = 2⁻²⁴ (each
-    side's sum of n products in its own order); pad rows exactly +0.
-    Per-step sums of the times and bounds (each product reads A once)."""
+def factor_inputs():
+    """A of each of VGG-16's 16 compressible weights (``* 0.01``, about a
+    gradient's scale) and, per pass, the factor it is multiplied with at
+    rank 2: q [out_ch, r] for P = Aᵀ q (transpose) and p [in, r] for
+    Q' = A p."""
     g = torch.Generator(device="cuda").manual_seed(3)
-    u = 2.0 ** -24
     r = POWERSGD_RANK
-    products = []
-    for co, rest in vgg16_factor_shapes():
-        a = torch.randn(co, rest, generator=g, device="cuda") * 0.01
-        # P = Aᵀ q (rows: rest) and Q' = A p (rows: co)
-        for transpose, inner, n_out in ((True, co, rest), (False, rest, co)):
-            q = torch.randn(inner, r, generator=g, device="cuda")
-            got = fp_ops.matmul_pack_cuda(a, q, transpose=transpose)
-            want = fp_ops.matmul_pack_plain(a, q, transpose=transpose)
-            m = a.t() if transpose else a
-            tol = 2 * inner * u / (1 - inner * u) * (m.abs() @ q.abs())
-            err = (got[:n_out] - want[:n_out]).abs()
-            pad = got[n_out:]
-            if not bool(torch.isfinite(got).all()) or \
-                    bool((err > tol).any()) or bool(pad.any()) or \
-                    bool(torch.signbit(pad).any()):
-                raise AssertionError(
-                    f"B9 [{co}, {rest}] transpose={transpose}: max |diff| "
-                    f"{float(err.max()):.3e}, max diff/bound "
-                    f"{float((err / tol).max()):.3f}, pad "
-                    f"{pad.abs().max() if pad.numel() else 0}")
-            products.append({
-                "shape": [co, rest], "transpose": transpose,
-                "rows_pad": got.shape[0], "max_abs_err": float(err.max()),
-                "err_over_bound": float((err / tol).max()),
+    mats = [torch.randn(co, rest, generator=g, device="cuda") * 0.01
+            for co, rest in vgg16_factor_shapes()]
+    return mats, {t: [torch.randn(a.shape[0] if t else a.shape[1], r,
+                                  generator=g, device="cuda") for a in mats]
+                  for t in (True, False)}
+
+
+def factor_pass_check(mats, qs, t) -> list:
+    """One B9 pass against the plain version: each leaf's tile within the
+    float32 dot-product bound 2·γ_n·(|m| @ |q|), γ_n = n·u/(1 − n·u),
+    u = 2⁻²⁴ (each side's sum of n products in its own order), its pad
+    rows exactly +0.  The grouped pass is also run twice, bit for bit the
+    same, and each of its tiles is bit for bit the one-leaf entry's (a
+    tree from before the grouped kernel has only the one-leaf entry).  Per
+    leaf: (max |diff|, max diff/bound)."""
+    u = 2.0 ** -24
+    group = getattr(fp_ops, "matmul_pack_group_cuda", None)
+    ones = [fp_ops.matmul_pack_cuda(a, q, transpose=t)
+            for a, q in zip(mats, qs)]
+    if group:
+        ts = [t] * len(mats)
+        got = group(mats, qs, ts)
+        check_bits("B9 pass rerun", group(mats, qs, ts), got)
+        check_bits("B9 one leaf vs group", torch.cat(ones), got)
+    out = []
+    for a, q, tile in zip(mats, qs, ones):
+        m = a.t() if t else a
+        rows, inner = m.shape
+        want = fp_ops.matmul_pack_plain(a, q, transpose=t)
+        tol = 2 * inner * u / (1 - inner * u) * (m.abs() @ q.abs())
+        err = (tile[:rows] - want[:rows]).abs()
+        pad = tile[rows:]
+        if not bool(torch.isfinite(tile).all()) or \
+                bool((err > tol).any()) or bool(pad.any()) or \
+                bool(torch.signbit(pad).any()):
+            raise AssertionError(
+                f"B9 {tuple(a.shape)} transpose={t}: max |diff| "
+                f"{float(err.max()):.3e}, max diff/bound "
+                f"{float((err / tol).max()):.3f}, pad "
+                f"{pad.abs().max() if pad.numel() else 0}")
+        out.append((float(err.max()), float((err / tol).max())))
+    return out
+
+
+def factor_pack_phase():
+    """B9 over VGG-16's 16 compressible weights, both passes of a PowerSGD
+    step at rank 2 (P = Aᵀ q, then Q' = A p) as the main path makes them,
+    one grouped launch each, checked by ``factor_pass_check``.  Times each
+    grouped pass beside the sum of its 16 one-leaf launches, the plain
+    group, the sum of ``torch.matmul`` over its products, and its bound
+    (each product reads A and its factor once and writes its tile)."""
+    mats, factors = factor_inputs()
+    r = POWERSGD_RANK
+    passes, products = [], []
+    for t in (True, False):
+        qs, ts = factors[t], [t] * len(mats)
+        checks = factor_pass_check(mats, qs, t)
+        rows = []
+        for a, q, (err, over) in zip(mats, qs, checks):
+            m = a.t() if t else a
+            rows_pad = fp_ops.pad_rows(m.shape[0])
+            rows.append({
+                "shape": list(a.shape), "transpose": t, "rows_pad": rows_pad,
+                "max_abs_err": err, "err_over_bound": over,
                 "ms": time_ms(lambda: fp_ops.matmul_pack_cuda(
-                    a, q, transpose=transpose)),
-                "plain_ms": time_ms(lambda: fp_ops.matmul_pack_plain(
-                    a, q, transpose=transpose)),
+                    a, q, transpose=t)),
                 "library_ms": time_ms(lambda: m @ q),
-                # read A and q, write the padded tile; 2r flops per A element
-                **bound(4 * (co * rest + inner * r + got.shape[0] * r),
-                        2 * r * co * rest)})
-            del got, want, tol, err, q
-        del a
-        torch.cuda.empty_cache()
-    step = {k: sum(p[k] for p in products)
-            for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms",
-                      "ops_ms")}
+                **bound(4 * (a.numel() + q.numel() + rows_pad * r),
+                        2 * r * a.numel())})
+        products += rows
+        tot = lambda k: sum(p[k] for p in rows)
+        passes.append({
+            "transpose": t,
+            "ctas": len(fp_ops.tile_table(tuple(
+                (a.shape[0], a.shape[1], p["rows_pad"], t)
+                for a, p in zip(mats, rows)))),
+            "ms": time_ms(lambda: fp_ops.matmul_pack_group_cuda(mats, qs, ts)),
+            "plain_ms": time_ms(lambda: fp_ops.matmul_pack_group_plain(
+                mats, qs, ts)),
+            "per_leaf_ms": tot("ms"), "library_ms": tot("library_ms"),
+            "bound_ms": tot("bound_ms"), "bytes_ms": tot("bytes_ms"),
+            "ops_ms": tot("ops_ms")})
+    step = {k: sum(p[k] for p in passes)
+            for k in ("ms", "per_leaf_ms", "plain_ms", "library_ms",
+                      "bound_ms", "bytes_ms", "ops_ms")}
     step["bound_by"] = "bytes" if step["bytes_ms"] >= step["ops_ms"] \
         else "operations"
-    return {"rank": r, "per_step": step, "products": products,
+    del mats, factors
+    torch.cuda.empty_cache()
+    return {"rank": r, "per_step": step, "passes": passes,
+            "products": products,
             "max_abs_err": max(p["max_abs_err"] for p in products),
             "max_err_over_bound": max(p["err_over_bound"] for p in products)}
 
@@ -746,12 +797,15 @@ def flash_calls(q, k, v, do, lse, di) -> dict:
 
 
 def times_main(flags) -> int:
-    """``python3 chip_smoke.py --flash-times`` and/or ``--topk-times``: the
-    flash kernels' device ms and host µs per wrapper call at the flash
-    phase's shape, and B7's device ms at the topk phase's on three kinds of
-    rows, each first checked bit for bit against the plain version;
-    nothing else (for setting two trees' kernels side by side in one
-    call)."""
+    """``python3 chip_smoke.py --flash-times``, ``--topk-times`` and/or
+    ``--factor-times``: the flash kernels' device ms and host µs per
+    wrapper call at the flash phase's shape; B7's device ms at the topk
+    phase's on three kinds of rows, each first checked bit for bit against
+    the plain version; B9's device ms for each PowerSGD pass over VGG-16's
+    16 leaves as the tree's main path makes it (one grouped launch, or on
+    a tree from before the grouped kernel, 16 one-leaf launches), beside
+    the sum of the one-leaf launches, after ``factor_pass_check``; nothing
+    else (for setting two trees' kernels side by side in one call)."""
     card = card_line()
     out = {"card": card}
     if "--flash-times" in flags:
@@ -786,6 +840,26 @@ def times_main(flags) -> int:
                 x, TOPK_K))
         out["topk_times"] = {"topk_encode_cuda": {
             "ms": by_rows.pop("planted"), "by_rows": by_rows}}
+    if "--factor-times" in flags:
+        _kernel_build.build(["factor_pack"])
+        mats, factors = factor_inputs()
+        group = getattr(fp_ops, "matmul_pack_group_cuda", None)
+        passes = []
+        for t in (True, False):
+            qs = factors[t]
+            factor_pass_check(mats, qs, t)
+            ones = lambda: [fp_ops.matmul_pack_cuda(a, q, transpose=t)
+                            for a, q in zip(mats, qs)]
+            per_leaf = [time_ms(lambda: fp_ops.matmul_pack_cuda(
+                a, q, transpose=t)) for a, q in zip(mats, qs)]
+            passes.append({
+                "transpose": t, "grouped": group is not None,
+                "ms": time_ms((lambda: group(mats, qs, [t] * len(mats)))
+                              if group else ones),
+                "per_leaf_ms": sum(per_leaf), "per_leaf": per_leaf})
+        out["factor_times"] = {"step_ms": sum(p["ms"] for p in passes),
+                               "passes": passes}
+        del mats, factors
     print(json.dumps(out))
     return 0
 
@@ -969,13 +1043,13 @@ def lm_main_path_phase():
 
 
 # each VGG-16 main path's kernels, per training step: the onebit exchange
-# runs B5, B6, B4; topk B7, B8; PowerSGD B9 twice per compressible leaf
-# (16 of them); no path runs LRN or B3
+# runs B5, B6, B4; topk B7, B8; PowerSGD B9 once per factor pass, over all
+# 16 compressible leaves; no path runs LRN or B3
 VGG_PATHS = {
     "onebit": dict(pack_signs_encode_cuda=1, signed_residual_cuda=1,
                    unpack_signs_wsum_cuda=1),
     "topk": dict(topk_encode_cuda=1, topk_decode_cuda=1),
-    "powersgd": dict(matmul_pack_cuda=2 * 16),
+    "powersgd": dict(matmul_pack_group_cuda=2),
 }
 
 
@@ -1137,49 +1211,55 @@ LIBRARY = {
 FLASH_SRC = "theanompi_tpu_torch/csrc/flash_attention.cu"
 FLASH_TPU = "jax/experimental/pallas/ops/tpu/flash_attention.py (jax 0.9.0)"
 
-# (label, wrapper, TPU kernel it replaces)
-KERNEL_ROWS = (
-    ("lrn_fwd", lrn_ops.lrn_fwd_cuda, "theanompi_tpu_torch/csrc/lrn.cu",
-     "theanompi_tpu/ops/lrn.py:130 _lrn_fwd_pallas"),
-    ("lrn_bwd", lrn_ops.lrn_bwd_cuda, "theanompi_tpu_torch/csrc/lrn.cu",
-     "theanompi_tpu/ops/lrn.py:152 _lrn_bwd_pallas"),
-    ("pack_signs", cmp_ops.pack_signs_cuda,
-     "theanompi_tpu_torch/csrc/compress.cu",
-     "theanompi_tpu/ops/compress.py:200 _pack_pallas"),
-    ("unpack_signs_wsum", cmp_ops.unpack_signs_wsum_cuda,
-     "theanompi_tpu_torch/csrc/compress.cu",
-     "theanompi_tpu/ops/compress.py:234 _unpack_wsum_pallas"),
-    ("pack_signs_encode", cmp_ops.pack_signs_encode_cuda,
-     "theanompi_tpu_torch/csrc/compress.cu",
-     "theanompi_tpu/ops/compress.py:268 _encode_pallas"),
-    ("signed_residual", cmp_ops.signed_residual_cuda,
-     "theanompi_tpu_torch/csrc/compress.cu",
-     "theanompi_tpu/ops/compress.py:307 _residual_pallas"),
-    ("topk_encode", cmp_ops.topk_encode_cuda,
-     "theanompi_tpu_torch/csrc/compress.cu",
-     "theanompi_tpu/ops/compress.py:362 _topk_encode_pallas"),
-    ("topk_decode", cmp_ops.topk_decode_cuda,
-     "theanompi_tpu_torch/csrc/compress.cu",
-     "theanompi_tpu/ops/compress.py:402 _topk_decode_pallas"),
-    ("matmul_pack", fp_ops.matmul_pack_cuda,
-     "theanompi_tpu_torch/csrc/factor_pack.cu",
-     "theanompi_tpu/ops/factor_pack.py:66 _matmul_pack_pallas"),
-    # JAX's packaged kernel, which theanompi_tpu/models/layers.py:459-464
-    # calls for attn_impl='flash'
-    ("flash_fwd", fa_ops.flash_fwd_cuda, FLASH_SRC,
-     f"{FLASH_TPU}:589 _flash_attention_impl (pallas_call :758)"),
-    ("flash_bwd_dkv", fa_ops.flash_bwd_dkv_cuda, FLASH_SRC,
-     f"{FLASH_TPU}:941 _flash_attention_bwd_dkv (pallas_call :1121)"),
-    ("flash_bwd_dq", fa_ops.flash_bwd_dq_cuda, FLASH_SRC,
-     f"{FLASH_TPU}:1287 _flash_attention_bwd_dq (pallas_call :1456)"),
-)
+
+def kernel_rows():
+    """(label, wrapper, source, TPU kernel it replaces) of B1–B12 (built
+    at use: ``--factor-times`` also runs on trees from before
+    ``matmul_pack_group_cuda``)."""
+    return (
+        ("lrn_fwd", lrn_ops.lrn_fwd_cuda, "theanompi_tpu_torch/csrc/lrn.cu",
+         "theanompi_tpu/ops/lrn.py:130 _lrn_fwd_pallas"),
+        ("lrn_bwd", lrn_ops.lrn_bwd_cuda, "theanompi_tpu_torch/csrc/lrn.cu",
+         "theanompi_tpu/ops/lrn.py:152 _lrn_bwd_pallas"),
+        ("pack_signs", cmp_ops.pack_signs_cuda,
+         "theanompi_tpu_torch/csrc/compress.cu",
+         "theanompi_tpu/ops/compress.py:200 _pack_pallas"),
+        ("unpack_signs_wsum", cmp_ops.unpack_signs_wsum_cuda,
+         "theanompi_tpu_torch/csrc/compress.cu",
+         "theanompi_tpu/ops/compress.py:234 _unpack_wsum_pallas"),
+        ("pack_signs_encode", cmp_ops.pack_signs_encode_cuda,
+         "theanompi_tpu_torch/csrc/compress.cu",
+         "theanompi_tpu/ops/compress.py:268 _encode_pallas"),
+        ("signed_residual", cmp_ops.signed_residual_cuda,
+         "theanompi_tpu_torch/csrc/compress.cu",
+         "theanompi_tpu/ops/compress.py:307 _residual_pallas"),
+        ("topk_encode", cmp_ops.topk_encode_cuda,
+         "theanompi_tpu_torch/csrc/compress.cu",
+         "theanompi_tpu/ops/compress.py:362 _topk_encode_pallas"),
+        ("topk_decode", cmp_ops.topk_decode_cuda,
+         "theanompi_tpu_torch/csrc/compress.cu",
+         "theanompi_tpu/ops/compress.py:402 _topk_decode_pallas"),
+        ("matmul_pack", fp_ops.matmul_pack_group_cuda,
+         "theanompi_tpu_torch/csrc/factor_pack.cu",
+         "theanompi_tpu/ops/factor_pack.py:66 _matmul_pack_pallas"),
+        # JAX's packaged kernel, which theanompi_tpu/models/layers.py:459-464
+        # calls for attn_impl='flash'
+        ("flash_fwd", fa_ops.flash_fwd_cuda, FLASH_SRC,
+         f"{FLASH_TPU}:589 _flash_attention_impl (pallas_call :758)"),
+        ("flash_bwd_dkv", fa_ops.flash_bwd_dkv_cuda, FLASH_SRC,
+         f"{FLASH_TPU}:941 _flash_attention_bwd_dkv (pallas_call :1121)"),
+        ("flash_bwd_dq", fa_ops.flash_bwd_dq_cuda, FLASH_SRC,
+         f"{FLASH_TPU}:1287 _flash_attention_bwd_dq (pallas_call :1456)"),
+    )
+
+
 TIMED = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
          "library_ms")
 
 
 def kernel_entries(lrn, comp, topk, fpack, flash, alex, vggs, lm) -> list:
     out = []
-    for label, fn, source, replaces in KERNEL_ROWS:
+    for label, fn, source, replaces in kernel_rows():
         name = fn.__name__
         e = {"name": label, "route": "cuda", "source": source,
              "replaces": replaces, "library": LIBRARY.get(label)}
@@ -1197,12 +1277,13 @@ def kernel_entries(lrn, comp, topk, fpack, flash, alex, vggs, lm) -> list:
                      else "operations",
                      library_ms=tot("library_ms"), shapes=lrn[kind])
         elif label == "matmul_pack":
-            # per PowerSGD step: both products at each of the 16 shapes
+            # per PowerSGD step: two grouped passes over the 16 leaves
             e.update(launches=vggs["powersgd"]["launches"][name],
                      launches_from="VGG-16 powersgd main path",
                      max_abs_err=fpack["max_abs_err"],
                      max_err_over_bound=fpack["max_err_over_bound"],
-                     per="one step: 32 products",
+                     per="one step: 2 grouped launches, 32 products",
+                     per_leaf_ms=fpack["per_step"]["per_leaf_ms"],
                      **{k: fpack["per_step"][k] for k in TIMED[1:]})
         elif label.startswith("flash_"):
             e.update(launches=lm["launches"][name],
@@ -1267,10 +1348,15 @@ def main() -> int:
               ARGMAX_TOPK["topk_encode_cuda"]["ms"]), flush=True)
     fpack = factor_pack_phase()
     st = fpack["per_step"]
-    print(f"factor pack, one PowerSGD step (32 products): {st['ms']:.4f} ms "
-          f"(bound {st['bound_ms']:.4f}, plain {st['plain_ms']:.4f}, "
-          f"torch.matmul {st['library_ms']:.4f}); max diff/bound "
-          f"{fpack['max_err_over_bound']:.3f}", flush=True)
+    print(f"factor pack, one PowerSGD step (2 grouped launches, 32 "
+          f"products): {st['ms']:.4f} ms (passes "
+          + " + ".join(f"{p['ms']:.4f}" for p in fpack["passes"])
+          + f"; 32 one-leaf launches {st['per_leaf_ms']:.4f}; bound "
+          f"{st['bound_ms']:.4f}, plain {st['plain_ms']:.4f}, torch.matmul "
+          f"{st['library_ms']:.4f}); max diff/bound "
+          f"{fpack['max_err_over_bound']:.3f}; the per-leaf rowdot/coldot "
+          f"kernels, an earlier tree's run: {ROWCOL_FACTOR['ms']:.4f} ms",
+          flush=True)
     ref_err = alexnet_reference_phase()
     print(f"AlexNet f32 logits card vs CPU: max |diff| {ref_err:.3e}",
           flush=True)
@@ -1297,7 +1383,7 @@ def main() -> int:
               # small packing copies
               "flatten_copy": ("direct_copy_kernel", "CatArrayBatchedCopy")}),
             ("powersgd", 32,
-             {"factor_pack": ("rowdot_kernel", "coldot_kernel"),
+             {"factor_pack": ("factor_pack_kernel",),
               "qr": ("geqr", "orgqr", "ormqr", "larf", "householder")})):
         vggs[strategy] = vgg = vgg_main_path_phase(strategy, shape)
         print(f"main path: VGG-16 BSP {strategy} batch {VGG_BATCH}, "
@@ -1384,6 +1470,6 @@ def main() -> int:
 
 if __name__ == "__main__":
     _flags = set(sys.argv[1:])
-    if not _flags <= {"--flash-times", "--topk-times"}:
+    if not _flags <= {"--flash-times", "--topk-times", "--factor-times"}:
         sys.exit(f"chip_smoke: unknown arguments {sorted(_flags)}")
     sys.exit(times_main(_flags) if _flags else main())

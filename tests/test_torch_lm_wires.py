@@ -2,7 +2,8 @@
 
 The LM's embedding tables (``embed.w`` [vocab, dim] and ``pos.w``
 [seq_len, dim]) keep their layout in both packages, where every other 2-D
-weight is transposed, so the wires must lay a leaf out by its path:
+weight is transposed, so the wires must lay a leaf out as the model
+declares it (``ModelBase.kept_layout_paths``):
 
 * ``helper_funcs.flatten_tree_jax`` of the LM's tree is the JAX package's
   ``flatten_tree`` bit for bit (the topk wire's flat order);
@@ -61,7 +62,7 @@ def _models(seq_len, strategy, vocab):
     jm = JLM(dict(cfg, n_workers=1, compute_dtype=jnp.float32))
     tm = TLM(dict(cfg, device="cpu", compute_dtype="float32"))
     jp0 = _host(jm.params)
-    tm.load_params(convert.params_from_jax(jp0))
+    tm.load_params(convert.params_from_jax(jp0, tm.kept_layout_paths()))
     jx, tx = JBSP(jm.config), TBSP(tm.config)
     if strategy == "topk":
         jx.strategy.chunk = tx.strategy.chunk = TOPK_CHUNK
@@ -76,13 +77,15 @@ def test_flatten_tree_jax_of_the_lm_bit_equal_to_the_jax_package():
     parameters, and ``unflatten_like_jax`` gives the port's leaves back."""
     jm = JLM(dict(_tiny(32, "allreduce"), n_workers=1,
                   compute_dtype=jnp.float32))
+    kept = TLM(dict(_tiny(32, "allreduce"), device="cpu")).kept_layout_paths()
+    assert kept == {("embed", "w"), ("pos", "w")}
     jp = _host(jm.params)
-    ttree = TH.tree_map(torch.from_numpy, convert.params_from_jax(jp))
+    ttree = TH.tree_map(torch.from_numpy, convert.params_from_jax(jp, kept))
     want = np.asarray(JH.flatten_tree(jp, pad_to_multiple_of=TOPK_CHUNK))
-    got = TH.flatten_tree_jax(ttree, pad_to_multiple_of=TOPK_CHUNK)
+    got = TH.flatten_tree_jax(ttree, pad_to_multiple_of=TOPK_CHUNK, kept=kept)
     np.testing.assert_array_equal(got.numpy().view(np.int32),
                                   want.view(np.int32))
-    back = TH.unflatten_like_jax(ttree, got)
+    back = TH.unflatten_like_jax(ttree, got, kept)
     for path in TH.leaf_paths(ttree):
         assert torch.equal(TH.get_leaf(back, path), TH.get_leaf(ttree, path))
 
@@ -91,7 +94,8 @@ def _check_trajectory_end(jm, tm):
     """Params and Adam moments after the steps, to the VGG trajectories'
     tolerances (params rtol 1e-5 / atol 1e-6, moments rtol 1e-5 / atol
     1e-7)."""
-    want = convert.params_from_jax(_host(jm.canonical_host_params()))
+    kept = tm.kept_layout_paths()
+    want = convert.params_from_jax(_host(jm.canonical_host_params()), kept)
     got = tm.host_params()
     for path in TH.jax_leaf_paths(want):
         np.testing.assert_allclose(TH.get_leaf(got, path),
@@ -100,7 +104,7 @@ def _check_trajectory_end(jm, tm):
     jst = jax.tree.map(lambda v: np.asarray(v)[0],
                        jax.device_get(jm.step_state["opt_state"]))
     for moment in ("m", "v"):
-        want_m = convert.params_from_jax(jst[moment])
+        want_m = convert.params_from_jax(jst[moment], kept)
         for path in TH.jax_leaf_paths(want_m):
             np.testing.assert_allclose(
                 TH.get_leaf(tm.opt_state[moment], path).numpy(),
@@ -123,7 +127,8 @@ def test_powersgd1_lm_three_step_trajectory_matches_jax(cpu_group, vocab,
         return jax.tree.map(lambda v: np.asarray(v)[0],
                             jax.device_get(jm.step_state["extra"]["strat"]))
 
-    st0 = convert.powersgd_state_from_jax(jax_state(), jp0, tm.params)
+    kept = tm.kept_layout_paths()
+    st0 = convert.powersgd_state_from_jax(jax_state(), jp0, tm.params, kept)
     paths = TH.leaf_paths(tm.params)
     for name, dim in (("embed", vocab), ("pos", seq_len)):
         s = st0[paths.index((name, "w"))]
@@ -136,7 +141,8 @@ def test_powersgd1_lm_three_step_trajectory_matches_jax(cpu_group, vocab,
         np.testing.assert_allclose(float(tm.current_info["cost"]),
                                    float(jm.current_info["cost"]), rtol=1e-5)
     _check_trajectory_end(jm, tm)
-    want_s = convert.powersgd_state_from_jax(jax_state(), jp0, tm.params)
+    want_s = convert.powersgd_state_from_jax(jax_state(), jp0, tm.params,
+                                             kept)
     for path, w, g in zip(paths, want_s, tm.extra["strat"]):
         q = g["q"].numpy()
         assert q.shape == w["q"].shape, path

@@ -119,6 +119,7 @@ def test_bsp_exchanger_carries_the_strategy_state(cpu_group):
         params = _tree()
         opt = type("O", (), {"update": staticmethod(
             lambda g, s, p, lr: (p, s))})
+        kept_layout_paths = staticmethod(frozenset)
     for name, stateful in (("onebit", True), ("allreduce", False)):
         ex = X.BSP_Exchanger({"exch_strategy": name})
         ex.prepare(_M(), 1)
@@ -144,6 +145,7 @@ def test_bsp_exchanger_carries_topk_and_powersgd_state(cpu_group, name):
     class _M:
         opt = type("O", (), {"update": staticmethod(
             lambda g, s, p, lr: (p, s))})
+        kept_layout_paths = staticmethod(frozenset)
     _M.params = params
     ex = X.BSP_Exchanger({"exch_strategy": name})
     ex.prepare(_M(), 1)

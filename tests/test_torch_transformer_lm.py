@@ -51,7 +51,8 @@ def _port(attn_impl, params=None, **kw):
     tm = TLM(dict(TINY, device="cpu", compute_dtype="float32",
                   attn_impl=attn_impl, **kw))
     if params is not None:
-        tm.load_params(convert.params_from_jax(params))
+        tm.load_params(convert.params_from_jax(params,
+                                               tm.kept_layout_paths()))
     return tm
 
 
@@ -118,7 +119,8 @@ def test_lm_data_stream_matches_jax(size):
 
 def test_convert_keeps_embeddings_and_transposes_projections(jax_tiny):
     _, params = jax_tiny
-    conv = convert.params_from_jax(params)
+    conv = convert.params_from_jax(params,
+                                   _port("reference").kept_layout_paths())
     for name in ("embed", "pos"):
         np.testing.assert_array_equal(conv[name]["w"], params[name]["w"])
     for blk in ("block0", "block1"):
@@ -195,7 +197,8 @@ def test_three_step_adam_trajectory_matches_jax(cpu_group):
         tm.train_iter(count)
         np.testing.assert_allclose(float(tm.current_info["cost"]),
                                    float(jm.current_info["cost"]), rtol=1e-5)
-    want = convert.params_from_jax(_host(jm.canonical_host_params()))
+    kept = tm.kept_layout_paths()
+    want = convert.params_from_jax(_host(jm.canonical_host_params()), kept)
     got = tm.host_params()
     for path, w in _leaves(want):
         _assert_bulk_close(_get(got, path), w, "/".join(path), 1e-4, 1e-6,
@@ -203,7 +206,7 @@ def test_three_step_adam_trajectory_matches_jax(cpu_group):
     jst = jax.tree.map(lambda v: np.asarray(v)[0],
                        jax.device_get(jm.step_state["opt_state"]))
     for moment in ("m", "v"):
-        for path, w in _leaves(convert.params_from_jax(jst[moment])):
+        for path, w in _leaves(convert.params_from_jax(jst[moment], kept)):
             scale = np.abs(w).max()
             _assert_bulk_close(_get(tm.opt_state[moment], path).numpy(), w,
                                f"{moment} {'/'.join(path)}", 1e-2 * scale,

@@ -9,10 +9,12 @@ transpose, and because the port flattens NHWC activations in (h, w, c)
 order, as the JAX package does, so does the FC after a ``Flatten`` (VGG's
 ``fc6`` after ``[7, 7, 512]`` included).  The transformer's projections
 (``wq``, ``wk``, ``wv``, ``wo``, ``fc1``, ``fc2``, ``head``) are FC weights
-and transpose too; its embedding tables (the ``w`` of ``embed`` and
-``pos``) are ``[vocab, dim]`` in both packages and are kept.  Vectors
-(biases, LayerNorm) are unchanged.  A momentum velocity or Adam moment tree
-has the params' shapes and converts the same way.
+and transpose too.  Its embedding tables are ``[vocab, dim]`` in both
+packages and are kept: every function here takes ``kept``, the paths of
+such leaves, which the model declares (``ModelBase.kept_layout_paths``;
+empty, the default, for the CNNs).  Vectors (biases, LayerNorm) are
+unchanged.  A momentum velocity or Adam moment tree has the params' shapes
+and converts the same way.
 
 Input and output are trees (nested dicts) of numpy arrays.
 """
@@ -21,16 +23,15 @@ from __future__ import annotations
 
 import numpy as np
 
-from .utils.helper_funcs import (get_leaf, is_embedding_table,
-                                 jax_leaf_paths, leaf_paths)
+from .utils.helper_funcs import get_leaf, jax_leaf_paths, leaf_paths
 
 
-def _to_port(a, path) -> np.ndarray:
+def _to_port(a, path, kept: frozenset) -> np.ndarray:
     """One leaf at ``path`` (its keys from the root) in the port's layout."""
     a = np.asarray(a, dtype=np.float32)
     if a.ndim == 4:
         return np.ascontiguousarray(a.transpose(3, 2, 0, 1))
-    if a.ndim == 2 and not is_embedding_table(path):
+    if a.ndim == 2 and path not in kept:
         return np.ascontiguousarray(a.T)
     return a.copy()
 
@@ -44,9 +45,10 @@ def _map_with_path(fn, tree, path=()):
     return fn(tree, path)
 
 
-def params_from_jax(tree):
-    """JAX layout → port layout (params, momentum velocity, Adam moments)."""
-    return _map_with_path(_to_port, tree)
+def params_from_jax(tree, kept: frozenset = frozenset()):
+    """JAX layout → port layout (params, momentum velocity, Adam moments);
+    the 2-D leaves at the paths in ``kept`` as they are."""
+    return _map_with_path(lambda a, path: _to_port(a, path, kept), tree)
 
 
 def _check_same_leaves(name, jax_params, like):
@@ -55,7 +57,8 @@ def _check_same_leaves(name, jax_params, like):
                          f"different leaves")
 
 
-def flat_from_jax(flat, jax_params, like) -> np.ndarray:
+def flat_from_jax(flat, jax_params, like,
+                  kept: frozenset = frozenset()) -> np.ndarray:
     """A flat vector in the JAX package's order (``flatten_tree`` of its
     params: sorted keys, JAX layouts) → the same values in the port's order
     (``flatten_tree`` of ``like``, the port's tree: its own key order,
@@ -70,19 +73,20 @@ def flat_from_jax(flat, jax_params, like) -> np.ndarray:
     for path in jax_leaf_paths(jax_params):
         shape = np.shape(get_leaf(jax_params, path))
         n = int(np.prod(shape))
-        segs[path] = _to_port(flat[ofs:ofs + n].reshape(shape), path)
+        segs[path] = _to_port(flat[ofs:ofs + n].reshape(shape), path, kept)
         ofs += n
     return np.concatenate([segs[p].reshape(-1) for p in leaf_paths(like)]
                           + [flat[ofs:]])
 
 
-def powersgd_state_from_jax(jstate, jax_params, like) -> list:
+def powersgd_state_from_jax(jstate, jax_params, like,
+                            kept: frozenset = frozenset()) -> list:
     """The JAX package's PowerSGD state (a list of ``{"q", "e"}`` in its
     sorted leaf order; ``e`` is the leaf's ``[rows, cols]`` matrix) → the
     port's (the same list in the port's leaf order, ``e`` in the port
     leaf's shape).  ``q`` is ``[cols of M, rank]`` in both packages, for
     every leaf, and is kept as it is: the port multiplies it with its leaf
-    as M itself (an embedding table) or as Mᵀ (every other matrix); ``e``
+    as M itself (a leaf in ``kept``) or as Mᵀ (every other matrix); ``e``
     is reshaped to the JAX leaf's shape and converted like a parameter.
     Incompressible leaves keep their empty state."""
     _check_same_leaves("powersgd_state_from_jax", jax_params, like)
@@ -95,6 +99,7 @@ def powersgd_state_from_jax(jstate, jax_params, like) -> list:
         q = np.asarray(st["q"], dtype=np.float32).copy()
         e = np.asarray(st["e"], dtype=np.float32)
         if e.size:
-            e = _to_port(e.reshape(np.shape(get_leaf(jax_params, path))), path)
+            e = _to_port(e.reshape(np.shape(get_leaf(jax_params, path))),
+                         path, kept)
         by_path[path] = {"q": q, "e": e.copy()}
     return [by_path[p] for p in leaf_paths(like)]

@@ -17,7 +17,10 @@ hyperparameters; ``init(gen)`` returns its parameter tree and
   contiguous channel rows.
 * **Weights are in PyTorch's layout:** conv ``[out, in/groups, kh, kw]``,
   FC and attention projections ``[out, in]``; embedding tables stay
-  ``[vocab, dim]``.  ``convert.py`` maps the JAX trees onto them.
+  ``[vocab, dim]``.  ``convert.py`` maps the JAX trees onto them.  A layer
+  names the leaves it keeps in the JAX layout (``Layer.kept_layout``:
+  ``Embedding``'s ``w``); the model collects their paths
+  (``ModelBase.kept_layout_paths``) for ``convert.py`` and the wires.
 * **Casts mirror the JAX layers'**, not autocast: conv and FC inputs and
   weights go to ``compute_dtype`` (bfloat16 by default) and the bias is
   added in that type; params stay float32; the loss is taken on float32
@@ -88,9 +91,25 @@ def _fans(shape: Sequence[int]) -> Tuple[int, int]:
 
 class Layer:
     name: str = "layer"
+    # keys of this layer's 2-D leaves stored as the JAX package stores them
+    # (an embedding table, [vocab, dim] in both); every other 2-D weight is
+    # the JAX one transposed
+    kept_layout: Tuple[str, ...] = ()
 
     def init(self, gen: torch.Generator) -> Any:
         return None
+
+    def sublayers(self) -> Dict[str, "Layer"]:
+        """Child layers by their key in this layer's params."""
+        return {}
+
+    def kept_layout_paths(self) -> set:
+        """Paths, from this layer's params, of the leaves that keep the JAX
+        layout: its own ``kept_layout`` and its sublayers'."""
+        out = {(k,) for k in self.kept_layout}
+        for key, sub in self.sublayers().items():
+            out |= {(key,) + p for p in sub.kept_layout_paths()}
+        return out
 
     def apply(self, params, x, *, train: bool = False,
               gen: Optional[torch.Generator] = None):
@@ -100,7 +119,7 @@ class Layer:
         return f"{type(self).__name__}({self.name})"
 
 
-class Sequential:
+class Sequential(Layer):
     """Composes layers; params are a dict keyed by unique layer names
     (a repeated name gets ``_1``, ``_2``... as in the JAX package)."""
 
@@ -116,6 +135,9 @@ class Sequential:
             else:
                 seen[n] = 0
             self._keys.append(n)
+
+    def sublayers(self) -> Dict[str, Layer]:
+        return dict(zip(self._keys, self.layers))
 
     def init(self, gen: torch.Generator) -> Dict[str, Any]:
         params = {}
@@ -330,7 +352,10 @@ class LayerNorm(Layer):
 
 class Embedding(Layer):
     """Token embedding lookup: a float32 ``[vocab, dim]`` table, output cast
-    to ``compute_dtype``."""
+    to ``compute_dtype``.  The table is ``[vocab, dim]`` in the JAX package
+    too, so it keeps its layout."""
+
+    kept_layout = ("w",)
 
     def __init__(self, vocab: int, dim: int, w_init=("normal", 0.02),
                  compute_dtype=torch.bfloat16, name: str = "embed"):

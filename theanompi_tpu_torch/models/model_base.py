@@ -4,8 +4,9 @@ Counterpart of ``theanompi_tpu/models/model_base.py``: a model exposes
 ``params``, ``data``, ``compile_iter_fns()``, ``train_iter(count,
 recorder)``, ``val_iter(count, recorder)``, ``adjust_hyperp(epoch)``,
 ``scale_lr(size)``, ``epochs`` and ``n_subb``, and the worker loop drives any
-object of that shape.  Concrete models define their layer stack, data object
-and hyperparameters.
+object of that shape; ``kept_layout_paths()`` names the leaves its layers
+keep in the JAX layout (the exchanger hands them to the wires).  Concrete
+models define their layer stack, data object and hyperparameters.
 
 A model lives on ONE device, ``config['device']``: ``cuda`` unless the
 caller asks for ``cpu``.  Without a card, a model that did not ask for the
@@ -89,6 +90,20 @@ class ModelBase:
         assert self.seq is not None, "build_model() must set self.seq or " \
                                      "override init_params/apply_model"
         return self.seq.init(gen)
+
+    def layers(self) -> Dict[str, L.Layer]:
+        """The top-level layers by their key in ``params``."""
+        assert self.seq is not None, "build_model() must set self.seq or " \
+                                     "override layers()"
+        return self.seq.sublayers()
+
+    def kept_layout_paths(self) -> frozenset:
+        """Paths of the parameter leaves that the JAX package stores in the
+        port's layout (each ``Layer`` names its own, ``kept_layout``): the
+        set ``convert.py`` and the topk and PowerSGD wires take, where every
+        other 2-D weight is the JAX one transposed."""
+        return frozenset((k,) + p for k, layer in self.layers().items()
+                         for p in layer.kept_layout_paths())
 
     def apply_model(self, params, x, *, train: bool, gen):
         """Returns logits."""

@@ -75,10 +75,12 @@ class Block(L.Layer):
         self.fc2 = L.FC(mlp_ratio * dim, dim, w_init=("normal", 0.02),
                         activation=None, compute_dtype=cd, name="fc2")
 
+    def sublayers(self):
+        return {"ln1": self.ln1, "attn": self.attn, "ln2": self.ln2,
+                "fc1": self.fc1, "fc2": self.fc2}
+
     def init(self, gen):
-        return {"ln1": self.ln1.init(gen), "attn": self.attn.init(gen),
-                "ln2": self.ln2.init(gen), "fc1": self.fc1.init(gen),
-                "fc2": self.fc2.init(gen)}
+        return {k: layer.init(gen) for k, layer in self.sublayers().items()}
 
     def apply(self, params, x, *, train=False, gen=None):
         h = self.ln1.apply(params["ln1"], x)
@@ -142,12 +144,12 @@ class TransformerLM(ModelBase):
                          activation=None, compute_dtype=cd, name="head")
         self.data = LMData(self.config, self.batch_size)
 
+    def layers(self):
+        return dict({"embed": self.embed, "pos": self.pos, "ln_f": self.ln_f,
+                     "head": self.head}, **{b.name: b for b in self.blocks})
+
     def init_params(self, gen):
-        p = {"embed": self.embed.init(gen), "pos": self.pos.init(gen),
-             "ln_f": self.ln_f.init(gen), "head": self.head.init(gen)}
-        for blk in self.blocks:
-            p[blk.name] = blk.init(gen)
-        return p
+        return {k: layer.init(gen) for k, layer in self.layers().items()}
 
     def apply_model(self, params, x, *, train: bool, gen):
         t = x.shape[1]

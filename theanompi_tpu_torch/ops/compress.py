@@ -123,6 +123,14 @@ def unpack_signs_weighted_sum_plain(all_packed: torch.Tensor,
     return torch.sum(decoded * scales.reshape(w, 1), dim=0)
 
 
+def decode_tol(w: int, scales: torch.Tensor):
+    """(rtol, atol) of the weighted decode B4 against the plain version at
+    ``w`` workers: the kernel's Σ 2·s·bit − Σ s and the plain Σ ±s each
+    round ``w`` times, every rounding at most half an ulp of a partial sum
+    ≤ Σ 2s: atol 4·w·2⁻²⁴·Σ s, rtol one ulp.  Exactly equal at w = 1."""
+    return 2.0 ** -23, 4 * w * 2.0 ** -24 * float(scales.sum())
+
+
 def pack_signs_encode_plain(flat: torch.Tensor, state: torch.Tensor):
     """``c = flat + state`` → (packed signs of c, |c|)
     (``pack_signs_encode_jnp``)."""

@@ -61,6 +61,12 @@ class BSP_Exchanger(Exchanger):
         self.strategy: Strategy = get_strategy(
             self.config.get("exch_strategy", "allreduce"))
 
+    def prepare(self, model, size: int) -> None:
+        """Also hands the strategy the paths of the model's leaves kept in
+        the JAX layout (``ModelBase.kept_layout_paths``)."""
+        super().prepare(model, size)
+        self.strategy.kept_layout = frozenset(model.kept_layout_paths())
+
     def extra_state_template(self) -> Dict[str, Any]:
         """``{"strat": state}`` on the model's device for a stateful
         strategy (whatever structure its ``init_state`` makes: a tensor or

@@ -19,6 +19,7 @@ return.
 from __future__ import annotations
 
 import math
+from itertools import accumulate
 from typing import Any, Optional
 
 import torch
@@ -27,8 +28,8 @@ import torch.distributed as dist
 from ..ops import compress as compress_ops
 from ..ops import factor_pack
 from ..utils.helper_funcs import (flatten_tree, flatten_tree_jax,
-                                  is_embedding_table, leaf_paths, tree_leaves,
-                                  tree_map, tree_size, unflatten_like,
+                                  leaf_paths, tree_leaves, tree_map,
+                                  tree_size, unflatten_like,
                                   unflatten_like_jax)
 
 
@@ -39,6 +40,10 @@ class Strategy:
     stateful = False
     # True when the strategy works on one flattened vector, not leaf-wise
     flattens = False
+    # paths of the 2-D leaves the JAX package stores in the port's layout
+    # (the model's ``kept_layout_paths``, which the exchanger hands over);
+    # every other 2-D leaf is the JAX one transposed
+    kept_layout: frozenset = frozenset()
 
     def init_state(self, params) -> Any:
         """Per-rank persistent state."""
@@ -184,13 +189,15 @@ class TopK(Strategy):
 
     @torch.no_grad()
     def __call__(self, tree, state, *, size: int):
-        c = flatten_tree_jax(tree, pad_to_multiple_of=self.chunk)
+        c = flatten_tree_jax(tree, pad_to_multiple_of=self.chunk,
+                             kept=self.kept_layout)
         c.add_(state)                                  # c = flat + state
         wire_vals, wire_idx, new_c2 = compress_ops.topk_encode(
             c.view(-1, self.chunk), self._k_c())
         all_vals, all_idx = _gather_topk_wire(wire_vals, wire_idx, size)
         mean = compress_ops.topk_decode(all_vals, all_idx, self.chunk, size)
-        return unflatten_like_jax(tree, mean), new_c2.view(-1)
+        return (unflatten_like_jax(tree, mean, self.kept_layout),
+                new_c2.view(-1))
 
 
 class PowerSGD(Strategy):
@@ -206,12 +213,12 @@ class PowerSGD(Strategy):
     layout, ``A = leaf.reshape(shape[0], -1)``.  For a conv or FC weight
     that is ``M`` transposed (for a conv, with M's rows permuted, which P̂'s
     span and so M̂ do not depend on), so ``P = Aᵀ Q``, ``Q' = A P̂`` and
-    ``M̂ᵀ = Q' P̂ᵀ``.  An embedding table (``helper_funcs.is_embedding_table``)
+    ``M̂ᵀ = Q' P̂ᵀ``.  A leaf in ``kept_layout`` (an embedding table)
     keeps its layout in both packages, so ``A`` is ``M`` itself and
-    ``P = A Q``, ``Q' = Aᵀ P̂``, ``M̂ = P̂ Q'ᵀ``.  The leaf's path decides
-    which; both are the products B9 of ``ops/factor_pack.py`` takes with a
-    transpose flag.  ``e`` keeps the leaf's own shape.  All P factors
-    travel in one zero-padded staging buffer and one ``all_reduce``, then
+    ``P = A Q``, ``Q' = Aᵀ P̂``, ``M̂ = P̂ Q'ᵀ``.  ``e`` keeps the leaf's own
+    shape.  All P factors are one call of B9 (``ops/factor_pack.py``
+    ``matmul_pack_group``, each leaf with its transpose flag), which writes
+    them into one zero-padded staging buffer for one ``all_reduce``; then
     all Q factors likewise; leaves too small to win (vectors, and
     min(rows, cols) ≤ 4r) are reduced exactly.  ``torch.linalg.qr`` and
     the decode product are library calls, as in the JAX package they are
@@ -243,7 +250,7 @@ class PowerSGD(Strategy):
         for i, (path, l) in enumerate(zip(leaf_paths(params),
                                           tree_leaves(params))):
             if self._compressible(l.shape):
-                cols = l.shape[1] if is_embedding_table(path) else l.shape[0]
+                cols = l.shape[1] if path in self.kept_layout else l.shape[0]
                 gen = torch.Generator().manual_seed(1905 + i)
                 q = torch.randn((cols, self.rank), generator=gen)
                 state.append({"q": q.to(l.device),
@@ -265,44 +272,40 @@ class PowerSGD(Strategy):
         comp = [i for i, g in enumerate(leaves)
                 if self._compressible(g.shape)]
         paths = leaf_paths(tree)
-        # A is M transposed, except for an embedding table, where it is M
-        flip = {i: not is_embedding_table(paths[i]) for i in comp}
+        # A is M transposed, except for a leaf kept in the JAX layout,
+        # where it is M
+        flip = {i: paths[i] not in self.kept_layout for i in comp}
 
-        def stacked_mean(tiles):
-            buf = tiles[0] if len(tiles) == 1 else torch.cat(tiles)
+        def stacked_mean(buf):
             dist.all_reduce(buf)
             return buf.mul_(inv)
 
         if comp:
             # A' = g + e in the leaf's layout, [shape[0], rest]
-            mats = {i: (leaves[i].float() + state[i]["e"]).reshape(
-                leaves[i].shape[0], -1) for i in comp}
+            mats = [(leaves[i].float() + state[i]["e"]).reshape(
+                leaves[i].shape[0], -1) for i in comp]
             # P = M' Q and Q' = M'ᵀ P̂, with M' = A'ᵀ or A'
-            m_shape = {i: mats[i].shape[::-1] if flip[i] else mats[i].shape
-                       for i in comp}
-            p_tiles = [factor_pack.matmul_pack(mats[i], state[i]["q"],
-                                               transpose=flip[i])
-                       for i in comp]
-            p_all = stacked_mean(p_tiles)
-            phs, off = {}, 0
-            for i, t in zip(comp, p_tiles):
-                rows = m_shape[i][0]
-                phs[i] = torch.linalg.qr(p_all[off:off + rows]).Q.contiguous()
-                off += t.shape[0]
-            q_tiles = [factor_pack.matmul_pack(mats[i], phs[i],
-                                               transpose=not flip[i])
-                       for i in comp]
-            q_all = stacked_mean(q_tiles)
-            off = 0
-            for i, t in zip(comp, q_tiles):
+            m_shape = [m.shape[::-1] if flip[i] else m.shape
+                       for i, m in zip(comp, mats)]
+            # each factor's first row in its staging buffer
+            p_off = accumulate((factor_pack.pad_rows(s[0]) for s in m_shape),
+                               initial=0)
+            q_off = accumulate((factor_pack.pad_rows(s[1]) for s in m_shape),
+                               initial=0)
+            p_all = stacked_mean(factor_pack.matmul_pack_group(
+                mats, [state[i]["q"] for i in comp],
+                [flip[i] for i in comp]))
+            phs = [torch.linalg.qr(p_all[o:o + s[0]]).Q.contiguous()
+                   for o, s in zip(p_off, m_shape)]
+            q_all = stacked_mean(factor_pack.matmul_pack_group(
+                mats, phs, [not flip[i] for i in comp]))
+            for i, m, s, ph, o in zip(comp, mats, m_shape, phs, q_off):
                 g = leaves[i]
-                qn = q_all[off:off + m_shape[i][1]]
-                off += t.shape[0]
+                qn = q_all[o:o + s[1]]
                 # M̂ in A's layout: M̂ᵀ = Q' P̂ᵀ, or M̂ = P̂ Q'ᵀ
-                mhat = qn @ phs[i].t() if flip[i] else phs[i] @ qn.t()
+                mhat = qn @ ph.t() if flip[i] else ph @ qn.t()
                 out[i] = mhat.view(g.shape).to(g.dtype)
-                new_state[i] = {"q": qn,
-                                "e": (mats[i] - mhat).view(g.shape)}
+                new_state[i] = {"q": qn, "e": (m - mhat).view(g.shape)}
 
         for i, g in enumerate(leaves):
             if i not in comp:

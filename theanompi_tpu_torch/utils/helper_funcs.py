@@ -16,12 +16,14 @@ not depend on the order and uses the port's.
 **JAX order.** :func:`flatten_tree_jax` and :func:`unflatten_like_jax` lay
 the same tree out as the JAX package's ``flatten_tree`` does: keys sorted
 at every level, 4-D conv weights as HWIO (``w.permute(2, 3, 1, 0)``), 2-D
-FC weights as ``[in, out]``, and embedding tables (the ``w`` of a layer
-named in :data:`EMBEDDING_LAYERS`) as they are, ``[vocab, dim]`` in both
-packages.  So the layout of a leaf depends on its path, not on its shape
-alone (:func:`is_embedding_table`).  The topk wire selects per fixed-size
-chunk of the flat vector, so its compressor, and its error state, are the
-JAX package's only in this order.
+FC weights as ``[in, out]``, and the 2-D leaves whose paths are in
+``kept`` as they are (embedding tables, ``[vocab, dim]`` in both
+packages).  The layer declares which of its leaves those are
+(``models.layers.Layer.kept_layout``) and the model hands the set over
+(``ModelBase.kept_layout_paths``): a leaf's layout is not guessed from its
+shape or its name.  The topk wire selects per fixed-size chunk of the flat
+vector, so its compressor, and its error state, are the JAX package's only
+in this order.
 """
 
 from __future__ import annotations
@@ -103,56 +105,46 @@ def get_leaf(tree, path):
     return tree
 
 
-# layers whose 2-D weight is an embedding table, [vocab, dim] in both
-# packages
-EMBEDDING_LAYERS = ("embed", "pos")
-
-
-def is_embedding_table(path) -> bool:
-    """True for the leaf at ``path`` (its keys from the root) that is the
-    ``w`` of a layer named in :data:`EMBEDDING_LAYERS`: a table that keeps
-    its layout in both packages."""
-    return len(path) >= 2 and path[-2] in EMBEDDING_LAYERS and \
-        path[-1] == "w"
-
-
-def to_jax_layout(t: torch.Tensor, path) -> torch.Tensor:
+def to_jax_layout(t: torch.Tensor, path,
+                  kept: frozenset = frozenset()) -> torch.Tensor:
     """A view of the port-layout leaf at ``path`` in the JAX package's
-    layout: OIHW → HWIO, ``[out, in]`` → ``[in, out]``; embedding tables
-    and vectors as they are."""
+    layout: OIHW → HWIO, ``[out, in]`` → ``[in, out]``; a 2-D leaf whose
+    path is in ``kept`` (an embedding table) and vectors as they are."""
     if t.dim() == 4:
         return t.permute(2, 3, 1, 0)
-    if t.dim() == 2 and not is_embedding_table(path):
+    if t.dim() == 2 and path not in kept:
         return t.t()
     return t
 
 
-def from_jax_layout(t: torch.Tensor, path) -> torch.Tensor:
+def from_jax_layout(t: torch.Tensor, path,
+                    kept: frozenset = frozenset()) -> torch.Tensor:
     """Inverse of :func:`to_jax_layout`: HWIO → OIHW, ``[in, out]`` →
     ``[out, in]``, as a view."""
     if t.dim() == 4:
         return t.permute(3, 2, 0, 1)
-    if t.dim() == 2 and not is_embedding_table(path):
+    if t.dim() == 2 and path not in kept:
         return t.t()
     return t
 
 
-def _jax_shape(shape, path) -> tuple:
+def _jax_shape(shape, path, kept: frozenset) -> tuple:
     """The JAX layout's shape of the port-layout leaf at ``path`` of
     ``shape``."""
     if len(shape) == 4:
         o, i, h, w = shape
         return (h, w, i, o)
-    if len(shape) == 2 and not is_embedding_table(path):
+    if len(shape) == 2 and path not in kept:
         return (shape[1], shape[0])
     return tuple(shape)
 
 
-def flatten_tree_jax(tree, pad_to_multiple_of: int = 1) -> torch.Tensor:
+def flatten_tree_jax(tree, pad_to_multiple_of: int = 1,
+                     kept: frozenset = frozenset()) -> torch.Tensor:
     """All leaves as one float32 vector in the JAX package's flat order
-    and layouts (see the module docstring), zero-padded at the end to a
-    multiple of ``pad_to_multiple_of``: one copy per leaf into the
-    vector."""
+    and layouts (see the module docstring; ``kept``: the paths of the 2-D
+    leaves kept as they are), zero-padded at the end to a multiple of
+    ``pad_to_multiple_of``: one copy per leaf into the vector."""
     paths = jax_leaf_paths(tree)
     leaves = [get_leaf(tree, p) for p in paths]
     n = sum(int(l.numel()) for l in leaves)
@@ -160,14 +152,15 @@ def flatten_tree_jax(tree, pad_to_multiple_of: int = 1) -> torch.Tensor:
     flat = torch.empty(n_pad, dtype=torch.float32, device=leaves[0].device)
     ofs = 0
     for p, l in zip(paths, leaves):
-        j = to_jax_layout(l, p)
+        j = to_jax_layout(l, p, kept)
         flat[ofs:ofs + l.numel()].view(j.shape).copy_(j)
         ofs += l.numel()
     flat[n:].zero_()
     return flat
 
 
-def unflatten_like_jax(tree, flat: torch.Tensor):
+def unflatten_like_jax(tree, flat: torch.Tensor,
+                       kept: frozenset = frozenset()):
     """Inverse of :func:`flatten_tree_jax`: each leaf of ``tree`` as a view
     of ``flat`` in the port's shape (strided: a conv or FC weight is a
     permuted view of its JAX-layout segment; a copy only where the leaf's
@@ -176,7 +169,8 @@ def unflatten_like_jax(tree, flat: torch.Tensor):
     for p in jax_leaf_paths(tree):
         l = get_leaf(tree, p)
         n = int(l.numel())
-        v = from_jax_layout(flat[ofs:ofs + n].view(_jax_shape(l.shape, p)), p)
+        v = from_jax_layout(
+            flat[ofs:ofs + n].view(_jax_shape(l.shape, p, kept)), p, kept)
         views[p] = v if v.dtype == l.dtype else v.to(l.dtype)
         ofs += n
     paths = iter(leaf_paths(tree))

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --topk-times    # B7's time alone
     python3 chip_smoke.py --factor-times  # B9's PowerSGD passes alone
     python3 chip_smoke.py --flash-times --topk-times --factor-times
+    python3 chip_smoke.py --input-times   # AlexNet from files: loader settings
 
 1. Fails (exit 2, no result) without CUDA; prints the card's name and power
    limit as ``nvidia-smi`` reports them.
@@ -28,16 +29,48 @@
    batch 128, full width, bf16, a few steps, and checks the cost is finite,
    the params sit on the card and which kernels were launched how often.
 7. Profiles a few more AlexNet steps: host wall and host buckets per step,
-   device busy time, the device's idle share, the kernels by device time.
-8. Drives the VGG-16 onebit main path: ``BSP().init(devices=1, modelfile=
+   device busy time, the device's idle share, the kernels by device time,
+   the host → device copies (``Memcpy HtoD``) and their memory kind.
+8. Native loader: builds ``theanompi_tpu_torch/native/loader.cc`` with g++
+   into ``build/native/`` and, on one AlexNet batch (128 bc01 uint8 images
+   at 256², a CHW mean made HWC), holds the fused pass against its NumPy
+   path bit for bit, with a shared crop window and with per-image windows;
+   prints the host ms of each path, the native one at 1–8 threads.
+9. AlexNet from files under ``para_load``: writes ImageNet-layout ``.npy``
+   batch files (bc01 uint8, 128 images of 256·256·3 each, the label files,
+   a smooth CHW ``img_mean.npy``; ``.npy`` because the card's machine has
+   no h5py) under ``build/``, and trains BSP AlexNet at batch 128 on them
+   with ``data_dir=``, ``para_load=True``, ``para_load_workers=4``: one
+   epoch and a validation batch, ending in a checkpoint (``ckpt_dir``).
+   Checks the costs, the params' device, the LRN launch counts, and that
+   every batch a step took on the card (its checksum, after the compute
+   stream waited on the staging copy) equals the same step of a bare
+   ``ImageNet_data`` over the same files and seed on the host: a pinned
+   buffer rewritten too early would show here.
+10. The same with ``aug_wire_u8=True``: the uint8 batches' checksums; then
+    the first step's batch through both wires in eval mode: with a scalar
+    mean the staged input and the logits are bit-equal, with the mean image
+    the input differs by exactly the mean's window deviation and the logits
+    stay within ``U8_LOGITS_RTOL``.
+11. Resume: a fresh session restores the checkpoint of step 9: params,
+    momentum and the loader's cursor bit-equal to the saved ones, the first
+    batch of epoch 1 equal to the uninterrupted stream's; then
+    ``BSP().init(..., resume=True)`` trains epoch 1 (launches counted,
+    every batch checked, costs finite).  Trajectories after a resume are
+    held bit for bit on the CPU (tests): cuDNN's backward algorithms are not
+    promised deterministic.
+12. Profiles AlexNet from files under ``para_load``, float32 and u8 wires,
+    as step 7 profiles the synthetic source (the loader's epoch started
+    first, so its producer runs ahead).
+13. Drives the VGG-16 onebit main path: ``BSP().init(devices=1, modelfile=
    'theanompi_tpu_torch.models.vggnet_16', modelclass='VGGNet_16',
    exch_strategy='onebit', batch_size=32, ...)``, full width and depth,
    8 steps and a validation batch; checks the costs, the params' device,
    the error-feedback state, and that B5, B6 and B4 ran once per step.
-9. Profiles VGG-16 onebit steps the same way, with the per-step device time
+14. Profiles VGG-16 onebit steps the same way, with the per-step device time
    of B4+B5+B6 and of the flatten copy, and checks that one exchange reads
    nothing back to the host (CUDA sync debug mode).
-10. Topk (B7/B8): at VGG-16's padded shape, c2 [16890, 8192] with k = 82
+15. Topk (B7/B8): at VGG-16's padded shape, c2 [16890, 8192] with k = 82
     (all-zero rows, planted ties, ±0.0, and the radix select's stress rows:
     |c| sharing their top 16 bits, more than k ties at the threshold after
     the larger entries, subnormals, ±inf), holds the encode and the decode
@@ -46,20 +79,20 @@
     (``torch.topk`` for the selection alone; one accumulating
     ``index_put_`` for the scatter alone); prints B7 beside its first,
     argmax-pass version.
-11. Factor pack (B9): both passes of a PowerSGD step over VGG-16's 16
+16. Factor pack (B9): both passes of a PowerSGD step over VGG-16's 16
     compressible weights (``Aᵀ q``, then ``A p``, rank 2), each one
     grouped launch as the main path makes it, against the plain version
     within the float32 dot-product bound, pad rows exactly +0, a rerun bit
     for bit the same and each tile bit for bit the one-leaf entry's; times
     each pass beside the sum of its 16 one-leaf launches, its bound, the
     plain group and ``torch.matmul`` over its products (TF32 off).
-12. Drives VGG-16 under ``exch_strategy='topk'`` and ``'powersgd'`` the
-    way step 8 drives onebit (8 steps, a validation batch, launch counts:
+17. Drives VGG-16 under ``exch_strategy='topk'`` and ``'powersgd'`` the
+    way step 13 drives onebit (8 steps, a validation batch, launch counts:
     8 B7 + 8 B8, and 2 × 8 = 16 grouped B9, nothing else), profiles each,
     and runs one exchange of each under CUDA's sync debug mode: the topk
     exchange must make the host wait on nothing; PowerSGD's waits (its
     ``torch.linalg.qr`` might read back) are counted and printed.
-13. Flash attention (B10–B12): checks with ``cuobjdump -sass`` that every
+18. Flash attention (B10–B12): checks with ``cuobjdump -sass`` that every
     build of B10, B11 and B12 holds wgmma (``HGMMA``) and TMA loads
     (``UTMALDG``); at the LM's shape [16, 8, 512, 64] bf16, causal, on q,
     k, v and dO laid out as the model hands them (views of [B, T, H, hd]),
@@ -70,19 +103,19 @@
     for B11 and B12; timed here only, the port never calls it), and the
     host µs of each wrapper call; prints B10–B12 beside their first, WMMA
     versions, and B11 + B12 beside SDPA's backward.
-14. The LM at full width (d512, 8 heads, 8 layers, T512, vocab 32768) at
+19. The LM at full width (d512, 8 heads, 8 layers, T512, vocab 32768) at
     batch 2 on the card: loss and gradients of ``attn_impl='flash'``
     (kernels, bf16) and ``'reference'`` (torch attention, bf16) from the
     same parameters, each against the same model in float32; flash must
     be as close to float32 as the bf16 reference, within a stated factor.
-15. Drives the LM main path: ``BSP().init(devices=1, modelfile=
+20. Drives the LM main path: ``BSP().init(devices=1, modelfile=
     'theanompi_tpu_torch.models.transformer_lm', modelclass='TransformerLM',
     attn_impl='flash', batch_size=16, ...)``, Adam, 8 steps and a validation
     batch; checks the costs, the params' device and the launch counts
     (8·(8+1) B10, 8·8 B11, 8·8 B12, nothing else); profiles its steps
     (tokens/s, host buckets, device busy, idle share, the flash kernels'
     device time).
-16. Prints ``{"kernels": [...]}`` (B1–B12), then the card, then the last
+21. Prints ``{"kernels": [...]}`` (B1–B12), then the card, then the last
     line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script exits non-zero and prints no result.
@@ -808,6 +841,8 @@ def times_main(flags) -> int:
     else (for setting two trees' kernels side by side in one call)."""
     card = card_line()
     out = {"card": card}
+    if "--input-times" in flags:
+        out["input_times"] = input_times()
     if "--flash-times" in flags:
         _kernel_build.build(["flash_attention"])
         q, k, v, do = flash_inputs()
@@ -989,7 +1024,8 @@ def run_main_path(modelfile, modelclass, want_launches, **cfg):
     zero_launches()
     rule = BSP()
     rule.init(devices=1, modelfile=modelfile, modelclass=modelclass,
-              epochs=1, synthetic_val_batches=VAL_BATCHES, seed=0, **cfg)
+              **dict(dict(epochs=1, synthetic_val_batches=VAL_BATCHES,
+                          seed=0), **cfg))
     t0 = time.time()
     rec = rule.wait()
     torch.cuda.synchronize()
@@ -1124,6 +1160,10 @@ def step_profile_phase(modelfile, modelclass, batch, groups, steps, warmup=2,
     try:
         model = worker.build_model(modelfile, modelclass)
         model.compile_iter_fns(worker.exchanger)
+        if cfg.get("para_load"):
+            # the producer starts with the epoch: before it, a
+            # PrefetchLoader serves on the step's thread
+            model.data.shuffle_data(0)
         count = 0
 
         def run(n, rec=None):
@@ -1167,6 +1207,12 @@ def step_profile_phase(modelfile, modelclass, batch, groups, steps, warmup=2,
            "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
            "top_kernels": [{k: v for k, v in r.items() if k != "key"}
                            for r in by_kernel[:15]]}
+    # host → device copies, with the memory kind the profiler names
+    # ("Memcpy HtoD (Pinned -> Device)" or "(Pageable -> Device)")
+    htod = [r for r in by_kernel if r["key"].startswith("Memcpy HtoD")]
+    out["htod_ms_per_step"] = sum(r["ms_per_step"] for r in htod)
+    out["htod"] = [{"name": r["key"], "ms_per_step": r["ms_per_step"],
+                    "calls_per_step": r["calls_per_step"]} for r in htod]
     for label, subs in groups.items():
         # matched on the whole kernel name (a template's tail included)
         out[f"{label}_ms_per_step"] = sum(
@@ -1185,7 +1231,407 @@ def print_profile(p: dict, card: str, groups) -> None:
           + f"; device busy {p['device_busy_ms_per_step']:.2f} ms, idle "
           f"share {p['device_idle_share']:.3f}; "
           + ", ".join(f"{g} {p[g + '_ms_per_step']:.3f} ms" for g in groups)
+          + f"; HtoD {p['htod_ms_per_step']:.3f} ms "
+          + str(sorted({h["name"] for h in p["htod"]}))
           + f" on {card}", flush=True)
+
+
+# -- the real-data input path and checkpoints --------------------------------
+
+# the file-based AlexNet cell: one epoch is FILE_STEPS batch files, enough
+# for a profile's warm-up, timed and profiled steps after one shuffle
+FILE_STEPS = 2 + 2 * PROFILE_STEPS
+FILE_WORKERS = 4                      # para_load_workers, the default
+DATA_DIR = os.path.join("build", "smoke_imagenet")
+CKPT_DIR = os.path.join("build", "smoke_ckpt")
+RAW = 256
+# the u8 wire against the float32 wire, first step's logits, full mean
+# image: the u8 wire subtracts the mean's centre window where the float32
+# pass subtracts the crop window's own (the JAX package's documented
+# deviation); on this smooth mean the inputs differ by at most 0.4 levels
+# against pixels of ~74 RMS (0.5%), and the logits (relative L2) must stay
+# within U8_LOGITS_RTOL (0.0033 on the CPU at batch 8)
+U8_LOGITS_RTOL = 0.02
+
+
+def smooth_mean_chw() -> np.ndarray:
+    """A CHW mean image of the reference's kind: smooth, ~110-135."""
+    yy, xx = np.meshgrid(np.arange(RAW), np.arange(RAW), indexing="ij")
+    plane = 8.0 * np.sin(2 * np.pi * yy / RAW) * np.cos(2 * np.pi * xx / RAW)
+    return np.stack([120.0 + 5.0 * c + plane
+                     for c in range(3)]).astype(np.float32)
+
+
+def write_batch_files(root: str, n_train: int, n_val: int,
+                      mean: bool = True, seed: int = 7) -> str:
+    """ImageNet-layout ``.npy`` batch files made from ``seed``: bc01 uint8
+    [128, 3, 256, 256] (25.2 MB each) in ``train_hkl/`` and ``val_hkl/``,
+    the label files, and a CHW ``img_mean.npy`` unless ``mean`` is off
+    (then the reader's scalar mean, 122).  ``.npy``: the card's machine
+    has no h5py for ``.hkl``."""
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(seed)
+    for sub, n in (("train_hkl", n_train), ("val_hkl", n_val)):
+        os.makedirs(os.path.join(root, sub))
+        for j in range(n):
+            np.save(os.path.join(root, sub, f"{j:04d}.npy"),
+                    rng.integers(0, 256, (BATCH, 3, RAW, RAW), np.uint8))
+        np.save(os.path.join(root, sub.split("_")[0] + "_labels.npy"),
+                rng.integers(0, 1000, n * BATCH).astype(np.int32))
+    if mean:
+        np.save(os.path.join(root, "img_mean.npy"), smooth_mean_chw())
+    return root
+
+
+_WEIGHTS = {}
+
+
+def checksum(t):
+    """A position-weighted sum of a batch's bits, in int64 (wrapping alike
+    on the card and in NumPy): a tensor on the card gives a device scalar,
+    an array a Python int.  Any changed, moved or missing byte changes it
+    (but for a 2^-64 chance)."""
+    n = t.numel() if isinstance(t, torch.Tensor) else t.size
+    if isinstance(t, torch.Tensor):
+        w = _WEIGHTS.get((n, t.device))
+        if w is None:
+            w = _WEIGHTS[(n, t.device)] = (
+                torch.arange(n, device=t.device, dtype=torch.int64) % 65521
+                + 1)
+        v = t.reshape(-1)
+        v = v.view(torch.int32) if v.dtype == torch.float32 else v
+        return (v.to(torch.int64) * w).sum()
+    w = np.arange(n, dtype=np.int64) % 65521 + 1
+    v = np.ascontiguousarray(t).reshape(-1)
+    v = v.view(np.int32) if v.dtype == np.float32 else v
+    return int((v.astype(np.int64) * w).sum())
+
+
+def host_stream(wire_u8: bool, epochs, n_val: int = 1) -> list:
+    """Checksums of what a bare ``ImageNet_data`` over the same files and
+    seed yields, epoch by epoch as the worker draws it: the train batches
+    after ``shuffle_data(epoch + seed)``, then the validation batches."""
+    from theanompi_tpu_torch.models.data.imagenet import ImageNet_data
+    data = ImageNet_data({"data_dir": DATA_DIR, "seed": 0,
+                          "aug_wire_u8": wire_u8}, BATCH, crop=227)
+    out = []
+    for epoch in range(max(epochs) + 1):
+        data.shuffle_data(epoch)
+        sums = [checksum(data.next_train_batch(i)["x"])
+                for i in range(data.n_batch_train)]
+        sums += [checksum(data.next_val_batch(0)["x"]) for _ in range(n_val)]
+        if epoch in epochs:
+            out += sums
+    return out
+
+
+class ClaimRecorder:
+    """Records, on the card, the checksum of every batch a step takes
+    (``steps.claim``: after the compute stream has waited on the staging
+    copy), without reading anything back until :meth:`values`."""
+
+    def __init__(self):
+        from theanompi_tpu_torch.parallel import steps
+        self.steps, self.sums, self.orig = steps, [], steps.claim
+
+    def __enter__(self):
+        def hooked(batch, device):
+            out = self.orig(batch, device)
+            self.sums.append(checksum(out["x"]))
+            return out
+        self.steps.claim = hooked
+        return self
+
+    def __exit__(self, *exc):
+        self.steps.claim = self.orig
+
+    def values(self) -> list:
+        return [int(v) for v in self.sums]
+
+
+def check_stream(name, got: list, want: list) -> None:
+    if len(got) != len(want):
+        raise AssertionError(f"{name}: {len(got)} staged batches, the host "
+                             f"stream has {len(want)}")
+    bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    if bad:
+        raise AssertionError(f"{name}: staged batches {bad} differ from the "
+                             f"host stream")
+
+
+def native_loader_phase() -> dict:
+    """Builds ``native/loader.cc`` with g++ (a failed build raises) and,
+    on one AlexNet batch (128 bc01 uint8 images at 256², a CHW mean made
+    HWC), holds the native pass against the NumPy path bit for bit, with a
+    shared crop window (its window of the full mean) and with per-image
+    windows (the mean's centre window); host ms of each path, the native
+    pass at several thread counts."""
+    from theanompi_tpu_torch import native
+    t0 = time.time()
+    so = native.build()
+    build_s = time.time() - t0
+    rng = np.random.default_rng(3)
+    x = rng.integers(0, 256, (BATCH, 3, RAW, RAW), np.uint8)
+    mean = np.ascontiguousarray(smooth_mean_chw().transpose(1, 2, 0))
+    c = 227
+    out = {"library": so, "build_s": build_s, "default_threads":
+           native.DEFAULT_THREADS, "para_load_threads":
+           max(1, native.DEFAULT_THREADS // FILE_WORKERS), "draws": {}}
+    for kind in ("shared", "per_image"):
+        m = 1 if kind == "shared" else BATCH
+        oy = rng.integers(0, RAW - c + 1, m).astype(np.int32)
+        ox = rng.integers(0, RAW - c + 1, m).astype(np.int32)
+        flip = rng.integers(0, 2, m).astype(np.uint8)
+        if kind == "shared":
+            mw = mean[oy[0]:oy[0] + c, ox[0]:ox[0] + c]
+        else:
+            cy = (RAW - c) // 2
+            mw = mean[cy:cy + c, cy:cy + c]
+        mw = np.ascontiguousarray(mw)
+        bc = lambda a: np.broadcast_to(a, (BATCH,))
+        t0 = time.perf_counter()
+        plain = native.augment_numpy(x, bc(oy), bc(ox), bc(flip), c, mw, 0.0)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got = native.augment_batch(x, oy, ox, flip, c, mean=mw)
+        if not np.array_equal(got.view(np.int32), plain.view(np.int32)):
+            raise AssertionError(f"native loader ({kind} draws) differs from "
+                                 f"the NumPy path")
+        times = {}
+        for th in sorted({1, 2, 4, native.DEFAULT_THREADS}):
+            ts = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                native.augment_batch(x, oy, ox, flip, c, mean=mw,
+                                     n_threads=th)
+                ts.append((time.perf_counter() - t0) * 1e3)
+            times[th] = float(np.median(ts))
+        out["draws"][kind] = {"numpy_ms": plain_ms, "native_ms": times}
+    return out
+
+
+def file_cfg(wire_u8: bool, **kw) -> dict:
+    return dict(dict(batch_size=BATCH, data_dir=DATA_DIR, para_load=True,
+                     para_load_workers=FILE_WORKERS, aug_wire_u8=wire_u8,
+                     printFreq=FILE_STEPS // 2), **kw)
+
+
+def alexnet_files_phase(wire_u8: bool, ckpt_dir=None):
+    """AlexNet at batch 128 from the batch files under ``para_load``: one
+    epoch of FILE_STEPS steps and a validation batch (a checkpoint at its
+    end when ``ckpt_dir``), launches counted; every batch a step took holds
+    the host stream's bits."""
+    want = expect(lrn_fwd_cuda=2 * (FILE_STEPS + VAL_BATCHES),
+                  lrn_bwd_cuda=2 * FILE_STEPS)
+    with ClaimRecorder() as claims:
+        model, out = run_main_path(
+            "theanompi_tpu_torch.models.alex_net", "AlexNet", want,
+            **file_cfg(wire_u8, **({"ckpt_dir": ckpt_dir} if ckpt_dir
+                                   else {})))
+    check_stream(f"AlexNet files (u8 wire {wire_u8})", claims.values(),
+                 host_stream(wire_u8, [0]))
+    out["batches_checked"] = len(claims.sums)
+    if model.data.__class__.__name__ != "PrefetchLoader":
+        raise AssertionError("para_load did not wrap the data object")
+    saved = None
+    if ckpt_dir:
+        saved = {"params": tree_map(lambda t: t.detach().cpu().clone(),
+                                    model.params),
+                 "opt_state": tree_map(lambda t: t.cpu().clone(),
+                                       model.opt_state),
+                 "cursor": model.data.get_cursor()}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, saved
+
+
+def u8_logits_phase() -> dict:
+    """The first step's batch through both wires, AlexNet in eval mode
+    (bf16, as trained): with a scalar mean the u8 wire's staged input and
+    logits are bit-equal to the float32 wire's; with the full mean image
+    the staged input differs by exactly the mean's window deviation (to 2
+    float32 ulps at 256) and the logits by at most U8_LOGITS_RTOL
+    (relative L2)."""
+    from theanompi_tpu_torch.models.alex_net import AlexNet
+    from theanompi_tpu_torch.models.data.imagenet import ImageNet_data
+    scalar_dir = os.path.join("build", "smoke_imagenet_scalar")
+    write_batch_files(scalar_dir, 1, 1, mean=False)
+    model = AlexNet({"batch_size": 2, "synthetic_batches": 1,
+                     "synthetic_val_batches": 1, "seed": 0})
+    out = {}
+    for name, d in (("scalar", scalar_dir), ("image", DATA_DIR)):
+        xs = {}
+        for u8 in (False, True):
+            data = ImageNet_data({"data_dir": d, "seed": 0,
+                                  "aug_wire_u8": u8}, BATCH, crop=227)
+            data.shuffle_data(0)
+            xs[u8] = torch.from_numpy(data.next_train_batch(1)["x"]).cuda()
+        model.data = data               # the u8 wire's mean comes from it
+        model.__dict__.pop("_u8_mean", None)
+        with torch.no_grad():
+            staged = model.stage_input(xs[True])
+            lf = model.apply_model(model.params, xs[False], train=False,
+                                   gen=None).float()
+            lu = model.apply_model(model.params, staged, train=False,
+                                   gen=None).float()
+        rel = float((lu - lf).norm() / lf.norm())
+        if name == "scalar":
+            check_bits("u8 wire staged input, scalar mean", staged, xs[False])
+            check_bits("u8 wire logits, scalar mean", lu, lf)
+        else:
+            mi = data.img_mean
+            cy, c = (RAW - 227) // 2, 227
+            # the first step's window: a fresh object's first draw
+            oy, ox, _ = ImageNet_data({"data_dir": d, "seed": 0}, BATCH,
+                                      crop=c)._draw(BATCH, RAW, RAW, True)
+            dev = torch.from_numpy(np.ascontiguousarray(
+                mi[oy[0]:oy[0] + c, ox[0]:ox[0] + c]
+                - mi[cy:cy + c, cy:cy + c])).cuda()
+            err = float((staged - xs[False] - dev).abs().max())
+            if err > 2 * 2.0 ** -15:
+                raise AssertionError(f"u8 wire input deviates {err:.3e} from "
+                                     f"the mean's window deviation")
+            if not rel <= U8_LOGITS_RTOL:
+                raise AssertionError(f"u8 wire logits rel L2 {rel:.3e}")
+            out["input_dev_max"] = float(dev.abs().max())
+        out[f"{name}_logits_rel_l2"] = rel
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def resume_phase(saved: dict) -> dict:
+    """A fresh session restores the checkpoint the f32 files phase wrote:
+    params, momentum and the loader's cursor equal the saved ones bit for
+    bit, and the first batch it draws for epoch 1 is the host stream's;
+    then ``BSP().init(..., resume=True)`` trains epoch 1 (launches counted,
+    every batch checked against the host stream, costs finite)."""
+    from theanompi_tpu_torch.worker import BSP_Worker
+    cfg = dict(file_cfg(False), n_workers=1, seed=0, verbose=False)
+    worker = BSP_Worker(cfg)
+    try:
+        model = worker.build_model("theanompi_tpu_torch.models.alex_net",
+                                   "AlexNet")
+        model.compile_iter_fns(worker.exchanger)
+        if model.load(CKPT_DIR) != 0:
+            raise AssertionError("no checkpoint of epoch 0 restored")
+        for part in ("params", "opt_state"):
+            for a, b in zip(tree_leaves(getattr(model, part)),
+                            tree_leaves(saved[part])):
+                check_bits(f"restored {part}", a.detach().cpu(), b)
+        cur = model.data.get_cursor()
+        for k, v in saved["cursor"].items():
+            if not np.array_equal(np.asarray(cur[k]), np.asarray(v)):
+                raise AssertionError(f"restored cursor {k}: {cur[k]} != {v}")
+        with ClaimRecorder() as claims:
+            model.data.shuffle_data(1 + model.seed)
+            model._take(model.data.next_train_batch(1))
+        first = claims.values()
+        model.data.close()
+        del model
+    finally:
+        worker.close()
+        gc.collect()
+        torch.cuda.empty_cache()
+    want_epoch1 = host_stream(False, [1])
+    check_stream("first batch after resume", first, want_epoch1[:1])
+    want = expect(lrn_fwd_cuda=2 * (FILE_STEPS + VAL_BATCHES),
+                  lrn_bwd_cuda=2 * FILE_STEPS)
+    with ClaimRecorder() as claims:
+        model, out = run_main_path(
+            "theanompi_tpu_torch.models.alex_net", "AlexNet", want,
+            **file_cfg(False, epochs=2, resume=True, ckpt_dir=CKPT_DIR))
+    check_stream("resumed epoch 1", claims.values(), want_epoch1)
+    out["batches_checked"] = len(claims.sums)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# (para_load_workers, native augment threads per batch) settings timed by
+# ``--input-times``; the first is what the port ships on an 8-core host
+INPUT_SETTINGS = ((4, 2), (4, 1), (2, 2), (2, 1), (1, 4), (8, 1))
+INPUT_STEPS = FILE_STEPS - 2
+
+
+def htod_phase() -> dict:
+    """Device ms of one batch's host → device copy, by CUDA events: the
+    float32 wire's 79.1 MB and the u8 wire's 19.8 MB, from pinned memory
+    (as the producer's staging copies, on a side stream) and from pageable
+    memory (the step-thread path)."""
+    out = {}
+    side = torch.cuda.Stream()
+    for name, dtype in (("f32", torch.float32), ("u8", torch.uint8)):
+        shape = (BATCH, 227, 227, 3)
+        pinned = torch.zeros(shape, dtype=dtype).pin_memory()
+        pageable = torch.zeros(shape, dtype=dtype)
+        dst = torch.empty(shape, dtype=dtype, device="cuda")
+        with torch.cuda.stream(side):
+            out[f"{name}_pinned_ms"] = time_ms(
+                lambda: dst.copy_(pinned, non_blocking=True), reps=5,
+                inner=4)
+        out[f"{name}_pageable_ms"] = time_ms(lambda: dst.copy_(pageable),
+                                             reps=5, inner=4)
+        out[f"{name}_mb"] = pinned.numel() * pinned.element_size() / 1e6
+        del pinned, pageable, dst
+    return out
+
+
+def input_times() -> dict:
+    """``python3 chip_smoke.py --input-times``: host wall per AlexNet b128
+    step and the recorder's buckets over INPUT_STEPS steps (after 2 of
+    warm-up, the loader's epoch started first), from the batch files under
+    ``para_load`` at each INPUT_SETTINGS (pool workers, augment threads),
+    both wires, and the synthetic source without ``para_load`` beside
+    them; two rounds in turn, so the spread between rounds shows."""
+    from theanompi_tpu_torch.utils.recorder import Recorder
+    from theanompi_tpu_torch.worker import BSP_Worker
+    _kernel_build.build(["lrn"])
+    write_batch_files(DATA_DIR, FILE_STEPS, VAL_BATCHES)
+    rows = []
+
+    def one(cfg, threads=None):
+        worker = BSP_Worker(dict(cfg, n_workers=1, batch_size=BATCH, seed=0,
+                                 verbose=False))
+        try:
+            model = worker.build_model("theanompi_tpu_torch.models.alex_net",
+                                       "AlexNet")
+            model.compile_iter_fns(worker.exchanger)
+            if threads is not None:
+                model.data._data.aug_threads = threads
+            model.data.shuffle_data(0)
+            for c in (1, 2):
+                model.train_iter(c)
+            torch.cuda.synchronize()
+            rec = Recorder({"verbose": False})
+            t0 = time.time()
+            for c in range(3, 3 + INPUT_STEPS):
+                model.train_iter(c, rec)
+            torch.cuda.synchronize()
+            wall = (time.time() - t0) * 1e3 / INPUT_STEPS
+            if hasattr(model.data, "close"):
+                model.data.close()
+            del model
+        finally:
+            worker.close()
+            gc.collect()
+            torch.cuda.empty_cache()
+        return {"wall_ms": wall, "img_per_s": BATCH * 1e3 / wall,
+                **{f"{s}_ms": rec.t_sec_total[s] * 1e3 / INPUT_STEPS
+                   for s in ("load", "stage", "train")}}
+
+    for rnd in range(2):
+        rows.append(dict(one({"synthetic_batches": FILE_STEPS}),
+                         round=rnd, source="synthetic"))
+        for u8 in (False, True):
+            for workers, threads in INPUT_SETTINGS:
+                r = one(file_cfg(u8, para_load_workers=workers), threads)
+                rows.append(dict(r, round=rnd, source="files", u8=u8,
+                                 workers=workers, threads=threads))
+                print(json.dumps(rows[-1]), flush=True)
+    return {"rows": rows, "htod": htod_phase()}
 
 
 # what each library yardstick computes, and what of the kernel's work it
@@ -1371,7 +1817,54 @@ def main() -> int:
                                    PROFILE_STEPS)
     print_profile(alex_prof, card, alex_groups)
 
-    vggs, profs = {}, {"alexnet": alex_prof}
+    loader = native_loader_phase()
+    print("native loader (g++ %.1fs): bit-equal to the NumPy path; one AlexNet "
+          "batch, host ms: " % loader["build_s"] + "; ".join(
+              f"{k} draws NumPy {v['numpy_ms']:.1f}, native "
+              + ", ".join(f"{t} threads {ms:.2f}"
+                          for t, ms in v["native_ms"].items())
+              for k, v in loader["draws"].items())
+          + f"; para_load runs {FILE_WORKERS} workers x "
+          f"{loader['para_load_threads']} threads", flush=True)
+    t0 = time.time()
+    write_batch_files(DATA_DIR, FILE_STEPS, VAL_BATCHES)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    print(f"wrote {FILE_STEPS} + {VAL_BATCHES} .npy batch files in "
+          f"{time.time() - t0:.1f}s", flush=True)
+    files, saved = alexnet_files_phase(False, ckpt_dir=CKPT_DIR)
+    files_u8, _ = alexnet_files_phase(True)
+    for name, r in (("float32 wire", files), ("u8 wire", files_u8)):
+        print(f"main path: AlexNet BSP from files, para_load, {name}, batch "
+              f"{BATCH}, {FILE_STEPS} steps, costs "
+              f"{[round(c, 4) for c in r['costs']]}, {r['img_per_s']:.1f} "
+              f"img/s, {r['batches_checked']} staged batches equal to the "
+              f"host stream, launches "
+              f"{ {k: v for k, v in r['launches'].items() if v} }",
+              flush=True)
+    u8 = u8_logits_phase()
+    print(f"u8 wire vs float32 wire, first step's logits: scalar mean "
+          f"bit-equal; mean image rel L2 {u8['image_logits_rel_l2']:.3e} "
+          f"(bound {U8_LOGITS_RTOL}; input deviation up to "
+          f"{u8['input_dev_max']:.2f})", flush=True)
+    resumed = resume_phase(saved)
+    del saved
+    print(f"resume: params, momentum and cursor bit-equal to the checkpoint; "
+          f"epoch 1 costs {[round(c, 4) for c in resumed['costs']]}, "
+          f"{resumed['batches_checked']} staged batches equal to the host "
+          f"stream", flush=True)
+    profs = {"alexnet": alex_prof}
+    for key, u8_wire in (("alexnet_files", False), ("alexnet_files_u8", True)):
+        profs[key] = step_profile_phase(
+            "theanompi_tpu_torch.models.alex_net", "AlexNet", BATCH,
+            alex_groups, PROFILE_STEPS, **file_cfg(u8_wire))
+        print_profile(profs[key], card, alex_groups)
+    htod = htod_phase()
+    print("HtoD copy of one AlexNet batch (CUDA events): " + "; ".join(
+        f"{w} {htod[w + '_mb']:.1f} MB pinned {htod[w + '_pinned_ms']:.3f} "
+        f"ms, pageable {htod[w + '_pageable_ms']:.3f} ms"
+        for w in ("f32", "u8")), flush=True)
+
+    vggs = {}
     for strategy, shape, groups in (
             ("onebit", (comp["n"],),
              {"onebit_kernels": ("encode_kernel", "residual_kernel",
@@ -1448,13 +1941,25 @@ def main() -> int:
     print(f"LM step: {lm_prof['tokens_per_s']:.0f} tokens/s", flush=True)
 
     kernels = kernel_entries(lrn, comp, topk, fpack, flash, alex, vggs, lm)
+    for e in kernels:
+        if e["name"].startswith("lrn_"):
+            name = "lrn_fwd_cuda" if e["name"] == "lrn_fwd" else "lrn_bwd_cuda"
+            e["launches_by_path"] = {
+                "alexnet_synthetic": alex["launches"][name],
+                "alexnet_files_para_load": files["launches"][name],
+                "alexnet_files_para_load_u8": files_u8["launches"][name],
+                "alexnet_resumed_epoch": resumed["launches"][name]}
     total_s = time.time() - t_all
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"kernels": kernels, "compress": comp, "topk": topk,
                    "factor_pack": fpack, "flash": flash, "lm_check": lm_check,
-                   "main": dict({"alexnet": alex, "lm": lm},
+                   "main": dict({"alexnet": alex, "lm": lm,
+                                 "alexnet_files": files,
+                                 "alexnet_files_u8": files_u8,
+                                 "alexnet_resumed": resumed},
                                 **{f"vgg16_{k}": v for k, v in vggs.items()}),
+                   "native_loader": loader, "u8_logits": u8, "htod": htod,
                    "profile": profs, "card": card, "build_s": build_s, "total_s": total_s,
                    "alexnet_ref_err": ref_err}, f, indent=1)
     print(f"all phases passed in {total_s:.1f}s", flush=True)
@@ -1470,6 +1975,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     _flags = set(sys.argv[1:])
-    if not _flags <= {"--flash-times", "--topk-times", "--factor-times"}:
+    if not _flags <= {"--flash-times", "--topk-times", "--factor-times",
+                      "--input-times"}:
         sys.exit(f"chip_smoke: unknown arguments {sorted(_flags)}")
     sys.exit(times_main(_flags) if _flags else main())

@@ -20,7 +20,32 @@ bad = sorted(m for m in sys.modules
              or m == "theanompi_tpu" or m.startswith("theanompi_tpu."))
 print(len(names), bad)
 assert not bad, bad
+# the input path and checkpoints stand alone too: they build and run the
+# native pass, read batch files and write a checkpoint without JAX
+import os, tempfile
+import numpy as np
+from theanompi_tpu_torch import native
+from theanompi_tpu_torch.models.data.prefetch import PrefetchLoader
+from theanompi_tpu_torch.models.data.imagenet import ImageNet_data
+from theanompi_tpu_torch.utils import checkpoint
+x = np.zeros((2, 8, 8, 3), np.uint8)
+native.augment_batch(x, 0, 0, 1, 5, mean_scalar=1.0)
+d = tempfile.mkdtemp()
+checkpoint.save_checkpoint(d, {"params": {"w": np.ones(3, np.float32)}}, 0, 0)
+assert checkpoint.latest_epoch(d) == 0
+loader = PrefetchLoader(ImageNet_data({"synthetic_batches": 2}, 2, crop=5), n_workers=2)
+loader.shuffle_data(0)
+loader.next_train_batch(1)
+loader.close()
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "theanompi_tpu" or m.startswith("theanompi_tpu."))
+assert not bad, bad
 """
+
+NEW_MODULES = ("theanompi_tpu_torch.native",
+               "theanompi_tpu_torch.models.data.prefetch",
+               "theanompi_tpu_torch.utils.checkpoint")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -29,7 +54,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                        env=dict(os.environ, PYTHONPATH=REPO))
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 23, r.stdout
+    assert n_modules >= 26, r.stdout
+
+
+def test_the_walk_reaches_the_new_modules():
+    import theanompi_tpu_torch as pkg
+    names = {m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                    pkg.__name__ + ".")}
+    assert set(NEW_MODULES) <= names, sorted(names)
 
 
 def test_port_sources_name_no_jax_import():

@@ -5,6 +5,11 @@ multi-process tests.
   width.
 * :class:`TinyVGGNet` — Conv 3×3 SAME → Pool 2/2 → Conv → Pool → FC: the
   VGG block at toy width, the model of the onebit tests.
+* :class:`TinyLM` — the transformer LM at toy size (float32, reference
+  attention, Adam).
+* :class:`TinyFileNet` — :class:`TinyLRNNet`'s block on ImageNet batch
+  files (``config['data_dir']``, written by :func:`write_imagenet_dir`),
+  cropped to 13×13.
 
 Imports only ``theanompi_tpu_torch`` (no JAX), so it can run as a child
 process, one per rank of a gloo group:
@@ -23,7 +28,15 @@ per-leaf list as ``extra/strat/<i>/<key>``) to ``<out>_r<rank>.npz``;
 runs one exchange of that strategy (``topk`` with a chunk of 256,
 ``powersgd`` at rank 1) of a gradient tree of ``TinyVGGNet``'s shapes
 drawn from the seed ``100 + rank`` and writes the flat input (the port's
-flat order), the decoded mean and the new state to ``<out>_r<rank>.npz``.
+flat order), the decoded mean and the new state to ``<out>_r<rank>.npz``;
+
+    python tests/torch_port_helper.py resume <rank> <world> <init_method> \
+        <out> <modelclass> <exch_strategy> <ckpt_dir>
+
+trains the model two epochs without a break, then one epoch that ends in a
+checkpoint and, in a new session, a resumed second epoch, and writes both
+runs' final state to ``<out>_r<rank>.npz`` (``full/...`` and
+``resumed/...``).
 """
 
 import os
@@ -35,6 +48,7 @@ import numpy as np
 from theanompi_tpu_torch.models import layers as L
 from theanompi_tpu_torch.models.data import DataBase
 from theanompi_tpu_torch.models.model_base import ModelBase
+from theanompi_tpu_torch.models.transformer_lm import TransformerLM
 
 N_TRAIN = 48
 HW, C_IN, N_CLASS = 8, 3, 5
@@ -111,6 +125,122 @@ class TinyVGGNet(ModelBase):
     def build_model(self):
         self.seq = L.Sequential(tiny_vgg_layers(L, "float32"))
         self.data = TinyData(self.config, self.batch_size)
+
+
+class TinyFileNet(ModelBase):
+    """:class:`TinyLRNNet`'s layers on ImageNet batch files cropped to
+    13×13: Conv(3→16, 3×3 SAME) → LRN → Pool(3/2) → FC(6·6·16 → 5)."""
+
+    batch_size = 4
+    epochs = 2
+    learning_rate = 0.01
+    momentum = 0.9
+    weight_decay = 0.0005
+    seed = 11
+
+    def build_model(self):
+        from theanompi_tpu_torch.models.data.imagenet import ImageNet_data
+        self.seq = L.Sequential([
+            L.Conv(C_IN, 16, 3, padding=1, w_init=("normal", 0.05),
+                   b_init=("constant", 0.1), compute_dtype="float32",
+                   name="conv"),
+            L.LRN(k=1.0, alpha=0.5, name="lrn"),
+            L.Pool(3, 2, mode="max", name="pool"),
+            L.Flatten(),
+            L.FC(6 * 6 * 16, N_CLASS, w_init=("normal", 0.01),
+                 activation=None, compute_dtype="float32", name="fc"),
+        ])
+        self.data = ImageNet_data(self.config, self.batch_size, crop=13)
+
+
+TINY_LM = dict(vocab=32, d_model=16, n_head=2, n_layer=1, seq_len=16,
+               batch_size=4, synthetic_train=16, synthetic_val=8,
+               attn_impl="reference", compute_dtype="float32")
+
+
+class TinyLM(TransformerLM):
+    """The LM at ``TINY_LM``'s size; the config's keys win."""
+
+    def __init__(self, config=None):
+        super().__init__(dict(TINY_LM, **(config or {})))
+
+
+def write_imagenet_dir(root, n_train=6, n_val=2, bs=4, hw=16, layout="bc01",
+                       fmt="npy", mean="chw", seed=0):
+    """An ImageNet-layout directory of uint8 batch files made from
+    ``seed``: ``train_hkl/`` and ``val_hkl/`` of ``bs``-image files in
+    ``layout`` (``bc01``, ``c01b`` or ``nhwc``) and ``fmt`` (``npy``,
+    ``npz`` or ``hkl``, the last written with h5py), the label files, and
+    ``img_mean.npy`` as ``mean`` says (``chw``, ``hwc``, ``channel`` or
+    ``none``).  Returns ``root``."""
+    r = np.random.RandomState(seed)
+    for sub, n in (("train_hkl", n_train), ("val_hkl", n_val)):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        for j in range(n):
+            x = r.randint(0, 256, (bs, hw, hw, C_IN), dtype=np.uint8)
+            x = {"bc01": lambda a: a.transpose(0, 3, 1, 2),
+                 "c01b": lambda a: a.transpose(3, 1, 2, 0),
+                 "nhwc": lambda a: a}[layout](x)
+            x = np.ascontiguousarray(x)
+            path = os.path.join(root, sub, f"{j:04d}.{fmt}")
+            if fmt == "hkl":
+                import h5py
+                with h5py.File(path, "w") as f:
+                    f.create_dataset("data", data=x)
+            elif fmt == "npz":
+                np.savez(path, x)
+            else:
+                np.save(path, x)
+        labels = r.randint(0, N_CLASS, n * bs).astype(np.int32)
+        np.save(os.path.join(root, sub.split("_")[0] + "_labels.npy"), labels)
+    m = (r.rand(C_IN, hw, hw) * 255).astype(np.float32)
+    if mean == "chw":
+        np.save(os.path.join(root, "img_mean.npy"), m)
+    elif mean == "hwc":
+        np.save(os.path.join(root, "img_mean.npy"), m.transpose(1, 2, 0))
+    elif mean == "channel":
+        np.save(os.path.join(root, "img_mean.npy"), m.mean(axis=(1, 2)))
+    return root
+
+
+def state_arrays(model) -> dict:
+    """A model's params, optimizer state and strategy state as flat npz
+    entries (``params/<path>``, ``opt/<i>``, ``extra/<i>``)."""
+    from theanompi_tpu_torch.utils.helper_funcs import leaf_paths, tree_leaves
+    params = model.host_params()
+    out = {"params/" + "/".join(map(str, p)): v
+           for p, v in zip(leaf_paths(params), tree_leaves(params))}
+    for part, tree in (("opt", model.opt_state), ("extra", model.extra)):
+        for i, leaf in enumerate(tree_leaves(tree)):
+            out[f"{part}/{i}"] = leaf.detach().cpu().numpy() \
+                if hasattr(leaf, "detach") else np.asarray(leaf)
+    return out
+
+
+def run_session(modelclass, epochs, modelfile="torch_port_helper", **cfg):
+    """One BSP session on the CPU; returns the rule (its model trained)."""
+    from theanompi_tpu_torch import BSP
+    rule = BSP()
+    rule.init(devices=int(cfg.pop("n_workers", 1)), modelfile=modelfile,
+              modelclass=modelclass, device="cpu", epochs=epochs,
+              scale_lr=False, printFreq=1000, verbose=False, **cfg)
+    rule.wait()
+    return rule
+
+
+def resume(rank, world, init_method, out, modelclass, strategy, ckpt_dir):
+    """Two epochs uninterrupted, then one with a checkpoint and a resumed
+    second in a new session: both final states to ``<out>_r<rank>.npz``."""
+    kw = dict(n_workers=int(world), rank=int(rank), exch_strategy=strategy)
+    full = run_session(modelclass, 2, init_method=init_method + "_full", **kw)
+    run_session(modelclass, 1, init_method=init_method + "_first",
+                ckpt_dir=ckpt_dir, **kw)
+    again = run_session(modelclass, 2, init_method=init_method + "_again",
+                        ckpt_dir=ckpt_dir, resume=True, **kw)
+    np.savez(f"{out}_r{rank}.npz",
+             **{f"full/{k}": v for k, v in state_arrays(full.model).items()},
+             **{f"resumed/{k}": v
+                for k, v in state_arrays(again.model).items()})
 
 
 def _save(path, tree, **extra):
@@ -196,6 +326,8 @@ def run_ranks(mode, world, tmp_path, tag, *args, timeout=120):
 def main(argv):
     if argv[0] == "train":
         train(*argv[1:])
+    elif argv[0] == "resume":
+        resume(*argv[1:])
     else:
         exchange(*argv)
     return 0

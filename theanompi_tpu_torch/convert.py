@@ -17,13 +17,19 @@ unchanged.  A momentum velocity or Adam moment tree has the params' shapes
 and converts the same way.
 
 Input and output are trees (nested dicts) of numpy arrays.
+:func:`checkpoint_from_jax` applies them to a whole BSP checkpoint the JAX
+package wrote, into a port model.
 """
 
 from __future__ import annotations
 
+import os
+from typing import Optional
+
 import numpy as np
 
-from .utils.helper_funcs import get_leaf, jax_leaf_paths, leaf_paths
+from .utils.helper_funcs import (_jax_shape, get_leaf, jax_leaf_paths,
+                                 leaf_paths, tree_map)
 
 
 def _to_port(a, path, kept: frozenset) -> np.ndarray:
@@ -103,3 +109,131 @@ def powersgd_state_from_jax(jstate, jax_params, like,
                          path, kept)
         by_path[path] = {"q": q, "e": e.copy()}
     return [by_path[p] for p in leaf_paths(like)]
+
+
+def _set_leaf(tree: dict, path, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def _from_paths(paths, values) -> dict:
+    """A nested dict with ``values`` at ``paths``."""
+    out: dict = {}
+    for p, v in zip(paths, values):
+        _set_leaf(out, p, v)
+    return out
+
+
+def _like_port(tree_like, by_path: dict):
+    """``tree_like``'s structure with the value at each leaf's path."""
+    paths = iter(leaf_paths(tree_like))
+    return tree_map(lambda _: by_path[next(paths)], tree_like)
+
+
+def checkpoint_from_jax(ckpt_dir: str, model,
+                        epoch: Optional[int] = None) -> Optional[int]:
+    """Load a checkpoint that the JAX package wrote for a BSP model into
+    ``model`` (a port model after ``compile_iter_fns``, of the same layers,
+    optimizer and exchange strategy): params, optimizer state (momentum's
+    velocity; Adam's moments and per-leaf step counts), the strategy's
+    state (onebit's error feedback through :func:`flat_from_jax`; topk's,
+    which the port keeps in the JAX order, as it is; PowerSGD's through
+    :func:`powersgd_state_from_jax`) and the data cursor.  A part the JAX
+    package stored per worker (``[n_workers, ...]``) gives this rank its
+    own row.  Returns the epoch loaded, or None when there is none.
+
+    JAX PRNG keys have no torch counterpart: the checkpoint's step and
+    exchange keys are not read, and the model's generators keep the
+    streams its config's seed started (the dropout bits differ from JAX's
+    anyway, ``steps.step_generator``)."""
+    from .utils import checkpoint as ckpt_lib
+    import torch
+
+    meta = ckpt_lib.peek_meta(ckpt_dir, epoch)
+    if meta is None:
+        return None
+    epoch = int(meta["epoch"])
+    boxed = set(meta.get("boxed_parts", ()))
+    kept = frozenset(model.kept_layout_paths())
+    params = model.params
+    jpaths = jax_leaf_paths(params)
+    with np.load(os.path.join(ckpt_dir, f"ckpt_epoch{epoch}.npz")) as z:
+        def part(key):
+            n = sum(1 for f in z.files if f.startswith(key + "__"))
+            leaves = [z[f"{key}__{i}"] for i in range(n)]
+            if key in boxed:
+                if int(meta.get("n_workers", 1)) != model.size:
+                    raise ValueError(
+                        f"{ckpt_dir}: '{key}' holds the state of "
+                        f"{meta.get('n_workers')} workers; this run has "
+                        f"{model.size}")
+                leaves = [a[model.rank] for a in leaves]
+            return leaves
+
+        def jax_tree(leaves):        # a params-shaped JAX tree, sorted order
+            shapes = [_jax_shape(tuple(get_leaf(params, p).shape), p, kept)
+                      for p in jpaths]
+            for p, a, s in zip(jpaths, leaves, shapes):
+                if tuple(a.shape) != s:
+                    raise ValueError(f"{ckpt_dir}: leaf {p} has shape "
+                                     f"{a.shape}, the port model wants {s}")
+            return _from_paths(jpaths, leaves)
+
+        def port_tree(leaves):
+            conv = params_from_jax(jax_tree(leaves), kept)
+            return _like_port(params, {p: get_leaf(conv, p) for p in jpaths})
+
+        n = len(jpaths)
+        jparams = jax_tree(part("params"))
+        new_params = port_tree(part("params"))
+        opt = part("opt_state")
+        cur = model.opt_state
+        if isinstance(cur, dict) and set(cur) == {"m", "v", "t"}:
+            if len(opt) != 3 * n:    # sorted keys: m, t, v
+                raise ValueError(f"{ckpt_dir}: opt_state has {len(opt)} "
+                                 f"leaves, Adam's has {3 * n}")
+            t = {p: int(a) for p, a in zip(jpaths, opt[n:2 * n])}
+            new_opt = {"m": port_tree(opt[:n]), "v": port_tree(opt[2 * n:]),
+                       "t": _like_port(params, t)}
+        elif opt:
+            new_opt = port_tree(opt)
+        else:
+            new_opt = cur
+        if part("bn_state"):
+            raise NotImplementedError("BatchNorm state is not ported yet")
+        extra = part("extra")
+        new_extra = {}
+        if model.extra:
+            strat = model.exchanger.strategy
+            st = model.extra["strat"]
+            if isinstance(st, list):        # PowerSGD: sorted keys e, q
+                jstate = [{"e": extra[2 * i], "q": extra[2 * i + 1]}
+                          for i in range(len(extra) // 2)]
+                new_extra = {"strat": powersgd_state_from_jax(
+                    jstate, jparams, params, kept)}
+            elif strat.name == "topk":
+                new_extra = {"strat": np.asarray(extra[0], np.float32)}
+            else:
+                new_extra = {"strat": flat_from_jax(extra[0], jparams,
+                                                    params, kept)}
+        cursor = dict(meta.get("cursor", {}))
+        for f in z.files:
+            if f.startswith("_cursor__"):
+                cursor[f[len("_cursor__"):]] = z[f]
+
+    model.load_params(new_params)
+
+    def put(cur_leaf, new_leaf):
+        if isinstance(cur_leaf, torch.Tensor):
+            with torch.no_grad():
+                cur_leaf.copy_(torch.as_tensor(np.asarray(new_leaf)))
+            return cur_leaf
+        return new_leaf
+
+    model.opt_state = tree_map(put, model.opt_state, new_opt)
+    if new_extra:
+        model.extra = tree_map(put, model.extra, new_extra)
+    if cursor and hasattr(model.data, "set_cursor"):
+        model.data.set_cursor(cursor)
+    return epoch

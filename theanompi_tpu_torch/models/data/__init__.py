@@ -39,6 +39,7 @@ class DataBase:
         self._perm = None
         self._train_ptr = 0
         self._val_ptr = 0
+        self._shuffle_seed = None
 
     def _finalize(self) -> None:
         n_train, n_val = len(self.y_train), len(self.y_val)
@@ -51,8 +52,23 @@ class DataBase:
 
     def shuffle_data(self, seed: int) -> None:
         self._perm = np.random.RandomState(seed).permutation(len(self.y_train))
+        self._shuffle_seed = int(seed)
         self._train_ptr = 0
         self._val_ptr = 0
+
+    # -- checkpoint cursor: a resume replays the data stream exactly -------
+    def get_cursor(self) -> Dict:
+        """The shuffle seed (it regenerates the permutation) and the batch
+        pointers (they reposition it)."""
+        return {"shuffle_seed": self._shuffle_seed,
+                "train_ptr": int(self._train_ptr),
+                "val_ptr": int(self._val_ptr)}
+
+    def set_cursor(self, cursor: Dict) -> None:
+        if cursor.get("shuffle_seed") is not None:
+            self.shuffle_data(int(cursor["shuffle_seed"]))
+        self._train_ptr = int(cursor.get("train_ptr", 0))
+        self._val_ptr = int(cursor.get("val_ptr", 0))
 
     def _local(self, lo: int) -> slice:
         start = lo + self.rank * self.batch_size

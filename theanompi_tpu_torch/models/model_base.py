@@ -10,8 +10,10 @@ models define their layer stack, data object and hyperparameters.
 
 A model lives on ONE device, ``config['device']``: ``cuda`` unless the
 caller asks for ``cpu``.  Without a card, a model that did not ask for the
-CPU raises.  ZeRO, FSDP, update sharding, EMA and the numerics plane of the
-JAX package are not ported yet.
+CPU raises.  ``para_load`` wraps the data object in the background loader
+(``data/prefetch.py``), whose producer stages each batch onto the card;
+``save``/``load`` checkpoint the BSP state.  ZeRO, FSDP, update sharding,
+EMA and the numerics plane of the JAX package are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 
 from ..base import resolve_device
 from ..parallel import steps
+from ..utils import checkpoint as ckpt_lib
 from ..utils.helper_funcs import tree_map
 from ..utils.opt import get_optimizer
 from . import layers as L
@@ -54,7 +57,7 @@ class ModelBase:
             if k in self.config:
                 setattr(self, k, self.config[k])
         for k in ("zero_opt", "fsdp", "update_sharding", "ema_decay",
-                  "numerics", "para_load"):
+                  "numerics"):
             if self.config.get(k):
                 raise NotImplementedError(f"config {k!r} is not ported yet")
         if int(self.config.get("steps_per_call", 1)) != 1:
@@ -65,6 +68,11 @@ class ModelBase:
         self.seq: L.Sequential = None
         self.data = None
         self.build_model()            # subclass hook: set self.seq, self.data
+        if self.config.get("para_load", False) and self.data is not None:
+            self._wrap_para_load()
+        # the base of every step's dropout stream (steps.step_generator):
+        # the role of the JAX package's step key; a checkpoint carries it
+        self.step_seed = self.seed + 2
 
         gen = torch.Generator().manual_seed(self.seed)
         self.params = tree_map(
@@ -80,6 +88,21 @@ class ModelBase:
         self.val_fn = None
         self.exchanger = None
         self.current_info: Dict[str, Any] = {}
+
+    def _wrap_para_load(self) -> None:
+        """The reference's ``para_load=True``: a background loader whose
+        producer (``para_load_workers`` threads for file-based data, 4 by
+        default) loads, augments and stages each batch onto the card ahead
+        of the step, through a ring of pinned buffers on a side stream; the
+        step takes the batch on the device."""
+        from .data.prefetch import PrefetchLoader
+        workers = int(self.config.get("para_load_workers", 4))
+        depth = 2
+        stager = steps.PinnedStager(self.device, slots=depth + workers + 1) \
+            if self.device.type == "cuda" else None
+        self.data = PrefetchLoader(
+            self.data, depth=depth, n_workers=workers,
+            device_put_fn=lambda b: steps.put_batch(b, self.device, stager))
 
     # -- subclass hooks ----------------------------------------------------
 
@@ -113,15 +136,44 @@ class ModelBase:
         return float(self.config.get("label_smoothing", 0.0)) if train \
             else 0.0
 
+    def _u8_input_mean(self, device: torch.device) -> torch.Tensor:
+        """The mean a uint8 batch loses on the card: the mean image's
+        centre window, or the scalar (per-channel) mean, float32, made once
+        per device.  For a shared crop window with a full mean image this
+        is the JAX package's documented deviation from the host pass, which
+        subtracts the window's own mean (``data/imagenet.py``)."""
+        cache = self.__dict__.setdefault("_u8_mean", {})
+        m = cache.get(device)
+        if m is None:
+            mi = getattr(self.data, "img_mean", np.float32(122.0))
+            if isinstance(mi, np.ndarray) and mi.ndim == 3:
+                c = int(getattr(self.data, "crop", mi.shape[0]))
+                cy, cx = (mi.shape[0] - c) // 2, (mi.shape[1] - c) // 2
+                mi = mi[cy:cy + c, cx:cx + c, :]
+            m = cache[device] = torch.as_tensor(
+                np.ascontiguousarray(mi, np.float32), device=device)
+        return m
+
+    def stage_input(self, x: torch.Tensor) -> torch.Tensor:
+        """Input staging shared by every loss and metrics path: a uint8
+        batch (``aug_wire_u8``) is cast and has the mean subtracted here,
+        in float32, the host pass's arithmetic; other inputs pass as they
+        are."""
+        if x.dtype == torch.uint8:
+            return x.to(torch.float32) - self._u8_input_mean(x.device)
+        return x
+
     def loss_and_metrics(self, params, batch, gen, train: bool):
         """Default head: softmax cross-entropy + top-1 error."""
-        logits = self.apply_model(params, batch["x"], train=train, gen=gen)
+        logits = self.apply_model(params, self.stage_input(batch["x"]),
+                                  train=train, gen=gen)
         cost = L.softmax_cross_entropy(logits, batch["y"],
                                        self._label_smoothing(train))
         return cost, L.errors(logits, batch["y"])
 
     def val_metrics(self, params, batch):
-        logits = self.apply_model(params, batch["x"], train=False, gen=None)
+        logits = self.apply_model(params, self.stage_input(batch["x"]),
+                                  train=False, gen=None)
         cost = L.softmax_cross_entropy(logits, batch["y"])
         return cost, (L.errors(logits, batch["y"]),
                       L.errors_top_x(logits, batch["y"], 5))
@@ -158,16 +210,19 @@ class ModelBase:
     # -- contract: iteration -----------------------------------------------
 
     def train_iter(self, count: int, recorder=None) -> None:
-        """One training step.  Recorder buckets: ``load`` = drawing the
-        host batch, ``stage`` = host → device, ``train`` = enqueueing the
-        step (the card runs behind; metrics stay on it until printed)."""
+        """One training step.  Recorder buckets: ``load`` = waiting on the
+        data source (under ``para_load`` the wait at the dequeue alone),
+        ``stage`` = host → device on the step's thread (under ``para_load``
+        only the compute stream's wait on the producer's copy, enqueued),
+        ``train`` = enqueueing the step (the card runs behind; metrics stay
+        on it until printed)."""
         if recorder:
             recorder.start()
         batch = self.data.next_train_batch(count)
         if recorder:
             recorder.end("load")
             recorder.start()
-        dev_batch = steps.put_batch(batch, self.device)
+        dev_batch = self._take(batch)
         if recorder:
             recorder.end("stage")
             recorder.start()
@@ -179,13 +234,20 @@ class ModelBase:
                                  int(batch["y"].shape[0]) * self.size)
         self.current_info.update(cost=cost, error=err)
 
+    def _take(self, batch):
+        """A batch as the step's tensors: a staged one claimed for the
+        compute stream, a host one copied."""
+        if steps.is_device_batch(batch):
+            return steps.claim(batch, self.device)
+        return steps.put_batch(batch, self.device)
+
     def begin_val(self) -> None:
         """BSP replicas are identical: validation scores them as they are."""
 
     def val_iter(self, count: int, recorder=None) -> None:
         if recorder:
             recorder.start()
-        batch = steps.put_batch(self.data.next_val_batch(count), self.device)
+        batch = self._take(self.data.next_val_batch(count))
         cost, err, err5 = (float(v) for v in self.val_fn(batch))
         if recorder:
             recorder.end("val")
@@ -230,3 +292,124 @@ class ModelBase:
         """Linear LR scaling by worker count."""
         self._lr_scale = float(size)
         self.current_lr = self.current_lr * size
+
+    # -- contract: persistence ---------------------------------------------
+
+    def _state_parts(self) -> Dict[str, Any]:
+        """The state a step carries: params, the optimizer's state and the
+        exchanger's per-rank ``extra``."""
+        return {"params": self.params, "opt_state": self.opt_state,
+                "extra": self.extra}
+
+    def _per_rank_parts(self) -> tuple:
+        """Parts that differ between ranks: a stateful strategy's error
+        feedback.  BSP's params and optimizer state are identical on every
+        rank (each applies the same mean gradient)."""
+        return ("extra",) if self.extra else ()
+
+    def _refuse_ckpt_layouts(self) -> None:
+        if self.config.get("async_ckpt"):
+            raise NotImplementedError("async_ckpt is not ported yet")
+        if self.opt_state is None:
+            raise RuntimeError("save/load need compile_iter_fns() first")
+
+    def save(self, ckpt_dir: str, epoch: int, count: int = 0) -> str:
+        """Checkpoint the BSP state: params and optimizer state once (rank
+        0's; every rank holds the same), the per-rank parts stacked over
+        the ranks (gathered to rank 0), the dropout stream's generator, and
+        the data loader's consumed cursor; plus the reference-style
+        per-leaf ``.npy`` params snapshot.  Rank 0 writes; every rank must
+        call (the gather is collective).  Returns the ``.npz`` path."""
+        import os
+
+        import torch.distributed as dist
+        self._refuse_ckpt_layouts()
+        per_rank = self._per_rank_parts()
+        state = {}
+        for k, tree in self._state_parts().items():
+            if k in per_rank:
+                tree = tree_map(self._gather_ranks, tree)
+            elif self.rank == 0:
+                tree = tree_map(
+                    lambda l: l.detach().cpu().numpy()
+                    if isinstance(l, torch.Tensor) else np.int32(l), tree)
+            state[k] = tree
+        path = os.path.join(ckpt_dir, f"ckpt_epoch{epoch}.npz")
+        if self.rank == 0:
+            cursor = self.data.get_cursor() \
+                if hasattr(self.data, "get_cursor") else None
+            gen = torch.Generator().manual_seed(self.step_seed)
+            ckpt_lib.save_checkpoint(
+                ckpt_dir, state, epoch, count,
+                rng_states={"step": gen.get_state()}, cursor=cursor,
+                params_npy=state["params"],
+                extra_meta={"boxed_parts": sorted(per_rank),
+                            "n_workers": self.size})
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            dist.barrier()            # the files exist before anyone reads
+        return path
+
+    def _gather_ranks(self, t):
+        """``[size, ...]`` on the host: every rank's ``t``, in rank order."""
+        import torch.distributed as dist
+        if self.size == 1:
+            return t.detach().cpu().numpy()[None]
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        dist.all_gather(parts, t.detach().contiguous())
+        return torch.stack(parts).cpu().numpy()
+
+    def load(self, ckpt_dir: str, epoch: Optional[int] = None) -> Optional[int]:
+        """Restore what :meth:`save` wrote (call after ``compile_iter_fns``):
+        params, optimizer state, this rank's row of the per-rank parts, the
+        dropout stream's seed and the data cursor, so training replays
+        bit-identically from the save point.  Returns the epoch restored
+        from, or None when there is no checkpoint."""
+        self._refuse_ckpt_layouts()
+        meta = ckpt_lib.peek_meta(ckpt_dir, epoch)
+        if meta is None:
+            return None
+        if int(meta.get("n_workers", self.size)) != self.size:
+            raise NotImplementedError(
+                f"the checkpoint was written by {meta['n_workers']} workers; "
+                f"resuming on {self.size} (elastic or worker-count refit) is "
+                f"not ported yet")
+        boxed = set(meta.get("boxed_parts", ()))
+
+        def shape_of(k):
+            return lambda l: (self.size,) + tuple(l.shape) \
+                if k in boxed else tuple(getattr(l, "shape", ()))
+
+        template = {k: tree_map(lambda l, f=shape_of(k): _Shaped(f(l)), tree)
+                    for k, tree in self._state_parts().items()}
+        restored = ckpt_lib.load_checkpoint(ckpt_dir, template,
+                                            int(meta["epoch"]))
+        if restored is None:
+            return None
+
+        def put(cur, arr, k):
+            arr = arr[self.rank] if k in boxed else arr
+            if isinstance(cur, torch.Tensor):
+                with torch.no_grad():
+                    cur.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+                return cur
+            return int(arr)
+
+        for k, tree in self._state_parts().items():
+            setattr(self, k, tree_map(lambda c, a, k=k: put(c, a, k),
+                                      tree, restored[k]))
+        rng = restored.get("_rng_states", {})
+        if "step" in rng:
+            gen = torch.Generator()
+            gen.set_state(rng["step"])
+            self.step_seed = gen.initial_seed()
+        cursor = restored.get("_cursor")
+        if cursor and hasattr(self.data, "set_cursor"):
+            self.data.set_cursor(cursor)
+        return int(meta["epoch"])
+
+
+class _Shaped:
+    """A checkpoint template leaf: only its shape."""
+
+    def __init__(self, shape):
+        self.shape = shape

@@ -8,11 +8,17 @@ micro-batches, the exchanger's gradient collective, the optimizer update in
 place.  Nothing in a step reads a device value back to the host, so the
 card's queue stays full; the per-step metrics stay on the device until the
 recorder prints them.
+
+Batches reach the card through :func:`put_batch`: on the step's thread
+from pageable memory, or, under ``para_load``, from the loader's producer
+through a :class:`PinnedStager` (pinned buffers, a side stream, an event
+the step's stream waits on in :func:`claim`).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+import queue
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -86,7 +92,8 @@ def build_train_step(model, exchanger) -> Callable:
     size = exchanger.size
 
     def train_fn(batch: Dict[str, torch.Tensor], lr: float, count: int):
-        gen = step_generator(model.seed + 2, model.rank, count, model.device)
+        gen = step_generator(model.step_seed, model.rank, count,
+                             model.device)
         cost, err, grads = _accumulate_grads(
             model.loss_and_metrics, model.params, batch, gen, n_subb)
         model.params, model.opt_state, model.extra = exchanger.step_update(
@@ -111,7 +118,93 @@ def build_val_step(model) -> Callable:
     return val_fn
 
 
-def put_batch(batch: Dict[str, np.ndarray], device: torch.device):
-    """Host batch → tensors on ``device``."""
+class DeviceBatch(dict):
+    """A batch already on its device: tensors, and ``ready``, the CUDA event
+    recorded after their host → device copies (None on the CPU)."""
+
+    def __init__(self, tensors, ready=None):
+        super().__init__(tensors)
+        self.ready = ready
+
+
+class PinnedStager:
+    """Host → card staging off the step's thread (``para_load``'s producer).
+
+    A ring of ``slots`` pinned host buffers (one per batch leaf) and a side
+    CUDA stream of its own: :meth:`stage` copies a host batch into a free
+    slot's pinned buffers, issues ``non_blocking`` copies to the card on the
+    side stream, records an event after them and returns a
+    :class:`DeviceBatch` carrying it.  A slot is written again only after
+    its last copy's event has completed: the host waits on that event
+    first, so a later batch can never overwrite bytes still in flight.
+    Safe to call from several threads at once (each takes a slot of its
+    own; the stream, the device and the event are set per call, since the
+    current CUDA device and stream are per thread)."""
+
+    def __init__(self, device: torch.device, slots: int = 3):
+        self.device = torch.device(device)
+        self.stream = torch.cuda.Stream(self.device)
+        self._free: "queue.Queue[dict]" = queue.Queue()
+        for _ in range(max(1, int(slots))):
+            self._free.put({"bufs": {}, "event": None})
+
+    def stage(self, batch: Dict[str, np.ndarray]) -> DeviceBatch:
+        slot = self._free.get()
+        try:
+            if slot["event"] is not None:
+                slot["event"].synchronize()   # its last copy has completed
+            out = {}
+            with torch.cuda.device(self.device), \
+                    torch.cuda.stream(self.stream):
+                for k, a in batch.items():
+                    src = torch.from_numpy(np.ascontiguousarray(a))
+                    buf = slot["bufs"].get(k)
+                    if buf is None or buf.shape != src.shape or \
+                            buf.dtype != src.dtype:
+                        buf = torch.empty(src.shape, dtype=src.dtype,
+                                          pin_memory=True)
+                        slot["bufs"][k] = buf
+                    # a NumPy copy: one thread, the GIL released
+                    np.copyto(buf.numpy(), src.numpy())
+                    out[k] = buf.to(self.device, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(self.stream)
+            slot["event"] = ev
+            return DeviceBatch(out, ev)
+        finally:
+            self._free.put(slot)
+
+
+def put_batch(batch: Dict[str, np.ndarray], device: torch.device,
+              stager: Optional[PinnedStager] = None):
+    """Host batch → tensors on ``device``: on the CPU ``torch.from_numpy``
+    (no copy); through ``stager`` (a :class:`DeviceBatch`, to be taken
+    with :func:`claim`); else a synchronous copy from pageable memory."""
+    if device.type == "cpu":
+        return DeviceBatch({k: torch.from_numpy(np.ascontiguousarray(v))
+                            for k, v in batch.items()})
+    if stager is not None:
+        return stager.stage(batch)
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in batch.items()}
+
+
+def is_device_batch(batch) -> bool:
+    """True if the batch is already staged (by the parallel loader's
+    producer): ``train_iter`` then takes it through :func:`claim`."""
+    return isinstance(batch, DeviceBatch)
+
+
+def claim(batch, device: torch.device) -> Dict[str, torch.Tensor]:
+    """A staged batch as the step's tensors: on the card the current
+    (compute) stream waits on the staging copies' event, and each tensor is
+    marked used by that stream, so the caching allocator does not hand its
+    memory to another allocation of the side stream while the step still
+    reads it."""
+    ready = getattr(batch, "ready", None)
+    if ready is not None:
+        s = torch.cuda.current_stream(device)
+        s.wait_event(ready)
+        for t in batch.values():
+            t.record_stream(s)
+    return dict(batch)

@@ -3,8 +3,8 @@
 Counterpart of ``theanompi_tpu/utils/recorder.py`` without its telemetry
 hook: per-iteration section timers, images/sec, train cost/error and val
 top-1/top-5 accumulation, printing every ``printFreq`` iterations, and
-per-epoch dumps.  The reference reported "time per 5120 images", so the
-bucket names and that unit are kept.
+per-epoch dumps that a resumed run loads back.  The reference reported
+"time per 5120 images", so the bucket names and that unit are kept.
 
 Train metrics arrive as device scalars and are read back (``float`` of a
 tensor) only at print cadence, so the card's queue stays full between
@@ -164,3 +164,26 @@ class Recorder:
         with open(os.path.join(d, f"inforec_rank{self.rank}.jsonl"), "w") as f:
             for rec in self._all_records + self.epoch_records:
                 f.write(json.dumps(rec) + "\n")
+
+    def load(self, record_dir: Optional[str] = None) -> None:
+        """Restore both record lists from the JSONL :meth:`save` wrote (epoch
+        records are the ones with ``val_cost``), so a resumed run's next
+        save keeps the lines from before the resume; a truncated last line
+        (a kill mid-save) is skipped."""
+        d = record_dir or self.record_dir
+        path = os.path.join(d, f"inforec_rank{self.rank}.jsonl")
+        if not os.path.exists(path):
+            return
+        train: List[dict] = []
+        epoch: List[dict] = []
+        with open(path) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    rec = json.loads(line)
+                except ValueError:
+                    continue
+                (epoch if "val_cost" in rec else train).append(rec)
+        self._all_records, self.epoch_records = train, epoch

@@ -3,8 +3,10 @@
 Counterpart of ``theanompi_tpu/worker.py``: the epoch/batch driver that
 compiles the model's steps, applies ``scale_lr`` and ``adjust_hyperp``,
 calls ``model.train_iter`` each iteration, runs the per-epoch validation
-loop and prints through the recorder.  Tracing, chaos, the watchdog, device
-profiling and checkpoints are not ported yet.
+loop and prints through the recorder; with ``ckpt_dir`` it checkpoints at
+the end of every epoch (after validation) and, with ``resume=True``,
+restores the newest valid checkpoint before training.  Tracing, chaos, the
+watchdog and device profiling are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ class Worker(MeshProcess):
 
     def __init__(self, config: Optional[dict] = None):
         super().__init__(config)
-        for k in ("ckpt_dir", "trace_dir", "chaos", "stall_timeout",
+        for k in ("trace_dir", "chaos", "stall_timeout",
                   "lease_dir", "metrics_addr", "tracing", "telemetry"):
             if self.config.get(k):
                 raise NotImplementedError(f"config {k!r} is not ported yet")
@@ -42,11 +44,24 @@ class Worker(MeshProcess):
         if config.get("scale_lr", True) and self.size > 1:
             model.scale_lr(self.size)
 
-        count = 0
+        start_epoch = 0
+        ckpt_dir = config.get("ckpt_dir")
+        if ckpt_dir and config.get("resume", False):
+            restored = model.load(ckpt_dir)
+            if restored is not None:
+                start_epoch = restored + 1
+                if config.get("record_dir"):
+                    # both record lists, so the next save() rewrites the
+                    # JSONL with the lines from before the resume
+                    self.recorder.load(config["record_dir"])
+                if self.verbose:
+                    print(f"resumed from epoch {restored}", flush=True)
+
+        count = start_epoch * model.data.n_batch_train
         epochs = config.get("epochs", model.epochs)
         t0 = time.time()
         self.recorder.reset_rate()
-        for epoch in range(epochs):
+        for epoch in range(start_epoch, epochs):
             model.adjust_hyperp(epoch)
             model.data.shuffle_data(epoch + model.seed)
             for _ in range(model.data.n_batch_train):
@@ -58,11 +73,13 @@ class Worker(MeshProcess):
                 model.val_iter(count, self.recorder)
             model.end_val()
             self.recorder.print_val_info(count)
+            if ckpt_dir:
+                model.save(ckpt_dir, epoch, count)
             if config.get("record_dir"):
                 self.recorder.save(config["record_dir"])
         if self.verbose:
             print(f"training finished in {time.time() - t0:.1f}s "
-                  f"({epochs} epochs)", flush=True)
+                  f"({epochs - start_epoch} epochs)", flush=True)
         return self.recorder
 
 

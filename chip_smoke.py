@@ -28,9 +28,14 @@
    'theanompi_tpu_torch.models.alex_net', modelclass='AlexNet', ...)`` at
    batch 128, full width, bf16, a few steps, and checks the cost is finite,
    the params sit on the card and which kernels were launched how often.
+   Every main path's train step is captured in a CUDA graph (the first
+   call runs eagerly and captures; the rest replay), and a kernel's count
+   grows by its launches per replay.
 7. Profiles a few more AlexNet steps: host wall and host buckets per step,
    device busy time, the device's idle share, the kernels by device time,
-   the host → device copies (``Memcpy HtoD``) and their memory kind.
+   the host → device copies (``Memcpy HtoD``) and their memory kind; of
+   the captured step and of the eager one (``capture=False``), as every
+   profile below.
 8. Native loader: builds ``theanompi_tpu_torch/native/loader.cc`` with g++
    into ``build/native/`` and, on one AlexNet batch (128 bc01 uint8 images
    at 256², a CHW mean made HWC), holds the fused pass against its NumPy
@@ -115,7 +120,18 @@
     (8·(8+1) B10, 8·8 B11, 8·8 B12, nothing else); profiles its steps
     (tokens/s, host buckets, device busy, idle share, the flash kernels'
     device time).
-21. Prints ``{"kernels": [...]}`` (B1–B12), then the card, then the last
+21. Graph ≡ eager: each full-width main path (AlexNet synthetic, VGG-16
+    under onebit, topk and powersgd, the LM with flash attention), 8 steps
+    eager and 8 captured from the same seed, cuDNN deterministic: costs,
+    params, optimizer state and wire state bit for bit, and the same
+    launch counts.
+22. ``steps_per_call = 4`` captured (two windows) against 8 single
+    captured steps, AlexNet and the LM: state and window costs bit for
+    bit.
+23. AlexNet from the batch files under ``para_load`` at
+    ``steps_per_call = 4``, both wires: the producer stages whole
+    windows; every window the step took holds the host stream's bits.
+24. Prints ``{"kernels": [...]}`` (B1–B12), then the card, then the last
     line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script exits non-zero and prints no result.
@@ -1145,13 +1161,15 @@ def exchange_sync_check(model) -> list:
 
 
 def step_profile_phase(modelfile, modelclass, batch, groups, steps, warmup=2,
-                       after=None, **cfg):
+                       after=None, capture=None, **cfg):
     """Where a main-path step's time goes, after warm-up: host wall time per
     step (the step ends in a synchronize) and the recorder's host buckets,
     unprofiled; then the same steps under ``torch.profiler`` for device busy
     time per step, the device's idle share, the kernels by device time, and
     the per-step device time of each group of kernels (``groups``: label →
-    name substrings).  ``after(model)`` runs at the end, its result kept."""
+    name substrings).  ``after(model)`` runs at the end, its result kept.
+    ``capture=False`` profiles the eager step (default: the captured one,
+    whose kernels the profiler sees as the replays run them)."""
     from torch.profiler import ProfilerActivity, profile
     from theanompi_tpu_torch.utils.recorder import Recorder
     from theanompi_tpu_torch.worker import BSP_Worker
@@ -1159,7 +1177,8 @@ def step_profile_phase(modelfile, modelclass, batch, groups, steps, warmup=2,
                               "verbose": False}, **cfg))
     try:
         model = worker.build_model(modelfile, modelclass)
-        model.compile_iter_fns(worker.exchanger)
+        model.compile_iter_fns(worker.exchanger, capture=capture)
+        graphed = model.train_fn.graphed
         if cfg.get("para_load"):
             # the producer starts with the epoch: before it, a
             # PrefetchLoader serves on the step's thread
@@ -1202,6 +1221,10 @@ def step_profile_phase(modelfile, modelclass, batch, groups, steps, warmup=2,
     host = {s: rec.t_sec_total[s] * 1e3 / steps
             for s in ("load", "stage", "train")}
     out = {"model": modelclass, "batch": batch, "steps": steps,
+           "captured": graphed,
+           "kernel_calls_per_step": sum(
+               r["calls_per_step"] for r in by_kernel
+               if not r["key"].startswith("Memcpy")),
            "wall_ms_per_step": wall_ms, "img_per_s": batch * 1e3 / wall_ms,
            "host_ms_per_step": host, "device_busy_ms_per_step": busy,
            "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
@@ -1224,13 +1247,15 @@ def step_profile_phase(modelfile, modelclass, batch, groups, steps, warmup=2,
 
 
 def print_profile(p: dict, card: str, groups) -> None:
-    print(f"{p['model']} step: {p['wall_ms_per_step']:.2f} ms wall "
+    print(f"{p['model']} {'captured' if p['captured'] else 'eager'} step: "
+          f"{p['wall_ms_per_step']:.2f} ms wall "
           f"({p['img_per_s']:.1f} img/s), host "
           + ", ".join(f"{k} {v:.2f} ms" for k, v in
                       p["host_ms_per_step"].items())
           + f"; device busy {p['device_busy_ms_per_step']:.2f} ms, idle "
           f"share {p['device_idle_share']:.3f}; "
           + ", ".join(f"{g} {p[g + '_ms_per_step']:.3f} ms" for g in groups)
+          + f"; {p['kernel_calls_per_step']:.0f} device ops a step"
           + f"; HtoD {p['htod_ms_per_step']:.3f} ms "
           + str(sorted({h["name"] for h in p["htod"]}))
           + f" on {card}", flush=True)
@@ -1550,6 +1575,168 @@ def resume_phase(saved: dict) -> dict:
     return out
 
 
+# -- the one-program step: captured ≡ eager, windows ----------------------------
+
+GRAPH_STEPS = 8
+SPC = 4                               # steps_per_call of the window phases
+VGG_MODEL = ("theanompi_tpu_torch.models.vggnet_16", "VGGNet_16")
+# each full-width main path: model file, class, config
+GRAPH_PATHS = {
+    "alexnet": ("theanompi_tpu_torch.models.alex_net", "AlexNet",
+                dict(batch_size=BATCH, synthetic_batches=GRAPH_STEPS)),
+    **{f"vgg16_{w}": VGG_MODEL + (dict(
+        exch_strategy=w, batch_size=VGG_BATCH, learning_rate=VGG_LR,
+        synthetic_batches=GRAPH_STEPS),) for w in ("onebit", "topk",
+                                                   "powersgd")},
+    "lm": ("theanompi_tpu_torch.models.transformer_lm", "TransformerLM",
+           dict(LM_CFG, batch_size=LM_BATCH,
+                synthetic_train=LM_BATCH * GRAPH_STEPS,
+                synthetic_val=LM_BATCH)),
+}
+
+
+def drive(path: str, capture: bool, calls: int, spc: int = 1) -> dict:
+    """``calls`` calls of a main path's train step from a fresh model, made
+    through the worker as a session makes it (``build_model``,
+    ``compile_iter_fns``, the epoch's ``shuffle_data``, ``train_iter``),
+    launches counted from 0: each call's cost (device scalars, cloned), the
+    whole state after (params, optimizer and wire state) on the host, and
+    the launch counts."""
+    from theanompi_tpu_torch.worker import BSP_Worker
+    modelfile, modelclass, cfg = GRAPH_PATHS[path]
+    zero_launches()
+    worker = BSP_Worker(dict(cfg, n_workers=1, seed=0, verbose=False,
+                             steps_per_call=spc))
+    try:
+        model = worker.build_model(modelfile, modelclass)
+        model.compile_iter_fns(worker.exchanger, capture=capture)
+        model.data.shuffle_data(model.seed)
+        t0 = time.time()
+        costs = []
+        for i in range(calls):
+            model.train_iter((i + 1) * spc)
+            costs.append(model.current_info["cost"].clone())
+        torch.cuda.synchronize()
+        out = {"costs": costs, "secs": time.time() - t0,
+               "graphed": model.train_fn.graphed, "launches": launch_counts(),
+               "state": [t.detach().cpu().clone() for t in
+                         tree_leaves(model.params)
+                         + tree_leaves(model.opt_state)
+                         + tree_leaves(model.extra)]}
+        del model
+    finally:
+        worker.close()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def same_run(name: str, a: dict, b: dict, costs_a=None) -> int:
+    """Two drives bit for bit: costs (``costs_a`` in place of ``a``'s),
+    every state tensor and the launch counts.  Returns the tensors
+    compared."""
+    for i, (x, y) in enumerate(zip(costs_a or a["costs"], b["costs"])):
+        check_bits(f"{name} cost {i}", x, y)
+    if len(a["state"]) != len(b["state"]):
+        raise AssertionError(f"{name}: {len(a['state'])} and "
+                             f"{len(b['state'])} state tensors")
+    for i, (x, y) in enumerate(zip(a["state"], b["state"])):
+        check_bits(f"{name} state tensor {i}", x, y)
+    if a["launches"] != b["launches"]:
+        raise AssertionError(f"{name}: launches {a['launches']} and "
+                             f"{b['launches']}")
+    return len(a["state"])
+
+
+def graph_eager_phase() -> dict:
+    """Each full-width main path, GRAPH_STEPS steps eager and captured from
+    the same seed (weights, batches, dropout streams), cuDNN deterministic
+    in both: costs, params, optimizer state and wire state bit for bit, and
+    the same kernel launches (the captured run's counted per replay)."""
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for path in GRAPH_PATHS:
+            eager = drive(path, False, GRAPH_STEPS)
+            graph = drive(path, True, GRAPH_STEPS)
+            if eager["graphed"] or not graph["graphed"]:
+                raise AssertionError(f"{path}: graphed {eager['graphed']}, "
+                                     f"{graph['graphed']}")
+            n = same_run(f"{path} graph vs eager", eager, graph)
+            out[path] = {"tensors": n, "eager_s": eager["secs"],
+                         "graph_s": graph["secs"],
+                         "costs": [float(c) for c in graph["costs"]],
+                         "launches": {k: v for k, v in
+                                      graph["launches"].items() if v}}
+            print(f"graph == eager, {path}: {GRAPH_STEPS} steps, {n} state "
+                  f"tensors and the costs bit for bit, launches "
+                  f"{out[path]['launches']}", flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def spc_phase() -> dict:
+    """``steps_per_call = SPC`` captured (two calls over [SPC, ...]
+    windows) against 2·SPC single captured steps, AlexNet and the LM: the
+    same state bit for bit, each window's mean cost the single steps' mean
+    taken the same way on the card, the same launches."""
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for path in ("alexnet", "lm"):
+            one = drive(path, True, GRAPH_STEPS)
+            many = drive(path, True, GRAPH_STEPS // SPC, spc=SPC)
+            means = [torch.stack(one["costs"][i:i + SPC]).mean()
+                     for i in range(0, GRAPH_STEPS, SPC)]
+            n = same_run(f"{path} spc {SPC} vs single", one, many, means)
+            out[path] = {"tensors": n, "single_s": one["secs"],
+                         "spc_s": many["secs"]}
+            print(f"spc {SPC} == {SPC} single steps, {path} (captured): "
+                  f"{n} state tensors and the window costs bit for bit",
+                  flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def host_windows(wire_u8: bool, k: int) -> list:
+    """Checksums of a bare ``ImageNet_data``'s epoch 0 as ``[k, ...]``
+    windows (the last ``n_batch_train % k`` batches dropped), then its
+    validation batch."""
+    from theanompi_tpu_torch.models.data.imagenet import ImageNet_data
+    data = ImageNet_data({"data_dir": DATA_DIR, "seed": 0,
+                          "aug_wire_u8": wire_u8}, BATCH, crop=227)
+    data.shuffle_data(0)
+    sums = [checksum(np.stack([data.next_train_batch(w * k + j + 1)["x"]
+                               for j in range(k)]))
+            for w in range(data.n_batch_train // k)]
+    return sums + [checksum(data.next_val_batch(0)["x"])]
+
+
+def window_files_phase(wire_u8: bool) -> dict:
+    """AlexNet from the batch files under ``para_load`` at
+    ``steps_per_call = SPC``: the producer stages whole windows, the
+    captured step takes each; every window the step took holds the host
+    stream's bits, and the LRN kernels ran once per step."""
+    n = (FILE_STEPS // SPC) * SPC
+    want = expect(lrn_fwd_cuda=2 * (n + VAL_BATCHES), lrn_bwd_cuda=2 * n)
+    with ClaimRecorder() as claims:
+        model, out = run_main_path(
+            "theanompi_tpu_torch.models.alex_net", "AlexNet", want,
+            **file_cfg(wire_u8, steps_per_call=SPC))
+    if model.data.window != SPC or not model.train_fn.graphed:
+        raise AssertionError(f"window {model.data.window}, graphed "
+                             f"{model.train_fn.graphed}")
+    check_stream(f"AlexNet windows (u8 wire {wire_u8})", claims.values(),
+                 host_windows(wire_u8, SPC))
+    out["windows_checked"] = len(claims.sums)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # (para_load_workers, native augment threads per batch) settings timed by
 # ``--input-times``; the first is what the port ships on an 8-core host
 INPUT_SETTINGS = ((4, 2), (4, 1), (2, 2), (2, 1), (1, 4), (8, 1))
@@ -1812,10 +1999,12 @@ def main() -> int:
           f"{[round(c, 4) for c in alex['costs']]}, "
           f"{alex['img_per_s']:.1f} img/s on {card}", flush=True)
     alex_groups = {"lrn": ("lrn_",)}
-    alex_prof = step_profile_phase("theanompi_tpu_torch.models.alex_net",
-                                   "AlexNet", BATCH, alex_groups,
-                                   PROFILE_STEPS)
-    print_profile(alex_prof, card, alex_groups)
+    profs = {}
+    for key, capture in (("alexnet", True), ("alexnet_eager", False)):
+        profs[key] = step_profile_phase(
+            "theanompi_tpu_torch.models.alex_net", "AlexNet", BATCH,
+            alex_groups, PROFILE_STEPS, capture=capture)
+        print_profile(profs[key], card, alex_groups)
 
     loader = native_loader_phase()
     print("native loader (g++ %.1fs): bit-equal to the NumPy path; one AlexNet "
@@ -1852,12 +2041,13 @@ def main() -> int:
           f"epoch 1 costs {[round(c, 4) for c in resumed['costs']]}, "
           f"{resumed['batches_checked']} staged batches equal to the host "
           f"stream", flush=True)
-    profs = {"alexnet": alex_prof}
     for key, u8_wire in (("alexnet_files", False), ("alexnet_files_u8", True)):
-        profs[key] = step_profile_phase(
-            "theanompi_tpu_torch.models.alex_net", "AlexNet", BATCH,
-            alex_groups, PROFILE_STEPS, **file_cfg(u8_wire))
-        print_profile(profs[key], card, alex_groups)
+        for suffix, capture in (("", True), ("_eager", False)):
+            profs[key + suffix] = step_profile_phase(
+                "theanompi_tpu_torch.models.alex_net", "AlexNet", BATCH,
+                alex_groups, PROFILE_STEPS, capture=capture,
+                **file_cfg(u8_wire))
+            print_profile(profs[key + suffix], card, alex_groups)
     htod = htod_phase()
     print("HtoD copy of one AlexNet batch (CUDA events): " + "; ".join(
         f"{w} {htod[w + '_mb']:.1f} MB pinned {htod[w + '_pinned_ms']:.3f} "
@@ -1890,6 +2080,11 @@ def main() -> int:
             groups, PROFILE_STEPS, after=exchange_sync_check,
             exch_strategy=strategy, learning_rate=VGG_LR)
         print_profile(prof, card, groups)
+        profs[strategy + "_eager"] = step_profile_phase(
+            "theanompi_tpu_torch.models.vggnet_16", "VGGNet_16", VGG_BATCH,
+            groups, PROFILE_STEPS, capture=False, exch_strategy=strategy,
+            learning_rate=VGG_LR)
+        print_profile(profs[strategy + "_eager"], card, groups)
         if strategy == "powersgd":
             # torch.linalg.qr's waits are a finding, printed and kept
             print(f"powersgd exchange: the host waited {len(prof['after'])} "
@@ -1932,13 +2127,28 @@ def main() -> int:
           flush=True)
     lm_groups = {"flash": ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
                            "flash_bwd_dq_kernel")}
-    profs["lm"] = lm_prof = step_profile_phase(
-        "theanompi_tpu_torch.models.transformer_lm", "TransformerLM",
-        LM_BATCH, lm_groups, PROFILE_STEPS,
-        synthetic_train=LM_BATCH * (2 + 2 * PROFILE_STEPS), **LM_CFG)
-    lm_prof["tokens_per_s"] = lm_prof["img_per_s"] * LM_CFG["seq_len"]
-    print_profile(lm_prof, card, lm_groups)
-    print(f"LM step: {lm_prof['tokens_per_s']:.0f} tokens/s", flush=True)
+    for key, capture in (("lm", True), ("lm_eager", False)):
+        profs[key] = lm_prof = step_profile_phase(
+            "theanompi_tpu_torch.models.transformer_lm", "TransformerLM",
+            LM_BATCH, lm_groups, PROFILE_STEPS, capture=capture,
+            synthetic_train=LM_BATCH * (2 + 2 * PROFILE_STEPS), **LM_CFG)
+        lm_prof["tokens_per_s"] = lm_prof["img_per_s"] * LM_CFG["seq_len"]
+        print_profile(lm_prof, card, lm_groups)
+        print(f"LM {key} step: {lm_prof['tokens_per_s']:.0f} tokens/s",
+              flush=True)
+
+    graph_eager = graph_eager_phase()
+    spc = spc_phase()
+    windows = {}
+    for key, u8_wire in (("f32", False), ("u8", True)):
+        windows[key] = w = window_files_phase(u8_wire)
+        print(f"main path: AlexNet BSP from files, para_load, spc {SPC} "
+              f"window mode, {key} wire, costs "
+              f"{[round(c, 4) for c in w['costs']]}, {w['img_per_s']:.1f} "
+              f"img/s, {w['windows_checked']} staged windows and batches "
+              f"equal to the host stream, launches "
+              f"{ {k: v for k, v in w['launches'].items() if v} }",
+              flush=True)
 
     kernels = kernel_entries(lrn, comp, topk, fpack, flash, alex, vggs, lm)
     for e in kernels:
@@ -1948,7 +2158,9 @@ def main() -> int:
                 "alexnet_synthetic": alex["launches"][name],
                 "alexnet_files_para_load": files["launches"][name],
                 "alexnet_files_para_load_u8": files_u8["launches"][name],
-                "alexnet_resumed_epoch": resumed["launches"][name]}
+                "alexnet_resumed_epoch": resumed["launches"][name],
+                **{f"alexnet_files_spc{SPC}_{k}": w["launches"][name]
+                   for k, w in windows.items()}}
     total_s = time.time() - t_all
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -1957,8 +2169,10 @@ def main() -> int:
                    "main": dict({"alexnet": alex, "lm": lm,
                                  "alexnet_files": files,
                                  "alexnet_files_u8": files_u8,
-                                 "alexnet_resumed": resumed},
+                                 "alexnet_resumed": resumed,
+                                 "alexnet_files_windows": windows},
                                 **{f"vgg16_{k}": v for k, v in vggs.items()}),
+                   "graph_eager": graph_eager, "spc": spc,
                    "native_loader": loader, "u8_logits": u8, "htod": htod,
                    "profile": profs, "card": card, "build_s": build_s, "total_s": total_s,
                    "alexnet_ref_err": ref_err}, f, indent=1)

@@ -37,6 +37,14 @@ loader = PrefetchLoader(ImageNet_data({"synthetic_batches": 2}, 2, crop=5), n_wo
 loader.shuffle_data(0)
 loader.next_train_batch(1)
 loader.close()
+loader.set_window(2)
+loader.shuffle_data(1)
+assert loader.next_train_window(2)["x"].shape[0] == 2
+loader.close()
+# the graph helper gathers the twelve kernels' wrappers (B9's one-leaf
+# entry too) without JAX
+from theanompi_tpu_torch.parallel import graph
+assert len(graph.kernel_wrappers()) == 13
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "theanompi_tpu" or m.startswith("theanompi_tpu."))
@@ -45,7 +53,8 @@ assert not bad, bad
 
 NEW_MODULES = ("theanompi_tpu_torch.native",
                "theanompi_tpu_torch.models.data.prefetch",
-               "theanompi_tpu_torch.utils.checkpoint")
+               "theanompi_tpu_torch.utils.checkpoint",
+               "theanompi_tpu_torch.parallel.graph")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -54,7 +63,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                        env=dict(os.environ, PYTHONPATH=REPO))
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 26, r.stdout
+    assert n_modules >= 31, r.stdout
 
 
 def test_the_walk_reaches_the_new_modules():

@@ -77,4 +77,7 @@ def test_adam_updates_in_place():
     tp2, st2 = o.update(jax.tree.map(torch.from_numpy, grads[0]), st, tp,
                         0.1)
     assert tp2["a"]["w"] is w and st2["m"]["a"]["w"] is m
-    assert st2["t"]["a"]["w"] == 1 and st["t"]["a"]["w"] == 0
+    # the step counts too: one 0-d int32 tensor, shared by every leaf
+    assert st2["t"]["a"]["w"] is st["t"]["c"]["w"]
+    assert st2["t"]["a"]["w"].dtype == torch.int32
+    assert int(st2["t"]["a"]["w"]) == 1

@@ -176,10 +176,23 @@ def test_a_stale_producer_never_feeds_the_restarted_queue():
 
 
 def test_window_mode_is_refused():
+    """While window mode is on the queue holds whole windows: a per-batch
+    draw is refused, not served from the middle of one; ``set_window(1)``
+    returns the loader to single batches from the last consumed
+    position."""
     loader = PrefetchLoader(_Flaky(bad=0, split=False))
     loader.set_window(1)
-    with pytest.raises(NotImplementedError, match="queue A, item 2"):
-        loader.set_window(4)
+    assert loader.window == 0
+    loader.set_window(2)
+    loader.shuffle_data(0)
+    w = loader.next_train_window(2)
+    assert w["x"].shape == (2, 2, 1)
+    assert w["x"][:, 0, 0].tolist() == [1.0, 2.0]
+    with pytest.raises(RuntimeError, match="next_train_window"):
+        loader.next_train_batch(3)
+    loader.set_window(1)
+    assert loader.next_train_batch(3)["x"][0, 0] == 3.0
+    loader.close()
 
 
 def test_cpu_staging_hands_the_step_tensors(tmp_path):

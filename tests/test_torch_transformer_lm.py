@@ -212,7 +212,7 @@ def test_three_step_adam_trajectory_matches_jax(cpu_group):
                                f"{moment} {'/'.join(path)}", 1e-2 * scale,
                                1e-4 * scale, 0)
     assert {np.asarray(t).item() for t in jax.tree.leaves(jst["t"])} == {3}
-    assert set(tree_leaves(tm.opt_state["t"])) == {3}
+    assert {int(t) for t in tree_leaves(tm.opt_state["t"])} == {3}
 
 
 def _leaves(tree, path=()):

@@ -3,6 +3,7 @@ multi-process tests.
 
 * :class:`TinyLRNNet` — Conv → LRN → Pool → FC: the AlexNet block at toy
   width.
+* :class:`TinyDropNet` — :class:`TinyLRNNet` with dropout before its FC.
 * :class:`TinyVGGNet` — Conv 3×3 SAME → Pool 2/2 → Conv → Pool → FC: the
   VGG block at toy width, the model of the onebit tests.
 * :class:`TinyLM` — the transformer LM at toy size (float32, reference
@@ -93,6 +94,17 @@ class TinyLRNNet(ModelBase):
                  activation=None, compute_dtype="float32", name="fc"),
         ])
         self.data = TinyData(self.config, self.batch_size)
+
+
+class TinyDropNet(TinyLRNNet):
+    """:class:`TinyLRNNet` with dropout (rate 0.5) before its FC: the
+    tests of the step's dropout streams."""
+
+    def build_model(self):
+        super().build_model()
+        layers = self.seq.layers
+        self.seq = L.Sequential(layers[:-1] + [L.Dropout(0.5, name="drop"),
+                                               layers[-1]])
 
 
 def tiny_vgg_layers(Lmod, f32):

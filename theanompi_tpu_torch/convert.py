@@ -146,8 +146,9 @@ def checkpoint_from_jax(ckpt_dir: str, model,
     JAX PRNG keys have no torch counterpart: the checkpoint's step and
     exchange keys are not read, and the model's generators keep the
     streams its config's seed started (the dropout bits differ from JAX's
-    anyway, ``steps.step_generator``)."""
+    anyway, ``steps.step_seed``)."""
     from .utils import checkpoint as ckpt_lib
+    from .utils import opt as opt_lib
     import torch
 
     meta = ckpt_lib.peek_meta(ckpt_dir, epoch)
@@ -231,7 +232,8 @@ def checkpoint_from_jax(ckpt_dir: str, model,
             return cur_leaf
         return new_leaf
 
-    model.opt_state = tree_map(put, model.opt_state, new_opt)
+    # in place, Adam's counts into its device count tensors
+    model.opt_state = opt_lib.load_state(model.opt_state, new_opt)
     if new_extra:
         model.extra = tree_map(put, model.extra, new_extra)
     if cursor and hasattr(model.data, "set_cursor"):

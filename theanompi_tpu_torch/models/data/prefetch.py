@@ -20,8 +20,14 @@ several at once (file reads and the native augment release the GIL).  The
 queue holds the futures in plan order, so the stream is the serial one bit
 for bit whatever the pool size.
 
-Window mode (``set_window``: whole ``steps_per_call`` windows staged by the
-producer) is not ported: it belongs to ``steps_per_call > 1``.
+Window mode (``set_window(k, stage_fn)``, wired by
+``ModelBase.compile_iter_fns`` when ``steps_per_call = k > 1``): the
+producer takes k sequential draws, stacks them on the host into one
+``[k, ...]`` window (``steps.stack_host``) and stages it once, so the
+queue holds whole windows and the step's thread only dequeues
+(:meth:`next_train_window`).  The consumed cursor and the restarts then
+count in windows, and an epoch drops its last ``n_batch_train % k``
+batches, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -29,6 +35,8 @@ from __future__ import annotations
 import queue
 import threading
 from typing import Optional
+
+from ...parallel.steps import stack_host
 
 
 class PrefetchLoader:
@@ -40,6 +48,8 @@ class PrefetchLoader:
         self.depth = depth
         self.n_workers = max(1, int(n_workers))
         self._device_put_fn = device_put_fn  # optional: stage onto the card
+        self.window = 0                      # set_window: steps per window
+        self._stage_window_fn = None
         self._q: Optional[queue.Queue] = None
         self._thread: Optional[threading.Thread] = None
         # per-producer stop event: a producer that outlives its join timeout
@@ -49,12 +59,23 @@ class PrefetchLoader:
         self._consumed_cursor: dict = {}
 
     def set_window(self, k: int, stage_fn=None) -> None:
-        """Window-granular production is refused above one step a call."""
-        if int(k) > 1:
-            raise NotImplementedError(
-                "PrefetchLoader window mode (steps_per_call > 1) is not "
-                "ported yet: it comes with the one-program step (ROADMAP.md "
-                "queue A, item 2)")
+        """Produce whole windows of ``k`` steps (``k <= 1``: single batches
+        again): k sequential draws (the cursor and the augmentation draws
+        stay the serial stream's), one host stack, one
+        ``stage_fn(window)`` (``None``: the window stays on the host).  The
+        per-batch ``device_put_fn`` is not used while windows are on.  A
+        running producer restarts from the last consumed position, so
+        nothing it ran ahead with is lost or skipped."""
+        k = int(k)
+        was = (self.window, self._stage_window_fn)
+        self.window = k if k > 1 else 0
+        self._stage_window_fn = stage_fn if self.window else None
+        if self._thread is not None and \
+                (self.window, self._stage_window_fn) != was:
+            self._shutdown()
+            if self._consumed_cursor and hasattr(self._data, "set_cursor"):
+                self._data.set_cursor(self.get_cursor())
+            self._restart_producer()
 
     # -- passthrough surface -------------------------------------------------
     @property
@@ -127,7 +148,8 @@ class PrefetchLoader:
         # the pooled producer's queue holds one future per batch in flight,
         # or its put would block the submit loop at depth + 1
         pooled = self.n_workers > 1 and hasattr(self._data,
-                                                "plan_train_batch")
+                                                "plan_train_batch") \
+            and not self.window
         self._q = queue.Queue(
             maxsize=self.depth + (self.n_workers if pooled else 0))
         self._stop = threading.Event()
@@ -137,6 +159,11 @@ class PrefetchLoader:
         self._thread.start()
 
     def next_train_batch(self, count: int):
+        if self.window and self._q is not None:
+            raise RuntimeError(
+                f"window mode is on: the queue holds whole [{self.window}, "
+                f"...] windows; take them with next_train_window (or "
+                f"set_window(0) first)")
         if self._q is None:          # before the first shuffle_data
             batch = self._maybe_put(self._data.next_train_batch(count))
             if hasattr(self._data, "get_cursor"):
@@ -153,6 +180,27 @@ class PrefetchLoader:
         self._consumed_cursor = cursor
         return batch
 
+    def next_train_window(self, count: int):
+        """One whole window of ``window`` steps, staged when ``set_window``
+        got a ``stage_fn``; ``count`` names its LAST step, as in
+        ``train_iter``.  The consumed cursor moves by the window."""
+        if not self.window:
+            raise RuntimeError("set_window(k) with k > 1 first")
+        if self._q is None:          # before the first shuffle_data
+            k = self.window
+            window = self._stage(stack_host(
+                [self._data.next_train_batch(count - k + 1 + j)
+                 for j in range(k)]))
+            if hasattr(self._data, "get_cursor"):
+                self._consumed_cursor = self._data.get_cursor()
+            return window
+        item = self._q.get()
+        if isinstance(item, BaseException):
+            raise item
+        window, cursor = item
+        self._consumed_cursor = cursor
+        return window
+
     def next_val_batch(self, count: int):
         """Validation is served synchronously, on the caller's thread."""
         return self._maybe_put(self._data.next_val_batch(count))
@@ -163,6 +211,9 @@ class PrefetchLoader:
         # q and stop are THIS producer's own: a restart swaps self._q and
         # self._stop, and a slow old producer must not feed the new queue
         try:
+            if self.window:
+                self._producer_windows(n_batches, q, stop)
+                return
             if self.n_workers > 1 and hasattr(self._data,
                                               "plan_train_batch"):
                 self._producer_pooled(n_batches, q, stop)
@@ -205,6 +256,46 @@ class PrefetchLoader:
                 if stop.is_set():
                     return
                 q.put((fut, cursor))  # blocks at depth + n_workers
+
+    def _producer_windows(self, n_batches: int, q: queue.Queue,
+                          stop: threading.Event) -> None:
+        """Whole windows: k sequential draws (plans, then a pooled
+        materialize when the data object splits them and ``n_workers >
+        1``), one host stack, one staging; the ``n_batches % k`` left over
+        roll to the next epoch's shuffle."""
+        from concurrent.futures import ThreadPoolExecutor
+        k = self.window
+        pooled = self.n_workers > 1 and hasattr(self._data,
+                                                "plan_train_batch")
+        pool = ThreadPoolExecutor(self.n_workers,
+                                  thread_name_prefix="para_load") \
+            if pooled else None
+        try:
+            for w in range(n_batches // k):
+                if stop.is_set():
+                    return
+                if pooled:
+                    plans = [self._data.plan_train_batch(w * k + j + 1)
+                             for j in range(k)]
+                    futs = [pool.submit(self._data.materialize, p)
+                            for p in plans]
+                    batches = [f.result() for f in futs]   # in order; raises
+                else:
+                    batches = [self._data.next_train_batch(w * k + j + 1)
+                               for j in range(k)]
+                cursor = self._data.get_cursor() \
+                    if hasattr(self._data, "get_cursor") else {}
+                window = self._stage(stack_host(batches))
+                if stop.is_set():     # a restart raced the staging: drop it
+                    return
+                q.put((window, cursor))
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=False)
+
+    def _stage(self, window):
+        return self._stage_window_fn(window) if self._stage_window_fn \
+            else window
 
     def _maybe_put(self, batch):
         return self._device_put_fn(batch) if self._device_put_fn else batch

@@ -10,10 +10,14 @@ models define their layer stack, data object and hyperparameters.
 
 A model lives on ONE device, ``config['device']``: ``cuda`` unless the
 caller asks for ``cpu``.  Without a card, a model that did not ask for the
-CPU raises.  ``para_load`` wraps the data object in the background loader
-(``data/prefetch.py``), whose producer stages each batch onto the card;
-``save``/``load`` checkpoint the BSP state.  ZeRO, FSDP, update sharding,
-EMA and the numerics plane of the JAX package are not ported yet.
+CPU raises.  On the card the train step is a CUDA graph replay
+(``parallel/steps.py``); ``steps_per_call = k`` runs k steps a call over a
+``[k, ...]`` window, as the JAX package's scanned dispatch.
+``para_load`` wraps the data object in the background loader
+(``data/prefetch.py``), whose producer stages each batch, or each whole
+window, onto the card; ``save``/``load`` checkpoint the BSP state.  ZeRO,
+FSDP, update sharding, EMA and the numerics plane of the JAX package are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from ..base import resolve_device
 from ..parallel import steps
 from ..utils import checkpoint as ckpt_lib
 from ..utils.helper_funcs import tree_map
+from ..utils import opt as opt_lib
 from ..utils.opt import get_optimizer
 from . import layers as L
 
@@ -43,6 +48,7 @@ class ModelBase:
     optimizer: str = "momentum"
     lr_adjust_epochs: tuple = ()   # epochs at which lr /= 10 (step schedule)
     seed: int = 42
+    steps_per_call: int = 1        # training steps per train_iter call
 
     def __init__(self, config: Optional[dict] = None):
         self.config = dict(config or {})
@@ -53,15 +59,13 @@ class ModelBase:
         self.config["size"] = self.size
         self.device = resolve_device(self.config)
         for k in ("batch_size", "epochs", "n_subb", "learning_rate", "seed",
-                  "optimizer", "momentum", "weight_decay"):
+                  "optimizer", "momentum", "weight_decay", "steps_per_call"):
             if k in self.config:
                 setattr(self, k, self.config[k])
         for k in ("zero_opt", "fsdp", "update_sharding", "ema_decay",
                   "numerics"):
             if self.config.get(k):
                 raise NotImplementedError(f"config {k!r} is not ported yet")
-        if int(self.config.get("steps_per_call", 1)) != 1:
-            raise NotImplementedError("steps_per_call > 1 is not ported yet")
         self.seed = int(self.config.get("seed", self.seed))
         self.current_lr = float(self.learning_rate)
 
@@ -70,7 +74,7 @@ class ModelBase:
         self.build_model()            # subclass hook: set self.seq, self.data
         if self.config.get("para_load", False) and self.data is not None:
             self._wrap_para_load()
-        # the base of every step's dropout stream (steps.step_generator):
+        # the base of every step's dropout stream (steps.step_seed):
         # the role of the JAX package's step key; a checkpoint carries it
         self.step_seed = self.seed + 2
 
@@ -98,8 +102,15 @@ class ModelBase:
         from .data.prefetch import PrefetchLoader
         workers = int(self.config.get("para_load_workers", 4))
         depth = 2
+        cuda = self.device.type == "cuda"
         stager = steps.PinnedStager(self.device, slots=depth + workers + 1) \
-            if self.device.type == "cuda" else None
+            if cuda else None
+        # whole windows are staged one at a time: the queued ones, the one
+        # being staged and the one the step copies from
+        window_stager = steps.PinnedStager(self.device, slots=depth + 2) \
+            if cuda else None
+        self._stage_window = lambda w: steps.put_batch(w, self.device,
+                                                       window_stager)
         self.data = PrefetchLoader(
             self.data, depth=depth, n_workers=workers,
             device_put_fn=lambda b: steps.put_batch(b, self.device, stager))
@@ -191,9 +202,16 @@ class ModelBase:
 
     # -- contract: compile -------------------------------------------------
 
-    def compile_iter_fns(self, exchanger=None) -> None:
+    def compile_iter_fns(self, exchanger=None,
+                         capture: Optional[bool] = None) -> None:
         """Build the train and val steps.  Needs the process group that
-        ``base.MeshProcess`` sets up (world size 1 included)."""
+        ``base.MeshProcess`` sets up (world size 1 included).  The train
+        step takes ``steps_per_call`` steps a call; on the card it is
+        captured into a CUDA graph, unless ``capture=False`` asks for the
+        eager step (a comparison or a debugging run: no config key selects
+        it, and nothing falls back to it).  Under ``para_load`` with
+        ``steps_per_call > 1`` the loader's producer stages whole windows
+        (``para_load_window``, default true, as in the JAX package)."""
         import torch.distributed as dist
         from ..parallel.exchanger import BSP_Exchanger
         if not dist.is_initialized():
@@ -204,34 +222,74 @@ class ModelBase:
         self.exchanger.prepare(self, dist.get_world_size())
         self.opt_state = self.opt.init(self.params)
         self.extra = self.exchanger.extra_state_template()
-        self.train_fn = steps.build_train_step(self, self.exchanger)
+        spc = int(self.steps_per_call)
+        if spc < 1:
+            raise ValueError(f"steps_per_call={spc} must be at least 1")
+        if spc > 1 and self.data is not None and \
+                spc > self.data.n_batch_train:
+            raise ValueError(f"steps_per_call={spc} exceeds n_batch_train="
+                             f"{self.data.n_batch_train}: every epoch would "
+                             f"train zero steps")
+        if hasattr(self.data, "set_window"):
+            # re-wired on every compile, so a recompile back to one step a
+            # call returns the loader to per-batch production
+            if spc > 1 and self.config.get("para_load_window", True):
+                self.data.set_window(spc, self._stage_window)
+            else:
+                self.data.set_window(0)
+        self.train_fn = steps.build_train_step(self, self.exchanger,
+                                               n_steps=spc, capture=capture)
         self.val_fn = steps.build_val_step(self)
 
     # -- contract: iteration -----------------------------------------------
 
     def train_iter(self, count: int, recorder=None) -> None:
-        """One training step.  Recorder buckets: ``load`` = waiting on the
-        data source (under ``para_load`` the wait at the dequeue alone),
-        ``stage`` = host → device on the step's thread (under ``para_load``
-        only the compute stream's wait on the producer's copy, enqueued),
-        ``train`` = enqueueing the step (the card runs behind; metrics stay
-        on it until printed)."""
+        """One call of the train step: one training step, or
+        ``steps_per_call`` of them (``count`` then names the LAST step of
+        the call).  Recorder buckets, as the JAX package defines them:
+        ``load`` = waiting on the data source (under ``para_load`` the wait
+        at the dequeue alone), ``stage`` = host → device on the step's
+        thread (under ``para_load`` the compute stream's wait on the
+        producer's copy and, for a captured step, the copy into its static
+        buffers on the card), ``train`` = enqueueing the step (one graph
+        replay on the card; metrics stay on the device until printed);
+        with ``sync_each_iter`` the blocking read of the metrics lands in
+        ``wait``, so the buckets add up to the wall time."""
+        k = int(self.steps_per_call)
+        window = k > 1 and getattr(self.data, "window", 0) == k
         if recorder:
             recorder.start()
-        batch = self.data.next_train_batch(count)
+        if k == 1:
+            batch = self.data.next_train_batch(count)
+        elif window:
+            batch = self.data.next_train_window(count)
+        else:
+            batch = [self.data.next_train_batch(count - k + 1 + j)
+                     for j in range(k)]
         if recorder:
             recorder.end("load")
             recorder.start()
-        dev_batch = self._take(batch)
+        inputs = self.train_fn.take(batch)
         if recorder:
             recorder.end("stage")
             recorder.start()
-        cost, err = self.train_fn(dev_batch, self.current_lr, count)
+        cost, err = self.train_fn(inputs, self.current_lr, count)
+        cost, err = (cost[0], err[0]) if k == 1 else (cost.mean(), err.mean())
         if recorder:
             recorder.end("train")
+        if self.config.get("sync_each_iter", False):
+            # the reference's blocking loop: the device's remainder of the
+            # step lands in ``wait``
+            if recorder:
+                recorder.start()
+            cost, err = float(cost), float(err)
+            if recorder:
+                recorder.end("wait")
+        if recorder:
             # images of the global batch: every rank steps in lockstep
-            recorder.train_error(count, cost, err,
-                                 int(batch["y"].shape[0]) * self.size)
+            y = batch[0]["y"] if isinstance(batch, list) else batch["y"]
+            rows = int(y.shape[1] if window else y.shape[0])
+            recorder.train_error(count, cost, err, rows * k * self.size)
         self.current_info.update(cost=cost, error=err)
 
     def _take(self, batch):
@@ -386,17 +444,16 @@ class ModelBase:
         if restored is None:
             return None
 
-        def put(cur, arr, k):
-            arr = arr[self.rank] if k in boxed else arr
-            if isinstance(cur, torch.Tensor):
-                with torch.no_grad():
-                    cur.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
-                return cur
-            return int(arr)
-
+        # every tensor is written in place, so a captured step keeps
+        # reading it (the optimizer's own load keeps Adam's count groups;
+        # a tensor it must replace makes the step capture again)
         for k, tree in self._state_parts().items():
-            setattr(self, k, tree_map(lambda c, a, k=k: put(c, a, k),
-                                      tree, restored[k]))
+            host = tree_map(lambda a: a[self.rank], restored[k]) \
+                if k in boxed else restored[k]
+            if k == "opt_state":
+                self.opt_state = opt_lib.load_state(tree, host)
+            else:
+                opt_lib.load_state(tree, host)
         rng = restored.get("_rng_states", {})
         if "step" in rng:
             gen = torch.Generator()

@@ -140,13 +140,15 @@ def pack_signs_encode_plain(flat: torch.Tensor, state: torch.Tensor):
 
 
 def signed_residual_plain(absc: torch.Tensor, packed: torch.Tensor,
-                          scale: torch.Tensor) -> torch.Tensor:
+                          scale: torch.Tensor, out=None) -> torch.Tensor:
     """New error state ``c − scale·sign(c)`` as
     ``where(bit, |c| − scale, scale − |c|)`` (``signed_residual_jnp``; bit
-    for bit the unfused formula, c == 0 giving bit 1)."""
+    for bit the unfused formula, c == 0 giving bit 1); into ``out`` when
+    given."""
     _check_flat("signed_residual_plain", absc)
     sign_pos = unpack_signs_plain(packed) > 0
-    return torch.where(sign_pos, absc - scale, scale - absc)
+    res = torch.where(sign_pos, absc - scale, scale - absc)
+    return res if out is None else out.copy_(res)
 
 
 def _check_topk_rows(name: str, c2: torch.Tensor, k: int) -> None:
@@ -176,7 +178,7 @@ def _check_topk_wire(name: str, all_vals: torch.Tensor,
                          f"{all_vals.shape[2]} (chunk ≤ {TOPK_MAX_CHUNK})")
 
 
-def topk_encode_plain(c2: torch.Tensor, k: int):
+def topk_encode_plain(c2: torch.Tensor, k: int, out=None):
     """Per chunk row of ``c2`` [rows, chunk]: the k largest |·| as (bf16
     values, int16 offsets), and the new state, ``c2`` with the bf16
     rounding residual written at the selected offsets
@@ -190,7 +192,9 @@ def topk_encode_plain(c2: torch.Tensor, k: int):
     vals = torch.gather(c2, 1, idx)
     wire_vals = vals.to(torch.bfloat16)
     residual = vals - wire_vals.float()
-    return wire_vals, idx.to(torch.int16), c2.scatter(1, idx, residual)
+    state = c2.scatter(1, idx, residual)
+    return wire_vals, idx.to(torch.int16), \
+        state if out is None else out.copy_(state)
 
 
 def topk_decode_plain(all_vals: torch.Tensor, all_idx: torch.Tensor,
@@ -238,6 +242,22 @@ def _check_scales(name: str, scale: torch.Tensor, count: int) -> None:
                          f"{scale.dtype} {tuple(scale.shape)}")
 
 
+def _out_like(name: str, out, x: torch.Tensor) -> torch.Tensor:
+    """``out`` checked to be a contiguous tensor of ``x``'s shape, dtype
+    and device that does not share its storage (the kernels read ``x``
+    while they write), or a new one."""
+    if out is None:
+        return torch.empty_like(x)
+    if out.shape != x.shape or out.dtype != x.dtype or \
+            out.device != x.device or not out.is_contiguous():
+        raise ValueError(f"{name}: out {tuple(out.shape)} {out.dtype} on "
+                         f"{out.device} for {tuple(x.shape)} {x.dtype} on "
+                         f"{x.device}")
+    if out.untyped_storage().data_ptr() == x.untyped_storage().data_ptr():
+        raise ValueError(f"{name}: out shares the input's storage")
+    return out
+
+
 def pack_signs_cuda(c: torch.Tensor) -> torch.Tensor:
     """Kernel B3: sign pack of a CUDA f32 vector."""
     n = _check_flat("pack_signs_cuda", c)
@@ -266,9 +286,10 @@ def pack_signs_encode_cuda(flat: torch.Tensor, state: torch.Tensor):
 
 
 def signed_residual_cuda(absc: torch.Tensor, packed: torch.Tensor,
-                         scale: torch.Tensor) -> torch.Tensor:
+                         scale: torch.Tensor, out=None) -> torch.Tensor:
     """Kernel B6: new error state from |c|, the packed bits and the scalar
-    scale, read on the device."""
+    scale, read on the device; written into ``out`` (a tensor like
+    ``absc`` that is not one of the inputs) when given."""
     n = _check_flat("signed_residual_cuda", absc)
     _check_words("signed_residual_cuda", packed, 2)
     if packed.shape[0] * 32 * LANES != n:
@@ -276,7 +297,7 @@ def signed_residual_cuda(absc: torch.Tensor, packed: torch.Tensor,
                          f"for {n} elements")
     _check_scales("signed_residual_cuda", scale, 1)
     dev = _on_card("signed_residual_cuda", absc, packed, scale)
-    out = torch.empty_like(absc)
+    out = _out_like("signed_residual_cuda", out, absc)
     _launch("signed_residual_cuda", dev, _lib().signed_residual,
             absc.data_ptr(), packed.data_ptr(), scale.data_ptr(),
             out.data_ptr(), n)
@@ -299,17 +320,18 @@ def unpack_signs_wsum_cuda(all_packed: torch.Tensor,
     return out
 
 
-def topk_encode_cuda(c2: torch.Tensor, k: int):
+def topk_encode_cuda(c2: torch.Tensor, k: int, out=None):
     """Kernel B7: per chunk row, a radix select on the bits of |c| over the
     row held in shared memory, the lowest offsets taken on the threshold's
     ties, the winners put in slot order → (bf16 values, int16 offsets, new
-    state).  NaN ranks above +inf, as in the plain version."""
+    state; into ``out``, a tensor like ``c2`` that is not ``c2``, when
+    given).  NaN ranks above +inf, as in the plain version."""
     _check_topk_rows("topk_encode_cuda", c2, k)
     dev = _on_card("topk_encode_cuda", c2)
     rows, chunk = c2.shape
     vals = torch.empty((rows, k), dtype=torch.bfloat16, device=dev)
     idx = torch.empty((rows, k), dtype=torch.int16, device=dev)
-    state = torch.empty_like(c2)
+    state = _out_like("topk_encode_cuda", out, c2)
     _launch("topk_encode_cuda", dev, _lib().topk_encode, c2.data_ptr(),
             vals.data_ptr(), idx.data_ptr(), state.data_ptr(), rows, chunk, k)
     topk_encode_cuda.launches += 1
@@ -385,19 +407,21 @@ def pack_signs_encode(flat: torch.Tensor, state: torch.Tensor):
 
 
 def signed_residual(absc: torch.Tensor, packed: torch.Tensor,
-                    scale: torch.Tensor) -> torch.Tensor:
+                    scale: torch.Tensor, out=None) -> torch.Tensor:
     """New onebit error state ``c − scale·sign(c)`` from |c|, the packed
-    sign bits and the scalar ``scale`` (a tensor)."""
+    sign bits and the scalar ``scale`` (a tensor); into ``out`` when
+    given (the strategy's state, rewritten in place)."""
     return _route("signed_residual", absc, signed_residual_plain,
-                  signed_residual_cuda)(absc, packed, scale)
+                  signed_residual_cuda)(absc, packed, scale, out)
 
 
-def topk_encode(c2: torch.Tensor, k: int):
+def topk_encode(c2: torch.Tensor, k: int, out=None):
     """Fused topk encode of ``c2`` [rows, chunk]: per chunk row the k
     largest |·| as (bf16 values, int16 offsets), and the new error state
-    with the bf16 rounding residual written at the selected offsets."""
+    with the bf16 rounding residual written at the selected offsets (into
+    ``out`` when given: the strategy's state, rewritten in place)."""
     return _route("topk_encode", c2, topk_encode_plain,
-                  topk_encode_cuda)(c2, k)
+                  topk_encode_cuda)(c2, k, out)
 
 
 def topk_decode(all_vals: torch.Tensor, all_idx: torch.Tensor, chunk: int,

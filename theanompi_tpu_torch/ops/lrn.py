@@ -156,6 +156,8 @@ def lrn_bwd_cuda(x: torch.Tensor, dy: torch.Tensor, n: int = 5,
 lrn_fwd_cuda.launches = 0
 lrn_bwd_cuda.launches = 0
 
+KERNELS = (lrn_fwd_cuda, lrn_bwd_cuda)
+
 
 class LRNFunction(torch.autograd.Function):
     """B1 forward, B2 backward; saves ``x`` only."""

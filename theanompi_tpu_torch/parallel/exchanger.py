@@ -7,8 +7,10 @@ rank applies the same update — N ranks train as one rank on the N-fold
 batch.  A stateful strategy's per-rank state rides in the model's
 ``extra["strat"]``, as in the JAX package: a flat tensor (the error
 feedback of onebit and topk) or a per-leaf list of ``{"q", "e"}``
-(PowerSGD).  ``exch_mode='params'``, the bucketed wire and the async rules
-are not ported yet.
+(PowerSGD).  Every update is in place: the step never rebinds the
+model's params, optimizer state or ``extra``, so a captured step replays
+on the tensors it was captured with.  ``exch_mode='params'``, the
+bucketed wire and the async rules are not ported yet.
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ class Exchanger:
         return {}
 
     def step_update(self, params, opt_state, grads, extra, lr):
-        """``(params, opt_state, extra)`` after one update."""
+        """One update, in place; returns ``(params, opt_state, extra)``,
+        the objects it was given."""
         params, opt_state = self.model.opt.update(grads, opt_state, params, lr)
         return params, opt_state, extra
 
@@ -76,13 +79,11 @@ class BSP_Exchanger(Exchanger):
         return {}
 
     def step_update(self, params, opt_state, grads, extra, lr):
-        """The strategy's mean of ``grads`` (its state in and out of
-        ``extra["strat"]`` as the strategy returns it), then the optimizer
-        update."""
-        grads, strat = self.strategy(grads, extra.get("strat", ()),
-                                     size=self.size)
-        if "strat" in extra:
-            extra = dict(extra, strat=strat)
+        """The strategy's mean of ``grads`` (its state in ``extra["strat"]``,
+        rewritten in place), then the optimizer update, in place; returns
+        the objects it was given."""
+        grads, _ = self.strategy(grads, extra.get("strat", ()),
+                                 size=self.size)
         params, opt_state = self.model.opt.update(grads, opt_state, params, lr)
         return params, opt_state, extra
 

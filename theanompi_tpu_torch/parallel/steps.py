@@ -2,17 +2,34 @@
 
 Counterpart of ``theanompi_tpu/parallel/steps.py``.  The JAX package traced
 the whole step — micro-batch scan, backward, exchange, update — into one XLA
-program over the worker mesh.  The port runs one process per rank and the
-same sequence eagerly: forward and backward for each of ``n_subb``
-micro-batches, the exchanger's gradient collective, the optimizer update in
-place.  Nothing in a step reads a device value back to the host, so the
-card's queue stays full; the per-step metrics stay on the device until the
-recorder prints them.
+program over the worker mesh, and ``steps_per_call`` scanned k such steps
+in one dispatch.  The port runs one process per rank and the same sequence
+in one step body: forward and backward for each of ``n_subb``
+micro-batches, the exchanger's gradient collective, the optimizer update,
+all in place on the model's state, then one all-reduce of the step's
+metrics.  :class:`TrainStep` runs ``n_steps`` bodies over a ``[k, ...]``
+window per call.
+
+On the card the step is CAPTURED (``parallel/graph.py``): the first call
+runs its step eagerly on a side stream (which also warms up cuBLAS, cuDNN
+and NCCL), then records the body into a CUDA graph over static input
+buffers, and every later call copies its batch into those buffers, sets
+the learning rate and the dropout seeds, and replays the graph: one
+launch for the whole step, its all-reduces included.  The counterpart of
+the JAX step's traced inputs are device tensors the graph reads: the
+learning rate (0-d float32, refilled when the schedule moves), Adam's
+step counts, and the dropout generators, re-seeded from ``(seed, rank,
+count)`` before each replay.  A step that cannot be captured raises
+(:class:`graph.CaptureError`); ``capture=False`` builds the eager step
+instead, explicitly (the reference the captured step is held to, and the
+CPU's path).  Nothing in a step reads a device value back to the host;
+the metrics stay on the device until the recorder prints them.
 
 Batches reach the card through :func:`put_batch`: on the step's thread
 from pageable memory, or, under ``para_load``, from the loader's producer
 through a :class:`PinnedStager` (pinned buffers, a side stream, an event
-the step's stream waits on in :func:`claim`).
+the step's stream waits on in :func:`claim`); a captured step then copies
+the staged batch into its static buffers on the device.
 """
 
 from __future__ import annotations
@@ -25,17 +42,15 @@ import torch
 import torch.distributed as dist
 
 from ..utils.helper_funcs import tree_leaves, tree_map
+from . import graph as graph_lib
 
 
-def step_generator(seed: int, rank: int, count: int,
-                   device: torch.device) -> torch.Generator:
-    """The dropout stream of one step on one rank, seeded from
-    ``(seed, rank, count)`` — the role of the JAX step's
-    ``fold_in(fold_in(key, rank), count)``.  The bits differ from JAX's."""
+def step_seed(seed: int, rank: int, count: int) -> int:
+    """The dropout seed of one step on one rank, from ``(seed, rank,
+    count)`` — the role of the JAX step's ``fold_in(fold_in(key, rank),
+    count)``.  The bits differ from JAX's."""
     s = np.random.SeedSequence([int(seed), int(rank), int(count)])
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(s.generate_state(1, np.uint64)[0] >> np.uint64(1)))
-    return gen
+    return int(s.generate_state(1, np.uint64)[0] >> np.uint64(1))
 
 
 def _like(tree, leaves):
@@ -83,25 +98,185 @@ def _mean_over_ranks(t: torch.Tensor, size: int) -> torch.Tensor:
     return t / size
 
 
-def build_train_step(model, exchanger) -> Callable:
-    """``train_fn(batch, lr, count) -> (cost, err)``: one step of this rank,
-    updating ``model.params``, ``model.opt_state`` and ``model.extra`` (the
-    exchanger's per-rank state).  The returned metrics are means over the
-    ranks, device scalars."""
-    n_subb = int(getattr(model, "n_subb", 1))
-    size = exchanger.size
+def stack_host(batches) -> Dict[str, np.ndarray]:
+    """The host ``[k, ...]`` stack of k per-step batches: the window layout
+    a ``steps_per_call`` step takes.  One definition, shared by the
+    ``para_load`` window producer and the step's own staging."""
+    return {k: np.stack([np.asarray(b[k]) for b in batches])
+            for k in batches[0]}
 
-    def train_fn(batch: Dict[str, torch.Tensor], lr: float, count: int):
-        gen = step_generator(model.step_seed, model.rank, count,
-                             model.device)
-        cost, err, grads = _accumulate_grads(
-            model.loss_and_metrics, model.params, batch, gen, n_subb)
-        model.params, model.opt_state, model.extra = exchanger.step_update(
-            model.params, model.opt_state, grads, model.extra, lr)
-        m = _mean_over_ranks(torch.stack([cost, err]), size)
-        return m[0], m[1]
 
-    return train_fn
+def _host_or_claimed(batch, device: torch.device) -> Dict[str, torch.Tensor]:
+    """A batch as tensors where they lie: a staged one claimed for the
+    current stream, a host one viewed (``torch.from_numpy``, no copy)."""
+    if is_device_batch(batch):
+        return claim(batch, device)
+    return {k: v if isinstance(v, torch.Tensor)
+            else torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in batch.items()}
+
+
+class TrainStep:
+    """``step(batch, lr, count) -> (cost[k], err[k])``: ``k = n_steps``
+    training steps of this rank over one batch (k = 1) or one ``[k, ...]``
+    window, updating ``model.params``, ``model.opt_state`` and
+    ``model.extra`` in place.  ``count`` names the window's LAST step, as in
+    the JAX package; step j draws its dropout from ``count - k + 1 + j``.
+    The metrics are means over the ranks, on the device.
+
+    ``capture`` (default: whether the model's device is a card) makes the
+    step static: its inputs are copied into buffers it owns, and on the
+    card it runs as a CUDA graph replay.  On the CPU a static step runs
+    the same body eagerly over those buffers, which is what the tests
+    hold against the eager step."""
+
+    def __init__(self, model, exchanger, n_steps: int = 1,
+                 capture: Optional[bool] = None):
+        self.model, self.exchanger = model, exchanger
+        self.n_steps = int(n_steps)
+        if self.n_steps < 1:
+            raise ValueError(f"n_steps={n_steps}: a call takes at least one "
+                             f"step")
+        self.device = torch.device(model.device)
+        self.capture = self.device.type == "cuda" if capture is None \
+            else bool(capture)
+        self.n_subb = int(getattr(model, "n_subb", 1))
+        self.size = exchanger.size
+        self._gens = [torch.Generator(device=self.device)
+                      for _ in range(self.n_steps)]
+        self._lr = torch.zeros((), dtype=torch.float32, device=self.device)
+        self._lr_host = None
+        self._static: Optional[Dict[str, torch.Tensor]] = None
+        self._stager: Optional[PinnedStager] = None
+        self._stream = None
+        self._graph: Optional[graph_lib.StepGraph] = None
+        self._out = None
+        self._captured_state = None
+
+    @property
+    def graphed(self) -> bool:
+        """True when the step runs as a CUDA graph replay."""
+        return self.capture and self.device.type == "cuda"
+
+    # -- inputs --------------------------------------------------------------
+
+    def take(self, batch) -> Dict[str, torch.Tensor]:
+        """What the data source yielded as this step's inputs: a host batch
+        (dict of arrays), a staged one (:class:`DeviceBatch`), either of
+        ``[k, ...]`` arrays (a window), or a list of k of them.  A static
+        step copies it into its buffers (made at the first call, of the
+        first batch's shapes; another shape raises) and returns them, a
+        captured one from a host batch through a :class:`PinnedStager` of
+        its own; an eager one returns tensors on the device."""
+        parts = batch if isinstance(batch, (list, tuple)) else [batch]
+        if isinstance(batch, (list, tuple)) and len(parts) != self.n_steps:
+            raise ValueError(f"{len(parts)} batches for a step of "
+                             f"{self.n_steps}")
+        if self.graphed:
+            # a host batch goes through pinned buffers, so the copy does
+            # not make the host wait for the replay still queued before it
+            if self._stager is None:
+                self._stager = PinnedStager(self.device, slots=2)
+            parts = [b if is_device_batch(b) else
+                     put_batch(b, self.device, self._stager) for b in parts]
+        tensors = [_host_or_claimed(b, self.device) for b in parts]
+        if not self.capture:
+            out = tensors[0] if len(tensors) == 1 else \
+                {k: torch.stack([t[k] for t in tensors]) for k in tensors[0]}
+            return {k: v.to(self.device) for k, v in out.items()}
+        lead = (len(tensors),) if len(tensors) > 1 else ()
+        if self._static is None:
+            self._static = {k: torch.empty(lead + tuple(v.shape),
+                                           dtype=v.dtype, device=self.device)
+                            for k, v in tensors[0].items()}
+        for j, t in enumerate(tensors):
+            for k, buf in self._static.items():
+                dst = buf[j] if lead else buf
+                src = t[k]
+                if dst.shape != src.shape or dst.dtype != src.dtype:
+                    raise ValueError(
+                        f"a static step takes {k} of {tuple(dst.shape)} "
+                        f"{dst.dtype}, got {tuple(src.shape)} {src.dtype}")
+                dst.copy_(src)
+        return self._static
+
+    # -- the step ------------------------------------------------------------
+
+    def _body(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """``n_steps`` full steps in place; ``[2, n_steps]`` costs and
+        errors, means over the ranks."""
+        m = self.model
+        costs, errs = [], []
+        for j in range(self.n_steps):
+            b = batch if self.n_steps == 1 else \
+                {k: v[j] for k, v in batch.items()}
+            cost, err, grads = _accumulate_grads(
+                m.loss_and_metrics, m.params, b, self._gens[j], self.n_subb)
+            self.exchanger.step_update(m.params, m.opt_state, grads, m.extra,
+                                       self._lr)
+            costs.append(cost)
+            errs.append(err)
+        out = torch.stack(costs + errs)
+        dist.all_reduce(out)
+        return out.div_(self.size).view(2, self.n_steps)
+
+    def _state_leaves(self) -> list:
+        m = self.model
+        return (tree_leaves(m.params) + tree_leaves(m.opt_state)
+                + tree_leaves(m.extra))
+
+    def _state_current(self) -> bool:
+        """The graph reads the state tensors it was captured with: false
+        once any was replaced (a load that had to make new tensors)."""
+        now = self._state_leaves()
+        return len(now) == len(self._captured_state) and \
+            all(a is b for a, b in zip(now, self._captured_state))
+
+    def __call__(self, batch, lr, count: int):
+        inputs = batch if batch is self._static else self.take(batch)
+        lr = float(lr)
+        if lr != self._lr_host:
+            self._lr.fill_(lr)
+            self._lr_host = lr
+        first = int(count) - self.n_steps + 1
+        for j, g in enumerate(self._gens):
+            g.manual_seed(step_seed(self.model.step_seed, self.model.rank,
+                                    first + j))
+        if not self.graphed:
+            out = self._body(inputs)
+        elif self._graph is None or not self._state_current():
+            out = self._run_and_capture(inputs)
+        else:
+            self._graph.replay()
+            out = self._out.clone()    # the next replay rewrites _out
+        return out[0], out[1]
+
+    def _run_and_capture(self, inputs) -> torch.Tensor:
+        """This call's step run eagerly on the side stream (its warm-up),
+        then the body captured there over the static buffers."""
+        cur = torch.cuda.current_stream(self.device)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        s = self._stream
+        s.wait_stream(cur)
+        with torch.cuda.stream(s):
+            out = self._body(inputs)
+        cur.wait_stream(s)
+        out.record_stream(cur)
+        self._graph = self._out = None       # an old graph's pool goes first
+        g = graph_lib.StepGraph(s, self._gens)
+        self._out = g.capture(lambda: self._body(self._static))
+        self._graph = g
+        self._captured_state = self._state_leaves()
+        return out
+
+
+def build_train_step(model, exchanger, n_steps: int = 1,
+                     capture: Optional[bool] = None) -> TrainStep:
+    """The train step of ``model`` under ``exchanger``: ``n_steps`` steps a
+    call, captured on the card unless ``capture=False`` (see
+    :class:`TrainStep`)."""
+    return TrainStep(model, exchanger, n_steps, capture)
 
 
 def build_val_step(model) -> Callable:

@@ -8,12 +8,14 @@ tensors on the card, gloo for CPU tensors, whichever group the process
 initialized (``base.MeshProcess``).
 
 Every strategy is called as ``strategy(tree, state, size=N)`` and returns
-``(mean_tree, new_state)``: the **mean** of its input tree over the ranks,
+``(mean_tree, state)``: the **mean** of its input tree over the ranks,
 and its per-rank state for the next step (``()`` for a stateless
 strategy; ``init_state(params)`` makes the first: a flat tensor for onebit
-and topk, a per-leaf list for PowerSGD).  ``NoComm`` and ``AllReduce``
-reduce in place: the gradient tensors they are handed hold the mean on
-return.
+and topk, a per-leaf list for PowerSGD).  The state is rewritten IN PLACE
+and returned as the same object, every tensor of it too, so a captured
+step (``parallel/graph.py``) finds the next step's state where the last
+one left it.  ``NoComm`` and ``AllReduce`` reduce in place: the gradient
+tensors they are handed hold the mean on return.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ class Strategy:
     kept_layout: frozenset = frozenset()
 
     def init_state(self, params) -> Any:
-        """Per-rank persistent state."""
+        """Per-rank persistent state, rewritten in place by each call."""
         return ()
 
     def __call__(self, tree, state, *, size: int):
@@ -127,12 +129,12 @@ class OneBit(Strategy):
         packed, absc = compress_ops.pack_signs_encode(flat, state)
         # the scale over the true length: the zero pad would deflate it
         scale = absc[:n_true].mean() + 1e-12
-        new_state = compress_ops.signed_residual(absc, packed, scale)
+        compress_ops.signed_residual(absc, packed, scale, out=state)
         all_scales = _all_gather(scale, size)          # [size]
         all_packed = _all_gather(packed, size)         # n/8 bytes per rank
         mean = compress_ops.unpack_signs_weighted_mean(all_packed, all_scales,
                                                        size)
-        return unflatten_like(tree, mean), new_state
+        return unflatten_like(tree, mean), state
 
 
 def _gather_topk_wire(vals: torch.Tensor, idx: torch.Tensor, size: int):
@@ -192,12 +194,12 @@ class TopK(Strategy):
         c = flatten_tree_jax(tree, pad_to_multiple_of=self.chunk,
                              kept=self.kept_layout)
         c.add_(state)                                  # c = flat + state
-        wire_vals, wire_idx, new_c2 = compress_ops.topk_encode(
-            c.view(-1, self.chunk), self._k_c())
+        wire_vals, wire_idx, _ = compress_ops.topk_encode(
+            c.view(-1, self.chunk), self._k_c(),
+            out=state.view(-1, self.chunk))
         all_vals, all_idx = _gather_topk_wire(wire_vals, wire_idx, size)
         mean = compress_ops.topk_decode(all_vals, all_idx, self.chunk, size)
-        return (unflatten_like_jax(tree, mean, self.kept_layout),
-                new_c2.view(-1))
+        return unflatten_like_jax(tree, mean, self.kept_layout), state
 
 
 class PowerSGD(Strategy):
@@ -268,7 +270,6 @@ class PowerSGD(Strategy):
         leaves = tree_leaves(tree)
         assert len(leaves) == len(state), (len(leaves), len(state))
         out = list(leaves)
-        new_state = list(state)
         comp = [i for i, g in enumerate(leaves)
                 if self._compressible(g.shape)]
         paths = leaf_paths(tree)
@@ -305,14 +306,15 @@ class PowerSGD(Strategy):
                 # M̂ in A's layout: M̂ᵀ = Q' P̂ᵀ, or M̂ = P̂ Q'ᵀ
                 mhat = qn @ ph.t() if flip[i] else ph @ qn.t()
                 out[i] = mhat.view(g.shape).to(g.dtype)
-                new_state[i] = {"q": qn, "e": (m - mhat).view(g.shape)}
+                state[i]["q"].copy_(qn)
+                torch.sub(m, mhat, out=state[i]["e"].view(m.shape))
 
         for i, g in enumerate(leaves):
             if i not in comp:
                 dist.all_reduce(g)
                 g.mul_(inv)
         it = iter(out)
-        return tree_map(lambda _: next(it), tree), new_state
+        return tree_map(lambda _: next(it), tree), state
 
 
 def get_strategy(name: str, **kwargs) -> Strategy:

@@ -98,13 +98,17 @@ class Recorder:
         ips = self.images_per_sec()
         return IMAGES_PER_REPORT / ips if ips > 0 else float("inf")
 
-    def print_train_info(self, count: int) -> Optional[dict]:
-        """Every ``printFreq`` iterations: read back the recent metrics
-        (this waits for the card to finish them), print, and return the
-        record; None between prints."""
-        if count % self.printFreq != 0:
+    def print_train_info(self, count: int, stride: int = 1) -> Optional[dict]:
+        """Read back the recent metrics (this waits for the card to finish
+        them), print, and return the record; None between prints.
+        ``stride`` = steps per ``train_iter`` call (``steps_per_call``):
+        ``count`` then visits only its multiples, and the gate fires once
+        every ``ceil(printFreq / stride)`` calls, at least ``printFreq``
+        steps apart; the average is over that many call entries (the JAX
+        package's gate)."""
+        k = max(1, -(-self.printFreq // stride))      # ceil division
+        if (count // stride) % k != 0:
             return None
-        k = self.printFreq
         cost = float(np.mean([float(c) for c in self._train_cost[-k:]])) \
             if self._train_cost else float("nan")
         err = float(np.mean([float(e) for e in self._train_error[-k:]])) \

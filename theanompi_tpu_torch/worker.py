@@ -57,17 +57,22 @@ class Worker(MeshProcess):
                 if self.verbose:
                     print(f"resumed from epoch {restored}", flush=True)
 
-        count = start_epoch * model.data.n_batch_train
+        # steps_per_call > 1: each train_iter call takes spc steps, and an
+        # epoch takes (n_batch_train // spc) * spc of them (the leftover
+        # batches are dropped), so a resumed run's count, and with it every
+        # step's dropout seed, follows the uninterrupted run's
+        spc = max(1, int(getattr(model, "steps_per_call", 1)))
+        count = start_epoch * ((model.data.n_batch_train // spc) * spc)
         epochs = config.get("epochs", model.epochs)
         t0 = time.time()
         self.recorder.reset_rate()
         for epoch in range(start_epoch, epochs):
             model.adjust_hyperp(epoch)
             model.data.shuffle_data(epoch + model.seed)
-            for _ in range(model.data.n_batch_train):
-                count += 1
+            for _ in range(model.data.n_batch_train // spc):
+                count += spc
                 model.train_iter(count, self.recorder)
-                self.recorder.print_train_info(count)
+                self.recorder.print_train_info(count, spc)
             model.begin_val()
             for _ in range(model.data.n_batch_val):
                 model.val_iter(count, self.recorder)

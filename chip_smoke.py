@@ -12,10 +12,11 @@
 2. Builds every hand-written kernel of ``theanompi_tpu_torch/csrc`` with
    ``nvcc`` into ``build/kernels/`` (one compiler per source, in parallel).
 3. LRN (B1/B2): holds each kernel against its plain PyTorch version at
-   AlexNet's shapes, in float32 (TF32 off) and bfloat16, and times the
-   kernel, the plain version, and the one PyTorch call that computes the
-   same function (``F.local_response_norm``; timed here only, the port
-   never calls it).
+   AlexNet's shapes and at GoogLeNet's ([32, 56, 56, 64] and [32, 56,
+   56, 192]), in float32 (TF32 off) and bfloat16, and times the kernel,
+   the plain version, and the one PyTorch call that computes the same
+   function (``F.local_response_norm``; timed here only, the port never
+   calls it).
 4. Compress (B3–B6): on a random float32 vector of VGG-16's padded length
    (planted ±0.0), holds the sign pack, the encode and the residual against
    their plain versions bit for bit, and the weighted decode at 1 worker bit
@@ -23,7 +24,11 @@
    each beside its plain version and its byte bound.  No single PyTorch
    call computes any of the four, so their ``library_ms`` is null.
 5. Holds full-width AlexNet's logits on the card (kernels) against the same
-   weights on the CPU (plain versions), float32, batch 2.
+   weights on the CPU (plain versions), float32, batch 2; the same for
+   full-width GoogLeNet (crop 224, dropout off: eval logits, the eval
+   cost, and the training cost with both aux heads) and ResNet-50 (eval
+   logits from running stats drawn from a seed, then one training
+   forward's cost and all 53 BatchNorms' updated running state).
 6. Drives the AlexNet main path: ``BSP().init(devices=1, modelfile=
    'theanompi_tpu_torch.models.alex_net', modelclass='AlexNet', ...)`` at
    batch 128, full width, bf16, a few steps, and checks the cost is finite,
@@ -120,19 +125,32 @@
     (8·(8+1) B10, 8·8 B11, 8·8 B12, nothing else); profiles its steps
     (tokens/s, host buckets, device busy, idle share, the flash kernels'
     device time).
-21. Graph ≡ eager: each full-width main path (AlexNet synthetic, VGG-16
-    under onebit, topk and powersgd, the LM with flash attention), 8 steps
-    eager and 8 captured from the same seed, cuDNN deterministic: costs,
-    params, optimizer state and wire state bit for bit, and the same
-    launch counts.
-22. ``steps_per_call = 4`` captured (two windows) against 8 single
-    captured steps, AlexNet and the LM: state and window costs bit for
-    bit.
-23. AlexNet from the batch files under ``para_load`` at
+21. Drives the zoo's main paths: ``BSP().init(devices=1, modelfile=
+    'theanompi_tpu_torch.models.googlenet' | '...resnet50' |
+    '...cifar10', ...)``, GoogLeNet and ResNet-50 at batch 32, full width,
+    bf16, Cifar10 at batch 128, 8 steps and a validation batch each:
+    costs, the params' device, GoogLeNet's launches (2 B1 + 2 B2 a step,
+    2 B1 a validation batch), ResNet-50's running state on the card,
+    finite, every mean moved; profiles GoogLeNet (LRN, the concat copies;
+    its aux heads timed alone with CUDA events) and ResNet-50 (BatchNorm,
+    the all-reduces: ``sync_bn``'s and the metrics'), captured and eager.
+22. Graph ≡ eager: each full-width main path (AlexNet synthetic, VGG-16
+    under onebit, topk and powersgd, the LM with flash attention,
+    GoogLeNet, ResNet-50), 8 steps eager and 8 captured from the same
+    seed, cuDNN deterministic: costs, params, optimizer, BN and wire
+    state bit for bit, and the same launch counts.
+23. ``steps_per_call = 4`` captured (two windows) against 8 single
+    captured steps, AlexNet, the LM and ResNet-50: state and window costs
+    bit for bit.  Then ResNet-50 captured for 4 steps, a checkpoint, its
+    BN tensors replaced by new ones and the checkpoint loaded into them,
+    4 more steps: the step must capture again and end bit for bit where
+    the uninterrupted run ends.
+24. AlexNet from the batch files under ``para_load`` at
     ``steps_per_call = 4``, both wires: the producer stages whole
     windows; every window the step took holds the host stream's bits.
-24. Prints ``{"kernels": [...]}`` (B1–B12), then the card, then the last
-    line ``{"ok": true, "device": {...}}``.
+25. Prints ``{"kernels": [...]}`` (B1–B12; B1/B2 with GoogLeNet's shapes
+    beside AlexNet's), then the card, then the last line
+    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script exits non-zero and prints no result.
 TF32 is off for the whole run (float32 comparisons need it off; the main
@@ -179,6 +197,16 @@ PROFILE_STEPS = 6
 LRN_N = 5
 # main-path LRN inputs of AlexNet at batch 128, NHWC
 SHAPES = {"lrn1": (BATCH, 55, 55, 96), "lrn2": (BATCH, 27, 27, 256)}
+# and of GoogLeNet at batch 32: after the stem's pool1 and its conv2
+ZOO_BATCH = 32
+GOOGLENET_LRN = {"lrn1": (ZOO_BATCH, 56, 56, 64),
+                 "lrn2": (ZOO_BATCH, 56, 56, 192)}
+# the zoo's smoke learning rates.  At their own rates, GoogLeNet (0.01)
+# reaches NaN within 8 steps (first costs ~100: He init on mean-subtracted,
+# unscaled pixels, as VGG-16), while ResNet-50 (0.1) and Cifar10 (0.05)
+# stay finite with rising costs (7.1 → 29.1 and 4.6 → 8.7 over 8 steps,
+# H100, 700 W); at these they descend
+ZOO_LR = {"GoogLeNet": 0.001, "ResNet50": 0.01, "Cifar10_model": 0.01}
 # flops per element counted from the formula in csrc/lrn.cu: the window
 # (2 per tap), then d, s and the products
 FLOPS_PER_ELEM = {"fwd": 2 * LRN_N + 7, "bwd": 4 * LRN_N + 14}
@@ -346,11 +374,11 @@ def expect(**launches) -> dict:
     return dict({k.__name__: 0 for k in ALL_KERNELS}, **launches)
 
 
-def lrn_phase():
+def lrn_phase(shapes=SHAPES):
     """B1/B2 against the plain version and the library call, per shape."""
     g = torch.Generator(device="cuda").manual_seed(0)
     out = {"fwd": [], "bwd": []}
-    for label, shape in SHAPES.items():
+    for label, shape in shapes.items():
         for dtype in (torch.float32, torch.bfloat16):
             dn = str(dtype).split(".")[1]
             x = (torch.randn(shape, generator=g, device="cuda") * 3).to(dtype)
@@ -746,13 +774,145 @@ def alexnet_reference_phase():
         (np.random.RandomState(0).randn(2, 227, 227, 3) * 50).astype(
             np.float32))
     with torch.no_grad():
-        want = cpu.apply_model(cpu.params, x, train=False, gen=None)
-        got = gpu.apply_model(gpu.params, x.cuda(), train=False,
-                              gen=None).cpu()
+        want = cpu.apply_model(cpu.params, x, train=False, gen=None,
+                               state=cpu.bn_state)
+        got = gpu.apply_model(gpu.params, x.cuda(), train=False, gen=None,
+                              state=gpu.bn_state).cpu()
     if got.shape != (2, 10):
         raise AssertionError(f"AlexNet logits shape {tuple(got.shape)}")
     return check_close("AlexNet f32 logits, card vs CPU", got, want, 1e-4,
                        1e-4)
+
+
+def zero_dropout(layers) -> None:
+    """Every dropout rate in a layer tree to 0: the card's and the CPU's
+    dropout bits differ."""
+    for layer in layers:
+        zero_dropout(getattr(layer, "layers", ()))
+        if type(layer).__name__ == "Dropout":
+            layer.rate = 0.0
+
+
+def cpu_twin(cls, cfg, gpu):
+    """A CPU model of ``cls`` holding ``gpu``'s params and BN state."""
+    cpu = cls(dict(cfg, device="cpu"))
+    cpu.load_params(gpu.host_params())
+    cpu.load_bn_state(gpu.host_bn_state())
+    return cpu
+
+
+REF_CFG = {"batch_size": 2, "compute_dtype": "float32",
+           "synthetic_batches": 1, "synthetic_val_batches": 1,
+           "verbose": False}
+
+
+def ref_batch(seed: int, n_class: int = 1000):
+    r = np.random.RandomState(seed)
+    x = torch.from_numpy((r.randn(2, 224, 224, 3) * 50).astype(np.float32))
+    y = torch.from_numpy(r.randint(0, n_class, 2).astype(np.int32))
+    return x, y
+
+
+def check_cost(name, got, want, rtol=1e-4) -> float:
+    got, want = float(got), float(want)
+    if not np.isfinite(got) or abs(got - want) > rtol * abs(want):
+        raise AssertionError(f"{name}: card {got}, CPU {want} (rtol {rtol})")
+    return abs(got - want)
+
+
+def googlenet_reference_phase() -> dict:
+    """Full-width GoogLeNet, float32, batch 2, crop 224, dropout off: the
+    eval logits on the card (LRN through B1/B2) against the same weights
+    on the CPU (the plain version), rtol 1e-4 / atol 1e-4·max|logit| as
+    AlexNet's; and the training cost with both aux heads (0.3 each), rtol
+    1e-4, which must exceed the eval cost (the aux terms are in it)."""
+    from theanompi_tpu_torch.models.googlenet import GoogLeNet
+    gpu = GoogLeNet(dict(REF_CFG, device="cuda"))
+    cpu = cpu_twin(GoogLeNet, REF_CFG, gpu)
+    for m in (gpu, cpu):
+        zero_dropout(m.layers().values())
+    x, y = ref_batch(0)
+    out = {}
+    with torch.no_grad():
+        want = cpu.apply_model(cpu.params, x, train=False, gen=None,
+                               state=cpu.bn_state)
+        got = gpu.apply_model(gpu.params, x.cuda(), train=False, gen=None,
+                              state=gpu.bn_state).cpu()
+        costs = {}
+        for train in (True, False):
+            costs[train] = [m.loss_and_metrics(
+                m.params, m.bn_state, {"x": x.to(m.device), "y": y.to(
+                    m.device)}, None, train)[0] for m in (gpu, cpu)]
+    if got.shape != (2, 1000):
+        raise AssertionError(f"GoogLeNet logits shape {tuple(got.shape)}")
+    out["logits_max_abs_err"] = check_close(
+        "GoogLeNet f32 logits, card vs CPU", got, want, 1e-4, 1e-4)
+    for train, (cg, cc) in costs.items():
+        out[f"cost_{'train' if train else 'eval'}"] = {
+            "card": float(cg), "cpu": float(cc),
+            "abs_err": check_cost(f"GoogLeNet cost train={train}", cg, cc)}
+    if not costs[True][1] > costs[False][1]:
+        raise AssertionError(f"GoogLeNet training cost {costs[True][1]} "
+                             f"holds no aux terms over {costs[False][1]}")
+    del gpu, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def seeded_bn_state(tree, gen: torch.Generator):
+    """Running stats drawn from ``gen``: mean 0.1·N(0, 1), var U(0.5, 2)."""
+    if set(tree) == {"mean", "var"}:
+        n = tree["mean"].shape
+        return {"mean": 0.1 * torch.randn(n, generator=gen),
+                "var": 0.5 + 1.5 * torch.rand(n, generator=gen)}
+    return {k: seeded_bn_state(v, gen) for k, v in tree.items()}
+
+
+def resnet_reference_phase() -> dict:
+    """Full-width ResNet-50, float32, batch 2, crop 224: the eval logits
+    from running stats drawn from a seed, card against CPU (rtol 1e-4 /
+    atol 1e-4·max|logit|); then one training forward on both: its cost
+    (rtol 1e-4) and all 53 BatchNorms' updated running state, each leaf
+    rtol 1e-4 / atol 1e-4·max|leaf| (the CPU tests' bound against JAX)."""
+    from theanompi_tpu_torch.models.resnet50 import ResNet50
+    from theanompi_tpu_torch.utils.helper_funcs import leaf_paths
+    gpu = ResNet50(dict(REF_CFG, device="cuda"))
+    gpu.load_bn_state(seeded_bn_state(gpu.host_bn_state(),
+                                      torch.Generator().manual_seed(5)))
+    cpu = cpu_twin(ResNet50, REF_CFG, gpu)
+    x, y = ref_batch(1)
+    out = {}
+    with torch.no_grad():
+        want = cpu.apply_model(cpu.params, x, train=False, gen=None,
+                               state=cpu.bn_state)
+        got = gpu.apply_model(gpu.params, x.cuda(), train=False, gen=None,
+                              state=gpu.bn_state).cpu()
+        out["logits_max_abs_err"] = check_close(
+            "ResNet-50 f32 eval logits, card vs CPU", got, want, 1e-4, 1e-4)
+        before = tree_leaves(cpu.host_bn_state())
+        cg, cc = (m.loss_and_metrics(m.params, m.bn_state,
+                                     {"x": x.to(m.device),
+                                      "y": y.to(m.device)}, None, True)[0]
+                  for m in (gpu, cpu))
+    out["cost_train"] = {"card": float(cg), "cpu": float(cc),
+                         "abs_err": check_cost("ResNet-50 training cost",
+                                               cg, cc)}
+    errs = []
+    gs, cs = gpu.host_bn_state(), cpu.host_bn_state()
+    for path, b, g, c in zip(leaf_paths(cs), before, tree_leaves(gs),
+                             tree_leaves(cs)):
+        if np.array_equal(b, c):
+            raise AssertionError(f"ResNet-50 BN {path} did not move")
+        errs.append(check_close(f"ResNet-50 BN {'/'.join(path)}, card vs "
+                                f"CPU", torch.from_numpy(g),
+                                torch.from_numpy(c), 1e-4, 1e-4))
+    out["bn_state_max_abs_err"] = max(errs)
+    out["bn_leaves"] = len(errs)
+    del gpu, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def flash_bytes_flops(b, h, t, d):
@@ -1005,7 +1165,7 @@ def lm_check_phase():
              models["flash"].data.next_train_batch(1).items()}
     res = {}
     for name, m in models.items():
-        cost, _ = m.loss_and_metrics(m.params, batch, None, True)
+        cost, _ = m.loss_and_metrics(m.params, m.bn_state, batch, None, True)
         grads = torch.autograd.grad(cost, tree_leaves(m.params))
         res[name] = (float(cost.detach()), [g.float() for g in grads])
     del models, src
@@ -1092,6 +1252,98 @@ def lm_main_path_phase():
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def googlenet_main_path_phase():
+    """GoogLeNet under BSP, batch 32, full width, bf16: 8 steps and a
+    validation batch.  Its stem's two LRNs run B1 in every forward (train
+    and validation) and B2 in every backward."""
+    want = expect(lrn_fwd_cuda=2 * (STEPS + VAL_BATCHES),
+                  lrn_bwd_cuda=2 * STEPS)
+    model, out = run_main_path(
+        "theanompi_tpu_torch.models.googlenet", "GoogLeNet", want,
+        batch_size=ZOO_BATCH, synthetic_batches=STEPS, printFreq=STEPS // 2,
+        learning_rate=ZOO_LR["GoogLeNet"])
+    out["n_params"] = sum(p.numel() for p in tree_leaves(model.params))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def resnet_main_path_phase():
+    """ResNet-50 under BSP, batch 32, full width, bf16: 8 steps and a
+    validation batch, no hand-written kernel.  Its 53 BatchNorms' running
+    state must sit on the card, finite, every ``mean`` moved off its zero
+    init."""
+    from theanompi_tpu_torch.utils.helper_funcs import leaf_paths
+    model, out = run_main_path(
+        "theanompi_tpu_torch.models.resnet50", "ResNet50", expect(),
+        batch_size=ZOO_BATCH, synthetic_batches=STEPS, printFreq=STEPS // 2,
+        learning_rate=ZOO_LR["ResNet50"])
+    bn = dict(zip(map(tuple, leaf_paths(model.bn_state)),
+                  tree_leaves(model.bn_state)))
+    means = [t for p, t in bn.items() if p[-1] == "mean"]
+    if len(means) != 53 or {t.device.type for t in bn.values()} != \
+            {"cuda"} or not all(bool(torch.isfinite(t).all())
+                                for t in bn.values()) or \
+            not all(bool(t.abs().sum() > 0) for t in means):
+        raise AssertionError(f"ResNet-50 BN state: {len(means)} means on "
+                             f"{ {t.device.type for t in bn.values()} }")
+    out["n_params"] = sum(p.numel() for p in tree_leaves(model.params))
+    out["bn_mean_abs_mean"] = float(sum(t.abs().mean() for t in means)
+                                    / len(means))
+    del model, bn, means
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def cifar10_main_path_phase():
+    """Cifar10_model under BSP, batch 128, bf16, on its synthetic set: 8
+    steps and a validation batch, no hand-written kernel."""
+    _, out = run_main_path(
+        "theanompi_tpu_torch.models.cifar10", "Cifar10_model", expect(),
+        batch_size=BATCH, synthetic_train=BATCH * STEPS,
+        synthetic_val=BATCH * VAL_BATCHES, printFreq=STEPS // 2,
+        learning_rate=ZOO_LR["Cifar10_model"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def aux_heads_ms(model) -> dict:
+    """Device ms a step of GoogLeNet's two aux heads alone: forward, their
+    0.3-weighted costs and backward (params and taps) on bf16 taps of 4a's
+    and 4d's output shapes at the profile's batch, captured in a CUDA graph
+    whose replays are timed, so the host's launches of its ~100 kernels
+    (slower than the device on some hosts) are not."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    taps = [torch.randn(ZOO_BATCH, 14, 14, c, generator=g, device="cuda")
+            .to(torch.bfloat16).requires_grad_(True) for c in (512, 528)]
+    y = torch.randint(0, 1000, (ZOO_BATCH,), generator=g, device="cuda")
+    drop = torch.Generator(device="cuda").manual_seed(1)
+    from theanompi_tpu_torch.models import layers as L
+    leaves = tree_leaves(model.params["aux1"]) + \
+        tree_leaves(model.params["aux2"])
+
+    def run():
+        cost = sum(L.softmax_cross_entropy(
+            getattr(model, k).apply(model.params[k], t, train=True,
+                                    gen=drop), y)
+            for k, t in zip(("aux1", "aux2"), taps))
+        return torch.autograd.grad(0.3 * cost, leaves + taps)
+
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        run()                                    # warm-up, off the graph
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(drop)
+    with torch.cuda.graph(graph):
+        run()
+    return {"ms": time_ms(graph.replay)}
 
 
 # each VGG-16 main path's kernels, per training step: the onebit exchange
@@ -1496,9 +1748,9 @@ def u8_logits_phase() -> dict:
         with torch.no_grad():
             staged = model.stage_input(xs[True])
             lf = model.apply_model(model.params, xs[False], train=False,
-                                   gen=None).float()
+                                   gen=None, state=model.bn_state).float()
             lu = model.apply_model(model.params, staged, train=False,
-                                   gen=None).float()
+                                   gen=None, state=model.bn_state).float()
         rel = float((lu - lf).norm() / lf.norm())
         if name == "scalar":
             check_bits("u8 wire staged input, scalar mean", staged, xs[False])
@@ -1592,6 +1844,11 @@ GRAPH_PATHS = {
            dict(LM_CFG, batch_size=LM_BATCH,
                 synthetic_train=LM_BATCH * GRAPH_STEPS,
                 synthetic_val=LM_BATCH)),
+    **{name: (f"theanompi_tpu_torch.models.{name}", cls, dict(
+        batch_size=ZOO_BATCH, synthetic_batches=GRAPH_STEPS,
+        learning_rate=ZOO_LR[cls]))
+       for name, cls in (("googlenet", "GoogLeNet"),
+                         ("resnet50", "ResNet50"))},
 }
 
 
@@ -1600,8 +1857,8 @@ def drive(path: str, capture: bool, calls: int, spc: int = 1) -> dict:
     through the worker as a session makes it (``build_model``,
     ``compile_iter_fns``, the epoch's ``shuffle_data``, ``train_iter``),
     launches counted from 0: each call's cost (device scalars, cloned), the
-    whole state after (params, optimizer and wire state) on the host, and
-    the launch counts."""
+    whole state after (params, optimizer, BN and wire state) on the host,
+    and the launch counts."""
     from theanompi_tpu_torch.worker import BSP_Worker
     modelfile, modelclass, cfg = GRAPH_PATHS[path]
     zero_launches()
@@ -1622,6 +1879,7 @@ def drive(path: str, capture: bool, calls: int, spc: int = 1) -> dict:
                "state": [t.detach().cpu().clone() for t in
                          tree_leaves(model.params)
                          + tree_leaves(model.opt_state)
+                         + tree_leaves(model.bn_state)
                          + tree_leaves(model.extra)]}
         del model
     finally:
@@ -1633,7 +1891,8 @@ def drive(path: str, capture: bool, calls: int, spc: int = 1) -> dict:
 
 def same_run(name: str, a: dict, b: dict, costs_a=None) -> int:
     """Two drives bit for bit: costs (``costs_a`` in place of ``a``'s),
-    every state tensor and the launch counts.  Returns the tensors
+    every state tensor (params, optimizer, BN, wire) and the launch
+    counts.  Returns the tensors
     compared."""
     for i, (x, y) in enumerate(zip(costs_a or a["costs"], b["costs"])):
         check_bits(f"{name} cost {i}", x, y)
@@ -1678,13 +1937,15 @@ def graph_eager_phase() -> dict:
 
 def spc_phase() -> dict:
     """``steps_per_call = SPC`` captured (two calls over [SPC, ...]
-    windows) against 2·SPC single captured steps, AlexNet and the LM: the
-    same state bit for bit, each window's mean cost the single steps' mean
-    taken the same way on the card, the same launches."""
+    windows) against 2·SPC single captured steps, AlexNet, the LM and
+    ResNet-50 (its running state updated and synced step by step inside
+    the window): the same state bit for bit, each window's mean cost the
+    single steps' mean taken the same way on the card, the same
+    launches."""
     out = {}
     torch.backends.cudnn.deterministic = True
     try:
-        for path in ("alexnet", "lm"):
+        for path in ("alexnet", "lm", "resnet50"):
             one = drive(path, True, GRAPH_STEPS)
             many = drive(path, True, GRAPH_STEPS // SPC, spc=SPC)
             means = [torch.stack(one["costs"][i:i + SPC]).mean()
@@ -1698,6 +1959,70 @@ def spc_phase() -> dict:
     finally:
         torch.backends.cudnn.deterministic = False
     return out
+
+
+RESNET_CKPT = os.path.join("build", "smoke_ckpt_resnet")
+
+
+def recapture_phase() -> dict:
+    """ResNet-50 captured, cuDNN deterministic: GRAPH_STEPS/2 steps, a
+    checkpoint, the BN running-state tensors replaced by new ones (as a
+    load that cannot write in place makes them) and the checkpoint loaded
+    into them, then the other GRAPH_STEPS/2 steps.  The step's state
+    identity check sees the BN tensors, so it must capture a new graph;
+    costs and state must end bit for bit where an uninterrupted captured
+    run of GRAPH_STEPS steps ends (a replay of the old graph would have
+    updated the old tensors and left the loaded ones behind)."""
+    from theanompi_tpu_torch.worker import BSP_Worker
+    modelfile, modelclass, cfg = GRAPH_PATHS["resnet50"]
+    half = GRAPH_STEPS // 2
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref = drive("resnet50", True, GRAPH_STEPS)
+        shutil.rmtree(RESNET_CKPT, ignore_errors=True)
+        zero_launches()
+        worker = BSP_Worker(dict(cfg, n_workers=1, seed=0, verbose=False))
+        try:
+            model = worker.build_model(modelfile, modelclass)
+            model.compile_iter_fns(worker.exchanger)
+            model.data.shuffle_data(model.seed)
+            costs = []
+            for c in range(1, GRAPH_STEPS + 1):
+                if c == half + 1:
+                    model.save(RESNET_CKPT, 0, half)
+                    first = model.train_fn._graph
+                    model.bn_state = tree_map(torch.empty_like,
+                                              model.bn_state)
+                    if model.load(RESNET_CKPT) != 0 or \
+                            model.train_fn._state_current():
+                        raise AssertionError("the step did not see its BN "
+                                             "tensors replaced")
+                model.train_iter(c)
+                costs.append(model.current_info["cost"].clone())
+            if model.train_fn._graph is first or \
+                    not model.train_fn.graphed:
+                raise AssertionError("the step did not capture again after "
+                                     "the load")
+            torch.cuda.synchronize()
+            got = {"costs": costs, "launches": launch_counts(),
+                   "state": [t.detach().cpu().clone() for t in
+                             tree_leaves(model.params)
+                             + tree_leaves(model.opt_state)
+                             + tree_leaves(model.bn_state)
+                             + tree_leaves(model.extra)]}
+            del model
+        finally:
+            worker.close()
+            gc.collect()
+            torch.cuda.empty_cache()
+        n = same_run("resnet50 save, load, re-capture vs uninterrupted", ref,
+                     got)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    print(f"ResNet-50 re-capture after a load into new BN tensors: {n} "
+          f"state tensors and {GRAPH_STEPS} costs bit for bit the "
+          f"uninterrupted run", flush=True)
+    return {"tensors": n}
 
 
 def host_windows(wire_u8: bool, k: int) -> list:
@@ -1890,7 +2215,21 @@ TIMED = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
          "library_ms")
 
 
-def kernel_entries(lrn, comp, topk, fpack, flash, alex, vggs, lm) -> list:
+def lrn_totals(rows) -> dict:
+    """One step's B1 or B2 over a model's two LRN shapes (the timed bf16
+    rows): ms, plain, bound and library summed, the worst error of every
+    row checked."""
+    timed = [r for r in rows if "ms" in r]
+    tot = {k: sum(r[k] for r in timed)
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    tot["bound_by"] = "bytes" if sum(r["bytes_ms"] for r in timed) >= \
+        sum(r["ops_ms"] for r in timed) else "operations"
+    tot["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    return tot
+
+
+def kernel_entries(lrn, lrn_g, comp, topk, fpack, flash, alex, goog, vggs,
+                   lm) -> list:
     out = []
     for label, fn, source, replaces in kernel_rows():
         name = fn.__name__
@@ -1899,16 +2238,14 @@ def kernel_entries(lrn, comp, topk, fpack, flash, alex, vggs, lm) -> list:
         if label in DESIGN:
             e["design"] = DESIGN[label]
         if label.startswith("lrn_"):
+            # one step: lrn1 + lrn2 of AlexNet's main path; GoogLeNet's
+            # two shapes beside it
             kind = label[4:]
-            timed = [r for r in lrn[kind] if "ms" in r]
-            tot = lambda k: sum(r[k] for r in timed)  # one step: lrn1 + lrn2
             e.update(launches=alex["launches"][name],
-                     max_abs_err=max(r["max_abs_err"] for r in lrn[kind]),
-                     ms=tot("ms"), plain_ms=tot("plain_ms"),
-                     bound_ms=tot("bound_ms"),
-                     bound_by="bytes" if tot("bytes_ms") >= tot("ops_ms")
-                     else "operations",
-                     library_ms=tot("library_ms"), shapes=lrn[kind])
+                     launches_from="AlexNet main path", **lrn_totals(
+                         lrn[kind]), shapes=lrn[kind] + lrn_g[kind],
+                     googlenet=dict(lrn_totals(lrn_g[kind]),
+                                    launches=goog["launches"][name]))
         elif label == "matmul_pack":
             # per PowerSGD step: two grouped passes over the 16 leaves
             e.update(launches=vggs["powersgd"]["launches"][name],
@@ -1958,6 +2295,13 @@ def main() -> int:
     print(f"built {sorted(libs)} in {build_s:.1f}s", flush=True)
 
     lrn = lrn_phase()
+    lrn_g = lrn_phase(GOOGLENET_LRN)
+    for kind in ("fwd", "bwd"):
+        print(f"LRN {kind} at GoogLeNet's shapes: " + ", ".join(
+            f"{r['shape']} {r['dtype']} max |diff| {r['max_abs_err']:.3e}"
+            + (f", {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, plain "
+               f"{r['plain_ms']:.3f}, library {r['library_ms']:.3f})"
+               if "ms" in r else "") for r in lrn_g[kind]), flush=True)
     comp = compress_phase()
     print("compress (n=%d): " % comp["n"] + ", ".join(
         f"{k[:-5]} {comp[k]['ms']:.4f} ms (bound {comp[k]['bound_ms']:.4f}, "
@@ -1993,6 +2337,16 @@ def main() -> int:
     ref_err = alexnet_reference_phase()
     print(f"AlexNet f32 logits card vs CPU: max |diff| {ref_err:.3e}",
           flush=True)
+    zoo_ref = {"googlenet": googlenet_reference_phase(),
+               "resnet50": resnet_reference_phase()}
+    for name, r in zoo_ref.items():
+        print(f"{name} f32 card vs CPU: logits max |diff| "
+              f"{r['logits_max_abs_err']:.3e}, " + ", ".join(
+                  f"{k} {v['card']:.6f} vs {v['cpu']:.6f}"
+                  for k, v in r.items() if k.startswith("cost_"))
+              + (f", {r['bn_leaves']} BN leaves max |diff| "
+                 f"{r['bn_state_max_abs_err']:.3e}" if "bn_leaves" in r
+                 else ""), flush=True)
 
     alex = alexnet_main_path_phase()
     print(f"main path: AlexNet BSP batch {BATCH}, {STEPS} steps, costs "
@@ -2137,8 +2491,47 @@ def main() -> int:
         print(f"LM {key} step: {lm_prof['tokens_per_s']:.0f} tokens/s",
               flush=True)
 
+    goog = googlenet_main_path_phase()
+    resnet = resnet_main_path_phase()
+    cifar = cifar10_main_path_phase()
+    for name, r in (("GoogLeNet", goog), ("ResNet-50", resnet),
+                    ("Cifar10", cifar)):
+        print(f"main path: {name} BSP batch "
+              f"{BATCH if name == 'Cifar10' else ZOO_BATCH}, {STEPS} steps, "
+              f"costs {[round(c, 4) for c in r['costs']]}, "
+              f"{r['img_per_s']:.1f} img/s, launches "
+              f"{ {k: v for k, v in r['launches'].items() if v} }"
+              + (f", {r['n_params']} params" if "n_params" in r else "")
+              + (f", BN mean |mean| {r['bn_mean_abs_mean']:.4f}"
+                 if "bn_mean_abs_mean" in r else "") + f" on {card}",
+              flush=True)
+    zoo_groups = {
+        "GoogLeNet": {"lrn": ("lrn_",), "concat": ("CatArrayBatchedCopy",)},
+        # cuDNN's and ATen's batch-norm kernels and the running stats'
+        # Welford reductions; NCCL's all-reduces: the sync_bn one and the
+        # metrics' one
+        "ResNet50": {"batchnorm": ("batch_norm", "bn_fw", "bn_bw",
+                                   "BatchNorm", "Welford"),
+                     "allreduce": ("AllReduce",)}}
+    for cls, groups in zoo_groups.items():
+        modelfile = "theanompi_tpu_torch.models." + cls.lower()
+        for suffix, capture in (("", True), ("_eager", False)):
+            key = cls.lower() + suffix
+            profs[key] = step_profile_phase(
+                modelfile, cls, ZOO_BATCH, groups, PROFILE_STEPS,
+                capture=capture, learning_rate=ZOO_LR[cls],
+                after=aux_heads_ms if cls == "GoogLeNet" and capture
+                else None)
+            print_profile(profs[key], card, groups)
+            if "after" in profs[key]:
+                print(f"GoogLeNet aux heads alone (forward, costs, "
+                      f"backward; CUDA events): "
+                      f"{profs[key]['after']['ms']:.3f} ms a step",
+                      flush=True)
+
     graph_eager = graph_eager_phase()
     spc = spc_phase()
+    recapture = recapture_phase()
     windows = {}
     for key, u8_wire in (("f32", False), ("u8", True)):
         windows[key] = w = window_files_phase(u8_wire)
@@ -2150,7 +2543,8 @@ def main() -> int:
               f"{ {k: v for k, v in w['launches'].items() if v} }",
               flush=True)
 
-    kernels = kernel_entries(lrn, comp, topk, fpack, flash, alex, vggs, lm)
+    kernels = kernel_entries(lrn, lrn_g, comp, topk, fpack, flash, alex,
+                             goog, vggs, lm)
     for e in kernels:
         if e["name"].startswith("lrn_"):
             name = "lrn_fwd_cuda" if e["name"] == "lrn_fwd" else "lrn_bwd_cuda"
@@ -2159,6 +2553,7 @@ def main() -> int:
                 "alexnet_files_para_load": files["launches"][name],
                 "alexnet_files_para_load_u8": files_u8["launches"][name],
                 "alexnet_resumed_epoch": resumed["launches"][name],
+                "googlenet": goog["launches"][name],
                 **{f"alexnet_files_spc{SPC}_{k}": w["launches"][name]
                    for k, w in windows.items()}}
     total_s = time.time() - t_all
@@ -2167,12 +2562,16 @@ def main() -> int:
         json.dump({"kernels": kernels, "compress": comp, "topk": topk,
                    "factor_pack": fpack, "flash": flash, "lm_check": lm_check,
                    "main": dict({"alexnet": alex, "lm": lm,
+                                 "googlenet": goog, "resnet50": resnet,
+                                 "cifar10": cifar,
                                  "alexnet_files": files,
                                  "alexnet_files_u8": files_u8,
                                  "alexnet_resumed": resumed,
                                  "alexnet_files_windows": windows},
                                 **{f"vgg16_{k}": v for k, v in vggs.items()}),
                    "graph_eager": graph_eager, "spc": spc,
+                   "recapture": recapture, "zoo_ref": zoo_ref,
+                   "lrn_googlenet": lrn_g,
                    "native_loader": loader, "u8_logits": u8, "htod": htod,
                    "profile": profs, "card": card, "build_s": build_s, "total_s": total_s,
                    "alexnet_ref_err": ref_err}, f, indent=1)

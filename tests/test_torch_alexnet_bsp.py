@@ -55,7 +55,7 @@ def test_alexnet_full_width_forward_matches_jax():
     ref = np.asarray(ref)
     with torch.no_grad():
         got = tm.apply_model(tm.params, torch.from_numpy(x), train=False,
-                             gen=None).numpy()
+                             gen=None, state=tm.bn_state).numpy()
     assert got.shape == (2, 10)
     scale = float(np.abs(ref).max())
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5 * scale)
@@ -63,8 +63,9 @@ def test_alexnet_full_width_forward_matches_jax():
     y = np.array([3, 7], np.int32)
     jc = float(JL.softmax_cross_entropy(jnp.asarray(ref), jnp.asarray(y)))
     with torch.no_grad():
-        tc, _ = tm.val_metrics(tm.params, {"x": torch.from_numpy(x),
-                                           "y": torch.from_numpy(y)})
+        tc, _ = tm.val_metrics(tm.params, tm.bn_state,
+                               {"x": torch.from_numpy(x),
+                                "y": torch.from_numpy(y)})
     np.testing.assert_allclose(float(tc), jc, rtol=1e-5)
 
 

@@ -200,5 +200,6 @@ def test_flash_float32_builds_on_cpu():
     tm = TLM(dict(_tiny(128, "allreduce"), attn_impl="flash", device="cpu",
                   compute_dtype="float32"))
     x = torch.zeros(1, 128, dtype=torch.int64)
-    assert tm.apply_model(tm.params, x, train=False, gen=None).dtype == \
+    assert tm.apply_model(tm.params, x, train=False, gen=None,
+                          state=tm.bn_state).dtype == \
         torch.float32

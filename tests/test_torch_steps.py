@@ -181,6 +181,8 @@ def _model(case, **cfg):
     if case in ("allreduce", "dropout"):
         cls = helper.TinyDropNet if case == "dropout" else helper.TinyLRNNet
         return cls(dict(base, **cfg))
+    if case == "bn":
+        return helper.TinyResNet(dict(base, **cfg))
     return helper.TinyVGGNet(dict(base, exch_strategy=case, **cfg))
 
 
@@ -191,16 +193,17 @@ def _same(a, b):
         np.testing.assert_array_equal(x[k], y[k], err_msg=k)
 
 
-CASES = ["allreduce", "dropout", "onebit", "topk", "powersgd1", "lm"]
+CASES = ["allreduce", "dropout", "onebit", "topk", "powersgd1", "lm", "bn"]
 
 
 @pytest.mark.parametrize("case", CASES)
 def test_steps_per_call_equals_single_steps_bit_for_bit(cpu_group, case):
     """One call of k = 3 steps over a [3, ...] window against three calls
     of one step, from the same state and batches: the same costs and the
-    same params, optimizer and wire state, bit for bit (``dropout``:
+    same params, optimizer, BN and wire state, bit for bit (``dropout``:
     TinyLRNNet with a dropout layer; each step of the window draws from
-    its own count's stream)."""
+    its own count's stream; ``bn``: TinyResNet, whose running state each
+    step of the window updates and syncs in turn)."""
     k = 3
     one, many = _model(case), _model(case, steps_per_call=k)
     one.compile_iter_fns()
@@ -450,12 +453,14 @@ def _card_model(case, **cfg):
         return helper.TinyLM(dict(base, **LM_CFG, **cfg))
     if case == "allreduce":
         return helper.TinyDropNet(dict(base, **cfg))
+    if case == "bn":
+        return helper.TinyResNet(dict(base, **cfg))
     return helper.TinyVGGNet(dict(base, exch_strategy=case, **cfg))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["allreduce", "onebit", "topk", "powersgd1",
-                                  "lm"])
+                                  "lm", "bn"])
 @pytest.mark.parametrize("spc", [1, 2])
 def test_graph_equals_eager_on_card(card_group, monkeypatch, case, spc):
     """8 steps captured against 8 eager, from the same weights and batches
@@ -512,8 +517,9 @@ def test_a_host_sync_in_the_step_is_refused_at_capture(card_group):
     first call raises ``CaptureError`` naming the line, and no later call
     runs the step eagerly instead (each raises again)."""
     class Syncing(helper.TinyLRNNet):
-        def loss_and_metrics(self, params, batch, gen, train):
-            cost, err = super().loss_and_metrics(params, batch, gen, train)
+        def loss_and_metrics(self, params, bn_state, batch, gen, train):
+            cost, err = super().loss_and_metrics(params, bn_state, batch,
+                                                 gen, train)
             if float(cost.detach()) < 0:             # the planted host sync
                 cost = cost * 0
             return cost, err

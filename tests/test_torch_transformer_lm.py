@@ -150,7 +150,7 @@ def test_tiny_lm_logits_match_jax(jax_tiny, attn_impl):
                             state={})
     with torch.no_grad():
         got = tm.apply_model(tm.params, torch.from_numpy(x), train=False,
-                             gen=None)
+                             gen=None, state=tm.bn_state)
     assert got.shape == (4, 128, 96)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
                                atol=1e-5)

@@ -61,7 +61,7 @@ def test_vgg16_full_width_forward_matches_jax():
     ref = np.asarray(ref)
     with torch.no_grad():
         got = tm.apply_model(tm.params, torch.from_numpy(x), train=False,
-                             gen=None).numpy()
+                             gen=None, state=tm.bn_state).numpy()
     del jm, tm
     gc.collect()
     assert got.shape == (1, 10)

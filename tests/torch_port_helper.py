@@ -11,6 +11,8 @@ multi-process tests.
 * :class:`TinyFileNet` — :class:`TinyLRNNet`'s block on ImageNet batch
   files (``config['data_dir']``, written by :func:`write_imagenet_dir`),
   cropped to 13×13.
+* :class:`TinyResNet` — ResNet-50's layers at toy depth and width (two
+  bottlenecks, BatchNorm running state), float32, on the tiny set.
 
 Imports only ``theanompi_tpu_torch`` (no JAX), so it can run as a child
 process, one per rank of a gloo group:
@@ -21,7 +23,9 @@ process, one per rank of a gloo group:
 trains one epoch of the model (default ``TinyLRNNet`` under
 ``allreduce``) under ``BSP`` and writes each rank's final parameters (and
 the strategy's state, if it has one: a flat state as ``extra/strat``, a
-per-leaf list as ``extra/strat/<i>/<key>``) to ``<out>_r<rank>.npz``;
+per-leaf list as ``extra/strat/<i>/<key>``; and a BatchNorm model's running
+state after the last step, ``bn/<i>``, and this rank's own before the last
+``sync_bn``, ``bn_local/<i>``) to ``<out>_r<rank>.npz``;
 
     python tests/torch_port_helper.py onebit|topk|powersgd <rank> <world> \
         <init_method> <out>
@@ -49,6 +53,7 @@ import numpy as np
 from theanompi_tpu_torch.models import layers as L
 from theanompi_tpu_torch.models.data import DataBase
 from theanompi_tpu_torch.models.model_base import ModelBase
+from theanompi_tpu_torch.models.resnet50 import ResNet50
 from theanompi_tpu_torch.models.transformer_lm import TransformerLM
 
 N_TRAIN = 48
@@ -165,6 +170,25 @@ class TinyFileNet(ModelBase):
         self.data = ImageNet_data(self.config, self.batch_size, crop=13)
 
 
+class TinyResNet(ResNet50):
+    """ResNet-50's layers at toy size on the tiny set: ConvBN(3→64, 7×7/2)
+    → SAME max pool 3/2 → Bottleneck(64→16→64) → Bottleneck(64→16→2048,
+    stride 2, projection) → mean → FC(2048 → 5), float32 unless the config
+    says otherwise; 9 BatchNorm layers (8×8 → 4 → 2 → 2 → 1)."""
+
+    stages = ((16, 64, 1, 1), (16, 2048, 1, 2))
+    batch_size = 8
+    epochs = 1
+    learning_rate = 0.01
+    seed = 13
+
+    def build_model(self):
+        self.config.setdefault("compute_dtype", "float32")
+        self.config.setdefault("n_class", N_CLASS)
+        super().build_model()
+        self.data = TinyData(self.config, self.batch_size)
+
+
 TINY_LM = dict(vocab=32, d_model=16, n_head=2, n_layer=1, seq_len=16,
                batch_size=4, synthetic_train=16, synthetic_val=8,
                attn_impl="reference", compute_dtype="float32")
@@ -216,13 +240,15 @@ def write_imagenet_dir(root, n_train=6, n_val=2, bs=4, hw=16, layout="bc01",
 
 
 def state_arrays(model) -> dict:
-    """A model's params, optimizer state and strategy state as flat npz
-    entries (``params/<path>``, ``opt/<i>``, ``extra/<i>``)."""
+    """A model's params, optimizer state, BN state and strategy state as
+    flat npz entries (``params/<path>``, ``opt/<i>``, ``bn/<i>``,
+    ``extra/<i>``)."""
     from theanompi_tpu_torch.utils.helper_funcs import leaf_paths, tree_leaves
     params = model.host_params()
     out = {"params/" + "/".join(map(str, p)): v
            for p, v in zip(leaf_paths(params), tree_leaves(params))}
-    for part, tree in (("opt", model.opt_state), ("extra", model.extra)):
+    for part, tree in (("opt", model.opt_state), ("bn", model.bn_state),
+                       ("extra", model.extra)):
         for i, leaf in enumerate(tree_leaves(tree)):
             out[f"{part}/{i}"] = leaf.detach().cpu().numpy() \
                 if hasattr(leaf, "detach") else np.asarray(leaf)
@@ -256,22 +282,36 @@ def resume(rank, world, init_method, out, modelclass, strategy, ckpt_dir):
 
 
 def _save(path, tree, **extra):
-    np.savez(path, **{f"{k}/{n}": v for k, d in tree.items()
-                      for n, v in d.items()}, **extra)
+    from theanompi_tpu_torch.utils.helper_funcs import leaf_paths, tree_leaves
+    np.savez(path, **{"/".join(map(str, p)): v for p, v in
+                      zip(leaf_paths(tree), tree_leaves(tree))}, **extra)
 
 
 def train(rank, world, init_method, out, bs, modelclass="TinyLRNNet",
           strategy="allreduce"):
     from theanompi_tpu_torch import BSP
+    from theanompi_tpu_torch.parallel.exchanger import BSP_Exchanger
+    from theanompi_tpu_torch.utils.helper_funcs import tree_leaves
     rule = BSP()
     rule.init(devices=int(world), modelfile="torch_port_helper",
               modelclass=modelclass, exch_strategy=strategy, device="cpu",
               rank=int(rank), init_method=init_method, batch_size=int(bs),
               scale_lr=False, printFreq=1000, verbose=False)
+    local = []                 # this rank's running state before each sync
+    sync_bn = BSP_Exchanger.sync_bn
+
+    def spy(self, bn_state):
+        local[:] = [t.clone() for t in tree_leaves(bn_state)]
+        sync_bn(self, bn_state)
+
+    BSP_Exchanger.sync_bn = spy          # this process is one rank's alone
     rule.wait()
     model = rule.model
+    bn = {f"bn/{i}": t.numpy() for i, t in
+          enumerate(tree_leaves(model.bn_state))}
+    bn.update({f"bn_local/{i}": t.numpy() for i, t in enumerate(local)})
     _save(f"{out}_r{rank}.npz", model.host_params(),
-          **_state_arrays(model.extra.get("strat")))
+          **_state_arrays(model.extra.get("strat")), **bn)
 
 
 def _state_arrays(state, prefix="extra/strat"):

@@ -14,7 +14,11 @@ packages and are kept: every function here takes ``kept``, the paths of
 such leaves, which the model declares (``ModelBase.kept_layout_paths``;
 empty, the default, for the CNNs).  Vectors (biases, LayerNorm) are
 unchanged.  A momentum velocity or Adam moment tree has the params' shapes
-and converts the same way.
+and converts the same way.  The composite models' trees (GoogLeNet's
+``stem/conv1/w``, ``stage3/3a/b2/3x3/w``, ...; ResNet-50's
+``trunk/res2_1/a/conv/w``, ...) hold the same keys in both packages and
+convert leaf by leaf; their BatchNorm running state (1-D ``mean`` and
+``var``) needs no transpose (:func:`bn_state_from_jax`).
 
 Input and output are trees (nested dicts) of numpy arrays.
 :func:`checkpoint_from_jax` applies them to a whole BSP checkpoint the JAX
@@ -55,6 +59,12 @@ def params_from_jax(tree, kept: frozenset = frozenset()):
     """JAX layout → port layout (params, momentum velocity, Adam moments);
     the 2-D leaves at the paths in ``kept`` as they are."""
     return _map_with_path(lambda a, path: _to_port(a, path, kept), tree)
+
+
+def bn_state_from_jax(tree):
+    """The JAX package's BatchNorm running state (a tree of 1-D ``mean`` and
+    ``var``) as float32 numpy arrays: the same values at the same paths."""
+    return tree_map(lambda a: np.array(a, dtype=np.float32), tree)
 
 
 def _check_same_leaves(name, jax_params, like):
@@ -136,7 +146,8 @@ def checkpoint_from_jax(ckpt_dir: str, model,
     """Load a checkpoint that the JAX package wrote for a BSP model into
     ``model`` (a port model after ``compile_iter_fns``, of the same layers,
     optimizer and exchange strategy): params, optimizer state (momentum's
-    velocity; Adam's moments and per-leaf step counts), the strategy's
+    velocity; Adam's moments and per-leaf step counts), the BatchNorm
+    running state, the strategy's
     state (onebit's error feedback through :func:`flat_from_jax`; topk's,
     which the port keeps in the JAX order, as it is; PowerSGD's through
     :func:`powersgd_state_from_jax`) and the data cursor.  A part the JAX
@@ -201,8 +212,17 @@ def checkpoint_from_jax(ckpt_dir: str, model,
             new_opt = port_tree(opt)
         else:
             new_opt = cur
-        if part("bn_state"):
-            raise NotImplementedError("BatchNorm state is not ported yet")
+        bn = part("bn_state")
+        bpaths = jax_leaf_paths(model.bn_state)
+        if len(bn) != len(bpaths):
+            raise ValueError(f"{ckpt_dir}: bn_state has {len(bn)} leaves, "
+                             f"the port model's {len(bpaths)}")
+        for p, a in zip(bpaths, bn):
+            if tuple(a.shape) != tuple(get_leaf(model.bn_state, p).shape):
+                raise ValueError(f"{ckpt_dir}: bn_state leaf {p} has shape "
+                                 f"{a.shape}")
+        new_bn = _like_port(model.bn_state,
+                            dict(zip(bpaths, bn_state_from_jax(bn))))
         extra = part("extra")
         new_extra = {}
         if model.extra:
@@ -224,6 +244,7 @@ def checkpoint_from_jax(ckpt_dir: str, model,
                 cursor[f[len("_cursor__"):]] = z[f]
 
     model.load_params(new_params)
+    model.load_bn_state(new_bn)
 
     def put(cur_leaf, new_leaf):
         if isinstance(cur_leaf, torch.Tensor):

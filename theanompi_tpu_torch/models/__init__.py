@@ -1,1 +1,2 @@
-"""Model zoo of the port: AlexNet so far."""
+"""Model zoo of the port: AlexNet, VGG-16/11, GoogLeNet, ResNet-50,
+Cifar10 and the transformer LM (``registry.MODELS`` names them)."""

@@ -2,13 +2,19 @@
 
 Counterpart of ``theanompi_tpu/models/layers.py`` for the layers the CNN
 slices run: ``init_weight``, ``Sequential``, ``Conv`` (with groups), ``FC``,
-``Pool``, ``LRN``, ``Dropout``, ``Flatten``, ``Activation`` and the loss and
-error heads; and for the transformer LM's: ``LayerNorm``, ``Embedding`` and
-``MultiHeadAttention``.
+``Pool`` (VALID and SAME), ``LRN``, ``Dropout``, ``Flatten``, ``Activation``,
+``BatchNorm`` and the loss and error heads; and for the transformer LM's:
+``LayerNorm``, ``Embedding`` and ``MultiHeadAttention``.
 
 As in the JAX package a layer is a small object holding static
 hyperparameters; ``init(gen)`` returns its parameter tree and
 ``apply(params, x, train=..., gen=...)`` is a function of its arguments.
+A layer with running state (``has_state``: ``BatchNorm`` and the layers
+built of it) also has ``init_state()``, a tree of float32 tensors the model
+owns (``ModelBase.bn_state``), and takes it as ``apply(..., state=...)``.
+Where the JAX layer returns a new state, the port's writes the running
+statistics into those tensors in place (detached), so a captured step
+replays on the storage it was captured with.
 
 * **Activations are NHWC**, as the JAX layers, so the model's input and
   every public tensor compare directly with the JAX package.  A conv views
@@ -91,13 +97,24 @@ def _fans(shape: Sequence[int]) -> Tuple[int, int]:
 
 class Layer:
     name: str = "layer"
+    has_state: bool = False    # True for BatchNorm and the layers holding it
     # keys of this layer's 2-D leaves stored as the JAX package stores them
     # (an embedding table, [vocab, dim] in both); every other 2-D weight is
     # the JAX one transposed
     kept_layout: Tuple[str, ...] = ()
 
     def init(self, gen: torch.Generator) -> Any:
-        return None
+        """The params: a composite layer's are its sublayers' (in order,
+        parameterless ones left out); a layer without sublayers has
+        none unless it says otherwise."""
+        subs = self.sublayers()
+        return init_parts(subs, gen) if subs else None
+
+    def init_state(self) -> Any:
+        """The running state, a tree of float32 tensors on the CPU (a
+        composite layer's: its sublayers'), or None for a stateless
+        layer."""
+        return init_state_parts(self.sublayers()) if self.has_state else None
 
     def sublayers(self) -> Dict[str, "Layer"]:
         """Child layers by their key in this layer's params."""
@@ -139,18 +156,35 @@ class Sequential(Layer):
     def sublayers(self) -> Dict[str, Layer]:
         return dict(zip(self._keys, self.layers))
 
-    def init(self, gen: torch.Generator) -> Dict[str, Any]:
-        params = {}
-        for k, layer in zip(self._keys, self.layers):
-            p = layer.init(gen)
-            if p is not None:
-                params[k] = p
-        return params
+    @property
+    def has_state(self) -> bool:
+        return any(l.has_state for l in self.layers)
 
-    def apply(self, params, x, *, train=False, gen=None):
+    def apply(self, params, x, *, train=False, gen=None, state=None):
         for k, layer in zip(self._keys, self.layers):
-            x = layer.apply(params.get(k), x, train=train, gen=gen)
+            kw = {"state": state[k]} if layer.has_state else {}
+            x = layer.apply(params.get(k), x, train=train, gen=gen, **kw)
         return x
+
+
+def init_parts(parts: Dict[str, Layer], gen: torch.Generator) -> dict:
+    """The params of named layers, in order, skipping parameterless ones."""
+    out = {}
+    for k, layer in parts.items():
+        p = layer.init(gen)
+        if p is not None:
+            out[k] = p
+    return out
+
+
+def init_state_parts(parts: Dict[str, Layer]) -> dict:
+    """The running state of named layers, skipping stateless ones."""
+    out = {}
+    for k, layer in parts.items():
+        s = layer.init_state()
+        if s is not None:
+            out[k] = s
+    return out
 
 
 def _pair(v) -> Tuple[int, int]:
@@ -174,6 +208,21 @@ def _activate(x, kind: Optional[str]):
 # ---------------------------------------------------------------------------
 # Conv / FC / Pool / LRN / Dropout / Flatten / Activation
 # ---------------------------------------------------------------------------
+
+def _pads(padding, kernel, stride, h: int, w: int) -> Tuple[int, ...]:
+    """(left, right, top, bottom) padding, as F.pad orders it, of XLA's
+    SAME (total ``max((ceil(size/s) - 1)·s + k - size, 0)``, the low side
+    ``total // 2``, the high side the rest), VALID or an explicit int."""
+    if padding == "VALID":
+        return (0, 0, 0, 0)
+    if isinstance(padding, int):
+        return (padding,) * 4
+    out = []
+    for size, k, s in ((w, kernel[1], stride[1]), (h, kernel[0], stride[0])):
+        total = max((-(-size // s) - 1) * s + k - size, 0)
+        out += [total // 2, total - total // 2]
+    return tuple(out)
+
 
 class Conv(Layer):
     def __init__(self, in_ch: int, out_ch: int, kernel, stride=1,
@@ -201,25 +250,11 @@ class Conv(Layer):
         b = init_weight(gen, (self.out_ch,), self.b_init)
         return {"w": w.permute(3, 2, 0, 1).contiguous(), "b": b}
 
-    def _pads(self, h: int, w: int):
-        """(left, right, top, bottom) zero padding of XLA's SAME/VALID or an
-        explicit int, as F.pad orders it."""
-        if self.padding == "VALID":
-            return (0, 0, 0, 0)
-        if isinstance(self.padding, int):
-            p = self.padding
-            return (p, p, p, p)
-        out = []
-        for size, k, s in ((w, self.kernel[1], self.stride[1]),
-                           (h, self.kernel[0], self.stride[0])):
-            total = max((-(-size // s) - 1) * s + k - size, 0)
-            out += [total // 2, total - total // 2]
-        return tuple(out)
-
     def apply(self, params, x, *, train=False, gen=None):
         cd = self.compute_dtype
         xc = x.to(cd).permute(0, 3, 1, 2)          # NHWC → NCHW view
-        pads = self._pads(xc.shape[2], xc.shape[3])
+        pads = _pads(self.padding, self.kernel, self.stride, xc.shape[2],
+                     xc.shape[3])
         if pads[0] == pads[1] and pads[2] == pads[3]:
             y = F.conv2d(xc, params["w"].to(cd), stride=self.stride,
                          padding=(pads[2], pads[0]), groups=self.groups)
@@ -253,7 +288,14 @@ class FC(Layer):
 
 
 class Pool(Layer):
-    """Max or average pooling over NHWC; VALID windows."""
+    """Max or average pooling over NHWC, VALID or SAME windows.
+
+    SAME pads as XLA's ``reduce_window`` does (:func:`_pads`): max pads
+    with −inf, and average divides each window's sum by the count of real
+    elements in it, as the JAX layer does with a pooled ones tensor.  A
+    symmetric pad within half the window is torch's own ``padding=``;
+    any other pad is written out on the NHWC tensor, so the pooled
+    input keeps channels-last strides."""
 
     def __init__(self, size=2, stride=None, mode: str = "max",
                  padding: str = "VALID", name: str = "pool"):
@@ -261,20 +303,32 @@ class Pool(Layer):
         self.stride = _pair(stride if stride is not None else self.size)
         if mode not in ("max", "avg"):
             raise ValueError(f"pool mode {mode!r}")
-        if padding != "VALID":
-            raise NotImplementedError("SAME pooling is not ported yet")
+        padding = padding.upper()
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"pool padding {padding!r}")
         self.mode, self.padding = mode, padding
         self.name = name
 
     def apply(self, params, x, *, train=False, gen=None):
-        xc = x.permute(0, 3, 1, 2)
+        pads = _pads(self.padding, self.size, self.stride, x.shape[1],
+                     x.shape[2])
         if self.mode == "max":
-            y = F.max_pool2d(xc, self.size, self.stride, padding=0,
-                             ceil_mode=False)
-        else:
-            y = F.avg_pool2d(xc, self.size, self.stride, padding=0,
-                             ceil_mode=False)
-        return y.permute(0, 2, 3, 1)
+            sym = pads[0] == pads[1] and pads[2] == pads[3] and \
+                pads[0] <= self.size[1] // 2 and pads[2] <= self.size[0] // 2
+            if not sym:
+                x = F.pad(x, (0, 0) + pads, value=float("-inf"))
+            y = F.max_pool2d(x.permute(0, 3, 1, 2), self.size, self.stride,
+                             padding=(pads[2], pads[0]) if sym else 0)
+            return y.permute(0, 2, 3, 1)
+        if self.padding == "VALID":
+            y = F.avg_pool2d(x.permute(0, 3, 1, 2), self.size, self.stride)
+            return y.permute(0, 2, 3, 1)
+        sums = F.avg_pool2d(F.pad(x, (0, 0) + pads).permute(0, 3, 1, 2),
+                            self.size, self.stride, divisor_override=1)
+        ones = F.pad(x.new_ones((1, 1) + tuple(x.shape[1:3])), pads)
+        counts = F.avg_pool2d(ones, self.size, self.stride,
+                              divisor_override=1)
+        return (sums / counts).permute(0, 2, 3, 1)
 
 
 class LRN(Layer):
@@ -331,6 +385,74 @@ class Activation(Layer):
 
     def apply(self, params, x, *, train=False, gen=None):
         return _activate(x, self.kind)
+
+
+class BatchNorm(Layer):
+    """Batch normalization over every axis but the last (NHWC channels),
+    with running statistics: params ``scale`` and ``bias``, state ``mean``
+    and ``var`` (float32).
+
+    Train normalizes with the batch's mean and biased variance, taken in
+    float32, and updates the running stats to ``m·old + (1−m)·batch``
+    (m = ``momentum``, 0.9); eval normalizes with the running stats.  The
+    running stats are written in place under ``no_grad``.
+
+    ``norm_dtype=None`` normalizes in float32 and casts back to the
+    input's dtype, through ``F.batch_norm`` on the channels-last view.
+    Its own running update (the unbiased variance, the other momentum
+    convention) is not the JAX package's, so the layer hands it scratch
+    buffers and ``momentum=1``: they receive the batch's mean and unbiased
+    variance from the same pass that normalizes, and the layer folds the
+    n/(n−1) back out as it updates its state.  ``norm_dtype`` equal to the
+    input's dtype (bfloat16) folds ``a = inv·scale`` and
+    ``b = bias − mean·inv·scale`` into vectors of that dtype and returns
+    ``x·a + b`` there, its float32 statistics carrying gradients into
+    ``a`` and ``b``, as the JAX layer does."""
+
+    has_state = True
+
+    def __init__(self, n_ch: int, momentum: float = 0.9, eps: float = 1e-5,
+                 norm_dtype=None, name: str = "bn"):
+        self.n_ch, self.momentum, self.eps = n_ch, momentum, eps
+        self.norm_dtype = None if norm_dtype is None else as_dtype(norm_dtype)
+        self.name = name
+
+    def init(self, gen):
+        return {"scale": torch.ones(self.n_ch), "bias": torch.zeros(self.n_ch)}
+
+    def init_state(self):
+        return {"mean": torch.zeros(self.n_ch), "var": torch.ones(self.n_ch)}
+
+    def _update(self, state, mean, var, var_scale: float = 1.0) -> None:
+        m = self.momentum
+        with torch.no_grad():
+            state["mean"].mul_(m).add_(mean.detach(), alpha=1 - m)
+            state["var"].mul_(m).add_(var.detach(), alpha=(1 - m) * var_scale)
+
+    def apply(self, params, x, *, train=False, gen=None, state=None):
+        if self.norm_dtype is not None and x.dtype == self.norm_dtype:
+            if train:
+                dims = tuple(range(x.dim() - 1))
+                var, mean = torch.var_mean(x.float(), dims, correction=0)
+                self._update(state, mean, var)
+            else:
+                mean, var = state["mean"], state["var"]
+            inv = torch.rsqrt(var + self.eps)
+            a = (inv * params["scale"]).to(x.dtype)
+            b = (params["bias"] - mean * inv * params["scale"]).to(x.dtype)
+            return x * a + b
+        xc = x.movedim(-1, 1)     # a channels-last view of an NHWC tensor
+        if not train:
+            y = F.batch_norm(xc, state["mean"], state["var"], params["scale"],
+                             params["bias"], training=False, eps=self.eps)
+            return y.movedim(1, -1)
+        mean = torch.zeros_like(state["mean"])
+        var = torch.zeros_like(state["var"])      # unbiased, from the pass
+        y = F.batch_norm(xc, mean, var, params["scale"], params["bias"],
+                         training=True, momentum=1.0, eps=self.eps)
+        n = x.numel() // x.shape[-1]
+        self._update(state, mean, var, (n - 1) / n)
+        return y.movedim(1, -1)
 
 
 class LayerNorm(Layer):

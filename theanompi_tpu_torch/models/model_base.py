@@ -6,7 +6,16 @@ recorder)``, ``val_iter(count, recorder)``, ``adjust_hyperp(epoch)``,
 ``scale_lr(size)``, ``epochs`` and ``n_subb``, and the worker loop drives any
 object of that shape; ``kept_layout_paths()`` names the leaves its layers
 keep in the JAX layout (the exchanger hands them to the wires).  Concrete
-models define their layer stack, data object and hyperparameters.
+models define their layer stack, data object and hyperparameters; a
+composite model (GoogLeNet's stages and aux heads, ResNet-50's trunk and
+FC) names its parts in ``layers()`` and composes them in ``apply_model``.
+
+``bn_state`` is the BatchNorm running state (``{}`` for a model without
+BatchNorm): a tree of float32 tensors on the model's device, which
+``apply_model``, ``loss_and_metrics`` and ``val_metrics`` take as the JAX
+signatures do.  A training forward writes it in place; the step averages
+it over the ranks after every update (``Exchanger.sync_bn``); validation
+and checkpoints read it.
 
 A model lives on ONE device, ``config['device']``: ``cuda`` unless the
 caller asks for ``cpu``.  Without a card, a model that did not ask for the
@@ -82,6 +91,8 @@ class ModelBase:
         self.params = tree_map(
             lambda p: p.to(self.device).requires_grad_(True),
             self.init_params(gen))
+        self.bn_state = tree_map(lambda s: s.to(self.device),
+                                 self.init_bn_state())
         self.opt = get_optimizer(self.optimizer, mu=self.momentum,
                                  weight_decay=self.weight_decay) \
             if self.optimizer == "momentum" \
@@ -120,16 +131,20 @@ class ModelBase:
     def build_model(self) -> None:
         raise NotImplementedError
 
-    def init_params(self, gen: torch.Generator):
-        assert self.seq is not None, "build_model() must set self.seq or " \
-                                     "override init_params/apply_model"
-        return self.seq.init(gen)
-
     def layers(self) -> Dict[str, L.Layer]:
-        """The top-level layers by their key in ``params``."""
+        """The top-level layers by their key in ``params``: ``self.seq``'s,
+        or a composite model's parts."""
         assert self.seq is not None, "build_model() must set self.seq or " \
-                                     "override layers()"
+                                     "override layers() and apply_model()"
         return self.seq.sublayers()
+
+    def init_params(self, gen: torch.Generator):
+        return L.init_parts(self.layers(), gen)
+
+    def init_bn_state(self):
+        """The running state of the model's BatchNorm layers (``{}`` if it
+        has none), float32, on the CPU."""
+        return L.init_state_parts(self.layers())
 
     def kept_layout_paths(self) -> frozenset:
         """Paths of the parameter leaves that the JAX package stores in the
@@ -139,9 +154,10 @@ class ModelBase:
         return frozenset((k,) + p for k, layer in self.layers().items()
                          for p in layer.kept_layout_paths())
 
-    def apply_model(self, params, x, *, train: bool, gen):
-        """Returns logits."""
-        return self.seq.apply(params, x, train=train, gen=gen)
+    def apply_model(self, params, x, *, train: bool, gen, state):
+        """Returns logits; a training forward updates ``state`` (the BN
+        running stats) in place."""
+        return self.seq.apply(params, x, train=train, gen=gen, state=state)
 
     def _label_smoothing(self, train: bool) -> float:
         return float(self.config.get("label_smoothing", 0.0)) if train \
@@ -174,17 +190,17 @@ class ModelBase:
             return x.to(torch.float32) - self._u8_input_mean(x.device)
         return x
 
-    def loss_and_metrics(self, params, batch, gen, train: bool):
+    def loss_and_metrics(self, params, bn_state, batch, gen, train: bool):
         """Default head: softmax cross-entropy + top-1 error."""
         logits = self.apply_model(params, self.stage_input(batch["x"]),
-                                  train=train, gen=gen)
+                                  train=train, gen=gen, state=bn_state)
         cost = L.softmax_cross_entropy(logits, batch["y"],
                                        self._label_smoothing(train))
         return cost, L.errors(logits, batch["y"])
 
-    def val_metrics(self, params, batch):
+    def val_metrics(self, params, bn_state, batch):
         logits = self.apply_model(params, self.stage_input(batch["x"]),
-                                  train=False, gen=None)
+                                  train=False, gen=None, state=bn_state)
         cost = L.softmax_cross_entropy(logits, batch["y"])
         return cost, (L.errors(logits, batch["y"]),
                       L.errors_top_x(logits, batch["y"], 5))
@@ -199,6 +215,19 @@ class ModelBase:
     def host_params(self):
         """The parameters as a tree of float32 numpy arrays."""
         return tree_map(lambda p: p.detach().cpu().numpy(), self.params)
+
+    def load_bn_state(self, tree) -> None:
+        """Overwrite the BN running state in place from a tree of arrays
+        (``convert.bn_state_from_jax`` makes one from JAX)."""
+        with torch.no_grad():
+            tree_map(lambda s, v: s.copy_(torch.as_tensor(np.asarray(v))),
+                     self.bn_state, tree)
+
+    def host_bn_state(self):
+        """The BN running state as a tree of float32 numpy arrays (copies:
+        the next training forward rewrites the tensors)."""
+        return tree_map(lambda s: s.to("cpu", copy=True).numpy(),
+                        self.bn_state)
 
     # -- contract: compile -------------------------------------------------
 
@@ -354,15 +383,16 @@ class ModelBase:
     # -- contract: persistence ---------------------------------------------
 
     def _state_parts(self) -> Dict[str, Any]:
-        """The state a step carries: params, the optimizer's state and the
-        exchanger's per-rank ``extra``."""
+        """The state a step carries: params, the optimizer's state, the BN
+        running state and the exchanger's per-rank ``extra``."""
         return {"params": self.params, "opt_state": self.opt_state,
-                "extra": self.extra}
+                "bn_state": self.bn_state, "extra": self.extra}
 
     def _per_rank_parts(self) -> tuple:
         """Parts that differ between ranks: a stateful strategy's error
-        feedback.  BSP's params and optimizer state are identical on every
-        rank (each applies the same mean gradient)."""
+        feedback.  BSP's params, optimizer state and BN state are identical
+        on every rank (each applies the same mean gradient; ``sync_bn``
+        averages the running stats)."""
         return ("extra",) if self.extra else ()
 
     def _refuse_ckpt_layouts(self) -> None:
@@ -372,12 +402,13 @@ class ModelBase:
             raise RuntimeError("save/load need compile_iter_fns() first")
 
     def save(self, ckpt_dir: str, epoch: int, count: int = 0) -> str:
-        """Checkpoint the BSP state: params and optimizer state once (rank
-        0's; every rank holds the same), the per-rank parts stacked over
-        the ranks (gathered to rank 0), the dropout stream's generator, and
-        the data loader's consumed cursor; plus the reference-style
-        per-leaf ``.npy`` params snapshot.  Rank 0 writes; every rank must
-        call (the gather is collective).  Returns the ``.npz`` path."""
+        """Checkpoint the BSP state: params, optimizer state and BN state
+        once (rank 0's; every rank holds the same), the per-rank parts
+        stacked over the ranks (gathered to rank 0), the dropout stream's
+        generator, and the data loader's consumed cursor; plus the
+        reference-style per-leaf ``.npy`` params snapshot.  Rank 0 writes;
+        every rank must call (the gather is collective).  Returns the
+        ``.npz`` path."""
         import os
 
         import torch.distributed as dist
@@ -418,10 +449,10 @@ class ModelBase:
 
     def load(self, ckpt_dir: str, epoch: Optional[int] = None) -> Optional[int]:
         """Restore what :meth:`save` wrote (call after ``compile_iter_fns``):
-        params, optimizer state, this rank's row of the per-rank parts, the
-        dropout stream's seed and the data cursor, so training replays
-        bit-identically from the save point.  Returns the epoch restored
-        from, or None when there is no checkpoint."""
+        params, optimizer state, BN state, this rank's row of the per-rank
+        parts, the dropout stream's seed and the data cursor, so training
+        replays bit-identically from the save point.  Returns the epoch
+        restored from, or None when there is no checkpoint."""
         self._refuse_ckpt_layouts()
         meta = ckpt_lib.peek_meta(ckpt_dir, epoch)
         if meta is None:

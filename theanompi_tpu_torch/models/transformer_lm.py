@@ -79,9 +79,6 @@ class Block(L.Layer):
         return {"ln1": self.ln1, "attn": self.attn, "ln2": self.ln2,
                 "fc1": self.fc1, "fc2": self.fc2}
 
-    def init(self, gen):
-        return {k: layer.init(gen) for k, layer in self.sublayers().items()}
-
     def apply(self, params, x, *, train=False, gen=None):
         h = self.ln1.apply(params["ln1"], x)
         x = x + self.attn.apply(params["attn"], h, train=train)
@@ -148,10 +145,7 @@ class TransformerLM(ModelBase):
         return dict({"embed": self.embed, "pos": self.pos, "ln_f": self.ln_f,
                      "head": self.head}, **{b.name: b for b in self.blocks})
 
-    def init_params(self, gen):
-        return {k: layer.init(gen) for k, layer in self.layers().items()}
-
-    def apply_model(self, params, x, *, train: bool, gen):
+    def apply_model(self, params, x, *, train: bool, gen, state):
         t = x.shape[1]
         h = self.embed.apply(params["embed"], x) + \
             self.pos.apply(params["pos"], torch.arange(t, device=x.device))[None]
@@ -161,15 +155,16 @@ class TransformerLM(ModelBase):
         return self.head.apply(params["head"], h)
 
     def _flat(self, params, batch, train):
-        logits = self.apply_model(params, batch["x"], train=train, gen=None)
+        logits = self.apply_model(params, batch["x"], train=train, gen=None,
+                                  state=None)
         return logits.reshape(-1, logits.shape[-1]), batch["y"].reshape(-1)
 
-    def loss_and_metrics(self, params, batch, gen, train: bool):
+    def loss_and_metrics(self, params, bn_state, batch, gen, train: bool):
         flat, y = self._flat(params, batch, train)
         cost = L.softmax_cross_entropy(flat, y, self._label_smoothing(train))
         return cost, L.errors(flat, y)
 
-    def val_metrics(self, params, batch):
+    def val_metrics(self, params, bn_state, batch):
         flat, y = self._flat(params, batch, False)
         return L.softmax_cross_entropy(flat, y), (L.errors(flat, y),
                                                   L.errors_top_x(flat, y, 5))

@@ -7,7 +7,9 @@ rank applies the same update — N ranks train as one rank on the N-fold
 batch.  A stateful strategy's per-rank state rides in the model's
 ``extra["strat"]``, as in the JAX package: a flat tensor (the error
 feedback of onebit and topk) or a per-leaf list of ``{"q", "e"}``
-(PowerSGD).  Every update is in place: the step never rebinds the
+(PowerSGD).  After each update ``sync_bn`` relates the BatchNorm running
+stats across the ranks: BSP averages them, so the replicas stay
+identical.  Every update is in place: the step never rebinds the
 model's params, optimizer state or ``extra``, so a captured step replays
 on the tensors it was captured with.  ``exch_mode='params'``, the
 bucketed wire and the async rules are not ported yet.
@@ -17,6 +19,10 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+import torch
+import torch.distributed as dist
+
+from ..utils.helper_funcs import tree_leaves
 from .strategies import Strategy, get_strategy
 
 
@@ -45,6 +51,10 @@ class Exchanger:
         the objects it was given."""
         params, opt_state = self.model.opt.update(grads, opt_state, params, lr)
         return params, opt_state, extra
+
+    def sync_bn(self, bn_state) -> None:
+        """How the BatchNorm running stats relate across ranks: the local
+        step keeps them as they are."""
 
 
 class BSP_Exchanger(Exchanger):
@@ -86,6 +96,19 @@ class BSP_Exchanger(Exchanger):
                                  size=self.size)
         params, opt_state = self.model.opt.update(grads, opt_state, params, lr)
         return params, opt_state, extra
+
+    def sync_bn(self, bn_state) -> None:
+        """The running stats replaced by their mean over the ranks, in
+        place: one all-reduce (SUM) of all of them packed together, then
+        ÷ size, as the JAX package's ``pmean``."""
+        leaves = tree_leaves(bn_state)
+        if not leaves:
+            return
+        flat = torch.cat([t.reshape(-1) for t in leaves])
+        dist.all_reduce(flat)
+        flat.div_(self.size)
+        torch._foreach_copy_(leaves, [v.view_as(t) for v, t in zip(
+            flat.split([t.numel() for t in leaves]), leaves)])
 
 
 EXCHANGERS = {"bsp": BSP_Exchanger}

@@ -5,10 +5,11 @@ the whole step — micro-batch scan, backward, exchange, update — into one XLA
 program over the worker mesh, and ``steps_per_call`` scanned k such steps
 in one dispatch.  The port runs one process per rank and the same sequence
 in one step body: forward and backward for each of ``n_subb``
-micro-batches, the exchanger's gradient collective, the optimizer update,
-all in place on the model's state, then one all-reduce of the step's
-metrics.  :class:`TrainStep` runs ``n_steps`` bodies over a ``[k, ...]``
-window per call.
+micro-batches (the BatchNorm running state updated in order through
+them), the exchanger's gradient collective, the optimizer update, the
+exchanger's ``sync_bn`` of the running state, all in place on the model's
+state, then one all-reduce of the step's metrics.  :class:`TrainStep` runs
+``n_steps`` bodies over a ``[k, ...]`` window per call.
 
 On the card the step is CAPTURED (``parallel/graph.py``): the first call
 runs its step eagerly on a side stream (which also warms up cuBLAS, cuDNN
@@ -58,16 +59,18 @@ def _like(tree, leaves):
     return tree_map(lambda _: next(it), tree)
 
 
-def _accumulate_grads(loss_and_metrics: Callable, params, batch,
+def _accumulate_grads(loss_and_metrics: Callable, params, bn_state, batch,
                       gen, n_subb: int):
     """Gradient accumulation over ``n_subb`` micro-batches, in order.
 
-    ``loss_and_metrics(params, batch, gen, train=True)`` returns
-    ``(cost, err)``.  Returns the mean cost, mean error and mean gradient
-    tree (detached)."""
+    ``loss_and_metrics(params, bn_state, batch, gen, train=True)`` returns
+    ``(cost, err)`` and updates ``bn_state`` in place, so the running state
+    threads through the micro-batches in order, as the JAX package's scan
+    carries it.  Returns the mean cost, mean error and mean gradient tree
+    (detached)."""
     leaves = tree_leaves(params)
     if n_subb == 1:
-        cost, err = loss_and_metrics(params, batch, gen, True)
+        cost, err = loss_and_metrics(params, bn_state, batch, gen, True)
         grads = torch.autograd.grad(cost, leaves)
         return cost.detach(), err.detach(), _like(params, grads)
 
@@ -82,7 +85,7 @@ def _accumulate_grads(loss_and_metrics: Callable, params, batch,
     acc_c = acc_e = 0.0
     for i in range(n_subb):
         mb = {k: micro(v, i) for k, v in batch.items()}
-        cost, err = loss_and_metrics(params, mb, gen, True)
+        cost, err = loss_and_metrics(params, bn_state, mb, gen, True)
         for a, g in zip(acc, torch.autograd.grad(cost, leaves)):
             a.add_(g)
         acc_c = acc_c + cost.detach()
@@ -119,9 +122,10 @@ def _host_or_claimed(batch, device: torch.device) -> Dict[str, torch.Tensor]:
 class TrainStep:
     """``step(batch, lr, count) -> (cost[k], err[k])``: ``k = n_steps``
     training steps of this rank over one batch (k = 1) or one ``[k, ...]``
-    window, updating ``model.params``, ``model.opt_state`` and
-    ``model.extra`` in place.  ``count`` names the window's LAST step, as in
-    the JAX package; step j draws its dropout from ``count - k + 1 + j``.
+    window, updating ``model.params``, ``model.opt_state``,
+    ``model.bn_state`` and ``model.extra`` in place.  ``count`` names the
+    window's LAST step, as in the JAX package; step j draws its dropout
+    from ``count - k + 1 + j``.
     The metrics are means over the ranks, on the device.
 
     ``capture`` (default: whether the model's device is a card) makes the
@@ -211,9 +215,11 @@ class TrainStep:
             b = batch if self.n_steps == 1 else \
                 {k: v[j] for k, v in batch.items()}
             cost, err, grads = _accumulate_grads(
-                m.loss_and_metrics, m.params, b, self._gens[j], self.n_subb)
+                m.loss_and_metrics, m.params, m.bn_state, b, self._gens[j],
+                self.n_subb)
             self.exchanger.step_update(m.params, m.opt_state, grads, m.extra,
                                        self._lr)
+            self.exchanger.sync_bn(m.bn_state)
             costs.append(cost)
             errs.append(err)
         out = torch.stack(costs + errs)
@@ -223,7 +229,7 @@ class TrainStep:
     def _state_leaves(self) -> list:
         m = self.model
         return (tree_leaves(m.params) + tree_leaves(m.opt_state)
-                + tree_leaves(m.extra))
+                + tree_leaves(m.bn_state) + tree_leaves(m.extra))
 
     def _state_current(self) -> bool:
         """The graph reads the state tensors it was captured with: false
@@ -281,12 +287,14 @@ def build_train_step(model, exchanger, n_steps: int = 1,
 
 def build_val_step(model) -> Callable:
     """``val_fn(batch) -> (cost, err, err_top5)``: this rank's rows scored
-    with its replica, averaged over the ranks."""
+    with its replica (BatchNorm from its running stats), averaged over the
+    ranks."""
     size = dist.get_world_size()
 
     @torch.no_grad()
     def val_fn(batch: Dict[str, torch.Tensor]):
-        cost, (err, err5) = model.val_metrics(model.params, batch)
+        cost, (err, err5) = model.val_metrics(model.params, model.bn_state,
+                                              batch)
         m = _mean_over_ranks(torch.stack([cost, err, err5]), size)
         return m[0], m[1], m[2]
 

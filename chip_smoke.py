@@ -6,6 +6,7 @@
     python3 chip_smoke.py --factor-times  # B9's PowerSGD passes alone
     python3 chip_smoke.py --flash-times --topk-times --factor-times
     python3 chip_smoke.py --input-times   # AlexNet from files: loader settings
+    python3 chip_smoke.py --update-times  # GoogLeNet, ResNet-50 BSP profiles
 
 1. Fails (exit 2, no result) without CUDA; prints the card's name and power
    limit as ``nvidia-smi`` reports them.
@@ -134,21 +135,47 @@
     finite, every mean moved; profiles GoogLeNet (LRN, the concat copies;
     its aux heads timed alone with CUDA events) and ResNet-50 (BatchNorm,
     the all-reduces: ``sync_bn``'s and the metrics'), captured and eager.
-22. Graph ≡ eager: each full-width main path (AlexNet synthetic, VGG-16
+    The zoo's profiles also group the update's multi-tensor passes
+    (``torch._foreach_*``: ``optimizer``).
+22. Drives the async rules' main paths through their sessions, world 1,
+    bf16, full width, 8 steps and a validation batch, each captured (the
+    train step and the exchange, each a CUDA graph): VGG-16 'D' under
+    ``EASGD()`` (BASELINE.json config 3: batch 32, lr 0.001, ``alpha``
+    0.5, ``sync_freq`` 4), ResNet-50 under ``GOSGD()`` (config 4: batch
+    32, lr 0.01, ``exch_prob`` 0.25, ``'perm'``) and AlexNet b128 under
+    ``ASGD()`` (``sync_freq`` 1).  Every exchange is held against a
+    plain recomputation from the tensors before it (EASGD's elastic
+    update, within a few float32 ulps of a float64 one; bit for bit,
+    ASGD's center and params equal after it and GoSGD's α exactly 1 and
+    params unchanged at world 1); validation under EASGD
+    scores the center; the rule state and ResNet-50's local BN state
+    sit on the card, finite; AlexNet launches 2 B1 a forward and 2 B2 a
+    backward.  Profiles VGG-16 EASGD and ResNet-50 GoSGD captured and
+    eager (``foreach``: the update's and the exchange's multi-tensor
+    passes), with one exchange timed alone (CUDA events).
+23. The rest of the update layer on AlexNet b128: ``grad_clip`` at half
+    the first step's gradient norm, the captured step's update against
+    ``lr · clip/‖g‖ · g`` recomputed from the step's own dropout stream;
+    ``ema_decay`` 0.999 (validation scores the shadow), ``nesterov`` and
+    ``rmsprop`` through the session, costs finite.
+24. Graph ≡ eager: each full-width main path (AlexNet synthetic, VGG-16
     under onebit, topk and powersgd, the LM with flash attention,
-    GoogLeNet, ResNet-50), 8 steps eager and 8 captured from the same
-    seed, cuDNN deterministic: costs, params, optimizer, BN and wire
-    state bit for bit, and the same launch counts.
-23. ``steps_per_call = 4`` captured (two windows) against 8 single
-    captured steps, AlexNet, the LM and ResNet-50: state and window costs
-    bit for bit.  Then ResNet-50 captured for 4 steps, a checkpoint, its
-    BN tensors replaced by new ones and the checkpoint loaded into them,
-    4 more steps: the step must capture again and end bit for bit where
-    the uninterrupted run ends.
-24. AlexNet from the batch files under ``para_load`` at
+    GoogLeNet, ResNet-50, VGG-16 EASGD, ResNet-50 GoSGD, AlexNet ASGD),
+    8 steps eager and 8 captured from the same seed, cuDNN
+    deterministic: costs, params, optimizer, BN, wire and rule state bit
+    for bit, and the same launch counts.
+25. ``steps_per_call = 4`` captured (two windows) against 8 single
+    captured steps, AlexNet, the LM, ResNet-50, VGG-16 EASGD at
+    ``sync_freq`` 2 and 4 and ResNet-50 GoSGD (the exchange fused into
+    the window against the worker's hook after single steps): state and
+    window costs bit for bit.  Then ResNet-50 captured for 4 steps, a
+    checkpoint, its BN tensors replaced by new ones and the checkpoint
+    loaded into them, 4 more steps: the step must capture again and end
+    bit for bit where the uninterrupted run ends.
+26. AlexNet from the batch files under ``para_load`` at
     ``steps_per_call = 4``, both wires: the producer stages whole
     windows; every window the step took holds the host stream's bits.
-25. Prints ``{"kernels": [...]}`` (B1–B12; B1/B2 with GoogLeNet's shapes
+27. Prints ``{"kernels": [...]}`` (B1–B12; B1/B2 with GoogLeNet's shapes
     beside AlexNet's), then the card, then the last line
     ``{"ok": true, "device": {...}}``.
 
@@ -175,7 +202,7 @@ if not torch.cuda.is_available():
 import numpy as np  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from theanompi_tpu_torch import BSP  # noqa: E402
+import theanompi_tpu_torch as tmpi  # noqa: E402
 from theanompi_tpu_torch.ops import _kernel_build  # noqa: E402
 from theanompi_tpu_torch.ops import compress as cmp_ops  # noqa: E402
 from theanompi_tpu_torch.ops import factor_pack as fp_ops  # noqa: E402
@@ -223,6 +250,18 @@ VGG_STEPS = 8
 # allreduce and onebit alike (He init on mean-subtracted, unscaled pixels:
 # the initial cost is ~90); the smoke trains at 0.001, where it descends
 VGG_LR = 0.001
+# grad_clip on the card: the captured step's params against sgd's
+# arithmetic on the plainly clipped gradient, the largest difference as a
+# fraction of the largest step (the two norms sum in other orders: an ulp
+# of a parameter, ~1e-5 of a step; an unclipped or wrongly scaled update
+# would be off by a whole step)
+CLIP_RTOL = 1e-3
+# EASGD's exchange against its float64 recomputation: a few float32
+# roundings (the delta, the product, the sum) of values no larger than
+# the leaf's, so within an ulp or two of each value plus an ulp of the
+# leaf's largest (where c + α·d cancels); a missing or wrong pull moves
+# values by α·d, orders of magnitude more
+EASGD_TOL = (2.0 ** -21, 2.0 ** -22)      # (rtol, atol / max|leaf|)
 # decode widths held against the plain version: the main path's (1 rank)
 # and stacked buffers of 4 and 8 ranks
 DECODE_WORKERS = (1, 4, 8)
@@ -1013,10 +1052,27 @@ def times_main(flags) -> int:
     the plain version; B9's device ms for each PowerSGD pass over VGG-16's
     16 leaves as the tree's main path makes it (one grouped launch, or on
     a tree from before the grouped kernel, 16 one-leaf launches), beside
-    the sum of the one-leaf launches, after ``factor_pass_check``; nothing
-    else (for setting two trees' kernels side by side in one call)."""
+    the sum of the one-leaf launches, after ``factor_pass_check``; with
+    ``--update-times`` GoogLeNet's and ResNet-50's captured BSP profiles
+    (wall, device busy, idle share, ops a step, the update's multi-tensor
+    passes), for a tree's update layer beside another's; nothing else
+    (for setting two trees side by side in one call)."""
     card = card_line()
     out = {"card": card}
+    if "--update-times" in flags:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        _kernel_build.build(["lrn"])
+        out["update_times"] = {}
+        for cls in ("GoogLeNet", "ResNet50"):
+            p = step_profile_phase(
+                "theanompi_tpu_torch.models." + cls.lower(), cls, ZOO_BATCH,
+                {"update": ("multi_tensor_apply_kernel",)}, PROFILE_STEPS,
+                learning_rate=ZOO_LR[cls])
+            out["update_times"][cls] = {k: p[k] for k in (
+                "wall_ms_per_step", "device_busy_ms_per_step",
+                "device_idle_share", "kernel_calls_per_step",
+                "update_ms_per_step", "host_ms_per_step")}
     if "--input-times" in flags:
         out["input_times"] = input_times()
     if "--flash-times" in flags:
@@ -1193,12 +1249,13 @@ def lm_check_phase():
     return out
 
 
-def run_main_path(modelfile, modelclass, want_launches, **cfg):
-    """``BSP().init(devices=1, ...).wait()`` with every launch count set to
-    0 just before and read just after; checks the costs, the params'
-    device and the launch counts against ``want_launches``."""
+def run_main_path(modelfile, modelclass, want_launches, rule="bsp", **cfg):
+    """``<RULE>().init(devices=1, ...).wait()`` (``BSP`` unless ``rule``
+    names another) with every launch count set to 0 just before and read
+    just after; checks the costs, the params' device and the launch counts
+    against ``want_launches``."""
     zero_launches()
-    rule = BSP()
+    rule = getattr(tmpi, rule.upper())()
     rule.init(devices=1, modelfile=modelfile, modelclass=modelclass,
               **dict(dict(epochs=1, synthetic_val_batches=VAL_BATCHES,
                           seed=0), **cfg))
@@ -1310,6 +1367,246 @@ def cifar10_main_path_phase():
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+class ExchangeSpy:
+    """For the length of a ``with``: every due exchange the worker's hook
+    runs is bracketed by a clone of the params and the rule state before it
+    and ``check(exchanger, model, params_before, extra_before)`` after it
+    (a plain recomputation of the exchange); and every validation records
+    whether it scored the tensors ``scored(model)`` names."""
+
+    def __init__(self, check, scored=None):
+        self.check, self.scored = check, scored
+        self.exchanges, self.val_scored = 0, []
+
+    def __enter__(self):
+        from theanompi_tpu_torch.models.model_base import ModelBase
+        from theanompi_tpu_torch.parallel.exchanger import Exchanger
+        self._orig = (Exchanger.exchange, ModelBase.val_params)
+        spy, (exchange, val_params) = self, self._orig
+
+        def spied_exchange(ex, recorder=None, count=0):
+            if ex.fused or not ex.due(count):
+                return exchange(ex, recorder, count)
+            m = ex.model
+            before = ([p.detach().clone() for p in tree_leaves(m.params)],
+                      [t.clone() for t in tree_leaves(m.extra)])
+            exchange(ex, recorder, count)
+            spy.check(ex, m, *before)
+            spy.exchanges += 1
+
+        def spied_val_params(m):
+            out = val_params(m)
+            if spy.scored is not None:
+                spy.val_scored.append(out[0] is spy.scored(m))
+            return out
+
+        Exchanger.exchange = spied_exchange
+        ModelBase.val_params = spied_val_params
+        return self
+
+    def __exit__(self, *exc):
+        from theanompi_tpu_torch.models.model_base import ModelBase
+        from theanompi_tpu_torch.parallel.exchanger import Exchanger
+        Exchanger.exchange, ModelBase.val_params = self._orig
+
+
+def easgd_check(ex, m, p0, c0) -> None:
+    """The elastic update recomputed leaf by leaf from the pre-exchange
+    tensors in float64 (world 1: the sum over the ranks is the rank's own
+    delta): ``c + α·d / size`` and ``p − α·d`` with ``d = p − c``, within
+    ``EASGD_TOL``."""
+    for i, (p, c, P, C) in enumerate(zip(tree_leaves(m.params),
+                                         tree_leaves(m.extra["center"]),
+                                         p0, c0)):
+        P, C = P.double(), C.double()
+        d = P - C
+        check_close(f"easgd center leaf {i}", c.double(),
+                    C + ex.alpha * d / ex.size, *EASGD_TOL)
+        check_close(f"easgd params leaf {i}", p.detach().double(),
+                    P - ex.alpha * d, *EASGD_TOL)
+
+
+def asgd_check(ex, m, p0, c0) -> None:
+    """Downpour at world 1: the center absorbs ``p − c`` and the params are
+    the center, bit for bit."""
+    for i, (p, c, P, C) in enumerate(zip(tree_leaves(m.params),
+                                         tree_leaves(m.extra["center"]),
+                                         p0, c0)):
+        check_bits(f"asgd center leaf {i}", c, C + (P - C))
+        check_bits(f"asgd params == center leaf {i}", p.detach(), c)
+
+
+def gosgd_check(ex, m, p0, a0) -> None:
+    """Gossip at world 1 (the route is the identity): α stays exactly 1
+    (Σα conserved) and the merge ``(α_keep·p + α_send·p) / α`` gives the
+    params back bit for bit, whether the gate sent or not."""
+    if float(m.extra["alpha"]) != 1.0 or float(a0[0]) != 1.0:
+        raise AssertionError(f"gosgd alpha {float(m.extra['alpha'])}")
+    for i, (p, P) in enumerate(zip(tree_leaves(m.params), p0)):
+        check_bits(f"gosgd params leaf {i}", p.detach(), P)
+
+
+RULE_CHECKS = {"vgg16_easgd": easgd_check, "resnet50_gosgd": gosgd_check,
+               "alexnet_asgd": asgd_check}
+
+
+def rule_main_path_phase(path: str) -> dict:
+    """An async rule's main path through its session (``EASGD()``,
+    ``GOSGD()``, ``ASGD()``), 8 steps and a validation batch, captured
+    (the step and the exchange, each a CUDA graph): costs, the params' and
+    the rule state's device, every exchange against its plain
+    recomputation (:data:`RULE_CHECKS`), validation scoring the center
+    under EASGD, ResNet-50's BatchNorm state (local, finite, moved), and
+    the launches (AlexNet's LRNs: 2 B1 a forward, 2 B2 a backward)."""
+    modelfile, modelclass, cfg = GRAPH_PATHS[path]
+    want = expect(lrn_fwd_cuda=2 * (STEPS + VAL_BATCHES),
+                  lrn_bwd_cuda=2 * STEPS) if modelclass == "AlexNet" \
+        else expect()
+    scored = (lambda m: m.extra["center"]) if path == "vgg16_easgd" \
+        else None
+    with ExchangeSpy(RULE_CHECKS[path], scored) as spy:
+        model, out = run_main_path(modelfile, modelclass, want,
+                                   printFreq=STEPS // 2, **cfg)
+    every = cfg.get("sync_freq", 1)
+    if spy.exchanges != STEPS // every:
+        raise AssertionError(f"{path}: {spy.exchanges} exchanges checked, "
+                             f"expected {STEPS // every}")
+    if scored is not None and spy.val_scored != [True] * VAL_BATCHES:
+        raise AssertionError(f"{path}: validation scored "
+                             f"{spy.val_scored}, not the center")
+    if not (model.train_fn.graphed and model.exchange_fn.graphed):
+        raise AssertionError(f"{path}: not captured")
+    extra = tree_leaves(model.extra)
+    if {t.device.type for t in extra} != {"cuda"} or \
+            not all(bool(torch.isfinite(t).all()) for t in extra):
+        raise AssertionError(f"{path}: rule state not finite on the card")
+    if path == "resnet50_gosgd":
+        bn = tree_leaves(model.bn_state)
+        if {t.device.type for t in bn} != {"cuda"} or \
+                not all(bool(torch.isfinite(t).all()) for t in bn) or \
+                not any(bool(t.abs().sum() > 0) for t in bn):
+            raise AssertionError("ResNet-50 GoSGD BN state")
+    out.update(exchanges_checked=spy.exchanges,
+               n_params=sum(p.numel() for p in tree_leaves(model.params)))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def clip_phase() -> dict:
+    """``grad_clip`` on the card: AlexNet BSP b128 under ``sgd`` (lr 0.01,
+    no decay), the clip set to half of the first step's gradient norm (the
+    gradient recomputed with the step's own dropout stream, cuDNN
+    deterministic); the captured step's params must be ``p − lr ·
+    (clip/‖g‖) · g`` computed plainly, within ``CLIP_RTOL`` of a step."""
+    from theanompi_tpu_torch.parallel import steps as steps_lib
+    from theanompi_tpu_torch.worker import BSP_Worker
+    lr = 0.01
+    worker = BSP_Worker({"n_workers": 1, "seed": 0, "verbose": False,
+                         "batch_size": BATCH, "synthetic_batches": 2,
+                         "optimizer": "sgd", "weight_decay": 0.0,
+                         "learning_rate": lr})
+    torch.backends.cudnn.deterministic = True
+    try:
+        model = worker.build_model("theanompi_tpu_torch.models.alex_net",
+                                   "AlexNet")
+        model.compile_iter_fns(worker.exchanger)
+        model.data.shuffle_data(model.seed)
+        cursor = model.data.get_cursor()
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in model.data.next_train_batch(1).items()}
+        model.data.set_cursor(cursor)
+        gen = torch.Generator(device="cuda").manual_seed(
+            steps_lib.step_seed(model.step_seed, model.rank, 1))
+        leaves = tree_leaves(model.params)
+
+        def first_grads():
+            # the autograd graph goes with the cost on return: a graph
+            # kept alive would tie the params' accumulate nodes to this
+            # stream, and the step's capture on its own stream refuses that
+            cost, _ = model.loss_and_metrics(model.params, model.bn_state,
+                                             batch, gen, True)
+            return torch.autograd.grad(cost, leaves)
+
+        grads = first_grads()
+        norm = float(torch.stack([g.double().square().sum()
+                                  for g in grads]).sum().sqrt())
+        worker.exchanger.clip = norm / 2
+        p0 = [p.detach().clone() for p in leaves]
+        model.train_iter(1)
+        torch.cuda.synchronize()
+        # sgd's arithmetic in float32 on the plainly clipped gradient
+        norm32 = torch.stack([g.float().square().sum()
+                              for g in grads]).sum().sqrt()
+        scale = torch.clamp((norm / 2) / torch.clamp(norm32, min=1e-12),
+                            max=1.0)
+        want = [P - ((P * 0.0) + g * scale) * lr for P, g in zip(p0, grads)]
+        err = max(float((p.detach() - w).abs().max())
+                  for p, w in zip(leaves, want))
+        step = max(float((P - w).abs().max()) for P, w in zip(p0, want))
+        rel = err / step
+        if not model.train_fn.graphed or not rel < CLIP_RTOL:
+            raise AssertionError(f"grad_clip: params off the clipped "
+                                 f"update's by {rel:.3e} of its largest "
+                                 f"step")
+        del model, grads, p0, want
+    finally:
+        torch.backends.cudnn.deterministic = False
+        worker.close()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"grad_norm": norm, "clip": norm / 2, "max_err_over_step": rel}
+
+
+def optimizer_phase() -> dict:
+    """The rest of the update layer through the session, AlexNet BSP b128,
+    8 steps and a validation batch each: ``ema_decay`` 0.999 (validation
+    scores the shadow, finite, apart from the params), ``nesterov`` and
+    ``rmsprop`` (finite costs; rmsprop at 1e-4, an rmsprop rate)."""
+    out = {}
+    want = expect(lrn_fwd_cuda=2 * (STEPS + VAL_BATCHES),
+                  lrn_bwd_cuda=2 * STEPS)
+    for name, cfg in (("ema", {"ema_decay": 0.999}),
+                      ("nesterov", {"optimizer": "nesterov"}),
+                      ("rmsprop", {"optimizer": "rmsprop",
+                                   "learning_rate": 1e-4})):
+        scored = (lambda m: m.opt_state["ema"]) if name == "ema" else None
+        with ExchangeSpy(None, scored) as spy:
+            model, r = run_main_path(
+                "theanompi_tpu_torch.models.alex_net", "AlexNet", want,
+                batch_size=BATCH, synthetic_batches=STEPS,
+                printFreq=STEPS // 2, **cfg)
+        if name == "ema":
+            ema = tree_leaves(model.opt_state["ema"])
+            if spy.val_scored != [True] * VAL_BATCHES or \
+                    int(model.opt_state["t"]) != STEPS or \
+                    not all(bool(torch.isfinite(e).all()) for e in ema) or \
+                    all(bool(torch.equal(e, p)) for e, p in
+                        zip(ema, tree_leaves(model.params))):
+                raise AssertionError(f"ema: validation scored "
+                                     f"{spy.val_scored}")
+        out[name] = {k: r[k] for k in ("costs", "img_per_s", "val")}
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def exchange_ms(model) -> dict:
+    """Device ms of one exchange alone (``exchange_fn``, a graph replay
+    when captured), CUDA events; the state it moves is the model's own."""
+    if model.exchange_fn is None:
+        return {}
+    count = [0]
+
+    def one():
+        count[0] += 1
+        model.exchange_fn(count[0])
+
+    return {"exchange_ms": time_ms(one, reps=5, inner=5, warmup=2)}
 
 
 def aux_heads_ms(model) -> dict:
@@ -1424,9 +1721,11 @@ def step_profile_phase(modelfile, modelclass, batch, groups, steps, warmup=2,
     whose kernels the profiler sees as the replays run them)."""
     from torch.profiler import ProfilerActivity, profile
     from theanompi_tpu_torch.utils.recorder import Recorder
-    from theanompi_tpu_torch.worker import BSP_Worker
-    worker = BSP_Worker(dict({"n_workers": 1, "batch_size": batch, "seed": 0,
-                              "verbose": False}, **cfg))
+    from theanompi_tpu_torch.worker import WORKERS
+    cfg = dict(cfg)
+    worker = WORKERS[cfg.pop("rule", "bsp")](dict(
+        {"n_workers": 1, "batch_size": batch, "seed": 0, "verbose": False},
+        **cfg))
     try:
         model = worker.build_model(modelfile, modelclass)
         model.compile_iter_fns(worker.exchanger, capture=capture)
@@ -1437,11 +1736,16 @@ def step_profile_phase(modelfile, modelclass, batch, groups, steps, warmup=2,
             model.data.shuffle_data(0)
         count = 0
 
+        # an async rule's exchange hook (none in a tree from before the
+        # async rules, where --update-times runs too)
+        hook = getattr(worker.exchanger, "exchange", lambda rec, count: None)
+
         def run(n, rec=None):
             nonlocal count
             for _ in range(n):
                 count += 1
                 model.train_iter(count, rec)
+                hook(rec, count)
             torch.cuda.synchronize()
 
         run(warmup)
@@ -1471,7 +1775,7 @@ def step_profile_phase(modelfile, modelclass, batch, groups, steps, warmup=2,
     by_kernel.sort(key=lambda r: -r["ms_per_step"])
     busy = sum(r["ms_per_step"] for r in by_kernel)
     host = {s: rec.t_sec_total[s] * 1e3 / steps
-            for s in ("load", "stage", "train")}
+            for s in ("load", "stage", "train", "comm")}
     out = {"model": modelclass, "batch": batch, "steps": steps,
            "captured": graphed,
            "kernel_calls_per_step": sum(
@@ -1849,21 +2153,37 @@ GRAPH_PATHS = {
         learning_rate=ZOO_LR[cls]))
        for name, cls in (("googlenet", "GoogLeNet"),
                          ("resnet50", "ResNet50"))},
+    # the async rules' paths: BASELINE.json configs 3 (VGG-16 'D' under
+    # EASGD) and 4 (ResNet-50 under GoSGD), and AlexNet under ASGD
+    "vgg16_easgd": VGG_MODEL + (dict(
+        rule="easgd", alpha=0.5, sync_freq=4, batch_size=VGG_BATCH,
+        learning_rate=VGG_LR, synthetic_batches=GRAPH_STEPS),),
+    "resnet50_gosgd": ("theanompi_tpu_torch.models.resnet50", "ResNet50",
+                       dict(rule="gosgd", exch_prob=0.25, gosgd_peers="perm",
+                            batch_size=ZOO_BATCH,
+                            learning_rate=ZOO_LR["ResNet50"],
+                            synthetic_batches=GRAPH_STEPS)),
+    "alexnet_asgd": ("theanompi_tpu_torch.models.alex_net", "AlexNet",
+                     dict(rule="asgd", sync_freq=1, batch_size=BATCH,
+                          synthetic_batches=GRAPH_STEPS)),
 }
 
 
-def drive(path: str, capture: bool, calls: int, spc: int = 1) -> dict:
+def drive(path: str, capture: bool, calls: int, spc: int = 1,
+          **over) -> dict:
     """``calls`` calls of a main path's train step from a fresh model, made
     through the worker as a session makes it (``build_model``,
-    ``compile_iter_fns``, the epoch's ``shuffle_data``, ``train_iter``),
-    launches counted from 0: each call's cost (device scalars, cloned), the
-    whole state after (params, optimizer, BN and wire state) on the host,
-    and the launch counts."""
-    from theanompi_tpu_torch.worker import BSP_Worker
+    ``compile_iter_fns``, the epoch's ``shuffle_data``, ``train_iter`` and
+    the rule's ``exchange`` hook), launches counted from 0: each call's
+    cost (device scalars, cloned), the whole state after (params,
+    optimizer, BN and wire or rule state) on the host, and the launch
+    counts.  ``over`` overrides the path's config."""
+    from theanompi_tpu_torch.worker import WORKERS
     modelfile, modelclass, cfg = GRAPH_PATHS[path]
+    cfg = dict(cfg, **over)
     zero_launches()
-    worker = BSP_Worker(dict(cfg, n_workers=1, seed=0, verbose=False,
-                             steps_per_call=spc))
+    worker = WORKERS[cfg.pop("rule", "bsp")](dict(
+        cfg, n_workers=1, seed=0, verbose=False, steps_per_call=spc))
     try:
         model = worker.build_model(modelfile, modelclass)
         model.compile_iter_fns(worker.exchanger, capture=capture)
@@ -1872,6 +2192,7 @@ def drive(path: str, capture: bool, calls: int, spc: int = 1) -> dict:
         costs = []
         for i in range(calls):
             model.train_iter((i + 1) * spc)
+            worker.exchanger.exchange(None, (i + 1) * spc)
             costs.append(model.current_info["cost"].clone())
         torch.cuda.synchronize()
         out = {"costs": costs, "secs": time.time() - t0,
@@ -1945,17 +2266,24 @@ def spc_phase() -> dict:
     out = {}
     torch.backends.cudnn.deterministic = True
     try:
-        for path in ("alexnet", "lm", "resnet50"):
-            one = drive(path, True, GRAPH_STEPS)
-            many = drive(path, True, GRAPH_STEPS // SPC, spc=SPC)
+        for name, path, over in (
+                ("alexnet", "alexnet", {}), ("lm", "lm", {}),
+                ("resnet50", "resnet50", {}),
+                ("vgg16_easgd_f2", "vgg16_easgd", {"sync_freq": 2}),
+                ("vgg16_easgd_f4", "vgg16_easgd", {"sync_freq": 4}),
+                ("resnet50_gosgd", "resnet50_gosgd", {})):
+            one = drive(path, True, GRAPH_STEPS, **over)
+            many = drive(path, True, GRAPH_STEPS // SPC, spc=SPC, **over)
             means = [torch.stack(one["costs"][i:i + SPC]).mean()
                      for i in range(0, GRAPH_STEPS, SPC)]
-            n = same_run(f"{path} spc {SPC} vs single", one, many, means)
-            out[path] = {"tensors": n, "single_s": one["secs"],
+            n = same_run(f"{name} spc {SPC} vs single", one, many, means)
+            out[name] = {"tensors": n, "single_s": one["secs"],
                          "spc_s": many["secs"]}
-            print(f"spc {SPC} == {SPC} single steps, {path} (captured): "
-                  f"{n} state tensors and the window costs bit for bit",
-                  flush=True)
+            fused = ", the exchange fused into the window" \
+                if "rule" in GRAPH_PATHS[path][2] else ""
+            print(f"spc {SPC} == {SPC} single steps, {name} (captured"
+                  f"{fused}): {n} state tensors and the window costs bit "
+                  f"for bit", flush=True)
     finally:
         torch.backends.cudnn.deterministic = False
     return out
@@ -2506,13 +2834,16 @@ def main() -> int:
                  if "bn_mean_abs_mean" in r else "") + f" on {card}",
               flush=True)
     zoo_groups = {
-        "GoogLeNet": {"lrn": ("lrn_",), "concat": ("CatArrayBatchedCopy",)},
+        # the update's multi-tensor passes (torch._foreach_*)
+        "GoogLeNet": {"lrn": ("lrn_",), "concat": ("CatArrayBatchedCopy",),
+                      "optimizer": ("multi_tensor_apply_kernel",)},
         # cuDNN's and ATen's batch-norm kernels and the running stats'
         # Welford reductions; NCCL's all-reduces: the sync_bn one and the
-        # metrics' one
+        # metrics' one; the update's (and sync_bn's) multi-tensor passes
         "ResNet50": {"batchnorm": ("batch_norm", "bn_fw", "bn_bw",
                                    "BatchNorm", "Welford"),
-                     "allreduce": ("AllReduce",)}}
+                     "allreduce": ("AllReduce",),
+                     "optimizer": ("multi_tensor_apply_kernel",)}}
     for cls, groups in zoo_groups.items():
         modelfile = "theanompi_tpu_torch.models." + cls.lower()
         for suffix, capture in (("", True), ("_eager", False)):
@@ -2528,6 +2859,47 @@ def main() -> int:
                       f"backward; CUDA events): "
                       f"{profs[key]['after']['ms']:.3f} ms a step",
                       flush=True)
+
+    rules = {}
+    for path in ("vgg16_easgd", "resnet50_gosgd", "alexnet_asgd"):
+        rules[path] = r = rule_main_path_phase(path)
+        print(f"main path: {path} batch {GRAPH_PATHS[path][2]['batch_size']}"
+              f", {STEPS} steps, costs {[round(c, 4) for c in r['costs']]}, "
+              f"{r['img_per_s']:.1f} img/s, {r['exchanges_checked']} "
+              f"exchanges held against their plain recomputation, val cost "
+              f"{r['val']['val_cost']:.4f}, launches "
+              f"{ {k: v for k, v in r['launches'].items() if v} } on {card}",
+              flush=True)
+    # the multi-tensor passes: the optimizer's, and under an async rule the
+    # exchange's too (timed alone with CUDA events after each profile)
+    rule_groups = {"foreach": ("multi_tensor_apply_kernel",),
+                   "allreduce": ("AllReduce",)}
+    for path in ("vgg16_easgd", "resnet50_gosgd"):
+        modelfile, modelclass, cfg = GRAPH_PATHS[path]
+        cfg = {k: v for k, v in cfg.items() if k != "synthetic_batches"}
+        batch = cfg.pop("batch_size")
+        every = cfg.get("sync_freq", 1)
+        for suffix, capture in (("", True), ("_eager", False)):
+            # the warm-up runs (and captures) an exchange; the timed and
+            # profiled windows hold whole exchange periods
+            profs[path + suffix] = step_profile_phase(
+                modelfile, modelclass, batch, rule_groups,
+                -(-PROFILE_STEPS // every) * every, warmup=max(2, every),
+                capture=capture, after=exchange_ms, **cfg)
+            print_profile(profs[path + suffix], card, rule_groups)
+            print(f"{path}{suffix} one exchange alone (CUDA events): "
+                  f"{profs[path + suffix]['after']['exchange_ms']:.4f} ms",
+                  flush=True)
+    clip = clip_phase()
+    print(f"grad_clip on the card: AlexNet first-step norm "
+          f"{clip['grad_norm']:.4f}, clip {clip['clip']:.4f}, params vs the "
+          f"plain clipped update: max |diff| {clip['max_err_over_step']:.3e}"
+          f" of the largest step", flush=True)
+    opts = optimizer_phase()
+    for name, r in opts.items():
+        print(f"main path: AlexNet BSP {name}, costs "
+              f"{[round(c, 4) for c in r['costs']]}, {r['img_per_s']:.1f} "
+              f"img/s, val cost {r['val']['val_cost']:.4f}", flush=True)
 
     graph_eager = graph_eager_phase()
     spc = spc_phase()
@@ -2569,6 +2941,7 @@ def main() -> int:
                                  "alexnet_resumed": resumed,
                                  "alexnet_files_windows": windows},
                                 **{f"vgg16_{k}": v for k, v in vggs.items()}),
+                   "rules": rules, "clip": clip, "optimizers": opts,
                    "graph_eager": graph_eager, "spc": spc,
                    "recapture": recapture, "zoo_ref": zoo_ref,
                    "lrn_googlenet": lrn_g,
@@ -2589,6 +2962,6 @@ def main() -> int:
 if __name__ == "__main__":
     _flags = set(sys.argv[1:])
     if not _flags <= {"--flash-times", "--topk-times", "--factor-times",
-                      "--input-times"}:
+                      "--input-times", "--update-times"}:
         sys.exit(f"chip_smoke: unknown arguments {sorted(_flags)}")
     sys.exit(times_main(_flags) if _flags else main())

@@ -66,7 +66,8 @@ NEW_MODULES = ("theanompi_tpu_torch.native",
                "theanompi_tpu_torch.models.googlenet",
                "theanompi_tpu_torch.models.resnet50",
                "theanompi_tpu_torch.models.vggnet_11_shallow",
-               "theanompi_tpu_torch.models.registry")
+               "theanompi_tpu_torch.models.registry",
+               "theanompi_tpu_torch.parallel.topology")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

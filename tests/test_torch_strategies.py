@@ -171,7 +171,7 @@ def test_unknown_names_raise():
     for name in ("ring", "asa16"):
         with pytest.raises(ValueError, match=name):
             S.get_strategy(name)
-    with pytest.raises(ValueError, match="easgd"):
-        X.get_exchanger("easgd")
+    with pytest.raises(ValueError, match="gossip"):
+        X.get_exchanger("gossip")
     with pytest.raises(NotImplementedError, match="params"):
         X.BSP_Exchanger({"exch_mode": "params"})

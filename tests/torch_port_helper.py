@@ -41,7 +41,27 @@ flat order), the decoded mean and the new state to ``<out>_r<rank>.npz``;
 trains the model two epochs without a break, then one epoch that ends in a
 checkpoint and, in a new session, a resumed second epoch, and writes both
 runs' final state to ``<out>_r<rank>.npz`` (``full/...`` and
-``resumed/...``).
+``resumed/...``);
+
+    python tests/torch_port_helper.py rules <rank> <world> <init_method> \
+        <out> <init_npz> <init_bn_npz> <ckpt_root>
+
+trains :class:`TinyLRNNetFrom` (initial params from ``<init_npz>``) two
+epochs under each of ``RULE_CASES`` (EASGD with ``grad_clip``, ASGD,
+GoSGD; and :class:`TinyResNetFrom`, from ``<init_bn_npz>``, under EASGD),
+checkpointing into ``<ckpt_root>/<case>``, and writes each run's
+final state and records to ``<out>_r<rank>.npz`` (``<case>/...``); then
+the GoSGD resume case: two epochs without a break, against one epoch, a
+checkpoint and a resumed second epoch (``resume/full/...``,
+``resume/resumed/...``);
+
+    python tests/torch_port_helper.py gossip <rank> <world> <init_method> \
+        <out>
+
+for each ``gosgd_peers`` mode, trains :class:`TinyLRNNet` three steps
+without an exchange (the replicas diverge), then runs six exchanges alone,
+and writes the params before and after and α after each exchange
+(``<peers>/...``).
 """
 
 import os
@@ -99,6 +119,30 @@ class TinyLRNNet(ModelBase):
                  activation=None, compute_dtype="float32", name="fc"),
         ])
         self.data = TinyData(self.config, self.batch_size)
+
+
+class _FromNpz:
+    """A model whose initial params are read from ``config['init_npz']``
+    when it names one (the port's layout, leaves keyed by their
+    ``/``-joined paths): the JAX twin's weights, for runs in processes
+    that do not import JAX."""
+
+    def init_params(self, gen):
+        import torch
+        from theanompi_tpu_torch.utils.helper_funcs import (leaf_paths,
+                                                            tree_map)
+        params = super().init_params(gen)
+        path = self.config.get("init_npz")
+        if not path:
+            return params
+        with np.load(path) as z:
+            it = iter([torch.from_numpy(z["/".join(map(str, p))])
+                       for p in leaf_paths(params)])
+        return tree_map(lambda _: next(it), params)
+
+
+class TinyLRNNetFrom(_FromNpz, TinyLRNNet):
+    """:class:`TinyLRNNet` from ``config['init_npz']``."""
 
 
 class TinyDropNet(TinyLRNNet):
@@ -189,6 +233,10 @@ class TinyResNet(ResNet50):
         self.data = TinyData(self.config, self.batch_size)
 
 
+class TinyResNetFrom(_FromNpz, TinyResNet):
+    """:class:`TinyResNet` from ``config['init_npz']``."""
+
+
 TINY_LM = dict(vocab=32, d_model=16, n_head=2, n_layer=1, seq_len=16,
                batch_size=4, synthetic_train=16, synthetic_val=8,
                attn_impl="reference", compute_dtype="float32")
@@ -242,23 +290,27 @@ def write_imagenet_dir(root, n_train=6, n_val=2, bs=4, hw=16, layout="bc01",
 def state_arrays(model) -> dict:
     """A model's params, optimizer state, BN state and strategy state as
     flat npz entries (``params/<path>``, ``opt/<i>``, ``bn/<i>``,
-    ``extra/<i>``)."""
+    ``extra/<i>``), copies (on the CPU a tensor's ``.numpy()`` shares its
+    storage, which the next step rewrites)."""
     from theanompi_tpu_torch.utils.helper_funcs import leaf_paths, tree_leaves
     params = model.host_params()
-    out = {"params/" + "/".join(map(str, p)): v
+    out = {"params/" + "/".join(map(str, p)): np.array(v)
            for p, v in zip(leaf_paths(params), tree_leaves(params))}
     for part, tree in (("opt", model.opt_state), ("bn", model.bn_state),
                        ("extra", model.extra)):
         for i, leaf in enumerate(tree_leaves(tree)):
-            out[f"{part}/{i}"] = leaf.detach().cpu().numpy() \
-                if hasattr(leaf, "detach") else np.asarray(leaf)
+            out[f"{part}/{i}"] = np.array(leaf.detach().cpu().numpy()
+                                          if hasattr(leaf, "detach")
+                                          else leaf)
     return out
 
 
-def run_session(modelclass, epochs, modelfile="torch_port_helper", **cfg):
-    """One BSP session on the CPU; returns the rule (its model trained)."""
-    from theanompi_tpu_torch import BSP
-    rule = BSP()
+def run_session(modelclass, epochs, modelfile="torch_port_helper",
+                rule="bsp", **cfg):
+    """One session of ``rule`` (BSP by default) on the CPU; returns the
+    rule (its model trained, its recorder in ``.recorder``)."""
+    import theanompi_tpu_torch as T
+    rule = getattr(T, rule.upper())()
     rule.init(devices=int(cfg.pop("n_workers", 1)), modelfile=modelfile,
               modelclass=modelclass, device="cpu", epochs=epochs,
               scale_lr=False, printFreq=1000, verbose=False, **cfg)
@@ -279,6 +331,83 @@ def resume(rank, world, init_method, out, modelclass, strategy, ckpt_dir):
              **{f"full/{k}": v for k, v in state_arrays(full.model).items()},
              **{f"resumed/{k}": v
                 for k, v in state_arrays(again.model).items()})
+
+
+# the async rules' 2-rank runs (``rules``), against the JAX package's
+RULE_CASES = {
+    "easgd": dict(rule="easgd", sync_freq=2, alpha=0.5, grad_clip=0.3),
+    "asgd": dict(rule="asgd", sync_freq=2),
+    "gosgd": dict(rule="gosgd", exch_prob=1.0),
+    # local BatchNorm stats, validation on their replica mean
+    "easgd_bn": dict(rule="easgd", sync_freq=2, modelclass="TinyResNetFrom"),
+}
+RULE_EPOCHS = 2
+# the resume case: gossip that sends sometimes, so each step's draws count
+RESUME_CASE = dict(rule="gosgd", exch_prob=0.5, gosgd_peers="shift")
+
+
+def rules(rank, world, init_method, out, init_npz, init_bn_npz, ckpt_root):
+    res = {}
+    kw = dict(n_workers=int(world), rank=int(rank), init_npz=init_npz)
+    for name, cfg in RULE_CASES.items():
+        cfg = dict(cfg)
+        cls = cfg.pop("modelclass", "TinyLRNNetFrom")
+        more = dict(kw, init_npz=init_bn_npz) \
+            if cls == "TinyResNetFrom" else kw
+        rule = run_session(cls, RULE_EPOCHS,
+                           init_method=f"{init_method}_{name}",
+                           ckpt_dir=os.path.join(ckpt_root, name),
+                           **cfg, **more)
+        rec = rule.recorder
+        res.update({f"{name}/{k}": v
+                    for k, v in state_arrays(rule.model).items()})
+        res[f"{name}/cost"] = np.float32([r["cost"]
+                                          for r in rec.train_records])
+        res[f"{name}/val_cost"] = np.float32([r["val_cost"]
+                                              for r in rec.epoch_records])
+    ck = os.path.join(ckpt_root, "resume")
+    kw.update(RESUME_CASE)
+    full = run_session("TinyLRNNetFrom", 2, init_method=init_method + "_rf",
+                       **kw)
+    run_session("TinyLRNNetFrom", 1, init_method=init_method + "_r1",
+                ckpt_dir=ck, **kw)
+    again = run_session("TinyLRNNetFrom", 2,
+                        init_method=init_method + "_r2", ckpt_dir=ck,
+                        resume=True, **kw)
+    res.update({f"resume/full/{k}": v
+                for k, v in state_arrays(full.model).items()})
+    res.update({f"resume/resumed/{k}": v
+                for k, v in state_arrays(again.model).items()})
+    np.savez(f"{out}_r{rank}.npz", **res)
+
+
+def gossip(rank, world, init_method, out):
+    from theanompi_tpu_torch.worker import GOSGD_Worker
+    res = {}
+    for peers in ("perm", "shift", "iid"):
+        w = GOSGD_Worker({"device": "cpu", "rank": int(rank),
+                          "n_workers": int(world), "batch_size": 4,
+                          "init_method": f"{init_method}_{peers}",
+                          "exch_prob": 0.7, "gosgd_peers": peers,
+                          "verbose": False})
+        try:
+            model = w.build_model("torch_port_helper", "TinyLRNNet")
+            model.compile_iter_fns(w.exchanger)
+            model.data.shuffle_data(0)
+            for c in (1, 2, 3):
+                model.train_iter(c)
+            res.update({f"{peers}/before/{k}": v for k, v in
+                        state_arrays(model).items() if k.startswith("p")})
+            alphas = []
+            for c in range(4, 10):
+                w.exchanger.exchange(None, c)
+                alphas.append(float(model.extra["alpha"]))
+            res[f"{peers}/alpha"] = np.float32(alphas)
+            res.update({f"{peers}/after/{k}": v for k, v in
+                        state_arrays(model).items() if k.startswith("p")})
+        finally:
+            w.close()
+    np.savez(f"{out}_r{rank}.npz", **res)
 
 
 def _save(path, tree, **extra):
@@ -380,6 +509,10 @@ def main(argv):
         train(*argv[1:])
     elif argv[0] == "resume":
         resume(*argv[1:])
+    elif argv[0] == "rules":
+        rules(*argv[1:])
+    elif argv[0] == "gossip":
+        gossip(*argv[1:])
     else:
         exchange(*argv)
     return 0

@@ -21,8 +21,9 @@ convert leaf by leaf; their BatchNorm running state (1-D ``mean`` and
 ``var``) needs no transpose (:func:`bn_state_from_jax`).
 
 Input and output are trees (nested dicts) of numpy arrays.
-:func:`checkpoint_from_jax` applies them to a whole BSP checkpoint the JAX
-package wrote, into a port model.
+:func:`checkpoint_from_jax` applies them to a whole checkpoint the JAX
+package wrote (any ported rule and optimizer, EMA included), into a port
+model.
 """
 
 from __future__ import annotations
@@ -143,16 +144,19 @@ def _like_port(tree_like, by_path: dict):
 
 def checkpoint_from_jax(ckpt_dir: str, model,
                         epoch: Optional[int] = None) -> Optional[int]:
-    """Load a checkpoint that the JAX package wrote for a BSP model into
-    ``model`` (a port model after ``compile_iter_fns``, of the same layers,
-    optimizer and exchange strategy): params, optimizer state (momentum's
-    velocity; Adam's moments and per-leaf step counts), the BatchNorm
-    running state, the strategy's
-    state (onebit's error feedback through :func:`flat_from_jax`; topk's,
-    which the port keeps in the JAX order, as it is; PowerSGD's through
+    """Load a checkpoint that the JAX package wrote into ``model`` (a port
+    model after ``compile_iter_fns``, of the same layers, optimizer, rule
+    and exchange strategy): params, optimizer state (the velocity of
+    momentum and nesterov, rmsprop's square average, Adam's moments and
+    per-leaf step counts; under ``ema_decay`` the shadow, its count and
+    the inner state), the BatchNorm running state, the rule's state (an
+    EASGD/ASGD center, GoSGD's α) or the strategy's (onebit's error
+    feedback through :func:`flat_from_jax`; topk's, which the port keeps
+    in the JAX order, as it is; PowerSGD's through
     :func:`powersgd_state_from_jax`) and the data cursor.  A part the JAX
-    package stored per worker (``[n_workers, ...]``) gives this rank its
-    own row.  Returns the epoch loaded, or None when there is none.
+    package stored per worker (``[n_workers, ...]``, every part under an
+    async rule) gives this rank its own row.  Returns the epoch loaded,
+    or None when there is none.
 
     JAX PRNG keys have no torch counterpart: the checkpoint's step and
     exchange keys are not read, and the model's generators keep the
@@ -199,19 +203,29 @@ def checkpoint_from_jax(ckpt_dir: str, model,
         n = len(jpaths)
         jparams = jax_tree(part("params"))
         new_params = port_tree(part("params"))
-        opt = part("opt_state")
-        cur = model.opt_state
-        if isinstance(cur, dict) and set(cur) == {"m", "v", "t"}:
-            if len(opt) != 3 * n:    # sorted keys: m, t, v
-                raise ValueError(f"{ckpt_dir}: opt_state has {len(opt)} "
-                                 f"leaves, Adam's has {3 * n}")
-            t = {p: int(a) for p, a in zip(jpaths, opt[n:2 * n])}
-            new_opt = {"m": port_tree(opt[:n]), "v": port_tree(opt[2 * n:]),
-                       "t": _like_port(params, t)}
-        elif opt:
-            new_opt = port_tree(opt)
-        else:
-            new_opt = cur
+
+        def opt_tree(cur, opt):
+            """The JAX optimizer state's leaves (sorted keys) in the port's
+            structure ``cur``."""
+            if isinstance(cur, dict) and set(cur) == {"inner", "ema", "t"}:
+                # ema_wrap: sorted keys ema, inner, t
+                if len(opt) < n + 1:
+                    raise ValueError(f"{ckpt_dir}: opt_state has "
+                                     f"{len(opt)} leaves, too few for EMA")
+                return {"inner": opt_tree(cur["inner"], opt[n:-1]),
+                        "ema": port_tree(opt[:n]), "t": int(opt[-1])}
+            if isinstance(cur, dict) and set(cur) == {"m", "v", "t"}:
+                if len(opt) != 3 * n:    # sorted keys: m, t, v
+                    raise ValueError(f"{ckpt_dir}: opt_state has "
+                                     f"{len(opt)} leaves, Adam's has {3 * n}")
+                t = {p: int(a) for p, a in zip(jpaths, opt[n:2 * n])}
+                return {"m": port_tree(opt[:n]), "v": port_tree(opt[2 * n:]),
+                        "t": _like_port(params, t)}
+            if opt:                  # momentum, nesterov, rmsprop
+                return port_tree(opt)
+            return cur
+
+        new_opt = opt_tree(model.opt_state, part("opt_state"))
         bn = part("bn_state")
         bpaths = jax_leaf_paths(model.bn_state)
         if len(bn) != len(bpaths):
@@ -225,7 +239,11 @@ def checkpoint_from_jax(ckpt_dir: str, model,
                             dict(zip(bpaths, bn_state_from_jax(bn))))
         extra = part("extra")
         new_extra = {}
-        if model.extra:
+        if "center" in model.extra:           # EASGD, ASGD
+            new_extra = {"center": port_tree(extra)}
+        elif "alpha" in model.extra:          # GoSGD
+            new_extra = {"alpha": np.float32(extra[0])}
+        elif model.extra:
             strat = model.exchanger.strategy
             st = model.extra["strat"]
             if isinstance(st, list):        # PowerSGD: sorted keys e, q

@@ -24,9 +24,18 @@ CPU raises.  On the card the train step is a CUDA graph replay
 ``[k, ...]`` window, as the JAX package's scanned dispatch.
 ``para_load`` wraps the data object in the background loader
 (``data/prefetch.py``), whose producer stages each batch, or each whole
-window, onto the card; ``save``/``load`` checkpoint the BSP state.  ZeRO,
-FSDP, update sharding, EMA and the numerics plane of the JAX package are
-not ported yet.
+window, onto the card; ``save``/``load`` checkpoint the state.
+
+Under an async rule (EASGD, ASGD, GoSGD) every rank's replica, optimizer
+state and BatchNorm stats are its own: the exchanger's exchange mixes the
+params (after the step through the worker's hook at ``steps_per_call =
+1``, ``exchange_fn``; inside the step's window otherwise), validation
+scores the rule's canonical params (the center, or GoSGD's α-weighted
+consensus) with the replica-mean running stats, and checkpoints keep
+every rank's state.  ``ema_decay`` (BSP only) keeps an EMA shadow of the
+params in the optimizer state, which validation and the ``.npy``
+snapshot read.  ZeRO, FSDP, update sharding and the numerics plane of
+the JAX package are not ported yet.
 """
 
 from __future__ import annotations
@@ -39,7 +48,7 @@ import torch
 from ..base import resolve_device
 from ..parallel import steps
 from ..utils import checkpoint as ckpt_lib
-from ..utils.helper_funcs import tree_map
+from ..utils.helper_funcs import tree_leaves, tree_map
 from ..utils import opt as opt_lib
 from ..utils.opt import get_optimizer
 from . import layers as L
@@ -71,8 +80,7 @@ class ModelBase:
                   "optimizer", "momentum", "weight_decay", "steps_per_call"):
             if k in self.config:
                 setattr(self, k, self.config[k])
-        for k in ("zero_opt", "fsdp", "update_sharding", "ema_decay",
-                  "numerics"):
+        for k in ("zero_opt", "fsdp", "update_sharding", "numerics"):
             if self.config.get(k):
                 raise NotImplementedError(f"config {k!r} is not ported yet")
         self.seed = int(self.config.get("seed", self.seed))
@@ -95,13 +103,18 @@ class ModelBase:
                                  self.init_bn_state())
         self.opt = get_optimizer(self.optimizer, mu=self.momentum,
                                  weight_decay=self.weight_decay) \
-            if self.optimizer == "momentum" \
+            if self.optimizer in ("momentum", "nesterov") \
             else get_optimizer(self.optimizer, weight_decay=self.weight_decay)
+        if self.config.get("ema_decay"):
+            self.opt = opt_lib.ema_wrap(self.opt,
+                                        float(self.config["ema_decay"]))
         self.opt_state = None
         self.extra = {}
         self.train_fn = None
         self.val_fn = None
+        self.exchange_fn = None
         self.exchanger = None
+        self._val = None
         self.current_info: Dict[str, Any] = {}
 
     def _wrap_para_load(self) -> None:
@@ -248,12 +261,25 @@ class ModelBase:
                                "model through a Worker or "
                                "base.MeshProcess.get_internode_comm()")
         self.exchanger = exchanger or BSP_Exchanger(self.config)
+        if self.config.get("ema_decay") and not (
+                isinstance(self.exchanger, BSP_Exchanger)
+                and self.exchanger.strategy.name != "none"):
+            # the shadow of one replica only means something when every
+            # rank applies the same reduced gradient
+            strategy = getattr(self.exchanger, "strategy", None)
+            raise ValueError(
+                "ema_decay requires BSP grads mode with a gradient "
+                f"collective; got {type(self.exchanger).__name__} strategy="
+                f"{getattr(strategy, 'name', '-')}")
         self.exchanger.prepare(self, dist.get_world_size())
         self.opt_state = self.opt.init(self.params)
         self.extra = self.exchanger.extra_state_template()
         spc = int(self.steps_per_call)
         if spc < 1:
             raise ValueError(f"steps_per_call={spc} must be at least 1")
+        # the exchange cadence runs inside the window at spc > 1; set on
+        # every compile, so a recompile back to one step a call clears it
+        self.exchanger.fused = spc > 1 and self.exchanger.has_exchange()
         if spc > 1 and self.data is not None and \
                 spc > self.data.n_batch_train:
             raise ValueError(f"steps_per_call={spc} exceeds n_batch_train="
@@ -268,6 +294,9 @@ class ModelBase:
                 self.data.set_window(0)
         self.train_fn = steps.build_train_step(self, self.exchanger,
                                                n_steps=spc, capture=capture)
+        self.exchange_fn = \
+            steps.ExchangeStep(self, self.exchanger, capture) \
+            if self.exchanger.has_exchange() and spc == 1 else None
         self.val_fn = steps.build_val_step(self)
 
     # -- contract: iteration -----------------------------------------------
@@ -328,8 +357,42 @@ class ModelBase:
             return steps.claim(batch, self.device)
         return steps.put_batch(batch, self.device)
 
+    def canonical_params(self):
+        """The parameters validation, inference and the ``.npy`` snapshot
+        use: an async rule's canonical params (the center; GoSGD's
+        α-weighted consensus, a collective), the EMA shadow (the live
+        params before its first update), or the replica itself."""
+        if self.exchanger is not None and self.exchanger.has_exchange():
+            return self.exchanger.canonical_params()
+        if self.config.get("ema_decay") and self.opt_state is not None:
+            return opt_lib.ema_params(self.opt_state, self.params)
+        return self.params
+
+    def canonical_host_params(self):
+        """:meth:`canonical_params` as a tree of float32 numpy arrays."""
+        return tree_map(lambda p: p.detach().cpu().numpy(),
+                        self.canonical_params())
+
     def begin_val(self) -> None:
-        """BSP replicas are identical: validation scores them as they are."""
+        """Choose what validation scores: :meth:`canonical_params`, with,
+        under an async rule, the running stats' mean over the ranks (new
+        tensors: the training replicas are never written)."""
+        bn = self.bn_state
+        if self.exchanger is not None and self.exchanger.has_exchange() \
+                and tree_leaves(bn):
+            from ..parallel.exchanger import summed
+            mean = summed(tree_leaves(bn))
+            torch._foreach_div_(mean, float(self.size))
+            it = iter(mean)
+            bn = tree_map(lambda _: next(it), bn)
+        self._val = (self.canonical_params(), bn)
+
+    def val_params(self):
+        """``(params, bn_state)`` the validation step scores: what
+        :meth:`begin_val` chose, else the replica's own."""
+        if self._val is None:
+            self.begin_val()
+        return self._val
 
     def val_iter(self, count: int, recorder=None) -> None:
         if recorder:
@@ -341,7 +404,7 @@ class ModelBase:
             recorder.val_error(count, cost, err, err5)
 
     def end_val(self) -> None:
-        pass
+        self._val = None
 
     # -- contract: hyperparameters ----------------------------------------
 
@@ -389,10 +452,13 @@ class ModelBase:
                 "bn_state": self.bn_state, "extra": self.extra}
 
     def _per_rank_parts(self) -> tuple:
-        """Parts that differ between ranks: a stateful strategy's error
-        feedback.  BSP's params, optimizer state and BN state are identical
+        """Parts that differ between ranks: under an async rule all of
+        them (the replicas diverge); under BSP a stateful strategy's error
+        feedback, while params, optimizer state and BN state are identical
         on every rank (each applies the same mean gradient; ``sync_bn``
         averages the running stats)."""
+        if self.exchanger is not None and self.exchanger.has_exchange():
+            return ("params", "opt_state", "bn_state", "extra")
         return ("extra",) if self.extra else ()
 
     def _refuse_ckpt_layouts(self) -> None:
@@ -402,18 +468,20 @@ class ModelBase:
             raise RuntimeError("save/load need compile_iter_fns() first")
 
     def save(self, ckpt_dir: str, epoch: int, count: int = 0) -> str:
-        """Checkpoint the BSP state: params, optimizer state and BN state
-        once (rank 0's; every rank holds the same), the per-rank parts
-        stacked over the ranks (gathered to rank 0), the dropout stream's
-        generator, and the data loader's consumed cursor; plus the
-        reference-style per-leaf ``.npy`` params snapshot.  Rank 0 writes;
-        every rank must call (the gather is collective).  Returns the
-        ``.npz`` path."""
+        """Checkpoint the state: the parts identical on every rank once
+        (rank 0's), the per-rank parts stacked over the ranks (gathered to
+        rank 0; :meth:`_per_rank_parts`), the dropout stream's generator,
+        and the data loader's consumed cursor; plus the reference-style
+        per-leaf ``.npy`` snapshot of :meth:`canonical_params` (the center,
+        the consensus, the EMA shadow or the params).  Rank 0 writes; every
+        rank must call (the gather is collective).  Returns the ``.npz``
+        path."""
         import os
 
         import torch.distributed as dist
         self._refuse_ckpt_layouts()
         per_rank = self._per_rank_parts()
+        snapshot = self.canonical_host_params()
         state = {}
         for k, tree in self._state_parts().items():
             if k in per_rank:
@@ -431,7 +499,7 @@ class ModelBase:
             ckpt_lib.save_checkpoint(
                 ckpt_dir, state, epoch, count,
                 rng_states={"step": gen.get_state()}, cursor=cursor,
-                params_npy=state["params"],
+                params_npy=snapshot,
                 extra_meta={"boxed_parts": sorted(per_rank),
                             "n_workers": self.size})
         if dist.is_initialized() and dist.get_world_size() > 1:

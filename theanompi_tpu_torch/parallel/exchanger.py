@@ -1,41 +1,86 @@
-"""Exchangers.
+"""Exchangers: the four parallelism rules.
 
-Counterpart of ``theanompi_tpu/parallel/exchanger.py`` for the local
-``Exchanger`` and ``BSP_Exchanger`` in ``exch_mode='grads'``: the selected
-strategy averages the gradients over the ranks inside the step, then every
-rank applies the same update — N ranks train as one rank on the N-fold
-batch.  A stateful strategy's per-rank state rides in the model's
-``extra["strat"]``, as in the JAX package: a flat tensor (the error
-feedback of onebit and topk) or a per-leaf list of ``{"q", "e"}``
-(PowerSGD).  After each update ``sync_bn`` relates the BatchNorm running
-stats across the ranks: BSP averages them, so the replicas stay
-identical.  Every update is in place: the step never rebinds the
+Counterpart of ``theanompi_tpu/parallel/exchanger.py``:
+
+* ``BSP_Exchanger`` (``exch_mode='grads'``): the selected strategy
+  averages the gradients over the ranks inside the step, then every rank
+  applies the same update — N ranks train as one rank on the N-fold
+  batch.  A stateful strategy's per-rank state rides in the model's
+  ``extra["strat"]``, as in the JAX package: a flat tensor (the error
+  feedback of onebit and topk) or a per-leaf list of ``{"q", "e"}``
+  (PowerSGD).  ``sync_bn`` averages the BatchNorm running stats after each
+  update, so the replicas stay identical.
+* ``EASGD_Exchanger``, ``ASGD_Exchanger`` and ``GOSGD_Exchanger``: each
+  rank trains locally (its own gradient, its own BatchNorm stats) and,
+  every ``exchange_freq`` steps, the rule's exchange mixes the replicas —
+  the JAX package's synchronous-cadence forms, with the same algebra:
+  EASGD's elastic pull toward a center every rank keeps a copy of, ASGD's
+  downpour sum into the center and reset to it, GoSGD's gossip of
+  ``(α·params, α)`` halves between random peers.
+
+``grad_clip`` (global L2 norm, off by default) scales the gradient the
+optimizer consumes: BSP's reduced one, an async rule's local one.
+
+The exchange has two dispatch shapes, as in the JAX package: at
+``steps_per_call = 1`` the worker calls :meth:`Exchanger.exchange` after
+each train step (``parallel/steps.ExchangeStep``, a CUDA graph of its own
+on the card); at ``steps_per_call > 1`` the train step's window runs it
+after each due step itself (``fused``) and the worker's hook stands down.
+Every update is in place: the step and the exchange never rebind the
 model's params, optimizer state or ``extra``, so a captured step replays
-on the tensors it was captured with.  ``exch_mode='params'``, the
-bucketed wire and the async rules are not ported yet.
+on the tensors it was captured with.  ``exch_mode='params'``, the bucketed
+wire, elastic membership and the async islands are not ported yet.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..utils.helper_funcs import tree_leaves
+from ..utils.helper_funcs import tree_leaves, tree_map
+from . import topology
+from .steps import step_seed
 from .strategies import Strategy, get_strategy
+
+# GoSGD's draws: the send gate from (gosgd_seed, rank, count), the route
+# from (gosgd_seed, count); tags that keep them apart from each other and
+# from the dropout streams (``steps.step_seed`` of three keys)
+_GATE_TAG, _ROUTE_TAG = 0x605, 0x1d1
+
+
+def summed(leaves) -> list:
+    """The SUM over the ranks of ``leaves``: one all-reduce of their
+    concatenation (new tensors), returned as views shaped like the
+    leaves."""
+    flat = torch.cat([t.reshape(-1) for t in leaves])
+    dist.all_reduce(flat)
+    return [v.view_as(t) for v, t in
+            zip(flat.split([t.numel() for t in leaves]), leaves)]
 
 
 class Exchanger:
     """Base: a purely local optimizer step (the async rules train locally
-    between exchanges)."""
+    between exchanges) and no exchange."""
 
     name = "exchanger"
+    # True when the exchange draws random numbers (GoSGD's send gate)
+    uses_draws = False
 
     def __init__(self, config: Optional[dict] = None):
         self.config = dict(config or {})
         self.model = None
         self.size = 1
+        self.exchange_freq = 1
+        # set by ``compile_iter_fns``: the train step's window runs the
+        # exchange (steps_per_call > 1), so :meth:`exchange` stands down
+        self.fused = False
+        self.clip = float(self.config.get("grad_clip", 0.0) or 0.0)
+        if int(self.config.get("bucket_bytes", 0) or 0) > 0:
+            raise NotImplementedError(
+                "bucket_bytes > 0 (the bucketed wire) is not ported yet (A7)")
 
     def prepare(self, model, size: int) -> None:
         self.model = model
@@ -46,15 +91,83 @@ class Exchanger:
         state."""
         return {}
 
+    # -- in the step ---------------------------------------------------------
+
+    def _clip_grads(self, grads):
+        """Global-L2-norm clipping (config ``grad_clip``; off at 0): every
+        leaf times ``min(1, clip / max(‖g‖, 1e-12))``, the norm the square
+        root of the float32 sum of every leaf's squares.  The scale stays a
+        device tensor (no read back, no branch on it), and each leaf keeps
+        its dtype; returns new tensors."""
+        if self.clip <= 0.0:
+            return grads
+        leaves = tree_leaves(grads)
+        norms = torch._foreach_norm([g.float() for g in leaves])
+        norm = torch.stack(norms).square().sum().sqrt()
+        scale = torch.clamp(self.clip / torch.clamp(norm, min=1e-12),
+                            max=1.0)
+        it = iter(torch._foreach_mul(leaves, scale))
+        return tree_map(lambda _: next(it), grads)
+
     def step_update(self, params, opt_state, grads, extra, lr):
-        """One update, in place; returns ``(params, opt_state, extra)``,
-        the objects it was given."""
-        params, opt_state = self.model.opt.update(grads, opt_state, params, lr)
+        """One local update of the clipped local gradient, in place;
+        returns ``(params, opt_state, extra)``, the objects it was given."""
+        params, opt_state = self.model.opt.update(self._clip_grads(grads),
+                                                  opt_state, params, lr)
         return params, opt_state, extra
 
     def sync_bn(self, bn_state) -> None:
-        """How the BatchNorm running stats relate across ranks: the local
-        step keeps them as they are."""
+        """How the BatchNorm running stats relate across ranks: the async
+        rules keep them local, part of each rank's divergent replica."""
+
+    # -- the exchange --------------------------------------------------------
+
+    def has_exchange(self) -> bool:
+        """True when the rule exchanges after its steps (the async rules);
+        BSP's whole rule lives inside the train step."""
+        return False
+
+    def due(self, count: int) -> bool:
+        return self.has_exchange() and count % self.exchange_freq == 0
+
+    def exchange_body(self, count: int, gen=None) -> None:
+        """The rule's exchange after step ``count``, in place on the
+        model's params and ``extra``; ``gen`` is the generator its draws
+        come from (seeded by :meth:`seed_draws`)."""
+        raise NotImplementedError(f"{type(self).__name__} has no exchange")
+
+    def seed_draws(self, gen: torch.Generator, count: int) -> None:
+        """Seed ``gen`` for the exchange after step ``count``; a rule that
+        draws nothing leaves it alone."""
+
+    def check_capture(self) -> None:
+        """Raise when the exchange cannot be captured in a CUDA graph."""
+
+    def exchange(self, recorder=None, count: int = 0) -> None:
+        """The worker's hook after each train step: the exchange when due
+        (the model's ``exchange_fn``, :class:`steps.ExchangeStep`), timed
+        into the recorder's ``comm`` bucket — its enqueueing, and with
+        ``sync_each_iter`` its wait.  A no-op when the cadence is fused
+        into the train step's window."""
+        if self.fused or not self.due(count):
+            return
+        if recorder:
+            recorder.start()
+        self.model.exchange_fn(count)
+        if recorder:
+            if self.config.get("sync_each_iter", False) and \
+                    self.model.device.type == "cuda":
+                torch.cuda.synchronize(self.model.device)
+            recorder.end("comm")
+
+    def canonical_params(self):
+        """The parameters validation and the ``.npy`` snapshot read: the
+        replica itself."""
+        return self.model.params
+
+    def set_active_ranks(self, active) -> None:
+        raise NotImplementedError(
+            "elastic membership (set_active_ranks) is not ported yet (A10)")
 
 
 class BSP_Exchanger(Exchanger):
@@ -68,9 +181,6 @@ class BSP_Exchanger(Exchanger):
         if self.mode != "grads":
             raise NotImplementedError(
                 f"exch_mode={self.mode!r} is not ported yet; use 'grads'")
-        if int(self.config.get("bucket_bytes", 0) or 0) > 0:
-            raise NotImplementedError(
-                "bucket_bytes > 0 (the bucketed wire) is not ported yet")
         self.strategy: Strategy = get_strategy(
             self.config.get("exch_strategy", "allreduce"))
 
@@ -90,11 +200,12 @@ class BSP_Exchanger(Exchanger):
 
     def step_update(self, params, opt_state, grads, extra, lr):
         """The strategy's mean of ``grads`` (its state in ``extra["strat"]``,
-        rewritten in place), then the optimizer update, in place; returns
-        the objects it was given."""
+        rewritten in place), clipped, then the optimizer update, in place;
+        returns the objects it was given."""
         grads, _ = self.strategy(grads, extra.get("strat", ()),
                                  size=self.size)
-        params, opt_state = self.model.opt.update(grads, opt_state, params, lr)
+        params, opt_state = self.model.opt.update(self._clip_grads(grads),
+                                                  opt_state, params, lr)
         return params, opt_state, extra
 
     def sync_bn(self, bn_state) -> None:
@@ -104,19 +215,241 @@ class BSP_Exchanger(Exchanger):
         leaves = tree_leaves(bn_state)
         if not leaves:
             return
-        flat = torch.cat([t.reshape(-1) for t in leaves])
-        dist.all_reduce(flat)
-        flat.div_(self.size)
-        torch._foreach_copy_(leaves, [v.view_as(t) for v, t in zip(
-            flat.split([t.numel() for t in leaves]), leaves)])
+        mean = summed(leaves)
+        torch._foreach_div_(mean, float(self.size))
+        torch._foreach_copy_(leaves, mean)
 
 
-EXCHANGERS = {"bsp": BSP_Exchanger}
+class _CenterExchanger(Exchanger):
+    """EASGD and ASGD: a center, a params-shaped copy in ``extra["center"]``
+    that every rank keeps identical (each applies the same summed delta);
+    validation and the ``.npy`` snapshot read it."""
+
+    def extra_state_template(self) -> Dict[str, Any]:
+        return {"center": tree_map(lambda p: p.detach().clone(),
+                                   self.model.params)}
+
+    def has_exchange(self) -> bool:
+        return True
+
+    def canonical_params(self):
+        return self.model.extra["center"]
+
+
+def _sum_in_place(leaves) -> None:
+    """Each leaf replaced by its SUM over the ranks (one all-reduce a
+    leaf, as the ``allreduce`` wire makes them)."""
+    for t in leaves:
+        dist.all_reduce(t)
+
+
+class EASGD_Exchanger(_CenterExchanger):
+    """Elastic averaging, the EASGD paper's synchronous form: every
+    ``sync_freq`` steps (default 4), with ``delta = p − c``,
+
+        c ← c + α · mean_ranks(delta);   p ← p − α · delta
+
+    (``alpha`` default 0.5): every rank's delta summed over the ranks in
+    place.  Three passes over the params' size, each reading two trees
+    and writing one: the delta, the pull of ``p`` as a lerp toward ``c``,
+    and ``c += (α / size) · Σ delta`` (the JAX package rounds ``/ size``
+    and ``α ·`` apart; these differ from its bits by an ulp, not in
+    law)."""
+
+    name = "easgd"
+
+    def __init__(self, config: Optional[dict] = None):
+        super().__init__(config)
+        self.alpha = float(self.config.get("alpha", 0.5))
+        self.exchange_freq = int(self.config.get("sync_freq", 4))
+
+    @torch.no_grad()
+    def exchange_body(self, count: int, gen=None) -> None:
+        ps = tree_leaves(self.model.params)
+        cs = tree_leaves(self.model.extra["center"])
+        delta = torch._foreach_sub(ps, cs)
+        torch._foreach_lerp_(ps, cs, self.alpha)
+        _sum_in_place(delta)
+        torch._foreach_add_(cs, delta, alpha=self.alpha / self.size)
+
+
+class ASGD_Exchanger(_CenterExchanger):
+    """Downpour push-pull: every ``sync_freq`` steps (default 1) the
+    center absorbs the SUM of the ranks' deltas ``p − c`` and every rank
+    restarts from the new center."""
+
+    name = "asgd"
+
+    def __init__(self, config: Optional[dict] = None):
+        super().__init__(config)
+        self.exchange_freq = int(self.config.get("sync_freq", 1))
+
+    @torch.no_grad()
+    def exchange_body(self, count: int, gen=None) -> None:
+        ps = tree_leaves(self.model.params)
+        cs = tree_leaves(self.model.extra["center"])
+        delta = torch._foreach_sub(ps, cs)
+        _sum_in_place(delta)
+        torch._foreach_add_(cs, delta)
+        torch._foreach_copy_(ps, cs)
+
+
+class GOSGD_Exchanger(Exchanger):
+    """Gossip SGD: after every step each rank draws a send gate,
+    Bernoulli(``exch_prob``, default 0.25); a sender ships ``(α/2 · params,
+    α/2)`` to a peer and keeps the other half of its weight, and every
+    rank merges what it receives, ``p ← (α_keep · p + Σ msg) / α'`` with
+    ``α' = α_keep + Σ α_recv``.  Σα over the ranks is conserved; α starts
+    at 1 in ``extra["alpha"]``.  The peers (``gosgd_peers``):
+
+    * ``'perm'`` (default): one of ``gosgd_n_perms`` (16) seeded random
+      derangements of the ranks;
+    * ``'shift'``: every sender sends to ``rank + s`` for one random
+      ``s`` in ``1 .. size-1``;
+    * ``'iid'``: one of ``gosgd_n_perms`` seeded maps where each sender's
+      peer is uniform over the others, so two may hit one receiver: the
+      map is routed in collision rounds and a receiver sums what arrives.
+
+    The tables are the JAX package's (``topology.py``, family seeds
+    ``0x605`` / ``0x1d1`` plus ``gosgd_seed``); messages travel by
+    point-to-point sends over the pairs, and a rank with no inbound
+    message receives zeros.  The JAX package draws the gate and the pick
+    from ``fold_in(key, count)``, which torch cannot reproduce: here the
+    gate comes from a generator on the device seeded from ``(gosgd_seed,
+    rank, count)``, and the pick is drawn on the host from ``(gosgd_seed,
+    count)``, so every rank picks the same table.  At world 1 the route
+    is the identity."""
+
+    name = "gosgd"
+    uses_draws = True
+
+    def __init__(self, config: Optional[dict] = None):
+        super().__init__(config)
+        self.p_share = float(self.config.get("exch_prob", 0.25))
+        self.peers_mode = str(self.config.get("gosgd_peers", "perm"))
+        if self.peers_mode not in ("perm", "shift", "iid"):
+            raise ValueError(f"unknown gosgd_peers={self.peers_mode!r}; "
+                             f"have 'perm', 'shift', 'iid'")
+        self.n_perms = int(self.config.get("gosgd_n_perms", 16))
+        self.family_seed = int(self.config.get("gosgd_seed", 0))
+        self._tables = None
+
+    def prepare(self, model, size: int) -> None:
+        super().prepare(model, size)
+        self.rank = int(model.rank)
+        if self.peers_mode == "perm":
+            self._tables = topology.derangements(
+                self.size, self.n_perms, seed=0x605 + self.family_seed)
+        elif self.peers_mode == "iid":
+            self._tables = topology.iid_maps(
+                self.size, self.n_perms, seed=0x1d1 + self.family_seed)
+
+    def extra_state_template(self) -> Dict[str, Any]:
+        return {"alpha": torch.ones((), dtype=torch.float32,
+                                    device=self.model.device)}
+
+    def has_exchange(self) -> bool:
+        return True
+
+    def seed_draws(self, gen: torch.Generator, count: int) -> None:
+        gen.manual_seed(step_seed(_GATE_TAG, self.family_seed, self.rank,
+                                  count))
+
+    def check_capture(self) -> None:
+        if self.size > 1:
+            raise NotImplementedError(
+                "GoSGD at world > 1 on the card: its route is picked on the "
+                "host at every exchange, which a captured graph would "
+                "freeze; gossip between cards comes with A6")
+
+    def rounds(self, count: int) -> list:
+        """The routing of the exchange after step ``count``: a list of
+        rounds, each a list of ``(sender, receiver)`` pairs with distinct
+        senders and distinct receivers; ``[]`` at world 1."""
+        n = self.size
+        if n == 1:
+            return []
+        r = np.random.RandomState(step_seed(_ROUTE_TAG, self.family_seed,
+                                            count) % 2 ** 32)
+        if self.peers_mode == "shift":
+            s = int(r.randint(1, n))
+            return [[(i, (i + s) % n) for i in range(n)]]
+        dest = self._tables[int(r.randint(len(self._tables)))]
+        if self.peers_mode == "perm":
+            return [[(i, int(dest[i])) for i in range(n)]]
+        return topology.collision_rounds(dest)
+
+    def _route(self, buf: torch.Tensor, count: int) -> torch.Tensor:
+        """What this rank receives: the sum of the messages sent to it
+        (zeros if none), ``buf`` itself at world 1."""
+        rounds = self.rounds(count)
+        if not rounds:
+            return buf
+        acc = None
+        for pairs in rounds:
+            ops, got = [], None
+            for s, d in pairs:
+                if s == self.rank:
+                    ops.append(dist.P2POp(dist.isend, buf, d))
+                if d == self.rank:
+                    got = torch.empty_like(buf)
+                    ops.append(dist.P2POp(dist.irecv, got, s))
+            if ops:
+                for req in dist.batch_isend_irecv(ops):
+                    req.wait()
+            if got is not None:
+                acc = got if acc is None else acc.add_(got)
+        return torch.zeros_like(buf) if acc is None else acc
+
+    @torch.no_grad()
+    def exchange_body(self, count: int, gen=None) -> None:
+        ps = tree_leaves(self.model.params)
+        alpha = self.model.extra["alpha"]
+        send = torch.rand((), generator=gen, device=alpha.device) \
+            < self.p_share
+        w_send = torch.where(send, alpha * 0.5, torch.zeros_like(alpha))
+        w_keep = alpha - w_send
+        sizes = [p.numel() for p in ps]
+        n = sum(sizes)
+        # the message, packed: α_send·params, then α_send
+        buf = torch.empty(n + 1, dtype=torch.float32, device=alpha.device)
+        views = [v.view_as(p) for v, p in zip(buf[:n].split(sizes), ps)]
+        torch._foreach_copy_(views, ps)
+        buf[:n].mul_(w_send)
+        buf[n:].copy_(w_send.reshape(1))
+        recv = self._route(buf, count)
+        new_alpha = w_keep + recv[n]
+        torch._foreach_mul_(ps, w_keep)
+        torch._foreach_add_(ps, [v.view_as(p) for v, p in
+                                 zip(recv[:n].split(sizes), ps)])
+        torch._foreach_div_(ps, new_alpha)
+        alpha.copy_(new_alpha)
+
+    @torch.no_grad()
+    def canonical_params(self):
+        """The consensus: the α-weighted mean of the replicas, one
+        all-reduce of ``α·params`` and one of α (a new tree)."""
+        ps = tree_leaves(self.model.params)
+        alpha = self.model.extra["alpha"]
+        mean = summed(torch._foreach_mul(ps, alpha))
+        total = alpha.clone()
+        dist.all_reduce(total)
+        torch._foreach_div_(mean, total)
+        it = iter(mean)
+        return tree_map(lambda _: next(it), self.model.params)
+
+
+EXCHANGERS = {
+    "bsp": BSP_Exchanger,
+    "easgd": EASGD_Exchanger,
+    "asgd": ASGD_Exchanger,
+    "gosgd": GOSGD_Exchanger,
+}
 
 
 def get_exchanger(name: str, config: Optional[dict] = None) -> Exchanger:
     try:
         return EXCHANGERS[name.lower()](config)
     except KeyError:
-        raise ValueError(f"unknown or not yet ported exchanger {name!r}; "
+        raise ValueError(f"unknown exchanger {name!r}; "
                          f"have {sorted(EXCHANGERS)}")

@@ -9,7 +9,10 @@ micro-batches (the BatchNorm running state updated in order through
 them), the exchanger's gradient collective, the optimizer update, the
 exchanger's ``sync_bn`` of the running state, all in place on the model's
 state, then one all-reduce of the step's metrics.  :class:`TrainStep` runs
-``n_steps`` bodies over a ``[k, ...]`` window per call.
+``n_steps`` bodies over a ``[k, ...]`` window per call; under an async
+rule each step of a window whose count is due ends with the rule's
+exchange (the JAX package's in-scan ``lax.cond``), and at one step a call
+:class:`ExchangeStep` runs it after the step, from the worker's hook.
 
 On the card the step is CAPTURED (``parallel/graph.py``): the first call
 runs its step eagerly on a side stream (which also warms up cuBLAS, cuDNN
@@ -19,8 +22,12 @@ the learning rate and the dropout seeds, and replays the graph: one
 launch for the whole step, its all-reduces included.  The counterpart of
 the JAX step's traced inputs are device tensors the graph reads: the
 learning rate (0-d float32, refilled when the schedule moves), Adam's
-step counts, and the dropout generators, re-seeded from ``(seed, rank,
-count)`` before each replay.  A step that cannot be captured raises
+and the EMA's step counts, and the dropout generators (and GoSGD's
+send-gate generators), re-seeded from ``(seed, rank, count)`` before each
+replay.  A window whose fused exchanges fall on other steps (its first
+count's phase against ``exchange_freq``) replays a graph of its own; the
+predicate is the host's, never a branch inside a capture.  A step that
+cannot be captured raises
 (:class:`graph.CaptureError`); ``capture=False`` builds the eager step
 instead, explicitly (the reference the captured step is held to, and the
 CPU's path).  Nothing in a step reads a device value back to the host;
@@ -46,11 +53,12 @@ from ..utils.helper_funcs import tree_leaves, tree_map
 from . import graph as graph_lib
 
 
-def step_seed(seed: int, rank: int, count: int) -> int:
-    """The dropout seed of one step on one rank, from ``(seed, rank,
-    count)`` — the role of the JAX step's ``fold_in(fold_in(key, rank),
-    count)``.  The bits differ from JAX's."""
-    s = np.random.SeedSequence([int(seed), int(rank), int(count)])
+def step_seed(*keys: int) -> int:
+    """A 63-bit seed from integer keys: the dropout seed of one step on
+    one rank from ``(seed, rank, count)`` — the role of the JAX step's
+    ``fold_in(fold_in(key, rank), count)``, whose bits differ — and GoSGD's
+    draws from keys of their own."""
+    s = np.random.SeedSequence([int(k) for k in keys])
     return int(s.generate_state(1, np.uint64)[0] >> np.uint64(1))
 
 
@@ -119,7 +127,69 @@ def _host_or_claimed(batch, device: torch.device) -> Dict[str, torch.Tensor]:
             for k, v in batch.items()}
 
 
-class TrainStep:
+class _Captured:
+    """What a step captured on the card keeps: one CUDA graph per key (a
+    window's phase; the exchange has one), each with the tensors its
+    capture returned and the state tensors it was captured with, and the
+    side stream its warm-up and capture run on."""
+
+    def __init__(self):
+        self._stream = None
+        self._graphs: Dict[int, tuple] = {}   # key -> (graph, out, state)
+        self._graph: Optional[graph_lib.StepGraph] = None   # the last used
+        self._captured_state = None
+
+    @property
+    def graphed(self) -> bool:
+        """True when the step runs as a CUDA graph replay."""
+        return self.capture and self.device.type == "cuda"
+
+    def _state_leaves(self) -> list:
+        m = self.model
+        return (tree_leaves(m.params) + tree_leaves(m.opt_state)
+                + tree_leaves(m.bn_state) + tree_leaves(m.extra))
+
+    def _state_current(self, captured=None) -> bool:
+        """A graph reads the state tensors it was captured with (``None``:
+        the last used graph's): false once any was replaced (a load that
+        had to make new tensors)."""
+        captured = self._captured_state if captured is None else captured
+        now = self._state_leaves()
+        return captured is not None and len(now) == len(captured) and \
+            all(a is b for a, b in zip(now, captured))
+
+    def _run_captured(self, key: int, eager: Callable, static: Callable,
+                      gens) -> Optional[torch.Tensor]:
+        """A replay of ``key``'s graph while its state is current (its
+        outputs cloned: the next replay rewrites them); else this call run
+        eagerly on the side stream (its warm-up), then ``static`` captured
+        there, drawing from ``gens``."""
+        entry = self._graphs.get(key)
+        if entry is not None and self._state_current(entry[2]):
+            self._graph, out, self._captured_state = entry
+            self._graph.replay()
+            return None if out is None else out.clone()
+        cur = torch.cuda.current_stream(self.device)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        s = self._stream
+        s.wait_stream(cur)
+        with torch.cuda.stream(s):
+            out = eager()
+        cur.wait_stream(s)
+        if out is not None:
+            out.record_stream(cur)
+        self._graphs.pop(key, None)        # an old graph's pool goes first
+        self._graph = None
+        g = graph_lib.StepGraph(s, gens)
+        captured = g.capture(static)
+        state = self._state_leaves()
+        self._graphs[key] = (g, captured, state)
+        self._graph, self._captured_state = g, state
+        return out
+
+
+class TrainStep(_Captured):
     """``step(batch, lr, count) -> (cost[k], err[k])``: ``k = n_steps``
     training steps of this rank over one batch (k = 1) or one ``[k, ...]``
     window, updating ``model.params``, ``model.opt_state``,
@@ -148,19 +218,19 @@ class TrainStep:
         self.size = exchanger.size
         self._gens = [torch.Generator(device=self.device)
                       for _ in range(self.n_steps)]
+        # the fused exchange cadence (an async rule at n_steps > 1): step
+        # c of a window ends with the rule's exchange when c is due, each
+        # step's exchange drawing from a generator of its own
+        self._exch = exchanger if exchanger.fused else None
+        self._xgens = [torch.Generator(device=self.device)
+                       for _ in range(self.n_steps)] \
+            if self._exch is not None and exchanger.uses_draws else []
+        self._first = 0
         self._lr = torch.zeros((), dtype=torch.float32, device=self.device)
         self._lr_host = None
         self._static: Optional[Dict[str, torch.Tensor]] = None
         self._stager: Optional[PinnedStager] = None
-        self._stream = None
-        self._graph: Optional[graph_lib.StepGraph] = None
-        self._out = None
-        self._captured_state = None
-
-    @property
-    def graphed(self) -> bool:
-        """True when the step runs as a CUDA graph replay."""
-        return self.capture and self.device.type == "cuda"
+        _Captured.__init__(self)
 
     # -- inputs --------------------------------------------------------------
 
@@ -220,23 +290,24 @@ class TrainStep:
             self.exchanger.step_update(m.params, m.opt_state, grads, m.extra,
                                        self._lr)
             self.exchanger.sync_bn(m.bn_state)
+            c = self._first + j
+            if self._exch is not None and c % self._exch.exchange_freq == 0:
+                self._exch.exchange_body(
+                    c, self._xgens[j] if self._xgens else None)
             costs.append(cost)
             errs.append(err)
         out = torch.stack(costs + errs)
         dist.all_reduce(out)
         return out.div_(self.size).view(2, self.n_steps)
 
-    def _state_leaves(self) -> list:
-        m = self.model
-        return (tree_leaves(m.params) + tree_leaves(m.opt_state)
-                + tree_leaves(m.bn_state) + tree_leaves(m.extra))
-
-    def _state_current(self) -> bool:
-        """The graph reads the state tensors it was captured with: false
-        once any was replaced (a load that had to make new tensors)."""
-        now = self._state_leaves()
-        return len(now) == len(self._captured_state) and \
-            all(a is b for a, b in zip(now, self._captured_state))
+    def _phase(self) -> int:
+        """Which graph a window replays: the window's phase against the
+        fused exchange cadence (its first count modulo ``exchange_freq``),
+        which fixes the steps of the window that end in an exchange; 0
+        without a fused exchange.  One graph per phase the run meets (one
+        when ``n_steps`` is a multiple of ``exchange_freq``)."""
+        return self._first % self._exch.exchange_freq \
+            if self._exch is not None else 0
 
     def __call__(self, batch, lr, count: int):
         inputs = batch if batch is self._static else self.take(batch)
@@ -244,37 +315,55 @@ class TrainStep:
         if lr != self._lr_host:
             self._lr.fill_(lr)
             self._lr_host = lr
-        first = int(count) - self.n_steps + 1
+        self._first = first = int(count) - self.n_steps + 1
         for j, g in enumerate(self._gens):
             g.manual_seed(step_seed(self.model.step_seed, self.model.rank,
                                     first + j))
+        for j, g in enumerate(self._xgens):
+            self._exch.seed_draws(g, first + j)
         if not self.graphed:
             out = self._body(inputs)
-        elif self._graph is None or not self._state_current():
-            out = self._run_and_capture(inputs)
         else:
-            self._graph.replay()
-            out = self._out.clone()    # the next replay rewrites _out
+            if self._exch is not None:
+                self._exch.check_capture()
+            out = self._run_captured(self._phase(),
+                                     lambda: self._body(inputs),
+                                     lambda: self._body(self._static),
+                                     self._gens + self._xgens)
         return out[0], out[1]
 
-    def _run_and_capture(self, inputs) -> torch.Tensor:
-        """This call's step run eagerly on the side stream (its warm-up),
-        then the body captured there over the static buffers."""
-        cur = torch.cuda.current_stream(self.device)
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
-        s = self._stream
-        s.wait_stream(cur)
-        with torch.cuda.stream(s):
-            out = self._body(inputs)
-        cur.wait_stream(s)
-        out.record_stream(cur)
-        self._graph = self._out = None       # an old graph's pool goes first
-        g = graph_lib.StepGraph(s, self._gens)
-        self._out = g.capture(lambda: self._body(self._static))
-        self._graph = g
-        self._captured_state = self._state_leaves()
-        return out
+
+class ExchangeStep(_Captured):
+    """``exchange(count)``: the rule's exchange after step ``count``, in
+    place on the model's state — the unfused cadence, which the worker
+    calls after a train step when the exchange is due (``steps_per_call =
+    1``).  On the card it is captured in a CUDA graph of its own at its
+    first call (that call runs eagerly, as the train step's does) and
+    replayed after; GoSGD's send gate draws from a generator registered
+    with the graph and seeded from ``(gosgd_seed, rank, count)`` before
+    each call.  Its state identity check and launch counts are the train
+    step's (:class:`_Captured`)."""
+
+    def __init__(self, model, exchanger, capture: Optional[bool] = None):
+        self.model, self.exchanger = model, exchanger
+        self.device = torch.device(model.device)
+        self.capture = self.device.type == "cuda" if capture is None \
+            else bool(capture)
+        self.gen = torch.Generator(device=self.device)
+        _Captured.__init__(self)
+
+    def __call__(self, count: int) -> None:
+        self.exchanger.seed_draws(self.gen, int(count))
+
+        def body():
+            self.exchanger.exchange_body(int(count), self.gen)
+
+        if not self.graphed:
+            body()
+            return
+        self.exchanger.check_capture()
+        self._run_captured(0, body, body,
+                           [self.gen] if self.exchanger.uses_draws else [])
 
 
 def build_train_step(model, exchanger, n_steps: int = 1,
@@ -287,14 +376,16 @@ def build_train_step(model, exchanger, n_steps: int = 1,
 
 def build_val_step(model) -> Callable:
     """``val_fn(batch) -> (cost, err, err_top5)``: this rank's rows scored
-    with its replica (BatchNorm from its running stats), averaged over the
-    ranks."""
+    with the parameters and BatchNorm running stats ``model.begin_val``
+    chose (``model.val_params()``: the replica itself, the EMA shadow, or
+    an async rule's canonical params with the replica-mean stats),
+    averaged over the ranks."""
     size = dist.get_world_size()
 
     @torch.no_grad()
     def val_fn(batch: Dict[str, torch.Tensor]):
-        cost, (err, err5) = model.val_metrics(model.params, model.bn_state,
-                                              batch)
+        params, bn_state = model.val_params()
+        cost, (err, err5) = model.val_metrics(params, bn_state, batch)
         m = _mean_over_ranks(torch.stack([cost, err, err5]), size)
         return m[0], m[1], m[2]
 

@@ -13,7 +13,11 @@ reference session script made,
 One process drives one GPU: ``devices`` is the world size (an int, or a
 list whose length counts), and a world of more than one needs one process
 per rank, each given its ``rank`` and the group's ``init_method``.
-EASGD, ASGD and GoSGD are not ported yet.
+
+``BSP``, ``EASGD``, ``ASGD`` and ``GOSGD`` name the rule; the async rules
+run in their default synchronous-cadence mode (``easgd_mode`` /
+``asgd_mode`` ``'sync'``).  Their asynchronous islands around a host-side
+center are not ported yet.
 """
 
 from __future__ import annotations
@@ -59,3 +63,36 @@ class SyncRule:
 
 class BSP(SyncRule):
     rule = "bsp"
+
+
+class _SyncCadence(SyncRule):
+    """An async rule in its synchronous-cadence mode; ``<rule>_mode=
+    'async'`` (worker islands around a center) is refused."""
+
+    def wait(self):
+        mode = self.config.get(f"{self.rule}_mode", "sync")
+        if mode != "sync":
+            raise NotImplementedError(
+                f"{self.rule}_mode={mode!r}: the asynchronous islands are "
+                f"not ported yet (A8b); use 'sync'")
+        return super().wait()
+
+
+class EASGD(_SyncCadence):
+    """Elastic averaging with a center every rank keeps a copy of:
+    ``alpha`` (0.5), ``sync_freq`` (4)."""
+
+    rule = "easgd"
+
+
+class ASGD(_SyncCadence):
+    """Downpour push-pull through the center: ``sync_freq`` (1)."""
+
+    rule = "asgd"
+
+
+class GOSGD(SyncRule):
+    """Gossip: ``exch_prob`` (0.25), ``gosgd_peers`` (``'perm'``,
+    ``'shift'``, ``'iid'``), ``gosgd_n_perms`` (16), ``gosgd_seed`` (0)."""
+
+    rule = "gosgd"

@@ -2,8 +2,11 @@
 
 Counterpart of ``theanompi_tpu/worker.py``: the epoch/batch driver that
 compiles the model's steps, applies ``scale_lr`` and ``adjust_hyperp``,
-calls ``model.train_iter`` each iteration, runs the per-epoch validation
-loop and prints through the recorder; with ``ckpt_dir`` it checkpoints at
+calls ``model.train_iter`` each iteration and, at ``steps_per_call = 1``,
+the exchanger's ``exchange`` hook after it (the async rules' cadence; at
+``steps_per_call > 1`` the step's window runs it), runs the per-epoch
+validation loop and prints through the recorder; with ``ckpt_dir`` it
+checkpoints at
 the end of every epoch (after validation) and, with ``resume=True``,
 restores the newest valid checkpoint before training.  Tracing, chaos, the
 watchdog and device profiling are not ported yet.
@@ -72,6 +75,7 @@ class Worker(MeshProcess):
             for _ in range(model.data.n_batch_train // spc):
                 count += spc
                 model.train_iter(count, self.recorder)
+                self.exchanger.exchange(self.recorder, count)
                 self.recorder.print_train_info(count, spc)
             model.begin_val()
             for _ in range(model.data.n_batch_val):
@@ -92,4 +96,17 @@ class BSP_Worker(Worker):
     rule = "bsp"
 
 
-WORKERS = {"bsp": BSP_Worker}
+class EASGD_Worker(Worker):
+    rule = "easgd"
+
+
+class ASGD_Worker(Worker):
+    rule = "asgd"
+
+
+class GOSGD_Worker(Worker):
+    rule = "gosgd"
+
+
+WORKERS = {w.rule: w for w in (BSP_Worker, EASGD_Worker, ASGD_Worker,
+                               GOSGD_Worker)}

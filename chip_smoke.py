@@ -7,17 +7,20 @@
     python3 chip_smoke.py --flash-times --topk-times --factor-times
     python3 chip_smoke.py --input-times   # AlexNet from files: loader settings
     python3 chip_smoke.py --update-times  # GoogLeNet, ResNet-50 BSP profiles
+    python3 chip_smoke.py --lrn-times     # B2 (and B1) at the four LRN shapes
 
 1. Fails (exit 2, no result) without CUDA; prints the card's name and power
    limit as ``nvidia-smi`` reports them.
 2. Builds every hand-written kernel of ``theanompi_tpu_torch/csrc`` with
    ``nvcc`` into ``build/kernels/`` (one compiler per source, in parallel).
-3. LRN (B1/B2): holds each kernel against its plain PyTorch version at
-   AlexNet's shapes and at GoogLeNet's ([32, 56, 56, 64] and [32, 56,
-   56, 192]), in float32 (TF32 off) and bfloat16, and times the kernel,
-   the plain version, and the one PyTorch call that computes the same
-   function (``F.local_response_norm``; timed here only, the port never
-   calls it).
+3. LRN (B1/B2): checks with ``cuobjdump -sass`` that every vector
+   build of B2 holds the bulk copy (``UBLKCP``) its ring is built on;
+   holds each kernel against its plain PyTorch version at AlexNet's
+   shapes and at GoogLeNet's ([32, 56, 56, 64] and [32, 56, 56, 192]),
+   in float32 (TF32 off) and bfloat16, B2's rerun bit for bit, and times
+   the kernel, the plain version, and the one PyTorch call that computes
+   the same function (``F.local_response_norm``; timed here only, the
+   port never calls it).
 4. Compress (B3–B6): on a random float32 vector of VGG-16's padded length
    (planted ±0.0), holds the sign pack, the encode and the residual against
    their plain versions bit for bit, and the weighted decode at 1 worker bit
@@ -187,6 +190,7 @@ paths compute in bfloat16 and are unaffected).
 import gc
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -323,7 +327,15 @@ DESIGN = {"topk_encode": "radix select on the bits of |c|, lowest offsets on "
           "matmul_pack": "one launch per factor pass over every leaf; each "
                          "work item a cluster of 8 CTAs splitting its sums, "
                          "added through distributed shared memory in rank "
-                         "order; float4 loads, 4 rows in flight"}
+                         "order; float4 loads, 4 rows in flight",
+          "lrn_bwd": "persistent grid (SMs x resident blocks); x and dy "
+                     "through a 2-stage ring of bulk copies on mbarriers; "
+                     "x, dy and s in registers, only t in shared memory "
+                     "(two planes in bf16); no division"}
+# the bulk copy (cp.async.bulk) that every vector build of B2
+# (lrn_bwd_kernel<T, VEC > 1, HALF, ASYNC = true>) is designed around; the
+# VEC = 1 builds copy plainly
+LRN_SASS = "UBLKCP"
 
 ALL_KERNELS = ((lrn_ops.lrn_fwd_cuda, lrn_ops.lrn_bwd_cuda) + cmp_ops.KERNELS
                + fp_ops.KERNELS + fa_ops.KERNELS)
@@ -424,6 +436,10 @@ def lrn_phase(shapes=SHAPES):
             dy = torch.randn(shape, generator=g, device="cuda").to(dtype)
             y = lrn_ops.lrn_fwd_cuda(x)
             dx = lrn_ops.lrn_bwd_cuda(x, dy)
+            # B2 has no atomics: a rerun is bit-equal
+            bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+            check_bits(f"B2 {label} {dn} rerun",
+                       lrn_ops.lrn_bwd_cuda(x, dy).view(bits), dx.view(bits))
             xp = x.detach().clone().requires_grad_(True)
             yp = lrn_ops.lrn_plain(xp)
             (dxp,) = torch.autograd.grad(yp, xp, dy)
@@ -467,6 +483,51 @@ def lrn_phase(shapes=SHAPES):
             del x, dy, xp, yp, dxp, xl, nchw, dyl
             torch.cuda.empty_cache()
     return out
+
+
+def lrn_times() -> dict:
+    """``python3 chip_smoke.py --lrn-times``: B2's device ms, B1's beside
+    it, at the four main-path LRN shapes (AlexNet's two at batch 128,
+    GoogLeNet's two at batch 32), bf16, each shape first held against the
+    plain version; per model, one step's sums (two LRNs)."""
+    _kernel_build.build(["lrn"])
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for model, shapes in (("AlexNet", SHAPES), ("GoogLeNet", GOOGLENET_LRN)):
+        for label, shape in shapes.items():
+            x = (torch.randn(shape, generator=g, device="cuda") * 3).to(
+                torch.bfloat16)
+            dy = torch.randn(shape, generator=g, device="cuda").to(
+                torch.bfloat16)
+            xp = x.detach().clone().requires_grad_(True)
+            yp = lrn_ops.lrn_plain(xp)
+            (dxp,) = torch.autograd.grad(yp, xp, dy)
+            name = f"{model} {label} bfloat16"
+            e_f = check_close(f"B1 {name}", lrn_ops.lrn_fwd_cuda(x), yp,
+                              *TOL["bfloat16"]["fwd"])
+            e_b = check_close(f"B2 {name}", lrn_ops.lrn_bwd_cuda(x, dy), dxp,
+                              *TOL["bfloat16"]["bwd"])
+            numel, isz = x.numel(), x.element_size()
+            rows.append({
+                "model": model, "shape": label, "dims": list(shape),
+                "b2_ms": time_ms(lambda: lrn_ops.lrn_bwd_cuda(x, dy)),
+                "b1_ms": time_ms(lambda: lrn_ops.lrn_fwd_cuda(x)),
+                "b2_bound_ms": bound(3 * numel * isz,
+                                     FLOPS_PER_ELEM["bwd"] * numel)[
+                                         "bound_ms"],
+                "b1_bound_ms": bound(2 * numel * isz,
+                                     FLOPS_PER_ELEM["fwd"] * numel)[
+                                         "bound_ms"],
+                "b2_max_abs_err": e_b, "b1_max_abs_err": e_f})
+            print(json.dumps(rows[-1]), flush=True)
+            del x, dy, xp, yp, dxp
+            torch.cuda.empty_cache()
+    steps = {}
+    for r in rows:
+        st = steps.setdefault(r["model"], {})
+        for k in ("b2_ms", "b1_ms", "b2_bound_ms", "b1_bound_ms"):
+            st[k] = st.get(k, 0.0) + r[k]
+    return {"rows": rows, "steps": steps}
 
 
 def vgg16_sizes():
@@ -967,21 +1028,25 @@ def flash_bytes_flops(b, h, t, d):
             "flash_bwd_dq_cuda": (5 * x + 2 * stat, 3 * pair_flops)}
 
 
+def sass_of(lib_path: str) -> str:
+    """``cuobjdump -sass`` of a built library (raises without the tool)."""
+    tool = os.path.join(os.path.dirname(_kernel_build.nvcc_path()),
+                        "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+    if tool is None:
+        raise AssertionError("cuobjdump not found: the SASS check cannot run")
+    return subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+
+
 def flash_sass_check(lib_path: str) -> dict:
     """``cuobjdump -sass`` of the built flash library: every instantiation
     (head dims 32, 64, 128) of ``flash_fwd_kernel`` and
     ``flash_bwd_dkv_kernel`` must hold wgmma (``HGMMA``) and TMA load
     (``UTMALDG``) instructions.  Raises if the tool is missing or an
     instruction is absent; returns the counts per kernel."""
-    tool = os.path.join(os.path.dirname(_kernel_build.nvcc_path()),
-                        "cuobjdump")
-    if not os.path.exists(tool):
-        tool = shutil.which("cuobjdump")
-    if tool is None:
-        raise AssertionError("cuobjdump not found: the flash SASS check "
-                             "cannot run")
-    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
-                          text=True, check=True).stdout
+    sass = sass_of(lib_path)
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
@@ -1001,6 +1066,33 @@ def flash_sass_check(lib_path: str) -> dict:
         out[kern] = {ins: [c.get(ins, 0) for c in found]
                      for ins in ("HGMMA", "UTMALDG", "UTMASTG")}
     return out
+
+
+def lrn_sass_check(lib_path: str) -> dict:
+    """``cuobjdump -sass`` of the built LRN library: each of B2's 20
+    builds (2 types × VEC of 16 bytes or 1 × n//2 = 0..4) is found, and
+    the 10 vector builds (``ASYNC`` true) hold the bulk copy ``UBLKCP``.
+    Raises otherwise; returns the instruction's counts by build."""
+    pat = re.compile(r"lrn_bwd_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)"
+                     r"ELb([01])E")
+    builds, cur = {}, None
+    for line in sass_of(lib_path).splitlines():
+        if "Function :" in line:
+            m = pat.search(line)
+            cur = m.groups() if m else None
+            if cur is not None:
+                builds[cur] = 0
+        elif cur is not None and LRN_SASS in line:
+            builds[cur] += 1
+    vec = {k: n for k, n in builds.items() if k[3] == "1"}
+    if len(builds) != 20 or len(vec) != 10 or not all(vec.values()) or \
+            any(k[1] == "1" for k in vec):
+        raise AssertionError(f"lrn_bwd_kernel: {len(builds)} builds, "
+                             f"{LRN_SASS} counts {builds}; each of the 10 "
+                             f"vector builds needs it")
+    return {("bf16" if t.startswith("13") else "f32")
+            + f" VEC {v} half {h}" + (" async" if a == "1" else ""): n
+            for (t, v, h, a), n in sorted(builds.items())}
 
 
 def host_us(fn, calls: int = 200, reps: int = 9) -> float:
@@ -1055,8 +1147,10 @@ def times_main(flags) -> int:
     the sum of the one-leaf launches, after ``factor_pass_check``; with
     ``--update-times`` GoogLeNet's and ResNet-50's captured BSP profiles
     (wall, device busy, idle share, ops a step, the update's multi-tensor
-    passes), for a tree's update layer beside another's; nothing else
-    (for setting two trees side by side in one call)."""
+    passes), for a tree's update layer beside another's; with
+    ``--lrn-times`` B2's and B1's device ms at the four LRN shapes
+    (``lrn_times``); nothing else (for setting two trees side by side in
+    one call)."""
     card = card_line()
     out = {"card": card}
     if "--update-times" in flags:
@@ -1075,6 +1169,8 @@ def times_main(flags) -> int:
                 "update_ms_per_step", "host_ms_per_step")}
     if "--input-times" in flags:
         out["input_times"] = input_times()
+    if "--lrn-times" in flags:
+        out["lrn_times"] = lrn_times()
     if "--flash-times" in flags:
         _kernel_build.build(["flash_attention"])
         q, k, v, do = flash_inputs()
@@ -2622,6 +2718,9 @@ def main() -> int:
     build_s = time.time() - t_all
     print(f"built {sorted(libs)} in {build_s:.1f}s", flush=True)
 
+    lrn_sass = lrn_sass_check(libs["lrn"])
+    print(f"LRN SASS: every vector build of lrn_bwd_kernel holds {LRN_SASS} "
+          f"({lrn_sass})", flush=True)
     lrn = lrn_phase()
     lrn_g = lrn_phase(GOOGLENET_LRN)
     for kind in ("fwd", "bwd"):
@@ -2944,7 +3043,7 @@ def main() -> int:
                    "rules": rules, "clip": clip, "optimizers": opts,
                    "graph_eager": graph_eager, "spc": spc,
                    "recapture": recapture, "zoo_ref": zoo_ref,
-                   "lrn_googlenet": lrn_g,
+                   "lrn_googlenet": lrn_g, "lrn_sass": lrn_sass,
                    "native_loader": loader, "u8_logits": u8, "htod": htod,
                    "profile": profs, "card": card, "build_s": build_s, "total_s": total_s,
                    "alexnet_ref_err": ref_err}, f, indent=1)
@@ -2962,6 +3061,6 @@ def main() -> int:
 if __name__ == "__main__":
     _flags = set(sys.argv[1:])
     if not _flags <= {"--flash-times", "--topk-times", "--factor-times",
-                      "--input-times", "--update-times"}:
+                      "--input-times", "--update-times", "--lrn-times"}:
         sys.exit(f"chip_smoke: unknown arguments {sorted(_flags)}")
     sys.exit(times_main(_flags) if _flags else main())

@@ -444,6 +444,23 @@ def test_refused_modes_and_keys_raise(rule, cfg, exc, match):
         r.wait()
 
 
+@pytest.mark.parametrize("rule,cfg", [
+    ("EASGD", {"bucket_bytes": 1 << 20}), ("GOSGD", {"bucket_bytes": 1 << 20}),
+    ("GOSGD", {"gosgd_peers": "ring"})])
+def test_refused_exchanger_leaves_no_process_group(rule, cfg):
+    """A config the exchanger refuses raises from the worker's constructor,
+    after the worker joined its process group: the group is left again,
+    so a later session in the same process can start (C7)."""
+    import torch.distributed as dist
+    import theanompi_tpu_torch as T
+    r = getattr(T, rule)()
+    r.init(devices=1, modelfile="torch_port_helper", modelclass="TinyLRNNet",
+           device="cpu", verbose=False, **cfg)
+    with pytest.raises((NotImplementedError, ValueError)):
+        r.wait()
+    assert not dist.is_initialized()
+
+
 def test_membership_and_captured_gossip_at_world_two_are_refused():
     for cls in (TEX.EASGD_Exchanger, TEX.ASGD_Exchanger,
                 TEX.GOSGD_Exchanger, TEX.BSP_Exchanger):

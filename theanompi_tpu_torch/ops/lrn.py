@@ -13,7 +13,8 @@ Two implementations of the same function:
 * :func:`lrn_plain` — the JAX package's ``lrn_jnp`` in torch ops (f32 math,
   band sum as a product with the 0/1 band matrix), autograd supplying its
   backward.  It is what a CPU tensor runs, and what ``chip_smoke.py`` and the
-  card tests hold the kernels against.
+  card tests hold the kernels against.  :func:`lrn_bwd_plain` writes that
+  backward out in closed form with B2's division-free ``t``.
 * :func:`lrn_fwd_cuda` / :func:`lrn_bwd_cuda` — the hand-written Hopper
   kernels B1/B2 of ``csrc/lrn.cu``, joined by :class:`LRNFunction`, whose
   only residual is ``x``.
@@ -62,6 +63,29 @@ def lrn_plain(x: torch.Tensor, n: int = 5, k: float = 2.0,
     band = _band(x.shape[-1], n).to(x.device)
     d = k + (alpha / n) * torch.matmul(xf * xf, band)
     return (xf * _scale_of(d, beta)).to(x.dtype)
+
+
+def lrn_bwd_plain(x: torch.Tensor, dy: torch.Tensor, n: int = 5,
+                  k: float = 2.0, alpha: float = 1e-4,
+                  beta: float = 0.75) -> torch.Tensor:
+    """The input gradient of :func:`lrn_plain` in closed form, as B2
+    computes it (f32 math, output in ``x``'s dtype): ``t = dy·x·s/d`` with
+    ``s/d = s·inv²`` (``inv = d^(−1/2)``) for β = 0.75 and ``s·(1/d)``
+    otherwise.  The band matrix is symmetric, so ``BandSum(t)`` is
+    ``t @ band``."""
+    xf, g = x.float(), dy.float()
+    band = _band(x.shape[-1], n).to(x.device)
+    d = k + (alpha / n) * torch.matmul(xf * xf, band)
+    if beta == 0.75:
+        inv = torch.rsqrt(d)
+        s = inv * torch.sqrt(inv)
+        s_over_d = s * (inv * inv)
+    else:
+        s = torch.exp(-beta * torch.log(d))
+        s_over_d = s * torch.reciprocal(d)
+    t = g * xf * s_over_d
+    dx = s * g - (2.0 * (alpha / n) * beta) * xf * torch.matmul(t, band)
+    return dx.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -34,9 +34,15 @@ class Worker(MeshProcess):
             if self.config.get(k):
                 raise NotImplementedError(f"config {k!r} is not ported yet")
         self.get_internode_comm()
-        self.recorder = Recorder(self.config)
-        self.exchanger = get_exchanger(self.config.get("rule", self.rule),
-                                       self.config)
+        try:
+            self.recorder = Recorder(self.config)
+            self.exchanger = get_exchanger(self.config.get("rule", self.rule),
+                                           self.config)
+        except BaseException:
+            # a refused config: leave the group joined above, or the
+            # process keeps it and the next session finds it taken
+            self.close()
+            raise
 
     def run(self, model) -> Recorder:
         """The reference's ``run(model)`` epoch/batch loop."""

@@ -8,6 +8,8 @@
     python3 chip_smoke.py --input-times   # AlexNet from files: loader settings
     python3 chip_smoke.py --update-times  # GoogLeNet, ResNet-50 BSP profiles
     python3 chip_smoke.py --lrn-times     # B2 (and B1) at the four LRN shapes
+    python3 chip_smoke.py --islands       # the async island phases alone
+    python3 chip_smoke.py --vgg-island-lr # VGG-16 islands at two rates
 
 1. Fails (exit 2, no result) without CUDA; prints the card's name and power
    limit as ``nvidia-smi`` reports them.
@@ -178,9 +180,30 @@
 26. AlexNet from the batch files under ``para_load`` at
     ``steps_per_call = 4``, both wires: the producer stages whole
     windows; every window the step took holds the host stream's bits.
-27. Prints ``{"kernels": [...]}`` (B1–B12; B1/B2 with GoogLeNet's shapes
-    beside AlexNet's), then the card, then the last line
-    ``{"ok": true, "device": {...}}``.
+27. The async islands around a center (A8b; ``--islands`` runs these
+    alone): fails unless the card's compute mode lets several processes
+    share it (``Default``); holds one island exchange of full-width
+    AlexNet (a center in memory a random step away) against its plain
+    recomputation: EASGD's params and center within ``EASGD_TOL`` of a
+    float64 one, ASGD's center and params bit for bit.  Then AlexNet
+    b128 as two island threads of this process (``EASGD().init(...,
+    easgd_mode='async', async_islands=2, device='cuda:0',
+    center_serve=True)``), and as two island processes (this script with
+    ``--island``) around the port's center in a third
+    (``center_server.center_main`` on a free port), under EASGD
+    (``sync_freq`` 4) and ASGD (2), and VGG-16 b32 under EASGD as
+    BASELINE.json config 3 names it, each with island 1 sleeping after
+    every step: island 0 makes at least 3 exchanges and twice the
+    straggler's steps; the center's count equals the islands'; the
+    center is finite and moved; every island's params sit on the card,
+    finite, its step captured, its costs finite, and AlexNet's islands
+    launch 2 B1 and 2 B2 a step (each process's own counts; the threads'
+    together).  Prints each island's step ms, pace (steps/s, img/s) and
+    its exchanges' medians by part (drain, d2h, wire, the center's
+    apply, h2d) and bytes.
+28. Prints ``{"kernels": [...]}`` (B1–B12; B1/B2 with GoogLeNet's shapes
+    beside AlexNet's, and the island paths' counts), then the card, then
+    the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script exits non-zero and prints no result.
 TF32 is off for the whole run (float32 comparisons need it off; the main
@@ -1169,6 +1192,11 @@ def times_main(flags) -> int:
                 "update_ms_per_step", "host_ms_per_step")}
     if "--input-times" in flags:
         out["input_times"] = input_times()
+    if "--islands" in flags:
+        _kernel_build.build(["lrn"])
+        out["islands"] = islands_main(card)
+    if "--vgg-island-lr" in flags:
+        out["vgg_island_lr"] = vgg_island_lr()
     if "--lrn-times" in flags:
         out["lrn_times"] = lrn_times()
     if "--flash-times" in flags:
@@ -2486,6 +2514,392 @@ def window_files_phase(wire_u8: bool) -> dict:
     return out
 
 
+# -- the async islands around a center (A8b) ----------------------------------
+
+ALEX_MODEL = ("theanompi_tpu_torch.models.alex_net", "AlexNet")
+# every island shares the one card, with the main paths' seed; the
+# synthetic set of 8 batches wraps; the islands' budget (run_seconds)
+# covers the model's build and capture too
+ISLAND_CFG = dict(device="cuda:0", alpha=0.5, synthetic_batches=8, seed=0,
+                  verbose=False)
+ISLAND_SECONDS = 18
+# the straggler sleeps this long after every step
+STRAGGLER_S = 3.0
+# VGG-16's islands train at a tenth of VGG_LR: at 0.001 islands from the
+# model's own seed (42) reached costs in the hundreds within their first
+# 4 local steps, before any exchange, and NaN within 12, where BSP from
+# seed 0 descends over 40 steps; at 0.0001 they descend
+# (``--vgg-island-lr`` runs that comparison)
+VGG_ISLAND_LR = 0.0001
+# the cross-process phases: (name, rule, model, config, least exchanges
+# of the fast island); ASGD at sync_freq 2 (its exchange ships and takes
+# back the whole model), VGG-16 under EASGD as BASELINE.json config 3
+# names it (b32), whose 1.1 GB exchanges take seconds: a longer budget
+ISLAND_PROCS = (
+    ("alexnet_easgd", "EASGD", ALEX_MODEL,
+     dict(easgd_mode="async", batch_size=BATCH, sync_freq=4), 3),
+    ("alexnet_asgd", "ASGD", ALEX_MODEL,
+     dict(asgd_mode="async", batch_size=BATCH, sync_freq=2), 3),
+    ("vgg16_easgd", "EASGD", VGG_MODEL,
+     dict(easgd_mode="async", batch_size=VGG_BATCH, sync_freq=4,
+          learning_rate=VGG_ISLAND_LR, run_seconds=30), 2),
+)
+
+
+def compute_mode() -> str:
+    """The card's compute mode; two processes on one card need
+    ``Default``."""
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(f"compute mode: {mode}", flush=True)
+    if "Exclusive" in mode or "Prohibited" in mode:
+        raise AssertionError(
+            f"the card's compute mode is {mode}: the island phases run "
+            f"several processes on one card and need the Default mode")
+    return mode
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_center(port: int) -> subprocess.Popen:
+    """The port's center as a process of its own (``center_main``), once
+    it accepts connections."""
+    import socket
+    p = subprocess.Popen(
+        [sys.executable, "-m", "theanompi_tpu_torch.parallel.center_server",
+         "--port", str(port), "--alpha", str(ISLAND_CFG["alpha"])],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    deadline = time.time() + 60
+    while True:
+        if p.poll() is not None:
+            raise AssertionError(f"center exited {p.returncode}: "
+                                 f"{p.communicate()[1][-2000:]}")
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=1).close()
+            return p
+        except OSError:
+            if time.time() > deadline:
+                p.kill()
+                raise AssertionError("the center did not start in 60 s")
+            time.sleep(0.1)
+
+
+def stop_center(p: subprocess.Popen) -> str:
+    p.terminate()
+    try:
+        return p.communicate(timeout=30)[1]
+    except subprocess.TimeoutExpired:
+        p.kill()
+        return p.communicate()[1]
+
+
+def island_main(arg: str) -> int:
+    """``chip_smoke.py --island <json>``: one island process through the
+    session API, ``<RULE>().init(devices=1, ...).wait()``; prints one line
+    ``ISLAND <json>``: the trainer's stats, this process's launch counts,
+    its params' devices and finiteness, and whether its step ran as a
+    captured graph."""
+    cfg = json.loads(arg)
+    zero_launches()
+    rule = getattr(tmpi, cfg.pop("rule"))()
+    modelfile, modelclass = cfg.pop("model")
+    rule.init(devices=1, modelfile=modelfile, modelclass=modelclass, **cfg)
+    tr = rule.wait()
+    torch.cuda.synchronize()
+    m = tr.islands[0].model
+    params = tree_leaves(m.params)
+    print("ISLAND " + json.dumps({
+        "stats": tr.stats(), "launches": launch_counts(),
+        "devices": sorted({str(p.device) for p in params}),
+        "finite": all(bool(torch.isfinite(p).all()) for p in params),
+        "graphed": bool(m.train_fn.graphed)}), flush=True)
+    return 0
+
+
+_INIT_LEAVES = {}
+
+
+def init_center_leaves(model) -> list:
+    """The center's leaves at the islands' start: a model's initial params
+    (its seed, on the CPU) in the center's layout; cached per model."""
+    if model not in _INIT_LEAVES:
+        import importlib
+        from theanompi_tpu_torch import convert
+        cls = getattr(importlib.import_module(model[0]), model[1])
+        m = cls({"device": "cpu", "verbose": False, "synthetic_batches": 1,
+                 "batch_size": 1})
+        _INIT_LEAVES[model] = convert.center_leaves_from_params(
+            m.params, frozenset(m.kept_layout_paths()))
+        del m
+    return _INIT_LEAVES[model]
+
+
+def check_center(name, leaves, model) -> None:
+    """The center is finite and has moved off the islands' start."""
+    init = init_center_leaves(model)
+    if len(leaves) != len(init) or not all(np.isfinite(x).all()
+                                           for x in leaves):
+        raise AssertionError(f"{name}: the center is not finite")
+    if all(np.array_equal(a, b) for a, b in zip(leaves, init)):
+        raise AssertionError(f"{name}: the center never moved")
+
+
+def check_islands(name, islands, center_updates, by_island=None,
+                  least: int = 3) -> dict:
+    """The straggler (island 1) did not block island 0: island 0 made at
+    least ``least`` exchanges and twice the straggler's steps; the center
+    counted every island's exchanges."""
+    fast, slow = islands[0], islands[1]
+    if fast["exchanges"] < least or fast["steps"] < 2 * slow["steps"]:
+        raise AssertionError(f"{name}: the straggler blocked the fast "
+                             f"island: {fast} vs {slow}")
+    total = sum(i["exchanges"] for i in islands)
+    if center_updates != total or (by_island is not None and by_island != {
+            str(i["island"]): i["exchanges"] for i in islands
+            if i["exchanges"]}):
+        raise AssertionError(f"{name}: the center counted {center_updates} "
+                             f"updates ({by_island}), the islands {total}")
+    return {"fast": fast, "slow": slow}
+
+
+def check_island_state(name, devices, finite, graphed) -> None:
+    """An island's params sit on the card, finite, and its step ran as a
+    captured graph."""
+    if devices != [ISLAND_CFG["device"]] or not finite or not graphed:
+        raise AssertionError(f"{name}: params on {devices}, finite "
+                             f"{finite}, captured {graphed}")
+
+
+def island_lrn_check(name, launches, steps) -> None:
+    """AlexNet's two LRNs: 2 B1 a forward and 2 B2 a backward, nothing
+    else launched (no validation runs on an island)."""
+    want = expect(lrn_fwd_cuda=2 * steps, lrn_bwd_cuda=2 * steps)
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, expected {want}")
+
+
+def island_procs_phase(name, rule, model, cfg, least: int = 3) -> dict:
+    """Two island processes (``--island``), one card, around the port's
+    center in a third (``center_main`` on a free port); island 1 is the
+    straggler.  Checks every island's params (on the card, finite), its
+    launches, the straggler not blocking, the center's count and its
+    leaves (finite, moved)."""
+    port = free_port()
+    center = start_center(port)
+    addr = f"127.0.0.1:{port}"
+    try:
+        base = dict(ISLAND_CFG, run_seconds=ISLAND_SECONDS)
+        base.update(cfg)
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--island",
+             json.dumps(dict(base, rule=rule, model=list(model),
+                             async_islands=1, island_base=i,
+                             center_addr=addr,
+                             island_throttle=STRAGGLER_S if i else 0.0))],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for i in range(2)]
+        outs = []
+        for i, p in enumerate(procs):
+            out, err = p.communicate(timeout=base["run_seconds"] + 240)
+            if p.returncode != 0:
+                raise AssertionError(f"{name}: island {i} exited "
+                                     f"{p.returncode}:\n{err[-4000:]}")
+            outs.append(json.loads([ln for ln in out.splitlines()
+                                    if ln.startswith("ISLAND ")][0][7:]))
+        from theanompi_tpu_torch.parallel.center_server import RemoteCenter
+        rc = RemoteCenter(addr, alpha=ISLAND_CFG["alpha"], client_id="smoke")
+        st = rc.stats()
+        leaves = rc.pull_leaves()
+        rc.close()
+    finally:
+        log = stop_center(center)
+    islands = [o["stats"]["islands"][0] for o in outs]
+    for i, (o, isl) in enumerate(zip(outs, islands)):
+        if not all(np.isfinite(isl.get("costs", [np.nan]))):
+            raise AssertionError(f"{name}: island {i} costs {isl}")
+        check_island_state(f"{name} island {i}", o["devices"], o["finite"],
+                           o["graphed"])
+        if model == ALEX_MODEL:
+            island_lrn_check(f"{name} island {i}", o["launches"],
+                             isl["steps"])
+        elif o["launches"] != expect():
+            raise AssertionError(f"{name}: launches {o['launches']}")
+    check_center(name, leaves, model)
+    del leaves
+    out = check_islands(name, islands, st["n_updates"], st["by_island"],
+                        least)
+    out.update(launches=[o["launches"] for o in outs],
+               center={k: st[k] for k in ("n_updates", "by_island",
+                                          "apply_s", "queue_s", "n_ops")},
+               center_log=log.strip().splitlines()[-2:])
+    return out
+
+
+def island_threads_phase() -> dict:
+    """Two islands as threads of this process, on the one card, through
+    ``EASGD().init(..., easgd_mode='async', async_islands=2, device=
+    'cuda:0', center_serve=True)``; island 1 the straggler.  Launch counts
+    set to 0 just before and read just after: the process's counts hold
+    both islands' steps, 2 B1 and 2 B2 each."""
+    torch.cuda.empty_cache()
+    zero_launches()
+    rule = tmpi.EASGD()
+    rule.init(devices=1, modelfile=ALEX_MODEL[0], modelclass=ALEX_MODEL[1],
+              **dict(ISLAND_CFG, easgd_mode="async", async_islands=2,
+                     center_serve=True, batch_size=BATCH, sync_freq=4,
+                     run_seconds=ISLAND_SECONDS,
+                     island_throttle={1: STRAGGLER_S}))
+    tr = rule.wait()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    st = tr.stats()
+    for r in tr.islands:
+        params = tree_leaves(r.model.params)
+        check_island_state(f"island thread {r.island_id}",
+                           sorted({str(p.device) for p in params}),
+                           all(bool(torch.isfinite(p).all()) for p in params),
+                           r.model.train_fn.graphed)
+    island_lrn_check("island threads", launches,
+                     sum(i["steps"] for i in st["islands"]))
+    check_center("island threads", tr.center.pull_leaves(), ALEX_MODEL)
+    out = check_islands("island threads", st["islands"], tr.center.n_updates)
+    out["launches"] = launches
+    del tr, rule
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def island_exchange_check_phase() -> dict:
+    """One island exchange of full-width AlexNet on the card against its
+    plain recomputation, with a center in memory seeded a random step away
+    from the params: EASGD's params and center within ``EASGD_TOL`` of the
+    update recomputed in float64 from the tensors before it; ASGD's center
+    bit for bit ``a + (p − a)`` in float32, and the params bit for bit the
+    center it returned."""
+    from theanompi_tpu_torch import convert
+    from theanompi_tpu_torch.parallel.async_easgd import (CenterLink,
+                                                          ElasticCenter)
+    cls = getattr(__import__(ALEX_MODEL[0], fromlist=["x"]), ALEX_MODEL[1])
+    m = cls({"device": ISLAND_CFG["device"], "verbose": False,
+             "synthetic_batches": 1, "batch_size": 1})
+    kept = frozenset(m.kept_layout_paths())
+    r = np.random.RandomState(5)
+    shift = [r.standard_normal(x.shape).astype(np.float32) * 1e-2
+             for x in convert.center_leaves_from_params(m.params, kept)]
+    out = {}
+    for rule in ("easgd", "asgd"):
+        params0 = convert.center_leaves_from_params(m.params, kept)
+        center = ElasticCenter([p + s for p, s in zip(params0, shift)],
+                               alpha=ISLAND_CFG["alpha"])
+        link = CenterLink(m, center, 0)
+        c0 = center.pull_leaves()
+        if rule == "easgd":
+            rec = link.easgd()
+            c1 = center.pull_leaves()
+            p1 = convert.center_leaves_from_params(m.params, kept)
+            a = center.alpha
+            for i, (P, C, p, c) in enumerate(zip(params0, c0, p1, c1)):
+                P, C = P.astype(np.float64), C.astype(np.float64)
+                d = P - C
+                check_close(f"island easgd params leaf {i}",
+                            torch.from_numpy(p), torch.from_numpy(P - a * d),
+                            *EASGD_TOL)
+                check_close(f"island easgd center leaf {i}",
+                            torch.from_numpy(c), torch.from_numpy(C + a * d),
+                            *EASGD_TOL)
+        else:
+            link.anchor()
+            rec = link.asgd()
+            c1 = center.pull_leaves()
+            p1 = convert.center_leaves_from_params(m.params, kept)
+            for i, (P, A, p, c) in enumerate(zip(params0, c0, p1, c1)):
+                check_bits(f"island asgd center leaf {i}",
+                           torch.from_numpy(c), torch.from_numpy(A + (P - A)))
+                check_bits(f"island asgd params == center leaf {i}",
+                           torch.from_numpy(p), torch.from_numpy(c))
+        out[rule] = {k: 1e3 * v for k, v in rec.items()}
+    out["n_params"] = int(link.n)
+    del m, link
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def print_islands(name, r, card, batch) -> None:
+    for role in ("fast", "slow"):
+        i = r[role]
+        ex = i.get("exchange_ms", {})
+        print(f"islands {name} {role} island {i['island']}: {i['steps']} "
+              f"steps, {i['exchanges']} exchanges, step "
+              f"{i.get('step_ms', float('nan')):.2f} ms ("
+              f"{1e3 * batch / i.get('step_ms', float('nan')):.1f} img/s "
+              f"between exchanges), overall {i['steps_per_s']:.2f} steps/s "
+              f"= {i['steps_per_s'] * batch:.1f} img/s; exchange "
+              + ", ".join(f"{k} {v:.1f}" for k, v in ex.items())
+              + f" ms, {i.get('bytes_per_exchange', 0) / 1e6:.1f} MB; "
+              f"costs {[round(c, 4) for c in i.get('costs', [])][:6]} "
+              f"on {card}", flush=True)
+
+
+def vgg_island_lr() -> dict:
+    """``--vgg-island-lr``: why VGG-16's islands train at VGG_ISLAND_LR.
+    40 BSP steps of VGG-16 b32 at VGG_LR from seed 0 (their costs, every
+    4 steps), then the VGG-16 island phase from the model's own seed (42)
+    at VGG_LR and at VGG_ISLAND_LR: each island's costs at its exchanges,
+    or the phase's error (reported, not raised)."""
+    r = tmpi.BSP()
+    r.init(devices=1, modelfile=VGG_MODEL[0], modelclass=VGG_MODEL[1],
+           batch_size=VGG_BATCH, learning_rate=VGG_LR, synthetic_batches=8,
+           epochs=5, synthetic_val_batches=1, printFreq=4, seed=0,
+           verbose=False)
+    out = {"bsp_costs": [x["cost"] for x in r.wait().train_records]}
+    del r
+    gc.collect()
+    torch.cuda.empty_cache()
+    name, rule, model, cfg, least = ISLAND_PROCS[-1]
+    for lr in (VGG_LR, VGG_ISLAND_LR):
+        try:
+            res = island_procs_phase(name, rule, model,
+                                     dict(cfg, learning_rate=lr, seed=42),
+                                     least)
+            out[str(lr)] = {k: res[k].get("costs") for k in ("fast", "slow")}
+        except AssertionError as e:
+            out[str(lr)] = {"error": str(e)[:2000]}
+        print(f"VGG-16 islands at lr {lr}: {out[str(lr)]}", flush=True)
+    return out
+
+
+def islands_main(card: str) -> dict:
+    """Every island phase: the exchange against its plain recomputation,
+    the threads, then each cross-process phase; prints their numbers."""
+    compute_mode()
+    res = {"exchange_check": island_exchange_check_phase()}
+    print("island exchange vs plain (AlexNet, %d params, center in memory): "
+          % res["exchange_check"]["n_params"] + "; ".join(
+              f"{k} " + ", ".join(f"{p} {v:.1f}" for p, v in t.items())
+              + " ms" for k, t in res["exchange_check"].items()
+              if k != "n_params"), flush=True)
+    res["alexnet_threads"] = island_threads_phase()
+    print_islands("alexnet_threads (EASGD, center_serve)",
+                  res["alexnet_threads"], card, BATCH)
+    for name, rule, model, cfg, least in ISLAND_PROCS:
+        t0 = time.time()
+        res[name] = island_procs_phase(name, rule, model, cfg, least)
+        res[name]["secs"] = time.time() - t0
+        print_islands(name + " (processes)", res[name], card,
+                      cfg["batch_size"])
+        print(f"islands {name}: center {res[name]['center']}, phase "
+              f"{res[name]['secs']:.1f}s", flush=True)
+    return res
+
+
 # (para_load_workers, native augment threads per batch) settings timed by
 # ``--input-times``; the first is what the port ships on an 8-core host
 INPUT_SETTINGS = ((4, 2), (4, 1), (2, 2), (2, 1), (1, 4), (8, 1))
@@ -3014,6 +3428,8 @@ def main() -> int:
               f"{ {k: v for k, v in w['launches'].items() if v} }",
               flush=True)
 
+    islands = islands_main(card)
+
     kernels = kernel_entries(lrn, lrn_g, comp, topk, fpack, flash, alex,
                              goog, vggs, lm)
     for e in kernels:
@@ -3026,7 +3442,14 @@ def main() -> int:
                 "alexnet_resumed_epoch": resumed["launches"][name],
                 "googlenet": goog["launches"][name],
                 **{f"alexnet_files_spc{SPC}_{k}": w["launches"][name]
-                   for k, w in windows.items()}}
+                   for k, w in windows.items()},
+                # the async islands: each island process's own count, and
+                # the two island threads' together
+                **{f"{k}_island{i}": n[name] for k in ("alexnet_easgd",
+                                                       "alexnet_asgd")
+                   for i, n in enumerate(islands[k]["launches"])},
+                "alexnet_island_threads":
+                    islands["alexnet_threads"]["launches"][name]}
     total_s = time.time() - t_all
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -3041,6 +3464,7 @@ def main() -> int:
                                  "alexnet_files_windows": windows},
                                 **{f"vgg16_{k}": v for k, v in vggs.items()}),
                    "rules": rules, "clip": clip, "optimizers": opts,
+                   "islands": islands,
                    "graph_eager": graph_eager, "spc": spc,
                    "recapture": recapture, "zoo_ref": zoo_ref,
                    "lrn_googlenet": lrn_g, "lrn_sass": lrn_sass,
@@ -3059,8 +3483,12 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--island"]:
+        # one island process of the island phases
+        sys.exit(island_main(sys.argv[2]))
     _flags = set(sys.argv[1:])
     if not _flags <= {"--flash-times", "--topk-times", "--factor-times",
-                      "--input-times", "--update-times", "--lrn-times"}:
+                      "--input-times", "--update-times", "--lrn-times",
+                      "--islands", "--vgg-island-lr"}:
         sys.exit(f"chip_smoke: unknown arguments {sorted(_flags)}")
     sys.exit(times_main(_flags) if _flags else main())

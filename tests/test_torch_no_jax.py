@@ -51,6 +51,16 @@ from theanompi_tpu_torch.models.resnet50 import ResNet50
 from theanompi_tpu_torch.models.cifar10 import Cifar10_model
 for cls in (GoogLeNet, ResNet50, Cifar10_model):
     cls({"device": "cpu", "verbose": False, "synthetic_train": 256})
+# a center serves, and a client pushes and pulls, without JAX
+from theanompi_tpu_torch.parallel.center_server import CenterServer, RemoteCenter
+srv = CenterServer(alpha=0.5)
+host, port = srv.start()
+rc = RemoteCenter(f"{host}:{port}")
+rc.ensure_init_leaves([np.ones(3, np.float32)])
+rc.push_delta_leaves([np.ones(3, np.float32)], 0)
+assert rc.pull_leaves()[0][0] == 1.5
+rc.close()
+srv.stop()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "theanompi_tpu" or m.startswith("theanompi_tpu."))
@@ -67,7 +77,12 @@ NEW_MODULES = ("theanompi_tpu_torch.native",
                "theanompi_tpu_torch.models.resnet50",
                "theanompi_tpu_torch.models.vggnet_11_shallow",
                "theanompi_tpu_torch.models.registry",
-               "theanompi_tpu_torch.parallel.topology")
+               "theanompi_tpu_torch.parallel.topology",
+               "theanompi_tpu_torch.parallel.wire",
+               "theanompi_tpu_torch.parallel.center_server",
+               "theanompi_tpu_torch.parallel.async_easgd",
+               "theanompi_tpu_torch.parallel.membership",
+               "theanompi_tpu_torch.utils.clock")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

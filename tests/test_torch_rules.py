@@ -424,8 +424,14 @@ def test_session_api_trains_each_rule_on_cpu(rule):
 
 
 @pytest.mark.parametrize("rule,cfg,exc,match", [
-    ("EASGD", {"easgd_mode": "async"}, NotImplementedError, "A8b"),
-    ("ASGD", {"asgd_mode": "async"}, NotImplementedError, "A8b"),
+    # async islands: one device an island (devices=2 over one island),
+    # and the leases and the chaos trigger (A10)
+    ("EASGD", {"easgd_mode": "async", "async_islands": 1, "devices": 2},
+     NotImplementedError, "more than one device"),
+    ("ASGD", {"asgd_mode": "async", "lease_dir": "leases"},
+     NotImplementedError, "A10"),
+    ("EASGD", {"easgd_mode": "async", "chaos_dir": "chaos"},
+     NotImplementedError, "A10"),
     ("EASGD", {"bucket_bytes": 1 << 20}, NotImplementedError, "A7"),
     ("GOSGD", {"bucket_bytes": 1 << 20}, NotImplementedError, "A7"),
     ("ASGD", {"update_sharding": True}, NotImplementedError,
@@ -437,9 +443,10 @@ def test_session_api_trains_each_rule_on_cpu(rule):
 ])
 def test_refused_modes_and_keys_raise(rule, cfg, exc, match):
     import theanompi_tpu_torch as T
+    cfg = dict(cfg)
     r = getattr(T, rule)()
-    r.init(devices=1, modelfile="torch_port_helper", modelclass="TinyLRNNet",
-           device="cpu", verbose=False, **cfg)
+    r.init(devices=cfg.pop("devices", 1), modelfile="torch_port_helper",
+           modelclass="TinyLRNNet", device="cpu", verbose=False, **cfg)
     with pytest.raises(exc, match=match):
         r.wait()
 

@@ -61,7 +61,16 @@ checkpoint and a resumed second epoch (``resume/full/...``,
 for each ``gosgd_peers`` mode, trains :class:`TinyLRNNet` three steps
 without an exchange (the replicas diverge), then runs six exchanges alone,
 and writes the params before and after and α after each exchange
-(``<peers>/...``).
+(``<peers>/...``);
+
+    python tests/torch_port_helper.py island <proc> <center_addr> <rule> \
+        <throttle_s> <seconds>
+
+runs one async island of :class:`TinyLRNNet` (``island_base`` ``<proc>``,
+``sync_freq`` 2) against the center at ``<center_addr>`` under ``easgd`` or
+``asgd``, sleeping ``<throttle_s>`` after each step, for ``<seconds>``
+(a negative number: until 2 exchanges, at most 300 s), and prints one line
+``ST <json>`` with the trainer's stats.
 """
 
 import os
@@ -504,8 +513,32 @@ def run_ranks(mode, world, tmp_path, tag, *args, timeout=120):
     return res
 
 
+def island(proc, addr, rule, throttle, seconds):
+    import json
+    import time
+    from theanompi_tpu_torch.parallel.async_easgd import AsyncEASGDTrainer
+    proc, throttle, seconds = int(proc), float(throttle), float(seconds)
+    tr = AsyncEASGDTrainer(TinyLRNNet, {
+        "async_islands": 1, "alpha": 0.5, "sync_freq": 2, "device": "cpu",
+        "center_addr": addr, "island_base": proc, "verbose": False,
+        "island_throttle": throttle}, rule=rule)
+    if seconds < 0:
+        tr.start()
+        deadline = time.time() + 300
+        isl = tr.islands[0]
+        while (isl.exchanges_done < 2 and isl.error is None
+               and time.time() < deadline):
+            time.sleep(0.05)
+        tr.stop_and_join(timeout=120)
+    else:
+        tr.run_for(seconds)
+    print("ST " + json.dumps({"proc": proc, **tr.stats()}), flush=True)
+
+
 def main(argv):
-    if argv[0] == "train":
+    if argv[0] == "island":
+        island(*argv[1:])
+    elif argv[0] == "train":
         train(*argv[1:])
     elif argv[0] == "resume":
         resume(*argv[1:])

@@ -20,6 +20,12 @@ and converts the same way.  The composite models' trees (GoogLeNet's
 convert leaf by leaf; their BatchNorm running state (1-D ``mean`` and
 ``var``) needs no transpose (:func:`bn_state_from_jax`).
 
+An async center (``parallel/async_easgd.ElasticCenter``, served by either
+package) holds the JAX layouts as a flat list in ``jax.tree.leaves``
+order (keys sorted): :func:`params_from_center_leaves` lays such a list,
+or a center snapshot's (``center_server.load_snapshot``), out as a port
+model's params, and :func:`center_leaves_from_params` goes the other way.
+
 Input and output are trees (nested dicts) of numpy arrays.
 :func:`checkpoint_from_jax` applies them to a whole checkpoint the JAX
 package wrote (any ported rule and optimizer, EMA included), into a port
@@ -60,6 +66,41 @@ def params_from_jax(tree, kept: frozenset = frozenset()):
     """JAX layout → port layout (params, momentum velocity, Adam moments);
     the 2-D leaves at the paths in ``kept`` as they are."""
     return _map_with_path(lambda a, path: _to_port(a, path, kept), tree)
+
+
+def params_from_center_leaves(leaves, like, kept: frozenset = frozenset()):
+    """An async center's leaves (the JAX layouts, in the JAX package's
+    sorted-key order) → ``like``'s tree (a port model's params: its
+    structure and key order) of float32 port-layout arrays."""
+    paths = jax_leaf_paths(like)
+    if len(leaves) != len(paths):
+        raise ValueError(f"{len(leaves)} center leaves for a model of "
+                         f"{len(paths)}")
+    by_path = {}
+    for p, a in zip(paths, leaves):
+        want = _jax_shape(tuple(np.shape(get_leaf(like, p))), p, kept)
+        if tuple(np.shape(a)) != want:
+            raise ValueError(f"center leaf {p} has shape {np.shape(a)}, "
+                             f"the model wants {want}")
+        by_path[p] = _to_port(a, p, kept)
+    return _like_port(like, by_path)
+
+
+def center_leaves_from_params(params, kept: frozenset = frozenset()) -> list:
+    """A port tree of params (numpy or tensors) → the center's leaves:
+    float32 JAX layouts in the JAX package's sorted-key order."""
+    out = []
+    for p in jax_leaf_paths(params):
+        a = get_leaf(params, p)
+        # a copy: on the CPU a tensor's numpy view shares its storage
+        a = np.array(a.detach().cpu() if hasattr(a, "detach") else a,
+                     dtype=np.float32)
+        if a.ndim == 4:
+            a = a.transpose(2, 3, 1, 0)
+        elif a.ndim == 2 and p not in kept:
+            a = a.T
+        out.append(np.ascontiguousarray(a))
+    return out
 
 
 def bn_state_from_jax(tree):

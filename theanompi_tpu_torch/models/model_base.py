@@ -247,7 +247,8 @@ class ModelBase:
     def compile_iter_fns(self, exchanger=None,
                          capture: Optional[bool] = None) -> None:
         """Build the train and val steps.  Needs the process group that
-        ``base.MeshProcess`` sets up (world size 1 included).  The train
+        ``base.MeshProcess`` sets up (world size 1 included), unless the
+        exchanger is an async island's, which runs no collective.  The train
         step takes ``steps_per_call`` steps a call; on the card it is
         captured into a CUDA graph, unless ``capture=False`` asks for the
         eager step (a comparison or a debugging run: no config key selects
@@ -256,11 +257,12 @@ class ModelBase:
         (``para_load_window``, default true, as in the JAX package)."""
         import torch.distributed as dist
         from ..parallel.exchanger import BSP_Exchanger
-        if not dist.is_initialized():
+        exchanger = exchanger or BSP_Exchanger(self.config)
+        if exchanger.collective and not dist.is_initialized():
             raise RuntimeError("no torch.distributed process group: build the "
                                "model through a Worker or "
                                "base.MeshProcess.get_internode_comm()")
-        self.exchanger = exchanger or BSP_Exchanger(self.config)
+        self.exchanger = exchanger
         if self.config.get("ema_decay") and not (
                 isinstance(self.exchanger, BSP_Exchanger)
                 and self.exchanger.strategy.name != "none"):
@@ -271,7 +273,8 @@ class ModelBase:
                 "ema_decay requires BSP grads mode with a gradient "
                 f"collective; got {type(self.exchanger).__name__} strategy="
                 f"{getattr(strategy, 'name', '-')}")
-        self.exchanger.prepare(self, dist.get_world_size())
+        self.exchanger.prepare(self, dist.get_world_size()
+                               if exchanger.collective else 1)
         self.opt_state = self.opt.init(self.params)
         self.extra = self.exchanger.extra_state_template()
         spc = int(self.steps_per_call)

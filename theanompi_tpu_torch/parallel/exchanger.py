@@ -28,8 +28,10 @@ on the card); at ``steps_per_call > 1`` the train step's window runs it
 after each due step itself (``fused``) and the worker's hook stands down.
 Every update is in place: the step and the exchange never rebind the
 model's params, optimizer state or ``extra``, so a captured step replays
-on the tensors it was captured with.  ``exch_mode='params'``, the bucketed
-wire, elastic membership and the async islands are not ported yet.
+on the tensors it was captured with.  An async island's step (the
+islands around a center, ``parallel/async_easgd.py``) runs under
+:class:`LocalExchanger`, with no collective at all.  ``exch_mode='params'``,
+the bucketed wire and elastic membership are not ported yet.
 """
 
 from __future__ import annotations
@@ -68,6 +70,9 @@ class Exchanger:
     name = "exchanger"
     # True when the exchange draws random numbers (GoSGD's send gate)
     uses_draws = False
+    # True when the step reduces over the ranks of a process group (its
+    # metrics' all-reduce at least); False for an async island's step
+    collective = True
 
     def __init__(self, config: Optional[dict] = None):
         self.config = dict(config or {})
@@ -168,6 +173,16 @@ class Exchanger:
     def set_active_ranks(self, active) -> None:
         raise NotImplementedError(
             "elastic membership (set_active_ranks) is not ported yet (A10)")
+
+
+class LocalExchanger(Exchanger):
+    """An async island's (``parallel/async_easgd.py``): the local update
+    and nothing across processes.  Its step issues no collective, so it
+    needs no process group, and islands that are threads of one process
+    never share a communicator."""
+
+    name = "local"
+    collective = False
 
 
 class BSP_Exchanger(Exchanger):

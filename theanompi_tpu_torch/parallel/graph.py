@@ -21,11 +21,19 @@ callable and what a replay needs besides the graph itself:
 Capture uses CUDA's thread-local mode: the ``para_load`` producer keeps
 staging batches on its own thread and stream while the step is captured,
 and only the capturing thread is held to what capture allows.
+
+Async islands that are threads of one process (``async_easgd.py``) each
+capture a step of their own.  :data:`CAPTURE_LOCK` makes those captures
+(with the eager first call before each) one at a time, and holds a
+replay's count update: the launch counts are the process's, and a capture
+takes back what its own recording added, which another thread's launches
+in the same window would spoil.  Replays themselves run concurrently.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 import traceback
 from typing import Callable, Dict, Sequence
 
@@ -33,6 +41,11 @@ import torch
 
 _TORCH_DIR = os.path.dirname(torch.__file__)
 _THIS = os.path.abspath(__file__)
+
+
+#: One capture at a time in a process, and the launch counts updated
+#: under it (see the module docstring).
+CAPTURE_LOCK = threading.RLock()
 
 
 class CaptureError(RuntimeError):
@@ -86,17 +99,18 @@ class StepGraph:
         """Record ``fn()`` into the graph (nothing runs) and return its
         outputs: tensors a replay rewrites in place."""
         wrappers = kernel_wrappers()
-        before = [k.launches for k in wrappers]
-        try:
-            with torch.cuda.graph(self.graph, stream=self.stream,
-                                  capture_error_mode="thread_local"):
-                out = fn()
-        except Exception as e:
-            raise CaptureError(describe(e)) from e
-        finally:
-            recorded = [k.launches - n for k, n in zip(wrappers, before)]
-            for k, n in zip(wrappers, before):
-                k.launches = n        # a capture launches nothing
+        with CAPTURE_LOCK:
+            before = [k.launches for k in wrappers]
+            try:
+                with torch.cuda.graph(self.graph, stream=self.stream,
+                                      capture_error_mode="thread_local"):
+                    out = fn()
+            except Exception as e:
+                raise CaptureError(describe(e)) from e
+            finally:
+                recorded = [k.launches - n for k, n in zip(wrappers, before)]
+                for k, n in zip(wrappers, before):
+                    k.launches = n        # a capture launches nothing
         self.launches = {k: n for k, n in zip(wrappers, recorded) if n}
         return out
 
@@ -104,5 +118,6 @@ class StepGraph:
         """One replay on the current stream; each kernel's count grows by
         the launches the graph holds."""
         self.graph.replay()
-        for k, n in self.launches.items():
-            k.launches += n
+        with CAPTURE_LOCK:
+            for k, n in self.launches.items():
+                k.launches += n

@@ -8,7 +8,9 @@ in one step body: forward and backward for each of ``n_subb``
 micro-batches (the BatchNorm running state updated in order through
 them), the exchanger's gradient collective, the optimizer update, the
 exchanger's ``sync_bn`` of the running state, all in place on the model's
-state, then one all-reduce of the step's metrics.  :class:`TrainStep` runs
+state, then one all-reduce of the step's metrics (none in an async
+island's step, whose ``exchanger.LocalExchanger`` has no process group).
+:class:`TrainStep` runs
 ``n_steps`` bodies over a ``[k, ...]`` window per call; under an async
 rule each step of a window whose count is due ends with the rule's
 exchange (the JAX package's in-scan ``lax.cond``), and at one step a call
@@ -173,16 +175,19 @@ class _Captured:
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
         s = self._stream
-        s.wait_stream(cur)
-        with torch.cuda.stream(s):
-            out = eager()
-        cur.wait_stream(s)
-        if out is not None:
-            out.record_stream(cur)
-        self._graphs.pop(key, None)        # an old graph's pool goes first
-        self._graph = None
-        g = graph_lib.StepGraph(s, gens)
-        captured = g.capture(static)
+        # the eager call and the capture one thread at a time (islands that
+        # are threads each capture their own step: graph.CAPTURE_LOCK)
+        with graph_lib.CAPTURE_LOCK:
+            s.wait_stream(cur)
+            with torch.cuda.stream(s):
+                out = eager()
+            cur.wait_stream(s)
+            if out is not None:
+                out.record_stream(cur)
+            self._graphs.pop(key, None)    # an old graph's pool goes first
+            self._graph = None
+            g = graph_lib.StepGraph(s, gens)
+            captured = g.capture(static)
         state = self._state_leaves()
         self._graphs[key] = (g, captured, state)
         self._graph, self._captured_state = g, state
@@ -297,7 +302,8 @@ class TrainStep(_Captured):
             costs.append(cost)
             errs.append(err)
         out = torch.stack(costs + errs)
-        dist.all_reduce(out)
+        if self.exchanger.collective:
+            dist.all_reduce(out)
         return out.div_(self.size).view(2, self.n_steps)
 
     def _phase(self) -> int:
@@ -379,14 +385,17 @@ def build_val_step(model) -> Callable:
     with the parameters and BatchNorm running stats ``model.begin_val``
     chose (``model.val_params()``: the replica itself, the EMA shadow, or
     an async rule's canonical params with the replica-mean stats),
-    averaged over the ranks."""
-    size = dist.get_world_size()
+    averaged over the ranks (an async island's alone: no collective)."""
+    collective = model.exchanger.collective
+    size = dist.get_world_size() if collective else 1
 
     @torch.no_grad()
     def val_fn(batch: Dict[str, torch.Tensor]):
         params, bn_state = model.val_params()
         cost, (err, err5) = model.val_metrics(params, bn_state, batch)
-        m = _mean_over_ranks(torch.stack([cost, err, err5]), size)
+        m = torch.stack([cost, err, err5])
+        if collective:
+            m = _mean_over_ranks(m, size)
         return m[0], m[1], m[2]
 
     return val_fn

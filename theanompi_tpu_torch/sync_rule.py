@@ -14,10 +14,14 @@ One process drives one GPU: ``devices`` is the world size (an int, or a
 list whose length counts), and a world of more than one needs one process
 per rank, each given its ``rank`` and the group's ``init_method``.
 
-``BSP``, ``EASGD``, ``ASGD`` and ``GOSGD`` name the rule; the async rules
-run in their default synchronous-cadence mode (``easgd_mode`` /
-``asgd_mode`` ``'sync'``).  Their asynchronous islands around a host-side
-center are not ported yet.
+``BSP``, ``EASGD``, ``ASGD`` and ``GOSGD`` name the rule.  EASGD and ASGD
+run by default in their synchronous-cadence mode (``easgd_mode`` /
+``asgd_mode`` ``'sync'``: the exchange inside this rank's step); in
+``'async'`` mode ``wait()`` trains worker islands around a host-side
+center instead (``parallel/async_easgd.py``: islands that are threads of
+this process, one device each, and a center in memory, served over TCP
+with ``center_serve``, or joined at ``center_addr``) for ``run_seconds``
+and returns the islands' trainer.
 """
 
 from __future__ import annotations
@@ -65,28 +69,49 @@ class BSP(SyncRule):
     rule = "bsp"
 
 
-class _SyncCadence(SyncRule):
-    """An async rule in its synchronous-cadence mode; ``<rule>_mode=
-    'async'`` (worker islands around a center) is refused."""
+def _run_async_islands(rule_obj, rule_name: str):
+    """EASGD's and ASGD's async mode: islands around a center
+    (``parallel.async_easgd``) for ``run_seconds`` (60); returns the
+    trainer, whose ``stats()`` / ``epoch_records`` hold the islands' and
+    the center's progress."""
+    import importlib
+
+    from .parallel.async_easgd import AsyncEASGDTrainer
+
+    mod = importlib.import_module(rule_obj.modelfile)
+    cls = getattr(mod, rule_obj.modelclass)
+    cfg = dict(rule_obj.config)
+    rule_obj.trainer = AsyncEASGDTrainer(cls, cfg, rule=rule_name)
+    rule_obj.trainer.run_for(float(cfg.get("run_seconds", 60.0)))
+    return rule_obj.trainer
+
+
+class _CenterRule(SyncRule):
+    """An async rule with a center: ``<rule>_mode='sync'`` (default) runs
+    the exchange inside this rank's step, ``'async'`` the islands."""
 
     def wait(self):
         mode = self.config.get(f"{self.rule}_mode", "sync")
+        if mode == "async":
+            return _run_async_islands(self, self.rule)
         if mode != "sync":
-            raise NotImplementedError(
-                f"{self.rule}_mode={mode!r}: the asynchronous islands are "
-                f"not ported yet (A8b); use 'sync'")
+            raise ValueError(f"{self.rule}_mode={mode!r}; have 'sync', "
+                             f"'async'")
         return super().wait()
 
 
-class EASGD(_SyncCadence):
-    """Elastic averaging with a center every rank keeps a copy of:
-    ``alpha`` (0.5), ``sync_freq`` (4)."""
+class EASGD(_CenterRule):
+    """Elastic averaging with a center: ``alpha`` (0.5), ``sync_freq`` (4);
+    ``easgd_mode='async'``: islands around a host-side center
+    (``async_islands``, ``center_serve`` / ``center_addr``,
+    ``run_seconds``)."""
 
     rule = "easgd"
 
 
-class ASGD(_SyncCadence):
-    """Downpour push-pull through the center: ``sync_freq`` (1)."""
+class ASGD(_CenterRule):
+    """Downpour push-pull through the center: ``sync_freq`` (1);
+    ``asgd_mode='async'``: downpour islands around a host-side center."""
 
     rule = "asgd"
 

@@ -10,6 +10,7 @@
     python3 chip_smoke.py --lrn-times     # B2 (and B1) at the four LRN shapes
     python3 chip_smoke.py --islands       # the async island phases alone
     python3 chip_smoke.py --vgg-island-lr # VGG-16 islands at two rates
+    python3 chip_smoke.py --launcher      # the launcher phases alone
 
 1. Fails (exit 2, no result) without CUDA; prints the card's name and power
    limit as ``nvidia-smi`` reports them.
@@ -201,9 +202,23 @@
     together).  Prints each island's step ms, pace (steps/s, img/s) and
     its exchanges' medians by part (drain, d2h, wire, the center's
     apply, h2d) and bytes.
-28. Prints ``{"kernels": [...]}`` (B1–B12; B1/B2 with GoogLeNet's shapes
-    beside AlexNet's, and the island paths' counts), then the card, then
-    the last line ``{"ok": true, "device": {...}}``.
+28. The launcher (A6; ``--launcher`` runs these alone): ``python -m
+    theanompi_tpu_torch.launcher --n-workers 1`` trains AlexNet b128
+    (``SmokeAlexNet``, this script as the modelfile) in a rank of its own,
+    which must join a world-1 NCCL group over the launcher's TCP
+    rendezvous on cuda:0, launch 2 B1 a forward and 2 B2 a backward, and
+    end with the params of the same config trained through ``BSP()`` in
+    this process, bit for bit; then ``--supervise 2 --backoff 0.1`` over
+    2 epochs with a checkpoint each, once left alone and once with its
+    worker SIGKILLed as ``LATEST`` reads 0: the killed run restarts,
+    resumes from epoch 0 and ends with the unkilled run's final
+    checkpoint, bit for bit; and one rank more than the visible GPUs is
+    refused before anything is spawned.  Prints the seconds from launch
+    to the first step, the step ms beside the in-process session's, and
+    the seconds from the SIGKILL to the first resumed step.
+29. Prints ``{"kernels": [...]}`` (B1–B12; B1/B2 with GoogLeNet's shapes
+    beside AlexNet's, and the island and launcher paths' counts), then
+    the card, then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script exits non-zero and prints no result.
 TF32 is off for the whole run (float32 comparisons need it off; the main
@@ -235,8 +250,9 @@ from theanompi_tpu_torch.ops import compress as cmp_ops  # noqa: E402
 from theanompi_tpu_torch.ops import factor_pack as fp_ops  # noqa: E402
 from theanompi_tpu_torch.ops import flash_attention as fa_ops  # noqa: E402
 from theanompi_tpu_torch.ops import lrn as lrn_ops  # noqa: E402
+from theanompi_tpu_torch.models.alex_net import AlexNet  # noqa: E402
 from theanompi_tpu_torch.utils.helper_funcs import (  # noqa: E402
-    tree_leaves, tree_map)
+    leaf_paths, tree_leaves, tree_map)
 
 # H100 SXM peaks (NVIDIA data sheet, at its 700 W limit): device memory
 # rate, and float32 outside the tensor cores (the kernels' math is f32)
@@ -1197,6 +1213,9 @@ def times_main(flags) -> int:
         out["islands"] = islands_main(card)
     if "--vgg-island-lr" in flags:
         out["vgg_island_lr"] = vgg_island_lr()
+    if "--launcher" in flags:
+        _kernel_build.build(["lrn"])
+        out["launcher"] = launcher_main(card)
     if "--lrn-times" in flags:
         out["lrn_times"] = lrn_times()
     if "--flash-times" in flags:
@@ -2519,10 +2538,11 @@ def window_files_phase(wire_u8: bool) -> dict:
 ALEX_MODEL = ("theanompi_tpu_torch.models.alex_net", "AlexNet")
 # every island shares the one card, with the main paths' seed; the
 # synthetic set of 8 batches wraps; the islands' budget (run_seconds)
-# covers the model's build and capture too
+# covers the model's build and capture too: the straggler starts its 4th
+# step (its first exchange) only if its start-up took under 24 − 3·3 s
 ISLAND_CFG = dict(device="cuda:0", alpha=0.5, synthetic_batches=8, seed=0,
                   verbose=False)
-ISLAND_SECONDS = 18
+ISLAND_SECONDS = 24
 # the straggler sleeps this long after every step
 STRAGGLER_S = 3.0
 # VGG-16's islands train at a tenth of VGG_LR: at 0.001 islands from the
@@ -2898,6 +2918,284 @@ def islands_main(card: str) -> dict:
         print(f"islands {name}: center {res[name]['center']}, phase "
               f"{res[name]['secs']:.1f}s", flush=True)
     return res
+
+# -- the launcher (A6): one process per GPU ------------------------------------
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+LAUNCH_DIR = os.path.join(HERE, "build", "smoke_launch")
+# the launched AlexNet: full width, b128, bf16, captured, synthetic, the
+# main path's steps and validation batches
+LAUNCH_CFG = dict(batch_size=BATCH, synthetic_batches=STEPS,
+                  synthetic_val_batches=VAL_BATCHES, epochs=1, seed=0,
+                  printFreq=STEPS // 2)
+# the supervised phase's epochs: long enough that a SIGKILL landing right
+# after epoch 0's checkpoint finds epoch 1 still running
+SUPERVISE_STEPS = 16
+
+
+class SmokeAlexNet(AlexNet):
+    """Full-width AlexNet as a launched rank's model (``--modelfile
+    chip_smoke --modelclass SmokeAlexNet``) and in this process beside it:
+    cuDNN deterministic and TF32 off (the comparisons are bit for bit),
+    every launch count set to 0 as it is built.  After its first step it
+    prints ``SMOKE_STEP1 <wall clock>`` (the step synchronized); at each
+    ``end_val`` one line ``SMOKE <json>``: its launch counts, device,
+    process group backend and rendezvous, and the host wall ms a step from
+    the third step to the epoch's last (ending in a synchronize); with
+    ``smoke_out`` it writes its params there (``.npz``)."""
+
+    def __init__(self, config=None):
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        zero_launches()
+        super().__init__(config)
+        self._t_steps = []
+        self._stepped = False
+        self.step_ms = float("nan")
+
+    def train_iter(self, count, recorder=None):
+        super().train_iter(count, recorder)
+        if not self._stepped:
+            torch.cuda.synchronize()
+            print(f"SMOKE_STEP1 {time.time()!r}", flush=True)
+            self._stepped = True
+        self._t_steps.append(time.perf_counter())
+
+    def begin_val(self):
+        torch.cuda.synchronize()
+        t = self._t_steps
+        if len(t) > 2:
+            self.step_ms = 1e3 * (time.perf_counter() - t[1]) / (len(t) - 2)
+        self._t_steps = []
+        super().begin_val()
+
+    def end_val(self):
+        import torch.distributed as dist
+        super().end_val()
+        out = self.config.get("smoke_out")
+        if out:
+            params = self.host_params()
+            np.savez(out, **{"/".join(p): x for p, x in
+                             zip(leaf_paths(params), tree_leaves(params))})
+        print("SMOKE " + json.dumps({
+            "launches": launch_counts(), "device": str(self.device),
+            "backend": dist.get_backend(),
+            "init_method": str(self.config.get("init_method")),
+            "step_ms": self.step_ms}), flush=True)
+
+
+def launcher_cmd(*args, **cfg) -> list:
+    return ([sys.executable, "-m", "theanompi_tpu_torch.launcher", "--rule",
+             "bsp", "--modelfile", "chip_smoke", "--modelclass",
+             "SmokeAlexNet", *args] + [f"{k}={v}" for k, v in cfg.items()])
+
+
+def smoke_lines(out: str) -> list:
+    return [json.loads(ln[6:]) for ln in out.splitlines()
+            if ln.startswith("SMOKE ")]
+
+
+def first_steps(out: str) -> list:
+    return [float(ln.split()[1]) for ln in out.splitlines()
+            if ln.startswith("SMOKE_STEP1 ")]
+
+
+def check_npz_bits(name, a_path, b_path) -> int:
+    """Every array of two ``.npz`` files bit for bit; returns how many."""
+    with np.load(a_path) as a, np.load(b_path) as b:
+        if sorted(a.files) != sorted(b.files) or not a.files:
+            raise AssertionError(f"{name}: arrays {sorted(a.files)} vs "
+                                 f"{sorted(b.files)}")
+        for k in a.files:
+            if a[k].dtype != b[k].dtype or not np.array_equal(
+                    a[k].view(np.uint8), b[k].view(np.uint8)):
+                raise AssertionError(f"{name}: {k} differs")
+        return len(a.files)
+
+
+def launcher_world1_phase() -> dict:
+    """``python -m theanompi_tpu_torch.launcher --n-workers 1`` trains
+    SmokeAlexNet for the main path's steps and validation batch; its one
+    rank joins a world-1 NCCL group over the launcher's TCP rendezvous,
+    binds cuda:0 and launches 2 B1 a forward and 2 B2 a backward.  The
+    same config through ``BSP().init(devices=1, ...)`` in this process
+    must end with the same params bit for bit."""
+    os.makedirs(LAUNCH_DIR, exist_ok=True)
+    child_npz = os.path.join(LAUNCH_DIR, "child_params.npz")
+    here_npz = os.path.join(LAUNCH_DIR, "session_params.npz")
+    t0 = time.time()
+    r = subprocess.run(launcher_cmd("--n-workers", "1", **LAUNCH_CFG,
+                                    smoke_out=child_npz),
+                       cwd=HERE, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"launcher world 1 exited {r.returncode}:\n"
+                             f"{(r.stdout + r.stderr)[-4000:]}")
+    rep, step1 = smoke_lines(r.stdout), first_steps(r.stdout)
+    if len(rep) != 1 or len(step1) != 1:
+        raise AssertionError(f"launcher world 1 reported {rep}, {step1}")
+    rep = rep[0]
+    want = expect(lrn_fwd_cuda=2 * (STEPS + VAL_BATCHES),
+                  lrn_bwd_cuda=2 * STEPS)
+    if rep["launches"] != want:
+        raise AssertionError(f"launched AlexNet launches {rep['launches']}, "
+                             f"expected {want}")
+    if rep["backend"] != "nccl" or rep["device"] != "cuda:0" or \
+            not rep["init_method"].startswith("tcp://127.0.0.1:"):
+        raise AssertionError(f"launched rank: {rep}")
+    torch.cuda.empty_cache()
+    rule = tmpi.BSP()
+    rule.init(devices=1, modelfile=__name__, modelclass="SmokeAlexNet",
+              **LAUNCH_CFG, smoke_out=here_npz)
+    rec = rule.wait()
+    launches = launch_counts()
+    if launches != want:
+        raise AssertionError(f"session AlexNet launches {launches}")
+    if not all(np.isfinite(x["cost"]) for x in rec.train_records):
+        raise AssertionError(f"session costs {rec.train_records}")
+    n = check_npz_bits("launched vs session params", child_npz, here_npz)
+    out = {"launch_to_first_step_s": step1[0] - t0,
+           "child_step_ms": rep["step_ms"],
+           "session_step_ms": rule.model.step_ms,
+           "launches": rep["launches"], "leaves_bit_equal": n,
+           "backend": rep["backend"], "device": rep["device"]}
+    del rule, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def children(pid: int) -> list:
+    """Pids of ``pid``'s child processes, from /proc."""
+    out = []
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                with open(f"/proc/{d}/stat") as f:
+                    ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            except (OSError, ValueError, IndexError):
+                continue
+            if ppid == pid:
+                out.append(int(d))
+    return out
+
+
+def read_latest(ckpt: str):
+    try:
+        with open(os.path.join(ckpt, "LATEST")) as f:
+            return f.read().strip()
+    except OSError:
+        return None
+
+
+def launcher_supervise_phase() -> dict:
+    """``--supervise 2 --backoff 0.1``, 2 epochs of SUPERVISE_STEPS with a
+    checkpoint each: a run left alone, then one whose worker (the
+    launcher's child, not the launcher) is SIGKILLed once ``LATEST``
+    reads 0.  The killed run exits 0 after restarting in the backoff and
+    resuming from epoch 0, ends at ``LATEST`` 1, and its final checkpoint
+    equals the other's array for array, bit for bit.  Returns the seconds
+    from the SIGKILL to the resumed process's first step (synchronized):
+    the time to recover."""
+    import signal
+    cfg = dict(LAUNCH_CFG, synthetic_batches=SUPERVISE_STEPS, epochs=2,
+               printFreq=SUPERVISE_STEPS)
+    dirs = {k: os.path.join(LAUNCH_DIR, k) for k in ("whole", "killed")}
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    args = ("--n-workers", "1", "--supervise", "2", "--backoff", "0.1")
+    r = subprocess.run(launcher_cmd(*args, **cfg, ckpt_dir=dirs["whole"]),
+                       cwd=HERE, capture_output=True, text=True, timeout=600)
+    whole_log = r.stdout + r.stderr
+    if r.returncode != 0 or "restarting in" in whole_log or \
+            read_latest(dirs["whole"]) != "1":
+        raise AssertionError(f"unkilled supervised run exited "
+                             f"{r.returncode}:\n{whole_log[-4000:]}")
+    log_path = os.path.join(LAUNCH_DIR, "killed.log")
+    with open(log_path, "w") as log:
+        sup = subprocess.Popen(
+            launcher_cmd(*args, **cfg, ckpt_dir=dirs["killed"]), cwd=HERE,
+            stdout=log, stderr=subprocess.STDOUT, text=True)
+        try:
+            deadline = time.time() + 300
+            while read_latest(dirs["killed"]) != "0":
+                if sup.poll() is not None or time.time() > deadline:
+                    raise AssertionError("no epoch 0 checkpoint before the "
+                                         "kill")
+                time.sleep(0.01)
+            worker = children(sup.pid)
+            if len(worker) != 1:
+                raise AssertionError(f"launcher children {worker}")
+            t_kill = time.time()
+            os.kill(worker[0], signal.SIGKILL)
+            rc = sup.wait(timeout=600)
+        finally:
+            if sup.poll() is None:
+                sup.terminate()         # the launcher stops its ranks
+                try:
+                    sup.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    sup.kill()
+                    sup.wait()
+    with open(log_path) as f:
+        out = f.read()
+    if rc != 0 or "restarting in" not in out or \
+            "resumed from epoch 0" not in out or \
+            read_latest(dirs["killed"]) != "1":
+        raise AssertionError(f"killed supervised run exited {rc}:\n"
+                             f"{out[-4000:]}")
+    step1 = first_steps(out)
+    if len(step1) != 2 or step1[1] < t_kill:
+        raise AssertionError(f"first steps {step1}, kill at {t_kill}")
+    n = check_npz_bits("killed vs whole final checkpoint",
+                       os.path.join(dirs["killed"], "ckpt_epoch1.npz"),
+                       os.path.join(dirs["whole"], "ckpt_epoch1.npz"))
+    return {"recover_s": step1[1] - t_kill, "arrays_bit_equal": n,
+            "restart_line": [ln for ln in out.splitlines()
+                             if "restarting in" in ln][0]}
+
+
+def launcher_refusal_phase() -> dict:
+    """One rank more than the visible GPUs: the launcher exits nonzero
+    before spawning anything, naming the count."""
+    n = torch.cuda.device_count()
+    t0 = time.time()
+    r = subprocess.run(launcher_cmd("--n-workers", str(n + 1), **LAUNCH_CFG),
+                       cwd=HERE, capture_output=True, text=True, timeout=120)
+    named = f"{n} visible GPU{'' if n == 1 else 's'}"
+    if r.returncode == 0 or named not in r.stderr or "SMOKE" in r.stdout:
+        raise AssertionError(f"--n-workers {n + 1} on {n} GPUs exited "
+                             f"{r.returncode}:\n{r.stdout + r.stderr}")
+    return {"rc": r.returncode, "secs": time.time() - t0,
+            "message": r.stderr.strip().splitlines()[-1]}
+
+
+def launcher_main(card: str) -> dict:
+    """The launcher phases: world 1 over NCCL through the launcher against
+    the in-process session, the supervised SIGKILL, the refusal; prints
+    their numbers."""
+    gc.collect()
+    torch.cuda.empty_cache()         # the launched rank shares the card
+    res = {"world1": launcher_world1_phase()}
+    w = res["world1"]
+    print(f"launcher world 1 (NCCL over the launcher's TCP rendezvous, "
+          f"{w['device']}): AlexNet b{BATCH} {STEPS} steps, launch to first "
+          f"step {w['launch_to_first_step_s']:.1f} s, step "
+          f"{w['child_step_ms']:.2f} ms (in-process session "
+          f"{w['session_step_ms']:.2f} ms), launches "
+          f"{ {k: v for k, v in w['launches'].items() if v} }, "
+          f"{w['leaves_bit_equal']} param leaves bit-equal to the session "
+          f"on {card}", flush=True)
+    res["supervise"] = s = launcher_supervise_phase()
+    print(f"launcher --supervise: SIGKILL after epoch 0's checkpoint, "
+          f"'{s['restart_line']}', first resumed step {s['recover_s']:.1f} s "
+          f"after the kill, final checkpoint bit-equal to the unkilled run "
+          f"({s['arrays_bit_equal']} arrays) on {card}", flush=True)
+    res["refusal"] = f = launcher_refusal_phase()
+    print(f"launcher refused --n-workers {torch.cuda.device_count() + 1} "
+          f"in {f['secs']:.1f} s (rc {f['rc']}): {f['message']}", flush=True)
+    return res
+
 
 
 # (para_load_workers, native augment threads per batch) settings timed by
@@ -3429,6 +3727,7 @@ def main() -> int:
               flush=True)
 
     islands = islands_main(card)
+    launcher = launcher_main(card)
 
     kernels = kernel_entries(lrn, lrn_g, comp, topk, fpack, flash, alex,
                              goog, vggs, lm)
@@ -3449,7 +3748,10 @@ def main() -> int:
                                                        "alexnet_asgd")
                    for i, n in enumerate(islands[k]["launches"])},
                 "alexnet_island_threads":
-                    islands["alexnet_threads"]["launches"][name]}
+                    islands["alexnet_threads"]["launches"][name],
+                # the rank the launcher started (its own process's count)
+                "alexnet_launched_rank":
+                    launcher["world1"]["launches"][name]}
     total_s = time.time() - t_all
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -3464,7 +3766,7 @@ def main() -> int:
                                  "alexnet_files_windows": windows},
                                 **{f"vgg16_{k}": v for k, v in vggs.items()}),
                    "rules": rules, "clip": clip, "optimizers": opts,
-                   "islands": islands,
+                   "islands": islands, "launcher": launcher,
                    "graph_eager": graph_eager, "spc": spc,
                    "recapture": recapture, "zoo_ref": zoo_ref,
                    "lrn_googlenet": lrn_g, "lrn_sass": lrn_sass,
@@ -3489,6 +3791,6 @@ if __name__ == "__main__":
     _flags = set(sys.argv[1:])
     if not _flags <= {"--flash-times", "--topk-times", "--factor-times",
                       "--input-times", "--update-times", "--lrn-times",
-                      "--islands", "--vgg-island-lr"}:
+                      "--islands", "--vgg-island-lr", "--launcher"}:
         sys.exit(f"chip_smoke: unknown arguments {sorted(_flags)}")
     sys.exit(times_main(_flags) if _flags else main())

@@ -2,6 +2,7 @@
 pulls in neither ``jax`` nor the JAX package.  Checked in a fresh
 interpreter, because this test process has imported both already."""
 
+import json
 import os
 import pkgutil
 import subprocess
@@ -82,7 +83,8 @@ NEW_MODULES = ("theanompi_tpu_torch.native",
                "theanompi_tpu_torch.parallel.center_server",
                "theanompi_tpu_torch.parallel.async_easgd",
                "theanompi_tpu_torch.parallel.membership",
-               "theanompi_tpu_torch.utils.clock")
+               "theanompi_tpu_torch.utils.clock",
+               "theanompi_tpu_torch.launcher")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -118,3 +120,23 @@ def test_port_sources_name_no_jax_import():
                                          "from theanompi_tpu.",
                                          "from theanompi_tpu import")), \
                     f"{path}: {s}"
+
+
+def test_launched_workers_import_neither_jax_nor_the_jax_package(tmp_path):
+    """Two ranks started by the port's launcher train an epoch through
+    ``python -m theanompi_tpu_torch.worker``; as each rank's process exits
+    it lists which of ``jax`` and the JAX package it imported: none."""
+    here = os.path.join(REPO, "tests")
+    out = str(tmp_path / "mods")
+    r = subprocess.run(
+        [sys.executable, "-m", "theanompi_tpu_torch.launcher",
+         "--modelfile", "torch_launch_helper", "--modelclass", "ModulesNet",
+         "--n-workers", "2", "device=cpu", f"modules_out={out}"],
+        cwd=REPO, capture_output=True, text=True, timeout=180,
+        env=dict(os.environ, OMP_NUM_THREADS="1",
+                 PYTHONPATH=os.pathsep.join([here, REPO])))
+    assert r.returncode == 0, (r.stdout + r.stderr)[-3000:]
+    for rank in range(2):
+        with open(f"{out}_r{rank}.json") as f:
+            got = json.load(f)
+        assert got["bad"] == [] and got["n"] > 100, got

@@ -12,7 +12,14 @@ the reference every ported piece is held against.  Public session API:
 Entry points run on ``cuda`` unless the config says ``device='cpu'``.
 """
 
-from .sync_rule import ASGD, BSP, EASGD, GOSGD, SyncRule
-
 __version__ = "0.1.0"
 __all__ = ["ASGD", "BSP", "EASGD", "GOSGD", "SyncRule", "__version__"]
+
+
+def __getattr__(name):
+    # the session API on first use, so that ``python -m
+    # theanompi_tpu_torch.worker`` runs the worker module once, as __main__
+    if name in __all__:
+        from . import sync_rule
+        return getattr(sync_rule, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -6,13 +6,26 @@ exchanged with it at its own pace, so a straggler never blocked the
 others.  The in-step exchangers (``parallel/exchanger.py``) keep the
 algebra at a synchronous cadence; here it runs as the reference ran it:
 
-* An **island** is one worker on one device with its own captured train
+* An **island** of one device is one worker with its own captured train
   step and no collective (``exchanger.LocalExchanger``): the JAX
   package's islands were sub-meshes, whose mean over one device is the
   worker itself.  In-process islands are threads (:class:`IslandRunner`);
   island ``i`` binds ``cuda:{i}``, or every island the one card that
-  ``device`` names (two islands share one H100 so).  An island of more
-  than one device needs a process group of its own and is refused.
+  ``device`` names (two islands share one H100 so).
+* In a launched world (``init_method``, ``n_workers > 1``) every rank
+  is a process of its own: the world of ``n_workers = K · async_islands``
+  ranks splits into islands of ``K`` consecutive ranks, and each
+  island's ranks join a process group of their own
+  (``base.MeshProcess.get_internode_comm(K)``).  As on the JAX package's
+  sub-mesh, each rank of an island is a local worker
+  (``LocalExchanger``) with a replica of its own.  At an exchange the
+  island's rank 0 alone calls the center and broadcasts what it got and
+  how the call went, so every rank takes the same branch: EASGD moves
+  each replica by ``p − α(p − c)`` and pushes the replicas' mean delta,
+  ASGD pushes the replicas' mean less the anchor and resets every
+  replica to the center it gets back.  Global rank 0 holds the center in
+  memory and serves it to the other islands (its address rides the
+  store), unless ``center_addr`` names one.
 * The **center** (:class:`ElasticCenter`, NumPy only) holds float32
   leaves in the JAX package's flatten order and layouts (conv HWIO, FC
   ``[in, out]``), behind a lock.  ``center_serve`` also serves it over
@@ -60,7 +73,9 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..base import MeshProcess, resolve_device
 from ..utils.helper_funcs import (_jax_shape, from_jax_layout, jax_leaf_paths,
                                   leaf_paths, to_jax_layout, tree_leaves)
 
@@ -188,11 +203,22 @@ class CenterLink:
     out), ``wire`` (the center's calls: packing, CRC, the socket and the
     apply), ``apply`` (the center's own time, from the replies' server
     split; the whole call for a center in memory), ``h2d`` (into the
-    pinned buffer and the copy in)."""
+    pinned buffer and the copy in).
 
-    def __init__(self, model, center, island: int):
+    In an island of ``group_size > 1`` devices the center is rank 0's
+    alone (``center`` is None on the others): it broadcasts ``dev_in``
+    and the outcome of each call, and the replicas' mean is reduced into
+    its ``dev_out``."""
+
+    def __init__(self, model, center, island: int,
+                 alpha: Optional[float] = None, group_size: int = 1):
         self.model, self.center, self.island = model, center, int(island)
-        self.alpha = float(center.alpha)
+        self.alpha = float(center.alpha if alpha is None else alpha)
+        # an island of more than one device: this process's rank in the
+        # island's group (the default group); its rank 0 alone calls the
+        # center
+        self.k = int(group_size)
+        self.lead = self.k == 1 or dist.get_rank() == 0
         params = model.params
         kept = frozenset(model.kept_layout_paths())
         self.device = torch.device(model.device)
@@ -239,11 +265,64 @@ class CenterLink:
     def down(self, leaves: list) -> List[np.ndarray]:
         """Port-order device leaves → the center's leaves: views of the
         host buffer, valid until the next crossing."""
+        self._pack(leaves)
+        return self._to_host()
+
+    def _pack(self, leaves: list) -> None:
         for j, (v, p) in enumerate(zip(self._out, self._jpaths)):
             v.copy_(to_jax_layout(leaves[self._order[j]], p, self._kept))
+
+    def _to_host(self) -> List[np.ndarray]:
         self.host.copy_(self.dev_out, non_blocking=self._cuda)
         self.sync()
         return self._host_leaves
+
+    @torch.no_grad()
+    def _mean_down(self, leaves: list) -> Optional[List[np.ndarray]]:
+        """The island's mean of ``leaves`` (one a replica) as the center's
+        leaves, on the island's rank 0 (None elsewhere): :meth:`down` in an
+        island of one device."""
+        if self.k == 1:
+            return self.down(leaves)
+        self._reduce_mean(leaves)
+        return self._to_host() if self.lead else None
+
+    def _reduce_mean(self, leaves: list) -> None:
+        """``dev_out`` ← the replicas' mean of ``leaves``, on rank 0."""
+        self._pack(leaves)
+        dist.reduce(self.dev_out, 0)
+        if self.lead:
+            self.dev_out.div_(self.k)
+
+    def _bcast_in(self) -> None:
+        """``dev_in`` from the island's rank 0 to its other ranks."""
+        if self.k > 1:
+            dist.broadcast(self.dev_in, 0)
+
+    def _lead(self, call, default=(None, 0.0, 0.0)):
+        """``call()`` on the island's rank 0; ``default`` elsewhere.  In an
+        island of more than one device rank 0 broadcasts how the call went,
+        so every rank raises the ``WireGiveUp`` or ``CenterUninitialized``
+        it raised (and takes the same branch after)."""
+        if self.k == 1:
+            return call()
+        from .wire import CenterUninitialized, WireGiveUp
+        out, err = default, None
+        if self.lead:
+            try:
+                out = call()
+            except (WireGiveUp, CenterUninitialized) as e:
+                err = e
+        code = torch.tensor([0 if err is None else 1 if isinstance(
+            err, WireGiveUp) else 2], device=self.device)
+        dist.broadcast(code, 0)
+        code = int(code.item())
+        if code and err is None:
+            err = (WireGiveUp, CenterUninitialized)[code - 1](
+                f"island {self.island}: its rank 0's center call failed")
+        if err is not None:
+            raise err
+        return out
 
     @torch.no_grad()
     def up(self, leaves: List[np.ndarray]) -> list:
@@ -276,16 +355,22 @@ class CenterLink:
 
     # -- start-up and resync ---------------------------------------------------
 
-    def seed(self) -> None:
+    def seed(self, mean: bool = False) -> None:
         """Seed the center from this island's params (a no-op on a seeded
-        center)."""
-        self.center.ensure_init_leaves(self.down(self._params))
+        center): rank 0's, which every replica shares at the start, or with
+        ``mean`` the replicas' mean (a re-seed)."""
+        if mean:
+            host = self._mean_down(self._params)
+        else:
+            host = self.down(self._params) if self.lead else None
+        self._lead(lambda: self.center.ensure_init_leaves(host), None)
 
     @torch.no_grad()
     def anchor(self, set_params: bool = False) -> None:
         """``dev_in`` ← the center (ASGD's anchor); with ``set_params`` the
         params too (a rejoin, or ASGD's resync after an outage)."""
-        self.up(self.center.pull_leaves())
+        self._lead(lambda: self.up(self.center.pull_leaves()), None)
+        self._bcast_in()
         if set_params:
             torch._foreach_copy_(self._params, self._cast_in())
         self.sync()
@@ -294,42 +379,56 @@ class CenterLink:
 
     @torch.no_grad()
     def easgd(self) -> Dict[str, float]:
-        """Pull, ``p ← p − α·(p − c)``, push ``delta = p − c``."""
+        """Pull, ``p ← p − α·(p − c)``, push ``delta = p − c`` (the
+        replicas' mean delta in an island of more than one device)."""
         t0 = time.perf_counter()
         self.sync()
         t1 = time.perf_counter()
-        leaves, w1, a1 = self._call(self.center.pull_leaves)
+        leaves, w1, a1 = self._lead(
+            lambda: self._call(self.center.pull_leaves))
         t2 = time.perf_counter()
-        self.up(leaves)
+        if self.lead:
+            self.up(leaves)
+        self._bcast_in()
         self.sync()
         t3 = time.perf_counter()
         ps = self._params
         delta = torch._foreach_sub(ps, self._cast_in())
         torch._foreach_add_(ps, delta, alpha=-self.alpha)
-        host = self.down(delta)
+        host = self._mean_down(delta)
         del delta
         t4 = time.perf_counter()
-        _, w2, a2 = self._call(self.center.push_delta_leaves, host,
-                               self.island)
+        _, w2, a2 = self._lead(lambda: self._call(
+            self.center.push_delta_leaves, host, self.island))
         t5 = time.perf_counter()
         return self._record(drain=t1 - t0, wire=w1 + w2, apply=a1 + a2,
                             h2d=t3 - t2, d2h=t4 - t3, total=t5 - t0)
 
     @torch.no_grad()
     def asgd(self) -> Dict[str, float]:
-        """Push ``delta = p − anchor``; the new center returned is the
-        anchor and the params."""
+        """Push ``delta = p − anchor`` (the replicas' mean less the anchor
+        in an island of more than one device); the new center returned is
+        the anchor and every replica's params."""
         t0 = time.perf_counter()
         self.sync()
         t1 = time.perf_counter()
-        delta = torch._foreach_sub(self._params, self._cast_in())
-        host = self.down(delta)
-        del delta
+        if self.k == 1:
+            delta = torch._foreach_sub(self._params, self._cast_in())
+            host = self.down(delta)
+            del delta
+        else:
+            self._reduce_mean(self._params)
+            host = None
+            if self.lead:
+                self.dev_out.sub_(self.dev_in)
+                host = self._to_host()
         t2 = time.perf_counter()
-        leaves, w, a = self._call(self.center.push_pull_leaves, host,
-                                  self.island)
+        leaves, w, a = self._lead(lambda: self._call(
+            self.center.push_pull_leaves, host, self.island))
         t3 = time.perf_counter()
-        self.up(leaves)
+        if self.lead:
+            self.up(leaves)
+        self._bcast_in()
         torch._foreach_copy_(self._params, self._cast_in())
         self.sync()
         t4 = time.perf_counter()
@@ -352,7 +451,8 @@ class IslandRunner(threading.Thread):
 
     def __init__(self, island_id: int, model_factory: Callable, config: dict,
                  center, sync_freq: int, stop_event: threading.Event,
-                 throttle_s: float = 0.0, rule: str = "easgd"):
+                 throttle_s: float = 0.0, rule: str = "easgd",
+                 group_size: int = 1, alpha: Optional[float] = None):
         super().__init__(daemon=True)
         self.island_id = island_id
         self.config = config
@@ -361,6 +461,11 @@ class IslandRunner(threading.Thread):
         self.stop_event = stop_event
         self.throttle_s = float(throttle_s)   # a deliberate straggler
         self.rule = rule                      # 'easgd' elastic | 'asgd' downpour
+        # an island of more than one device: this process is the island's
+        # rank ``config['rank']`` of ``group_size`` in the default group;
+        # only its rank 0 has a ``center`` (``alpha`` names α for the rest)
+        self.group_size = int(group_size)
+        self.alpha = alpha
         self.steps_done = 0
         self.exchanges_done = 0
         # center outages survived: the island trained on locally and
@@ -400,7 +505,9 @@ class IslandRunner(threading.Thread):
         from .wire import CenterUninitialized, WireGiveUp
 
         model = self.model = self._model_factory(self.config)
-        link = self.link = CenterLink(model, self.center, self.island_id)
+        grouped = self.group_size > 1
+        link = self.link = CenterLink(model, self.center, self.island_id,
+                                      self.alpha, self.group_size)
         try:
             link.seed()
         except WireGiveUp as e:
@@ -428,7 +535,9 @@ class IslandRunner(threading.Thread):
             link.anchor()
         count = 0
         t_round, slept = time.perf_counter(), 0.0
-        while not self.stop_event.is_set():
+        # an island of more than one device stops where its rank 0 says,
+        # after an exchange
+        while grouped or not self.stop_event.is_set():
             count += 1
             model.train_iter(count)
             self.steps_done += 1
@@ -461,12 +570,20 @@ class IslandRunner(threading.Thread):
                 # this island's params and carry on
                 self.exchanges_skipped += 1
                 try:
-                    link.seed()
+                    link.seed(mean=True)
                     if self.rule == "asgd":
                         link.anchor()
                 except (WireGiveUp, CenterUninitialized):
                     pass               # the next exchange tries again
+            if grouped and self._lead_says_stop(model.device):
+                break
             t_round, slept = time.perf_counter(), 0.0
+
+    def _lead_says_stop(self, device) -> bool:
+        """The island's rank 0's stop, broadcast to its other ranks."""
+        flag = torch.tensor([float(self.stop_event.is_set())], device=device)
+        dist.broadcast(flag, 0)
+        return bool(flag.item())
 
     def perf(self) -> dict:
         """Step and exchange times: the median local step (the first round,
@@ -510,6 +627,16 @@ class AsyncEASGDTrainer:
         if int(self.config.get("steps_per_call", 1)) != 1:
             raise NotImplementedError(
                 "async islands take one step a call (steps_per_call=1)")
+        # the islands this process runs (their indices, before
+        # island_base); in a launched world, this rank's place in it
+        self.island_size = 1
+        self._local = list(range(self.n_islands))
+        self._proc = None
+        n_workers = int(self.config.get("n_workers") or 1)
+        if n_workers > self.n_islands or (
+                n_workers > 1 and self.config.get("init_method")):
+            self._join_island(n_workers)
+        proc = self._proc
         self._island_devices = self._devices()
         self.model_factory = model_factory
         self.stop_event = threading.Event()
@@ -517,41 +644,85 @@ class AsyncEASGDTrainer:
         self._center_updates_final = None
 
         # the center: in memory (islands are threads of this process),
-        # also served over TCP (center_serve), or a remote one (center_addr)
+        # also served over TCP (center_serve), or a remote one (center_addr);
+        # in a world of multi-device islands global rank 0 holds it and
+        # serves the other islands, and only an island's rank 0 talks to it
         self._server = None
         addr = self.config.get("center_addr")
-        if addr:
+        if proc is not None and proc.rank > 0:
+            self.center = None
+        elif addr or (proc is not None and proc.world_rank > 0):
             from .center_server import RemoteCenter
+            if not addr:
+                addr = proc.store.get("center_addr").decode()
             # the client id keys the server's dedup window: island ids stay
             # unique across processes through island_base
             self.center = RemoteCenter(
                 str(addr), alpha=self.alpha,
-                client_id=f"w{self._island_base}",
+                client_id=f"w{self._island_base + self._local[0]}",
                 op_timeout_s=float(self.config.get("wire_timeout", 20.0)),
                 max_retries=int(self.config.get("wire_retries", 8)),
                 deadline_s=float(self.config.get("wire_deadline", 60.0)))
         else:
             self.center = ElasticCenter(alpha=self.alpha)
-            if self.config.get("center_serve"):
+            if self.config.get("center_serve") or (
+                    proc is not None and self.n_islands > 1):
                 from .center_server import CenterServer
                 self._server = CenterServer(center=self.center)
                 host, port = self._server.start(
                     str(self.config.get("center_host", "127.0.0.1")),
                     int(self.config.get("center_port", 0)))
                 self.center_address = f"{host}:{port}"
+                if proc is not None:
+                    proc.store.set("center_addr", self.center_address)
+
+    def _join_island(self, n_workers: int) -> None:
+        """This process as one rank of a launched world of islands of
+        ``K = n_workers / async_islands`` devices: rank ``r`` is rank
+        ``r % K`` of island ``r // K``, whose ``K`` ranks form this
+        process's default group (``MeshProcess.get_internode_comm(K)``)."""
+        n = self.n_islands
+        if n_workers % n:
+            raise ValueError(f"{n_workers} devices do not split into {n} "
+                             f"async islands of equal size")
+        k = n_workers // n
+        if not self.config.get("init_method"):
+            raise NotImplementedError(
+                f"{n_workers} devices over {n} async islands gives an island "
+                f"more than one device: such an island is {k} processes, one "
+                f"a device, each a rank of the launcher's world (python -m "
+                f"theanompi_tpu_torch.launcher --n-workers {n_workers}: "
+                f"rank, init_method); one process runs islands of one device "
+                f"only")
+        if dist.is_initialized():
+            raise RuntimeError("this process has a process group already; "
+                               "an island's rank joins its island's own")
+        proc = self._proc = MeshProcess(dict(self.config,
+                                             n_workers=n_workers))
+        proc.get_internode_comm(group_size=k)
+        self.island_size = k
+        self._local = [proc.group]
+
+    def _leave_island(self, failed: bool) -> None:
+        """Tell the world this island is done; global rank 0, serving the
+        center, waits for every island before it stops serving; then
+        leave the island's group."""
+        proc = self._proc
+        if not failed:
+            if proc.rank == 0:
+                proc.store.add("islands_done", 1)
+            if proc.world_rank == 0 and self._server is not None:
+                while proc.store.add("islands_done", 0) < self.n_islands:
+                    time.sleep(0.05)
+        proc.close()
 
     def _devices(self) -> List[torch.device]:
         """Island ``i``'s device: ``cuda:{i}``, or the one card (or the CPU)
-        that ``device`` names, shared by every island."""
-        from ..base import resolve_device
+        that ``device`` names, shared by every island; in a world of
+        multi-device islands, this rank's ``cuda:{local_rank}``."""
         n = self.n_islands
-        n_workers = int(self.config.get("n_workers") or 1)
-        if n_workers > n:
-            raise NotImplementedError(
-                f"{n_workers} devices over {n} async islands gives an island "
-                f"more than one device: a multi-device island needs a "
-                f"process group of its own, not ported yet (ROADMAP A8b); "
-                f"run one island per device")
+        if self._proc is not None:
+            return [self._proc.device]
         named = str(self.config.get("device", "cuda"))
         dev = resolve_device({"device": named})
         if dev.type == "cpu" or ":" in named:
@@ -565,8 +736,10 @@ class AsyncEASGDTrainer:
 
     def _island_config(self, i: int) -> dict:
         cfg = dict(self.config)
-        cfg.update(device=str(self._island_devices[i]), rank=0, size=1,
-                   n_workers=1)
+        cfg.update(device=str(self._island_devices[self._local.index(i)]),
+                   rank=self._proc.rank if self._proc else 0,
+                   size=self.island_size,
+                   n_workers=self.island_size)
         # a data stream of its own per island, across processes too; the
         # params' seed is shared
         cfg["data_seed"] = int(cfg.get("seed", 0)) + self._island_base + i
@@ -587,26 +760,33 @@ class AsyncEASGDTrainer:
         ``island_throttle``) maps a local island index to the seconds it
         sleeps after each step."""
         throttle = self._throttle() if throttle is None else throttle
-        for i in range(self.n_islands):
+        for i in self._local:
             r = IslandRunner(self._island_base + i, self.model_factory,
                              self._island_config(i), self.center,
                              self.sync_freq, self.stop_event,
-                             throttle_s=throttle.get(i, 0.0), rule=self.rule)
+                             throttle_s=throttle.get(i, 0.0), rule=self.rule,
+                             group_size=self.island_size, alpha=self.alpha)
             self.islands.append(r)
             r.start()
 
     def stop_and_join(self, timeout: float = 60.0) -> None:
         """Stop the islands, close the center's client (after reading its
-        update count) or the server, and re-raise an island's error."""
+        update count) or the server, and re-raise an island's error.  An
+        island of more than one device stops at its next exchange, when its
+        rank 0 says so; a rank that failed leaves its island's other ranks
+        waiting in a collective, for the launcher to stop."""
         self.stop_event.set()
         for r in self.islands:
-            r.join(timeout=timeout)
+            r.join(timeout=None if self.island_size > 1 else timeout)
         if hasattr(self.center, "close"):
             try:
                 self._center_updates_final = self.center.n_updates
             except Exception:
                 pass
             self.center.close()
+        if self._proc is not None:
+            self._leave_island(any(r.error is not None
+                                   for r in self.islands))
         if self._server is not None and not self.config.get(
                 "center_keep_serving"):
             self._server.stop()
@@ -638,7 +818,7 @@ class AsyncEASGDTrainer:
 
     def stats(self) -> dict:
         cu = self._center_updates_final
-        if cu is None:
+        if cu is None and self.center is not None:
             cu = self.center.n_updates
         return {"islands": [{"island": r.island_id, "steps": r.steps_done,
                              "exchanges": r.exchanges_done,
@@ -656,5 +836,8 @@ class AsyncEASGDTrainer:
         import os
         d = record_dir or self.config.get("record_dir", "./inc")
         os.makedirs(d, exist_ok=True)
-        with open(os.path.join(d, "async_easgd_stats.jsonl"), "w") as f:
+        # a launched world's ranks share the directory: a file a rank
+        name = "async_easgd_stats.jsonl" if self._proc is None \
+            else f"async_easgd_stats_rank{self._proc.world_rank}.jsonl"
+        with open(os.path.join(d, name), "w") as f:
             f.write(json.dumps(self.stats()) + "\n")

@@ -10,6 +10,12 @@ checkpoints at
 the end of every epoch (after validation) and, with ``resume=True``,
 restores the newest valid checkpoint before training.  Tracing, chaos, the
 watchdog and device profiling are not ported yet.
+
+:func:`main` is the per-rank command line the launcher composes
+(``theanompi_tpu_torch/launcher.py``):
+
+    python -m theanompi_tpu_torch.worker <rule> <modelfile> <modelclass> \\
+        [key=value ...]
 """
 
 from __future__ import annotations
@@ -116,3 +122,59 @@ class GOSGD_Worker(Worker):
 
 WORKERS = {w.rule: w for w in (BSP_Worker, EASGD_Worker, ASGD_Worker,
                                GOSGD_Worker)}
+
+
+def parse_config(argv) -> dict:
+    """``key=value`` words as a config dict, each value parsed as the JAX
+    package's worker parses it: an int, else a float, else ``true`` /
+    ``false`` (any case), else the string."""
+    config = {}
+    for kv in argv:
+        k, _, v = kv.partition("=")
+        try:
+            config[k] = int(v)
+        except ValueError:
+            try:
+                config[k] = float(v)
+            except ValueError:
+                config[k] = {"true": True, "false": False}.get(v.lower(), v)
+    return config
+
+
+def main(argv=None) -> int:
+    """CLI entry: ``python -m theanompi_tpu_torch.worker <rule> <modelfile>
+    <modelclass> [key=value ...]``, one rank's process.  EASGD and ASGD
+    with ``<rule>_mode=async`` train islands through the session API
+    (``sync_rule``); every other run builds the rule's worker and model
+    and runs the epoch loop."""
+    import sys
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if len(argv) < 3:
+        print("usage: python -m theanompi_tpu_torch.worker <rule> "
+              "<modelfile> <modelclass> [key=value ...]", file=sys.stderr)
+        return 1
+    rule, modelfile, modelclass = argv[:3]
+    if rule not in WORKERS:
+        print(f"unknown rule {rule!r}; have {sorted(WORKERS)}",
+              file=sys.stderr)
+        return 1
+    config = {"rule": rule, **parse_config(argv[3:])}
+    if config.get(f"{rule}_mode") == "async":
+        from . import sync_rule
+        session = getattr(sync_rule, rule.upper())(config)
+        session.init(config.get("n_workers"), modelfile, modelclass)
+        trainer = session.wait()
+        if config.get("record_dir"):
+            trainer.save(config["record_dir"])
+        return 0
+    worker = WORKERS[rule](config)
+    try:
+        worker.run(worker.build_model(modelfile, modelclass))
+    finally:
+        worker.close()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

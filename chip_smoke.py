@@ -11,6 +11,7 @@
     python3 chip_smoke.py --islands       # the async island phases alone
     python3 chip_smoke.py --vgg-island-lr # VGG-16 islands at two rates
     python3 chip_smoke.py --launcher      # the launcher phases alone
+    python3 chip_smoke.py --wire          # params mode, Ring, buckets alone
 
 1. Fails (exit 2, no result) without CUDA; prints the card's name and power
    limit as ``nvidia-smi`` reports them.
@@ -216,9 +217,26 @@
     refused before anything is spawned.  Prints the seconds from launch
     to the first step, the step ms beside the in-process session's, and
     the seconds from the SIGKILL to the first resumed step.
-29. Prints ``{"kernels": [...]}`` (B1–B12; B1/B2 with GoogLeNet's shapes
-    beside AlexNet's, and the island and launcher paths' counts), then
-    the card, then the last line ``{"ok": true, "device": {...}}``.
+29. The exchange wire's remaining forms (A7; ``--wire`` runs these
+    alone), world 1 over NCCL, cuDNN deterministic, each run from the
+    same seed: AlexNet b128 8 captured steps under ``exch_mode='params'``
+    bit for bit the grads-mode run, ``exch_strategy='ring'`` the
+    ``allreduce`` run, ``allreduce`` and ``nccl16`` at ``bucket_bytes`` 4
+    MiB their monolithic runs, params mode captured its eager run (the
+    exchange a graph of its own), 2 B1 and 2 B2 a step; VGG-16 b32 under
+    onebit, topk, powersgd and EASGD (config 3) at 4 MiB bit for bit
+    their monolithic runs (params, momentum, the strategy's or the
+    center's state), ``n_buckets`` the JAX package's plan (132, 2, 1,
+    19), B4 and B8 launched ``n_buckets`` times a step; B4 and B8 bucket
+    by bucket into ``out=`` slices of one mean, bit for bit their plain
+    versions, a bucket timed; profiles of VGG-16 onebit and topk,
+    monolithic and at 4 MiB (NCCL's kernels, B4, B8, the copies), and of
+    AlexNet in grads and params mode with one params-mode exchange timed
+    alone.
+30. Prints ``{"kernels": [...]}`` (B1–B12; B1/B2 with GoogLeNet's shapes
+    beside AlexNet's, and the island and launcher paths' counts; B4 and
+    B8 with their bucketed launches and per-bucket times), then the card,
+    then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script exits non-zero and prints no result.
 TF32 is off for the whole run (float32 comparisons need it off; the main
@@ -1216,6 +1234,11 @@ def times_main(flags) -> int:
     if "--launcher" in flags:
         _kernel_build.build(["lrn"])
         out["launcher"] = launcher_main(card)
+    if "--wire" in flags:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        _kernel_build.build(["lrn", "compress", "factor_pack"])
+        out["wire"] = wire_main(card)
     if "--lrn-times" in flags:
         out["lrn_times"] = lrn_times()
     if "--flash-times" in flags:
@@ -2340,6 +2363,8 @@ def drive(path: str, capture: bool, calls: int, spc: int = 1,
         torch.cuda.synchronize()
         out = {"costs": costs, "secs": time.time() - t0,
                "graphed": model.train_fn.graphed, "launches": launch_counts(),
+               "n_buckets": getattr(worker.exchanger, "n_buckets",
+                                    lambda: None)(),
                "state": [t.detach().cpu().clone() for t in
                          tree_leaves(model.params)
                          + tree_leaves(model.opt_state)
@@ -3198,6 +3223,233 @@ def launcher_main(card: str) -> dict:
 
 
 
+# -- the exchange wire's remaining forms (A7): params mode, Ring, buckets ----
+
+WIRE_BUCKET = 4 << 20
+# n_buckets at WIRE_BUCKET by the JAX package's plan, computed on the CPU
+# (tests/test_torch_buckets.py::test_card_counts_at_4_mib holds them
+# against theanompi_tpu.parallel.buckets)
+WIRE_N_BUCKETS = {"alexnet": 8, "vgg16_onebit": 132, "vgg16_topk": 2,
+                  "vgg16_powersgd": 1, "vgg16_easgd": 19}
+WIRE_GROUPS = {
+    # NCCL's kernels, if it launches any at world 1
+    "wire": ("nccl", "AllGather", "AllReduce"),
+    "b4": ("unpack_wsum_kernel",), "b8": ("topk_decode_kernel",),
+    # the flatten, the packing of the buckets and the gathered words
+    "copies": ("direct_copy_kernel", "CatArrayBatchedCopy", "Memcpy DtoD")}
+
+
+def same_state(name: str, a: dict, b: dict) -> int:
+    """Two drives' costs and whole state bit for bit (not their launches:
+    a bucketed wire launches its decode once a bucket)."""
+    return same_run(name, a, dict(b, launches=a["launches"]))
+
+
+def wire_alexnet_phase() -> dict:
+    """AlexNet b128, GRAPH_STEPS captured steps, cuDNN deterministic, each
+    run from the same seed against another, bit for bit: params mode
+    against grads mode (one replica's mean is itself), ``ring`` against
+    ``allreduce`` (world 1: the ring is the identity), allreduce and
+    nccl16 at WIRE_BUCKET against their monolithic wires, and params mode
+    captured (its exchange a CUDA graph of its own) against eager; 2 B1
+    and 2 B2 a step in every run."""
+    steps = GRAPH_STEPS
+    lrn = expect(lrn_fwd_cuda=2 * steps, lrn_bwd_cuda=2 * steps)
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {"grads": drive("alexnet", True, steps),
+                "nccl16": drive("alexnet", True, steps,
+                                exch_strategy="nccl16")}
+        for name, over, against, capture in (
+                ("params", {"exch_mode": "params"}, "grads", True),
+                ("ring", {"exch_strategy": "ring"}, "grads", True),
+                ("allreduce_4mib", {"bucket_bytes": WIRE_BUCKET}, "grads",
+                 True),
+                ("nccl16_4mib", {"exch_strategy": "nccl16",
+                                 "bucket_bytes": WIRE_BUCKET}, "nccl16",
+                 True),
+                ("params_eager", {"exch_mode": "params"}, "params", False)):
+            runs[name] = r = drive("alexnet", capture, steps, **over)
+            n = same_run(f"AlexNet {name} vs {against}", runs[against], r)
+            out[name] = {"against": against, "tensors": n,
+                         "graphed": r["graphed"], "n_buckets": r["n_buckets"]}
+            print(f"wire: AlexNet b{BATCH} {name} == {against}, {steps} "
+                  f"steps ({'captured' if capture else 'eager'}), {n} state "
+                  f"tensors and the costs bit for bit", flush=True)
+        for name, r in runs.items():
+            if r["launches"] != lrn:
+                raise AssertionError(f"AlexNet {name}: launches "
+                                     f"{r['launches']}, want {lrn}")
+        if out["allreduce_4mib"]["n_buckets"] != WIRE_N_BUCKETS["alexnet"]:
+            raise AssertionError(f"AlexNet n_buckets "
+                                 f"{out['allreduce_4mib']['n_buckets']}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    out["launches"] = {k: v for k, v in lrn.items() if v}
+    return out
+
+
+def wire_vgg_phase() -> dict:
+    """VGG-16 b32 under onebit, topk and powersgd, and under EASGD (config
+    3), GRAPH_STEPS captured steps monolithic and at WIRE_BUCKET, cuDNN
+    deterministic: costs, params, momentum and the strategy's or the
+    center's state bit for bit; n_buckets the JAX package's plan; B4 and
+    B8 launched n_buckets times a step, every other kernel as often as on
+    the monolithic wire."""
+    steps = GRAPH_STEPS
+    per_step = {"vgg16_onebit": {"pack_signs_encode_cuda": 1,
+                                 "signed_residual_cuda": 1,
+                                 "unpack_signs_wsum_cuda": "n"},
+                "vgg16_topk": {"topk_encode_cuda": 1,
+                               "topk_decode_cuda": "n"},
+                "vgg16_powersgd": {"matmul_pack_group_cuda": 2},
+                "vgg16_easgd": {}}
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for path, want in per_step.items():
+            mono = drive(path, True, steps)
+            buck = drive(path, True, steps, bucket_bytes=WIRE_BUCKET)
+            n = same_state(f"{path} 4 MiB vs monolithic", mono, buck)
+            nb = buck["n_buckets"]
+            if nb != WIRE_N_BUCKETS[path]:
+                raise AssertionError(f"{path}: n_buckets {nb}, the JAX plan "
+                                     f"{WIRE_N_BUCKETS[path]}")
+            for r, k in ((mono, 1), (buck, nb)):
+                exp = expect(**{name: steps * (k if c == "n" else c)
+                                for name, c in want.items()})
+                if r["launches"] != exp:
+                    raise AssertionError(f"{path} (n_buckets {k}): launches "
+                                         f"{r['launches']}, want {exp}")
+            out[path] = {"tensors": n, "n_buckets": nb,
+                         "launches": {k: v for k, v in
+                                      buck["launches"].items() if v},
+                         "launches_monolithic": {
+                             k: v for k, v in mono["launches"].items() if v}}
+            print(f"wire: {path} b{VGG_BATCH} at {WIRE_BUCKET >> 20} MiB == "
+                  f"monolithic, {steps} captured steps, {n} state tensors "
+                  f"and the costs bit for bit; n_buckets {nb} (the JAX "
+                  f"plan); launches {out[path]['launches']} (monolithic "
+                  f"{out[path]['launches_monolithic']})", flush=True)
+            del mono, buck
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def wire_decode_phase() -> dict:
+    """B4 and B8 at the bucketed wires' shapes, each bucket decoded into its
+    slice of one mean (``out=``), as VGG-16's 4 MiB buckets hand them: B4 a
+    [1, 256, 128] bucket of words (the last one shorter), bit for bit
+    against its plain version; B8 a bucket of 12,787 rows [1, 12787, 82]
+    and the last of 4,103, against the plain decode on the CPU (see
+    ``topk_phase``); times a bucket each beside its plain version and its
+    bound."""
+    n_true, n = vgg16_sizes()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    m = n // (32 * cmp_ops.LANES)
+    rows_b4 = WIRE_BUCKET // 4 // (32 * cmp_ops.LANES)
+    words = torch.randint(-2 ** 31, 2 ** 31, (1, m, cmp_ops.LANES),
+                          generator=g, device="cuda", dtype=torch.int32)
+    scales = torch.rand(1, generator=g, device="cuda") + 0.1
+    whole = cmp_ops.unpack_signs_weighted_sum_plain(words, scales)
+    mean = torch.empty(n, device="cuda")
+    zero_launches()
+    for a in range(0, m, rows_b4):
+        b = min(a + rows_b4, m)
+        cmp_ops.unpack_signs_wsum_cuda(words[:, a:b], scales,
+                                       out=mean[a * 4096:b * 4096])
+    torch.cuda.synchronize()
+    b4_launches = cmp_ops.unpack_signs_wsum_cuda.launches
+    e4 = check_bits("B4 by bucket into out=", mean, whole)
+    one = words[:, :rows_b4]
+    nb4 = rows_b4 * 32 * cmp_ops.LANES
+    b4 = {"launches_checked": b4_launches, "max_abs_err": e4,
+          "shape": [1, rows_b4, cmp_ops.LANES],
+          "ms": time_ms(lambda: cmp_ops.unpack_signs_wsum_cuda(
+              one, scales, out=mean[:nb4])),
+          "plain_ms": time_ms(lambda: cmp_ops.unpack_signs_weighted_sum_plain(
+              one, scales, out=mean[:nb4]), reps=5, inner=2, warmup=1),
+          **bound(nb4 / 8 + 4 + 4 * nb4, 3 * nb4)}
+    del words, whole
+    c2 = topk_inputs(n_true)
+    rows = c2.shape[0]
+    kv, ki, _ = cmp_ops.topk_encode_cuda(c2, TOPK_K)
+    del c2
+    per = WIRE_BUCKET // (4 * TOPK_K)
+    dense = torch.empty(rows * TOPK_CHUNK, device="cuda")
+    zero_launches()
+    for a in range(0, rows, per):
+        b = min(a + per, rows)
+        cmp_ops.topk_decode_cuda(kv[None, a:b], ki[None, a:b], TOPK_CHUNK, 1,
+                                 out=dense[a * TOPK_CHUNK:b * TOPK_CHUNK])
+    torch.cuda.synchronize()
+    b8_launches = cmp_ops.topk_decode_cuda.launches
+    want = cmp_ops.topk_decode_plain(kv[None].cpu(), ki[None].cpu(),
+                                     TOPK_CHUNK, 1)
+    e8 = check_bits("B8 by bucket into out=", dense.cpu(), want)
+    del want
+    sv, si = kv[None, :per], ki[None, :per]
+    b8 = {"launches_checked": b8_launches, "max_abs_err": e8,
+          "shape": [1, per, TOPK_K], "last_rows": rows - per * (b8_launches - 1),
+          "ms": time_ms(lambda: cmp_ops.topk_decode_cuda(
+              sv, si, TOPK_CHUNK, 1, out=dense[:per * TOPK_CHUNK])),
+          "plain_ms": time_ms(lambda: cmp_ops.topk_decode_plain(
+              sv, si, TOPK_CHUNK, 1, out=dense[:per * TOPK_CHUNK]), reps=5,
+              inner=2, warmup=1),
+          **bound(4 * per * TOPK_K + 4 * per * TOPK_CHUNK, per * TOPK_K)}
+    del kv, ki, dense, mean
+    torch.cuda.empty_cache()
+    return {"unpack_signs_wsum_cuda": b4, "topk_decode_cuda": b8}
+
+
+def wire_profile_phase(card: str) -> dict:
+    """VGG-16 b32 under onebit and topk, monolithic and at WIRE_BUCKET,
+    captured: the wire group's device ms a step (NCCL's kernels), B4's and
+    B8's summed, the copies; and AlexNet b128 under params mode, captured,
+    with one exchange timed alone (CUDA events)."""
+    out = {}
+    for w in ("onebit", "topk"):
+        for label, bb in (("monolithic", 0), ("4mib", WIRE_BUCKET)):
+            key = f"vgg16_{w}_{label}"
+            out[key] = p = step_profile_phase(
+                *VGG_MODEL, VGG_BATCH, WIRE_GROUPS, PROFILE_STEPS,
+                exch_strategy=w, learning_rate=VGG_LR, bucket_bytes=bb)
+            print(f"wire profile {key}:", end=" ", flush=True)
+            print_profile(p, card, WIRE_GROUPS)
+    groups = {"lrn": ("lrn_",), "wire": ("AllReduce",)}
+    for mode in ("grads", "params"):
+        out[f"alexnet_{mode}"] = p = step_profile_phase(
+            "theanompi_tpu_torch.models.alex_net", "AlexNet", BATCH, groups,
+            PROFILE_STEPS, after=exchange_ms, exch_mode=mode)
+        print(f"wire profile AlexNet {mode} mode:", end=" ", flush=True)
+        print_profile(p, card, groups)
+    print(f"AlexNet params-mode exchange alone (CUDA events): "
+          f"{out['alexnet_params']['after']['exchange_ms']:.4f} ms on {card}",
+          flush=True)
+    return out
+
+
+def wire_main(card: str) -> dict:
+    """The A7 phases (``--wire`` runs them alone)."""
+    t0 = time.time()
+    res = {"alexnet": wire_alexnet_phase(), "vgg16": wire_vgg_phase(),
+           "decode": wire_decode_phase(), "profile": wire_profile_phase(card)}
+    d = res["decode"]
+    print("wire decode by bucket: " + "; ".join(
+        f"{k[:-5]} {v['shape']} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f}, "
+        f"plain {v['plain_ms']:.3f}), {v['launches_checked']} buckets into "
+        f"one mean bit for bit" for k, v in d.items()) + f" on {card}",
+        flush=True)
+    res["secs"] = time.time() - t0
+    print(f"wire phases passed in {res['secs']:.1f}s", flush=True)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "chip_smoke_wire.json"), "w") as f:
+        json.dump(dict(res, card=card), f, indent=1)
+    return res
+
+
 # (para_load_workers, native augment threads per batch) settings timed by
 # ``--input-times``; the first is what the port ships on an 8-core host
 INPUT_SETTINGS = ((4, 2), (4, 1), (2, 2), (2, 1), (1, 4), (8, 1))
@@ -3728,9 +3980,24 @@ def main() -> int:
 
     islands = islands_main(card)
     launcher = launcher_main(card)
+    wire = wire_main(card)
 
     kernels = kernel_entries(lrn, lrn_g, comp, topk, fpack, flash, alex,
                              goog, vggs, lm)
+    for e in kernels:
+        # the bucketed wires' decodes: once a bucket (A7)
+        path = {"unpack_signs_wsum": "vgg16_onebit",
+                "topk_decode": "vgg16_topk"}.get(e["name"])
+        if path:
+            name = e["name"] + "_cuda"
+            e["bucketed"] = dict(
+                bucket_bytes=WIRE_BUCKET,
+                n_buckets=wire["vgg16"][path]["n_buckets"],
+                launches=wire["vgg16"][path]["launches"][name],
+                launches_from=f"VGG-16 {path[6:]} main path at 4 MiB",
+                **{k: wire["decode"][name][k] for k in
+                   ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_by")})
     for e in kernels:
         if e["name"].startswith("lrn_"):
             name = "lrn_fwd_cuda" if e["name"] == "lrn_fwd" else "lrn_bwd_cuda"
@@ -3766,7 +4033,7 @@ def main() -> int:
                                  "alexnet_files_windows": windows},
                                 **{f"vgg16_{k}": v for k, v in vggs.items()}),
                    "rules": rules, "clip": clip, "optimizers": opts,
-                   "islands": islands, "launcher": launcher,
+                   "islands": islands, "launcher": launcher, "wire": wire,
                    "graph_eager": graph_eager, "spc": spc,
                    "recapture": recapture, "zoo_ref": zoo_ref,
                    "lrn_googlenet": lrn_g, "lrn_sass": lrn_sass,
@@ -3791,6 +4058,7 @@ if __name__ == "__main__":
     _flags = set(sys.argv[1:])
     if not _flags <= {"--flash-times", "--topk-times", "--factor-times",
                       "--input-times", "--update-times", "--lrn-times",
-                      "--islands", "--vgg-island-lr", "--launcher"}:
+                      "--islands", "--vgg-island-lr", "--launcher",
+                      "--wire"}:
         sys.exit(f"chip_smoke: unknown arguments {sorted(_flags)}")
     sys.exit(times_main(_flags) if _flags else main())

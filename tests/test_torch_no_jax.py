@@ -62,6 +62,14 @@ rc.push_delta_leaves([np.ones(3, np.float32)], 0)
 assert rc.pull_leaves()[0][0] == 1.5
 rc.close()
 srv.stop()
+# the bucket planner plans, packs and unpacks without JAX
+import torch
+from theanompi_tpu_torch.parallel import buckets
+tree = {"b": torch.ones(3), "a": torch.zeros(2, 2)}
+plan = buckets.plan_buckets(tree, 8)
+assert plan.n_buckets == 2 and plan.buckets[0].leaf_ids == (0,)
+assert torch.equal(buckets.unpack(buckets.pack(tree, plan), tree, plan)["b"],
+                   tree["b"])
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "theanompi_tpu" or m.startswith("theanompi_tpu."))
@@ -84,7 +92,8 @@ NEW_MODULES = ("theanompi_tpu_torch.native",
                "theanompi_tpu_torch.parallel.async_easgd",
                "theanompi_tpu_torch.parallel.membership",
                "theanompi_tpu_torch.utils.clock",
-               "theanompi_tpu_torch.launcher")
+               "theanompi_tpu_torch.launcher",
+               "theanompi_tpu_torch.parallel.buckets")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

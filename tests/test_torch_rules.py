@@ -432,8 +432,8 @@ def test_session_api_trains_each_rule_on_cpu(rule):
      NotImplementedError, "A10"),
     ("EASGD", {"easgd_mode": "async", "chaos_dir": "chaos"},
      NotImplementedError, "A10"),
-    ("EASGD", {"bucket_bytes": 1 << 20}, NotImplementedError, "A7"),
-    ("GOSGD", {"bucket_bytes": 1 << 20}, NotImplementedError, "A7"),
+    ("BSP", {"exch_mode": "gradients"}, ValueError, "exch_mode"),
+    ("BSP", {"exch_strategy": "ring8"}, ValueError, "ring8"),
     ("ASGD", {"update_sharding": True}, NotImplementedError,
      "update_sharding"),
     ("GOSGD", {"gosgd_peers": "ring"}, ValueError, "gosgd_peers"),
@@ -452,7 +452,7 @@ def test_refused_modes_and_keys_raise(rule, cfg, exc, match):
 
 
 @pytest.mark.parametrize("rule,cfg", [
-    ("EASGD", {"bucket_bytes": 1 << 20}), ("GOSGD", {"bucket_bytes": 1 << 20}),
+    ("BSP", {"exch_mode": "gradients"}), ("BSP", {"exch_strategy": "ring8"}),
     ("GOSGD", {"gosgd_peers": "ring"})])
 def test_refused_exchanger_leaves_no_process_group(rule, cfg):
     """A config the exchanger refuses raises from the worker's constructor,

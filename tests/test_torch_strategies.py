@@ -162,16 +162,18 @@ def test_bsp_exchanger_carries_topk_and_powersgd_state(cpu_group, name):
         assert new["strat"][0]["e"].shape == (8, 12)
 
 
-def test_bucketed_wire_raises():
-    with pytest.raises(NotImplementedError, match="bucket"):
-        X.BSP_Exchanger({"exch_strategy": "onebit", "bucket_bytes": 1 << 20})
+def test_bucketed_wire_reaches_the_strategy():
+    ex = X.BSP_Exchanger({"exch_strategy": "onebit", "bucket_bytes": 1 << 20})
+    assert ex.strategy.bucket_bytes == ex.bucket_bytes == 1 << 20
+    assert ex.n_buckets() is None            # no model yet
+    assert X.BSP_Exchanger({}).strategy.bucket_bytes == 0
 
 
 def test_unknown_names_raise():
-    for name in ("ring", "asa16"):
+    for name in ("ring8", "asa64"):
         with pytest.raises(ValueError, match=name):
             S.get_strategy(name)
     with pytest.raises(ValueError, match="gossip"):
         X.get_exchanger("gossip")
-    with pytest.raises(NotImplementedError, match="params"):
-        X.BSP_Exchanger({"exch_mode": "params"})
+    with pytest.raises(ValueError, match="exch_mode"):
+        X.BSP_Exchanger({"exch_mode": "gradients"})

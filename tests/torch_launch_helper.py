@@ -14,6 +14,24 @@ its own, ``helper_mode`` and ``helper_out``:
   in it, then writes every case's final state to
   ``<helper_out>_r<rank>.npz`` (``<case>/<key>``, keys as
   ``torch_port_helper.state_arrays`` makes them).
+* ``helper_mode=buckets``: joins the world once and trains each of
+  ``BUCKET_CASES`` twice through its rule's session, on the monolithic
+  wire and at ``bucket_bytes=BUCKET_BYTES``, writing both runs' final state
+  (``<case>/mono/<key>``, ``<case>/buck/<key>``), the exchanger's
+  ``n_buckets`` (``<case>/n_buckets``) and the collectives one more step
+  and its exchange issued on each wire (``<case>/<wire>/calls``:
+  all-reduces, all-gathers, point-to-point messages); at 4 ranks also
+  one exchange of ``SUM_WIRES`` on a gradient tree of ``TinyWideNet``'s
+  shapes drawn from the seed ``100 + rank``, on both wires
+  (``sum/<name>/<wire>/<path>``).
+* ``helper_mode=params_ring``: joins the world once; at 4 ranks runs one
+  exchange of each ``RING_NAMES`` strategy on a gradient tree of
+  ``TinyVGGNet``'s shapes drawn from the seed ``100 + rank``
+  (``ring/<name>/in/<path>``, ``ring/<name>/out/<path>``) and trains
+  ``PARAMS_RING_CASES``; at 2 ranks trains ``params`` (the oracle's case)
+  and ``resume`` (params mode two epochs without a break, then one epoch,
+  a checkpoint in ``<helper_out>_ckpt`` and a resumed second epoch:
+  ``resume/full/...``, ``resume/resumed/...``).
 * ``helper_mode=islands``: this rank's island of an async world
   (``AsyncEASGDTrainer``), each island stopping after
   ``helper_exchanges`` exchanges; writes this rank's params at the start
@@ -98,6 +116,211 @@ WIRE_CASES = {
     "powersgd": ("TinyVGGNet", dict(exch_strategy="powersgd1")),
     "sync_bn": ("TinyResNet", dict(exch_strategy="allreduce")),
 }
+
+
+class TinyWideNet(TinyLRNNetFrom):
+    """Conv(3→8, 3×3 SAME) → LRN → Pool(3/2) → FC(72 → 960, relu) →
+    FC(960 → 5), float32, 75,109 params: at ``BUCKET_BYTES`` the conv's
+    two leaves share a bucket and every other leaf is one of its own (5
+    buckets of 6 leaves), onebit ships 3 buckets (a pack block each) and
+    topk 4 (3 of its 10 chunk rows each)."""
+
+    def build_model(self):
+        from torch_port_helper import C_IN, N_CLASS, TinyData
+        from theanompi_tpu_torch.models import layers as L
+        self.seq = L.Sequential([
+            L.Conv(C_IN, 8, 3, padding=1, w_init=("normal", 0.3),
+                   b_init=("constant", 0.1), compute_dtype="float32",
+                   name="conv"),
+            L.LRN(k=1.0, alpha=0.5, name="lrn"),
+            L.Pool(3, 2, mode="max", name="pool"),
+            L.Flatten(),
+            L.FC(3 * 3 * 8, 960, w_init=("normal", 0.1), activation="relu",
+                 compute_dtype="float32", name="fc1"),
+            L.FC(960, N_CLASS, w_init=("normal", 0.1), activation=None,
+                 compute_dtype="float32", name="fc2")])
+        self.data = TinyData(self.config, self.batch_size)
+
+
+BUCKET_BYTES = 1024
+# the JAX package's tests/test_buckets.py cases: (rule, config)
+BUCKET_CASES = {
+    "bsp-allreduce": ("BSP", {}),
+    "bsp-nccl16": ("BSP", {"exch_strategy": "nccl16"}),
+    "bsp-params": ("BSP", {"exch_mode": "params"}),
+    "bsp-onebit": ("BSP", {"exch_strategy": "onebit"}),
+    "bsp-topk": ("BSP", {"exch_strategy": "topk"}),
+    "bsp-powersgd": ("BSP", {"exch_strategy": "powersgd1"}),
+    "easgd": ("EASGD", {"sync_freq": 2}),
+    "asgd": ("ASGD", {"sync_freq": 1}),
+    "gosgd-perm": ("GOSGD", {"exch_prob": 0.9}),
+    "gosgd-iid": ("GOSGD", {"exch_prob": 0.9, "gosgd_peers": "iid"}),
+    "gosgd-shift": ("GOSGD", {"exch_prob": 0.9, "gosgd_peers": "shift"}),
+    "easgd-spc4": ("EASGD", {"sync_freq": 2, "steps_per_call": 4}),
+}
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """Counts of ``dist.all_reduce`` and ``dist.all_gather`` calls, and of
+    the point-to-point sends and receives ``dist.batch_isend_irecv`` was
+    handed, inside the block."""
+    import torch.distributed as dist
+    calls = {"all_reduce": 0, "all_gather": 0, "batch_isend_irecv": 0}
+    saved = {k: getattr(dist, k) for k in calls}
+
+    def counted(k):
+        def fn(*a, **kw):
+            calls[k] += len(a[0]) if k == "batch_isend_irecv" else 1
+            return saved[k](*a, **kw)
+        return fn
+
+    for k in calls:
+        setattr(dist, k, counted(k))
+    try:
+        yield calls
+    finally:
+        for k, f in saved.items():
+            setattr(dist, k, f)
+
+
+def _session(rule, modelclass, config, **cfg):
+    import theanompi_tpu_torch as T
+    r = getattr(T, rule)()
+    r.init(devices=int(config["n_workers"]),
+           modelfile="torch_launch_helper", modelclass=modelclass,
+           **dict(config, **cfg, verbose=False, printFreq=1000))
+    r.wait()
+    return r
+
+
+def buckets(config, out):
+    from theanompi_tpu_torch.base import MeshProcess
+    proc = MeshProcess(dict(config, verbose=False))
+    proc.get_internode_comm()
+    res = {}
+    try:
+        if int(config["n_workers"]) == 4:
+            res.update(sum_wires(proc.rank))
+        for case, (rule, cfg) in BUCKET_CASES.items():
+            for wire, bb in (("mono", 0), ("buck", BUCKET_BYTES)):
+                r = _session(rule, "TinyWideNet", config, bucket_bytes=bb,
+                             **cfg)
+                m = r.model
+                res.update({f"{case}/{wire}/{k}": v
+                            for k, v in state_arrays(m).items()})
+                # one more call of the step and its exchange (due: the
+                # count a multiple of every case's cadence)
+                k = int(m.steps_per_call)
+                count = 4 * k * (1 + m.data.n_batch_train)
+                with count_collectives() as calls:
+                    m.train_iter(count)
+                    m.exchanger.exchange(None, count)
+                res[f"{case}/{wire}/calls"] = np.array(
+                    [calls["all_reduce"], calls["all_gather"],
+                     calls["batch_isend_irecv"]])
+                if bb:
+                    n = m.exchanger.n_buckets()
+                    res[f"{case}/n_buckets"] = np.int64(-1 if n is None
+                                                        else n)
+    finally:
+        proc.close()
+    np.savez(f"{out}_r{proc.rank}.npz", **res)
+
+
+# the summing wires, held exchange by exchange at 4 ranks
+SUM_WIRES = ("allreduce", "nccl16", "powersgd1")
+
+
+def sum_wires(rank: int) -> dict:
+    """One exchange of each ``SUM_WIRES`` strategy, monolithic and at
+    ``BUCKET_BYTES``, of the same gradient tree (``TinyWideNet``'s shapes,
+    the seed ``100 + rank``)."""
+    import torch
+    from theanompi_tpu_torch.parallel.strategies import get_strategy
+    from theanompi_tpu_torch.utils.helper_funcs import (leaf_paths,
+                                                        tree_leaves,
+                                                        tree_map)
+    like = TinyWideNet({"device": "cpu", "verbose": False}).params
+    out = {}
+    for name in SUM_WIRES:
+        for wire, bb in (("mono", 0), ("buck", BUCKET_BYTES)):
+            r = np.random.RandomState(100 + rank)
+            g = tree_map(lambda p: torch.from_numpy(
+                r.randn(*p.shape).astype(np.float32)), like)
+            if wire == "mono":
+                out.update({f"sum/{name}/in/" + "/".join(p): v.numpy().copy()
+                            for p, v in zip(leaf_paths(g), tree_leaves(g))})
+            s = get_strategy(name)
+            s.bucket_bytes = bb
+            mean, _ = s(g, s.init_state(g), size=4)
+            out.update({f"sum/{name}/{wire}/" + "/".join(p):
+                        v.contiguous().numpy().copy()
+                        for p, v in zip(leaf_paths(mean), tree_leaves(mean))})
+    return out
+
+
+RING_NAMES = ("ring", "asa32", "ring16", "copper16")
+# trained at 4 ranks against the JAX package's 4 workers
+PARAMS_RING_CASES = {
+    "ring": {"exch_strategy": "ring"},
+    "asa16": {"exch_strategy": "asa16"},
+    "params": {"exch_mode": "params"},
+}
+
+
+def ring_grads(rank: int):
+    """A gradient tree of ``TinyVGGNet``'s shapes (the port's layout) drawn
+    from the seed ``100 + rank``."""
+    import torch
+    from theanompi_tpu_torch.utils.helper_funcs import tree_map
+    like = TinyVGGNet({"device": "cpu", "verbose": False}).params
+    r = np.random.RandomState(100 + rank)
+    return tree_map(lambda p: torch.from_numpy(
+        r.randn(*p.shape).astype(np.float32)), like)
+
+
+def params_ring(config, out):
+    from theanompi_tpu_torch.base import MeshProcess
+    from theanompi_tpu_torch.parallel.strategies import get_strategy
+    from theanompi_tpu_torch.utils.helper_funcs import (leaf_paths,
+                                                        tree_leaves)
+    proc = MeshProcess(dict(config, verbose=False))
+    proc.get_internode_comm()
+    res = {}
+    try:
+        world = int(config["n_workers"])
+        if world == 4:
+            for name in RING_NAMES:
+                g = ring_grads(proc.rank)
+                for p, v in zip(leaf_paths(g), tree_leaves(g)):
+                    res[f"ring/{name}/in/" + "/".join(p)] = v.numpy().copy()
+                mean, _ = get_strategy(name)(g, (), size=world)
+                for p, v in zip(leaf_paths(mean), tree_leaves(mean)):
+                    res[f"ring/{name}/out/" + "/".join(p)] = \
+                        v.contiguous().numpy().copy()
+            cases = PARAMS_RING_CASES
+        else:
+            cases = {"params": PARAMS_RING_CASES["params"]}
+        for case, cfg in cases.items():
+            r = _session("BSP", "TinyLRNNetFrom", config, **cfg)
+            res.update({f"{case}/{k}": v
+                        for k, v in state_arrays(r.model).items()})
+        if world == 2:
+            ck = f"{out}_ckpt"
+            full = _session("BSP", "TinyLRNNetFrom", config, epochs=2,
+                            exch_mode="params")
+            res.update({f"resume/full/{k}": v
+                        for k, v in state_arrays(full.model).items()})
+            _session("BSP", "TinyLRNNetFrom", config, epochs=1,
+                     exch_mode="params", ckpt_dir=ck)
+            again = _session("BSP", "TinyLRNNetFrom", config, epochs=2,
+                             exch_mode="params", ckpt_dir=ck, resume=True)
+            res.update({f"resume/resumed/{k}": v
+                        for k, v in state_arrays(again.model).items()})
+    finally:
+        proc.close()
+    np.savez(f"{out}_r{proc.rank}.npz", **res)
 
 
 def wires(config, out):
@@ -232,6 +455,10 @@ def main(argv):
     mode, out = config.pop("helper_mode"), config.pop("helper_out")
     if mode == "wires":
         wires(config, out)
+    elif mode == "buckets":
+        buckets(config, out)
+    elif mode == "params_ring":
+        params_ring(config, out)
     else:
         islands(config, modelclass, out)
     return 0

@@ -265,13 +265,15 @@ class ModelBase:
         self.exchanger = exchanger
         if self.config.get("ema_decay") and not (
                 isinstance(self.exchanger, BSP_Exchanger)
+                and self.exchanger.mode == "grads"
                 and self.exchanger.strategy.name != "none"):
             # the shadow of one replica only means something when every
             # rank applies the same reduced gradient
             strategy = getattr(self.exchanger, "strategy", None)
             raise ValueError(
                 "ema_decay requires BSP grads mode with a gradient "
-                f"collective; got {type(self.exchanger).__name__} strategy="
+                f"collective; got {type(self.exchanger).__name__} mode="
+                f"{getattr(self.exchanger, 'mode', '-')} strategy="
                 f"{getattr(strategy, 'name', '-')}")
         self.exchanger.prepare(self, dist.get_world_size()
                                if exchanger.collective else 1)

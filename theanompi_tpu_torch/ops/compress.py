@@ -83,6 +83,18 @@ def _check_words(name: str, packed: torch.Tensor, rank: int) -> None:
                          f"m % {_WORDS_PER_BLOCK} == 0")
 
 
+def _out_vec(name: str, out, n: int, device):
+    """``out`` checked to be a contiguous float32 vector of ``n`` elements
+    on ``device`` (a decode's slice of a longer mean), or None."""
+    if out is not None and (out.dtype != torch.float32 or out.dim() != 1
+                            or out.shape[0] != n or out.device != device
+                            or not out.is_contiguous()):
+        raise ValueError(f"{name}: out {tuple(out.shape)} {out.dtype} on "
+                         f"{out.device}; takes a contiguous float32 [{n}] on "
+                         f"{device}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # plain versions (the jnp oracles in torch ops)
 # ---------------------------------------------------------------------------
@@ -114,13 +126,17 @@ def unpack_signs_plain(packed: torch.Tensor) -> torch.Tensor:
 
 
 def unpack_signs_weighted_sum_plain(all_packed: torch.Tensor,
-                                    scales: torch.Tensor) -> torch.Tensor:
+                                    scales: torch.Tensor,
+                                    out=None) -> torch.Tensor:
     """[W, m, 128] words, f32 [W] scales → Σ_w scales[w]·signs[w]
-    (``unpack_signs_weighted_sum_jnp``)."""
+    (``unpack_signs_weighted_sum_jnp``); into ``out`` when given."""
     _check_words("unpack_signs_weighted_sum_plain", all_packed, 3)
-    w = all_packed.shape[0]
+    w, m, _ = all_packed.shape
+    out = _out_vec("unpack_signs_weighted_sum_plain", out, 32 * m * LANES,
+                   all_packed.device)
     decoded = torch.stack([unpack_signs_plain(p) for p in all_packed])
-    return torch.sum(decoded * scales.reshape(w, 1), dim=0)
+    res = torch.sum(decoded * scales.reshape(w, 1), dim=0)
+    return res if out is None else out.copy_(res)
 
 
 def decode_tol(w: int, scales: torch.Tensor):
@@ -198,14 +214,15 @@ def topk_encode_plain(c2: torch.Tensor, k: int, out=None):
 
 
 def topk_decode_plain(all_vals: torch.Tensor, all_idx: torch.Tensor,
-                      chunk: int, size: int = 1) -> torch.Tensor:
+                      chunk: int, size: int = 1, out=None) -> torch.Tensor:
     """Every worker's rows scatter-added into the dense f32 [rows·chunk],
     worker by worker (a worker's offsets in a row are distinct), then
     divided by ``size`` when it is not 1 (``topk_decode_jnp``: the same
     per-element order of adds, and a division, not a product with
-    1/size)."""
+    1/size); into ``out`` when given."""
     _check_topk_wire("topk_decode_plain", all_vals, all_idx, chunk)
     w, rows, k = all_vals.shape
+    out = _out_vec("topk_decode_plain", out, rows * chunk, all_vals.device)
     base = (torch.arange(rows, dtype=torch.int64, device=all_vals.device)
             * chunk).reshape(rows, 1)
     dense = torch.zeros(rows * chunk, dtype=torch.float32,
@@ -213,7 +230,8 @@ def topk_decode_plain(all_vals: torch.Tensor, all_idx: torch.Tensor,
     for i in range(w):
         dense.index_add_(0, (all_idx[i].long() + base).reshape(-1),
                          all_vals[i].float().reshape(-1))
-    return dense / size if size != 1 else dense
+    res = dense / size if size != 1 else dense
+    return res if out is None else out.copy_(res)
 
 
 # ---------------------------------------------------------------------------
@@ -305,15 +323,18 @@ def signed_residual_cuda(absc: torch.Tensor, packed: torch.Tensor,
     return out
 
 
-def unpack_signs_wsum_cuda(all_packed: torch.Tensor,
-                           scales: torch.Tensor) -> torch.Tensor:
+def unpack_signs_wsum_cuda(all_packed: torch.Tensor, scales: torch.Tensor,
+                           out=None) -> torch.Tensor:
     """Kernel B4: [W, m, 128] words and f32 [W] scales →
-    Σ_w 2·scale_w·bit_w − Σ_w scale_w, f32 [32·m·128]."""
+    Σ_w 2·scale_w·bit_w − Σ_w scale_w, f32 [32·m·128]; into ``out`` (a
+    contiguous slice of a longer mean: a bucket's) when given."""
     _check_words("unpack_signs_wsum_cuda", all_packed, 3)
     w, m, _ = all_packed.shape
     _check_scales("unpack_signs_wsum_cuda", scales, w)
     dev = _on_card("unpack_signs_wsum_cuda", all_packed, scales)
-    out = torch.empty(32 * m * LANES, dtype=torch.float32, device=dev)
+    out = _out_vec("unpack_signs_wsum_cuda", out, 32 * m * LANES, dev)
+    if out is None:
+        out = torch.empty(32 * m * LANES, dtype=torch.float32, device=dev)
     _launch("unpack_signs_wsum_cuda", dev, _lib().unpack_signs_wsum,
             all_packed.data_ptr(), scales.data_ptr(), out.data_ptr(), w, m)
     unpack_signs_wsum_cuda.launches += 1
@@ -339,13 +360,16 @@ def topk_encode_cuda(c2: torch.Tensor, k: int, out=None):
 
 
 def topk_decode_cuda(all_vals: torch.Tensor, all_idx: torch.Tensor,
-                     chunk: int, size: int = 1) -> torch.Tensor:
+                     chunk: int, size: int = 1, out=None) -> torch.Tensor:
     """Kernel B8: each row accumulated in shared memory worker by worker,
-    then stored once (÷ size when size ≠ 1)."""
+    then stored once (÷ size when size ≠ 1); into ``out`` (a contiguous
+    slice of a longer mean: a bucket's rows) when given."""
     _check_topk_wire("topk_decode_cuda", all_vals, all_idx, chunk)
     dev = _on_card("topk_decode_cuda", all_vals, all_idx)
     w, rows, k = all_vals.shape
-    out = torch.empty(rows * chunk, dtype=torch.float32, device=dev)
+    out = _out_vec("topk_decode_cuda", out, rows * chunk, dev)
+    if out is None:
+        out = torch.empty(rows * chunk, dtype=torch.float32, device=dev)
     _launch("topk_decode_cuda", dev, _lib().topk_decode, all_vals.data_ptr(),
             all_idx.data_ptr(), out.data_ptr(), w, rows, k, chunk, int(size))
     topk_decode_cuda.launches += 1
@@ -375,12 +399,13 @@ def pack_signs(c: torch.Tensor) -> torch.Tensor:
 
 
 def unpack_signs_weighted_sum(all_packed: torch.Tensor,
-                              scales: torch.Tensor) -> torch.Tensor:
+                              scales: torch.Tensor,
+                              out=None) -> torch.Tensor:
     """Decode [W, m, 128] packed buffers into Σ_w scales[w]·signs[w],
-    f32 [32·m·128]."""
+    f32 [32·m·128]; into ``out`` when given."""
     return _route("unpack_signs_weighted_sum", all_packed,
                   unpack_signs_weighted_sum_plain,
-                  unpack_signs_wsum_cuda)(all_packed, scales.float())
+                  unpack_signs_wsum_cuda)(all_packed, scales.float(), out)
 
 
 def unpack_signs(packed: torch.Tensor) -> torch.Tensor:
@@ -393,10 +418,10 @@ def unpack_signs(packed: torch.Tensor) -> torch.Tensor:
 
 
 def unpack_signs_weighted_mean(all_packed: torch.Tensor, scales: torch.Tensor,
-                               size: int) -> torch.Tensor:
+                               size: int, out=None) -> torch.Tensor:
     """The worker mean Σ_w (scales[w]/size)·signs[w], the ``/size`` folded
-    into the [W] scales."""
-    return unpack_signs_weighted_sum(all_packed, scales.float() / size)
+    into the [W] scales; into ``out`` when given."""
+    return unpack_signs_weighted_sum(all_packed, scales.float() / size, out)
 
 
 def pack_signs_encode(flat: torch.Tensor, state: torch.Tensor):
@@ -425,8 +450,8 @@ def topk_encode(c2: torch.Tensor, k: int, out=None):
 
 
 def topk_decode(all_vals: torch.Tensor, all_idx: torch.Tensor, chunk: int,
-                size: int = 1) -> torch.Tensor:
+                size: int = 1, out=None) -> torch.Tensor:
     """Fused topk decode: every worker's [W, rows, k] wire rows summed into
-    the dense f32 [rows·chunk], ÷ size."""
+    the dense f32 [rows·chunk], ÷ size; into ``out`` when given."""
     return _route("topk_decode", all_vals, topk_decode_plain,
-                  topk_decode_cuda)(all_vals, all_idx, chunk, size)
+                  topk_decode_cuda)(all_vals, all_idx, chunk, size, out)

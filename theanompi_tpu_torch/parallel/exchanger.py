@@ -2,14 +2,17 @@
 
 Counterpart of ``theanompi_tpu/parallel/exchanger.py``:
 
-* ``BSP_Exchanger`` (``exch_mode='grads'``): the selected strategy
-  averages the gradients over the ranks inside the step, then every rank
-  applies the same update — N ranks train as one rank on the N-fold
-  batch.  A stateful strategy's per-rank state rides in the model's
+* ``BSP_Exchanger``: ``exch_mode='grads'`` (default): the selected
+  strategy averages the gradients over the ranks inside the step, then
+  every rank applies the same update — N ranks train as one rank on the
+  N-fold batch.  ``exch_mode='params'``: the reference's own cadence —
+  each rank applies its LOCAL gradient (its momentum its own), and the
+  exchange after the step averages the parameters through the strategy.
+  A stateful strategy's per-rank state rides in the model's
   ``extra["strat"]``, as in the JAX package: a flat tensor (the error
   feedback of onebit and topk) or a per-leaf list of ``{"q", "e"}``
   (PowerSGD).  ``sync_bn`` averages the BatchNorm running stats after each
-  update, so the replicas stay identical.
+  update in both modes.
 * ``EASGD_Exchanger``, ``ASGD_Exchanger`` and ``GOSGD_Exchanger``: each
   rank trains locally (its own gradient, its own BatchNorm stats) and,
   every ``exchange_freq`` steps, the rule's exchange mixes the replicas —
@@ -30,8 +33,12 @@ Every update is in place: the step and the exchange never rebind the
 model's params, optimizer state or ``extra``, so a captured step replays
 on the tensors it was captured with.  An async island's step (the
 islands around a center, ``parallel/async_easgd.py``) runs under
-:class:`LocalExchanger`, with no collective at all.  ``exch_mode='params'``,
-the bucketed wire and elastic membership are not ported yet.
+:class:`LocalExchanger`, with no collective at all.
+
+``bucket_bytes > 0`` is the bucketed wire (``parallel/buckets.py``): BSP
+hands it to its strategy, EASGD and ASGD sum their deltas by the
+planner's buckets, and GoSGD sends its message as one point-to-point
+message a bucket.  Elastic membership is not ported yet (A10).
 """
 
 from __future__ import annotations
@@ -43,8 +50,8 @@ import torch
 import torch.distributed as dist
 
 from ..utils.helper_funcs import tree_leaves, tree_map
-from . import topology
-from .steps import step_seed
+from . import buckets, topology
+from .steps import _like, step_seed
 from .strategies import Strategy, get_strategy
 
 # GoSGD's draws: the send gate from (gosgd_seed, rank, count), the route
@@ -83,13 +90,26 @@ class Exchanger:
         # exchange (steps_per_call > 1), so :meth:`exchange` stands down
         self.fused = False
         self.clip = float(self.config.get("grad_clip", 0.0) or 0.0)
-        if int(self.config.get("bucket_bytes", 0) or 0) > 0:
-            raise NotImplementedError(
-                "bucket_bytes > 0 (the bucketed wire) is not ported yet (A7)")
+        # the bucketed wire: > 0 splits the exchange's collectives into
+        # ~bucket_bytes slices; a schedule only (bucketed ≡ monolithic)
+        self.bucket_bytes = int(self.config.get("bucket_bytes", 0) or 0)
+        self.plan: Optional[buckets.BucketPlan] = None
 
     def prepare(self, model, size: int) -> None:
         self.model = model
         self.size = int(size)
+        self.plan = buckets.plan_buckets(model.params, self.bucket_bytes) \
+            if self.bucket_bytes > 0 else None
+
+    def n_buckets(self) -> Optional[int]:
+        """Collectives one exchange issues under ``bucket_bytes`` (None on
+        the monolithic wire): the planner's buckets of the params."""
+        return None if self.plan is None else self.plan.n_buckets
+
+    def _sum_tree(self, tree) -> None:
+        """Each leaf of the params-shaped ``tree`` replaced by its SUM over
+        the ranks, in place: one all-reduce a leaf, or one a bucket."""
+        buckets.bucketed_all_reduce(tree, self.bucket_bytes, self.plan)
 
     def extra_state_template(self) -> Dict[str, Any]:
         """The per-rank state the step carries besides params and optimizer
@@ -186,18 +206,32 @@ class LocalExchanger(Exchanger):
 
 
 class BSP_Exchanger(Exchanger):
-    """Bulk-synchronous exchange of gradients (``exch_mode='grads'``)."""
+    """Bulk-synchronous exchange: of the gradients inside the step
+    (``exch_mode='grads'``), or of the parameters after it
+    (``exch_mode='params'``, the reference's cadence: a local update, then
+    the parameters averaged; its exchange is timed into the recorder's
+    ``comm`` bucket, a CUDA graph of its own on the card)."""
 
     name = "bsp"
 
     def __init__(self, config: Optional[dict] = None):
         super().__init__(config)
         self.mode = self.config.get("exch_mode", "grads")
-        if self.mode != "grads":
-            raise NotImplementedError(
-                f"exch_mode={self.mode!r} is not ported yet; use 'grads'")
+        if self.mode not in ("grads", "params"):
+            raise ValueError(f"unknown exch_mode={self.mode!r}; have "
+                             f"'grads', 'params'")
         self.strategy: Strategy = get_strategy(
             self.config.get("exch_strategy", "allreduce"))
+        # the strategy owns BSP's collectives, in either mode, and buckets
+        # its own wire format
+        self.strategy.bucket_bytes = self.bucket_bytes
+
+    def n_buckets(self) -> Optional[int]:
+        """The strategy's slices of one exchange (None: monolithic, or a
+        wire that does not bucket)."""
+        if self.bucket_bytes <= 0 or self.model is None:
+            return None
+        return self.strategy.n_buckets(self.model.params, self.bucket_bytes)
 
     def prepare(self, model, size: int) -> None:
         """Also hands the strategy the paths of the model's leaves kept in
@@ -214,14 +248,28 @@ class BSP_Exchanger(Exchanger):
         return {}
 
     def step_update(self, params, opt_state, grads, extra, lr):
-        """The strategy's mean of ``grads`` (its state in ``extra["strat"]``,
-        rewritten in place), clipped, then the optimizer update, in place;
-        returns the objects it was given."""
-        grads, _ = self.strategy(grads, extra.get("strat", ()),
-                                 size=self.size)
+        """Grads mode: the strategy's mean of ``grads`` (its state in
+        ``extra["strat"]``, rewritten in place); params mode: the local
+        ``grads``.  Clipped, then the optimizer update, in place; returns
+        the objects it was given."""
+        if self.mode == "grads":
+            grads, _ = self.strategy(grads, extra.get("strat", ()),
+                                     size=self.size)
         params, opt_state = self.model.opt.update(self._clip_grads(grads),
                                                   opt_state, params, lr)
         return params, opt_state, extra
+
+    def has_exchange(self) -> bool:
+        return self.mode == "params"
+
+    @torch.no_grad()
+    def exchange_body(self, count: int, gen=None) -> None:
+        """Params mode: the parameters replaced by the strategy's mean of
+        them, in place (its state in ``extra["strat"]``)."""
+        params = self.model.params
+        mean, _ = self.strategy(params, self.model.extra.get("strat", ()),
+                                size=self.size)
+        buckets.copy_into(params, mean)
 
     def sync_bn(self, bn_state) -> None:
         """The running stats replaced by their mean over the ranks, in
@@ -251,13 +299,6 @@ class _CenterExchanger(Exchanger):
         return self.model.extra["center"]
 
 
-def _sum_in_place(leaves) -> None:
-    """Each leaf replaced by its SUM over the ranks (one all-reduce a
-    leaf, as the ``allreduce`` wire makes them)."""
-    for t in leaves:
-        dist.all_reduce(t)
-
-
 class EASGD_Exchanger(_CenterExchanger):
     """Elastic averaging, the EASGD paper's synchronous form: every
     ``sync_freq`` steps (default 4), with ``delta = p − c``,
@@ -284,7 +325,7 @@ class EASGD_Exchanger(_CenterExchanger):
         cs = tree_leaves(self.model.extra["center"])
         delta = torch._foreach_sub(ps, cs)
         torch._foreach_lerp_(ps, cs, self.alpha)
-        _sum_in_place(delta)
+        self._sum_tree(_like(self.model.params, delta))
         torch._foreach_add_(cs, delta, alpha=self.alpha / self.size)
 
 
@@ -304,7 +345,7 @@ class ASGD_Exchanger(_CenterExchanger):
         ps = tree_leaves(self.model.params)
         cs = tree_leaves(self.model.extra["center"])
         delta = torch._foreach_sub(ps, cs)
-        _sum_in_place(delta)
+        self._sum_tree(_like(self.model.params, delta))
         torch._foreach_add_(cs, delta)
         torch._foreach_copy_(ps, cs)
 
@@ -394,27 +435,30 @@ class GOSGD_Exchanger(Exchanger):
             return [[(i, int(dest[i])) for i in range(n)]]
         return topology.collision_rounds(dest)
 
-    def _route(self, buf: torch.Tensor, count: int) -> torch.Tensor:
-        """What this rank receives: the sum of the messages sent to it
-        (zeros if none), ``buf`` itself at world 1."""
+    def _route(self, bufs: list, count: int) -> list:
+        """What this rank receives of each message buffer: the sum of the
+        buffers sent to it (zeros if none), ``bufs`` themselves at world
+        1.  In each round every buffer travels as a message of its own,
+        all of the round's sends and receives in flight at once."""
         rounds = self.rounds(count)
         if not rounds:
-            return buf
+            return bufs
         acc = None
         for pairs in rounds:
             ops, got = [], None
             for s, d in pairs:
                 if s == self.rank:
-                    ops.append(dist.P2POp(dist.isend, buf, d))
+                    ops += [dist.P2POp(dist.isend, b, d) for b in bufs]
                 if d == self.rank:
-                    got = torch.empty_like(buf)
-                    ops.append(dist.P2POp(dist.irecv, got, s))
+                    got = [torch.empty_like(b) for b in bufs]
+                    ops += [dist.P2POp(dist.irecv, g, s) for g in got]
             if ops:
                 for req in dist.batch_isend_irecv(ops):
                     req.wait()
             if got is not None:
-                acc = got if acc is None else acc.add_(got)
-        return torch.zeros_like(buf) if acc is None else acc
+                acc = got if acc is None else [a.add_(g)
+                                               for a, g in zip(acc, got)]
+        return [torch.zeros_like(b) for b in bufs] if acc is None else acc
 
     @torch.no_grad()
     def exchange_body(self, count: int, gen=None) -> None:
@@ -424,19 +468,29 @@ class GOSGD_Exchanger(Exchanger):
             < self.p_share
         w_send = torch.where(send, alpha * 0.5, torch.zeros_like(alpha))
         w_keep = alpha - w_send
-        sizes = [p.numel() for p in ps]
-        n = sum(sizes)
-        # the message, packed: α_send·params, then α_send
-        buf = torch.empty(n + 1, dtype=torch.float32, device=alpha.device)
-        views = [v.view_as(p) for v, p in zip(buf[:n].split(sizes), ps)]
-        torch._foreach_copy_(views, ps)
-        buf[:n].mul_(w_send)
-        buf[n:].copy_(w_send.reshape(1))
-        recv = self._route(buf, count)
-        new_alpha = w_keep + recv[n]
+        if self.plan is None:
+            # the message, packed: α_send·params, then α_send
+            sizes = [p.numel() for p in ps]
+            n = sum(sizes)
+            buf = torch.empty(n + 1, dtype=torch.float32, device=alpha.device)
+            views = [v.view_as(p) for v, p in zip(buf[:n].split(sizes), ps)]
+            torch._foreach_copy_(views, ps)
+            buf[:n].mul_(w_send)
+            buf[n:].copy_(w_send.reshape(1))
+            recv = self._route([buf], count)[0]
+            w_recv = recv[n]
+            got = [v.view_as(p) for v, p in zip(recv[:n].split(sizes), ps)]
+        else:
+            # one message a bucket of α_send·params, and α_send alone
+            msg = buckets.pack(self.model.params, self.plan)
+            msg = [torch.mul(m, w_send) for m in msg] + [w_send.reshape(1)]
+            recv = self._route(msg, count)
+            w_recv = recv[-1][0]
+            got = tree_leaves(buckets.unpack(recv[:-1], self.model.params,
+                                             self.plan))
+        new_alpha = w_keep + w_recv
         torch._foreach_mul_(ps, w_keep)
-        torch._foreach_add_(ps, [v.view_as(p) for v, p in
-                                 zip(recv[:n].split(sizes), ps)])
+        torch._foreach_add_(ps, got)
         torch._foreach_div_(ps, new_alpha)
         alpha.copy_(new_alpha)
 

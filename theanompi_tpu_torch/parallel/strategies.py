@@ -16,6 +16,20 @@ and returned as the same object, every tensor of it too, so a captured
 step (``parallel/graph.py``) finds the next step's state where the last
 one left it.  ``NoComm`` and ``AllReduce`` reduce in place: the gradient
 tensors they are handed hold the mean on return.
+
+``Ring`` is the reference's hand-written alltoall-sum-allgather
+(``Exch_asa32/asa16``, ``Exch_copper(16)``): a reduce-scatter, then an
+allgather, over ``2(size − 1)`` point-to-point hops to the right
+neighbour.
+
+``bucket_bytes > 0`` (set by the exchanger from its config) splits each
+strategy's collectives into ~``bucket_bytes`` slices
+(``parallel/buckets.py``), every slice's collective started before the
+first is waited on: ``AllReduce`` and PowerSGD's dense remainder by the
+planner's buckets of leaves, onebit by aligned slices of its packed sign
+rows (each decoded by B4 into its slice of the mean), topk by slices of
+its chunk rows (each decoded by B8).  ``Ring`` is a chunk pipeline of
+its own and does not bucket.
 """
 
 from __future__ import annotations
@@ -30,9 +44,10 @@ import torch.distributed as dist
 from ..ops import compress as compress_ops
 from ..ops import factor_pack
 from ..utils.helper_funcs import (flatten_tree, flatten_tree_jax,
-                                  leaf_paths, tree_leaves, tree_map,
-                                  tree_size, unflatten_like,
+                                  jax_tree_leaves, leaf_paths, tree_leaves,
+                                  tree_map, tree_size, unflatten_like,
                                   unflatten_like_jax)
+from . import buckets
 
 
 class Strategy:
@@ -46,10 +61,20 @@ class Strategy:
     # (the model's ``kept_layout_paths``, which the exchanger hands over);
     # every other 2-D leaf is the JAX one transposed
     kept_layout: frozenset = frozenset()
+    # > 0: the collectives in ~bucket_bytes slices (``parallel/buckets.py``);
+    # 0: the monolithic wire.  Set by the exchanger from its config
+    bucket_bytes = 0
 
     def init_state(self, params) -> Any:
         """Per-rank persistent state, rewritten in place by each call."""
         return ()
+
+    def n_buckets(self, params, bucket_bytes: int) -> Optional[int]:
+        """Wire slices one exchange of a ``params``-shaped payload ships at
+        ``bucket_bytes``: the planner's buckets of the float32 leaves here;
+        the compressed wires count their packed layouts; None where the
+        wire does not bucket."""
+        return buckets.count_buckets(params, bucket_bytes)
 
     def __call__(self, tree, state, *, size: int):
         raise NotImplementedError
@@ -61,6 +86,9 @@ class NoComm(Strategy):
     diverge."""
 
     name = "none"
+
+    def n_buckets(self, params, bucket_bytes: int):
+        return None                       # no collective, nothing to slice
 
     @torch.no_grad()
     def __call__(self, tree, state, *, size: int):
@@ -83,6 +111,12 @@ class AllReduce(Strategy):
     def __call__(self, tree, state, *, size: int):
         inv = 1.0 / size
         wd = self.wire_dtype
+        if self.bucket_bytes > 0:
+            # one asynchronous all-reduce a bucket, the wire cast per bucket
+            buckets.bucketed_all_reduce(tree, self.bucket_bytes,
+                                        wire_dtype=wd)
+            torch._foreach_mul_(tree_leaves(tree), inv)
+            return tree, state
         for g in tree_leaves(tree):
             if wd is None:
                 dist.all_reduce(g)
@@ -92,6 +126,71 @@ class AllReduce(Strategy):
                 dist.all_reduce(w)
                 g.copy_(w.to(g.dtype)).mul_(inv)
         return tree, state
+
+
+class Ring(Strategy):
+    """Explicit chunked ring: reduce-scatter, then allgather, over
+    point-to-point hops (the reference's ``Exch_asa32/asa16`` and
+    ``Exch_copper(16)``; the JAX package's ``Ring`` over ``ppermute``).
+
+    The tree is flattened in the JAX package's order and layouts
+    (``flatten_tree_jax``), padded to a multiple of ``size`` and split into
+    ``size`` chunks, so that each element lands in the chunk it lands in
+    there and its partial sums meet in the same order.  Each of the
+    ``2(size − 1)`` hops sends one chunk to the right neighbour and
+    receives one from the left, one ``batch_isend_irecv`` pair.  The
+    accumulator is float32; ``wire_dtype=torch.bfloat16`` casts each hop's
+    payload, and the chunk a rank owns is rounded to bfloat16 before the
+    allgather, so that every rank, the owner too, holds the same bits.  At
+    world 1 it returns the tree unchanged.  The route is fixed, so a
+    captured step replays it."""
+
+    flattens = True
+
+    def __init__(self, wire_dtype: Optional[torch.dtype] = None):
+        self.wire_dtype = wire_dtype
+        self.name = "ring" if wire_dtype is None else "ring16"
+
+    def n_buckets(self, params, bucket_bytes: int):
+        # a chunk pipeline already: the planner does not re-slice it
+        return None
+
+    def _hop(self, cur: torch.Tensor, right: int, left: int) -> torch.Tensor:
+        """``cur`` to the right neighbour; what the left one sent, as
+        float32."""
+        wd = self.wire_dtype
+        send = cur if wd is None else cur.to(wd)
+        got = torch.empty_like(send)
+        for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, send, right),
+                                           dist.P2POp(dist.irecv, got, left)]):
+            req.wait()
+        return got if wd is None else got.float()
+
+    @torch.no_grad()
+    def __call__(self, tree, state, *, size: int):
+        if size == 1:
+            return tree, state
+        rank = dist.get_rank()
+        right, left = (rank + 1) % size, (rank - 1) % size
+        flat = flatten_tree_jax(tree, pad_to_multiple_of=size,
+                                kept=self.kept_layout)
+        acc = flat.view(size, -1)
+        # reduce-scatter: after hop s the partial sum of chunk
+        # (rank − s − 1) holds s + 2 ranks' terms
+        cur = acc[rank]
+        for s in range(size - 1):
+            idx = (rank - s - 1) % size
+            cur = acc[idx].add_(self._hop(cur, right, left))
+        mine = (rank + 1) % size
+        out = torch.empty_like(acc)
+        cur = torch.div(acc[mine], size, out=out[mine])
+        if self.wire_dtype is not None:
+            cur.copy_(cur.to(self.wire_dtype))
+        # allgather: each hop forwards the chunk received last
+        for s in range(size - 1):
+            cur = out[(rank - s) % size]
+            cur.copy_(self._hop(out[(rank - s + 1) % size], right, left))
+        return unflatten_like_jax(tree, out.view(-1), self.kept_layout), state
 
 
 def _all_gather(t: torch.Tensor, size: int) -> torch.Tensor:
@@ -122,6 +221,21 @@ class OneBit(Strategy):
         dev = tree_leaves(params)[0].device
         return torch.zeros(padded, dtype=torch.float32, device=dev)
 
+    @staticmethod
+    def _segment_elems(bucket_bytes: int) -> int:
+        """float32 elements a wire bucket decodes, rounded down to whole
+        pack blocks (PACK_ALIGN): its packed rows are then a multiple of 8,
+        as B4 takes them, and the blockwise pack and decode make the
+        bucketed mean the monolithic one bit for bit."""
+        return max(compress_ops.PACK_ALIGN,
+                   (int(bucket_bytes) // 4 // compress_ops.PACK_ALIGN)
+                   * compress_ops.PACK_ALIGN)
+
+    def n_buckets(self, params, bucket_bytes: int):
+        n = tree_size(params)
+        n += (-n) % compress_ops.PACK_ALIGN
+        return max(1, -(-n // self._segment_elems(bucket_bytes)))
+
     @torch.no_grad()
     def __call__(self, tree, state, *, size: int):
         flat = flatten_tree(tree, pad_to_multiple_of=compress_ops.PACK_ALIGN)
@@ -131,21 +245,42 @@ class OneBit(Strategy):
         scale = absc[:n_true].mean() + 1e-12
         compress_ops.signed_residual(absc, packed, scale, out=state)
         all_scales = _all_gather(scale, size)          # [size]
-        all_packed = _all_gather(packed, size)         # n/8 bytes per rank
-        mean = compress_ops.unpack_signs_weighted_mean(all_packed, all_scales,
-                                                       size)
+        if self.bucket_bytes > 0:
+            # packed once; each bucket gathers its aligned slice of packed
+            # rows (all started before the first wait) and B4 decodes it,
+            # with the global scales, into its slice of one mean
+            rows = self._segment_elems(self.bucket_bytes) // (
+                32 * compress_ops.LANES)
+            words = 32 * compress_ops.LANES
+            mean = torch.empty_like(flat)
+            tickets = [(a, buckets.all_gather_start(packed[a:a + rows], size))
+                       for a in range(0, packed.shape[0], rows)]
+            for a, t in tickets:
+                got = buckets.all_gather_done(t)
+                compress_ops.unpack_signs_weighted_mean(
+                    got, all_scales, size,
+                    out=mean[a * words:(a + got.shape[1]) * words])
+        else:
+            all_packed = _all_gather(packed, size)     # n/8 bytes per rank
+            mean = compress_ops.unpack_signs_weighted_mean(
+                all_packed, all_scales, size)
         return unflatten_like(tree, mean), state
 
 
-def _gather_topk_wire(vals: torch.Tensor, idx: torch.Tensor, size: int):
-    """All ranks' (bf16 values, int16 offsets) [rows, k], in rank order.
+def _topk_wire_start(vals: torch.Tensor, idx: torch.Tensor, size: int):
+    """Start gathering all ranks' (bf16 values, int16 offsets) [rows, k].
 
     Neither NCCL nor gloo gathers int16, so each slot travels as one int32
     word holding the value's bits and the offset's (the int16 pair
     ``[value, offset]`` read as one word): 4 bytes per slot, the JAX
     package's wire bytes."""
     wire = torch.stack([vals.view(torch.int16), idx], dim=-1)   # [rows, k, 2]
-    got = _all_gather(wire.view(torch.int32).squeeze(-1), size)
+    return buckets.all_gather_start(wire.view(torch.int32).squeeze(-1), size)
+
+
+def _topk_wire_done(ticket):
+    """The gathered (values, offsets) [size, rows, k], in rank order."""
+    got = buckets.all_gather_done(ticket)
     pairs = got.view(torch.int16).unflatten(-1, (-1, 2))     # [size, rows, k, 2]
     return (pairs[..., 0].view(torch.bfloat16).contiguous(),
             pairs[..., 1].contiguous())
@@ -189,6 +324,17 @@ class TopK(Strategy):
         """Selected entries per chunk row."""
         return self.k or max(1, int(round(self.chunk * self.ratio)))
 
+    @staticmethod
+    def _rows_per_bucket(k_c: int, bucket_bytes: int) -> int:
+        """Chunk rows a wire bucket carries: a row ships 4·k_c bytes."""
+        return max(1, int(bucket_bytes) // (4 * k_c))
+
+    def n_buckets(self, params, bucket_bytes: int):
+        n = tree_size(params)
+        n_chunks = -(-n // self.chunk)
+        return max(1, -(-n_chunks // self._rows_per_bucket(self._k_c(),
+                                                           bucket_bytes)))
+
     @torch.no_grad()
     def __call__(self, tree, state, *, size: int):
         c = flatten_tree_jax(tree, pad_to_multiple_of=self.chunk,
@@ -197,8 +343,27 @@ class TopK(Strategy):
         wire_vals, wire_idx, _ = compress_ops.topk_encode(
             c.view(-1, self.chunk), self._k_c(),
             out=state.view(-1, self.chunk))
-        all_vals, all_idx = _gather_topk_wire(wire_vals, wire_idx, size)
-        mean = compress_ops.topk_decode(all_vals, all_idx, self.chunk, size)
+        if self.bucket_bytes > 0:
+            # each bucket's chunk rows gathered (all started before the
+            # first wait) and decoded by B8 into their own rows of one
+            # mean: chunk r only ever lands in [r·chunk, (r+1)·chunk)
+            rows = self._rows_per_bucket(wire_vals.shape[1],
+                                         self.bucket_bytes)
+            mean = torch.empty_like(c)
+            tickets = [(a, _topk_wire_start(wire_vals[a:a + rows],
+                                            wire_idx[a:a + rows], size))
+                       for a in range(0, wire_vals.shape[0], rows)]
+            for a, t in tickets:
+                all_vals, all_idx = _topk_wire_done(t)
+                compress_ops.topk_decode(
+                    all_vals, all_idx, self.chunk, size,
+                    out=mean[a * self.chunk:
+                             (a + all_vals.shape[1]) * self.chunk])
+        else:
+            all_vals, all_idx = _topk_wire_done(
+                _topk_wire_start(wire_vals, wire_idx, size))
+            mean = compress_ops.topk_decode(all_vals, all_idx, self.chunk,
+                                            size)
         return unflatten_like_jax(tree, mean, self.kept_layout), state
 
 
@@ -246,6 +411,17 @@ class PowerSGD(Strategy):
         if len(shape) < 2:
             return False
         return min(math.prod(shape[1:]), int(shape[0])) > 4 * self.rank
+
+    def n_buckets(self, params, bucket_bytes: int):
+        # the factor all-reduces are one stacked collective each already;
+        # the planner buckets the dense remainder
+        dense = self._dense(params)
+        return buckets.count_buckets(dense, bucket_bytes) if dense else 0
+
+    def _dense(self, tree) -> list:
+        """The incompressible leaves, in the JAX package's leaf order."""
+        return [l for l in jax_tree_leaves(tree)
+                if not self._compressible(l.shape)]
 
     def init_state(self, params) -> list:
         state = []
@@ -309,10 +485,12 @@ class PowerSGD(Strategy):
                 state[i]["q"].copy_(qn)
                 torch.sub(m, mhat, out=state[i]["e"].view(m.shape))
 
-        for i, g in enumerate(leaves):
-            if i not in comp:
-                dist.all_reduce(g)
-                g.mul_(inv)
+        # the dense remainder, reduced in place: one all-reduce a leaf, or
+        # the planner's buckets of it
+        dense = self._dense(tree)
+        if dense:
+            buckets.bucketed_all_reduce(dense, self.bucket_bytes)
+            torch._foreach_mul_(dense, inv)
         it = iter(out)
         return tree_map(lambda _: next(it), tree), state
 
@@ -329,6 +507,12 @@ def get_strategy(name: str, **kwargs) -> Strategy:
         "nccl32": AllReduce,
         "nccl16": lambda: AllReduce(wire_dtype=torch.bfloat16),
         "bf16": lambda: AllReduce(wire_dtype=torch.bfloat16),
+        "asa32": Ring,
+        "ring": Ring,
+        "copper": Ring,
+        "asa16": lambda: Ring(wire_dtype=torch.bfloat16),
+        "ring16": lambda: Ring(wire_dtype=torch.bfloat16),
+        "copper16": lambda: Ring(wire_dtype=torch.bfloat16),
         "onebit": OneBit,
         "compressed": OneBit,
         "topk": lambda: TopK(**kwargs),
@@ -342,5 +526,5 @@ def get_strategy(name: str, **kwargs) -> Strategy:
     try:
         return table[name]()
     except KeyError:
-        raise ValueError(f"unknown or not yet ported exchange strategy "
-                         f"{name!r}; have {sorted(table)}")
+        raise ValueError(f"unknown exchange strategy {name!r}; have "
+                         f"{sorted(table)}")

@@ -105,6 +105,13 @@ def get_leaf(tree, path):
     return tree
 
 
+def jax_tree_leaves(tree) -> List[Any]:
+    """The leaves of ``tree`` in ``jax.tree.leaves`` order (dict keys sorted
+    at every level): the order of the JAX package's flat vector and of its
+    bucket plan."""
+    return [get_leaf(tree, p) for p in jax_leaf_paths(tree)]
+
+
 def to_jax_layout(t: torch.Tensor, path,
                   kept: frozenset = frozenset()) -> torch.Tensor:
     """A view of the port-layout leaf at ``path`` in the JAX package's
@@ -146,7 +153,7 @@ def flatten_tree_jax(tree, pad_to_multiple_of: int = 1,
     leaves kept as they are), zero-padded at the end to a multiple of
     ``pad_to_multiple_of``: one copy per leaf into the vector."""
     paths = jax_leaf_paths(tree)
-    leaves = [get_leaf(tree, p) for p in paths]
+    leaves = jax_tree_leaves(tree)
     n = sum(int(l.numel()) for l in leaves)
     n_pad = n + (-n) % max(1, pad_to_multiple_of)
     flat = torch.empty(n_pad, dtype=torch.float32, device=leaves[0].device)

@@ -3,8 +3,9 @@
 Counterpart of ``theanompi_tpu/worker.py``: the epoch/batch driver that
 compiles the model's steps, applies ``scale_lr`` and ``adjust_hyperp``,
 calls ``model.train_iter`` each iteration and, at ``steps_per_call = 1``,
-the exchanger's ``exchange`` hook after it (the async rules' cadence; at
-``steps_per_call > 1`` the step's window runs it), runs the per-epoch
+the exchanger's ``exchange`` hook after it (the async rules' cadence and
+BSP's ``exch_mode='params'``, timed into the recorder's ``comm`` bucket;
+at ``steps_per_call > 1`` the step's window runs it), runs the per-epoch
 validation loop and prints through the recorder; with ``ckpt_dir`` it
 checkpoints at
 the end of every epoch (after validation) and, with ``resume=True``,
@@ -56,6 +57,10 @@ class Worker(MeshProcess):
         self.recorder.start()
         model.compile_iter_fns(self.exchanger)
         self.recorder.end("compile")
+        if self.verbose and self.exchanger.bucket_bytes > 0:
+            print(f"bucket_bytes={self.exchanger.bucket_bytes}: "
+                  f"n_buckets={self.exchanger.n_buckets()} an exchange",
+                  flush=True)
         if config.get("scale_lr", True) and self.size > 1:
             model.scale_lr(self.size)
 

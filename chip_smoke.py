@@ -12,6 +12,7 @@
     python3 chip_smoke.py --vgg-island-lr # VGG-16 islands at two rates
     python3 chip_smoke.py --launcher      # the launcher phases alone
     python3 chip_smoke.py --wire          # params mode, Ring, buckets alone
+    python3 chip_smoke.py --shard         # zero_opt, update_sharding, fsdp
 
 1. Fails (exit 2, no result) without CUDA; prints the card's name and power
    limit as ``nvidia-smi`` reports them.
@@ -232,11 +233,25 @@
     versions, a bucket timed; profiles of VGG-16 onebit and topk,
     monolithic and at 4 MiB (NCCL's kernels, B4, B8, the copies), and of
     AlexNet in grads and params mode with one params-mode exchange timed
-    alone.
-30. Prints ``{"kernels": [...]}`` (B1–B12; B1/B2 with GoogLeNet's shapes
-    beside AlexNet's, and the island and launcher paths' counts; B4 and
-    B8 with their bucketed launches and per-bucket times), then the card,
-    then the last line ``{"ok": true, "device": {...}}``.
+    alone; B8's bucket beside one accumulating ``index_put_`` of it.
+30. Data-parallel state sharding (A9a; ``--shard`` runs these alone),
+    world 1 over NCCL, captured, cuDNN deterministic: AlexNet b128 and
+    VGG-16 'D' b32 for 8 steps each under plain BSP, ``zero_opt``,
+    ``update_sharding`` and ``fsdp``, each from seed 0: costs, params and
+    the momentum (the chunks gathered) bit for bit plain BSP's (at world 1
+    ``update_sharding`` shards nothing; ZeRO-1's chunk is the whole flat
+    vector; FSDP's leaves are views of its gathered buffer at 256-byte
+    aligned offsets, so cuDNN and cuBLAS choose as for the plain leaves);
+    AlexNet launches 2 B1 and 2 B2 a step under each; then 6 profiled
+    steps each: step wall ms, device busy ms, the gather, reduce-scatter,
+    all-reduce, copy and optimizer kernels' device ms, the peak of
+    allocated device memory, beside plain BSP's; and AlexNet under FSDP
+    saved and resumed into a fresh model, its state and two more steps
+    bit for bit.
+31. Prints ``{"kernels": [...]}`` (B1–B12; B1/B2 with GoogLeNet's shapes
+    beside AlexNet's, and the island, launcher and sharded paths' counts;
+    B4 and B8 with their bucketed launches and per-bucket times), then the
+    card, then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script exits non-zero and prints no result.
 TF32 is off for the whole run (float32 comparisons need it off; the main
@@ -1239,6 +1254,11 @@ def times_main(flags) -> int:
         torch.backends.cudnn.allow_tf32 = False
         _kernel_build.build(["lrn", "compress", "factor_pack"])
         out["wire"] = wire_main(card)
+    if "--shard" in flags:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        _kernel_build.build(["lrn"])
+        out["shard"] = shard_main(card)
     if "--lrn-times" in flags:
         out["lrn_times"] = lrn_times()
     if "--flash-times" in flags:
@@ -1885,8 +1905,6 @@ def step_profile_phase(modelfile, modelclass, batch, groups, steps, warmup=2,
     name substrings).  ``after(model)`` runs at the end, its result kept.
     ``capture=False`` profiles the eager step (default: the captured one,
     whose kernels the profiler sees as the replays run them)."""
-    from torch.profiler import ProfilerActivity, profile
-    from theanompi_tpu_torch.utils.recorder import Recorder
     from theanompi_tpu_torch.worker import WORKERS
     cfg = dict(cfg)
     worker = WORKERS[cfg.pop("rule", "bsp")](dict(
@@ -1895,39 +1913,48 @@ def step_profile_phase(modelfile, modelclass, batch, groups, steps, warmup=2,
     try:
         model = worker.build_model(modelfile, modelclass)
         model.compile_iter_fns(worker.exchanger, capture=capture)
-        graphed = model.train_fn.graphed
         if cfg.get("para_load"):
             # the producer starts with the epoch: before it, a
             # PrefetchLoader serves on the step's thread
             model.data.shuffle_data(0)
-        count = 0
-
         # an async rule's exchange hook (none in a tree from before the
         # async rules, where --update-times runs too)
         hook = getattr(worker.exchanger, "exchange", lambda rec, count: None)
-
-        def run(n, rec=None):
-            nonlocal count
-            for _ in range(n):
-                count += 1
-                model.train_iter(count, rec)
-                hook(rec, count)
-            torch.cuda.synchronize()
-
-        run(warmup)
-        rec = Recorder({"verbose": False})
-        t0 = time.time()
-        run(steps, rec)
-        wall_ms = (time.time() - t0) * 1e3 / steps
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run(steps)
-        extra = after(model) if after else None
+        out = profile_model(model, hook, modelclass, batch, groups, steps,
+                            warmup, after)
         del model
     finally:
         worker.close()
         gc.collect()
         torch.cuda.empty_cache()
+    return out
+
+
+def profile_model(model, hook, modelclass, batch, groups, steps, warmup=2,
+                  after=None, count=0) -> dict:
+    """:func:`step_profile_phase`'s measurement of a model already built
+    and compiled, its steps counted on from ``count``."""
+    from torch.profiler import ProfilerActivity, profile
+    from theanompi_tpu_torch.utils.recorder import Recorder
+    graphed = model.train_fn.graphed
+
+    def run(n, rec=None):
+        nonlocal count
+        for _ in range(n):
+            count += 1
+            model.train_iter(count, rec)
+            hook(rec, count)
+        torch.cuda.synchronize()
+
+    run(warmup)
+    rec = Recorder({"verbose": False})
+    t0 = time.time()
+    run(steps, rec)
+    wall_ms = (time.time() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(steps)
+    extra = after(model) if after else None
     by_kernel = []
     for e in prof.key_averages():
         # device-side events only (kernels, copies): the CPU ops that
@@ -3391,6 +3418,11 @@ def wire_decode_phase() -> dict:
     e8 = check_bits("B8 by bucket into out=", dense.cpu(), want)
     del want
     sv, si = kv[None, :per], ki[None, :per]
+    # the library yardstick of one bucket, as topk_phase times the whole:
+    # one accumulating index_put_ of the bucket's values into its slice
+    gidx = (si.long() + torch.arange(per, device="cuda")[None, :, None]
+            * TOPK_CHUNK).reshape(-1)
+    fv = sv.float().reshape(-1)
     b8 = {"launches_checked": b8_launches, "max_abs_err": e8,
           "shape": [1, per, TOPK_K], "last_rows": rows - per * (b8_launches - 1),
           "ms": time_ms(lambda: cmp_ops.topk_decode_cuda(
@@ -3398,8 +3430,11 @@ def wire_decode_phase() -> dict:
           "plain_ms": time_ms(lambda: cmp_ops.topk_decode_plain(
               sv, si, TOPK_CHUNK, 1, out=dense[:per * TOPK_CHUNK]), reps=5,
               inner=2, warmup=1),
+          "library_ms": time_ms(lambda: dense[:per * TOPK_CHUNK].zero_()
+                                .index_put_((gidx,), fv, accumulate=True)),
           **bound(4 * per * TOPK_K + 4 * per * TOPK_CHUNK, per * TOPK_K)}
-    del kv, ki, dense, mean
+    b4["library_ms"] = None           # no one PyTorch call decodes signs
+    del kv, ki, dense, mean, gidx, fv
     torch.cuda.empty_cache()
     return {"unpack_signs_wsum_cuda": b4, "topk_decode_cuda": b8}
 
@@ -3439,13 +3474,192 @@ def wire_main(card: str) -> dict:
     d = res["decode"]
     print("wire decode by bucket: " + "; ".join(
         f"{k[:-5]} {v['shape']} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f}, "
-        f"plain {v['plain_ms']:.3f}), {v['launches_checked']} buckets into "
-        f"one mean bit for bit" for k, v in d.items()) + f" on {card}",
-        flush=True)
+        f"plain {v['plain_ms']:.3f}"
+        + ("" if v["library_ms"] is None else
+           f", index_put_ {v['library_ms']:.4f}")
+        + f"), {v['launches_checked']} buckets into one mean bit for bit"
+        for k, v in d.items()) + f" on {card}", flush=True)
     res["secs"] = time.time() - t0
     print(f"wire phases passed in {res['secs']:.1f}s", flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke_wire.json"), "w") as f:
+        json.dump(dict(res, card=card), f, indent=1)
+    return res
+
+
+# -- data-parallel state sharding (A9a) ----------------------------------------
+
+# each key's run beside plain BSP's, world 1 over NCCL, captured
+SHARD_KEYS = ("plain", "zero_opt", "update_sharding", "fsdp")
+SHARD_PATHS = {
+    "alexnet": ("theanompi_tpu_torch.models.alex_net", "AlexNet",
+                dict(batch_size=BATCH)),
+    "vgg16": VGG_MODEL + (dict(batch_size=VGG_BATCH,
+                               learning_rate=VGG_LR),)}
+SHARD_GROUPS = {
+    # NCCL's kernels (at world 1 a collective may be a copy instead)
+    "gather": ("AllGather",), "reduce_scatter": ("ReduceScatter",),
+    "allreduce": ("AllReduce",),
+    "copies": ("direct_copy_kernel", "CatArrayBatchedCopy", "Memcpy DtoD"),
+    "optimizer": ("multi_tensor_apply_kernel",)}
+SHARD_CKPT = os.path.join("build", "smoke_fsdp_ckpt")
+
+
+def unsharded_state(model) -> list:
+    """The live params and the optimizer state in the unsharded layout
+    (``unsharded_opt_state``: ZeRO-1's and FSDP's chunks gathered), and
+    the BN state, as host tensors."""
+    return [t.detach().cpu().clone() for t in
+            tree_leaves(model.live_params())
+            + tree_leaves(model.unsharded_opt_state())
+            + tree_leaves(model.bn_state)]
+
+
+def fsdp_resume_check(model, worker, modelfile, modelclass, count) -> dict:
+    """FSDP on the card: a checkpoint of ``model`` after step ``count``
+    loaded into a fresh model (its own exchanger, the same world-1 group):
+    params, momentum and the chunk bit for bit; then two more steps of
+    each, costs and state bit for bit."""
+    from theanompi_tpu_torch.parallel.exchanger import BSP_Exchanger
+    shutil.rmtree(SHARD_CKPT, ignore_errors=True)
+    model.save(SHARD_CKPT, 0, count)
+    other = worker.build_model(modelfile, modelclass)
+    other.compile_iter_fns(BSP_Exchanger(worker.config))
+    if other.load(SHARD_CKPT) != 0:
+        raise AssertionError("fsdp resume: no checkpoint")
+    n = 0
+    for x, y in zip(unsharded_state(model), unsharded_state(other)):
+        check_bits(f"fsdp resume tensor {n}", y, x)
+        n += 1
+    check_bits("fsdp resume chunk", other._fsdp.shard, model._fsdp.shard)
+    for c in (count + 1, count + 2):
+        for m in (model, other):
+            m.train_iter(c)
+        check_bits(f"fsdp resumed step {c} cost",
+                   other.current_info["cost"], model.current_info["cost"])
+    for i, (x, y) in enumerate(zip(unsharded_state(model),
+                                   unsharded_state(other))):
+        check_bits(f"fsdp resumed state tensor {i}", y, x)
+    del other
+    return {"tensors": n, "steps_after": 2}
+
+
+def shard_run(path: str, key: str) -> dict:
+    """One key on one model: GRAPH_STEPS captured steps from seed 0,
+    launches counted from 0, the peak of allocated device memory from
+    compile to the last step and what stays allocated (both above what
+    was allocated before the model was built), the state after
+    (unsharded, on the host); then PROFILE_STEPS profiled steps
+    (``profile_model``) and, for AlexNet under FSDP, the save → resume
+    check."""
+    from theanompi_tpu_torch.worker import WORKERS
+    modelfile, modelclass, cfg = SHARD_PATHS[path]
+    cfg = dict(cfg, n_workers=1, seed=0, verbose=False,
+               **({} if key == "plain" else {key: True}))
+    steps = GRAPH_STEPS
+    # the last run's worker and model are garbage only once its frame has
+    # returned: collected here, so that this run's memory is its own
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    zero_launches()
+    worker = WORKERS["bsp"](cfg)
+    try:
+        model = worker.build_model(modelfile, modelclass)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model.compile_iter_fns(worker.exchanger)
+        model.data.shuffle_data(model.seed)
+        costs = []
+        for i in range(steps):
+            model.train_iter(i + 1)
+            costs.append(model.current_info["cost"].clone())
+        torch.cuda.synchronize()
+        out = {"costs": costs, "launches": launch_counts(),
+               "graphed": model.train_fn.graphed,
+               "peak_mb": (torch.cuda.max_memory_allocated() - base)
+               / 2 ** 20,
+               "held_mb": (torch.cuda.memory_allocated() - base) / 2 ** 20,
+               "base_mb": base / 2 ** 20,
+               "state": unsharded_state(model)}
+        if model._fsdp is not None:
+            out["fsdp"] = {"chunk": model._fsdp.chunk,
+                           "total": model._fsdp.total,
+                           "n_total": model._fsdp.n_total}
+        out["profile"] = profile_model(
+            model, lambda rec, c: None, modelclass, cfg["batch_size"],
+            SHARD_GROUPS, PROFILE_STEPS, count=steps)
+        if (path, key) == ("alexnet", "fsdp"):
+            out["resume"] = fsdp_resume_check(
+                model, worker, modelfile, modelclass,
+                steps + 2 + 2 * PROFILE_STEPS)
+        del model
+    finally:
+        worker.close()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def shard_main(card: str) -> dict:
+    """The A9a phases (``--shard`` runs them alone): AlexNet b128 and
+    VGG-16 b32 under plain BSP, ``zero_opt``, ``update_sharding`` and
+    ``fsdp``, each captured for GRAPH_STEPS steps, cuDNN deterministic,
+    and held against plain BSP bit for bit (costs, params, momentum
+    gathered); AlexNet launches 2 B1 and 2 B2 a step under each key; each
+    run's step wall ms, device busy ms, the gather, reduce-scatter,
+    all-reduce, copy and optimizer kernels' ms and its peak device memory
+    printed beside plain BSP's; one FSDP save → resume."""
+    t0 = time.time()
+    lrn = expect(lrn_fwd_cuda=2 * GRAPH_STEPS, lrn_bwd_cuda=2 * GRAPH_STEPS)
+    res = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for path in SHARD_PATHS:
+            runs = res[path] = {}
+            for key in SHARD_KEYS:
+                runs[key] = r = shard_run(path, key)
+                if path == "alexnet" and r["launches"] != lrn:
+                    raise AssertionError(f"AlexNet {key}: launches "
+                                         f"{r['launches']}, want {lrn}")
+                if not r["graphed"]:
+                    raise AssertionError(f"{path} {key}: not captured")
+                if key != "plain":
+                    # every tensor compared first, then the verdict
+                    plain = runs["plain"]
+                    diffs = [float((a.double() - b.double()).abs().max())
+                             if a.numel() else 0.0
+                             for a, b in zip(r["state"], plain["state"])]
+                    r["max_abs_diff"] = max(diffs)
+                    r["tensors"] = same_run(f"{path} {key} vs plain", plain,
+                                            dict(r, launches=plain[
+                                                "launches"]))
+                p, q = r["profile"], runs["plain"]["profile"]
+                print(f"shard: {path} {key}: {GRAPH_STEPS} captured steps "
+                      + ("" if key == "plain" else
+                         f"bit for bit plain BSP ({r['tensors']} tensors); ")
+                      + f"step {p['wall_ms_per_step']:.2f} ms (plain "
+                      f"{q['wall_ms_per_step']:.2f}), device busy "
+                      f"{p['device_busy_ms_per_step']:.2f} ms (plain "
+                      f"{q['device_busy_ms_per_step']:.2f}), "
+                      + ", ".join(f"{g} {p[g + '_ms_per_step']:.3f}"
+                                  for g in SHARD_GROUPS)
+                      + f" ms; peak {r['peak_mb']:.0f} MiB (plain "
+                      f"{runs['plain']['peak_mb']:.0f}), held "
+                      f"{r['held_mb']:.0f} MiB on {card}", flush=True)
+                print_profile(p, card, SHARD_GROUPS)
+            for r in runs.values():
+                del r["state"]
+                r["costs"] = [float(c) for c in r["costs"]]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    rs = res["alexnet"]["fsdp"]["resume"]
+    print(f"shard: AlexNet fsdp save -> resume: {rs['tensors']} tensors and "
+          f"{rs['steps_after']} more steps bit for bit", flush=True)
+    res["secs"] = time.time() - t0
+    print(f"shard phases passed in {res['secs']:.1f}s", flush=True)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "chip_smoke_shard.json"), "w") as f:
         json.dump(dict(res, card=card), f, indent=1)
     return res
 
@@ -3981,6 +4195,7 @@ def main() -> int:
     islands = islands_main(card)
     launcher = launcher_main(card)
     wire = wire_main(card)
+    shard = shard_main(card)
 
     kernels = kernel_entries(lrn, lrn_g, comp, topk, fpack, flash, alex,
                              goog, vggs, lm)
@@ -3997,7 +4212,7 @@ def main() -> int:
                 launches_from=f"VGG-16 {path[6:]} main path at 4 MiB",
                 **{k: wire["decode"][name][k] for k in
                    ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                    "bound_by")})
+                    "bound_by", "library_ms")})
     for e in kernels:
         if e["name"].startswith("lrn_"):
             name = "lrn_fwd_cuda" if e["name"] == "lrn_fwd" else "lrn_bwd_cuda"
@@ -4018,7 +4233,10 @@ def main() -> int:
                     islands["alexnet_threads"]["launches"][name],
                 # the rank the launcher started (its own process's count)
                 "alexnet_launched_rank":
-                    launcher["world1"]["launches"][name]}
+                    launcher["world1"]["launches"][name],
+                # the A9a layouts (zero_opt, update_sharding, fsdp)
+                **{f"alexnet_shard_{k}": r["launches"][name]
+                   for k, r in shard["alexnet"].items()}}
     total_s = time.time() - t_all
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -4034,6 +4252,7 @@ def main() -> int:
                                 **{f"vgg16_{k}": v for k, v in vggs.items()}),
                    "rules": rules, "clip": clip, "optimizers": opts,
                    "islands": islands, "launcher": launcher, "wire": wire,
+                   "shard": shard,
                    "graph_eager": graph_eager, "spc": spc,
                    "recapture": recapture, "zoo_ref": zoo_ref,
                    "lrn_googlenet": lrn_g, "lrn_sass": lrn_sass,
@@ -4059,6 +4278,6 @@ if __name__ == "__main__":
     if not _flags <= {"--flash-times", "--topk-times", "--factor-times",
                       "--input-times", "--update-times", "--lrn-times",
                       "--islands", "--vgg-island-lr", "--launcher",
-                      "--wire"}:
+                      "--wire", "--shard"}:
         sys.exit(f"chip_smoke: unknown arguments {sorted(_flags)}")
     sys.exit(times_main(_flags) if _flags else main())

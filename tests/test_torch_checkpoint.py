@@ -165,8 +165,11 @@ def test_resume_at_two_gloo_ranks(tmp_path, model, strategy):
             np.testing.assert_array_equal(ranks[0][k], ranks[1][k])
     meta = ckpt.peek_meta(d)
     assert meta["n_workers"] == 2
-    assert meta["boxed_parts"] == ([] if strategy == "allreduce"
-                                   else ["extra"])
+    # the JAX package's identical_parts: a stateful strategy's ranks keep
+    # every part their own
+    assert meta["boxed_parts"] == (
+        [] if strategy == "allreduce"
+        else ["bn_state", "extra", "opt_state", "params"])
 
 
 def test_mid_epoch_save_and_load_under_para_load(cpu_group, tmp_path):

@@ -36,12 +36,28 @@ def _inputs(shape, seed=0):
     return x, dy
 
 
+def _lrn_oracle(x, n, k, alpha, beta):
+    """The same formula in float64 NumPy: the band sum as a loop over the
+    window, no product with a band matrix."""
+    x64 = x.astype(np.float64)
+    sq, half = x64 * x64, n // 2
+    ssum = np.stack([sq[..., max(0, i - half):i + half + 1].sum(-1)
+                     for i in range(x.shape[-1])], -1)
+    return x64 * (k + (alpha / n) * ssum) ** -beta
+
+
 @pytest.mark.parametrize("shape,beta", CASES)
 def test_lrn_plain_forward_matches_jax(shape, beta):
+    """Each side computes from its own copy of the inputs; the float64
+    oracle names the side that moved when the two disagree."""
     x, _ = _inputs(shape)
-    ref = np.asarray(lrn_jnp(jnp.asarray(x), 5, 2.0, 1e-4, beta))
-    got = port_lrn.lrn(torch.from_numpy(x), 5, 2.0, 1e-4, beta).numpy()
-    np.testing.assert_allclose(got, ref, rtol=2e-6, atol=2e-6)
+    ref = np.asarray(lrn_jnp(jnp.array(x, copy=True), 5, 2.0, 1e-4, beta))
+    got = port_lrn.lrn(torch.tensor(x), 5, 2.0, 1e-4, beta).numpy()
+    want = _lrn_oracle(x, 5, 2.0, 1e-4, beta)
+    moved = (f"max |port - float64 oracle| {np.abs(got - want).max():.3g}, "
+             f"max |jax - float64 oracle| {np.abs(ref - want).max():.3g}")
+    np.testing.assert_allclose(got, ref, rtol=2e-6, atol=2e-6, err_msg=moved)
+    np.testing.assert_allclose(got, want, rtol=2e-6, atol=2e-6, err_msg=moved)
 
 
 @pytest.mark.parametrize("shape,beta", CASES)

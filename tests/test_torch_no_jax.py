@@ -70,6 +70,18 @@ plan = buckets.plan_buckets(tree, 8)
 assert plan.n_buckets == 2 and plan.buckets[0].leaf_ids == (0,)
 assert torch.equal(buckets.unpack(buckets.pack(tree, plan), tree, plan)["b"],
                    tree["b"])
+# the sharding layouts plan, cut and box without JAX
+from theanompi_tpu_torch.parallel import fsdp, update_sharding, zero
+up = update_sharding.plan_tree(tree, 2, min_bytes=8)
+assert [l.sharded for l in up.leaves] == [True, True]
+assert update_sharding.shard_tree(tree, up, 1)["b"].tolist() == [1.0, 0.0]
+boxed = update_sharding.shard_host_boxed({"b": np.ones(3, np.float32)},
+                                         update_sharding.plan_tree(
+                                             {"b": torch.ones(3)}, 2, min_bytes=8))
+assert boxed["b"].shape == (2, 2)
+assert zero.chunk_size(10, 4) == 3
+lay = fsdp.FsdpLayout(tree, 2)
+assert lay.chunk_host(tree).shape == (2, lay.chunk)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "theanompi_tpu" or m.startswith("theanompi_tpu."))
@@ -93,7 +105,10 @@ NEW_MODULES = ("theanompi_tpu_torch.native",
                "theanompi_tpu_torch.parallel.membership",
                "theanompi_tpu_torch.utils.clock",
                "theanompi_tpu_torch.launcher",
-               "theanompi_tpu_torch.parallel.buckets")
+               "theanompi_tpu_torch.parallel.buckets",
+               "theanompi_tpu_torch.parallel.update_sharding",
+               "theanompi_tpu_torch.parallel.zero",
+               "theanompi_tpu_torch.parallel.fsdp")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -135,12 +150,23 @@ def test_launched_workers_import_neither_jax_nor_the_jax_package(tmp_path):
     """Two ranks started by the port's launcher train an epoch through
     ``python -m theanompi_tpu_torch.worker``; as each rank's process exits
     it lists which of ``jax`` and the JAX package it imported: none."""
+    _launch_modules(tmp_path)
+
+
+def test_launched_sharded_workers_import_neither_jax_nor_the_jax_package(
+        tmp_path):
+    """The same under ``fsdp=true``, which the launcher passes through to
+    each rank's worker."""
+    _launch_modules(tmp_path, "fsdp=true")
+
+
+def _launch_modules(tmp_path, *kv):
     here = os.path.join(REPO, "tests")
     out = str(tmp_path / "mods")
     r = subprocess.run(
         [sys.executable, "-m", "theanompi_tpu_torch.launcher",
          "--modelfile", "torch_launch_helper", "--modelclass", "ModulesNet",
-         "--n-workers", "2", "device=cpu", f"modules_out={out}"],
+         "--n-workers", "2", "device=cpu", f"modules_out={out}", *kv],
         cwd=REPO, capture_output=True, text=True, timeout=180,
         env=dict(os.environ, OMP_NUM_THREADS="1",
                  PYTHONPATH=os.pathsep.join([here, REPO])))

@@ -434,8 +434,14 @@ def test_session_api_trains_each_rule_on_cpu(rule):
      NotImplementedError, "A10"),
     ("BSP", {"exch_mode": "gradients"}, ValueError, "exch_mode"),
     ("BSP", {"exch_strategy": "ring8"}, ValueError, "ring8"),
-    ("ASGD", {"update_sharding": True}, NotImplementedError,
-     "update_sharding"),
+    # the JAX package's sharding refusals (at world 1 it accepts
+    # update_sharding under ASGD as inert)
+    ("BSP", {"update_sharding": True, "zero_opt": True}, ValueError,
+     "update_sharding with zero_opt"),
+    ("BSP", {"fsdp": True, "exch_strategy": "onebit"}, ValueError,
+     "fsdp requires BSP grads"),
+    ("BSP", {"fsdp": True, "bucket_bytes": 1024}, ValueError,
+     "bucket_bytes"),
     ("GOSGD", {"gosgd_peers": "ring"}, ValueError, "gosgd_peers"),
     ("EASGD", {"ema_decay": 0.9}, ValueError, "ema_decay requires BSP"),
     ("BSP", {"ema_decay": 0.9, "exch_strategy": "none"}, ValueError,

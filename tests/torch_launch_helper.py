@@ -32,6 +32,21 @@ its own, ``helper_mode`` and ``helper_out``:
   and ``resume`` (params mode two epochs without a break, then one epoch,
   a checkpoint in ``<helper_out>_ckpt`` and a resumed second epoch:
   ``resume/full/...``, ``resume/resumed/...``).
+* ``helper_mode=shard``: joins the world once and trains each of
+  ``SHARD_CASES`` (``zero_opt``, ``update_sharding`` and ``fsdp``, each
+  beside its unsharded twin) through its rule's session on
+  ``TinyLRNNetFrom``, writing the state in the unsharded layout
+  (``<case>/params/<path>``, ``<case>/opt/<path>``, ``<case>/canon/<path>``,
+  ``<case>/center/<path>``) and the elements this rank holds
+  (``<case>/elems/params``, ``<case>/elems/opt``); ``roundtrip/<path>``: a
+  tree of ``TinyWideNet``'s shapes and one ragged leaf of 10 elements,
+  sharded and gathered back; at 2 ranks also ``resume/<case>/full/...``
+  and ``resume/<case>/resumed/...`` (two epochs straight against one, a
+  checkpoint and a resumed second, ``RESUME_CASES``), and, for each
+  ``jax_<case>=<dir>`` given (``JAX_CKPT_CASES``), a checkpoint the JAX
+  package wrote after one epoch loaded through
+  ``convert.checkpoint_from_jax`` and trained one more epoch
+  (``jax/<case>/...``).
 * ``helper_mode=islands``: this rank's island of an async world
   (``AsyncEASGDTrainer``), each island stopping after
   ``helper_exchanges`` exchanges; writes this rank's params at the start
@@ -323,6 +338,160 @@ def params_ring(config, out):
     np.savez(f"{out}_r{proc.rank}.npz", **res)
 
 
+# update_sharding's threshold in the shard cases: TinyLRNNet's two weights
+# shard, its biases stay whole
+USHARD_MIN_BYTES = 1024
+_US = {"update_sharding": True, "ushard_min_bytes": USHARD_MIN_BYTES}
+_MIX = {"n_subb": 2, "steps_per_call": 3, "ema_decay": 0.9,
+        "grad_clip": 0.5}
+# (rule, config); each sharded case's unsharded twin is SHARD_TWINS'
+SHARD_CASES = {
+    "plain": ("BSP", {}),
+    "zero": ("BSP", {"zero_opt": True}),
+    "ushard": ("BSP", dict(_US)),
+    "fsdp": ("BSP", {"fsdp": True}),
+    "mix": ("BSP", dict(_MIX)),
+    "zero-mix": ("BSP", dict(_MIX, zero_opt=True)),
+    "fsdp-mix": ("BSP", dict(_MIX, fsdp=True)),
+    "easgd": ("EASGD", {"sync_freq": 2}),
+    "easgd-us": ("EASGD", dict(_US, sync_freq=2)),
+    "asgd": ("ASGD", {}),
+    "asgd-us": ("ASGD", dict(_US)),
+    "powersgd": ("BSP", {"exch_strategy": "powersgd1"}),
+    "powersgd-us": ("BSP", dict(_US, exch_strategy="powersgd1")),
+}
+SHARD_TWINS = {"zero": "plain", "ushard": "plain", "fsdp": "plain",
+               "zero-mix": "mix", "fsdp-mix": "mix", "easgd-us": "easgd",
+               "asgd-us": "asgd", "powersgd-us": "powersgd"}
+# resumed at 2 ranks: each key, and C8's measurement-only wire
+RESUME_CASES = {"zero": {"zero_opt": True}, "ushard": dict(_US),
+                "fsdp": {"fsdp": True}, "none": {"exch_strategy": "none"}}
+# the JAX package's checkpoints continued in the port at 2 ranks:
+# (rule, config)
+JAX_CKPT_CASES = {"zero": ("bsp", {"zero_opt": True}),
+                  "ushard": ("bsp", dict(_US)),
+                  "fsdp": ("bsp", {"fsdp": True}),
+                  "easgd-us": ("easgd", dict(_US, sync_freq=2))}
+
+
+def unsharded_arrays(model) -> dict:
+    """A model's state in the unsharded layout as flat npz entries
+    (``params/<path>``: :meth:`live_params`; ``opt/<path>``: the momentum
+    velocity; ``canon/<path>``: the canonical params, the EMA shadow or the
+    center; ``center/<path>``, ``strat/<i>``) and the elements of the
+    params part and the optimizer state this rank holds.  A collective
+    under a sharded layout: every rank calls."""
+    from theanompi_tpu_torch.utils.helper_funcs import leaf_paths, tree_leaves
+
+    def flat(prefix, tree):
+        return {f"{prefix}/" + "/".join(map(str, p)):
+                np.array(v.detach().cpu().numpy()) for p, v in
+                zip(leaf_paths(tree), tree_leaves(tree))}
+
+    st = model.unsharded_opt_state()
+    vel = st["inner"] if isinstance(st, dict) and "inner" in st else st
+    out = dict(flat("params", model.live_params()), **flat("opt", vel),
+               **flat("canon", model.canonical_params()))
+    if "center" in model.extra:
+        out.update(flat("center",
+                        model.exchanger.unshard_extra(model.extra)["center"]))
+    if "strat" in model.extra:
+        out.update({f"strat/{i}": np.array(l.detach().cpu().numpy()) for i, l
+                    in enumerate(tree_leaves(model.extra["strat"]))})
+    out["elems/params"] = np.int64(sum(
+        l.numel() for l in tree_leaves(model._state_parts()["params"])))
+    out["elems/opt"] = np.int64(sum(
+        l.numel() for l in tree_leaves(model.opt_state) if l.dim()))
+    return out
+
+
+def roundtrip(rank: int, world: int) -> dict:
+    """``TinyWideNet``'s shapes and a ragged 10-element leaf, drawn from the
+    seed 5: sharded at ``USHARD_MIN_BYTES`` and gathered back."""
+    import torch
+    from theanompi_tpu_torch.parallel import update_sharding as us
+    from theanompi_tpu_torch.utils.helper_funcs import (leaf_paths,
+                                                        tree_leaves,
+                                                        tree_map)
+    like = TinyWideNet({"device": "cpu", "verbose": False}).params
+    like = dict(like, ragged={"v": torch.zeros(10)})
+    r = np.random.RandomState(5)
+    tree = tree_map(lambda p: torch.from_numpy(
+        r.randn(*p.shape).astype(np.float32)), like)
+    plan = us.plan_tree(tree, world, min_bytes=40)
+    back = us.unshard_tree(us.shard_tree(tree, plan, rank), plan)
+    out = {"roundtrip/" + "/".join(map(str, p)): v.numpy().copy()
+           for p, v in zip(leaf_paths(back), tree_leaves(back))}
+    # one flat gradient of 1000 values from the seed 100 + rank: its
+    # reduce-scatter (SUM) and its all-reduce
+    g = torch.from_numpy(np.random.RandomState(100 + rank).randn(
+        1000).astype(np.float32))
+    mine = g.new_empty(1000 // world)
+    us.reduce_scatter_into(mine, g.clone())
+    total = g.clone()
+    import torch.distributed as dist
+    dist.all_reduce(total)
+    out.update({"rs/in": g.numpy(), "rs/scatter": mine.numpy(),
+                "rs/allreduce": total.numpy()})
+    return out
+
+
+def from_jax_ckpt(config, ckpt_dir, case) -> dict:
+    """A port model of ``config`` and ``JAX_CKPT_CASES[case]`` loaded from
+    the JAX package's checkpoint of epoch 0 and trained epoch 1 as the
+    worker trains it (the rule's exchange after each due step)."""
+    from theanompi_tpu_torch import convert
+    from theanompi_tpu_torch.parallel.exchanger import get_exchanger
+    rule, cfg = JAX_CKPT_CASES[case]
+    c = dict(config, **cfg, rule=rule, verbose=False,
+             size=int(config["n_workers"]))
+    m = TinyLRNNetFrom(c)
+    ex = get_exchanger(rule, c)
+    m.compile_iter_fns(ex)
+    assert convert.checkpoint_from_jax(ckpt_dir, m, epoch=0) == 0
+    n = m.data.n_batch_train
+    m.adjust_hyperp(1)
+    m.data.shuffle_data(1 + m.seed)
+    for count in range(n + 1, 2 * n + 1):
+        m.train_iter(count)
+        ex.exchange(None, count)
+    return unsharded_arrays(m)
+
+
+def shard(config, out):
+    from theanompi_tpu_torch.base import MeshProcess
+    proc = MeshProcess(dict(config, verbose=False))
+    proc.get_internode_comm()
+    res = {}
+    try:
+        world = int(config["n_workers"])
+        jax_ckpts = {k[4:]: config.pop(k) for k in list(config)
+                     if k.startswith("jax_")}
+        res.update(roundtrip(proc.rank, world))
+        for case, (rule, cfg) in SHARD_CASES.items():
+            r = _session(rule, "TinyLRNNetFrom", config, **cfg)
+            res.update({f"{case}/{k}": v
+                        for k, v in unsharded_arrays(r.model).items()})
+        if world == 2:
+            for case, cfg in RESUME_CASES.items():
+                ck = f"{out}_ckpt_{case}"
+                full = _session("BSP", "TinyLRNNetFrom", config, epochs=2,
+                                **cfg)
+                _session("BSP", "TinyLRNNetFrom", config, epochs=1,
+                         ckpt_dir=ck, **cfg)
+                again = _session("BSP", "TinyLRNNetFrom", config, epochs=2,
+                                 ckpt_dir=ck, resume=True, **cfg)
+                for tag, m in (("full", full.model), ("resumed", again.model)):
+                    res.update({f"resume/{case}/{tag}/{k}": v
+                                for k, v in state_arrays(m).items()})
+            for case, d in jax_ckpts.items():
+                res.update({f"jax/{case}/{k}": v for k, v in
+                            from_jax_ckpt(config, d, case).items()})
+    finally:
+        proc.close()
+    np.savez(f"{out}_r{proc.rank}.npz", **res)
+
+
 def wires(config, out):
     from theanompi_tpu_torch import BSP
     from theanompi_tpu_torch.base import MeshProcess
@@ -459,6 +628,8 @@ def main(argv):
         buckets(config, out)
     elif mode == "params_ring":
         params_ring(config, out)
+    elif mode == "shard":
+        shard(config, out)
     else:
         islands(config, modelclass, out)
     return 0

@@ -28,8 +28,11 @@ model's params, and :func:`center_leaves_from_params` goes the other way.
 
 Input and output are trees (nested dicts) of numpy arrays.
 :func:`checkpoint_from_jax` applies them to a whole checkpoint the JAX
-package wrote (any ported rule and optimizer, EMA included), into a port
-model.
+package wrote (any ported rule and optimizer, EMA included, and the
+sharded layouts ``zero_opt``, ``update_sharding`` and ``fsdp``), into a
+port model.  A sharded part's rows are the JAX package's chunks of its own
+flat layout: they are joined back into full leaves (or the full flat
+vector), converted, and cut again into the port's chunks.
 """
 
 from __future__ import annotations
@@ -163,6 +166,64 @@ def powersgd_state_from_jax(jstate, jax_params, like,
     return [by_path[p] for p in leaf_paths(like)]
 
 
+def _dense_from_jax_rows(rows, n_total: int, jax_like, like,
+                         kept: frozenset = frozenset()) -> np.ndarray:
+    """``[N, chunk]`` rows of the JAX package's flat chunk layout (ZeRO-1's
+    optimizer state, FSDP's params and state: ``flatten_tree``, its sorted
+    order and layouts, zero-padded) → the port's dense flat vector of the
+    ``n_total`` values (``helper_funcs.flatten_tree`` of ``like``)."""
+    flat = np.asarray(rows, np.float32).reshape(-1)[:n_total]
+    return flat_from_jax(flat, jax_like, like, kept)
+
+
+def _param_suffix(path, param_paths: set):
+    """The parameter path that ``path`` (a leaf of a params-shaped subtree
+    of an optimizer or extra state) ends with, or None."""
+    for i in range(len(path)):
+        if tuple(path[i:]) in param_paths:
+            return tuple(path[i:])
+    return None
+
+
+def _sharded_rows_from_jax(cur_tree, jax_leaves, rank: int, chunk_row,
+                           plan=None, jax_shapes=None,
+                           kept: frozenset = frozenset()):
+    """A sharded state part of the JAX package (its boxed ``[N, ...]``
+    leaves, in sorted-key order) → this rank's values in the structure of
+    ``cur_tree`` (the port's part).  A 0-d leaf (a step count) takes its
+    row; a leaf in the flat chunk layout goes through ``chunk_row`` (JAX
+    rows → the port's row); under ``plan`` (``update_sharding``, the port's
+    leaf-wise plan keyed by parameter path) a sharded leaf's rows are
+    joined, converted and cut again, and a whole one converted."""
+    from .parallel.update_sharding import window
+    paths = jax_leaf_paths(cur_tree)
+    if len(paths) != len(jax_leaves):
+        raise ValueError(f"{len(jax_leaves)} leaves in the JAX part, "
+                         f"{len(paths)} in the port's")
+    vals = {}
+    for path, rows in zip(paths, jax_leaves):
+        cur = get_leaf(cur_tree, path)
+        rows = np.asarray(rows)
+        if cur.dim() == 0:
+            vals[path] = rows[rank]
+        elif plan is None:
+            vals[path] = chunk_row(rows)
+        else:
+            pp = _param_suffix(path, set(plan))
+            lp = plan[pp]
+            jshape = jax_shapes[pp]
+            full = rows.reshape(-1)[:lp.size].reshape(jshape) \
+                if lp.sharded else rows[rank]
+            port = _to_port(full, pp, kept).reshape(-1)
+            if lp.sharded:
+                lo, hi = window(lp.size, rank, lp.chunk)
+                row = np.zeros(lp.chunk, np.float32)
+                row[:hi - lo] = port[lo:hi]
+                port = row
+            vals[path] = port.reshape(tuple(cur.shape))
+    return _like_port(cur_tree, vals)
+
+
 def _set_leaf(tree: dict, path, value) -> None:
     for k in path[:-1]:
         tree = tree.setdefault(k, {})
@@ -215,8 +276,39 @@ def checkpoint_from_jax(ckpt_dir: str, model,
     kept = frozenset(model.kept_layout_paths())
     params = model.params
     jpaths = jax_leaf_paths(params)
+    rank = model.rank
+    fsdp, zero = model._fsdp, model._zero_layout
+    uplan = model._ushard_plan
+    cplan = model.exchanger.update_plan()
+    for key, mine in (("fsdp", fsdp), ("zero", zero)):
+        if (key in meta) != (mine is not None):
+            raise ValueError(f"{ckpt_dir}: the checkpoint's layout "
+                             f"{'has' if key in meta else 'lacks'} {key!r}, "
+                             f"the port model's does not match")
+    # shapes only: the JAX layout's params (no values)
+    jax_shapes = {p: _jax_shape(tuple(get_leaf(params, p).shape), p, kept)
+                  for p in jpaths}
+    jax_like = _from_paths(jpaths, [np.broadcast_to(np.float32(0), jax_shapes[p])
+                                    for p in jpaths])
+    n_total = sum(int(np.prod(s)) for s in jax_shapes.values())
+
+    def chunk_row(rows):
+        """JAX flat chunk rows → this rank's row of the port's layout."""
+        dense = _dense_from_jax_rows(rows, n_total, jax_like, params, kept)
+        if fsdp is not None:
+            return fsdp.from_dense(dense)[rank]
+        n = int(zero["n"])
+        c = -(-n_total // n)
+        return np.pad(dense, (0, c * n - n_total)).reshape(n, c)[rank]
+
+    def leaf_plan(plan, prefix=()):
+        return None if plan is None else {
+            tuple(p[len(prefix):]): lp for p, lp in
+            zip(jax_leaf_paths(model.extra if prefix else params),
+                plan.leaves)}
+
     with np.load(os.path.join(ckpt_dir, f"ckpt_epoch{epoch}.npz")) as z:
-        def part(key):
+        def part(key, rows=False):
             n = sum(1 for f in z.files if f.startswith(key + "__"))
             leaves = [z[f"{key}__{i}"] for i in range(n)]
             if key in boxed:
@@ -225,7 +317,11 @@ def checkpoint_from_jax(ckpt_dir: str, model,
                         f"{ckpt_dir}: '{key}' holds the state of "
                         f"{meta.get('n_workers')} workers; this run has "
                         f"{model.size}")
-                leaves = [a[model.rank] for a in leaves]
+                if not rows:
+                    leaves = [a[model.rank] for a in leaves]
+            elif rows:
+                raise ValueError(f"{ckpt_dir}: '{key}' is not stored per "
+                                 f"worker; the port model shards it")
             return leaves
 
         def jax_tree(leaves):        # a params-shaped JAX tree, sorted order
@@ -242,8 +338,12 @@ def checkpoint_from_jax(ckpt_dir: str, model,
             return _like_port(params, {p: get_leaf(conv, p) for p in jpaths})
 
         n = len(jpaths)
-        jparams = jax_tree(part("params"))
-        new_params = port_tree(part("params"))
+        if fsdp is not None:
+            jparams = jax_like
+            new_params = chunk_row(part("params", rows=True)[0])
+        else:
+            jparams = jax_tree(part("params"))
+            new_params = port_tree(part("params"))
 
         def opt_tree(cur, opt):
             """The JAX optimizer state's leaves (sorted keys) in the port's
@@ -266,7 +366,12 @@ def checkpoint_from_jax(ckpt_dir: str, model,
                 return port_tree(opt)
             return cur
 
-        new_opt = opt_tree(model.opt_state, part("opt_state"))
+        if fsdp is not None or zero is not None or uplan is not None:
+            new_opt = _sharded_rows_from_jax(
+                model.opt_state, part("opt_state", rows=True), rank,
+                chunk_row, leaf_plan(uplan), jax_shapes, kept)
+        else:
+            new_opt = opt_tree(model.opt_state, part("opt_state"))
         bn = part("bn_state")
         bpaths = jax_leaf_paths(model.bn_state)
         if len(bn) != len(bpaths):
@@ -278,9 +383,13 @@ def checkpoint_from_jax(ckpt_dir: str, model,
                                  f"{a.shape}")
         new_bn = _like_port(model.bn_state,
                             dict(zip(bpaths, bn_state_from_jax(bn))))
-        extra = part("extra")
+        extra = part("extra", rows=cplan is not None)
         new_extra = {}
-        if "center" in model.extra:           # EASGD, ASGD
+        if cplan is not None:                 # a center under the plan
+            new_extra = _sharded_rows_from_jax(
+                model.extra, extra, rank, None, leaf_plan(cplan, ("center",)),
+                jax_shapes, kept)
+        elif "center" in model.extra:         # EASGD, ASGD
             new_extra = {"center": port_tree(extra)}
         elif "alpha" in model.extra:          # GoSGD
             new_extra = {"alpha": np.float32(extra[0])}
@@ -302,7 +411,12 @@ def checkpoint_from_jax(ckpt_dir: str, model,
             if f.startswith("_cursor__"):
                 cursor[f[len("_cursor__"):]] = z[f]
 
-    model.load_params(new_params)
+    if fsdp is not None:
+        with torch.no_grad():
+            fsdp.shard.copy_(torch.from_numpy(np.ascontiguousarray(new_params)))
+        fsdp.gather_params()
+    else:
+        model.load_params(new_params)
     model.load_bn_state(new_bn)
 
     def put(cur_leaf, new_leaf):

@@ -34,8 +34,19 @@ scores the rule's canonical params (the center, or GoSGD's α-weighted
 consensus) with the replica-mean running stats, and checkpoints keep
 every rank's state.  ``ema_decay`` (BSP only) keeps an EMA shadow of the
 params in the optimizer state, which validation and the ``.npy``
-snapshot read.  ZeRO, FSDP, update sharding and the numerics plane of
-the JAX package are not ported yet.
+snapshot read.
+
+Under BSP grads mode the update-plane state can be sharded over the ranks
+(``compile_iter_fns`` wraps the optimizer in the JAX package's order, EMA
+first): ``zero_opt`` keeps one flat chunk of the optimizer state per rank
+(``parallel/zero.py``), ``update_sharding`` a chunk of each large leaf's
+(``parallel/update_sharding.py``; also the EASGD and ASGD centers, in the
+exchanger), and ``fsdp`` the parameters themselves as a flat chunk
+(``parallel/fsdp.py``; ``params`` are then views of a buffer every step
+gathers, and the ``params`` part of the state is the chunk).  Each is
+bit-equal to the unsharded update; a sharded part is saved per rank, as
+``BSP_Exchanger.identical_parts`` says.  The numerics plane of the JAX
+package is not ported yet.
 """
 
 from __future__ import annotations
@@ -48,7 +59,8 @@ import torch
 from ..base import resolve_device
 from ..parallel import steps
 from ..utils import checkpoint as ckpt_lib
-from ..utils.helper_funcs import tree_leaves, tree_map
+from ..utils.helper_funcs import (tree_leaves, tree_map, tree_size,
+                                  unflatten_like)
 from ..utils import opt as opt_lib
 from ..utils.opt import get_optimizer
 from . import layers as L
@@ -80,9 +92,9 @@ class ModelBase:
                   "optimizer", "momentum", "weight_decay", "steps_per_call"):
             if k in self.config:
                 setattr(self, k, self.config[k])
-        for k in ("zero_opt", "fsdp", "update_sharding", "numerics"):
-            if self.config.get(k):
-                raise NotImplementedError(f"config {k!r} is not ported yet")
+        if self.config.get("numerics"):
+            raise NotImplementedError("config 'numerics' is not ported yet")
+        self._refuse_sharding_keys()
         self.seed = int(self.config.get("seed", self.seed))
         self.current_lr = float(self.learning_rate)
 
@@ -108,6 +120,12 @@ class ModelBase:
         if self.config.get("ema_decay"):
             self.opt = opt_lib.ema_wrap(self.opt,
                                         float(self.config["ema_decay"]))
+        # the optimizer before any sharding wrapper, which compile_iter_fns
+        # puts around it once the world size is known
+        self._base_opt = self.opt
+        self._zero_layout = None       # ZeRO-1's layout facts
+        self._ushard_plan = None       # update_sharding's plan of the params
+        self._fsdp = None              # FSDP's layout and storage
         self.opt_state = None
         self.extra = {}
         self.train_fn = None
@@ -116,6 +134,69 @@ class ModelBase:
         self.exchanger = None
         self._val = None
         self.current_info: Dict[str, Any] = {}
+
+    def _refuse_sharding_keys(self) -> None:
+        """The key combinations the JAX package refuses when it builds a
+        model: ``update_sharding`` (under BSP) beside ``zero_opt``, ``fsdp``
+        or ``ema_decay``, and ``fsdp`` beside ``zero_opt``."""
+        c = self.config
+        if c.get("update_sharding") and \
+                str(c.get("rule", "bsp")).lower() == "bsp":
+            for k, why in (
+                    ("zero_opt", "update_sharding is the leaf-wise form of "
+                                 "zero_opt: enable one, not both"),
+                    ("fsdp", "fsdp already keeps the optimizer state on the "
+                             "parameter chunk: drop update_sharding"),
+                    ("ema_decay", "update_sharding does not carry the EMA "
+                                  "shadow's chunked read: use zero_opt with "
+                                  "ema_decay, or drop one")):
+                if c.get(k):
+                    raise ValueError(f"update_sharding with {k}: {why}")
+        if c.get("fsdp") and c.get("zero_opt"):
+            raise ValueError("fsdp with zero_opt: fsdp already keeps the "
+                             "optimizer state on the parameter chunk; drop "
+                             "zero_opt")
+
+    def _plan_update(self, size: int):
+        """``update_sharding``'s plan of the params under BSP at ``size``
+        ranks, or None where it shards nothing (world 1, every leaf under
+        ``ushard_min_bytes``, another rule: the async rules' moments are
+        their own, and only their centers shard, in the exchanger)."""
+        if not self.config.get("update_sharding") or size <= 1 or \
+                str(self.config.get("rule", "bsp")).lower() != "bsp":
+            return None
+        from ..parallel import update_sharding as us
+        plan = us.plan_tree(self.params, size, min_bytes=int(
+            self.config.get("ushard_min_bytes", us.DEFAULT_MIN_BYTES)))
+        return plan if plan.any_sharded else None
+
+    def _shard_layouts(self, size: int, rank: int) -> None:
+        """The optimizer wrapped for ``size`` ranks, this one ``rank``, in
+        the JAX package's order (``ema_wrap`` already inside): ZeRO-1's
+        flat chunk, or ``update_sharding``'s per-leaf chunks, or FSDP's
+        parameter chunk (whose storage, on the first compile, replaces the
+        params by views of its gathered buffer)."""
+        self.opt, self._zero_layout = self._base_opt, None
+        if self.config.get("zero_opt"):
+            from ..parallel.zero import zero1
+            self.opt = zero1(self.opt, size, self.params, rank)
+            self._zero_layout = {"n": size, "shards": 1,
+                                 "local_total": tree_size(self.params)}
+        elif self._ushard_plan is not None:
+            from ..parallel.update_sharding import shard_opt
+            self.opt = shard_opt(self.opt, self._ushard_plan, rank)
+        if self.config.get("fsdp"):
+            from ..parallel.fsdp import FsdpLayout
+            if self._fsdp is None:
+                layout = FsdpLayout(self.params, size, rank)
+                layout.attach(self.params, self.device)
+                self._fsdp, self.params = layout, layout.params
+            elif (self._fsdp.n_workers, self._fsdp.rank) != (size, rank):
+                raise NotImplementedError(
+                    f"fsdp laid out for rank {self._fsdp.rank} of "
+                    f"{self._fsdp.n_workers}, compiled for rank {rank} of "
+                    f"{size}: a refit onto another world is not ported yet "
+                    f"(A10)")
 
     def _wrap_para_load(self) -> None:
         """The reference's ``para_load=True``: a background loader whose
@@ -224,10 +305,63 @@ class ModelBase:
         with torch.no_grad():
             tree_map(lambda p, v: p.copy_(torch.as_tensor(np.asarray(v))),
                      self.params, tree)
+        if self._fsdp is not None:
+            self._fsdp.load_full()
+
+    def live_params(self):
+        """The parameters as the step last left them: ``params``, or under
+        FSDP every rank's chunk gathered (a collective: every rank
+        calls)."""
+        if self._fsdp is None:
+            return self.params
+        return self._full_of(self._fsdp.shard)
+
+    def _full_of(self, chunk):
+        """A params-shaped tree of every rank's ``chunk`` of the flat layout
+        (ZeRO-1's or FSDP's), gathered into a new buffer: a collective, a
+        copy at world 1 (also once the session's group is gone)."""
+        fs = self._fsdp
+        n = fs.n_workers if fs is not None else self._zero_layout["n"]
+        full = chunk.new_empty(chunk.numel() * n)
+        if n == 1:
+            full.copy_(chunk)
+        else:
+            from ..parallel.update_sharding import all_gather_into
+            all_gather_into(full, chunk)
+        return fs._tree(fs.views(full)) if fs is not None \
+            else unflatten_like(self.params, full)
 
     def host_params(self):
-        """The parameters as a tree of float32 numpy arrays."""
-        return tree_map(lambda p: p.detach().cpu().numpy(), self.params)
+        """The parameters as a tree of float32 numpy arrays
+        (:meth:`live_params`)."""
+        return tree_map(lambda p: p.detach().cpu().numpy(),
+                        self.live_params())
+
+    def unsharded_opt_state(self):
+        """The optimizer state in the unsharded layout (a collective under
+        a sharded one): ZeRO-1's and FSDP's ``[chunk]`` leaves gathered into
+        params-shaped trees, ``update_sharding``'s chunks rebuilt into their
+        leaves, scalars (step counts) as they are; the state itself when
+        nothing is sharded."""
+        st = self.opt_state
+        if self._ushard_plan is not None:
+            from ..parallel.update_sharding import unshard_tree
+            plan, like = self._ushard_plan, self.params
+
+            def rebuild(sub):
+                if isinstance(sub, dict) and set(sub) == set(like) and all(
+                        l.dim() for l in tree_leaves(sub)):
+                    return unshard_tree(sub, plan)
+                if isinstance(sub, dict):
+                    return {k: rebuild(v) for k, v in sub.items()}
+                return sub
+
+            return rebuild(st["opt"])
+        if self._zero_layout is None and self._fsdp is None:
+            return st
+        if self._zero_layout is not None:
+            st = st["opt"]
+        return tree_map(lambda x: self._full_of(x) if x.dim() else x, st)
 
     def load_bn_state(self, tree) -> None:
         """Overwrite the BN running state in place from a tree of arrays
@@ -263,21 +397,39 @@ class ModelBase:
                                "model through a Worker or "
                                "base.MeshProcess.get_internode_comm()")
         self.exchanger = exchanger
-        if self.config.get("ema_decay") and not (
-                isinstance(self.exchanger, BSP_Exchanger)
-                and self.exchanger.mode == "grads"
-                and self.exchanger.strategy.name != "none"):
-            # the shadow of one replica only means something when every
-            # rank applies the same reduced gradient
-            strategy = getattr(self.exchanger, "strategy", None)
-            raise ValueError(
-                "ema_decay requires BSP grads mode with a gradient "
-                f"collective; got {type(self.exchanger).__name__} mode="
-                f"{getattr(self.exchanger, 'mode', '-')} strategy="
-                f"{getattr(strategy, 'name', '-')}")
-        self.exchanger.prepare(self, dist.get_world_size()
-                               if exchanger.collective else 1)
-        self.opt_state = self.opt.init(self.params)
+        size, rank = (dist.get_world_size(), dist.get_rank()) \
+            if exchanger.collective else (1, 0)
+        self._ushard_plan = self._plan_update(size)
+        grads_mode = isinstance(self.exchanger, BSP_Exchanger) and \
+            self.exchanger.mode == "grads"
+        strategy = getattr(self.exchanger, "strategy", None)
+        got = (f"got {type(self.exchanger).__name__} mode="
+               f"{getattr(self.exchanger, 'mode', '-')} strategy="
+               f"{getattr(strategy, 'name', '-')}")
+        if self.config.get("fsdp"):
+            # the gradient's reduction IS the reduce-scatter: any other
+            # strategy, and a bucketed wire, would be ignored silently
+            if not (grads_mode and strategy.name == "allreduce"):
+                raise ValueError("fsdp requires BSP grads mode with the "
+                                 f"'allreduce' strategy; {got}")
+            if self.exchanger.bucket_bytes:
+                raise ValueError("fsdp has no exchanger wire to bucket (the "
+                                 "gradient arrives by its reduce-scatter): "
+                                 "drop bucket_bytes")
+        which = "zero_opt" if self.config.get("zero_opt") else (
+            "ema_decay" if self.config.get("ema_decay") else (
+                "update_sharding" if self._ushard_plan is not None else None))
+        if which and not (grads_mode and strategy.name != "none"):
+            # a chunk, or the shadow of one replica, only means something
+            # when every rank applies the same reduced gradient
+            raise ValueError(f"{which} requires BSP grads mode with a "
+                             f"gradient collective; {got}")
+        self._shard_layouts(size, rank)
+        self.exchanger.prepare(self, size)
+        self.opt_state = self.opt.init(
+            self.params if self._fsdp is None else
+            torch.zeros(self._fsdp.chunk, dtype=torch.float32,
+                        device=self.device))
         self.extra = self.exchanger.extra_state_template()
         spc = int(self.steps_per_call)
         if spc < 1:
@@ -370,8 +522,21 @@ class ModelBase:
         if self.exchanger is not None and self.exchanger.has_exchange():
             return self.exchanger.canonical_params()
         if self.config.get("ema_decay") and self.opt_state is not None:
-            return opt_lib.ema_params(self.opt_state, self.params)
-        return self.params
+            return self._ema_params()
+        return self.live_params()
+
+    def _ema_params(self):
+        """The EMA shadow as a params-shaped tree (the live params before
+        its first update): under ZeRO-1 and FSDP the shadow is a chunk, and
+        every rank's is gathered here (a collective)."""
+        st = self.opt_state
+        if self._zero_layout is not None:
+            st = st["opt"]
+        elif self._fsdp is None:
+            return opt_lib.ema_params(st, self.params)
+        if int(st["t"]) == 0:
+            return self.live_params()
+        return self._full_of(st["ema"])
 
     def canonical_host_params(self):
         """:meth:`canonical_params` as a tree of float32 numpy arrays."""
@@ -453,18 +618,18 @@ class ModelBase:
     def _state_parts(self) -> Dict[str, Any]:
         """The state a step carries: params, the optimizer's state, the BN
         running state and the exchanger's per-rank ``extra``."""
-        return {"params": self.params, "opt_state": self.opt_state,
+        params = self.params if self._fsdp is None else self._fsdp.shard
+        return {"params": params, "opt_state": self.opt_state,
                 "bn_state": self.bn_state, "extra": self.extra}
 
     def _per_rank_parts(self) -> tuple:
-        """Parts that differ between ranks: under an async rule all of
-        them (the replicas diverge); under BSP a stateful strategy's error
-        feedback, while params, optimizer state and BN state are identical
-        on every rank (each applies the same mean gradient; ``sync_bn``
-        averages the running stats)."""
-        if self.exchanger is not None and self.exchanger.has_exchange():
-            return ("params", "opt_state", "bn_state", "extra")
-        return ("extra",) if self.extra else ()
+        """Parts that differ between ranks: every part the exchanger does
+        not call identical (``Exchanger.identical_parts``: under BSP grads
+        mode with a stateless reducing strategy the replicas are identical,
+        except the chunks ZeRO-1, ``update_sharding`` and FSDP keep; under
+        every other rule, mode or strategy all of them differ)."""
+        ident = set(self.exchanger.identical_parts())
+        return tuple(k for k in self._state_parts() if k not in ident)
 
     def _refuse_ckpt_layouts(self) -> None:
         if self.config.get("async_ckpt"):
@@ -505,11 +670,24 @@ class ModelBase:
                 ckpt_dir, state, epoch, count,
                 rng_states={"step": gen.get_state()}, cursor=cursor,
                 params_npy=snapshot,
-                extra_meta={"boxed_parts": sorted(per_rank),
-                            "n_workers": self.size})
+                extra_meta=self._layout_meta(per_rank))
         if dist.is_initialized() and dist.get_world_size() > 1:
             dist.barrier()            # the files exist before anyone reads
         return path
+
+    def _layout_meta(self, per_rank) -> dict:
+        """The checkpoint's layout facts, as the JAX package writes them:
+        the boxed parts, the worker count, and ZeRO-1's or FSDP's chunk
+        layout (FSDP's ``chunk`` is the port's, over its aligned flat
+        layout; ``total`` counts the parameters)."""
+        meta = {"boxed_parts": sorted(per_rank), "n_workers": self.size}
+        if self._zero_layout is not None:
+            meta["zero"] = dict(self._zero_layout)
+        if self._fsdp is not None:
+            meta["fsdp"] = {"n": self._fsdp.n_workers,
+                            "chunk": self._fsdp.chunk,
+                            "total": self._fsdp.n_total}
+        return meta
 
     def _gather_ranks(self, t):
         """``[size, ...]`` on the host: every rank's ``t``, in rank order."""
@@ -566,6 +744,8 @@ class ModelBase:
         cursor = restored.get("_cursor")
         if cursor and hasattr(self.data, "set_cursor"):
             self.data.set_cursor(cursor)
+        if self._fsdp is not None:
+            self._fsdp.gather_params()     # the views read the loaded chunks
         return int(meta["epoch"])
 
 

@@ -39,6 +39,15 @@ islands around a center, ``parallel/async_easgd.py``) runs under
 hands it to its strategy, EASGD and ASGD sum their deltas by the
 planner's buckets, and GoSGD sends its message as one point-to-point
 message a bucket.  Elastic membership is not ported yet (A10).
+
+``update_sharding=true`` at world > 1 shards the extra state a rule keeps
+identical on every rank (``shardable_extra``: the EASGD and ASGD centers)
+by the leaf-wise plan of ``parallel/update_sharding.py``: each rank keeps
+its ``[chunk]`` of every large center leaf, and the exchange gathers the
+full center (one all-gather per dtype), runs the unchanged algebra, and
+stores its windows back.  GoSGD's α and the strategies' error feedback
+differ per rank and are never planned.  :meth:`Exchanger.identical_parts`
+names the state parts a checkpoint may keep once for all ranks.
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ import torch.distributed as dist
 
 from ..utils.helper_funcs import tree_leaves, tree_map
 from . import buckets, topology
+from . import update_sharding as ushard
 from .steps import _like, step_seed
 from .strategies import Strategy, get_strategy
 
@@ -94,12 +104,96 @@ class Exchanger:
         # ~bucket_bytes slices; a schedule only (bucketed ≡ monolithic)
         self.bucket_bytes = int(self.config.get("bucket_bytes", 0) or 0)
         self.plan: Optional[buckets.BucketPlan] = None
+        self.rank = 0
+        # update_sharding's plan over shardable_extra (None: inactive)
+        self._ushard_plan: Optional[ushard.UpdatePlan] = None
+        self._ushard_keys: tuple = ()
 
     def prepare(self, model, size: int) -> None:
         self.model = model
         self.size = int(size)
+        # this rank's place in the update plan (one rank: no plan)
+        self.rank = int(model.rank) if self.size > 1 else 0
         self.plan = buckets.plan_buckets(model.params, self.bucket_bytes) \
             if self.bucket_bytes > 0 else None
+        self._build_update_plan()
+
+    def identical_parts(self) -> tuple:
+        """State parts identical on every rank, which a checkpoint keeps
+        once (a part at a time): none here; see
+        :meth:`BSP_Exchanger.identical_parts`."""
+        return ()
+
+    # -- update-plane sharding of the extra state ----------------------------
+
+    def shardable_extra(self) -> tuple:
+        """Extra-state keys whose leaves are identical on every rank, the
+        only extra state ``update_sharding`` may chunk."""
+        return ()
+
+    def _build_update_plan(self) -> None:
+        """The plan over :meth:`shardable_extra` under ``update_sharding``;
+        inactive (None) when nothing is shardable, at world 1, or when no
+        leaf reaches ``ushard_min_bytes``."""
+        self._ushard_plan, self._ushard_keys = None, ()
+        keys = tuple(sorted(self.shardable_extra()))
+        if not self.config.get("update_sharding") or not keys or \
+                self.size <= 1:
+            return
+        full = self._extra_full_template()
+        plan = ushard.plan_tree({k: full[k] for k in keys}, self.size,
+                                min_bytes=int(self.config.get(
+                                    "ushard_min_bytes",
+                                    ushard.DEFAULT_MIN_BYTES)))
+        if plan.any_sharded:
+            self._ushard_plan, self._ushard_keys = plan, keys
+
+    def update_plan(self) -> Optional[ushard.UpdatePlan]:
+        """The active plan of the shardable extra keys, or None."""
+        return self._ushard_plan
+
+    def unshard_extra(self, extra) -> dict:
+        """``extra`` with the plan's keys rebuilt to their full values from
+        every rank's chunks (one all-gather per dtype; new tensors for the
+        sharded leaves); ``extra`` itself when the plan is inactive."""
+        plan = self.update_plan()
+        if plan is None:
+            return extra
+        full = ushard.unshard_tree({k: extra[k] for k in self._ushard_keys},
+                                   plan)
+        return dict(extra, **full)
+
+    def reshard_extra(self, full_sub, extra) -> None:
+        """This rank's windows of the updated full values ``full_sub`` (the
+        plan's keys) stored back into ``extra``'s chunks, in place; nothing
+        when the plan is inactive."""
+        plan = self.update_plan()
+        if plan is not None:
+            ushard.reshard_into({k: extra[k] for k in self._ushard_keys},
+                                {k: full_sub[k] for k in self._ushard_keys},
+                                plan, self.rank)
+
+    def extra_host_boxed(self, n: int) -> dict:
+        """The extra state's initial values as host ``[n, ...]`` rows while
+        the plan is active: a plan key's rows are the ranks' chunks, every
+        other key's a copy for each rank."""
+        plan = self.update_plan()
+        if plan is None:
+            raise ValueError("extra_host_boxed needs an active plan")
+        full = tree_map(lambda t: t.detach().cpu().numpy(),
+                        self._extra_full_template())
+        out = ushard.shard_host_boxed(
+            {k: full[k] for k in self._ushard_keys}, plan)
+        for k, v in full.items():
+            if k not in self._ushard_keys:
+                out[k] = tree_map(lambda x: np.broadcast_to(
+                    x[None], (n,) + x.shape).copy(), v)
+        return out
+
+    def _extra_full_template(self) -> Dict[str, Any]:
+        """The per-rank extra state at its full shapes, initial values: a
+        rule overrides this, not :meth:`extra_state_template`."""
+        return {}
 
     def n_buckets(self) -> Optional[int]:
         """Collectives one exchange issues under ``bucket_bytes`` (None on
@@ -113,8 +207,15 @@ class Exchanger:
 
     def extra_state_template(self) -> Dict[str, Any]:
         """The per-rank state the step carries besides params and optimizer
-        state."""
-        return {}
+        state: the full template, with the plan's keys cut to this rank's
+        ``[chunk]`` windows while ``update_sharding`` is active."""
+        full = self._extra_full_template()
+        plan = self.update_plan()
+        if plan is None:
+            return full
+        sub = ushard.shard_tree({k: full[k] for k in self._ushard_keys},
+                                plan, self.rank)
+        return dict(full, **sub)
 
     # -- in the step ---------------------------------------------------------
 
@@ -239,10 +340,28 @@ class BSP_Exchanger(Exchanger):
         super().prepare(model, size)
         self.strategy.kept_layout = frozenset(model.kept_layout_paths())
 
-    def extra_state_template(self) -> Dict[str, Any]:
+    def identical_parts(self) -> tuple:
+        """Grads mode with a stateless strategy that reduces: every rank
+        applies the same mean gradient, so every part is identical, except
+        the chunks ZeRO-1 and ``update_sharding`` keep of the optimizer
+        state and FSDP of the params and the optimizer state.  Params mode
+        keeps each rank's momentum; a stateful strategy each rank's error
+        feedback; ``none`` reduces nothing: all of them per rank."""
+        if not (self.mode == "grads" and not self.strategy.stateful
+                and self.strategy.name != "none"):
+            return ()
+        parts = {"params", "opt_state", "bn_state", "extra"}
+        if self.config.get("zero_opt") or self.config.get("update_sharding"):
+            parts.discard("opt_state")
+        if self.config.get("fsdp"):
+            parts -= {"params", "opt_state"}
+        return tuple(sorted(parts))
+
+    def _extra_full_template(self) -> Dict[str, Any]:
         """``{"strat": state}`` on the model's device for a stateful
         strategy (whatever structure its ``init_state`` makes: a tensor or
-        a per-leaf list), else ``{}``."""
+        a per-leaf list), else ``{}``: each rank's own error feedback,
+        never sharded."""
         if self.strategy.stateful:
             return {"strat": self.strategy.init_state(self.model.params)}
         return {}
@@ -286,17 +405,33 @@ class BSP_Exchanger(Exchanger):
 class _CenterExchanger(Exchanger):
     """EASGD and ASGD: a center, a params-shaped copy in ``extra["center"]``
     that every rank keeps identical (each applies the same summed delta);
-    validation and the ``.npy`` snapshot read it."""
+    validation and the ``.npy`` snapshot read it.  Under
+    ``update_sharding`` each rank keeps its chunks of the large center
+    leaves, and the exchange runs on the gathered center."""
 
-    def extra_state_template(self) -> Dict[str, Any]:
+    def _extra_full_template(self) -> Dict[str, Any]:
         return {"center": tree_map(lambda p: p.detach().clone(),
                                    self.model.params)}
+
+    def shardable_extra(self) -> tuple:
+        return ("center",)
 
     def has_exchange(self) -> bool:
         return True
 
+    @torch.no_grad()
     def canonical_params(self):
-        return self.model.extra["center"]
+        """The center; under the plan rebuilt from every rank's chunks (new
+        tensors, a collective)."""
+        return self.unshard_extra(self.model.extra)["center"]
+
+    def _center_body(self, algebra) -> None:
+        """``algebra(params leaves, center leaves)`` on the full center, in
+        place, then this rank's windows stored back (under the plan)."""
+        extra = self.model.extra
+        center = self.unshard_extra(extra)["center"]
+        algebra(tree_leaves(self.model.params), tree_leaves(center))
+        self.reshard_extra({"center": center}, extra)
 
 
 class EASGD_Exchanger(_CenterExchanger):
@@ -321,12 +456,13 @@ class EASGD_Exchanger(_CenterExchanger):
 
     @torch.no_grad()
     def exchange_body(self, count: int, gen=None) -> None:
-        ps = tree_leaves(self.model.params)
-        cs = tree_leaves(self.model.extra["center"])
-        delta = torch._foreach_sub(ps, cs)
-        torch._foreach_lerp_(ps, cs, self.alpha)
-        self._sum_tree(_like(self.model.params, delta))
-        torch._foreach_add_(cs, delta, alpha=self.alpha / self.size)
+        def algebra(ps, cs):
+            delta = torch._foreach_sub(ps, cs)
+            torch._foreach_lerp_(ps, cs, self.alpha)
+            self._sum_tree(_like(self.model.params, delta))
+            torch._foreach_add_(cs, delta, alpha=self.alpha / self.size)
+
+        self._center_body(algebra)
 
 
 class ASGD_Exchanger(_CenterExchanger):
@@ -342,12 +478,13 @@ class ASGD_Exchanger(_CenterExchanger):
 
     @torch.no_grad()
     def exchange_body(self, count: int, gen=None) -> None:
-        ps = tree_leaves(self.model.params)
-        cs = tree_leaves(self.model.extra["center"])
-        delta = torch._foreach_sub(ps, cs)
-        self._sum_tree(_like(self.model.params, delta))
-        torch._foreach_add_(cs, delta)
-        torch._foreach_copy_(ps, cs)
+        def algebra(ps, cs):
+            delta = torch._foreach_sub(ps, cs)
+            self._sum_tree(_like(self.model.params, delta))
+            torch._foreach_add_(cs, delta)
+            torch._foreach_copy_(ps, cs)
+
+        self._center_body(algebra)
 
 
 class GOSGD_Exchanger(Exchanger):
@@ -400,7 +537,7 @@ class GOSGD_Exchanger(Exchanger):
             self._tables = topology.iid_maps(
                 self.size, self.n_perms, seed=0x1d1 + self.family_seed)
 
-    def extra_state_template(self) -> Dict[str, Any]:
+    def _extra_full_template(self) -> Dict[str, Any]:
         return {"alpha": torch.ones((), dtype=torch.float32,
                                     device=self.model.device)}
 

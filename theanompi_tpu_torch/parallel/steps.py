@@ -70,18 +70,23 @@ def _like(tree, leaves):
 
 
 def _accumulate_grads(loss_and_metrics: Callable, params, bn_state, batch,
-                      gen, n_subb: int):
+                      gen, n_subb: int, out=None):
     """Gradient accumulation over ``n_subb`` micro-batches, in order.
 
     ``loss_and_metrics(params, bn_state, batch, gen, train=True)`` returns
     ``(cost, err)`` and updates ``bn_state`` in place, so the running state
     threads through the micro-batches in order, as the JAX package's scan
     carries it.  Returns the mean cost, mean error and mean gradient tree
-    (detached)."""
+    (detached); ``out`` (tensors shaped like the leaves, FSDP's views of
+    its flat gradient) receives the gradient, and is the returned tree's
+    leaves."""
     leaves = tree_leaves(params)
     if n_subb == 1:
         cost, err = loss_and_metrics(params, bn_state, batch, gen, True)
         grads = torch.autograd.grad(cost, leaves)
+        if out is not None:
+            torch._foreach_copy_(out, grads)
+            grads = out
         return cost.detach(), err.detach(), _like(params, grads)
 
     def micro(x, i):
@@ -91,7 +96,11 @@ def _accumulate_grads(loss_and_metrics: Callable, params, bn_state, batch,
         m = x.shape[0] // n_subb
         return x[i * m:(i + 1) * m]
 
-    acc = [torch.zeros_like(p, requires_grad=False) for p in leaves]
+    if out is None:
+        acc = [torch.zeros_like(p, requires_grad=False) for p in leaves]
+    else:
+        acc = list(out)
+        torch._foreach_zero_(acc)
     acc_c = acc_e = 0.0
     for i in range(n_subb):
         mb = {k: micro(v, i) for k, v in batch.items()}
@@ -147,9 +156,8 @@ class _Captured:
         return self.capture and self.device.type == "cuda"
 
     def _state_leaves(self) -> list:
-        m = self.model
-        return (tree_leaves(m.params) + tree_leaves(m.opt_state)
-                + tree_leaves(m.bn_state) + tree_leaves(m.extra))
+        return [l for part in self.model._state_parts().values()
+                for l in tree_leaves(part)]
 
     def _state_current(self, captured=None) -> bool:
         """A graph reads the state tensors it was captured with (``None``:
@@ -289,11 +297,14 @@ class TrainStep(_Captured):
         for j in range(self.n_steps):
             b = batch if self.n_steps == 1 else \
                 {k: v[j] for k, v in batch.items()}
-            cost, err, grads = _accumulate_grads(
-                m.loss_and_metrics, m.params, m.bn_state, b, self._gens[j],
-                self.n_subb)
-            self.exchanger.step_update(m.params, m.opt_state, grads, m.extra,
-                                       self._lr)
+            if m._fsdp is not None:
+                cost, err = self._fsdp_step(b, self._gens[j])
+            else:
+                cost, err, grads = _accumulate_grads(
+                    m.loss_and_metrics, m.params, m.bn_state, b,
+                    self._gens[j], self.n_subb)
+                self.exchanger.step_update(m.params, m.opt_state, grads,
+                                           m.extra, self._lr)
             self.exchanger.sync_bn(m.bn_state)
             c = self._first + j
             if self._exch is not None and c % self._exch.exchange_freq == 0:
@@ -305,6 +316,23 @@ class TrainStep(_Captured):
         if self.exchanger.collective:
             dist.all_reduce(out)
         return out.div_(self.size).view(2, self.n_steps)
+
+    def _fsdp_step(self, batch, gen):
+        """One FSDP step (the counterpart of the JAX package's
+        ``fsdp_step``), in place: every rank's chunk gathered into the
+        buffer the params view, forward and backward over the micro-batches
+        into the flat gradient buffer, its reduce-scatter (SUM) times 1/N,
+        the global-norm clip of the chunk, and the optimizer's update of the
+        chunk.  The caller then runs ``sync_bn``."""
+        m = self.model
+        fs = m._fsdp
+        fs.gather_params()
+        cost, err, _ = _accumulate_grads(m.loss_and_metrics, m.params,
+                                         m.bn_state, batch, gen, self.n_subb,
+                                         out=fs.grad_views)
+        g = fs.clip_chunk(fs.reduce_grads(), self.exchanger.clip)
+        m.opt.update(g, m.opt_state, fs.shard, self._lr)
+        return cost, err
 
     def _phase(self) -> int:
         """Which graph a window replays: the window's phase against the

@@ -13,6 +13,7 @@
     python3 chip_smoke.py --launcher      # the launcher phases alone
     python3 chip_smoke.py --wire          # params mode, Ring, buckets alone
     python3 chip_smoke.py --shard         # zero_opt, update_sharding, fsdp
+    python3 chip_smoke.py --gan-lm        # GANs, MoE LM, remat, generate
 
 1. Fails (exit 2, no result) without CUDA; prints the card's name and power
    limit as ``nvidia-smi`` reports them.
@@ -248,10 +249,31 @@
     allocated device memory, beside plain BSP's; and AlexNet under FSDP
     saved and resumed into a fresh model, its state and two more steps
     bit for bit.
-31. Prints ``{"kernels": [...]}`` (B1–B12; B1/B2 with GoogLeNet's shapes
+31. The GANs and the rest of the LM at one rank (A9b, A9c; ``--gan-lm``
+    runs these alone, with the flash build), cuDNN deterministic where
+    runs are compared: WGAN (RMSprop 5e-5, ``n_critic`` 5, clip 0.01) and
+    LSGAN (Adam 2e-4, ``n_critic`` 1 and 4), b64, ``base_width`` 64,
+    ``z_dim`` 128, on synthetic Cifar10: one float32 training forward
+    card vs CPU twin (same weights, batch and z), then 8 steps eager and
+    8 captured, each step's gate checked (off the cadence G's params and
+    every gated optimizer leaf bit for bit unchanged, D changed, D within
+    ±clip), captured ≡ eager bit for bit, and 6 profiled steps; the MoE LM
+    (LM_CFG's widths, 4 experts every 2nd block, top-1, capacity 1.25,
+    aux 0.01) through the BSP session (8 steps, a validation batch, B10–B12
+    as for the dense LM), 8 steps captured ≡ eager, profiled with its
+    dispatch and combine as a group; the dense LM with and without
+    ``remat``, 8 captured steps each, bit for bit, B10 2 × n_layer a step
+    under remat, peak memory both ways, both profiled; ``generate`` on the
+    trained MoE and dense LMs (b16, prompt 64, 256 new tokens, greedy) with
+    the KV cache (B10 once a layer: the prefill) and by the full forward,
+    tokens/s of each, each KV token against the full forward's greedy
+    choice after the same prefix; and the LM trained 8 steps from uint16
+    token files the script writes under ``build/smoke_tokens``.
+32. Prints ``{"kernels": [...]}`` (B1–B12; B1/B2 with GoogLeNet's shapes
     beside AlexNet's, and the island, launcher and sharded paths' counts;
-    B4 and B8 with their bucketed launches and per-bucket times), then the
-    card, then the last line ``{"ok": true, "device": {...}}``.
+    B4 and B8 with their bucketed launches and per-bucket times; B10–B12
+    with their launches on the A9c paths), then the card, then the last
+    line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script exits non-zero and prints no result.
 TF32 is off for the whole run (float32 comparisons need it off; the main
@@ -1259,6 +1281,11 @@ def times_main(flags) -> int:
         torch.backends.cudnn.allow_tf32 = False
         _kernel_build.build(["lrn"])
         out["shard"] = shard_main(card)
+    if "--gan-lm" in flags:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        _kernel_build.build(["flash_attention"])
+        out["gan_lm"] = gan_lm_main(card)
     if "--lrn-times" in flags:
         out["lrn_times"] = lrn_times()
     if "--flash-times" in flags:
@@ -3664,6 +3691,464 @@ def shard_main(card: str) -> dict:
     return res
 
 
+# -- the GANs and the rest of the LM at one rank (A9b, A9c) -----------------
+
+GAN_BATCH = 64
+# the JAX package's GAN classes at their full width (base_width 64, z_dim
+# 128) on the synthetic Cifar10 set: WGAN (RMSprop 5e-5, n_critic 5, clip
+# 0.01) and LSGAN (Adam 2e-4, n_critic 1, and once at 4)
+GAN_CFG = dict(batch_size=GAN_BATCH, base_width=64, z_dim=128,
+               synthetic_train=GAN_BATCH * GRAPH_STEPS,
+               synthetic_val=GAN_BATCH)
+GAN_PATHS = {"wgan": ("WGAN", {}), "lsgan": ("LSGAN", {}),
+             "lsgan_nc4": ("LSGAN", {"n_critic": 4})}
+# the card (float32, TF32 off) against the CPU (float32): one training
+# forward of each GAN at full width, batch 64, the same batch and z; the
+# cost (D + G loss) and the G loss each within GAN_REF_RTOL·|cpu| +
+# GAN_REF_ATOL (WGAN's losses are means of critic scores near 0 at init)
+GAN_REF_RTOL, GAN_REF_ATOL = 1e-4, 1e-6
+GAN_GROUPS = {"batchnorm": ("batch_norm", "bn_fw", "bn_bw", "BatchNorm",
+                            "Welford"),
+              "optimizer": ("multi_tensor_apply_kernel",)}
+# the MoE LM at LM_CFG's widths: 4 experts in every 2nd block (4 of the 8),
+# top-1, capacity factor 1.25, aux 0.01 (the JAX model's defaults)
+MOE_CFG = dict(LM_CFG, moe_experts=4, moe_every=2, moe_topk=1,
+               capacity_factor=1.25, moe_aux=0.01)
+LM_FILE = "theanompi_tpu_torch.models.transformer_lm"
+A9_PATHS = {
+    "moe_lm": (LM_FILE, "MoETransformerLM", dict(
+        MOE_CFG, batch_size=LM_BATCH, synthetic_train=LM_BATCH * GRAPH_STEPS,
+        synthetic_val=LM_BATCH)),
+    "lm": (LM_FILE, "TransformerLM", dict(
+        LM_CFG, batch_size=LM_BATCH, synthetic_train=LM_BATCH * GRAPH_STEPS,
+        synthetic_val=LM_BATCH)),
+    **{p: ("theanompi_tpu_torch.models.gan", cls, dict(GAN_CFG, **over))
+       for p, (cls, over) in GAN_PATHS.items()}}
+A9_PATHS["lm_remat"] = A9_PATHS["lm"][:2] + (dict(A9_PATHS["lm"][2],
+                                                  remat=True),)
+LM_GROUPS = {"flash": ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
+                       "flash_bwd_dq_kernel")}
+# the MoE layer's dispatch and combine: the slot copies (index_copy), the
+# combine's gathers (index_select) and their backward (index_add), the
+# slots' running count (cumsum); the expert products are batched GEMMs
+MOE_GROUPS = dict(LM_GROUPS, moe_dispatch_combine=(
+    "index_copy", "indexSelect", "indexFunc", "index_select", "scan"))
+GEN_PROMPT, GEN_NEW = 64, 256
+# the KV-cache sampler's tokens against the full forward's greedy choice
+# after the same prefix: at least these shares (the JAX package's
+# tests/test_generate.py shares for the dense and the MoE model)
+GEN_SHARE = {"lm": 0.9, "moe_lm": 0.85}
+TOKEN_DIR = os.path.join("build", "smoke_tokens")
+
+
+def a9_run(path: str, capture: bool = True, steps: int = GRAPH_STEPS,
+           groups=None, step_check=None, keep: bool = False) -> dict:
+    """``steps`` train steps of an A9 path from seed 0 through the worker
+    (``build_model``, ``compile_iter_fns``, the epoch's shuffle,
+    ``train_iter``), launches counted from 0: each step's cost, the state
+    after (params, optimizer, BN) on the host, the launch counts, the peak
+    of allocated device memory from compile to the last step (above what
+    was allocated before the model was built); ``step_check(model)`` makes
+    a check called after each step with its count; ``groups``: then
+    PROFILE_STEPS profiled steps (``profile_model``); ``keep``: the model
+    under ``"model"``."""
+    from theanompi_tpu_torch.worker import WORKERS
+    modelfile, modelclass, cfg = A9_PATHS[path]
+    cfg = dict(cfg, n_workers=1, seed=0, verbose=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    zero_launches()
+    worker = WORKERS["bsp"](cfg)
+    try:
+        model = worker.build_model(modelfile, modelclass)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model.compile_iter_fns(worker.exchanger, capture=capture)
+        model.data.shuffle_data(model.seed)
+        check = step_check(model) if step_check else None
+        costs = []
+        t0 = time.time()
+        for c in range(1, steps + 1):
+            model.train_iter(c)
+            costs.append(model.current_info["cost"].clone())
+            if check:
+                check(c)
+        torch.cuda.synchronize()
+        out = {"costs": costs, "secs": time.time() - t0,
+               "graphed": model.train_fn.graphed, "launches": launch_counts(),
+               "peak_mb": (torch.cuda.max_memory_allocated() - base)
+               / 2 ** 20,
+               "state": [t.detach().cpu().clone() for t in
+                         tree_leaves(model.params)
+                         + tree_leaves(model.opt_state)
+                         + tree_leaves(model.bn_state)]}
+        if not all(np.isfinite(float(c)) for c in costs):
+            raise AssertionError(f"{path}: costs {costs}")
+        if groups is not None:
+            out["profile"] = profile_model(
+                model, lambda rec, c: None, modelclass, cfg["batch_size"],
+                groups, PROFILE_STEPS, count=steps)
+        if keep:
+            out["model"] = model
+        del model
+    finally:
+        worker.close()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def gan_gate_check(model):
+    """After each step: off the cadence (``count % n_critic != 0``) G's
+    params and every gated optimizer leaf (G's RMSprop square average, or
+    its Adam moments and count) bit for bit what they were, else some G
+    param moved; some D param moved on every step; every D weight within
+    ±clip (WGAN)."""
+    def host():
+        g = model._gated_leaves(model.params, model.opt_state)
+        return ([t.detach().cpu().clone() for t in g],
+                [t.detach().cpu().clone() for t in
+                 tree_leaves(model.params["D"])])
+
+    prev = host()
+    n, clip = model.n_critic, getattr(model, "clip", None)
+    stats = {"gated_steps": 0, "g_steps": 0}
+
+    def check(count):
+        nonlocal prev
+        g, d = host()
+        if n > 1 and count % n:
+            for i, (a, b) in enumerate(zip(prev[0], g)):
+                check_bits(f"{type(model).__name__} step {count} gated G "
+                           f"leaf {i}", b, a)
+            stats["gated_steps"] += 1
+        elif all(torch.equal(a, b) for a, b in
+                 zip(prev[0], g[:len(prev[0])])):
+            raise AssertionError(f"step {count}: G did not move")
+        else:
+            stats["g_steps"] += 1
+        if all(torch.equal(a, b) for a, b in zip(prev[1], d)):
+            raise AssertionError(f"step {count}: D did not move")
+        if clip is not None:
+            top = max(float(t.abs().max()) for t in d)
+            if top > clip:
+                raise AssertionError(f"step {count}: D weight {top} past "
+                                     f"the clip {clip}")
+        prev = (g, d)
+
+    check.stats = stats
+    return check
+
+
+def gan_reference(path: str) -> dict:
+    """One training forward of a GAN at full width, float32, on the card
+    (TF32 off) and on its CPU twin (``cpu_twin``): the same weights, batch
+    and z (drawn from a numpy seed and handed to both ``draw_z``); the
+    cost and the G loss within GAN_REF_RTOL / GAN_REF_ATOL."""
+    from theanompi_tpu_torch.models import gan
+    name, over = GAN_PATHS[path]
+    cls = getattr(gan, name)
+    cfg = dict(GAN_CFG, **over, compute_dtype="float32", seed=0,
+               synthetic_train=GAN_BATCH, verbose=False)
+    card = cls(dict(cfg, device="cuda"))
+    cpu = cpu_twin(cls, cfg, card)
+    batch = card.data.next_train_batch(1)
+    z = torch.from_numpy(np.random.RandomState(7).randn(
+        GAN_BATCH, card.z_dim).astype(np.float32))
+    res = {}
+    for where, m in (("card", card), ("cpu", cpu)):
+        m.draw_z = lambda n, gen, device: z.to(device)
+        b = {k: torch.from_numpy(v).to(m.device) for k, v in batch.items()}
+        with torch.no_grad():
+            cost, g_loss = m.loss_and_metrics(m.params, m.bn_state, b, None,
+                                              True)
+        res[where] = (float(cost), float(g_loss))
+    out = {}
+    for i, what in enumerate(("cost", "g_loss")):
+        a, b = res["card"][i], res["cpu"][i]
+        if not np.isfinite(a) or \
+                abs(a - b) > GAN_REF_RTOL * abs(b) + GAN_REF_ATOL:
+            raise AssertionError(f"{path} {what}: card {a}, CPU {b}")
+        out[what] = {"card": a, "cpu": b}
+    del card, cpu
+    return out
+
+
+def gan_phase(card: str) -> dict:
+    """Each GAN path: the float32 card-vs-CPU forward; GRAPH_STEPS steps
+    eager and captured from seed 0, cuDNN deterministic, each step's gate
+    and clip checked (``gan_gate_check``), captured ≡ eager bit for bit
+    (costs, params, optimizer state, BN state); then PROFILE_STEPS
+    profiled steps of the captured run."""
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for path in GAN_PATHS:
+            ref = gan_reference(path)
+            runs = {}
+            for capture in (False, True):
+                checks = []
+
+                def make(model):
+                    checks.append(gan_gate_check(model))
+                    return checks[-1]
+
+                runs[capture] = a9_run(
+                    path, capture, step_check=make,
+                    groups=GAN_GROUPS if capture else None)
+                runs[capture]["gate"] = checks[0].stats
+            eager, graph = runs[False], runs[True]
+            if eager["graphed"] or not graph["graphed"]:
+                raise AssertionError(f"{path}: graphed {eager['graphed']}, "
+                                     f"{graph['graphed']}")
+            n = same_run(f"{path} graph vs eager", eager, graph)
+            p = graph["profile"]
+            out[path] = {"ref": ref, "tensors": n, "gate": graph["gate"],
+                         "costs": [float(c) for c in graph["costs"]],
+                         "peak_mb": graph["peak_mb"], "profile": p}
+            print(f"{path}: f32 card vs CPU cost {ref['cost']['card']:.6g} "
+                  f"vs {ref['cost']['cpu']:.6g}, G loss "
+                  f"{ref['g_loss']['card']:.6g} vs {ref['g_loss']['cpu']:.6g}"
+                  f"; {GRAPH_STEPS} steps captured == eager ({n} state "
+                  f"tensors bit for bit), G frozen bit for bit on "
+                  f"{graph['gate']['gated_steps']} gated steps, moved on "
+                  f"{graph['gate']['g_steps']}; costs "
+                  f"{[round(c, 5) for c in out[path]['costs']]}; step "
+                  f"{p['wall_ms_per_step']:.3f} ms wall, device busy "
+                  f"{p['device_busy_ms_per_step']:.3f} ms, idle share "
+                  f"{p['device_idle_share']:.3f}; peak "
+                  f"{graph['peak_mb']:.0f} MiB on {card}", flush=True)
+            print_profile(p, card, GAN_GROUPS)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def lm_launches(n_layer: int, steps: int, val: int = 0,
+                remat: bool = False) -> dict:
+    """B10–B12 of the LM's main path: each layer's attention runs B10 in
+    each forward (twice a training step under ``remat``: the backward
+    recomputes it) and B11 + B12 in each backward."""
+    return expect(flash_fwd_cuda=n_layer * ((2 if remat else 1) * steps
+                                            + val),
+                  flash_bwd_dkv_cuda=n_layer * steps,
+                  flash_bwd_dq_cuda=n_layer * steps)
+
+
+def moe_phase(card: str) -> dict:
+    """The MoE LM: the BSP session (LM_STEPS steps and a validation batch,
+    B10–B12 launched as for the dense LM, costs finite), then GRAPH_STEPS
+    steps eager and captured, bit for bit, and the captured run profiled
+    (the dispatch and combine as a group).  Returns the session's model,
+    for the sampler."""
+    n = MOE_CFG["n_layer"]
+    model, out = run_main_path(
+        LM_FILE, "MoETransformerLM", lm_launches(n, LM_STEPS, VAL_BATCHES),
+        batch_size=LM_BATCH, synthetic_train=LM_BATCH * LM_STEPS,
+        synthetic_val=LM_BATCH * VAL_BATCHES, printFreq=LM_STEPS // 2,
+        **MOE_CFG)
+    out["n_params"] = sum(p.numel() for p in tree_leaves(model.params))
+    out["tokens_per_s"] = out["img_per_s"] * MOE_CFG["seq_len"]
+    print(f"main path: MoETransformerLM BSP flash batch {LM_BATCH}, "
+          f"{LM_STEPS} steps, {out['n_params']} params, costs "
+          f"{[round(c, 4) for c in out['costs']]}, "
+          f"{out['tokens_per_s']:.0f} tokens/s, launches "
+          f"{ {k: v for k, v in out['launches'].items() if v} } on {card}",
+          flush=True)
+    eager = a9_run("moe_lm", False)
+    graph = a9_run("moe_lm", True, groups=MOE_GROUPS)
+    if graph["launches"] != lm_launches(n, GRAPH_STEPS):
+        raise AssertionError(f"moe_lm launches {graph['launches']}")
+    out["tensors"] = same_run("moe_lm graph vs eager", eager, graph)
+    out["profile"] = p = graph["profile"]
+    out["peak_mb"] = graph["peak_mb"]
+    print(f"graph == eager, moe_lm: {GRAPH_STEPS} steps, {out['tensors']} "
+          f"state tensors and the costs bit for bit; peak "
+          f"{graph['peak_mb']:.0f} MiB", flush=True)
+    print_profile(p, card, MOE_GROUPS)
+    return model, out
+
+
+def remat_phase(card: str) -> dict:
+    """The dense flash LM GRAPH_STEPS captured steps with and without
+    ``remat`` from seed 0: costs and state bit for bit (the recomputed
+    forward is the same operations), B10 2 × n_layer a step under remat,
+    each run's peak allocated memory, and each profiled.  Returns the
+    plain run's model, for the sampler."""
+    n = LM_CFG["n_layer"]
+    runs = {}
+    for remat in (False, True):
+        path = "lm_remat" if remat else "lm"
+        runs[remat] = r = a9_run(path, True, groups=LM_GROUPS,
+                                 keep=not remat)
+        want = lm_launches(n, GRAPH_STEPS, remat=remat)
+        if r["launches"] != want:
+            raise AssertionError(f"{path} launches {r['launches']}, want "
+                                 f"{want}")
+    n_t = same_run("lm remat vs plain", runs[False],
+                   dict(runs[True], launches=runs[False]["launches"]))
+    model = runs[False].pop("model")
+    out = {}
+    for remat, r in runs.items():
+        p = r["profile"]
+        out["remat" if remat else "plain"] = {
+            "peak_mb": r["peak_mb"], "launches": {
+                k: v for k, v in r["launches"].items() if v},
+            "costs": [float(c) for c in r["costs"]], "profile": p}
+        print_profile(p, card, LM_GROUPS)
+    out["tensors"] = n_t
+    a, b = out["plain"], out["remat"]
+    print(f"remat: {GRAPH_STEPS} captured steps bit for bit the plain LM's "
+          f"({n_t} state tensors and the costs); B10 "
+          f"{b['launches'].get('flash_fwd_cuda', 0)} launches (plain "
+          f"{a['launches'].get('flash_fwd_cuda', 0)}); peak "
+          f"{b['peak_mb']:.0f} MiB "
+          f"(plain {a['peak_mb']:.0f}); step "
+          f"{b['profile']['wall_ms_per_step']:.2f} ms (plain "
+          f"{a['profile']['wall_ms_per_step']:.2f}), flash "
+          f"{b['profile']['flash_ms_per_step']:.3f} ms a step (plain "
+          f"{a['profile']['flash_ms_per_step']:.3f}) on {card}", flush=True)
+    return model, out
+
+
+def generate_phase(name: str, model, card: str) -> dict:
+    """``generate`` on a trained model: LM_BATCH prompts of GEN_PROMPT
+    tokens (the validation batch's first), GEN_NEW new tokens, greedy,
+    with the KV cache (B10 n_layer times: its prefill) and by the full
+    forward (B10 n_layer times a token), each timed (host clock, ending in
+    a synchronize); each KV token against the full forward's greedy
+    choice after the same prefix (one forward over the KV tokens), at
+    least GEN_SHARE[name]; the two free-running samplers' agreement is
+    reported (one flipped near-tie changes every later token of its
+    row)."""
+    n = model.n_layer
+    prompt = model.data.next_val_batch(0)["x"][:LM_BATCH, :GEN_PROMPT]
+    res = {}
+    for kv in (True, False):
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        toks = model.generate(prompt, GEN_NEW, kv_cache=kv)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        launches = launch_counts()
+        want = expect(flash_fwd_cuda=n if kv else n * GEN_NEW)
+        if launches != want:
+            raise AssertionError(f"{name} generate kv={kv}: launches "
+                                 f"{launches}, want {want}")
+        res["kv" if kv else "full"] = {
+            "tokens": toks, "secs": secs,
+            "tokens_per_s": toks.size / secs,
+            "launches": {k: v for k, v in launches.items() if v}}
+    kv_t, full_t = res["kv"]["tokens"], res["full"]["tokens"]
+    buf = np.zeros((prompt.shape[0], model.seq_len), np.int64)
+    buf[:, :GEN_PROMPT] = prompt
+    buf[:, GEN_PROMPT:GEN_PROMPT + GEN_NEW] = kv_t
+    with torch.no_grad():
+        logits = model.apply_model(model.canonical_params(),
+                                   torch.from_numpy(buf).to(model.device),
+                                   train=False, gen=None, state=None)
+    choice = logits[:, GEN_PROMPT - 1:GEN_PROMPT + GEN_NEW - 1].argmax(-1)
+    step_share = float((choice.cpu().numpy() == kv_t).mean())
+    free_share = float((kv_t == full_t).mean())
+    if step_share < GEN_SHARE[name]:
+        raise AssertionError(f"{name}: KV tokens agree with the full "
+                             f"forward's choice on {step_share:.3f} < "
+                             f"{GEN_SHARE[name]}")
+    out = {"step_share": step_share, "free_share": free_share,
+           "batch": int(prompt.shape[0]), "prompt": GEN_PROMPT,
+           "new": GEN_NEW}
+    for k in ("kv", "full"):
+        out[k] = {kk: v for kk, v in res[k].items() if kk != "tokens"}
+    print(f"generate {name}: b{out['batch']}, prompt {GEN_PROMPT}, {GEN_NEW} "
+          f"new tokens, greedy: KV {out['kv']['tokens_per_s']:.0f} tokens/s "
+          f"({out['kv']['secs']:.2f} s, launches {out['kv']['launches']}), "
+          f"full forward {out['full']['tokens_per_s']:.0f} tokens/s "
+          f"({out['full']['secs']:.2f} s, launches "
+          f"{out['full']['launches']}); KV tokens = the full forward's "
+          f"choice on {step_share:.4f}, free-running samplers agree on "
+          f"{free_share:.4f} on {card}", flush=True)
+    return out
+
+
+def write_token_files(root: str, vocab: int, seq_len: int, batch: int,
+                      steps: int) -> None:
+    """``train.bin`` and ``val.bin`` (uint16, nanoGPT's layout) of random
+    ids below ``vocab``: ``batch · steps`` training windows of
+    ``seq_len + 1`` tokens (stride ``seq_len``) and ``batch`` validation
+    windows."""
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    r = np.random.RandomState(11)
+    for split, n in (("train", batch * steps), ("val", batch)):
+        r.randint(0, vocab, n * seq_len + 1).astype(np.uint16).tofile(
+            os.path.join(root, split + ".bin"))
+
+
+def token_files_phase(card: str) -> dict:
+    """The flash LM from token files: the script writes them under
+    TOKEN_DIR, then the BSP session trains LM_STEPS steps and a validation
+    batch from them (``data_dir``), B10–B12 counted, costs finite."""
+    from theanompi_tpu_torch.models.data.tokens import TokenFileData
+    write_token_files(TOKEN_DIR, LM_CFG["vocab"], LM_CFG["seq_len"],
+                      LM_BATCH, LM_STEPS)
+    n = LM_CFG["n_layer"]
+    model, out = run_main_path(
+        LM_FILE, "TransformerLM", lm_launches(n, LM_STEPS, VAL_BATCHES),
+        batch_size=LM_BATCH, data_dir=TOKEN_DIR, printFreq=LM_STEPS // 2,
+        **LM_CFG)
+    if not isinstance(model.data, TokenFileData) or \
+            model.data.n_batch_train != LM_STEPS:
+        raise AssertionError(f"token files: data {type(model.data)}")
+    del model
+    out["tokens_per_s"] = out["img_per_s"] * LM_CFG["seq_len"]
+    print(f"main path: TransformerLM from token files (uint16), batch "
+          f"{LM_BATCH}, {LM_STEPS} steps, costs "
+          f"{[round(c, 4) for c in out['costs']]}, "
+          f"{out['tokens_per_s']:.0f} tokens/s, launches "
+          f"{ {k: v for k, v in out['launches'].items() if v} } on {card}",
+          flush=True)
+    return out
+
+
+def gan_lm_main(card: str) -> dict:
+    """The A9b and A9c phases (``--gan-lm`` runs them alone): the GANs, the
+    MoE LM, remat, the sampler on the MoE LM and the dense LM those phases
+    trained, and the LM from token files."""
+    t0 = time.time()
+    res = {"gan": gan_phase(card)}
+    moe_model, res["moe_lm"] = moe_phase(card)
+    res["generate"] = {"moe_lm": generate_phase("moe_lm", moe_model, card)}
+    del moe_model
+    lm_model, res["remat"] = remat_phase(card)
+    res["generate"]["lm"] = generate_phase("lm", lm_model, card)
+    del lm_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["token_files"] = token_files_phase(card)
+    res["secs"] = time.time() - t0
+    print(f"gan/lm phases passed in {res['secs']:.1f}s", flush=True)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "chip_smoke_gan_lm.json"),
+              "w") as f:
+        json.dump(dict(res, card=card), f, indent=1)
+    return res
+
+
+def flash_launches_by_path(lm, a9) -> dict:
+    """B10–B12's launches on each LM path of the run, by wrapper."""
+    paths = {"lm": lm, "moe_lm": a9["moe_lm"],
+             "lm_remat_graph_steps": a9["remat"]["remat"],
+             "lm_graph_steps": a9["remat"]["plain"],
+             "lm_token_files": a9["token_files"],
+             **{f"generate_{kind}_{m}": a9["generate"][m][kind]
+                for m in ("lm", "moe_lm") for kind in ("kv", "full")}}
+    return {name: {p: r["launches"].get(name, 0) for p, r in paths.items()}
+            for name in ("flash_fwd_cuda", "flash_bwd_dkv_cuda",
+                         "flash_bwd_dq_cuda")}
+
+
 # (para_load_workers, native augment threads per batch) settings timed by
 # ``--input-times``; the first is what the port ships on an 8-core host
 INPUT_SETTINGS = ((4, 2), (4, 1), (2, 2), (2, 1), (1, 4), (8, 1))
@@ -4196,6 +4681,7 @@ def main() -> int:
     launcher = launcher_main(card)
     wire = wire_main(card)
     shard = shard_main(card)
+    a9 = gan_lm_main(card)
 
     kernels = kernel_entries(lrn, lrn_g, comp, topk, fpack, flash, alex,
                              goog, vggs, lm)
@@ -4213,7 +4699,11 @@ def main() -> int:
                 **{k: wire["decode"][name][k] for k in
                    ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
                     "bound_by", "library_ms")})
+    by_path = flash_launches_by_path(lm, a9)
     for e in kernels:
+        if e["name"].startswith("flash_"):
+            # the A9c paths: the MoE LM, remat, the samplers, token files
+            e["launches_by_path"] = by_path[e["name"] + "_cuda"]
         if e["name"].startswith("lrn_"):
             name = "lrn_fwd_cuda" if e["name"] == "lrn_fwd" else "lrn_bwd_cuda"
             e["launches_by_path"] = {
@@ -4252,7 +4742,7 @@ def main() -> int:
                                 **{f"vgg16_{k}": v for k, v in vggs.items()}),
                    "rules": rules, "clip": clip, "optimizers": opts,
                    "islands": islands, "launcher": launcher, "wire": wire,
-                   "shard": shard,
+                   "shard": shard, "gan_lm": a9,
                    "graph_eager": graph_eager, "spc": spc,
                    "recapture": recapture, "zoo_ref": zoo_ref,
                    "lrn_googlenet": lrn_g, "lrn_sass": lrn_sass,
@@ -4278,6 +4768,6 @@ if __name__ == "__main__":
     if not _flags <= {"--flash-times", "--topk-times", "--factor-times",
                       "--input-times", "--update-times", "--lrn-times",
                       "--islands", "--vgg-island-lr", "--launcher",
-                      "--wire", "--shard"}:
+                      "--wire", "--shard", "--gan-lm"}:
         sys.exit(f"chip_smoke: unknown arguments {sorted(_flags)}")
     sys.exit(times_main(_flags) if _flags else main())

@@ -86,6 +86,40 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "theanompi_tpu" or m.startswith("theanompi_tpu."))
 assert not bad, bad
+# the GANs step, the MoE LM routes, samples and reads token files, and
+# none of it imports JAX
+from theanompi_tpu_torch.base import MeshProcess
+from theanompi_tpu_torch.models.wgan import WGAN
+from theanompi_tpu_torch.models.lsgan import LSGAN
+from theanompi_tpu_torch.models.transformer_lm import MoETransformerLM
+from theanompi_tpu_torch.models.data.tokens import TokenFileData
+from theanompi_tpu_torch.parallel.moe import MoE
+proc = MeshProcess({"device": "cpu", "verbose": False})
+proc.get_internode_comm()
+for cls in (WGAN, LSGAN):
+    g = cls({"device": "cpu", "verbose": False, "batch_size": 2,
+             "base_width": 4, "z_dim": 4, "n_critic": 2,
+             "synthetic_train": 4, "synthetic_val": 2,
+             "compute_dtype": "float32"})
+    g.compile_iter_fns()
+    g.train_iter(1)
+moe_p = MoE(8, 4).init(torch.Generator().manual_seed(0))
+moe_p["wg"].zero_()                    # a uniform router: the aux is 1
+y, aux = MoE(8, 4, top_k=2, compute_dtype="float32").apply(
+    moe_p, torch.ones(5, 8))
+assert y.shape == (5, 8) and float(aux) == 1.0
+td = tempfile.mkdtemp()
+for split in ("train", "val"):
+    np.arange(40, dtype=np.uint16).tofile(os.path.join(td, split + ".bin"))
+lm = MoETransformerLM({"device": "cpu", "verbose": False, "data_dir": td,
+                       "seq_len": 8, "d_model": 8, "n_head": 2, "n_layer": 2,
+                       "batch_size": 2, "compute_dtype": "float32"})
+assert isinstance(lm.data, TokenFileData)
+assert lm.generate(np.ones((1, 2)), 3).shape == (1, 3)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "theanompi_tpu" or m.startswith("theanompi_tpu."))
+assert not bad, bad
 """
 
 NEW_MODULES = ("theanompi_tpu_torch.native",
@@ -108,7 +142,12 @@ NEW_MODULES = ("theanompi_tpu_torch.native",
                "theanompi_tpu_torch.parallel.buckets",
                "theanompi_tpu_torch.parallel.update_sharding",
                "theanompi_tpu_torch.parallel.zero",
-               "theanompi_tpu_torch.parallel.fsdp")
+               "theanompi_tpu_torch.parallel.fsdp",
+               "theanompi_tpu_torch.models.gan",
+               "theanompi_tpu_torch.models.wgan",
+               "theanompi_tpu_torch.models.lsgan",
+               "theanompi_tpu_torch.models.data.tokens",
+               "theanompi_tpu_torch.parallel.moe")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

@@ -27,7 +27,6 @@ from theanompi_tpu.models.transformer_lm import LMData as JLMData
 from theanompi_tpu.models.transformer_lm import TransformerLM as JLM
 from theanompi_tpu_torch import convert
 from theanompi_tpu_torch.base import MeshProcess
-from theanompi_tpu_torch.models import transformer_lm as TLMmod
 from theanompi_tpu_torch.models.transformer_lm import LMData as TLMData
 from theanompi_tpu_torch.models.transformer_lm import TransformerLM as TLM
 from theanompi_tpu_torch.utils.helper_funcs import tree_leaves
@@ -229,22 +228,13 @@ def _get(tree, path):
 
 @pytest.mark.parametrize("cfg,err", [
     ({"tp": 2}, NotImplementedError), ({"pp": 2}, NotImplementedError),
-    ({"sp": 2}, NotImplementedError), ({"remat": True}, NotImplementedError),
-    ({"data_dir": "/nonexistent"}, NotImplementedError),
+    ({"sp": 2}, NotImplementedError),
     ({"seq_len": 192, "attn_impl": "flash"}, ValueError),
     ({"attn_impl": "ring"}, ValueError),
 ])
 def test_unported_options_raise(cfg, err):
     with pytest.raises(err):
         TLM(dict(TINY, device="cpu", **cfg))
-
-
-def test_generate_and_moe_raise():
-    tm = _port("reference")
-    with pytest.raises(NotImplementedError, match="generate"):
-        tm.generate(np.zeros((1, 4), np.int32), 2)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TLMmod.MoETransformerLM(dict(TINY, device="cpu"))
 
 
 def test_session_api_trains_lm_on_cpu():

@@ -47,6 +47,17 @@ its own, ``helper_mode`` and ``helper_out``:
   package wrote after one epoch loaded through
   ``convert.checkpoint_from_jax`` and trained one more epoch
   (``jax/<case>/...``).
+* ``helper_mode=gan_lm``: joins the world once and trains each of
+  ``GAN_LM_CASES`` (WGAN under BSP and LSGAN under GoSGD, both at
+  ``n_critic`` 2; the MoE LM under onebit and PowerSGD at rank 1) one
+  epoch through its rule's session (the cases ``helper_cases`` names,
+  comma-separated), each from the JAX twin's weights
+  (``init_<model>=<npz>``), a GAN's training noise read from the JAX
+  package's draws (``z_<model>=<npz>``, ``<rank>/<count>``), a PowerSGD
+  case's initial wire state the JAX package's (``strat_<case>=<npz>``);
+  writes each
+  case's params, optimizer state and BN state by path
+  (``<case>/params/<path>``, ``<case>/opt/<path>``, ``<case>/bn/<path>``).
 * ``helper_mode=islands``: this rank's island of an async world
   (``AsyncEASGDTrainer``), each island stopping after
   ``helper_exchanges`` exchanges; writes this rank's params at the start
@@ -68,6 +79,8 @@ import time
 import numpy as np
 
 from theanompi_tpu_torch import convert
+from theanompi_tpu_torch.models.gan import LSGAN, WGAN
+from theanompi_tpu_torch.models.transformer_lm import MoETransformerLM
 from theanompi_tpu_torch.worker import parse_config
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -155,6 +168,98 @@ class TinyWideNet(TinyLRNNetFrom):
             L.FC(960, N_CLASS, w_init=("normal", 0.1), activation=None,
                  compute_dtype="float32", name="fc2")])
         self.data = TinyData(self.config, self.batch_size)
+
+
+class _FromZ:
+    """A GAN whose training noise at step ``count`` is the array
+    ``<rank>/<count>`` of ``config['z_npz']`` (the JAX package's draw for
+    that rank and step); other draws (validation's) its own."""
+
+    _z = None
+
+    def train_iter(self, count, recorder=None):
+        import torch
+        with np.load(self.config["z_npz"]) as z:
+            self._z = torch.from_numpy(z[f"{self.rank}/{count}"])
+        super().train_iter(count, recorder)
+
+    def draw_z(self, n, gen, device):
+        z, self._z = self._z, None
+        return super().draw_z(n, gen, device) if z is None else z.to(device)
+
+
+class WGANFrom(_FromZ, _FromNpz, WGAN):
+    """:class:`WGAN` from ``init_npz``, its noise from ``z_npz``."""
+
+
+class LSGANFrom(_FromZ, _FromNpz, LSGAN):
+    """:class:`LSGAN` from ``init_npz``, its noise from ``z_npz``."""
+
+
+class MoELMFrom(_FromNpz, MoETransformerLM):
+    """:class:`MoETransformerLM` from ``init_npz``; under PowerSGD its wire
+    state from ``strat_npz`` (``<i>/q``, ``<i>/e``: the JAX package's
+    initial state in the port's order), so both packages start from the
+    same ``Q``."""
+
+    def compile_iter_fns(self, exchanger=None, capture=None):
+        import torch
+        super().compile_iter_fns(exchanger, capture)
+        path = self.config.get("strat_npz")
+        if path and isinstance(self.extra.get("strat"), list):
+            with np.load(path) as z, torch.no_grad():
+                for i, st in enumerate(self.extra["strat"]):
+                    for k in ("q", "e"):
+                        st[k].copy_(torch.from_numpy(z[f"{i}/{k}"]))
+
+
+GAN_CFG = dict(batch_size=4, synthetic_train=32, synthetic_val=8,
+               base_width=8, z_dim=16, n_critic=2, compute_dtype="float32")
+MOE_CFG = dict(vocab=64, d_model=32, n_head=2, n_layer=2, seq_len=32,
+               batch_size=4, synthetic_train=32, synthetic_val=8,
+               moe_experts=4, moe_every=2, compute_dtype="float32")
+# (rule, modelclass, the key of its init and noise npz, config)
+GAN_LM_CASES = {
+    "wgan_bsp": ("BSP", "WGANFrom", "wgan", GAN_CFG),
+    "lsgan_gosgd": ("GOSGD", "LSGANFrom", "lsgan",
+                    dict(GAN_CFG, exch_prob=1.0)),
+    "moe_onebit": ("BSP", "MoELMFrom", "moe",
+                   dict(MOE_CFG, exch_strategy="onebit")),
+    "moe_powersgd": ("BSP", "MoELMFrom", "moe",
+                     dict(MOE_CFG, exch_strategy="powersgd1")),
+}
+
+
+def tree_arrays(tree, prefix: str) -> dict:
+    """A tree's leaves as npz entries keyed ``<prefix>/<path>``, copies."""
+    from theanompi_tpu_torch.utils.helper_funcs import leaf_paths, tree_leaves
+    return {prefix + "/" + "/".join(map(str, p)):
+            np.array(v.detach().cpu().numpy())
+            for p, v in zip(leaf_paths(tree), tree_leaves(tree))}
+
+
+def gan_lm(config, out):
+    from theanompi_tpu_torch.base import MeshProcess
+    proc = MeshProcess(dict(config, verbose=False))
+    proc.get_internode_comm()
+    res = {}
+    try:
+        base = {k: v for k, v in config.items()
+                if not k.startswith(("init_", "z_", "strat_", "helper_"))}
+        for case in str(config["helper_cases"]).split(","):
+            rule, cls, key, cfg = GAN_LM_CASES[case]
+            r = _session(rule, cls, base, **cfg,
+                         init_npz=config[f"init_{key}"],
+                         **{name: config[k] for name, k in (
+                             ("z_npz", f"z_{key}"),
+                             ("strat_npz", f"strat_{case}")) if k in config})
+            m = r.model
+            for part, tree in (("params", m.params), ("opt", m.opt_state),
+                               ("bn", m.bn_state)):
+                res.update(tree_arrays(tree, f"{case}/{part}"))
+    finally:
+        proc.close()
+    np.savez(f"{out}_r{proc.rank}.npz", **res)
 
 
 BUCKET_BYTES = 1024
@@ -630,6 +735,8 @@ def main(argv):
         params_ring(config, out)
     elif mode == "shard":
         shard(config, out)
+    elif mode == "gan_lm":
+        gan_lm(config, out)
     else:
         islands(config, modelclass, out)
     return 0

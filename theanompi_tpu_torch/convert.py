@@ -10,9 +10,12 @@ order, as the JAX package does, so does the FC after a ``Flatten`` (VGG's
 ``fc6`` after ``[7, 7, 512]`` included).  The transformer's projections
 (``wq``, ``wk``, ``wv``, ``wo``, ``fc1``, ``fc2``, ``head``) are FC weights
 and transpose too.  Its embedding tables are ``[vocab, dim]`` in both
-packages and are kept: every function here takes ``kept``, the paths of
-such leaves, which the model declares (``ModelBase.kept_layout_paths``;
-empty, the default, for the CNNs).  Vectors (biases, LayerNorm) are
+packages and are kept, as are all of a MoE layer's leaves (the router
+``[d, E]``, the experts' ``[E, ...]`` tables): every function here takes
+``kept``, the paths of such leaves, which the model declares
+(``ModelBase.kept_layout_paths``; empty, the default, for the CNNs and
+the GANs).  A GAN's transposed conv keeps its weight OIHW, the JAX HWIO
+weight permuted as a conv's, so it converts as one.  Vectors (biases, LayerNorm) are
 unchanged.  A momentum velocity or Adam moment tree has the params' shapes
 and converts the same way.  The composite models' trees (GoogLeNet's
 ``stem/conv1/w``, ``stage3/3a/b2/3x3/w``, ...; ResNet-50's
@@ -29,7 +32,8 @@ model's params, and :func:`center_leaves_from_params` goes the other way.
 Input and output are trees (nested dicts) of numpy arrays.
 :func:`checkpoint_from_jax` applies them to a whole checkpoint the JAX
 package wrote (any ported rule and optimizer, EMA included, and the
-sharded layouts ``zero_opt``, ``update_sharding`` and ``fsdp``), into a
+sharded layouts ``zero_opt``, ``update_sharding`` and ``fsdp``; Adam's
+per-leaf counts, such as a gating GAN's, in their count groups), into a
 port model.  A sharded part's rows are the JAX package's chunks of its own
 flat layout: they are joined back into full leaves (or the full flat
 vector), converted, and cut again into the port's chunks.

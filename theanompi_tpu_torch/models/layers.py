@@ -3,8 +3,10 @@
 Counterpart of ``theanompi_tpu/models/layers.py`` for the layers the CNN
 slices run: ``init_weight``, ``Sequential``, ``Conv`` (with groups), ``FC``,
 ``Pool`` (VALID and SAME), ``LRN``, ``Dropout``, ``Flatten``, ``Activation``,
-``BatchNorm`` and the loss and error heads; and for the transformer LM's:
-``LayerNorm``, ``Embedding`` and ``MultiHeadAttention``.
+``BatchNorm`` and the loss and error heads; for the GANs' generator:
+``ConvTranspose`` and ``Reshape``; and for the transformer LM's:
+``LayerNorm``, ``Embedding`` and ``MultiHeadAttention`` (with its KV-cache
+path, ``apply_prefill`` and ``apply_decode``).
 
 As in the JAX package a layer is a small object holding static
 hyperparameters; ``init(gen)`` returns its parameter tree and
@@ -21,7 +23,8 @@ replays on the storage it was captured with.
   its input as NCHW with ``permute`` (channels-last strides, which cuDNN
   takes as they are) and views the result back, so the LRN kernels receive
   contiguous channel rows.
-* **Weights are in PyTorch's layout:** conv ``[out, in/groups, kh, kw]``,
+* **Weights are in PyTorch's layout:** conv ``[out, in/groups, kh, kw]``
+  (a transposed conv's too: the JAX HWIO weight permuted as a conv's),
   FC and attention projections ``[out, in]``; embedding tables stay
   ``[vocab, dim]``.  ``convert.py`` maps the JAX trees onto them.  A layer
   names the leaves it keeps in the JAX layout (``Layer.kept_layout``:
@@ -44,7 +47,7 @@ import torch.nn.functional as F
 
 from ..ops.flash_attention import flash_attention
 from ..ops.lrn import lrn as lrn_op
-from ..ops.ring_attention import attention_reference
+from ..ops.ring_attention import NEG_INF, attention_reference
 
 
 def as_dtype(d) -> torch.dtype:
@@ -265,6 +268,90 @@ class Conv(Layer):
         return _activate(y, self.activation)
 
 
+class _DenseGrad(torch.autograd.Function):
+    """The identity, whose backward hands on a contiguous gradient: a
+    weight used flipped and transposed gets its gradient back in that
+    permuted layout, and NCCL reduces only dense tensors."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _conv_transpose_pads(k: int, s: int, padding: str) -> Tuple[int, int]:
+    """(before, after) padding of the stride-dilated input of
+    ``lax.conv_transpose`` for the forward conv's ``'SAME'`` or
+    ``'VALID'``, as JAX computes it."""
+    if padding == "SAME":
+        total = k + s - 2
+        before = k - 1 if s > k - 1 else -(-total // 2)
+    else:
+        total = k + s - 2 + max(k - s, 0)
+        before = k - 1
+    return before, total - before
+
+
+class ConvTranspose(Layer):
+    """Transposed (fractionally strided) conv, the GANs' generator
+    upsampler, as ``lax.conv_transpose(..., transpose_kernel=False)``
+    computes it: a correlation of the stride-dilated input, padded by
+    :func:`_conv_transpose_pads`, with the kernel as it is (not the
+    gradient of a conv, whose kernel is flipped).
+
+    The weight is stored OIHW, ``[out, in, kh, kw]``, the JAX HWIO weight
+    permuted as a conv's, so ``convert.py``'s rule for 4-D leaves holds.
+    ``F.conv_transpose2d`` correlates with its weight flipped and its
+    channels swapped, over the dilated input padded ``k - 1 - padding``
+    on each side (plus ``output_padding`` after): it gets the weight
+    flipped and swapped back, the padding that trims most, and the rest of
+    the trim is a slice."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel, stride=2,
+                 padding: str = "SAME", w_init=("normal", 0.02),
+                 b_init=("constant", 0.0), activation: Optional[str] = "relu",
+                 compute_dtype=torch.bfloat16, name: str = "deconv"):
+        self.in_ch, self.out_ch = in_ch, out_ch
+        self.kernel, self.stride = _pair(kernel), _pair(stride)
+        padding = padding.upper()
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"padding {padding!r}")
+        self.padding = padding
+        self.w_init, self.b_init = w_init, b_init
+        self.activation = activation
+        self.compute_dtype = as_dtype(compute_dtype)
+        self.name = name
+
+    def init(self, gen):
+        kh, kw = self.kernel
+        w = init_weight(gen, (kh, kw, self.in_ch, self.out_ch), self.w_init)
+        b = init_weight(gen, (self.out_ch,), self.b_init)
+        return {"w": w.permute(3, 2, 0, 1).contiguous(), "b": b}
+
+    def apply(self, params, x, *, train=False, gen=None):
+        cd = self.compute_dtype
+        xc = x.to(cd).permute(0, 3, 1, 2)          # NHWC → NCHW view
+        # [in, out, kh, kw]: conv_transpose2d's layout, the kernel flipped
+        w = _DenseGrad.apply(params["w"]).to(cd).flip(2, 3).transpose(0, 1)
+        pad, out_pad, trim = [], [], []
+        for k, s in zip(self.kernel, self.stride):
+            lo, hi = (k - 1 - p for p in
+                      _conv_transpose_pads(k, s, self.padding))
+            p = min(lo, max(hi, 0))
+            pad.append(p)
+            out_pad.append(max(-hi, 0))
+            trim.append((lo - p, max(hi, 0) - p))
+        y = F.conv_transpose2d(xc, w, stride=self.stride, padding=tuple(pad),
+                               output_padding=tuple(out_pad))
+        (t0, t1), (l0, l1) = trim
+        y = y[:, :, t0:y.shape[2] - t1, l0:y.shape[3] - l1]
+        y = y.permute(0, 2, 3, 1) + params["b"].to(cd)
+        return _activate(y, self.activation)
+
+
 class FC(Layer):
     def __init__(self, n_in: int, n_out: int, w_init=("normal", 0.005),
                  b_init=("constant", 0.0), activation: Optional[str] = "relu",
@@ -376,6 +463,18 @@ class Flatten(Layer):
 
     def apply(self, params, x, *, train=False, gen=None):
         return x.reshape(x.shape[0], -1)
+
+
+class Reshape(Layer):
+    """Reshape the trailing dims to ``shape`` (the batch dim kept); an
+    NHWC ``shape`` for a conv's input."""
+
+    def __init__(self, shape: Tuple[int, ...], name: str = "reshape"):
+        self.shape = tuple(shape)
+        self.name = name
+
+    def apply(self, params, x, *, train=False, gen=None):
+        return x.reshape((x.shape[0],) + self.shape)
 
 
 class Activation(Layer):
@@ -536,14 +635,50 @@ class MultiHeadAttention(Layer):
         y = torch.matmul(x.to(cd), params[name].to(cd).t())
         return y.view(b, t, self.n_head, -1).transpose(1, 2)   # [B,H,T,hd]
 
-    def apply(self, params, x, *, train=False, gen=None):
+    def _out(self, params, o):
+        """[B, H, T, hd] → the output projection's [B, T, D]."""
         cd = self.compute_dtype
-        b, t, d = x.shape
-        o = self._attend(self._proj(params, x, "wq"),
-                         self._proj(params, x, "wk"),
-                         self._proj(params, x, "wv"))
-        o = o.transpose(1, 2).reshape(b, t, d)
+        b, _, t, _ = o.shape
+        o = o.transpose(1, 2).reshape(b, t, self.dim)
         return torch.matmul(o.to(cd), params["wo"].to(cd).t())
+
+    def apply(self, params, x, *, train=False, gen=None):
+        return self._out(params, self._attend(self._proj(params, x, "wq"),
+                                              self._proj(params, x, "wk"),
+                                              self._proj(params, x, "wv")))
+
+    # -- the KV-cache path (inference) ---------------------------------------
+
+    def apply_prefill(self, params, x):
+        """The causal forward over the whole token buffer, as
+        :meth:`apply` (through :meth:`_attend`: kernel B10 on the card),
+        which also returns the projected K and V as the decode cache:
+        ``(y, (k, v))``, k and v ``[B, H, S, hd]`` (contiguous copies the
+        decode steps write into)."""
+        k = self._proj(params, x, "wk")
+        v = self._proj(params, x, "wv")
+        y = self._out(params, self._attend(self._proj(params, x, "wq"), k, v))
+        return y, (k.contiguous(), v.contiguous())
+
+    def apply_decode(self, params, x1, cache, pos: int):
+        """One decode step: ``x1`` ``[B, 1, D]`` is the current token's
+        activation at position ``pos``; its K and V are written into the
+        cache at ``pos`` (in place) and its query attends to the positions
+        ``<= pos``: a softmax over the whole cache in float32, the later
+        positions masked with ``NEG_INF``, as the JAX layer computes it
+        outside any kernel.  Returns ``(y [B, 1, D], cache)``."""
+        k_cache, v_cache = cache
+        hd = self.dim // self.n_head
+        k_cache[:, :, pos] = self._proj(params, x1, "wk")[:, :, 0]
+        v_cache[:, :, pos] = self._proj(params, x1, "wv")[:, :, 0]
+        q = self._proj(params, x1, "wq")                    # [B, H, 1, hd]
+        scores = torch.matmul(q.float(), k_cache.float().transpose(-1, -2)) \
+            / (hd ** 0.5)
+        after = torch.arange(k_cache.shape[2], device=x1.device) > pos
+        scores = scores.masked_fill(after, NEG_INF)
+        o = torch.matmul(torch.softmax(scores, dim=-1),
+                         v_cache.float()).to(x1.dtype)
+        return self._out(params, o), (k_cache, v_cache)
 
 
 # ---------------------------------------------------------------------------

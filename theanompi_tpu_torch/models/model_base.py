@@ -101,6 +101,7 @@ class ModelBase:
         self.seq: L.Sequential = None
         self.data = None
         self.build_model()            # subclass hook: set self.seq, self.data
+        self._refuse_update_hooks()
         if self.config.get("para_load", False) and self.data is not None:
             self._wrap_para_load()
         # the base of every step's dropout stream (steps.step_seed):
@@ -156,6 +157,31 @@ class ModelBase:
             raise ValueError("fsdp with zero_opt: fsdp already keeps the "
                              "optimizer state on the parameter chunk; drop "
                              "zero_opt")
+
+    def _refuse_update_hooks(self) -> None:
+        """The layouts the JAX package refuses for a model that gates its
+        optimizer state by parameter path (``gates_opt_state_by_path``: the
+        GANs at ``n_critic > 1``) or has an update hook: ``zero_opt`` and
+        ``update_sharding`` (under BSP) flatten or chunk the state's
+        leaves, ``fsdp`` the params themselves."""
+        c = self.config
+        gates = self.gates_opt_state_by_path
+        if gates and c.get("zero_opt"):
+            raise ValueError("zero_opt flattens the optimizer state into "
+                             "per-worker chunks, losing the param paths: a "
+                             "model that gates optimizer-state subtrees by "
+                             "path (the GANs' n_critic > 1 cadence) cannot "
+                             "compose with it")
+        if gates and c.get("update_sharding") and \
+                str(c.get("rule", "bsp")).lower() == "bsp":
+            raise ValueError("update_sharding chunks optimizer-state leaves: "
+                             "a model that gates optimizer-state subtrees by "
+                             "path (the GANs' n_critic > 1 cadence) cannot "
+                             "compose with it")
+        if c.get("fsdp") and (gates or self.has_update_hook()):
+            raise ValueError("fsdp flattens params into per-worker chunks: a "
+                             "model that transforms its update tree-wise "
+                             "(the GANs) cannot compose with it")
 
     def _plan_update(self, size: int):
         """``update_sharding``'s plan of the params under BSP at ``size``
@@ -252,6 +278,37 @@ class ModelBase:
         """Returns logits; a training forward updates ``state`` (the BN
         running stats) in place."""
         return self.seq.apply(params, x, train=train, gen=gen, state=state)
+
+    # -- the update hook (the JAX package's ``postprocess_update``) --------
+
+    # True when postprocess_update keeps optimizer-state subtrees by their
+    # parameter path (the GANs' n_critic gate): refuses the flat layouts,
+    # and gives the gated leaves Adam counts of their own (gated_path)
+    gates_opt_state_by_path: bool = False
+
+    def gated_path(self, path) -> bool:
+        """Whether the leaf at ``path`` (of the params or of a params-shaped
+        subtree of the optimizer state) is one the update hook may hold
+        back; its Adam count is then one of its own."""
+        return False
+
+    def has_update_hook(self) -> bool:
+        return type(self).postprocess_update is not \
+            ModelBase.postprocess_update
+
+    def snapshot_update(self, params, opt_state):
+        """What :meth:`postprocess_update` needs of the state as it was
+        before the update (which rewrites it in place); taken in the step
+        just before the update."""
+        return None
+
+    def postprocess_update(self, old, params, opt_state, count) -> None:
+        """The hook after the optimizer step: gate or project the update,
+        in place (the JAX package's ``postprocess_update(old_params,
+        old_opt, new_params, new_opt, count)`` returns new trees).
+        ``old`` is :meth:`snapshot_update`'s result; ``count`` the step's
+        count, a 0-d int64 tensor on the device (a captured step fills it
+        before each replay), so a gate is a device-side predicate."""
 
     def _label_smoothing(self, train: bool) -> float:
         return float(self.config.get("label_smoothing", 0.0)) if train \
@@ -430,6 +487,9 @@ class ModelBase:
             self.params if self._fsdp is None else
             torch.zeros(self._fsdp.chunk, dtype=torch.float32,
                         device=self.device))
+        if self.gates_opt_state_by_path:
+            self.opt_state = opt_lib.split_counts(self.opt_state,
+                                                  self.gated_path)
         self.extra = self.exchanger.extra_state_template()
         spc = int(self.steps_per_call)
         if spc < 1:

@@ -3,7 +3,7 @@
 Counterpart of ``theanompi_tpu/models/registry.py`` for the models the port
 has: the dotted modelfile, the modelclass, and the synthetic-data config
 that makes each runnable with no data set up (the reference launcher's
-import-by-string contract).  ``MoETransformerLM`` is not ported.
+import-by-string contract): the same entries as the JAX package's.
 """
 
 MODELS = {
@@ -18,6 +18,8 @@ MODELS = {
     "transformer_lm": ("theanompi_tpu_torch.models.transformer_lm",
                        "TransformerLM",
                        {"synthetic_train": 2048, "sample_kind": "sequences"}),
+    "moe_lm": ("theanompi_tpu_torch.models.transformer_lm", "MoETransformerLM",
+               {"synthetic_train": 2048, "sample_kind": "sequences"}),
     "cifar10": ("theanompi_tpu_torch.models.cifar10", "Cifar10_model",
                 {"synthetic_train": 8192}),
 }

@@ -1,10 +1,12 @@
-"""Decoder-only transformer language model.
+"""Decoder-only transformer language models.
 
-Counterpart of ``theanompi_tpu/models/transformer_lm.py`` for the dense
-model on one device per rank (``tp = pp = sp = 1``): ``LMData`` (the
-synthetic token stream, bit-equal to the JAX package's), the pre-LN
-``Block`` and ``TransformerLM``, trained under the same model contract as
-the CNN zoo::
+Counterpart of ``theanompi_tpu/models/transformer_lm.py`` on one device per
+rank (``tp = pp = sp = 1``): ``LMData`` (the synthetic token stream,
+bit-equal to the JAX package's) or, with ``data_dir``, the token files of
+``data/tokens.py``; the pre-LN ``Block``, ``TransformerLM`` and the
+sparse-FFN ``MoETransformerLM`` (its ``MoEBlock``s' experts at one shard,
+``parallel/moe.py``), trained under the same model contract as the CNN
+zoo::
 
     BSP().init(devices=1, modelfile='theanompi_tpu_torch.models.transformer_lm',
                modelclass='TransformerLM', attn_impl='flash', ...)
@@ -13,16 +15,22 @@ the CNN zoo::
 B10–B12 on the card (``ops/flash_attention.py``), which take bfloat16 only:
 on a CUDA device another compute dtype is refused when the model is built
 (:func:`check_flash_dtype`); ``'reference'`` runs through torch ops.
-Tensor, pipeline and sequence parallelism, ``remat``, real token files
-(``data_dir``), ``generate`` and the MoE model are not ported yet and
-raise.
+``remat`` recomputes each block's forward in the backward
+(``torch.utils.checkpoint``; B10 then runs twice a block a step).
+:meth:`TransformerLM.generate` samples continuations, with the KV cache
+(one prefill forward through B10, then one token a step) or by the full
+forward a token.  Tensor, pipeline and sequence parallelism (and the MoE's
+expert-parallel and all-to-all forms) are not ported yet and raise (A9d).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from ..parallel.moe import MoE
+from ..utils.helper_funcs import tree_map
 from . import layers as L
 from .data import DataBase
 from .model_base import ModelBase
@@ -79,11 +87,62 @@ class Block(L.Layer):
         return {"ln1": self.ln1, "attn": self.attn, "ln2": self.ln2,
                 "fc1": self.fc1, "fc2": self.fc2}
 
+    def _mlp(self, params, h):
+        return self.fc2.apply(params["fc2"], self.fc1.apply(params["fc1"], h))
+
     def apply(self, params, x, *, train=False, gen=None):
         h = self.ln1.apply(params["ln1"], x)
         x = x + self.attn.apply(params["attn"], h, train=train)
-        h = self.fc1.apply(params["fc1"], self.ln2.apply(params["ln2"], x))
-        return x + self.fc2.apply(params["fc2"], h)
+        return x + self._mlp(params, self.ln2.apply(params["ln2"], x))
+
+    # -- the KV-cache path (inference) ---------------------------------------
+
+    def apply_prefill(self, params, x):
+        """The forward, and the attention's K/V cache."""
+        h = self.ln1.apply(params["ln1"], x)
+        a, cache = self.attn.apply_prefill(params["attn"], h)
+        x = x + a
+        return x + self._mlp(params, self.ln2.apply(params["ln2"], x)), cache
+
+    def apply_decode(self, params, x1, cache, pos: int):
+        h = self.ln1.apply(params["ln1"], x1)
+        a, cache = self.attn.apply_decode(params["attn"], h, cache, pos)
+        x1 = x1 + a
+        return (x1 + self._mlp(params, self.ln2.apply(params["ln2"], x1)),
+                cache)
+
+
+class MoEBlock(Block):
+    """A block whose MLP is a top-k mixture of experts (``parallel/moe.py``)
+    at one expert shard.  ``apply`` returns ``(y, aux)``: the load-balance
+    loss rides up to the model's loss.  The KV-cache path runs the MoE per
+    token as the full forward does (drop-free at inference) and drops the
+    aux, a training statistic."""
+
+    def __init__(self, dim, n_head, n_experts, mlp_ratio=4, cd=torch.bfloat16,
+                 capacity_factor=1.25, top_k=1, attn_impl="reference",
+                 name="moe_block"):
+        super().__init__(dim, n_head, mlp_ratio=mlp_ratio, cd=cd,
+                         attn_impl=attn_impl, name=name)
+        del self.fc1, self.fc2
+        self.moe = MoE(dim, n_experts, mlp_ratio=mlp_ratio, top_k=top_k,
+                       capacity_factor=capacity_factor, compute_dtype=cd,
+                       name="moe")
+
+    def sublayers(self):
+        return {"ln1": self.ln1, "attn": self.attn, "ln2": self.ln2,
+                "moe": self.moe}
+
+    def _mlp(self, params, h):
+        return self.moe.apply(params["moe"], h)[0]
+
+    def apply(self, params, x, *, train=False, gen=None):
+        h = self.ln1.apply(params["ln1"], x)
+        x = x + self.attn.apply(params["attn"], h, train=train)
+        y, aux = self.moe.apply(params["moe"], self.ln2.apply(params["ln2"],
+                                                               x),
+                                train=train)
+        return x + y, aux
 
 
 def check_flash_dtype(attn_impl: str, compute_dtype: torch.dtype,
@@ -119,10 +178,7 @@ class TransformerLM(ModelBase):
                 setattr(self, k, int(self.config[k]))
         for k in ("tp", "pp", "sp"):
             if int(self.config.get(k, 1)) != 1:
-                raise NotImplementedError(f"{k} > 1 is not ported yet")
-        for k in ("remat", "data_dir"):
-            if self.config.get(k):
-                raise NotImplementedError(f"config {k!r} is not ported yet")
+                raise NotImplementedError(f"{k} > 1 is not ported yet (A9d)")
         attn_impl = str(self.config.get("attn_impl", "reference"))
         if attn_impl == "flash" and self.seq_len % 128:
             # the JAX package's build-time check, kept for the same configs
@@ -139,20 +195,43 @@ class TransformerLM(ModelBase):
         self.ln_f = L.LayerNorm(self.d_model, name="ln_f")
         self.head = L.FC(self.d_model, self.vocab, w_init=("normal", 0.02),
                          activation=None, compute_dtype=cd, name="head")
-        self.data = LMData(self.config, self.batch_size)
+        if self.config.get("data_dir"):
+            # a real corpus: nanoGPT-style flat token files, memory-mapped
+            from .data.tokens import TokenFileData
+            self.data = TokenFileData(self.config, self.batch_size,
+                                      self.seq_len, vocab=self.vocab)
+        else:
+            self.data = LMData(self.config, self.batch_size)
 
     def layers(self):
         return dict({"embed": self.embed, "pos": self.pos, "ln_f": self.ln_f,
                      "head": self.head}, **{b.name: b for b in self.blocks})
 
+    def _embed(self, params, x, pos):
+        """Token plus position embeddings of ``x`` ``[B, t]`` at the
+        positions ``pos`` ``[t]``."""
+        return self.embed.apply(params["embed"], x) + \
+            self.pos.apply(params["pos"], pos)[None]
+
+    def _head(self, params, h):
+        return self.head.apply(params["head"],
+                               self.ln_f.apply(params["ln_f"], h))
+
     def apply_model(self, params, x, *, train: bool, gen, state):
-        t = x.shape[1]
-        h = self.embed.apply(params["embed"], x) + \
-            self.pos.apply(params["pos"], torch.arange(t, device=x.device))[None]
+        h = self._embed(params, x, torch.arange(x.shape[1], device=x.device))
+        remat = train and self.config.get("remat", False)
         for blk in self.blocks:
-            h = blk.apply(params[blk.name], h, train=train)
-        h = self.ln_f.apply(params["ln_f"], h)
-        return self.head.apply(params["head"], h)
+            if remat:
+                # the block's forward again in the backward: its activations
+                # are not kept.  It draws no random numbers, so no RNG state
+                # is saved (reading the CUDA one would break a capture)
+                h = checkpoint(
+                    lambda p, x, _b=blk: _b.apply(p, x, train=True),
+                    params[blk.name], h, use_reentrant=False,
+                    preserve_rng_state=False)
+            else:
+                h = blk.apply(params[blk.name], h, train=train)
+        return self._head(params, h)
 
     def _flat(self, params, batch, train):
         logits = self.apply_model(params, batch["x"], train=train, gen=None,
@@ -169,13 +248,144 @@ class TransformerLM(ModelBase):
         return L.softmax_cross_entropy(flat, y), (L.errors(flat, y),
                                                   L.errors_top_x(flat, y, 5))
 
-    def generate(self, *args, **kwargs):
-        raise NotImplementedError("generate (the KV-cache sampler) is not "
-                                  "ported yet")
+    # -- inference -----------------------------------------------------------
+
+    @torch.no_grad()
+    def generate(self, prompt, max_new_tokens: int, temperature: float = 0.0,
+                 seed: int = 0, kv_cache: bool = True, params=None):
+        """Sample continuations of ``prompt`` (``[B, p]`` or ``[p]`` token
+        ids): greedy at ``temperature=0`` (``argmax``, the first index on
+        ties, as ``jnp.argmax``), else categorical at that temperature,
+        drawn from a generator seeded ``seed`` on the model's device (the
+        JAX package's law, other bits).  Returns ``[B, max_new_tokens]``
+        int32 token ids.
+
+        On a fixed ``[B, seq_len]`` token buffer.  ``kv_cache=True``: one
+        prefill forward over the buffer (kernel B10 once a layer on the
+        card) builds each layer's K/V cache and the head runs on the
+        prompt's last row alone; then each step embeds only the new token
+        and attends to the cache.  ``kv_cache=False``: the full forward
+        over the buffer for every token.  A Python loop over the steps.
+        ``params`` (port layout; default :meth:`canonical_params`: the
+        EMA shadow when on, an async rule's center or consensus)."""
+        prompt = np.asarray(prompt, dtype=np.int64)
+        if prompt.ndim == 1:
+            prompt = prompt[None]
+        b, p_len = prompt.shape
+        assert p_len >= 1, "generate() needs at least one prompt token"
+        assert max_new_tokens >= 1, "generate() needs max_new_tokens >= 1"
+        assert p_len + max_new_tokens <= self.seq_len, (
+            f"prompt {p_len} + {max_new_tokens} new tokens exceeds "
+            f"seq_len={self.seq_len} (the position-embedding table)")
+        dev = self.device
+        params = self.canonical_params() if params is None else tree_map(
+            lambda a: a.to(dev) if isinstance(a, torch.Tensor)
+            else torch.as_tensor(np.asarray(a), device=dev), params)
+        toks = torch.zeros((b, self.seq_len), dtype=torch.int64, device=dev)
+        toks[:, :p_len] = torch.from_numpy(prompt).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        body = self._gen_body_kv if kv_cache else self._gen_body
+        new = body(params, toks, p_len, gen, float(temperature),
+                   int(max_new_tokens))
+        return new.to(torch.int32).cpu().numpy()
+
+    def _next_token(self, row, gen, temp: float):
+        """Greedy or categorical choice from one ``[B, V]`` logit row (the
+        Gumbel-max draw of ``jax.random.categorical``)."""
+        if temp <= 0:
+            return torch.argmax(row, dim=-1)
+        u = torch.rand(row.shape, generator=gen, device=row.device)
+        return torch.argmax(row.float() / max(temp, 1e-6)
+                            - torch.log(-torch.log(u)), dim=-1)
+
+    def _gen_body(self, params, toks, start, gen, temp, max_new):
+        """The full-forward sampler: the whole buffer's forward a token."""
+        out = []
+        for pos in range(start, start + max_new):
+            logits = self.apply_model(params, toks, train=False, gen=None,
+                                      state=None)
+            nxt = self._next_token(logits[:, pos - 1], gen, temp)
+            toks[:, pos] = nxt
+            out.append(nxt)
+        return torch.stack(out, dim=1)
+
+    def _gen_body_kv(self, params, toks, start, gen, temp, max_new):
+        """The KV-cache sampler: one prefill, then a token a step."""
+        t = toks.shape[1]
+        h = self._embed(params, toks, torch.arange(t, device=toks.device))
+        caches = []
+        for blk in self.blocks:
+            h, cache = blk.apply_prefill(params[blk.name], h)
+            caches.append(cache)
+        # the head on the one row consumed, not on the whole buffer
+        nxt = self._next_token(self._head(params, h[:, start - 1:start])[:, 0],
+                               gen, temp)
+        out = [nxt]
+        for pos in range(start, start + max_new - 1):
+            x1 = self._embed(params, nxt[:, None],
+                             torch.tensor([pos], device=toks.device))
+            for i, blk in enumerate(self.blocks):
+                x1, caches[i] = blk.apply_decode(params[blk.name], x1,
+                                                 caches[i], pos)
+            nxt = self._next_token(self._head(params, x1)[:, 0], gen, temp)
+            out.append(nxt)
+        return torch.stack(out, dim=1)
 
 
 class MoETransformerLM(TransformerLM):
-    """The sparse-FFN variant of the JAX package: not ported yet."""
+    """The sparse-FFN variant: every ``moe_every``-th block's MLP is a top-k
+    (``moe_topk``, 1 or 2) mixture of ``moe_experts`` experts with capacity
+    factor ``capacity_factor``; the load-balance loss, averaged over the
+    MoE blocks, joins the objective with the coefficient ``moe_aux``.
+    ``remat`` applies to the dense model only, as in the JAX package."""
 
-    def __init__(self, config=None):
-        raise NotImplementedError("MoETransformerLM is not ported yet")
+    moe_experts = 4
+    moe_every = 2          # every k-th block is MoE (1 = all blocks)
+    moe_topk = 1           # experts per token (2 = GShard-style top-2)
+    moe_aux = 0.01
+    capacity_factor = 1.25
+
+    def build_model(self) -> None:
+        super().build_model()
+        cd = L.as_dtype(self.config.get("compute_dtype", torch.bfloat16))
+        for k in ("moe_experts", "moe_every", "moe_topk"):
+            if k in self.config:
+                setattr(self, k, int(self.config[k]))
+        for k in ("moe_aux", "capacity_factor"):
+            if k in self.config:
+                setattr(self, k, float(self.config[k]))
+        attn_impl = str(self.config.get("attn_impl", "reference"))
+        self.blocks = [
+            MoEBlock(self.d_model, self.n_head, self.moe_experts, cd=cd,
+                     capacity_factor=self.capacity_factor,
+                     top_k=self.moe_topk, attn_impl=attn_impl,
+                     name=f"block{i}")
+            if (i + 1) % self.moe_every == 0 else
+            Block(self.d_model, self.n_head, cd=cd, attn_impl=attn_impl,
+                  name=f"block{i}")
+            for i in range(self.n_layer)]
+
+    def _forward(self, params, x, *, train: bool):
+        """Logits and the load-balance loss's mean over the MoE blocks."""
+        h = self._embed(params, x, torch.arange(x.shape[1], device=x.device))
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        n_moe = 0
+        for blk in self.blocks:
+            out = blk.apply(params[blk.name], h, train=train)
+            if isinstance(blk, MoEBlock):
+                h, a = out
+                aux = aux + a
+                n_moe += 1
+            else:
+                h = out
+        return self._head(params, h), aux / max(n_moe, 1)
+
+    def apply_model(self, params, x, *, train: bool, gen, state):
+        return self._forward(params, x, train=train)[0]
+
+    def loss_and_metrics(self, params, bn_state, batch, gen, train: bool):
+        logits, aux = self._forward(params, batch["x"], train=train)
+        flat = logits.reshape(-1, logits.shape[-1])
+        y = batch["y"].reshape(-1)
+        cost = L.softmax_cross_entropy(flat, y, self._label_smoothing(train))
+        return cost + self.moe_aux * aux, L.errors(flat, y)

@@ -7,7 +7,8 @@ in one dispatch.  The port runs one process per rank and the same sequence
 in one step body: forward and backward for each of ``n_subb``
 micro-batches (the BatchNorm running state updated in order through
 them), the exchanger's gradient collective, the optimizer update, the
-exchanger's ``sync_bn`` of the running state, all in place on the model's
+model's update hook (``ModelBase.postprocess_update``), the exchanger's
+``sync_bn`` of the running state, all in place on the model's
 state, then one all-reduce of the step's metrics (none in an async
 island's step, whose ``exchanger.LocalExchanger`` has no process group).
 :class:`TrainStep` runs
@@ -24,7 +25,9 @@ the learning rate and the dropout seeds, and replays the graph: one
 launch for the whole step, its all-reduces included.  The counterpart of
 the JAX step's traced inputs are device tensors the graph reads: the
 learning rate (0-d float32, refilled when the schedule moves), Adam's
-and the EMA's step counts, and the dropout generators (and GoSGD's
+and the EMA's step counts, the step counts a model's update hook reads
+(``ModelBase.postprocess_update``: the GANs' ``n_critic`` gate, refilled
+before each call), and the dropout generators (and GoSGD's
 send-gate generators), re-seeded from ``(seed, rank, count)`` before each
 replay.  A window whose fused exchanges fall on other steps (its first
 count's phase against ``exchange_freq``) replays a graph of its own; the
@@ -240,6 +243,12 @@ class TrainStep(_Captured):
             if self._exch is not None and exchanger.uses_draws else []
         self._first = 0
         self._lr = torch.zeros((), dtype=torch.float32, device=self.device)
+        # the model's update hook reads each step's count on the device:
+        # first + arange(n_steps), filled before each call
+        self._steps = self._counts = None
+        if model.has_update_hook():
+            self._steps = torch.arange(self.n_steps, device=self.device)
+            self._counts = torch.zeros_like(self._steps)
         self._lr_host = None
         self._static: Optional[Dict[str, torch.Tensor]] = None
         self._stager: Optional[PinnedStager] = None
@@ -303,8 +312,13 @@ class TrainStep(_Captured):
                 cost, err, grads = _accumulate_grads(
                     m.loss_and_metrics, m.params, m.bn_state, b,
                     self._gens[j], self.n_subb)
+                old = m.snapshot_update(m.params, m.opt_state) \
+                    if self._counts is not None else None
                 self.exchanger.step_update(m.params, m.opt_state, grads,
                                            m.extra, self._lr)
+                if self._counts is not None:
+                    m.postprocess_update(old, m.params, m.opt_state,
+                                         self._counts[j])
             self.exchanger.sync_bn(m.bn_state)
             c = self._first + j
             if self._exch is not None and c % self._exch.exchange_freq == 0:
@@ -350,6 +364,8 @@ class TrainStep(_Captured):
             self._lr.fill_(lr)
             self._lr_host = lr
         self._first = first = int(count) - self.n_steps + 1
+        if self._counts is not None:
+            torch.add(self._steps, first, out=self._counts)
         for j, g in enumerate(self._gens):
             g.manual_seed(step_seed(self.model.step_seed, self.model.rank,
                                     first + j))

@@ -44,7 +44,8 @@ import torch.distributed as dist
 from ..ops import compress as compress_ops
 from ..ops import factor_pack
 from ..utils.helper_funcs import (flatten_tree, flatten_tree_jax,
-                                  jax_tree_leaves, leaf_paths, tree_leaves,
+                                  jax_leaf_paths, jax_tree_leaves,
+                                  leaf_paths, tree_leaves,
                                   tree_map, tree_size, unflatten_like,
                                   unflatten_like_jax)
 from . import buckets
@@ -380,9 +381,10 @@ class PowerSGD(Strategy):
     layout, ``A = leaf.reshape(shape[0], -1)``.  For a conv or FC weight
     that is ``M`` transposed (for a conv, with M's rows permuted, which P̂'s
     span and so M̂ do not depend on), so ``P = Aᵀ Q``, ``Q' = A P̂`` and
-    ``M̂ᵀ = Q' P̂ᵀ``.  A leaf in ``kept_layout`` (an embedding table)
-    keeps its layout in both packages, so ``A`` is ``M`` itself and
-    ``P = A Q``, ``Q' = Aᵀ P̂``, ``M̂ = P̂ Q'ᵀ``.  ``e`` keeps the leaf's own
+    ``M̂ᵀ = Q' P̂ᵀ``.  A leaf in ``kept_layout`` (an embedding table, a
+    MoE layer's ``[E, d, f]`` expert weights) keeps its layout in both
+    packages, so ``A`` is ``M`` itself, ``leaf.reshape(-1, shape[-1])``,
+    and ``P = A Q``, ``Q' = Aᵀ P̂``, ``M̂ = P̂ Q'ᵀ``.  ``e`` keeps the leaf's own
     shape.  All P factors are one call of B9 (``ops/factor_pack.py``
     ``matmul_pack_group``, each leaf with its transpose flag), which writes
     them into one zero-padded staging buffer for one ``all_reduce``; then
@@ -405,12 +407,20 @@ class PowerSGD(Strategy):
         assert self.rank >= 1
         self.name = f"powersgd{self.rank}"
 
-    def _compressible(self, shape) -> bool:
-        """The JAX package's ``min(rows, cols) > 4r`` on its matrix M, taken
-        on A (``shape[0]`` by the rest), which is M or Mᵀ."""
+    def _matrix(self, shape, path=None) -> tuple:
+        """The shape of A, the leaf at ``path`` as a matrix: M for a leaf
+        in ``kept_layout`` (all but the last dim by the last), else
+        ``shape[0]`` by the rest (Mᵀ)."""
+        if path in self.kept_layout:
+            return math.prod(shape[:-1]), int(shape[-1])
+        return int(shape[0]), math.prod(shape[1:])
+
+    def _compressible(self, shape, path=None) -> bool:
+        """The JAX package's ``min(rows, cols) > 4r`` on its matrix M,
+        taken on A, which is M or Mᵀ."""
         if len(shape) < 2:
             return False
-        return min(math.prod(shape[1:]), int(shape[0])) > 4 * self.rank
+        return min(self._matrix(shape, path)) > 4 * self.rank
 
     def n_buckets(self, params, bucket_bytes: int):
         # the factor all-reduces are one stacked collective each already;
@@ -420,15 +430,17 @@ class PowerSGD(Strategy):
 
     def _dense(self, tree) -> list:
         """The incompressible leaves, in the JAX package's leaf order."""
-        return [l for l in jax_tree_leaves(tree)
-                if not self._compressible(l.shape)]
+        return [l for p, l in zip(jax_leaf_paths(tree), jax_tree_leaves(tree))
+                if not self._compressible(l.shape, p)]
 
     def init_state(self, params) -> list:
         state = []
         for i, (path, l) in enumerate(zip(leaf_paths(params),
                                           tree_leaves(params))):
-            if self._compressible(l.shape):
-                cols = l.shape[1] if path in self.kept_layout else l.shape[0]
+            if self._compressible(l.shape, path):
+                rows, cols = self._matrix(l.shape, path)
+                if path not in self.kept_layout:
+                    cols = rows                 # M's columns are A's rows
                 gen = torch.Generator().manual_seed(1905 + i)
                 q = torch.randn((cols, self.rank), generator=gen)
                 state.append({"q": q.to(l.device),
@@ -446,9 +458,9 @@ class PowerSGD(Strategy):
         leaves = tree_leaves(tree)
         assert len(leaves) == len(state), (len(leaves), len(state))
         out = list(leaves)
-        comp = [i for i, g in enumerate(leaves)
-                if self._compressible(g.shape)]
         paths = leaf_paths(tree)
+        comp = [i for i, g in enumerate(leaves)
+                if self._compressible(g.shape, paths[i])]
         # A is M transposed, except for a leaf kept in the JAX layout,
         # where it is M
         flip = {i: paths[i] not in self.kept_layout for i in comp}
@@ -458,9 +470,9 @@ class PowerSGD(Strategy):
             return buf.mul_(inv)
 
         if comp:
-            # A' = g + e in the leaf's layout, [shape[0], rest]
+            # A' = g + e in the leaf's layout, as the matrix A
             mats = [(leaves[i].float() + state[i]["e"]).reshape(
-                leaves[i].shape[0], -1) for i in comp]
+                self._matrix(leaves[i].shape, paths[i])) for i in comp]
             # P = M' Q and Q' = M'ᵀ P̂, with M' = A'ᵀ or A'
             m_shape = [m.shape[::-1] if flip[i] else m.shape
                        for i, m in zip(comp, mats)]

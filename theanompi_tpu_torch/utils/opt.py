@@ -37,7 +37,10 @@ corrections, in float32 as the JAX package raises ``b1`` to a float32
 count; the EMA's seeding of its shadow at ``t == 0``) is computed there.
 Adam's leaves whose counts are equal share one count tensor (one
 increment, one correction for the group); :func:`load_state` keeps that
-grouping when a checkpoint writes the counts.
+grouping when a checkpoint writes the counts.  A model whose update hook
+freezes some leaves' state (the GANs' ``n_critic`` gate) gives those
+leaves a count of their own (:func:`split_counts`), as the JAX package's
+per-leaf counts let them lag.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from .helper_funcs import tree_leaves, tree_map
+from .helper_funcs import leaf_paths, tree_leaves, tree_map
 
 
 class OptPair(NamedTuple):
@@ -232,20 +235,45 @@ def _count_groups(t_tree) -> list:
 
 def _place_counts(t_tree, values):
     """Adam's counts set to ``values`` (a tree of ints or 0-d arrays): in
-    place where the leaves that share a count tensor are exactly those of
-    equal value, else in new shared tensors, one per value."""
+    place where every leaf that shares a count tensor has the same value
+    (two groups may hold equal values: a split the model made stays), else
+    in new tensors, one per value within each current group."""
     vals = [int(np.asarray(v)) for v in tree_leaves(values)]
     groups = _count_groups(t_tree)
-    if all(len({vals[i] for i in idx}) == 1 for _, idx in groups) and \
-            len({vals[idx[0]] for _, idx in groups}) == len(groups):
+    if all(len({vals[i] for i in idx}) == 1 for _, idx in groups):
         for c, idx in groups:
             c.fill_(vals[idx[0]])
         return t_tree
-    dev = groups[0][0].device
-    shared = {v: torch.tensor(v, dtype=torch.int32, device=dev)
-              for v in sorted(set(vals))}
-    it = iter(vals)
-    return tree_map(lambda _: shared[next(it)], t_tree)
+    new = [None] * len(vals)
+    for c, idx in groups:
+        shared = {v: torch.tensor(v, dtype=torch.int32, device=c.device)
+                  for v in sorted({vals[i] for i in idx})}
+        for i in idx:
+            new[i] = shared[vals[i]]
+    it = iter(new)
+    return tree_map(lambda _: next(it), t_tree)
+
+
+def split_counts(state, own_group):
+    """``state`` (an optimizer's, EMA-wrapped or not) with Adam's counts
+    regrouped: the leaves whose parameter path ``own_group(path)`` holds
+    share one count tensor, the others another, each holding the count of
+    its group's first leaf (every count is 0 when the model compiles).
+    Any other optimizer's state is returned as it is."""
+    if isinstance(state, dict) and set(state) == {"inner", "ema", "t"}:
+        state["inner"] = split_counts(state["inner"], own_group)
+        return state
+    if not (isinstance(state, dict) and set(state) == {"m", "v", "t"}):
+        return state
+    leaves = tree_leaves(state["t"])
+    keys = [bool(own_group(p)) for p in leaf_paths(state["t"])]
+    shared = {}
+    for k, c in zip(keys, leaves):
+        if k not in shared:
+            shared[k] = c.detach().clone()
+    it = iter(keys)
+    state["t"] = tree_map(lambda _: shared[next(it)], state["t"])
+    return state
 
 
 @torch.no_grad()

@@ -14,6 +14,7 @@
     python3 chip_smoke.py --wire          # params mode, Ring, buckets alone
     python3 chip_smoke.py --shard         # zero_opt, update_sharding, fsdp
     python3 chip_smoke.py --gan-lm        # GANs, MoE LM, remat, generate
+    python3 chip_smoke.py --flash-f32     # the float32 flash kernels (A11)
 
 1. Fails (exit 2, no result) without CUDA; prints the card's name and power
    limit as ``nvidia-smi`` reports them.
@@ -135,6 +136,20 @@
     (8·(8+1) B10, 8·8 B11, 8·8 B12, nothing else); profiles its steps
     (tokens/s, host buckets, device busy, idle share, the flash kernels'
     device time).
+20a. The float32 flash kernels (A11; ``--flash-f32`` runs these alone):
+    B10–B12 in float32 at [16, 8, 512, 64] causal as the model hands them,
+    [4, 8, 256, 128] non-causal and [2, 4, 320, 32] causal strided, every
+    output against the float32 plain versions (TF32 off) within
+    ``F32_FLASH_TOL``, a rerun bit for bit; at the LM's shape each kernel's
+    device ms, host µs, bound (float32 flops at 67 TFLOP/s), plain ms and
+    SDPA in float32 (and its backward); the float32 flash LM at full width,
+    batch 2, its loss and every gradient leaf on the card against the same
+    weights on the CPU (the plain versions) within ``LM_F32_LOSS_RTOL`` and,
+    leaf by leaf, ``LM_F32_GRAD_RATIO`` times the reference attention's own
+    card-vs-CPU distance, which a bf16-rounded control must exceed; then
+    its main path (``compute_dtype='float32'``,
+    b16, 8 captured Adam steps and a validation batch: 9 · 8 B10 f32, 8 · 8
+    B11 and B12 f32, nothing else) and its captured step profiled.
 21. Drives the zoo's main paths: ``BSP().init(devices=1, modelfile=
     'theanompi_tpu_torch.models.googlenet' | '...resnet50' |
     '...cifar10', ...)``, GoogLeNet and ResNet-50 at batch 32, full width,
@@ -269,8 +284,9 @@
     tokens/s of each, each KV token against the full forward's greedy
     choice after the same prefix; and the LM trained 8 steps from uint16
     token files the script writes under ``build/smoke_tokens``.
-32. Prints ``{"kernels": [...]}`` (B1–B12; B1/B2 with GoogLeNet's shapes
-    beside AlexNet's, and the island, launcher and sharded paths' counts;
+32. Prints ``{"kernels": [...]}`` (B1–B12 and B10–B12 in float32; B1/B2
+    with GoogLeNet's shapes beside AlexNet's, and the island, launcher and
+    sharded paths' counts;
     B4 and B8 with their bucketed launches and per-bucket times; B10–B12
     with their launches on the A9c paths), then the card, then the last
     line ``{"ok": true, "device": {...}}``.
@@ -389,6 +405,38 @@ FLASH_TOL = (2.0 ** -7, 2.0 ** -7)          # (rtol, atol / max|plain|)
 # H100 the bf16 losses are 1.1e-5 (flash) and 3.7e-6 (reference) from it)
 LM_LOSS_RTOL = 1e-4
 LM_GRAD_RATIO = 2.0
+# the float32 flash kernels (A11) against their float32 plain versions,
+# TF32 off on both sides: true float32 products summed in another order.
+# An output sums up to T = 512 products, and reordering a float32 sum
+# moves it by at most n·2^-24 of its largest partial sum (2^-15 at n =
+# 512); expf/logf differ from torch's by an ulp or two: 2^-14 of
+# max|plain| holds both.  A TF32 product (10-bit mantissa, ~2^-11) would
+# be ~1e-3 away and fail it
+F32_FLASH_TOL = (2.0 ** -14, 2.0 ** -14)   # (rtol, atol / max|plain|)
+# (name, [B, H, T, hd], causal, laid out as the model hands them): the
+# LM's main-path shape, one non-causal at hd 128, one strided at hd 32
+# with T a multiple of 64 and not of 128
+F32_FLASH_SHAPES = (("lm", (LM_BATCH, 8, 512, 64), True, True),
+                    ("noncausal", (4, 8, 256, 128), False, False),
+                    ("strided", (2, 4, 320, 32), True, True))
+# the float32 flash LM at batch 2 on the card (kernels B10–B12 f32, cuBLAS
+# f32 with TF32 off) against the same weights and batch on the CPU (the
+# plain versions): both sides are float32 end to end, so they differ only
+# by the order of float32 sums.  The loss is a well-conditioned mean (its
+# two sides 9e-8 apart on an H100): LM_F32_LOSS_RTOL.  The gradients at
+# random init are not: many leaves are small sums of large cancelling
+# terms, so a leaf's card-vs-CPU distance in relative L2 is set by the
+# model more than by the attention (up to 1.6e-3 with the reference
+# attention on both sides).  That floor is measured in the same run, leaf
+# by leaf, with the reference attention on both sides; the flash model's
+# distance of each leaf may be at most LM_F32_GRAD_RATIO times it, as the
+# bf16 check's LM_GRAD_RATIO.  The same run holds a control to the same
+# limit, which must fail it: the reference attention with its
+# probabilities rounded to bfloat16 on the card (and so dP, through the
+# cast's backward), what a kernel that is not float32 throughout gives.
+# The kernels themselves are held to F32_FLASH_TOL above.
+LM_F32_LOSS_RTOL = 1e-5
+LM_F32_GRAD_RATIO = 2.0
 # B10–B12 before their Hopper redesign (the first, nvcuda::wmma kernels),
 # at the flash phase's shape: device ms from this script's flash phase on
 # that tree; host µs per wrapper call, for B10 and B11 the least of two
@@ -418,6 +466,14 @@ DESIGN = {"topk_encode": "radix select on the bits of |c|, lowest offsets on "
           "flash_fwd": "TMA ring, wgmma, softmax in registers, pipelined",
           "flash_bwd_dkv": "TMA ring, wgmma, p and dS in registers",
           "flash_bwd_dq": "TMA ring, wgmma, dS in registers",
+          "flash_fwd_f32": "SIMT float32 FFMA: one 256-thread CTA per 64-row "
+                           "tile, tiles in shared memory, online softmax in "
+                           "registers",
+          "flash_bwd_dkv_f32": "SIMT float32 FFMA: k/v tile resident, q/dO "
+                               "tiles streamed, p and dS through shared "
+                               "memory",
+          "flash_bwd_dq_f32": "SIMT float32 FFMA: q/dO tile resident, k/v "
+                              "tiles streamed, dS through shared memory",
           "matmul_pack": "one launch per factor pass over every leaf; each "
                          "work item a cluster of 8 CTAs splitting its sums, "
                          "added through distributed shared memory in rank "
@@ -1109,17 +1165,20 @@ def resnet_reference_phase() -> dict:
     return out
 
 
-def flash_bytes_flops(b, h, t, d):
-    """Per kernel (B10, B11, B12): the bytes it must move (each input read
-    once, each output written once: bf16 [B, H, T, hd] tensors, f32 [B, H,
-    T] row stats) and the flops of its products over the causal pairs
-    t(t+1)/2 of each head (2·hd per pair and product: B10 q kᵀ and p v;
-    B11 q kᵀ, dO vᵀ, pᵀ dO and dSᵀ q; B12 q kᵀ, dO vᵀ and dS k)."""
-    x, stat = 2 * b * h * t * d, 4 * b * h * t
-    pair_flops = 2 * d * b * h * t * (t + 1) // 2
-    return {"flash_fwd_cuda": (4 * x + stat, 2 * pair_flops),
-            "flash_bwd_dkv_cuda": (6 * x + 2 * stat, 4 * pair_flops),
-            "flash_bwd_dq_cuda": (5 * x + 2 * stat, 3 * pair_flops)}
+def flash_bytes_flops(b, h, t, d, elem: int = 2, causal: bool = True,
+                      sfx: str = ""):
+    """Per kernel (B10, B11, B12; wrapper names ending ``sfx``): the bytes
+    it must move (each input read once, each output written once:
+    [B, H, T, hd] tensors of ``elem`` bytes, f32 [B, H, T] row stats) and
+    the flops of its products over the pairs of each head (t(t+1)/2
+    causal, t² not; 2·hd per pair and product: B10 q kᵀ and p v; B11 q kᵀ,
+    dO vᵀ, pᵀ dO and dSᵀ q; B12 q kᵀ, dO vᵀ and dS k)."""
+    x, stat = elem * b * h * t * d, 4 * b * h * t
+    pairs = t * (t + 1) // 2 if causal else t * t
+    pair_flops = 2 * d * b * h * pairs
+    return {f"flash_fwd{sfx}_cuda": (4 * x + stat, 2 * pair_flops),
+            f"flash_bwd_dkv{sfx}_cuda": (6 * x + 2 * stat, 4 * pair_flops),
+            f"flash_bwd_dq{sfx}_cuda": (5 * x + 2 * stat, 3 * pair_flops)}
 
 
 def sass_of(lib_path: str) -> str:
@@ -1286,6 +1345,11 @@ def times_main(flags) -> int:
         torch.backends.cudnn.allow_tf32 = False
         _kernel_build.build(["flash_attention"])
         out["gan_lm"] = gan_lm_main(card)
+    if "--flash-f32" in flags:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        _kernel_build.build(["flash_attention_f32"])
+        out["flash_f32"] = flash_f32_main(card)
     if "--lrn-times" in flags:
         out["lrn_times"] = lrn_times()
     if "--flash-times" in flags:
@@ -1460,6 +1524,292 @@ def lm_check_phase():
             ratio > LM_GRAD_RATIO:
         raise AssertionError(f"LM flash vs float32: {out}")
     return out
+
+
+def f32_flash_inputs(shape, strided: bool, seed: int):
+    """float32 q, k, v and dO of ``shape``: contiguous, or as the model
+    hands them (transposed views of [B, T, H, hd])."""
+    b, h, t, d = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def mk():
+        if strided:
+            return torch.randn(b, t, h, d, generator=g,
+                               device="cuda").transpose(1, 2)
+        return torch.randn(shape, generator=g, device="cuda")
+
+    return mk(), mk(), mk(), mk()
+
+
+def f32_flash_run(q, k, v, do, causal):
+    o, lse = fa_ops.flash_fwd_f32_cuda(q, k, v, causal)
+    di = fa_ops.attention_di(o, do)
+    dk, dv = fa_ops.flash_bwd_dkv_f32_cuda(q, k, v, do, lse, di, causal)
+    dq = fa_ops.flash_bwd_dq_f32_cuda(q, k, v, do, lse, di, causal)
+    return o, lse, di, dq, dk, dv
+
+
+def flash_f32_phase():
+    """The float32 B10–B12 (A11) at each of F32_FLASH_SHAPES: every output
+    (o, lse, dq, dk, dv) against the float32 plain versions within
+    F32_FLASH_TOL (TF32 off), a rerun bit for bit; at the LM's shape each
+    kernel's device ms, host µs a wrapper call, bound (float32 flops at
+    F32_FLOPS_PER_S, f32 bytes), plain ms and SDPA in float32 (forward;
+    its autograd backward, dQ, dK and dV in one, beside B11 and B12)."""
+    names = ("flash_fwd_f32_cuda", "flash_bwd_dkv_f32_cuda",
+             "flash_bwd_dq_f32_cuda")
+    out = {"shapes": {}}
+    for i, (tag, shape, causal, strided) in enumerate(F32_FLASH_SHAPES):
+        q, k, v, do = f32_flash_inputs(shape, strided, 10 + i)
+        zero_launches()
+        o, lse, di, dq, dk, dv = f32_flash_run(q, k, v, do, causal)
+        torch.cuda.synchronize()
+        checked = {n: c for n, c in launch_counts().items() if c}
+        again = f32_flash_run(q, k, v, do, causal)
+        for n, a, b in zip(("o", "lse", "di", "dq", "dk", "dv"),
+                           (o, lse, di, dq, dk, dv), again):
+            check_bits(f"f32 {tag} rerun {n}", a, b)
+        del again
+        po, plse = fa_ops.flash_fwd_plain(q, k, v, causal)
+        pdq, pdk, pdv = fa_ops.flash_bwd_plain(q, k, v, o, lse, do, causal)
+        err = {"flash_fwd_f32_cuda": max(
+                   check_close(f"B10 f32 {tag} o", o, po, *F32_FLASH_TOL),
+                   check_close(f"B10 f32 {tag} lse", lse, plse,
+                               *F32_FLASH_TOL)),
+               "flash_bwd_dkv_f32_cuda": max(
+                   check_close(f"B11 f32 {tag} dk", dk, pdk, *F32_FLASH_TOL),
+                   check_close(f"B11 f32 {tag} dv", dv, pdv,
+                               *F32_FLASH_TOL)),
+               "flash_bwd_dq_f32_cuda": check_close(
+                   f"B12 f32 {tag} dq", dq, pdq, *F32_FLASH_TOL)}
+        if strided and o.stride() != q.stride():
+            raise AssertionError(f"B10 f32 o strides {o.stride()}, q "
+                                 f"{q.stride()}")
+        del po, plse, pdq, pdk, pdv
+        out["shapes"][tag] = {"shape": list(shape), "causal": causal,
+                              "strided": strided, "max_abs_err": err,
+                              "checked_launches": checked}
+        if tag != "lm":
+            del q, k, v, do, o, lse, di, dq, dk, dv
+            continue
+        b, h, t, d = shape
+        ql, kl, vl = (x.detach().clone().requires_grad_(True)
+                      for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+        lib_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            lib_out, (ql, kl, vl), do, retain_graph=True))
+        bwd_plain_ms = time_ms(lambda: fa_ops.flash_bwd_plain(
+            q, k, v, o, lse, do), reps=5, inner=2, warmup=1)
+        plain_lib = {
+            "flash_fwd_f32_cuda": (
+                time_ms(lambda: fa_ops.flash_fwd_plain(q, k, v), reps=5,
+                        inner=2, warmup=1),
+                time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True))),
+            "flash_bwd_dkv_f32_cuda": (bwd_plain_ms, lib_bwd_ms),
+            "flash_bwd_dq_f32_cuda": (bwd_plain_ms, lib_bwd_ms)}
+        calls = {"flash_fwd_f32_cuda": lambda: fa_ops.flash_fwd_f32_cuda(
+                     q, k, v),
+                 "flash_bwd_dkv_f32_cuda": lambda:
+                     fa_ops.flash_bwd_dkv_f32_cuda(q, k, v, do, lse, di),
+                 "flash_bwd_dq_f32_cuda": lambda:
+                     fa_ops.flash_bwd_dq_f32_cuda(q, k, v, do, lse, di)}
+        sizes = flash_bytes_flops(b, h, t, d, elem=4, sfx="_f32")
+        out["shape"] = list(shape)
+        for name in names:
+            plain_ms, lib_ms = plain_lib[name]
+            out[name] = {"max_abs_err": max(
+                             r["max_abs_err"][name]
+                             for r in out["shapes"].values()),
+                         "ms": time_ms(calls[name]),
+                         "host_us": host_us(calls[name]),
+                         "plain_ms": plain_ms, "library_ms": lib_ms,
+                         **bound(*sizes[name], F32_FLOPS_PER_S)}
+        del q, k, v, do, o, lse, di, dq, dk, dv, ql, kl, vl, lib_out
+    for name in names:        # the worst error over every shape
+        out[name]["max_abs_err"] = max(r["max_abs_err"][name]
+                                       for r in out["shapes"].values())
+    torch.cuda.empty_cache()
+    return out
+
+
+def attention_bf16_probs(q, k, v, *, causal=False, scale=None):
+    """The reference attention with its probabilities rounded to bfloat16
+    (and dP, through the cast's backward): the control of
+    :func:`lm_f32_check_phase`."""
+    d = q.shape[-1]
+    scale = d ** -0.5 if scale is None else scale
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    if causal:
+        t = s.shape[-1]
+        valid = torch.ones(t, t, dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~valid, float("-inf"))
+    p = torch.softmax(s, dim=-1).to(torch.bfloat16).float()
+    return torch.einsum("bhqk,bhkd->bhqd", p, v)
+
+
+def lm_f32_check_phase():
+    """The float32 flash LM at full width, batch 2: loss and every gradient
+    leaf on the card (the float32 B10–B12, each launched once a layer)
+    against the same weights and batch on the CPU (the plain versions):
+    the loss within LM_F32_LOSS_RTOL, each leaf's relative L2 distance
+    within LM_F32_GRAD_RATIO times that leaf's floor, the same comparison
+    with the reference attention on both sides (no kernel).  The control
+    (:func:`attention_bf16_probs` on the card against the CPU's reference)
+    must exceed that limit on some leaf."""
+    from theanompi_tpu_torch.models import layers as L
+    from theanompi_tpu_torch.models.transformer_lm import TransformerLM
+    cfg = dict(LM_CFG, batch_size=LM_CHECK_BATCH, synthetic_train=2,
+               synthetic_val=2, seed=0, verbose=False,
+               compute_dtype="float32")
+    host = None
+    res = {}
+    n = LM_CFG["n_layer"]
+    plain_attention = L.attention_reference
+    runs = (("flash", "cuda"), ("flash", "cpu"), ("reference", "cuda"),
+            ("reference", "cpu"), ("control", "cuda"))
+    for attn, dev in runs:
+        m = TransformerLM(dict(cfg, device=dev, attn_impl="reference"
+                               if attn == "control" else attn))
+        if host is None:
+            host = m.data.next_train_batch(1)
+            src = [p.detach().cpu() for p in tree_leaves(m.params)]
+            names = ["/".join(map(str, p)) for p in leaf_paths(m.params)]
+        with torch.no_grad():
+            for a, c in zip(tree_leaves(m.params), src):
+                a.copy_(c)
+        batch = {k: torch.from_numpy(v).to(m.device)
+                 for k, v in host.items()}
+        zero_launches()
+        L.attention_reference = attention_bf16_probs \
+            if attn == "control" else plain_attention
+        try:
+            cost, _ = m.loss_and_metrics(m.params, m.bn_state, batch, None,
+                                         True)
+            grads = torch.autograd.grad(cost, tree_leaves(m.params))
+        finally:
+            L.attention_reference = plain_attention
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            want = expect(**({"flash_fwd_f32_cuda": n,
+                              "flash_bwd_dkv_f32_cuda": n,
+                              "flash_bwd_dq_f32_cuda": n}
+                             if attn == "flash" else {}))
+            if launch_counts() != want:
+                raise AssertionError(f"f32 LM check ({attn}) launches "
+                                     f"{launch_counts()}, expected {want}")
+        res[attn, dev] = (float(cost.detach()),
+                          [g.detach().cpu() for g in grads])
+        del m, cost, grads
+    res["control", "cpu"] = res["reference", "cpu"]
+    out = {"leaves": len(names)}
+    rel = {}
+    for attn in ("flash", "reference", "control"):
+        (cc, ga), (cp, gb) = res[attn, "cuda"], res[attn, "cpu"]
+        rel[attn] = [float((a - b).norm() / b.norm().clamp_min(1e-30))
+                     for a, b in zip(ga, gb)]
+        worst = sorted(zip(rel[attn], names), reverse=True)[:4]
+        out[attn] = {"loss_card": cc, "loss_cpu": cp,
+                     "loss_rel_err": abs(cc - cp) / abs(cp),
+                     "grad_rel_l2_max": max(rel[attn]),
+                     "grad_rel_l2_median": float(np.median(rel[attn])),
+                     "worst_leaves": [[n_, r] for r, n_ in worst]}
+    for attn in ("flash", "control"):
+        ratio = [a / max(b, 1e-30) for a, b in zip(rel[attn],
+                                                   rel["reference"])]
+        worst = sorted(zip(ratio, names), reverse=True)[:4]
+        out[attn].update(grad_ratio_max=max(ratio),
+                         grad_ratio_median=float(np.median(ratio)),
+                         leaves_over_limit=sum(
+                             r > LM_F32_GRAD_RATIO for r in ratio),
+                         worst_ratios=[[n_, r] for r, n_ in worst])
+    out["per_leaf"] = {"names": names, **rel}
+    del res, src
+    gc.collect()
+    torch.cuda.empty_cache()
+    f, c = out["flash"], out["control"]
+    if not np.isfinite(f["loss_card"]) or \
+            f["loss_rel_err"] > LM_F32_LOSS_RTOL or \
+            f["grad_ratio_max"] > LM_F32_GRAD_RATIO:
+        raise AssertionError(f"f32 flash LM card vs CPU: {out}")
+    if c["grad_ratio_max"] <= LM_F32_GRAD_RATIO:
+        raise AssertionError(f"the f32 LM limit passes bf16-rounded "
+                             f"attention: {c}")
+    return out
+
+
+def lm_f32_main_path_phase():
+    """The LM's main path in float32 with ``attn_impl='flash'``: 8 captured
+    Adam steps at b16 and a validation batch through the BSP session, every
+    attention through the float32 B10–B12 (n_layer · 9 B10, n_layer · 8
+    B11 and B12, nothing else)."""
+    n = LM_CFG["n_layer"]
+    want = expect(flash_fwd_f32_cuda=n * (LM_STEPS + VAL_BATCHES),
+                  flash_bwd_dkv_f32_cuda=n * LM_STEPS,
+                  flash_bwd_dq_f32_cuda=n * LM_STEPS)
+    model, out = run_main_path(
+        "theanompi_tpu_torch.models.transformer_lm", "TransformerLM", want,
+        batch_size=LM_BATCH, synthetic_train=LM_BATCH * LM_STEPS,
+        synthetic_val=LM_BATCH * VAL_BATCHES, printFreq=LM_STEPS // 2,
+        compute_dtype="float32", **LM_CFG)
+    out["tokens_per_s"] = out["img_per_s"] * LM_CFG["seq_len"]
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+LM_F32_GROUPS = {"flash_f32": ("flash_fwd_f32_kernel",
+                               "flash_bwd_dkv_f32_kernel",
+                               "flash_bwd_dq_f32_kernel")}
+
+
+def flash_f32_main(card: str) -> dict:
+    """The A11 phase group (``--flash-f32`` runs it alone): the float32
+    kernels' checks and times, the float32 LM card vs CPU, its main path
+    and its captured step's profile."""
+    kern = flash_f32_phase()
+    print("flash attention float32 (A11): " + "; ".join(
+        f"{tag} {r['shape']} {'causal' if r['causal'] else 'non-causal'}"
+        f"{' strided' if r['strided'] else ''} max |diff| " + ", ".join(
+            f"{k[:-9]} {e:.3e}" for k, e in r["max_abs_err"].items())
+        for tag, r in kern["shapes"].items()) + " (rerun bit for bit)",
+        flush=True)
+    print("flash f32 %s causal: " % kern["shape"] + ", ".join(
+        f"{k[:-9]} {kern[k]['ms']:.4f} ms (bound {kern[k]['bound_ms']:.4f} "
+        f"{kern[k]['bound_by']}, plain {kern[k]['plain_ms']:.3f}, SDPA f32 "
+        f"{kern[k]['library_ms']:.4f}), host {kern[k]['host_us']:.1f} us"
+        for k in ("flash_fwd_f32_cuda", "flash_bwd_dkv_f32_cuda",
+                  "flash_bwd_dq_f32_cuda")), flush=True)
+    check = lm_f32_check_phase()
+    for attn in ("flash", "reference", "control"):
+        c = check[attn]
+        ratio = "" if attn == "reference" else (
+            f"; leaf / floor max {c['grad_ratio_max']:.2f} (median "
+            f"{c['grad_ratio_median']:.2f}, {c['leaves_over_limit']} leaves "
+            f"over {LM_F32_GRAD_RATIO}; worst {c['worst_ratios']})")
+        print(f"LM float32 {attn} card vs CPU, batch {LM_CHECK_BATCH}: loss "
+              f"{c['loss_card']:.7f} vs {c['loss_cpu']:.7f} (rel "
+              f"{c['loss_rel_err']:.2e}), gradient relative L2 max "
+              f"{c['grad_rel_l2_max']:.2e}, median "
+              f"{c['grad_rel_l2_median']:.2e} over {check['leaves']} leaves; "
+              f"worst {c['worst_leaves']}{ratio}", flush=True)
+    main = lm_f32_main_path_phase()
+    print(f"main path: TransformerLM BSP flash float32 batch {LM_BATCH}, "
+          f"{LM_STEPS} steps, costs {[round(c, 4) for c in main['costs']]}, "
+          f"{main['tokens_per_s']:.0f} tokens/s, launches "
+          f"{ {k: v for k, v in main['launches'].items() if v} } on {card}",
+          flush=True)
+    prof = step_profile_phase(
+        "theanompi_tpu_torch.models.transformer_lm", "TransformerLM",
+        LM_BATCH, LM_F32_GROUPS, PROFILE_STEPS, compute_dtype="float32",
+        synthetic_train=LM_BATCH * (2 + 2 * PROFILE_STEPS), **LM_CFG)
+    prof["tokens_per_s"] = prof["img_per_s"] * LM_CFG["seq_len"]
+    print_profile(prof, card, LM_F32_GROUPS)
+    print(f"LM float32 captured step: {prof['tokens_per_s']:.0f} tokens/s",
+          flush=True)
+    return {"kernels": kern, "lm_check": check, "main": main,
+            "profile": prof}
 
 
 def run_main_path(modelfile, modelclass, want_launches, rule="bsp", **cfg):
@@ -4251,9 +4601,16 @@ LIBRARY = {
     "flash_bwd_dkv": "autograd of F.scaled_dot_product_attention: dQ, dK and "
                      "dV in one call (di included), to set against B11 + B12",
     "flash_bwd_dq": "the same call as flash_bwd_dkv's: dQ, dK and dV in one",
+    "flash_fwd_f32": "F.scaled_dot_product_attention(q, k, v, is_causal=True) "
+                     "in float32 (TF32 off) on the same views: o only",
+    "flash_bwd_dkv_f32": "autograd of the float32 F.scaled_dot_product_"
+                         "attention: dQ, dK and dV in one, to set against "
+                         "B11 + B12",
+    "flash_bwd_dq_f32": "the same call as flash_bwd_dkv_f32's",
 }
 
 FLASH_SRC = "theanompi_tpu_torch/csrc/flash_attention.cu"
+FLASH_F32_SRC = "theanompi_tpu_torch/csrc/flash_attention_f32.cu"
 FLASH_TPU = "jax/experimental/pallas/ops/tpu/flash_attention.py (jax 0.9.0)"
 
 
@@ -4295,6 +4652,14 @@ def kernel_rows():
          f"{FLASH_TPU}:941 _flash_attention_bwd_dkv (pallas_call :1121)"),
         ("flash_bwd_dq", fa_ops.flash_bwd_dq_cuda, FLASH_SRC,
          f"{FLASH_TPU}:1287 _flash_attention_bwd_dq (pallas_call :1456)"),
+        # the same three in float32 (A11), as the JAX package hands them q,
+        # k and v in compute_dtype (theanompi_tpu/models/layers.py:457-467)
+        ("flash_fwd_f32", fa_ops.flash_fwd_f32_cuda, FLASH_F32_SRC,
+         f"{FLASH_TPU}:589 _flash_attention_impl (pallas_call :758)"),
+        ("flash_bwd_dkv_f32", fa_ops.flash_bwd_dkv_f32_cuda, FLASH_F32_SRC,
+         f"{FLASH_TPU}:941 _flash_attention_bwd_dkv (pallas_call :1121)"),
+        ("flash_bwd_dq_f32", fa_ops.flash_bwd_dq_f32_cuda, FLASH_F32_SRC,
+         f"{FLASH_TPU}:1287 _flash_attention_bwd_dq (pallas_call :1456)"),
     )
 
 
@@ -4316,7 +4681,7 @@ def lrn_totals(rows) -> dict:
 
 
 def kernel_entries(lrn, lrn_g, comp, topk, fpack, flash, alex, goog, vggs,
-                   lm) -> list:
+                   lm, f32) -> list:
     out = []
     for label, fn, source, replaces in kernel_rows():
         name = fn.__name__
@@ -4342,6 +4707,12 @@ def kernel_entries(lrn, lrn_g, comp, topk, fpack, flash, alex, goog, vggs,
                      per="one step: 2 grouped launches, 32 products",
                      per_leaf_ms=fpack["per_step"]["per_leaf_ms"],
                      **{k: fpack["per_step"][k] for k in TIMED[1:]})
+        elif label.endswith("_f32"):
+            e.update(launches=f32["main"]["launches"][name],
+                     launches_from="float32 LM main path",
+                     shape=f32["kernels"]["shape"],
+                     host_us=f32["kernels"][name]["host_us"],
+                     **{k: f32["kernels"][name][k] for k in TIMED})
         elif label.startswith("flash_"):
             e.update(launches=lm["launches"][name],
                      launches_from="LM main path", shape=flash["shape"],
@@ -4377,6 +4748,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t_all = time.time()
+    laps = {}
+
+    def lap(name):
+        """Seconds since the previous lap, for the run's phase table."""
+        laps[name] = time.time() - t_all - sum(laps.values())
+
     libs = _kernel_build.build()
     build_s = time.time() - t_all
     print(f"built {sorted(libs)} in {build_s:.1f}s", flush=True)
@@ -4384,6 +4761,7 @@ def main() -> int:
     lrn_sass = lrn_sass_check(libs["lrn"])
     print(f"LRN SASS: every vector build of lrn_bwd_kernel holds {LRN_SASS} "
           f"({lrn_sass})", flush=True)
+    lap("build, SASS")
     lrn = lrn_phase()
     lrn_g = lrn_phase(GOOGLENET_LRN)
     for kind in ("fwd", "bwd"):
@@ -4424,6 +4802,7 @@ def main() -> int:
           f"{fpack['max_err_over_bound']:.3f}; the per-leaf rowdot/coldot "
           f"kernels, an earlier tree's run: {ROWCOL_FACTOR['ms']:.4f} ms",
           flush=True)
+    lap("kernels")
     ref_err = alexnet_reference_phase()
     print(f"AlexNet f32 logits card vs CPU: max |diff| {ref_err:.3e}",
           flush=True)
@@ -4438,6 +4817,7 @@ def main() -> int:
                  f"{r['bn_state_max_abs_err']:.3e}" if "bn_leaves" in r
                  else ""), flush=True)
 
+    lap("reference logits")
     alex = alexnet_main_path_phase()
     print(f"main path: AlexNet BSP batch {BATCH}, {STEPS} steps, costs "
           f"{[round(c, 4) for c in alex['costs']]}, "
@@ -4498,6 +4878,7 @@ def main() -> int:
         f"ms, pageable {htod[w + '_pageable_ms']:.3f} ms"
         for w in ("f32", "u8")), flush=True)
 
+    lap("AlexNet paths")
     vggs = {}
     for strategy, shape, groups in (
             ("onebit", (comp["n"],),
@@ -4537,6 +4918,7 @@ def main() -> int:
             raise AssertionError(f"the {strategy} exchange made the host "
                                  f"wait: {prof['after']}")
 
+    lap("VGG-16 wires")
     flash = flash_phase(libs["flash_attention"])
     print("flash SASS (per head dim 32, 64, 128): " + "; ".join(
         f"{k} " + ", ".join(f"{i} {n}" for i, n in c.items())
@@ -4580,7 +4962,9 @@ def main() -> int:
         print_profile(lm_prof, card, lm_groups)
         print(f"LM {key} step: {lm_prof['tokens_per_s']:.0f} tokens/s",
               flush=True)
+    f32 = flash_f32_main(card)
 
+    lap("bf16 flash, LM, f32")
     goog = googlenet_main_path_phase()
     resnet = resnet_main_path_phase()
     cifar = cifar10_main_path_phase()
@@ -4622,6 +5006,7 @@ def main() -> int:
                       f"{profs[key]['after']['ms']:.3f} ms a step",
                       flush=True)
 
+    lap("zoo")
     rules = {}
     for path in ("vgg16_easgd", "resnet50_gosgd", "alexnet_asgd"):
         rules[path] = r = rule_main_path_phase(path)
@@ -4652,6 +5037,7 @@ def main() -> int:
             print(f"{path}{suffix} one exchange alone (CUDA events): "
                   f"{profs[path + suffix]['after']['exchange_ms']:.4f} ms",
                   flush=True)
+    lap("rules")
     clip = clip_phase()
     print(f"grad_clip on the card: AlexNet first-step norm "
           f"{clip['grad_norm']:.4f}, clip {clip['clip']:.4f}, params vs the "
@@ -4677,14 +5063,20 @@ def main() -> int:
               f"{ {k: v for k, v in w['launches'].items() if v} }",
               flush=True)
 
+    lap("clip, optimizers, graphs, windows")
     islands = islands_main(card)
+    lap("islands")
     launcher = launcher_main(card)
+    lap("launcher")
     wire = wire_main(card)
+    lap("wire")
     shard = shard_main(card)
+    lap("shard")
     a9 = gan_lm_main(card)
+    lap("gan, lm")
 
     kernels = kernel_entries(lrn, lrn_g, comp, topk, fpack, flash, alex,
-                             goog, vggs, lm)
+                             goog, vggs, lm, f32)
     for e in kernels:
         # the bucketed wires' decodes: once a bucket (A7)
         path = {"unpack_signs_wsum": "vgg16_onebit",
@@ -4701,7 +5093,7 @@ def main() -> int:
                     "bound_by", "library_ms")})
     by_path = flash_launches_by_path(lm, a9)
     for e in kernels:
-        if e["name"].startswith("flash_"):
+        if e["name"].startswith("flash_") and not e["name"].endswith("_f32"):
             # the A9c paths: the MoE LM, remat, the samplers, token files
             e["launches_by_path"] = by_path[e["name"] + "_cuda"]
         if e["name"].startswith("lrn_"):
@@ -4732,6 +5124,7 @@ def main() -> int:
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"kernels": kernels, "compress": comp, "topk": topk,
                    "factor_pack": fpack, "flash": flash, "lm_check": lm_check,
+                   "flash_f32": f32,
                    "main": dict({"alexnet": alex, "lm": lm,
                                  "googlenet": goog, "resnet50": resnet,
                                  "cifar10": cifar,
@@ -4747,8 +5140,11 @@ def main() -> int:
                    "recapture": recapture, "zoo_ref": zoo_ref,
                    "lrn_googlenet": lrn_g, "lrn_sass": lrn_sass,
                    "native_loader": loader, "u8_logits": u8, "htod": htod,
-                   "profile": profs, "card": card, "build_s": build_s, "total_s": total_s,
+                   "profile": profs, "card": card, "build_s": build_s,
+                   "phase_s": laps, "total_s": total_s,
                    "alexnet_ref_err": ref_err}, f, indent=1)
+    print("seconds by phase group: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in laps.items()), flush=True)
     print(f"all phases passed in {total_s:.1f}s", flush=True)
     print(json.dumps({"kernels": [
         {k: v for k, v in e.items() if k not in ("shapes", "by_workers")}
@@ -4768,6 +5164,6 @@ if __name__ == "__main__":
     if not _flags <= {"--flash-times", "--topk-times", "--factor-times",
                       "--input-times", "--update-times", "--lrn-times",
                       "--islands", "--vgg-island-lr", "--launcher",
-                      "--wire", "--shard", "--gan-lm"}:
+                      "--wire", "--shard", "--gan-lm", "--flash-f32"}:
         sys.exit(f"chip_smoke: unknown arguments {sorted(_flags)}")
     sys.exit(times_main(_flags) if _flags else main())

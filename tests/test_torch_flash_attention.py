@@ -127,7 +127,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     ((1, 1, 96, 64), torch.bfloat16, "multiple of 64"),   # T % 64
     ((1, 1, 128, 48), torch.bfloat16, "multiple of 64"),  # head dim 48
     ((1, 128, 64), torch.bfloat16, "multiple of 64"),     # not 4-D
-    ((1, 1, 128, 64), torch.float32, "bfloat16"),         # f32 on the card
+    ((1, 1, 128, 64), torch.float16, "bfloat16 or float32"),  # f16
 ])
 def test_kernel_checks_refuse_bad_inputs(shape, dtype, match):
     """What the kernels do not take raises with a clear message: the

@@ -176,7 +176,7 @@ def test_topk_lm_three_step_trajectory_matches_jax(cpu_group, vocab,
 
 
 @pytest.mark.parametrize("attn_impl,dtype,device,refused", [
-    ("flash", torch.float32, "cuda", True),
+    ("flash", torch.float32, "cuda", False),    # the float32 kernels
     ("flash", torch.float16, "cuda:0", True),
     ("flash", torch.bfloat16, "cuda", False),
     ("flash", torch.float32, "cpu", False),      # the plain versions
@@ -184,11 +184,12 @@ def test_topk_lm_three_step_trajectory_matches_jax(cpu_group, vocab,
 ])
 def test_flash_dtype_checked_at_build(attn_impl, dtype, device, refused):
     """``TransformerLM.build_model`` runs this check: flash with a compute
-    dtype other than bfloat16 is refused on a CUDA device (the kernels take
-    bfloat16 only), with a message that names them; no card is needed to
-    check it."""
+    dtype other than bfloat16 or float32 is refused on a CUDA device (the
+    kernels' two instantiations), with a message that names them; no card
+    is needed to check it."""
     if refused:
-        with pytest.raises(ValueError, match="B10-B12 take bfloat16"):
+        with pytest.raises(ValueError,
+                           match="B10-B12 take bfloat16 or float32"):
             check_flash_dtype(attn_impl, dtype, torch.device(device))
     else:
         check_flash_dtype(attn_impl, dtype, torch.device(device))

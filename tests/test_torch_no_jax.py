@@ -43,9 +43,9 @@ loader.shuffle_data(1)
 assert loader.next_train_window(2)["x"].shape[0] == 2
 loader.close()
 # the graph helper gathers the twelve kernels' wrappers (B9's one-leaf
-# entry too) without JAX
+# entry too, and B10-B12's float32 three) without JAX
 from theanompi_tpu_torch.parallel import graph
-assert len(graph.kernel_wrappers()) == 13
+assert len(graph.kernel_wrappers()) == 16
 # the zoo builds, and its synthetic Cifar10 set is made, without JAX
 from theanompi_tpu_torch.models.googlenet import GoogLeNet
 from theanompi_tpu_torch.models.resnet50 import ResNet50
@@ -116,6 +116,20 @@ lm = MoETransformerLM({"device": "cpu", "verbose": False, "data_dir": td,
                        "batch_size": 2, "compute_dtype": "float32"})
 assert isinstance(lm.data, TokenFileData)
 assert lm.generate(np.ones((1, 2)), 3).shape == (1, 3)
+# the model-parallel layers and the ring run over a group without JAX
+import torch.distributed as dist
+from theanompi_tpu_torch.models import layers as L
+from theanompi_tpu_torch.ops.ring_attention import (attention_reference,
+                                                    ring_attention)
+from theanompi_tpu_torch.parallel import sp, tp
+pg = dist.ProcessGroupGloo(dist.HashStore(), 0, 1)
+x = torch.randn(1, 2, 8, 4)
+assert torch.allclose(ring_attention(x, x, x, group=pg, causal=True),
+                      attention_reference(x, x, x, causal=True), atol=1e-6)
+logits, labels = torch.randn(4, 6), torch.tensor([0, 1, 2, 5])
+assert torch.allclose(tp.tp_softmax_cross_entropy(logits, labels, pg, 0),
+                      L.softmax_cross_entropy(logits, labels))
+assert float(sp.sp_mean(torch.ones(()), pg)) == 1.0
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "theanompi_tpu" or m.startswith("theanompi_tpu."))
@@ -147,7 +161,10 @@ NEW_MODULES = ("theanompi_tpu_torch.native",
                "theanompi_tpu_torch.models.wgan",
                "theanompi_tpu_torch.models.lsgan",
                "theanompi_tpu_torch.models.data.tokens",
-               "theanompi_tpu_torch.parallel.moe")
+               "theanompi_tpu_torch.parallel.moe",
+               "theanompi_tpu_torch.parallel.tp",
+               "theanompi_tpu_torch.parallel.sp",
+               "theanompi_tpu_torch.ops.ring_attention")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

@@ -227,8 +227,9 @@ def _get(tree, path):
 
 
 @pytest.mark.parametrize("cfg,err", [
-    ({"tp": 2}, NotImplementedError), ({"pp": 2}, NotImplementedError),
-    ({"sp": 2}, NotImplementedError),
+    ({"tp": 2}, ValueError),          # ported: needs a world of that grid
+    ({"pp": 2}, NotImplementedError),
+    ({"sp": 2}, ValueError),          # ported: needs a world of that grid
     ({"seq_len": 192, "attn_impl": "flash"}, ValueError),
     ({"attn_impl": "ring"}, ValueError),
 ])

@@ -78,6 +78,7 @@ import subprocess
 import sys
 
 import numpy as np
+import torch
 
 from theanompi_tpu_torch.models import layers as L
 from theanompi_tpu_torch.models.data import DataBase
@@ -490,14 +491,24 @@ def exchange(strategy, rank, world, init_method, out):
         proc.close()
 
 
+# Each rank's CPU arithmetic on one thread.  A conv's weight gradient on
+# the CPU is summed in per-thread partial sums (the split set by the
+# OpenMP team), so its bits depend on the threads the call gets; under a
+# loaded host a session's bits could then differ from the same session
+# run again, and a bit-equal resume failed (ROADMAP C9).  One thread is
+# one split.
+RANK_ENV = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1",
+            "MKL_DYNAMIC": "FALSE"}
+
+
 def run_ranks(mode, world, tmp_path, tag, *args, timeout=120):
     """Run ``mode`` in ``world`` processes over one gloo group (a file
-    store in ``tmp_path``); returns each rank's output as a dict of
-    arrays, in rank order."""
+    store in ``tmp_path``), each on one CPU thread (``RANK_ENV``); returns
+    each rank's output as a dict of arrays, in rank order."""
     here = os.path.dirname(os.path.abspath(__file__))
     init = "file://" + os.path.join(str(tmp_path), f"store_{tag}")
     out = os.path.join(str(tmp_path), f"out_{tag}")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+    env = dict(os.environ, **RANK_ENV, PYTHONPATH=os.pathsep.join(
         [here, os.path.dirname(here), os.environ.get("PYTHONPATH", "")]))
     procs = [subprocess.Popen(
         [sys.executable, os.path.join(here, "torch_port_helper.py"), mode,
@@ -536,6 +547,7 @@ def island(proc, addr, rule, throttle, seconds):
 
 
 def main(argv):
+    torch.set_num_threads(1)         # RANK_ENV's single split, held here too
     if argv[0] == "island":
         island(*argv[1:])
     elif argv[0] == "train":

@@ -12,6 +12,16 @@ so no port is opened.  Larger worlds name their rendezvous in the config:
 ``init_method`` (``tcp://localhost:<port>`` or ``file:///<path>``), ``rank``
 and ``n_workers``, and ``local_rank``, the rank's GPU on its host; the
 launcher (``launcher.py``) sets all four.
+
+Model parallelism (``tp`` and ``sp`` in the config) makes the world a grid
+of ``n_workers`` × ``tp`` × ``sp`` ranks, in the JAX mesh's axis order
+(``theanompi_tpu/parallel/mesh.py:98-102``): ``workers`` outermost, then
+``model``, ``seq`` innermost.  :class:`Grid` is a rank's place in it and
+its two model-parallel groups; the default process group is the rank's
+``workers`` group (the ranks of its model and seq coordinate), so every
+exchange, metric and checkpoint collective runs over the data-parallel
+workers alone, and ``rank`` and ``size`` stay the JAX package's
+data-parallel ones.
 """
 
 from __future__ import annotations
@@ -50,6 +60,72 @@ def resolve_device(config: dict) -> torch.device:
     return dev
 
 
+def _subgroup(store, rank: int, size: int, device: torch.device):
+    """A process group of ``size`` ranks over ``store``, outside the default
+    group: gloo on the CPU, NCCL on the card.  The model-parallel layers
+    call its methods (``allreduce``, ``allgather``, ``send``, ``recv``)
+    directly."""
+    if device.type == "cuda":
+        return dist.ProcessGroupNCCL(store, rank, size)
+    return dist.ProcessGroupGloo(store, rank, size)
+
+
+class Grid:
+    """A rank's place in the ``dp × tp × sp`` world: its ``(worker, model,
+    seq)`` coordinate, world rank ``(worker·tp + model)·sp + seq``, and its
+    ``model`` and ``seq`` groups (process groups of ``tp`` and ``sp``
+    ranks: the ranks that differ from it in that coordinate alone; None
+    where the degree is 1).  The ``workers`` group is the default one."""
+
+    def __init__(self, dp: int, tp: int, sp: int, world_rank: int):
+        self.dp, self.tp, self.sp = int(dp), int(tp), int(sp)
+        self.world = self.dp * self.tp * self.sp
+        if not 0 <= world_rank < self.world:
+            raise ValueError(f"rank {world_rank} outside the world of "
+                             f"{self.dp} workers × tp {self.tp} × sp "
+                             f"{self.sp}")
+        self.world_rank = int(world_rank)
+        self.worker, rem = divmod(self.world_rank, self.tp * self.sp)
+        self.model, self.seq = divmod(rem, self.sp)
+        self.model_group = self.seq_group = None
+
+    @property
+    def lead(self) -> bool:
+        """Model 0, seq 0: the coordinate whose workers write what the
+        world holds once (a checkpoint of global arrays)."""
+        return self.model == 0 and self.seq == 0
+
+    def barrier(self) -> None:
+        """Wait until world rank 0 has come here: over the workers group,
+        then the model group, then the seq group, so that a rank passes
+        only after its worker's model 0, seq 0 rank has, and that one only
+        after world rank 0 has."""
+        dist.barrier()
+        for g in (self.model_group, self.seq_group):
+            if g is not None:
+                g.barrier().wait()
+
+    def join(self, store, device: torch.device) -> None:
+        """Make this rank's model and seq groups over the world's store."""
+        w, m, s = self.worker, self.model, self.seq
+        if self.tp > 1:
+            self.model_group = _subgroup(
+                dist.PrefixStore(f"model.w{w}.s{s}/", store), m, self.tp,
+                device)
+        if self.sp > 1:
+            self.seq_group = _subgroup(
+                dist.PrefixStore(f"seq.w{w}.m{m}/", store), s, self.sp,
+                device)
+
+
+def model_parallel_degrees(config: dict) -> tuple:
+    """``(tp, sp)`` of a config; ``pp > 1`` is refused (A9d)."""
+    if int(config.get("pp", 1)) != 1:
+        raise NotImplementedError("pp > 1 (pipeline parallelism) is not "
+                                  "ported yet (A9d)")
+    return int(config.get("tp", 1)), int(config.get("sp", 1))
+
+
 class MeshProcess:
     """≙ reference ``MPI_GPU_Process``."""
 
@@ -64,6 +140,7 @@ class MeshProcess:
         self.world_rank = 0
         self.group = 0
         self.store = None
+        self.grid: Optional[Grid] = None
         self._owns_group = False
 
     def get_internode_comm(self, group_size: Optional[int] = None):
@@ -75,7 +152,18 @@ class MeshProcess:
         rank ``r`` joins group ``r // K`` as its rank ``r % K``, over the
         ``init_method``'s store under the group's prefix.  ``rank`` and
         ``size`` are then the group's; ``world_rank``, ``group`` and
-        ``store`` (the whole world's) are kept."""
+        ``store`` (the whole world's) are kept.
+
+        With ``tp`` or ``sp`` above 1 the world is the grid of
+        ``n_workers`` × tp × sp ranks (``rank`` names a world rank): this
+        rank joins its ``workers`` group as the default group, and its
+        model and seq groups (:class:`Grid`, ``config['grid']``)."""
+        tp, sp = model_parallel_degrees(self.config)
+        if tp * sp > 1:
+            if group_size is not None:
+                raise NotImplementedError(
+                    "islands of a model-parallel world are not ported")
+            return self._join_grid(tp, sp)
         n = int(self.config.get("n_workers") or 1)
         self.world_rank = int(self.config.get("rank", 0))
         if not 0 <= self.world_rank < n:
@@ -115,6 +203,35 @@ class MeshProcess:
         self.config.update(rank=self.rank, size=self.size,
                            device=str(self.device), verbose=self.verbose)
 
+    def _join_grid(self, tp: int, sp: int) -> None:
+        n = int(self.config.get("n_workers") or 1)
+        grid = Grid(n, tp, sp, int(self.config.get("rank", 0)))
+        self.world_rank = grid.world_rank
+        self.device = self.init_device()
+        if dist.is_initialized():
+            raise RuntimeError("a process group exists; a model-parallel "
+                               "world makes its own")
+        init = self.config.get("init_method")
+        if not init:
+            raise ValueError(f"a world of {grid.world} ranks (tp={tp}, "
+                             f"sp={sp}) needs config 'init_method' "
+                             f"(tcp://localhost:<port> or file:///<path>)")
+        self.store, _, _ = next(dist.rendezvous(
+            str(init), rank=grid.world_rank, world_size=grid.world))
+        backend = "nccl" if self.device.type == "cuda" else "gloo"
+        dist.init_process_group(
+            backend=backend, rank=grid.worker, world_size=n,
+            store=dist.PrefixStore(f"workers.m{grid.model}.s{grid.seq}/",
+                                   self.store))
+        self._owns_group = True
+        grid.join(self.store, self.device)
+        self.grid = grid
+        self.rank, self.size = grid.worker, n
+        self.verbose = self.verbose and self.world_rank == 0
+        self.config.update(rank=self.rank, size=self.size,
+                           device=str(self.device), verbose=self.verbose,
+                           grid=grid)
+
     def init_device(self) -> torch.device:
         """This rank's device (:func:`resolve_device`), bound as the current
         CUDA device."""
@@ -128,6 +245,7 @@ class MeshProcess:
         if self._owns_group and dist.is_initialized():
             dist.destroy_process_group()
         self._owns_group = False
+        self.grid = None
 
     def build_model(self, modelfile: str, modelclass: str):
         """Import the model by dotted module path + class name."""

@@ -264,6 +264,11 @@ def checkpoint_from_jax(ckpt_dir: str, model,
     async rule) gives this rank its own row.  Returns the epoch loaded,
     or None when there is none.
 
+    Under tensor parallelism (a model with ``param_specs``) the JAX
+    package's global arrays are converted whole and each rank keeps its
+    shards; a stateful strategy's state or a sharded update layout there
+    is refused (A9d).
+
     JAX PRNG keys have no torch counterpart: the checkpoint's step and
     exchange keys are not read, and the model's generators keep the
     streams its config's seed started (the dropout bits differ from JAX's
@@ -279,6 +284,18 @@ def checkpoint_from_jax(ckpt_dir: str, model,
     boxed = set(meta.get("boxed_parts", ()))
     kept = frozenset(model.kept_layout_paths())
     params = model.params
+    split = getattr(model, "param_specs", lambda: None)() is not None
+    if split:
+        # tensor parallelism: the JAX package saved the global arrays; they
+        # are converted whole and each rank keeps its shards (local_state)
+        if model.extra.get("strat") is not None or \
+                model._fsdp is not None or model._zero_layout is not None \
+                or model._ushard_plan is not None:
+            raise NotImplementedError(
+                "a JAX checkpoint under tp with a stateful strategy or a "
+                "sharded update layout is not ported yet (A9d)")
+        params = model.gather_params(tree_map(
+            lambda p: p.detach(), model.params))
     jpaths = jax_leaf_paths(params)
     rank = model.rank
     fsdp, zero = model._fsdp, model._zero_layout
@@ -415,6 +432,11 @@ def checkpoint_from_jax(ckpt_dir: str, model,
             if f.startswith("_cursor__"):
                 cursor[f[len("_cursor__"):]] = z[f]
 
+    if split:
+        mine = model.local_state({"params": new_params, "opt_state": new_opt,
+                                  "extra": new_extra})
+        new_params, new_opt, new_extra = (
+            mine["params"], mine["opt_state"], mine["extra"])
     if fsdp is not None:
         with torch.no_grad():
             fsdp.shard.copy_(torch.from_numpy(np.ascontiguousarray(new_params)))

@@ -274,6 +274,25 @@ class ModelBase:
         return frozenset((k,) + p for k, layer in self.layers().items()
                          for p in layer.kept_layout_paths())
 
+    # a model-parallel layout's place in the world (``base.Grid``; None:
+    # every rank holds the whole model)
+    grid = None
+
+    def reduce_model_grads(self, grads) -> None:
+        """The step's gradient leaves, reduced in place over the groups a
+        model-parallel layout replicates them on (nothing to do without
+        one)."""
+
+    def global_state(self, parts):
+        """The state parts (:meth:`_state_parts`) as the global arrays a
+        checkpoint holds; a model-parallel layout gathers its shards."""
+        return parts
+
+    def local_state(self, parts):
+        """This rank's state of global parts: :meth:`global_state`'s
+        inverse."""
+        return parts
+
     def apply_model(self, params, x, *, train: bool, gen, state):
         """Returns logits; a training forward updates ``state`` (the BN
         running stats) in place."""
@@ -454,6 +473,12 @@ class ModelBase:
                                "model through a Worker or "
                                "base.MeshProcess.get_internode_comm()")
         self.exchanger = exchanger
+        if self.grid is not None:
+            for k in ("fsdp", "zero_opt", "update_sharding"):
+                if self.config.get(k):
+                    raise NotImplementedError(
+                        f"{k} under a model-parallel layout (tp/sp) is not "
+                        f"ported yet (A9d)")
         size, rank = (dist.get_world_size(), dist.get_rank()) \
             if exchanger.collective else (1, 0)
         self._ushard_plan = self._plan_update(size)
@@ -599,9 +624,11 @@ class ModelBase:
         return self._full_of(st["ema"])
 
     def canonical_host_params(self):
-        """:meth:`canonical_params` as a tree of float32 numpy arrays."""
-        return tree_map(lambda p: p.detach().cpu().numpy(),
-                        self.canonical_params())
+        """:meth:`canonical_params` as a tree of float32 numpy arrays, the
+        global ones under a model-parallel layout (a collective there)."""
+        params = tree_map(lambda p: p.detach(), self.canonical_params())
+        return tree_map(lambda p: p.cpu().numpy(),
+                        self.global_state({"params": params})["params"])
 
     def begin_val(self) -> None:
         """Choose what validation scores: :meth:`canonical_params`, with,
@@ -703,36 +730,44 @@ class ModelBase:
         rank 0; :meth:`_per_rank_parts`), the dropout stream's generator,
         and the data loader's consumed cursor; plus the reference-style
         per-leaf ``.npy`` snapshot of :meth:`canonical_params` (the center,
-        the consensus, the EMA shadow or the params).  Rank 0 writes; every
-        rank must call (the gather is collective).  Returns the ``.npz``
-        path."""
+        the consensus, the EMA shadow or the params).  A model-parallel
+        layout saves the global arrays (:meth:`global_state`), written by
+        its model 0, seq 0 ranks alone, so a checkpoint resumes at any tp
+        or sp.  Rank 0 writes; every rank must call (the gathers are
+        collective).  Returns the ``.npz`` path."""
         import os
 
         import torch.distributed as dist
         self._refuse_ckpt_layouts()
         per_rank = self._per_rank_parts()
+        parts = self.global_state(self._state_parts())
         snapshot = self.canonical_host_params()
-        state = {}
-        for k, tree in self._state_parts().items():
-            if k in per_rank:
-                tree = tree_map(self._gather_ranks, tree)
-            elif self.rank == 0:
-                tree = tree_map(
-                    lambda l: l.detach().cpu().numpy()
-                    if isinstance(l, torch.Tensor) else np.int32(l), tree)
-            state[k] = tree
         path = os.path.join(ckpt_dir, f"ckpt_epoch{epoch}.npz")
-        if self.rank == 0:
-            cursor = self.data.get_cursor() \
-                if hasattr(self.data, "get_cursor") else None
-            gen = torch.Generator().manual_seed(self.step_seed)
-            ckpt_lib.save_checkpoint(
-                ckpt_dir, state, epoch, count,
-                rng_states={"step": gen.get_state()}, cursor=cursor,
-                params_npy=snapshot,
-                extra_meta=self._layout_meta(per_rank))
-        if dist.is_initialized() and dist.get_world_size() > 1:
-            dist.barrier()            # the files exist before anyone reads
+        if self.grid is None or self.grid.lead:
+            # (the other coordinates of a grid hold the same global arrays)
+            state = {}
+            for k, tree in parts.items():
+                if k in per_rank:
+                    tree = tree_map(self._gather_ranks, tree)
+                elif self.rank == 0:
+                    tree = tree_map(
+                        lambda l: l.detach().cpu().numpy()
+                        if isinstance(l, torch.Tensor) else np.int32(l),
+                        tree)
+                state[k] = tree
+            if self.rank == 0:
+                cursor = self.data.get_cursor() \
+                    if hasattr(self.data, "get_cursor") else None
+                gen = torch.Generator().manual_seed(self.step_seed)
+                ckpt_lib.save_checkpoint(
+                    ckpt_dir, state, epoch, count,
+                    rng_states={"step": gen.get_state()}, cursor=cursor,
+                    params_npy=snapshot,
+                    extra_meta=self._layout_meta(per_rank))
+        if self.grid is not None:
+            self.grid.barrier()       # the files exist before anyone reads
+        elif dist.is_initialized() and dist.get_world_size() > 1:
+            dist.barrier()
         return path
 
     def _layout_meta(self, per_rank) -> dict:
@@ -780,18 +815,21 @@ class ModelBase:
                 if k in boxed else tuple(getattr(l, "shape", ()))
 
         template = {k: tree_map(lambda l, f=shape_of(k): _Shaped(f(l)), tree)
-                    for k, tree in self._state_parts().items()}
+                    for k, tree in self.global_state(
+                        self._state_parts()).items()}
         restored = ckpt_lib.load_checkpoint(ckpt_dir, template,
                                             int(meta["epoch"]))
         if restored is None:
             return None
+        mine = self.local_state({
+            k: tree_map(lambda a: a[self.rank], restored[k])
+            if k in boxed else restored[k] for k in template})
 
         # every tensor is written in place, so a captured step keeps
         # reading it (the optimizer's own load keeps Adam's count groups;
         # a tensor it must replace makes the step capture again)
         for k, tree in self._state_parts().items():
-            host = tree_map(lambda a: a[self.rank], restored[k]) \
-                if k in boxed else restored[k]
+            host = mine[k]
             if k == "opt_state":
                 self.opt_state = opt_lib.load_state(tree, host)
             else:

@@ -1,26 +1,35 @@
 """Decoder-only transformer language models.
 
-Counterpart of ``theanompi_tpu/models/transformer_lm.py`` on one device per
-rank (``tp = pp = sp = 1``): ``LMData`` (the synthetic token stream,
-bit-equal to the JAX package's) or, with ``data_dir``, the token files of
-``data/tokens.py``; the pre-LN ``Block``, ``TransformerLM`` and the
-sparse-FFN ``MoETransformerLM`` (its ``MoEBlock``s' experts at one shard,
-``parallel/moe.py``), trained under the same model contract as the CNN
-zoo::
+Counterpart of ``theanompi_tpu/models/transformer_lm.py``: ``LMData`` (the
+synthetic token stream, bit-equal to the JAX package's) or, with
+``data_dir``, the token files of ``data/tokens.py``; the pre-LN
+``Block``, ``TransformerLM`` and the sparse-FFN ``MoETransformerLM`` (its
+``MoEBlock``s' experts at one shard, ``parallel/moe.py``), trained under
+the same model contract as the CNN zoo::
 
     BSP().init(devices=1, modelfile='theanompi_tpu_torch.models.transformer_lm',
                modelclass='TransformerLM', attn_impl='flash', ...)
 
 ``attn_impl='flash'`` runs every attention through the hand-written kernels
-B10–B12 on the card (``ops/flash_attention.py``), which take bfloat16 only:
+B10–B12 on the card (``ops/flash_attention.py``), in bfloat16 or float32:
 on a CUDA device another compute dtype is refused when the model is built
 (:func:`check_flash_dtype`); ``'reference'`` runs through torch ops.
 ``remat`` recomputes each block's forward in the backward
 (``torch.utils.checkpoint``; B10 then runs twice a block a step).
 :meth:`TransformerLM.generate` samples continuations, with the KV cache
 (one prefill forward through B10, then one token a step) or by the full
-forward a token.  Tensor, pipeline and sequence parallelism (and the MoE's
-expert-parallel and all-to-all forms) are not ported yet and raise (A9d).
+forward a token.
+
+``tp`` and ``sp`` lay the dense LM over a model-parallel grid of ranks
+(``base.Grid``): ``tp`` shards heads, MLP columns, the vocabulary of the
+embedding and of the head over the ``model`` group (``parallel/tp.py``;
+B10–B12 run on each rank's ``n_head/tp`` heads), ``sp`` the tokens over the
+``seq`` group with ring attention (``parallel/sp.py``).  Each rank holds
+its shard of every leaf (:meth:`TransformerLM.param_specs`: the dim of the
+port's layout that the model group splits), made from the dense model's
+initial params, and feeds its worker's rows and its seq block of tokens.
+Pipeline parallelism, the MoE's expert parallelism and its sequence
+all-to-all are not ported yet and raise (A9d).
 """
 
 from __future__ import annotations
@@ -30,7 +39,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..parallel.moe import MoE
-from ..utils.helper_funcs import tree_map
+from ..utils.helper_funcs import leaf_paths, tree_leaves, tree_map
 from . import layers as L
 from .data import DataBase
 from .model_base import ModelBase
@@ -69,19 +78,54 @@ class LMData(DataBase):
 
 
 class Block(L.Layer):
-    """Pre-LN transformer block: LN→MHA→residual, LN→MLP→residual."""
+    """Pre-LN transformer block: LN→MHA→residual, LN→MLP→residual.
+
+    With a ``grid`` of ``tp > 1`` the attention is head-sharded and the MLP
+    column→row-parallel over the model group; with ``sp > 1`` the
+    attention is the ring over the seq group (both: heads and tokens).
+    Same init and math as the dense block."""
 
     def __init__(self, dim, n_head, mlp_ratio=4, cd=torch.bfloat16,
-                 attn_impl="reference", name="block"):
+                 attn_impl="reference", name="block", grid=None):
+        from ..parallel import sp as splib
+        from ..parallel import tp as tplib
         self.name = name
+        tp, sp = (grid.tp, grid.sp) if grid is not None else (1, 1)
+        self.tp = tp
         self.ln1 = L.LayerNorm(dim, name="ln1")
-        self.attn = L.MultiHeadAttention(dim, n_head, compute_dtype=cd,
-                                         attn_impl=attn_impl, name="attn")
+        kw = dict(compute_dtype=cd, name="attn")
+        if tp > 1 and sp > 1:
+            self.attn = splib.TPRingMultiHeadAttention(
+                dim, n_head, tp, group=grid.model_group,
+                seq_group=grid.seq_group, **kw)
+        elif tp > 1:
+            self.attn = tplib.TPMultiHeadAttention(
+                dim, n_head, tp, group=grid.model_group,
+                attn_impl=attn_impl, **kw)
+        elif sp > 1:
+            self.attn = splib.RingMultiHeadAttention(
+                dim, n_head, seq_group=grid.seq_group, **kw)
+        else:
+            self.attn = L.MultiHeadAttention(dim, n_head, attn_impl=attn_impl,
+                                             **kw)
         self.ln2 = L.LayerNorm(dim, name="ln2")
-        self.fc1 = L.FC(dim, mlp_ratio * dim, w_init=("normal", 0.02),
-                        activation="relu", compute_dtype=cd, name="fc1")
-        self.fc2 = L.FC(mlp_ratio * dim, dim, w_init=("normal", 0.02),
-                        activation=None, compute_dtype=cd, name="fc2")
+        col, row = (L.FC, L.FC) if tp == 1 else (
+            lambda *a, **k: tplib.ColumnFC(*a, group=grid.model_group, **k),
+            lambda *a, **k: tplib.RowFC(*a, group=grid.model_group, **k))
+        self.fc1 = col(dim, mlp_ratio * dim, w_init=("normal", 0.02),
+                       activation="relu", compute_dtype=cd, name="fc1")
+        self.fc2 = row(mlp_ratio * dim, dim, w_init=("normal", 0.02),
+                       activation=None, compute_dtype=cd, name="fc2")
+
+    def specs(self):
+        """The dim of each leaf (port layout) the model group splits, None
+        where it is replicated (``transformer_lm.py:98-110`` there); None
+        when dense."""
+        if self.tp == 1:
+            return None
+        ln = {"scale": None, "bias": None}
+        return {"ln1": ln, "attn": {"wq": 0, "wk": 0, "wv": 0, "wo": 1},
+                "ln2": ln, "fc1": {"w": 0, "b": 0}, "fc2": {"w": 1, "b": None}}
 
     def sublayers(self):
         return {"ln1": self.ln1, "attn": self.attn, "ln2": self.ln2,
@@ -147,14 +191,17 @@ class MoEBlock(Block):
 
 def check_flash_dtype(attn_impl: str, compute_dtype: torch.dtype,
                       device) -> None:
-    """Refuse ``attn_impl='flash'`` with a compute dtype other than
-    bfloat16 on a CUDA device: the flash kernels B10–B12 take bfloat16
-    only.  On the CPU the plain versions compute any dtype."""
+    """Refuse ``attn_impl='flash'`` on a CUDA device with a compute dtype
+    that the flash kernels B10–B12 have no instantiation for (they take
+    bfloat16 and float32).  On the CPU the plain versions compute any
+    dtype."""
+    from ..ops.flash_attention import DTYPES
     if attn_impl == "flash" and torch.device(device).type == "cuda" and \
-            compute_dtype != torch.bfloat16:
+            compute_dtype not in DTYPES:
         raise ValueError(f"attn_impl='flash' on {device} needs "
-                         f"compute_dtype bfloat16: the flash kernels B10-B12 "
-                         f"take bfloat16 only; got {compute_dtype}")
+                         f"compute_dtype bfloat16 or float32: the flash "
+                         f"kernels B10-B12 take bfloat16 or float32; got "
+                         f"{compute_dtype}")
 
 
 class TransformerLM(ModelBase):
@@ -176,25 +223,65 @@ class TransformerLM(ModelBase):
         for k in ("vocab", "d_model", "n_head", "n_layer", "seq_len"):
             if k in self.config:
                 setattr(self, k, int(self.config[k]))
-        for k in ("tp", "pp", "sp"):
-            if int(self.config.get(k, 1)) != 1:
-                raise NotImplementedError(f"{k} > 1 is not ported yet (A9d)")
+        for k in ("pp_microbatches", "pp_interleave"):
+            if int(self.config.get(k, 0 if k == "pp_microbatches" else 1)) \
+                    not in (0, 1):
+                raise NotImplementedError(f"{k} (pipeline parallelism) is "
+                                          f"not ported yet (A9d)")
+        if int(self.config.get("pp", 1)) != 1:
+            raise NotImplementedError("pp > 1 (pipeline parallelism) is not "
+                                      "ported yet (A9d)")
+        self.tp = int(self.config.get("tp", 1))
+        self.sp = int(self.config.get("sp", 1))
         attn_impl = str(self.config.get("attn_impl", "reference"))
         if attn_impl == "flash" and self.seq_len % 128:
             # the JAX package's build-time check, kept for the same configs
             raise ValueError(f"attn_impl='flash' needs seq_len a multiple of "
                              f"the kernel's 128-wide blocks; got "
                              f"{self.seq_len}")
+        if attn_impl != "reference" and self.sp > 1:
+            # sequence-sharded attention is the ring (the JAX package's
+            # assertion), so a flash request fails rather than run it
+            raise ValueError(f"attn_impl={attn_impl!r} does not apply under "
+                             f"sp > 1 (sequence-sharded attention is the "
+                             f"ring)")
         check_flash_dtype(attn_impl, cd, self.device)
-        self.embed = L.Embedding(self.vocab, self.d_model, compute_dtype=cd)
+        grid = self.config.get("grid")
+        if self.tp * self.sp > 1:
+            # the JAX package's mesh check: the grid this rank joined
+            if grid is None or (grid.tp, grid.sp) != (self.tp, self.sp):
+                raise ValueError(
+                    f"tp={self.tp}, sp={self.sp} need a world of that grid "
+                    f"(base.MeshProcess with the same keys); got "
+                    f"{None if grid is None else (grid.tp, grid.sp)}")
+            if self.seq_len % self.sp:
+                raise ValueError(f"seq_len={self.seq_len} not divisible by "
+                                 f"sp={self.sp}")
+        else:
+            grid = None
+        self.grid = grid
+        if self.tp > 1:
+            from ..parallel import tp as tplib
+            self.embed = tplib.VocabParallelEmbedding(
+                self.vocab, self.d_model, self.tp, rank=grid.model,
+                group=grid.model_group, compute_dtype=cd)
+            self.head = tplib.ColumnFC(
+                self.d_model, self.vocab, w_init=("normal", 0.02),
+                activation=None, compute_dtype=cd, name="head",
+                group=grid.model_group)
+        else:
+            self.embed = L.Embedding(self.vocab, self.d_model,
+                                     compute_dtype=cd)
+            self.head = L.FC(self.d_model, self.vocab,
+                             w_init=("normal", 0.02), activation=None,
+                             compute_dtype=cd, name="head")
         self.pos = L.Embedding(self.seq_len, self.d_model, compute_dtype=cd,
                                name="pos")
         self.blocks = [Block(self.d_model, self.n_head, cd=cd,
-                             attn_impl=attn_impl, name=f"block{i}")
+                             attn_impl=attn_impl, name=f"block{i}",
+                             grid=grid)
                        for i in range(self.n_layer)]
         self.ln_f = L.LayerNorm(self.d_model, name="ln_f")
-        self.head = L.FC(self.d_model, self.vocab, w_init=("normal", 0.02),
-                         activation=None, compute_dtype=cd, name="head")
         if self.config.get("data_dir"):
             # a real corpus: nanoGPT-style flat token files, memory-mapped
             from .data.tokens import TokenFileData
@@ -207,6 +294,139 @@ class TransformerLM(ModelBase):
         return dict({"embed": self.embed, "pos": self.pos, "ln_f": self.ln_f,
                      "head": self.head}, **{b.name: b for b in self.blocks})
 
+    # -- the model-parallel layout ------------------------------------------
+
+    def param_specs(self):
+        """Which dim of each leaf (port layout) the model group splits,
+        None where every model rank holds it whole; None for a model with
+        no tensor parallelism (``transformer_lm.py:334-376`` there: the
+        sequence group holds every leaf whole)."""
+        if self.tp == 1:
+            return None
+        return {"embed": {"w": 0}, "pos": {"w": None},
+                "ln_f": {"scale": None, "bias": None},
+                "head": {"w": 0, "b": 0},
+                **{b.name: b.specs() for b in self.blocks}}
+
+    def _dims(self, tree):
+        """Per leaf of a params-shaped ``tree``: the dim the model group
+        splits, None where every model rank holds it whole (a scalar such
+        as Adam's count included)."""
+        return tree_map(lambda a, d: None if np.ndim(a) == 0 else d, tree,
+                        self.param_specs())
+
+    def _chunk(self, a, dim: int):
+        """Chunk ``grid.model`` of ``grid.tp`` of ``a`` (a tensor or an
+        array) along ``dim``, contiguous and of its own."""
+        g = self.grid
+        if isinstance(a, torch.Tensor):
+            return a.chunk(g.tp, dim=dim)[g.model].clone(
+                memory_format=torch.contiguous_format)
+        return np.ascontiguousarray(np.split(np.asarray(a), g.tp,
+                                             axis=dim)[g.model])
+
+    def shard_params(self, tree):
+        """This rank's shard of a global params-shaped tree of tensors or
+        arrays (port layout): each split leaf's chunk along its dim."""
+        if self.param_specs() is None:
+            return tree
+        return tree_map(lambda a, d: a if d is None else self._chunk(a, d),
+                        tree, self._dims(tree))
+
+    def gather_params(self, tree):
+        """The global tree of a local params-shaped one: each split leaf's
+        shards gathered over the model group and joined (a collective:
+        every model rank calls)."""
+        if self.param_specs() is None:
+            return tree
+        from ..parallel.tp import all_gather
+        return tree_map(lambda a, d: a if d is None else torch.cat(
+            list(all_gather(a, self.grid.model_group)), dim=d), tree,
+            self._dims(tree))
+
+    def _params_like(self, tree, fn):
+        """``tree`` with ``fn`` applied to each subtree shaped as the params
+        (the params, Adam's moments and counts, an EMA shadow, a center)."""
+        if not isinstance(tree, dict):
+            return tree
+        if leaf_paths(tree) == leaf_paths(self.params):
+            return fn(tree)
+        return {k: self._params_like(v, fn) for k, v in tree.items()}
+
+    def global_state(self, parts):
+        """The state parts as global arrays, as a checkpoint holds them (a
+        collective over the model group): each params-shaped subtree
+        gathered (:meth:`gather_params`), and a strategy's state, which
+        each model rank keeps for its own shards, joined in the JAX
+        package's shapes: a flat vector the model ranks' end to end
+        (``[tp·n]``), each array of a per-leaf state on a leading ``[tp]``
+        axis."""
+        if self.param_specs() is None:
+            return parts
+        from ..parallel.tp import all_gather
+        out = {k: self._params_like(v, self.gather_params)
+               for k, v in parts.items()}
+        st = parts.get("extra", {}).get("strat")
+        if st is not None:
+            g = self.grid.model_group
+            out["extra"] = dict(out["extra"], strat=all_gather(
+                st, g).reshape(-1) if isinstance(st, torch.Tensor) else
+                tree_map(lambda a: all_gather(a, g), st))
+        return out
+
+    def local_state(self, parts):
+        """This rank's state from global parts (host arrays or tensors):
+        the inverse of :meth:`global_state`."""
+        if self.param_specs() is None:
+            return parts
+        out = {k: self._params_like(v, self.shard_params)
+               for k, v in parts.items()}
+        st = out.get("extra", {}).get("strat")
+        if st is not None:
+            out["extra"] = dict(out["extra"], strat=tree_map(
+                lambda a: a[self.grid.model], st) if isinstance(st, list)
+                else self._chunk(st, 0))
+        return out
+
+    def init_params(self, gen):
+        """The dense model's initial params (the same draws), cut to this
+        rank's shards."""
+        return self.shard_params(super().init_params(gen))
+
+    def model_split_leaves(self) -> list:
+        """Per leaf (``tree_leaves`` order): True where the model group
+        splits it."""
+        specs = self.param_specs()
+        if specs is None:
+            return [False] * len(tree_leaves(self.params))
+        return tree_leaves(tree_map(lambda a, d: d is not None, self.params,
+                                    specs))
+
+    def reduce_model_grads(self, grads) -> None:
+        """The step's gradient leaves, summed in place over the seq group:
+        each seq rank's is its token block's share (the loss is
+        :func:`parallel.sp.sp_mean` of the blocks')."""
+        if self.sp > 1:
+            from ..parallel.tp import all_reduce
+            for g in grads:
+                g.copy_(all_reduce(g, self.grid.seq_group))
+
+    def _local_tokens(self, batch):
+        """This rank's block of tokens: ``[B, T/sp]`` of x and y under sp
+        (``batch_spec``, :401-406 there: rows over workers, tokens over
+        seq)."""
+        if self.sp == 1:
+            return batch
+        t = batch["x"].shape[-1] // self.sp
+        s = self.grid.seq
+        return {k: v[..., s * t:(s + 1) * t] for k, v in batch.items()}
+
+    def _pos_ids(self, t: int, device):
+        """Global positions of a ``[B, t]`` token block (offset by the seq
+        rank under sp)."""
+        pos = torch.arange(t, device=device)
+        return pos + self.grid.seq * t if self.sp > 1 else pos
+
     def _embed(self, params, x, pos):
         """Token plus position embeddings of ``x`` ``[B, t]`` at the
         positions ``pos`` ``[t]``."""
@@ -218,7 +438,7 @@ class TransformerLM(ModelBase):
                                self.ln_f.apply(params["ln_f"], h))
 
     def apply_model(self, params, x, *, train: bool, gen, state):
-        h = self._embed(params, x, torch.arange(x.shape[1], device=x.device))
+        h = self._embed(params, x, self._pos_ids(x.shape[1], x.device))
         remat = train and self.config.get("remat", False)
         for blk in self.blocks:
             if remat:
@@ -234,19 +454,42 @@ class TransformerLM(ModelBase):
         return self._head(params, h)
 
     def _flat(self, params, batch, train):
+        batch = self._local_tokens(batch)
         logits = self.apply_model(params, batch["x"], train=train, gen=None,
                                   state=None)
         return logits.reshape(-1, logits.shape[-1]), batch["y"].reshape(-1)
 
+    def _heads(self, flat, y, smoothing: float = 0.0, top5: bool = False):
+        """Cost, error (and top-5 error) of ``[N, V]`` logits, or of their
+        vocab shards under tp; averaged over the seq blocks under sp."""
+        if self.tp > 1:
+            from ..parallel import tp as tplib
+            g = self.grid
+            out = [tplib.tp_softmax_cross_entropy(flat, y, g.model_group,
+                                                  g.model, smoothing),
+                   tplib.tp_errors(flat, y, g.model_group, g.model)]
+            if top5:
+                out.append(tplib.tp_errors_top_x(flat, y, g.model_group,
+                                                 g.model, 5))
+        else:
+            out = [L.softmax_cross_entropy(flat, y, smoothing),
+                   L.errors(flat, y)]
+            if top5:
+                out.append(L.errors_top_x(flat, y, 5))
+        if self.sp > 1:
+            from ..parallel.sp import sp_mean
+            out = [sp_mean(v, self.grid.seq_group) for v in out]
+        return out
+
     def loss_and_metrics(self, params, bn_state, batch, gen, train: bool):
         flat, y = self._flat(params, batch, train)
-        cost = L.softmax_cross_entropy(flat, y, self._label_smoothing(train))
-        return cost, L.errors(flat, y)
+        cost, err = self._heads(flat, y, self._label_smoothing(train))
+        return cost, err
 
     def val_metrics(self, params, bn_state, batch):
         flat, y = self._flat(params, batch, False)
-        return L.softmax_cross_entropy(flat, y), (L.errors(flat, y),
-                                                  L.errors_top_x(flat, y, 5))
+        cost, err, err5 = self._heads(flat, y, top5=True)
+        return cost, (err, err5)
 
     # -- inference -----------------------------------------------------------
 
@@ -268,6 +511,12 @@ class TransformerLM(ModelBase):
         over the buffer for every token.  A Python loop over the steps.
         ``params`` (port layout; default :meth:`canonical_params`: the
         EMA shadow when on, an async rule's center or consensus)."""
+        if self.grid is not None:
+            # a model-parallel layout: every rank gathers the global params
+            # and samples on a dense twin (the same model)
+            return self._dense_twin().generate(
+                prompt, max_new_tokens, temperature=temperature, seed=seed,
+                kv_cache=kv_cache, params=self._gathered_dense_params(params))
         prompt = np.asarray(prompt, dtype=np.int64)
         if prompt.ndim == 1:
             prompt = prompt[None]
@@ -288,6 +537,29 @@ class TransformerLM(ModelBase):
         new = body(params, toks, p_len, gen, float(temperature),
                    int(max_new_tokens))
         return new.to(torch.int32).cpu().numpy()
+
+    def _dense_twin(self):
+        """A ``tp = sp = 1`` copy of this model (same dims and class) on
+        this rank's device, built once: the sampler of a model-parallel
+        layout (``transformer_lm.py:569-588`` there)."""
+        if getattr(self, "_twin", None) is None:
+            cfg = {k: v for k, v in self.config.items()
+                   if k not in ("grid", "tp", "sp", "pp", "data_dir",
+                                "pp_microbatches", "pp_interleave")}
+            cfg.update(size=1, rank=0, verbose=False, batch_size=1,
+                       synthetic_train=2, synthetic_val=2)
+            self._twin = type(self)(cfg)
+        return self._twin
+
+    def _gathered_dense_params(self, params=None):
+        """The dense layout's params: :meth:`canonical_params` (or
+        ``params``, this rank's shards) with every split leaf gathered over
+        the model group; the seq group holds them whole (a collective:
+        every model rank calls)."""
+        params = self.canonical_params() if params is None else tree_map(
+            lambda a: torch.as_tensor(np.asarray(a)) if not isinstance(
+                a, torch.Tensor) else a, params)
+        return self.gather_params(tree_map(lambda a: a.detach(), params))
 
     def _next_token(self, row, gen, temp: float):
         """Greedy or categorical choice from one ``[B, V]`` logit row (the
@@ -346,6 +618,12 @@ class MoETransformerLM(TransformerLM):
     capacity_factor = 1.25
 
     def build_model(self) -> None:
+        for k, what in (("tp", "expert parallelism (ep = tp > 1)"),
+                        ("sp", "the sequence-sharded all-to-all "
+                               "(seq_shards = sp > 1)")):
+            if int(self.config.get(k, 1)) != 1:
+                raise NotImplementedError(f"MoETransformerLM: {what} is not "
+                                          f"ported yet (A9d)")
         super().build_model()
         cd = L.as_dtype(self.config.get("compute_dtype", torch.bfloat16))
         for k in ("moe_experts", "moe_every", "moe_topk"):

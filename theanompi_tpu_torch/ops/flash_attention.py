@@ -19,13 +19,17 @@ Two implementations of the same function:
   the kernels against them.
 * :func:`flash_fwd_cuda` (B10), :func:`flash_bwd_dkv_cuda` (B11) and
   :func:`flash_bwd_dq_cuda` (B12) — the hand-written Hopper kernels of
-  ``csrc/flash_attention.cu``: bfloat16, head dim 32, 64 or 128, T a
-  multiple of 64; anything else raises.
+  ``csrc/flash_attention.cu``, bfloat16 — and their float32 instantiation,
+  :func:`flash_fwd_f32_cuda`, :func:`flash_bwd_dkv_f32_cuda` and
+  :func:`flash_bwd_dq_f32_cuda` (``csrc/flash_attention_f32.cu``: true
+  float32 products, nothing rounded below float32, as the TPU kernel in
+  float32).  Head dim 32, 64 or 128, T a multiple of 64; anything else
+  raises.
 
 :class:`FlashAttentionFunction` joins a forward and a backward: the kernels
-for a CUDA tensor, the plain versions for a CPU one (``_kernel_build.route``),
-with ``q, k, v, o, lse`` as residuals.  :func:`flash_attention` is the public
-op.  Nothing falls back.
+for a CUDA tensor (the instantiation of its dtype), the plain versions for a
+CPU one (``_kernel_build.route``), with ``q, k, v, o, lse`` as residuals.
+:func:`flash_attention` is the public op.  Nothing falls back.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from . import _kernel_build
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 TILE = 64                  # the kernels' q and k/v tile rows
 HEAD_DIMS = (32, 64, 128)
+DTYPES = (torch.bfloat16, torch.float32)   # the kernels' instantiations
 
 
 def _scale(q: torch.Tensor, sm_scale: Optional[float]) -> float:
@@ -97,38 +102,50 @@ def flash_bwd_plain(q, k, v, o, lse, do, causal: bool = True,
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
-def _lib():
-    lib = _kernel_build.load("flash_attention")
+def _lib(dtype: torch.dtype = torch.bfloat16):
+    """The library of ``dtype``'s instantiation, its entry points typed
+    (``flash_fwd``, ``flash_bwd_dkv``, ``flash_bwd_dq``)."""
+    f32 = dtype == torch.float32
+    lib = _kernel_build.load("flash_attention_f32" if f32
+                             else "flash_attention")
+    sfx = "_f32" if f32 else ""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     strides = ctypes.POINTER(ctypes.c_longlong)
-    lib.flash_fwd.argtypes = [p, p, p, p, p, strides, i, i, i, i, f, i, p]
-    lib.flash_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, strides,
-                                  i, i, i, i, f, i, p]
-    lib.flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, strides,
-                                 i, i, i, i, f, i, p]
-    for fn in (lib.flash_fwd, lib.flash_bwd_dkv, lib.flash_bwd_dq):
+    fns = {n: getattr(lib, n + sfx)
+           for n in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
+    fns["flash_fwd"].argtypes = [p, p, p, p, p, strides, i, i, i, i, f, i, p]
+    fns["flash_bwd_dkv"].argtypes = [p, p, p, p, p, p, p, p, strides,
+                                     i, i, i, i, f, i, p]
+    fns["flash_bwd_dq"].argtypes = [p, p, p, p, p, p, p, strides,
+                                    i, i, i, i, f, i, p]
+    for fn in fns.values():
         fn.restype = ctypes.c_int
-    return lib
+    return fns
 
 
-def _check(name: str, *ts: torch.Tensor) -> None:
-    """q-shaped bf16 CUDA tensors ``[B, H, T, hd]`` the kernels take."""
+def _check(name: str, dtype: torch.dtype, *ts: torch.Tensor) -> None:
+    """q-shaped CUDA tensors ``[B, H, T, hd]`` of the kernel's ``dtype``."""
     for t in ts:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: tensor on {t.device}, the kernel takes "
                              f"CUDA tensors (flash_*_plain is the CPU path)")
     check_layout(name, *ts)
+    if ts[0].dtype != dtype:
+        raise TypeError(f"{name}: dtype {ts[0].dtype}; this kernel takes "
+                        f"{dtype}")
 
 
 def check_layout(name: str, *ts: torch.Tensor) -> None:
-    """The dtype and shape checks of the kernels (any device)."""
+    """The dtype and shape checks of the kernels (any device): one dtype
+    of :data:`DTYPES` for all, one shape."""
     x = ts[0]
     for t in ts:
         if t.device != x.device:
             raise ValueError(f"{name}: tensors on {x.device} and {t.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: dtype {t.dtype}; the kernels take "
-                            f"bfloat16 (flash_*_plain computes other types)")
+        if t.dtype not in DTYPES or t.dtype != x.dtype:
+            raise TypeError(f"{name}: dtypes {[u.dtype for u in ts]}; the "
+                            f"kernels take bfloat16 or float32, one for all "
+                            f"(flash_*_plain computes other types)")
         if t.shape != x.shape:
             raise ValueError(f"{name}: shapes differ: "
                              f"{[tuple(u.shape) for u in ts]}")
@@ -168,81 +185,142 @@ def _dims(q: torch.Tensor, sm_scale: Optional[float]):
     return b, h, t, d, _scale(q, sm_scale)
 
 
-def flash_fwd_cuda(q, k, v, causal: bool = True,
-                   sm_scale: Optional[float] = None):
-    """Kernel B10: ``(o, lse)``; o is laid out like q (a transposed view in,
-    a transposed view out)."""
-    _check("flash_fwd_cuda", q, k, v)
+def _fwd(name, dtype, q, k, v, causal, sm_scale):
+    _check(name, dtype, q, k, v)
     q, k, v = _strided(q), _strided(k), _strided(v)
     b, h, t, d, scale = _dims(q, sm_scale)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     _kernel_build.launch(
-        "flash_fwd_cuda", q.device, _lib().flash_fwd, q.data_ptr(),
+        name, q.device, _lib(dtype)["flash_fwd"], q.data_ptr(),
         k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         _strides(q, k, v, o), b, h, t, d, scale, int(causal))
-    flash_fwd_cuda.launches += 1
     return o, lse
 
 
-def flash_bwd_dkv_cuda(q, k, v, do, lse, di, causal: bool = True,
-                       sm_scale: Optional[float] = None):
-    """Kernel B11: ``(dk, dv)`` from q, k, v, dO and the row stats."""
-    _check("flash_bwd_dkv_cuda", q, k, v, do)
-    lse, di = _stat("flash_bwd_dkv_cuda", lse, q), \
-        _stat("flash_bwd_dkv_cuda", di, q)
+def _dkv(name, dtype, q, k, v, do, lse, di, causal, sm_scale):
+    _check(name, dtype, q, k, v, do)
+    lse, di = _stat(name, lse, q), _stat(name, di, q)
     q, k, v, do = _strided(q), _strided(k), _strided(v), _strided(do)
     b, h, t, d, scale = _dims(q, sm_scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _kernel_build.launch(
-        "flash_bwd_dkv_cuda", q.device, _lib().flash_bwd_dkv, q.data_ptr(),
+        name, q.device, _lib(dtype)["flash_bwd_dkv"], q.data_ptr(),
         k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         _strides(q, k, v, do, dk, dv), b, h, t, d, scale, int(causal))
-    flash_bwd_dkv_cuda.launches += 1
     return dk, dv
 
 
-def flash_bwd_dq_cuda(q, k, v, do, lse, di, causal: bool = True,
-                      sm_scale: Optional[float] = None):
-    """Kernel B12: dq from q, k, v, dO and the row stats."""
-    _check("flash_bwd_dq_cuda", q, k, v, do)
-    lse, di = _stat("flash_bwd_dq_cuda", lse, q), \
-        _stat("flash_bwd_dq_cuda", di, q)
+def _dq(name, dtype, q, k, v, do, lse, di, causal, sm_scale):
+    _check(name, dtype, q, k, v, do)
+    lse, di = _stat(name, lse, q), _stat(name, di, q)
     q, k, v, do = _strided(q), _strided(k), _strided(v), _strided(do)
     b, h, t, d, scale = _dims(q, sm_scale)
     dq = torch.empty_like(q)
     _kernel_build.launch(
-        "flash_bwd_dq_cuda", q.device, _lib().flash_bwd_dq, q.data_ptr(),
+        name, q.device, _lib(dtype)["flash_bwd_dq"], q.data_ptr(),
         k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         di.data_ptr(), dq.data_ptr(), _strides(q, k, v, do, dq), b, h, t, d,
         scale, int(causal))
-    flash_bwd_dq_cuda.launches += 1
     return dq
+
+
+def flash_fwd_cuda(q, k, v, causal: bool = True,
+                   sm_scale: Optional[float] = None):
+    """Kernel B10, bfloat16: ``(o, lse)``; o is laid out like q (a
+    transposed view in, a transposed view out)."""
+    out = _fwd("flash_fwd_cuda", torch.bfloat16, q, k, v, causal, sm_scale)
+    flash_fwd_cuda.launches += 1
+    return out
+
+
+def flash_bwd_dkv_cuda(q, k, v, do, lse, di, causal: bool = True,
+                       sm_scale: Optional[float] = None):
+    """Kernel B11, bfloat16: ``(dk, dv)`` from q, k, v, dO and the row
+    stats."""
+    out = _dkv("flash_bwd_dkv_cuda", torch.bfloat16, q, k, v, do, lse, di,
+               causal, sm_scale)
+    flash_bwd_dkv_cuda.launches += 1
+    return out
+
+
+def flash_bwd_dq_cuda(q, k, v, do, lse, di, causal: bool = True,
+                      sm_scale: Optional[float] = None):
+    """Kernel B12, bfloat16: dq from q, k, v, dO and the row stats."""
+    out = _dq("flash_bwd_dq_cuda", torch.bfloat16, q, k, v, do, lse, di,
+              causal, sm_scale)
+    flash_bwd_dq_cuda.launches += 1
+    return out
+
+
+def flash_fwd_f32_cuda(q, k, v, causal: bool = True,
+                       sm_scale: Optional[float] = None):
+    """Kernel B10, float32: ``(o, lse)`` as :func:`flash_fwd_cuda`."""
+    out = _fwd("flash_fwd_f32_cuda", torch.float32, q, k, v, causal,
+               sm_scale)
+    flash_fwd_f32_cuda.launches += 1
+    return out
+
+
+def flash_bwd_dkv_f32_cuda(q, k, v, do, lse, di, causal: bool = True,
+                           sm_scale: Optional[float] = None):
+    """Kernel B11, float32: ``(dk, dv)`` as :func:`flash_bwd_dkv_cuda`."""
+    out = _dkv("flash_bwd_dkv_f32_cuda", torch.float32, q, k, v, do, lse, di,
+               causal, sm_scale)
+    flash_bwd_dkv_f32_cuda.launches += 1
+    return out
+
+
+def flash_bwd_dq_f32_cuda(q, k, v, do, lse, di, causal: bool = True,
+                          sm_scale: Optional[float] = None):
+    """Kernel B12, float32: dq as :func:`flash_bwd_dq_cuda`."""
+    out = _dq("flash_bwd_dq_f32_cuda", torch.float32, q, k, v, do, lse, di,
+              causal, sm_scale)
+    flash_bwd_dq_f32_cuda.launches += 1
+    return out
 
 
 # launch counts: each wrapper adds one where it launches its kernel
 flash_fwd_cuda.launches = 0
 flash_bwd_dkv_cuda.launches = 0
 flash_bwd_dq_cuda.launches = 0
+flash_fwd_f32_cuda.launches = 0
+flash_bwd_dkv_f32_cuda.launches = 0
+flash_bwd_dq_f32_cuda.launches = 0
 
-KERNELS = (flash_fwd_cuda, flash_bwd_dkv_cuda, flash_bwd_dq_cuda)
+KERNELS = (flash_fwd_cuda, flash_bwd_dkv_cuda, flash_bwd_dq_cuda,
+           flash_fwd_f32_cuda, flash_bwd_dkv_f32_cuda, flash_bwd_dq_f32_cuda)
+# each dtype's (B10, B11, B12)
+BY_DTYPE = {torch.bfloat16: KERNELS[:3], torch.float32: KERNELS[3:]}
+
+
+def _kernels(t: torch.Tensor):
+    """The (B10, B11, B12) wrappers of ``t``'s dtype (the bf16 ones for any
+    other dtype: they refuse it, naming the dtypes the kernels take)."""
+    return BY_DTYPE.get(t.dtype, BY_DTYPE[torch.bfloat16])
+
+
+def _fwd_cuda(q, k, v, causal, sm_scale):
+    return _kernels(q)[0](q, k, v, causal, sm_scale)
 
 
 def _bwd_cuda(q, k, v, o, lse, do, causal, sm_scale):
+    _, dkv, dq = _kernels(q)
     di = attention_di(o, do)
-    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, di, causal, sm_scale)
-    return flash_bwd_dq_cuda(q, k, v, do, lse, di, causal, sm_scale), dk, dv
+    dk, dv = dkv(q, k, v, do, lse, di, causal, sm_scale)
+    return dq(q, k, v, do, lse, di, causal, sm_scale), dk, dv
 
 
 class FlashAttentionFunction(torch.autograd.Function):
-    """B10 forward; di, then B11 and B12 backward (the plain versions on
-    the CPU).  Residuals: q, k, v, o and lse."""
+    """B10 forward; di, then B11 and B12 backward, each the instantiation
+    of q's dtype (the plain versions on the CPU).  Residuals: q, k, v, o
+    and lse."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale):
         fwd = _kernel_build.route("flash_attention", q, flash_fwd_plain,
-                                  flash_fwd_cuda)
+                                  _fwd_cuda)
         o, lse = fwd(q, k, v, causal, sm_scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.hyper = (causal, sm_scale)
@@ -261,8 +339,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """Softmax attention of ``[B, H, T, hd]`` q, k, v (self-attention: one
-    T), differentiable: the kernels B10–B12 for CUDA tensors, the plain
-    versions for CPU ones."""
+    T), differentiable: the kernels B10–B12 (bfloat16 or float32) for CUDA
+    tensors, the plain versions for CPU ones."""
     if not q.shape == k.shape == v.shape:
         raise ValueError(f"flash_attention: q, k, v shapes "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "

@@ -229,11 +229,28 @@ class Exchanger:
             return grads
         leaves = tree_leaves(grads)
         norms = torch._foreach_norm([g.float() for g in leaves])
-        norm = torch.stack(norms).square().sum().sqrt()
+        split = self._model_split()
+        if any(split):
+            # tensor parallelism: a split leaf's squares summed over the
+            # model group, a replicated one counted once, so every rank
+            # clips by the same global norm (exchanger.py:378-400 there)
+            from .tp import all_reduce
+            sq = torch.stack(norms).square()
+            mask = torch.tensor(split, device=sq.device)
+            norm = (sq[~mask].sum() + all_reduce(
+                sq[mask].sum(), self.model.grid.model_group)).sqrt()
+        else:
+            norm = torch.stack(norms).square().sum().sqrt()
         scale = torch.clamp(self.clip / torch.clamp(norm, min=1e-12),
                             max=1.0)
         it = iter(torch._foreach_mul(leaves, scale))
         return tree_map(lambda _: next(it), grads)
+
+    def _model_split(self) -> list:
+        """Per gradient leaf: True where the model group splits it (tensor
+        parallelism); all False for a model without."""
+        fn = getattr(self.model, "model_split_leaves", None)
+        return fn() if fn is not None else [False]
 
     def step_update(self, params, opt_state, grads, extra, lr):
         """One local update of the clipped local gradient, in place;
@@ -374,9 +391,34 @@ class BSP_Exchanger(Exchanger):
         if self.mode == "grads":
             grads, _ = self.strategy(grads, extra.get("strat", ()),
                                      size=self.size)
+            grads = self._restore_replication(grads)
         params, opt_state = self.model.opt.update(self._clip_grads(grads),
                                                   opt_state, params, lr)
         return params, opt_state, extra
+
+    def _restore_replication(self, grads):
+        """Under tensor parallelism, a strategy that flattens the tree or
+        keeps per-leaf state (``leafwise_state``) compresses each model
+        rank's shards and its copy of the replicated leaves together: their
+        decoded means can differ between the model ranks.  Each replicated
+        leaf is replaced by its mean over the model group
+        (``exchanger.py:639-656`` there; the seq ranks hold the same bits
+        already)."""
+        split = self._model_split()
+        per_shard = self.strategy.flattens or self.strategy.leafwise_state
+        if not per_shard or not any(split):
+            return grads
+        from .tp import all_reduce
+        group = self.model.grid.model_group
+        leaves = tree_leaves(grads)
+        rep = [g for g, sp in zip(leaves, split) if not sp]
+        mean = [m / group.size() for m in
+                all_reduce(torch.cat([g.reshape(-1) for g in rep]),
+                           group).split([g.numel() for g in rep])]
+        it = iter(mean)
+        out = [g if sp else next(it).view_as(g)
+               for g, sp in zip(leaves, split)]
+        return _like(grads, out)
 
     def has_exchange(self) -> bool:
         return self.mode == "params"

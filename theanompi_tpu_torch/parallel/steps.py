@@ -312,6 +312,7 @@ class TrainStep(_Captured):
                 cost, err, grads = _accumulate_grads(
                     m.loss_and_metrics, m.params, m.bn_state, b,
                     self._gens[j], self.n_subb)
+                m.reduce_model_grads(tree_leaves(grads))
                 old = m.snapshot_update(m.params, m.opt_state) \
                     if self._counts is not None else None
                 self.exchanger.step_update(m.params, m.opt_state, grads,

@@ -58,6 +58,8 @@ class Strategy:
     stateful = False
     # True when the strategy works on one flattened vector, not leaf-wise
     flattens = False
+    # True when its state is a list over the leaves (PowerSGD's)
+    leafwise_state = False
     # paths of the 2-D leaves the JAX package stores in the port's layout
     # (the model's ``kept_layout_paths``, which the exchanger hands over);
     # every other 2-D leaf is the JAX one transposed
@@ -401,6 +403,7 @@ class PowerSGD(Strategy):
 
     stateful = True
     flattens = False
+    leafwise_state = True
 
     def __init__(self, rank: int = 2):
         self.rank = int(rank)

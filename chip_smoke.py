@@ -296,6 +296,7 @@ TF32 is off for the whole run (float32 comparisons need it off; the main
 paths compute in bfloat16 and are unaffected).
 """
 
+import ctypes
 import gc
 import json
 import os
@@ -330,6 +331,11 @@ from theanompi_tpu_torch.utils.helper_funcs import (  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12        # dense, tensor cores
+# float32-accurate products on the tensor cores in split TF32: three TF32
+# products (495 TFLOP/s dense) for each float32 one.  The bound of the
+# float32 flash rows (B11 and B12 run so; B10 f32 is held to the same
+# least time for its work), beside their FFMA bound at F32_FLOPS_PER_S
+SPLIT_TF32_FLOPS_PER_S = 495e12 / 3
 
 BATCH = 128
 STEPS = 8
@@ -406,12 +412,14 @@ FLASH_TOL = (2.0 ** -7, 2.0 ** -7)          # (rtol, atol / max|plain|)
 LM_LOSS_RTOL = 1e-4
 LM_GRAD_RATIO = 2.0
 # the float32 flash kernels (A11) against their float32 plain versions,
-# TF32 off on both sides: true float32 products summed in another order.
-# An output sums up to T = 512 products, and reordering a float32 sum
-# moves it by at most n·2^-24 of its largest partial sum (2^-15 at n =
-# 512); expf/logf differ from torch's by an ulp or two: 2^-14 of
-# max|plain| holds both.  A TF32 product (10-bit mantissa, ~2^-11) would
-# be ~1e-3 away and fail it
+# TF32 off on both sides: float32-accurate products summed in another
+# order (B10 FFMA; B11 and B12 split TF32, each product within 3·2^-22
+# of its float32 value, the tensor core's sums folded into float32
+# registers).  An output sums up to T = 512 products, and
+# reordering a float32 sum moves it by at most n·2^-24 of its largest
+# partial sum (2^-15 at n = 512); expf/logf differ from torch's by an ulp
+# or two: 2^-14 of max|plain| holds both.  A plain TF32 product (10-bit
+# mantissa, ~2^-11) would be ~1e-3 away and fail it
 F32_FLASH_TOL = (2.0 ** -14, 2.0 ** -14)   # (rtol, atol / max|plain|)
 # (name, [B, H, T, hd], causal, laid out as the model hands them): the
 # LM's main-path shape, one non-causal at hd 128, one strided at hd 32
@@ -454,11 +462,18 @@ ARGMAX_TOPK = {"topk_encode_cuda": {"ms": 3.8553}}
 # product), per PowerSGD step: device ms from this script's factor pack
 # phase on that tree, on the same card and limit
 ROWCOL_FACTOR = {"ms": 0.8050}
-# instructions the redesigned B10–B12 must hold in every instantiation:
-# wgmma and TMA loads
+# instructions the redesigned B10–B12 (bf16) and B11 and B12 (float32)
+# must hold in every instantiation: wgmma and TMA loads
 FLASH_SASS = {"flash_fwd_kernel": ("HGMMA", "UTMALDG"),
               "flash_bwd_dkv_kernel": ("HGMMA", "UTMALDG"),
-              "flash_bwd_dq_kernel": ("HGMMA", "UTMALDG")}
+              "flash_bwd_dq_kernel": ("HGMMA", "UTMALDG"),
+              "flash_bwd_dkv_f32_kernel": ("HGMMA", "UTMALDG"),
+              "flash_bwd_dq_f32_kernel": ("HGMMA", "UTMALDG")}
+# the TF32 probe: inputs whose float32 bits go to the tensor core as they
+# are, and the largest relative distance from a model's product that still
+# reads as that model (float32 sums of 8 products: ~1e-7 on an H100; the
+# other models' products lie ~1e-3 away)
+TF32_PROBE_TOL = 1e-5
 # what each redesigned kernel is now, for the kernels line
 DESIGN = {"topk_encode": "radix select on the bits of |c|, lowest offsets on "
                          "the threshold's ties, slots by rank count (k <= "
@@ -469,11 +484,17 @@ DESIGN = {"topk_encode": "radix select on the bits of |c|, lowest offsets on "
           "flash_fwd_f32": "SIMT float32 FFMA: one 256-thread CTA per 64-row "
                            "tile, tiles in shared memory, online softmax in "
                            "registers",
-          "flash_bwd_dkv_f32": "SIMT float32 FFMA: k/v tile resident, q/dO "
-                               "tiles streamed, p and dS through shared "
-                               "memory",
-          "flash_bwd_dq_f32": "SIMT float32 FFMA: q/dO tile resident, k/v "
-                              "tiles streamed, dS through shared memory",
+          "flash_bwd_dkv_f32": "split-TF32 wgmma (hi and lo rounded to TF32),"
+                               " 32-row q/dO tiles by TMA, their hi/lo and "
+                               "transposed copies made by the consumers, "
+                               "each k-step's and tile's tensor-core sum "
+                               "added in float32 registers, p and dS in "
+                               "registers, 2 CTAs an SM",
+          "flash_bwd_dq_f32": "split-TF32 wgmma, 32-row k/v tiles by TMA, "
+                              "their hi/lo and a transposed k copy made by "
+                              "the consumers, tensor-core sums added in "
+                              "float32 registers, dS in registers, 2 CTAs "
+                              "an SM",
           "matmul_pack": "one launch per factor pass over every leaf; each "
                          "work item a cluster of 8 CTAs splitting its sums, "
                          "added through distributed shared memory in rank "
@@ -1193,12 +1214,14 @@ def sass_of(lib_path: str) -> str:
                           text=True, check=True).stdout
 
 
-def flash_sass_check(lib_path: str) -> dict:
-    """``cuobjdump -sass`` of the built flash library: every instantiation
-    (head dims 32, 64, 128) of ``flash_fwd_kernel`` and
-    ``flash_bwd_dkv_kernel`` must hold wgmma (``HGMMA``) and TMA load
-    (``UTMALDG``) instructions.  Raises if the tool is missing or an
-    instruction is absent; returns the counts per kernel."""
+def flash_sass_check(lib_path: str, kernels=("flash_fwd_kernel",
+                                              "flash_bwd_dkv_kernel",
+                                              "flash_bwd_dq_kernel")) -> dict:
+    """``cuobjdump -sass`` of a built flash library: every instantiation
+    (head dims 32, 64, 128) of each of ``kernels`` must hold the
+    instructions FLASH_SASS names for it, wgmma (``HGMMA``) and TMA load
+    (``UTMALDG``).  Raises if the tool is missing or an instruction is
+    absent; returns the counts per kernel."""
     sass = sass_of(lib_path)
     counts, fn = {}, None
     for line in sass.splitlines():
@@ -1210,7 +1233,8 @@ def flash_sass_check(lib_path: str) -> dict:
                 if ins in line:
                     counts[fn][ins] = counts[fn].get(ins, 0) + 1
     out = {}
-    for kern, need in FLASH_SASS.items():
+    for kern in kernels:
+        need = FLASH_SASS[kern]
         found = [c for f, c in counts.items() if kern in f]
         if len(found) != len(fa_ops.HEAD_DIMS) or \
                 not all(c.get(ins) for c in found for ins in need):
@@ -1552,13 +1576,17 @@ def f32_flash_run(q, k, v, do, causal):
 def flash_f32_phase():
     """The float32 B10–B12 (A11) at each of F32_FLASH_SHAPES: every output
     (o, lse, dq, dk, dv) against the float32 plain versions within
-    F32_FLASH_TOL (TF32 off), a rerun bit for bit; at the LM's shape each
-    kernel's device ms, host µs a wrapper call, bound (float32 flops at
-    F32_FLOPS_PER_S, f32 bytes), plain ms and SDPA in float32 (forward;
-    its autograd backward, dQ, dK and dV in one, beside B11 and B12)."""
+    F32_FLASH_TOL (TF32 off), a rerun bit for bit; the SASS check of B11
+    and B12; at the LM's shape each kernel's device ms, host µs a wrapper
+    call, bound (float32 flops in split TF32 at SPLIT_TF32_FLOPS_PER_S, f32
+    bytes; the FFMA bound at F32_FLOPS_PER_S beside it), plain ms and SDPA
+    in float32 (forward; its autograd backward, dQ, dK and dV in one,
+    beside B11 + B12)."""
     names = ("flash_fwd_f32_cuda", "flash_bwd_dkv_f32_cuda",
              "flash_bwd_dq_f32_cuda")
-    out = {"shapes": {}}
+    out = {"shapes": {}, "sass": flash_sass_check(
+        _kernel_build.library_path("flash_attention_f32"),
+        ("flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel"))}
     for i, (tag, shape, causal, strided) in enumerate(F32_FLASH_SHAPES):
         q, k, v, do = f32_flash_inputs(shape, strided, 10 + i)
         zero_launches()
@@ -1624,12 +1652,70 @@ def flash_f32_phase():
                          "ms": time_ms(calls[name]),
                          "host_us": host_us(calls[name]),
                          "plain_ms": plain_ms, "library_ms": lib_ms,
-                         **bound(*sizes[name], F32_FLOPS_PER_S)}
+                         "ffma_bound_ms": bound(*sizes[name])["bound_ms"],
+                         **bound(*sizes[name], SPLIT_TF32_FLOPS_PER_S)}
         del q, k, v, do, o, lse, di, dq, dk, dv, ql, kl, vl, lib_out
     for name in names:        # the worst error over every shape
         out[name]["max_abs_err"] = max(r["max_abs_err"][name]
                                        for r in out["shapes"].values())
     torch.cuda.empty_cache()
+    return out
+
+
+def tf32_probe_phase() -> dict:
+    """How the tensor core reads float32 bit patterns handed to a TF32
+    wgmma (``tf32_probe`` of ``csrc/flash_attention_f32.cu``): seeded
+    float32 inputs with random low bits, for the register operand (A) and
+    the shared-memory operand (B) in turn, the other exact in TF32; the
+    card's result against the products of their truncations to TF32, of
+    their roundings (to nearest, ties away) and of their full values, each
+    distance relative to Σ|a||b|; and both operands exact in TF32 against
+    their exact product.  B11 and B12 f32 hand the tensor core TF32 values
+    (rounded, their low bits zero) and take their products as exact with
+    float32 sums, whatever it does with other bits: raises if exact inputs
+    come out otherwise, or if the models cannot be told apart."""
+    lib = _kernel_build.load("flash_attention_f32")
+    lib.tf32_probe.argtypes = [ctypes.c_void_p] * 4
+    lib.tf32_probe.restype = ctypes.c_int
+
+    def trunc(x):
+        return (x.view(np.uint32) & np.uint32(0xffffe000)).view(np.float32)
+
+    def rounded(x):
+        return ((x.view(np.uint32) + np.uint32(0x1000))
+                & np.uint32(0xffffe000)).view(np.float32)
+
+    def probe(aa, bb):
+        ta, tb = torch.from_numpy(aa).cuda(), torch.from_numpy(bb).cuda()
+        d = torch.empty(64, 32, device="cuda")
+        rc = lib.tf32_probe(ta.data_ptr(), tb.data_ptr(), d.data_ptr(),
+                            torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        if rc:
+            raise AssertionError(f"TF32 probe: CUDA error {rc} at launch")
+        got = d.cpu().numpy().astype(np.float64)
+        mag = np.abs(aa.astype(np.float64)) @ np.abs(bb.astype(np.float64)).T
+        return {name: float(np.max(np.abs(
+                    got - f(aa).astype(np.float64) @ f(bb).astype(
+                        np.float64).T) / mag))
+                for name, f in (("truncated", trunc), ("rounded", rounded),
+                                ("full", lambda x: x))}
+
+    r = np.random.RandomState(7)
+    a = r.standard_normal((64, 8)).astype(np.float32)
+    b = r.standard_normal((32, 8)).astype(np.float32)
+    out = {}
+    for side in ("A", "B"):
+        dist = probe(a if side == "A" else rounded(a),
+                     b if side == "B" else rounded(b))
+        if min(dist["rounded"], dist["full"]) < 10 * TF32_PROBE_TOL:
+            raise AssertionError(f"TF32 probe, operand {side}: the models "
+                                 f"are not told apart: {dist}")
+        out[side] = dict(dist, reads=min(dist, key=dist.get))
+    out["exact"] = probe(rounded(a), rounded(b))["full"]
+    if not out["exact"] < TF32_PROBE_TOL:
+        raise AssertionError(f"TF32 probe: TF32 inputs come out "
+                             f"{out['exact']:.2e} from their exact product")
     return out
 
 
@@ -1768,7 +1854,17 @@ def flash_f32_main(card: str) -> dict:
     """The A11 phase group (``--flash-f32`` runs it alone): the float32
     kernels' checks and times, the float32 LM card vs CPU, its main path
     and its captured step's profile."""
+    probe = tf32_probe_phase()
+    print("TF32 probe (one wgmma, float32 bits as they are): " + "; ".join(
+        f"operand {side} reads as {probe[side]['reads']} (distance truncated "
+        f"{probe[side]['truncated']:.2e}, rounded {probe[side]['rounded']:.2e},"
+        f" full {probe[side]['full']:.2e})" for side in ("A", "B"))
+        + f"; TF32 inputs {probe['exact']:.2e} from their exact product (B11 "
+        f"and B12 f32 hand it TF32 values rounded to nearest)", flush=True)
     kern = flash_f32_phase()
+    print("flash f32 SASS (per head dim 32, 64, 128): " + "; ".join(
+        f"{k} " + ", ".join(f"{i} {n}" for i, n in c.items())
+        for k, c in kern["sass"].items()), flush=True)
     print("flash attention float32 (A11): " + "; ".join(
         f"{tag} {r['shape']} {'causal' if r['causal'] else 'non-causal'}"
         f"{' strided' if r['strided'] else ''} max |diff| " + ", ".join(
@@ -1776,11 +1872,24 @@ def flash_f32_main(card: str) -> dict:
         for tag, r in kern["shapes"].items()) + " (rerun bit for bit)",
         flush=True)
     print("flash f32 %s causal: " % kern["shape"] + ", ".join(
-        f"{k[:-9]} {kern[k]['ms']:.4f} ms (bound {kern[k]['bound_ms']:.4f} "
-        f"{kern[k]['bound_by']}, plain {kern[k]['plain_ms']:.3f}, SDPA f32 "
-        f"{kern[k]['library_ms']:.4f}), host {kern[k]['host_us']:.1f} us"
+        f"{k[:-9]} {kern[k]['ms']:.4f} ms (split-TF32 bound "
+        f"{kern[k]['bound_ms']:.4f} {kern[k]['bound_by']}, FFMA bound "
+        f"{kern[k]['ffma_bound_ms']:.4f}, plain {kern[k]['plain_ms']:.3f}, "
+        f"SDPA f32 {kern[k]['library_ms']:.4f}), host "
+        f"{kern[k]['host_us']:.1f} us"
         for k in ("flash_fwd_f32_cuda", "flash_bwd_dkv_f32_cuda",
                   "flash_bwd_dq_f32_cuda")), flush=True)
+    b11, b12 = kern["flash_bwd_dkv_f32_cuda"], kern["flash_bwd_dq_f32_cuda"]
+    print(f"flash f32 backward: B11 + B12 {b11['ms'] + b12['ms']:.4f} ms "
+          f"against float32 SDPA's autograd backward {b12['library_ms']:.4f} "
+          f"ms; split-TF32 bound {b11['bound_ms'] + b12['bound_ms']:.4f} "
+          f"ms ({(b11['bound_ms'] + b12['bound_ms']) / (b11['ms'] + b12['ms']):.0%}"
+          f" of it reached), FFMA bound "
+          f"{b11['ffma_bound_ms'] + b12['ffma_bound_ms']:.4f} ms", flush=True)
+    if b11["ms"] + b12["ms"] >= b12["library_ms"]:
+        raise AssertionError(f"B11 + B12 f32 {b11['ms'] + b12['ms']:.4f} ms "
+                             f"do not beat float32 SDPA's backward "
+                             f"{b12['library_ms']:.4f} ms")
     check = lm_f32_check_phase()
     for attn in ("flash", "reference", "control"):
         c = check[attn]
@@ -1808,8 +1917,8 @@ def flash_f32_main(card: str) -> dict:
     print_profile(prof, card, LM_F32_GROUPS)
     print(f"LM float32 captured step: {prof['tokens_per_s']:.0f} tokens/s",
           flush=True)
-    return {"kernels": kern, "lm_check": check, "main": main,
-            "profile": prof}
+    return {"kernels": kern, "tf32_probe": probe, "lm_check": check,
+            "main": main, "profile": prof}
 
 
 def run_main_path(modelfile, modelclass, want_launches, rule="bsp", **cfg):
@@ -2800,11 +2909,30 @@ def same_run(name: str, a: dict, b: dict, costs_a=None) -> int:
     return len(a["state"])
 
 
+# the captured GRAPH_STEPS-step drives of graph_eager_phase that the spc,
+# re-capture and wire phases take as their reference (the same path,
+# config and seed: the same run), kept instead of driven again; those of
+# WIRE_REUSED until the wire phases
+WIRE_REUSED = ("alexnet", "vgg16_onebit", "vgg16_topk", "vgg16_powersgd",
+               "vgg16_easgd")
+GRAPH_REUSED = WIRE_REUSED + ("lm", "resnet50", "resnet50_gosgd")
+_GRAPH_RUNS = {}
+
+
+def captured_run(path: str) -> dict:
+    """The captured GRAPH_STEPS-step drive of ``path`` with its own
+    config: graph_eager_phase's, where it kept one, else a new drive."""
+    run = _GRAPH_RUNS.get(path)
+    return run if run is not None else drive(path, True, GRAPH_STEPS)
+
+
 def graph_eager_phase() -> dict:
     """Each full-width main path, GRAPH_STEPS steps eager and captured from
     the same seed (weights, batches, dropout streams), cuDNN deterministic
     in both: costs, params, optimizer state and wire state bit for bit, and
-    the same kernel launches (the captured run's counted per replay)."""
+    the same kernel launches (the captured run's counted per replay).  The
+    captured runs of GRAPH_REUSED are kept for the spc and re-capture
+    phases."""
     out = {}
     torch.backends.cudnn.deterministic = True
     try:
@@ -2815,6 +2943,8 @@ def graph_eager_phase() -> dict:
                 raise AssertionError(f"{path}: graphed {eager['graphed']}, "
                                      f"{graph['graphed']}")
             n = same_run(f"{path} graph vs eager", eager, graph)
+            if path in GRAPH_REUSED:
+                _GRAPH_RUNS[path] = graph
             out[path] = {"tensors": n, "eager_s": eager["secs"],
                          "graph_s": graph["secs"],
                          "costs": [float(c) for c in graph["costs"]],
@@ -2844,7 +2974,11 @@ def spc_phase() -> dict:
                 ("vgg16_easgd_f2", "vgg16_easgd", {"sync_freq": 2}),
                 ("vgg16_easgd_f4", "vgg16_easgd", {"sync_freq": 4}),
                 ("resnet50_gosgd", "resnet50_gosgd", {})):
-            one = drive(path, True, GRAPH_STEPS, **over)
+            # sync_freq 4 is vgg16_easgd's own: graph_eager_phase's run
+            own = all(GRAPH_PATHS[path][2].get(k) == v
+                      for k, v in over.items())
+            one = captured_run(path) if own else \
+                drive(path, True, GRAPH_STEPS, **over)
             many = drive(path, True, GRAPH_STEPS // SPC, spc=SPC, **over)
             means = [torch.stack(one["costs"][i:i + SPC]).mean()
                      for i in range(0, GRAPH_STEPS, SPC)]
@@ -2878,7 +3012,7 @@ def recapture_phase() -> dict:
     half = GRAPH_STEPS // 2
     torch.backends.cudnn.deterministic = True
     try:
-        ref = drive("resnet50", True, GRAPH_STEPS)
+        ref = captured_run("resnet50")
         shutil.rmtree(RESNET_CKPT, ignore_errors=True)
         zero_launches()
         worker = BSP_Worker(dict(cfg, n_workers=1, seed=0, verbose=False))
@@ -2972,6 +3106,10 @@ ALEX_MODEL = ("theanompi_tpu_torch.models.alex_net", "AlexNet")
 ISLAND_CFG = dict(device="cuda:0", alpha=0.5, synthetic_batches=8, seed=0,
                   verbose=False)
 ISLAND_SECONDS = 24
+# the two island threads of one process share its start-up and exchange
+# with the center in memory (~0.4 s each, 24 in 24 s on an H100): a
+# shorter budget still gives the fast island its least exchanges
+ISLAND_THREAD_SECONDS = 12
 # the straggler sleeps this long after every step
 STRAGGLER_S = 3.0
 # VGG-16's islands train at a tenth of VGG_LR: at 0.001 islands from the
@@ -3202,7 +3340,7 @@ def island_threads_phase() -> dict:
     rule.init(devices=1, modelfile=ALEX_MODEL[0], modelclass=ALEX_MODEL[1],
               **dict(ISLAND_CFG, easgd_mode="async", async_islands=2,
                      center_serve=True, batch_size=BATCH, sync_freq=4,
-                     run_seconds=ISLAND_SECONDS,
+                     run_seconds=ISLAND_THREAD_SECONDS,
                      island_throttle={1: STRAGGLER_S}))
     tr = rule.wait()
     torch.cuda.synchronize()
@@ -3329,13 +3467,17 @@ def islands_main(card: str) -> dict:
     """Every island phase: the exchange against its plain recomputation,
     the threads, then each cross-process phase; prints their numbers."""
     compute_mode()
+    t0 = time.time()
     res = {"exchange_check": island_exchange_check_phase()}
+    res["exchange_check"]["secs"] = time.time() - t0
     print("island exchange vs plain (AlexNet, %d params, center in memory): "
           % res["exchange_check"]["n_params"] + "; ".join(
               f"{k} " + ", ".join(f"{p} {v:.1f}" for p, v in t.items())
               + " ms" for k, t in res["exchange_check"].items()
-              if k != "n_params"), flush=True)
+              if k not in ("n_params", "secs")), flush=True)
+    t0 = time.time()
     res["alexnet_threads"] = island_threads_phase()
+    res["alexnet_threads"]["secs"] = time.time() - t0
     print_islands("alexnet_threads (EASGD, center_serve)",
                   res["alexnet_threads"], card, BATCH)
     for name, rule, model, cfg, least in ISLAND_PROCS:
@@ -3605,8 +3747,10 @@ def launcher_main(card: str) -> dict:
     their numbers."""
     gc.collect()
     torch.cuda.empty_cache()         # the launched rank shares the card
+    t0 = time.time()
     res = {"world1": launcher_world1_phase()}
     w = res["world1"]
+    w["secs"] = time.time() - t0
     print(f"launcher world 1 (NCCL over the launcher's TCP rendezvous, "
           f"{w['device']}): AlexNet b{BATCH} {STEPS} steps, launch to first "
           f"step {w['launch_to_first_step_s']:.1f} s, step "
@@ -3615,7 +3759,9 @@ def launcher_main(card: str) -> dict:
           f"{ {k: v for k, v in w['launches'].items() if v} }, "
           f"{w['leaves_bit_equal']} param leaves bit-equal to the session "
           f"on {card}", flush=True)
+    t0 = time.time()
     res["supervise"] = s = launcher_supervise_phase()
+    s["secs"] = time.time() - t0
     print(f"launcher --supervise: SIGKILL after epoch 0's checkpoint, "
           f"'{s['restart_line']}', first resumed step {s['recover_s']:.1f} s "
           f"after the kill, final checkpoint bit-equal to the unkilled run "
@@ -3662,7 +3808,7 @@ def wire_alexnet_phase() -> dict:
     out = {}
     torch.backends.cudnn.deterministic = True
     try:
-        runs = {"grads": drive("alexnet", True, steps),
+        runs = {"grads": captured_run("alexnet"),
                 "nccl16": drive("alexnet", True, steps,
                                 exch_strategy="nccl16")}
         for name, over, against, capture in (
@@ -3713,7 +3859,7 @@ def wire_vgg_phase() -> dict:
     torch.backends.cudnn.deterministic = True
     try:
         for path, want in per_step.items():
-            mono = drive(path, True, steps)
+            mono = captured_run(path)
             buck = drive(path, True, steps, bucket_bytes=WIRE_BUCKET)
             n = same_state(f"{path} 4 MiB vs monolithic", mono, buck)
             nb = buck["n_buckets"]
@@ -4712,6 +4858,8 @@ def kernel_entries(lrn, lrn_g, comp, topk, fpack, flash, alex, goog, vggs,
                      launches_from="float32 LM main path",
                      shape=f32["kernels"]["shape"],
                      host_us=f32["kernels"][name]["host_us"],
+                     bound_rate="split TF32, 495/3 TFLOP/s",
+                     ffma_bound_ms=f32["kernels"][name]["ffma_bound_ms"],
                      **{k: f32["kernels"][name][k] for k in TIMED})
         elif label.startswith("flash_"):
             e.update(launches=lm["launches"][name],
@@ -4753,6 +4901,16 @@ def main() -> int:
     def lap(name):
         """Seconds since the previous lap, for the run's phase table."""
         laps[name] = time.time() - t_all - sum(laps.values())
+
+    phase_s = {}
+
+    def timed(name, fn, *args, **kw):
+        """``fn(*args, **kw)``, its seconds kept under ``name`` for the
+        run's table of the leading groups' phases."""
+        t0 = time.time()
+        out = fn(*args, **kw)
+        phase_s[name] = time.time() - t0
+        return out
 
     libs = _kernel_build.build()
     build_s = time.time() - t_all
@@ -5038,23 +5196,26 @@ def main() -> int:
                   f"{profs[path + suffix]['after']['exchange_ms']:.4f} ms",
                   flush=True)
     lap("rules")
-    clip = clip_phase()
+    clip = timed("clip", clip_phase)
     print(f"grad_clip on the card: AlexNet first-step norm "
           f"{clip['grad_norm']:.4f}, clip {clip['clip']:.4f}, params vs the "
           f"plain clipped update: max |diff| {clip['max_err_over_step']:.3e}"
           f" of the largest step", flush=True)
-    opts = optimizer_phase()
+    opts = timed("optimizers", optimizer_phase)
     for name, r in opts.items():
         print(f"main path: AlexNet BSP {name}, costs "
               f"{[round(c, 4) for c in r['costs']]}, {r['img_per_s']:.1f} "
               f"img/s, val cost {r['val']['val_cost']:.4f}", flush=True)
 
-    graph_eager = graph_eager_phase()
-    spc = spc_phase()
-    recapture = recapture_phase()
+    graph_eager = timed("graph_eager", graph_eager_phase)
+    spc = timed("spc", spc_phase)
+    recapture = timed("recapture", recapture_phase)
+    for path in set(_GRAPH_RUNS) - set(WIRE_REUSED):
+        del _GRAPH_RUNS[path]
     windows = {}
     for key, u8_wire in (("f32", False), ("u8", True)):
-        windows[key] = w = window_files_phase(u8_wire)
+        windows[key] = w = timed(f"windows_{key}", window_files_phase,
+                                 u8_wire)
         print(f"main path: AlexNet BSP from files, para_load, spc {SPC} "
               f"window mode, {key} wire, costs "
               f"{[round(c, 4) for c in w['costs']]}, {w['img_per_s']:.1f} "
@@ -5066,10 +5227,15 @@ def main() -> int:
     lap("clip, optimizers, graphs, windows")
     islands = islands_main(card)
     lap("islands")
+    phase_s.update({f"islands_{k}": v["secs"] for k, v in islands.items()
+                    if "secs" in v})
     launcher = launcher_main(card)
     lap("launcher")
+    phase_s.update({f"launcher_{k}": v["secs"] for k, v in launcher.items()
+                    if "secs" in v})
     wire = wire_main(card)
     lap("wire")
+    _GRAPH_RUNS.clear()
     shard = shard_main(card)
     lap("shard")
     a9 = gan_lm_main(card)
@@ -5141,10 +5307,13 @@ def main() -> int:
                    "lrn_googlenet": lrn_g, "lrn_sass": lrn_sass,
                    "native_loader": loader, "u8_logits": u8, "htod": htod,
                    "profile": profs, "card": card, "build_s": build_s,
-                   "phase_s": laps, "total_s": total_s,
+                   "phase_s": laps, "phases_s": phase_s,
+                   "total_s": total_s,
                    "alexnet_ref_err": ref_err}, f, indent=1)
     print("seconds by phase group: " + ", ".join(
         f"{k} {v:.1f}" for k, v in laps.items()), flush=True)
+    print("seconds of the leading groups' phases: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in phase_s.items()), flush=True)
     print(f"all phases passed in {total_s:.1f}s", flush=True)
     print(json.dumps({"kernels": [
         {k: v for k, v in e.items() if k not in ("shapes", "by_workers")}

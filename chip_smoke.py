@@ -140,9 +140,12 @@
     B10–B12 in float32 at [16, 8, 512, 64] causal as the model hands them,
     [4, 8, 256, 128] non-causal and [2, 4, 320, 32] causal strided, every
     output against the float32 plain versions (TF32 off) within
-    ``F32_FLASH_TOL``, a rerun bit for bit; at the LM's shape each kernel's
-    device ms, host µs, bound (float32 flops at 67 TFLOP/s), plain ms and
-    SDPA in float32 (and its backward); the float32 flash LM at full width,
+    ``F32_FLASH_TOL``, a rerun bit for bit, and every build of the three
+    holding ``HGMMA`` and ``UTMALDG``; at the LM's shape each kernel's
+    device ms, host µs, bound (float32 flops in split TF32, the FFMA bound
+    beside it), plain ms and SDPA in float32 (and its backward), B10 f32
+    faster than SDPA's forward and B11 + B12 than its backward; the
+    float32 flash LM at full width,
     batch 2, its loss and every gradient leaf on the card against the same
     weights on the CPU (the plain versions) within ``LM_F32_LOSS_RTOL`` and,
     leaf by leaf, ``LM_F32_GRAD_RATIO`` times the reference attention's own
@@ -333,8 +336,8 @@ F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12        # dense, tensor cores
 # float32-accurate products on the tensor cores in split TF32: three TF32
 # products (495 TFLOP/s dense) for each float32 one.  The bound of the
-# float32 flash rows (B11 and B12 run so; B10 f32 is held to the same
-# least time for its work), beside their FFMA bound at F32_FLOPS_PER_S
+# float32 flash rows (B10–B12 f32 run so), beside their FFMA bound at
+# F32_FLOPS_PER_S
 SPLIT_TF32_FLOPS_PER_S = 495e12 / 3
 
 BATCH = 128
@@ -413,9 +416,9 @@ LM_LOSS_RTOL = 1e-4
 LM_GRAD_RATIO = 2.0
 # the float32 flash kernels (A11) against their float32 plain versions,
 # TF32 off on both sides: float32-accurate products summed in another
-# order (B10 FFMA; B11 and B12 split TF32, each product within 3·2^-22
-# of its float32 value, the tensor core's sums folded into float32
-# registers).  An output sums up to T = 512 products, and
+# order (split TF32, each product within 3·2^-22 of its float32 value,
+# the tensor core's sums folded into float32 registers; B10 rescales its
+# sums every 32 keys).  An output sums up to T = 512 products, and
 # reordering a float32 sum moves it by at most n·2^-24 of its largest
 # partial sum (2^-15 at n = 512); expf/logf differ from torch's by an ulp
 # or two: 2^-14 of max|plain| holds both.  A plain TF32 product (10-bit
@@ -462,11 +465,12 @@ ARGMAX_TOPK = {"topk_encode_cuda": {"ms": 3.8553}}
 # product), per PowerSGD step: device ms from this script's factor pack
 # phase on that tree, on the same card and limit
 ROWCOL_FACTOR = {"ms": 0.8050}
-# instructions the redesigned B10–B12 (bf16) and B11 and B12 (float32)
-# must hold in every instantiation: wgmma and TMA loads
+# instructions the redesigned B10–B12, bf16 and float32, must hold in
+# every instantiation: wgmma and TMA loads
 FLASH_SASS = {"flash_fwd_kernel": ("HGMMA", "UTMALDG"),
               "flash_bwd_dkv_kernel": ("HGMMA", "UTMALDG"),
               "flash_bwd_dq_kernel": ("HGMMA", "UTMALDG"),
+              "flash_fwd_f32_kernel": ("HGMMA", "UTMALDG"),
               "flash_bwd_dkv_f32_kernel": ("HGMMA", "UTMALDG"),
               "flash_bwd_dq_f32_kernel": ("HGMMA", "UTMALDG")}
 # the TF32 probe: inputs whose float32 bits go to the tensor core as they
@@ -481,9 +485,12 @@ DESIGN = {"topk_encode": "radix select on the bits of |c|, lowest offsets on "
           "flash_fwd": "TMA ring, wgmma, softmax in registers, pipelined",
           "flash_bwd_dkv": "TMA ring, wgmma, p and dS in registers",
           "flash_bwd_dq": "TMA ring, wgmma, dS in registers",
-          "flash_fwd_f32": "SIMT float32 FFMA: one 256-thread CTA per 64-row "
-                           "tile, tiles in shared memory, online softmax in "
-                           "registers",
+          "flash_fwd_f32": "split-TF32 wgmma, q resident and 32-row k/v "
+                           "tiles by TMA, k's hi/lo and a transposed v copy "
+                           "made by the consumers, online softmax on the "
+                           "score accumulator (rescaled every 32 keys), "
+                           "each k-step's and tile's tensor-core sum added "
+                           "in float32 registers, 3 CTAs an SM",
           "flash_bwd_dkv_f32": "split-TF32 wgmma (hi and lo rounded to TF32),"
                                " 32-row q/dO tiles by TMA, their hi/lo and "
                                "transposed copies made by the consumers, "
@@ -495,6 +502,11 @@ DESIGN = {"topk_encode": "radix select on the bits of |c|, lowest offsets on "
                               "the consumers, tensor-core sums added in "
                               "float32 registers, dS in registers, 2 CTAs "
                               "an SM",
+          "unpack_signs_wsum": "8 CTAs of 256 threads a 32768-element "
+                               "tile (a 4 MiB bucket fills the card), 4 "
+                               "bit rows a thread, words read and outputs "
+                               "written 16 bytes a thread, sums in "
+                               "registers in worker order",
           "matmul_pack": "one launch per factor pass over every leaf; each "
                          "work item a cluster of 8 CTAs splitting its sums, "
                          "added through distributed shared memory in rank "
@@ -1326,8 +1338,11 @@ def times_main(flags) -> int:
     (wall, device busy, idle share, ops a step, the update's multi-tensor
     passes), for a tree's update layer beside another's; with
     ``--lrn-times`` B2's and B1's device ms at the four LRN shapes
-    (``lrn_times``); nothing else (for setting two trees side by side in
-    one call)."""
+    (``lrn_times``); with ``--flash-f32-times`` the float32 B10–B12 and
+    float32 SDPA's forward at the LM's shape, B10 checked first; with
+    ``--decode-times`` B4 at a bucket and at VGG-16's length
+    (``decode_times``); nothing else (for setting two trees side by side
+    in one call)."""
     card = card_line()
     out = {"card": card}
     if "--update-times" in flags:
@@ -1385,6 +1400,29 @@ def times_main(flags) -> int:
             name: {"ms": time_ms(fn), "host_us": host_us(fn)}
             for name, fn in flash_calls(q, k, v, do, lse, di).items()}
         del q, k, v, do, o, lse, di
+    if "--flash-f32-times" in flags:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        _kernel_build.build(["flash_attention_f32"])
+        _, shape, causal, strided = F32_FLASH_SHAPES[0]
+        q, k, v, do = f32_flash_inputs(shape, strided, 10)
+        o, lse, di, *_ = f32_flash_run(q, k, v, do, causal)
+        po, plse = fa_ops.flash_fwd_plain(q, k, v, causal)
+        check_close("B10 f32 o", o, po, *F32_FLASH_TOL)
+        check_close("B10 f32 lse", lse, plse, *F32_FLASH_TOL)
+        calls = {"flash_fwd_f32_cuda": lambda: fa_ops.flash_fwd_f32_cuda(
+                     q, k, v),
+                 "flash_bwd_dkv_f32_cuda": lambda:
+                     fa_ops.flash_bwd_dkv_f32_cuda(q, k, v, do, lse, di),
+                 "flash_bwd_dq_f32_cuda": lambda:
+                     fa_ops.flash_bwd_dq_f32_cuda(q, k, v, do, lse, di),
+                 "sdpa_f32_forward": lambda: F.scaled_dot_product_attention(
+                     q, k, v, is_causal=True)}
+        out["flash_f32_times"] = {"shape": list(shape), **{
+            name: time_ms(fn) for name, fn in calls.items()}}
+        del q, k, v, do, o, lse, di, po, plse
+    if "--decode-times" in flags:
+        _kernel_build.build(["compress"])
+        out["decode_times"] = decode_times()
     if "--topk-times" in flags:
         _kernel_build.build(["compress"])
         c2 = topk_inputs(vgg16_sizes()[0])
@@ -1430,6 +1468,38 @@ def times_main(flags) -> int:
         del mats, factors
     print(json.dumps(out))
     return 0
+
+
+def decode_times() -> dict:
+    """B4's device ms at a 4 MiB bucket ([W, 256, 128] words into a slice
+    of a longer mean) and at VGG-16's whole padded length, W = 1 and 4,
+    each first checked against the plain version (bit for bit at W = 1,
+    within ``decode_tol`` at 4)."""
+    m = vgg16_sizes()[1] // (32 * cmp_ops.LANES)
+    rows_b4 = WIRE_BUCKET // 4 // (32 * cmp_ops.LANES)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    mean = torch.empty(m * 32 * cmp_ops.LANES, device="cuda")
+    res = {}
+    for w, rows in ((1, rows_b4), (4, rows_b4), (1, m), (4, m)):
+        words = torch.randint(-2 ** 31, 2 ** 31, (w, rows, cmp_ops.LANES),
+                              generator=g, device="cuda", dtype=torch.int32)
+        sc = torch.rand(w, generator=g, device="cuda") + 0.1
+        n = rows * 32 * cmp_ops.LANES
+        got = cmp_ops.unpack_signs_wsum_cuda(words, sc, out=mean[:n])
+        want = cmp_ops.unpack_signs_weighted_sum_plain(words, sc)
+        if w == 1:
+            check_bits(f"B4 [{w}, {rows}, 128]", got, want)
+        else:
+            rtol, atol = cmp_ops.decode_tol(w, sc)
+            check_close(f"B4 [{w}, {rows}, 128]", got, want, rtol,
+                        atol / float(want.abs().max()))
+        del got, want
+        res[f"w{w}_rows{rows}"] = time_ms(
+            lambda: cmp_ops.unpack_signs_wsum_cuda(words, sc, out=mean[:n]))
+        del words
+    del mean
+    torch.cuda.empty_cache()
+    return res
 
 
 def flash_phase(lib_path: str):
@@ -1576,8 +1646,8 @@ def f32_flash_run(q, k, v, do, causal):
 def flash_f32_phase():
     """The float32 B10–B12 (A11) at each of F32_FLASH_SHAPES: every output
     (o, lse, dq, dk, dv) against the float32 plain versions within
-    F32_FLASH_TOL (TF32 off), a rerun bit for bit; the SASS check of B11
-    and B12; at the LM's shape each kernel's device ms, host µs a wrapper
+    F32_FLASH_TOL (TF32 off), a rerun bit for bit; the SASS check of
+    B10–B12; at the LM's shape each kernel's device ms, host µs a wrapper
     call, bound (float32 flops in split TF32 at SPLIT_TF32_FLOPS_PER_S, f32
     bytes; the FFMA bound at F32_FLOPS_PER_S beside it), plain ms and SDPA
     in float32 (forward; its autograd backward, dQ, dK and dV in one,
@@ -1586,7 +1656,8 @@ def flash_f32_phase():
              "flash_bwd_dq_f32_cuda")
     out = {"shapes": {}, "sass": flash_sass_check(
         _kernel_build.library_path("flash_attention_f32"),
-        ("flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel"))}
+        ("flash_fwd_f32_kernel", "flash_bwd_dkv_f32_kernel",
+         "flash_bwd_dq_f32_kernel"))}
     for i, (tag, shape, causal, strided) in enumerate(F32_FLASH_SHAPES):
         q, k, v, do = f32_flash_inputs(shape, strided, 10 + i)
         zero_launches()
@@ -1670,7 +1741,7 @@ def tf32_probe_phase() -> dict:
     card's result against the products of their truncations to TF32, of
     their roundings (to nearest, ties away) and of their full values, each
     distance relative to Σ|a||b|; and both operands exact in TF32 against
-    their exact product.  B11 and B12 f32 hand the tensor core TF32 values
+    their exact product.  B10–B12 f32 hand the tensor core TF32 values
     (rounded, their low bits zero) and take their products as exact with
     float32 sums, whatever it does with other bits: raises if exact inputs
     come out otherwise, or if the models cannot be told apart."""
@@ -1859,8 +1930,8 @@ def flash_f32_main(card: str) -> dict:
         f"operand {side} reads as {probe[side]['reads']} (distance truncated "
         f"{probe[side]['truncated']:.2e}, rounded {probe[side]['rounded']:.2e},"
         f" full {probe[side]['full']:.2e})" for side in ("A", "B"))
-        + f"; TF32 inputs {probe['exact']:.2e} from their exact product (B11 "
-        f"and B12 f32 hand it TF32 values rounded to nearest)", flush=True)
+        + f"; TF32 inputs {probe['exact']:.2e} from their exact product "
+        f"(B10–B12 f32 hand it TF32 values rounded to nearest)", flush=True)
     kern = flash_f32_phase()
     print("flash f32 SASS (per head dim 32, 64, 128): " + "; ".join(
         f"{k} " + ", ".join(f"{i} {n}" for i, n in c.items())
@@ -1879,6 +1950,15 @@ def flash_f32_main(card: str) -> dict:
         f"{kern[k]['host_us']:.1f} us"
         for k in ("flash_fwd_f32_cuda", "flash_bwd_dkv_f32_cuda",
                   "flash_bwd_dq_f32_cuda")), flush=True)
+    b10 = kern["flash_fwd_f32_cuda"]
+    print(f"flash f32 forward: B10 {b10['ms']:.4f} ms against float32 "
+          f"SDPA's forward {b10['library_ms']:.4f} ms; split-TF32 bound "
+          f"{b10['bound_ms']:.4f} ms ({b10['bound_ms'] / b10['ms']:.0%} of "
+          f"it reached)", flush=True)
+    if b10["ms"] >= b10["library_ms"]:
+        raise AssertionError(f"B10 f32 {b10['ms']:.4f} ms does not beat "
+                             f"float32 SDPA's forward "
+                             f"{b10['library_ms']:.4f} ms")
     b11, b12 = kern["flash_bwd_dkv_f32_cuda"], kern["flash_bwd_dq_f32_cuda"]
     print(f"flash f32 backward: B11 + B12 {b11['ms'] + b12['ms']:.4f} ms "
           f"against float32 SDPA's autograd backward {b12['library_ms']:.4f} "
@@ -3892,7 +3972,8 @@ def wire_decode_phase() -> dict:
     """B4 and B8 at the bucketed wires' shapes, each bucket decoded into its
     slice of one mean (``out=``), as VGG-16's 4 MiB buckets hand them: B4 a
     [1, 256, 128] bucket of words (the last one shorter), bit for bit
-    against its plain version; B8 a bucket of 12,787 rows [1, 12787, 82]
+    against its plain version, and one bucket of 4 workers' words within
+    ``decode_tol``, timed beside it; B8 a bucket of 12,787 rows [1, 12787, 82]
     and the last of 4,103, against the plain decode on the CPU (see
     ``topk_phase``); times a bucket each beside its plain version and its
     bound."""
@@ -3922,7 +4003,26 @@ def wire_decode_phase() -> dict:
           "plain_ms": time_ms(lambda: cmp_ops.unpack_signs_weighted_sum_plain(
               one, scales, out=mean[:nb4]), reps=5, inner=2, warmup=1),
           **bound(nb4 / 8 + 4 + 4 * nb4, 3 * nb4)}
-    del words, whole
+    # a bucket of four workers' words, as a 4-rank world gathers it
+    w4 = 4
+    sc4 = torch.rand(w4, generator=g, device="cuda") + 0.1
+    four = torch.randint(-2 ** 31, 2 ** 31, (w4, rows_b4, cmp_ops.LANES),
+                         generator=g, device="cuda", dtype=torch.int32)
+    got = cmp_ops.unpack_signs_wsum_cuda(four, sc4, out=mean[:nb4])
+    want = cmp_ops.unpack_signs_weighted_sum_plain(four, sc4)
+    rtol, atol = cmp_ops.decode_tol(w4, sc4)
+    b4["by_workers"] = [
+        {"workers": 1, **{k: b4[k] for k in ("max_abs_err", "ms",
+                                              "plain_ms", "bound_ms")}},
+        {"workers": w4,
+         "max_abs_err": check_close(f"B4 W={w4} bucket", got, want, rtol,
+                                    atol / float(want.abs().max())),
+         "ms": time_ms(lambda: cmp_ops.unpack_signs_wsum_cuda(
+             four, sc4, out=mean[:nb4])),
+         "plain_ms": time_ms(lambda: cmp_ops.unpack_signs_weighted_sum_plain(
+             four, sc4, out=mean[:nb4]), reps=5, inner=2, warmup=1),
+         **bound(w4 * nb4 / 8 + 4 * w4 + 4 * nb4, (2 * w4 + 1) * nb4)}]
+    del words, whole, four, got, want
     c2 = topk_inputs(n_true)
     rows = c2.shape[0]
     kv, ki, _ = cmp_ops.topk_encode_cuda(c2, TOPK_K)
@@ -4001,7 +4101,10 @@ def wire_main(card: str) -> dict:
         + ("" if v["library_ms"] is None else
            f", index_put_ {v['library_ms']:.4f}")
         + f"), {v['launches_checked']} buckets into one mean bit for bit"
-        for k, v in d.items()) + f" on {card}", flush=True)
+        for k, v in d.items()) + "; B4 a bucket by workers: " + ", ".join(
+        f"W={r['workers']} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f})"
+        for r in d["unpack_signs_wsum_cuda"]["by_workers"])
+        + f" on {card}", flush=True)
     res["secs"] = time.time() - t0
     print(f"wire phases passed in {res['secs']:.1f}s", flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
@@ -5256,7 +5359,8 @@ def main() -> int:
                 launches_from=f"VGG-16 {path[6:]} main path at 4 MiB",
                 **{k: wire["decode"][name][k] for k in
                    ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                    "bound_by", "library_ms")})
+                    "bound_by", "library_ms", "by_workers")
+                   if k in wire["decode"][name]})
     by_path = flash_launches_by_path(lm, a9)
     for e in kernels:
         if e["name"].startswith("flash_") and not e["name"].endswith("_f32"):
@@ -5331,6 +5435,7 @@ if __name__ == "__main__":
         sys.exit(island_main(sys.argv[2]))
     _flags = set(sys.argv[1:])
     if not _flags <= {"--flash-times", "--topk-times", "--factor-times",
+                      "--flash-f32-times", "--decode-times",
                       "--input-times", "--update-times", "--lrn-times",
                       "--islands", "--vgg-island-lr", "--launcher",
                       "--wire", "--shard", "--gan-lm", "--flash-f32"}:

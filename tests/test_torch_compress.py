@@ -195,6 +195,106 @@ def test_flatten_round_trip_and_jax_order():
                                   want)
 
 
+# -- B4's thread map -----------------------------------------------------------
+
+DECODE_PARTS = 8           # kDecodeParts: CTAs a 32768-element tile
+DECODE_THREADS = 256       # kDecodeThreads: warp r a word row, lane g 4 lanes
+DECODE_MAX_W = 8           # kMaxW: workers' words a thread holds at once
+
+
+def replay_unpack_wsum(packed: np.ndarray, scales: np.ndarray):
+    """``unpack_wsum_kernel`` in numpy: every (CTA, thread) at once, each
+    reading its four words of each worker (in chunks of DECODE_MAX_W) and
+    summing, for each of its bit rows and lanes, bit·(2 s_w) over the
+    workers in order in float32, minus Σ s_w; returns the output and how
+    many times each element was written."""
+    w, m, _ = packed.shape
+    f32 = np.float32
+    bits = 32 // DECODE_PARTS
+    blk, tid = np.meshgrid(np.arange(m // 8 * DECODE_PARTS),
+                           np.arange(DECODE_THREADS), indexing="ij")
+    r, g = tid >> 5, tid & 31
+    tile, b0 = blk // DECODE_PARTS, (blk % DECODE_PARTS) * bits
+    lanes = 4 * g[..., None] + np.arange(4)                 # [blk, tid, 4]
+    words = packed[:, (8 * tile + r)[..., None], lanes]     # [W, blk, tid, 4]
+    total = f32(0)
+    for s in scales:
+        total = f32(total + s)
+    acc = np.zeros(blk.shape + (bits, 4), f32)
+    for w0 in range(0, w, DECODE_MAX_W):
+        for k in range(w0, min(w0 + DECODE_MAX_W, w)):
+            s2 = f32(2) * scales[k]
+            for bb in range(bits):
+                bit = (words[k] >> (b0 + bb)[..., None].astype(np.uint32)) & 1
+                acc[..., bb, :] = acc[..., bb, :] + bit.astype(f32) * s2
+    rows = 8 * (b0[..., None] + np.arange(bits)) + r[..., None]
+    idx = (tile[..., None, None] * T.PACK_ALIGN + rows[..., None] * 128
+           + lanes[..., None, :])                            # [blk, tid, b, 4]
+    out = np.zeros(m * 32 * 128, f32)
+    writes = np.zeros(out.shape, np.int64)
+    np.add.at(writes, idx.ravel(), 1)
+    out[idx.ravel()] = (acc - total).ravel()
+    return out, writes
+
+
+@pytest.mark.parametrize("w", [1, 3, 9])
+def test_b4_map_replay_matches_jnp(w):
+    """The kernel's thread → (word, bit) map writes every output element
+    exactly once, and its sums give unpack_signs_weighted_sum_jnp: bit for
+    bit at W = 1, within decode_tol above (W = 9 takes the chunk of 8
+    workers and one more)."""
+    r = np.random.RandomState(20 + w)
+    packed = r.randint(0, 2 ** 32, (w, 16, 128), dtype=np.uint64).astype(
+        np.uint32)
+    scales = (r.rand(w) + 0.1).astype(np.float32)
+    got, writes = replay_unpack_wsum(packed, scales)
+    assert (writes == 1).all()
+    want = np.asarray(J.unpack_signs_weighted_sum_jnp(jnp.asarray(packed),
+                                                      jnp.asarray(scales)))
+    if w == 1:
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+    else:
+        rtol, atol = T.decode_tol(w, torch.from_numpy(scales))
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [256, 33784], ids=["bucket", "vgg16"])
+@pytest.mark.parametrize("w", [1, 3, 8, 9])
+def test_b4_bit_equal_to_worker_order_sum_on_card(rows, w):
+    """B4 at a 4 MiB bucket's [W, 256, 128] and VGG-16's whole padded
+    length, bit for bit a float32 worker-order sum made here, one add a
+    worker: Σ_w bit_w·(2 s_w) − Σ_w s_w."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(rows + w)
+    words = torch.randint(-2 ** 31, 2 ** 31, (w, rows, T.LANES), generator=g,
+                          device="cuda", dtype=torch.int32)
+    sc = torch.rand(w, generator=g, device="cuda") + 0.1
+    got = T.unpack_signs_wsum_cuda(words, sc)
+    acc = torch.zeros(32 * rows * T.LANES, device="cuda")
+    total = torch.zeros((), device="cuda")
+    for i in range(w):
+        bit = (T.unpack_signs_plain(words[i]) > 0).float()
+        acc = acc + bit * (2 * sc[i])
+        total = total + sc[i]
+    assert torch.equal(got.view(torch.int32), (acc - total).view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_b4_refuses_unaligned_out_on_card():
+    """B4 stores 16 bytes a thread: an ``out`` that is not 16-byte aligned
+    is refused before the launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    words = torch.zeros((1, 8, T.LANES), dtype=torch.int32, device="cuda")
+    out = torch.empty(T.PACK_ALIGN + 1, device="cuda")[1:]
+    before = T.unpack_signs_wsum_cuda.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        T.unpack_signs_wsum_cuda(words, torch.ones(1, device="cuda"), out=out)
+    assert T.unpack_signs_wsum_cuda.launches == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_blocks", [1, 3])
 def test_kernels_match_plain_on_card(n_blocks):

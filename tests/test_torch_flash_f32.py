@@ -294,6 +294,108 @@ def test_fragment_permutation_identity():
     np.testing.assert_array_equal(a_log @ b_log, acc @ rows)
 
 
+# -- B10 f32's arithmetic -------------------------------------------------------
+
+ROWS = 32                  # keys of a streamed tile (kRows in the source)
+
+
+def _mm(a, b):
+    return np.matmul(a, b, dtype=np.float32)
+
+
+def _split_product(a, b):
+    """a @ b as one split-TF32 wgmma chain sums it: the small terms
+    (lo·hi + hi·lo) first, then hi·hi."""
+    (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
+    return (_mm(al, bh) + _mm(ah, bl)) + _mm(ah, bh)
+
+
+def _tf32_product(a, b):
+    """a @ b in one TF32 pass (the control)."""
+    return _mm(tf32_round(a), tf32_round(b))
+
+
+def replay_fwd_f32(q, k, v, causal, product=_split_product):
+    """B10 f32's arithmetic in numpy float32: keys in tiles of 32; each k8
+    step of s = q kᵀ a fresh ``product`` folded into the float32 scores;
+    the scores scaled, the mask added above the diagonal; the online
+    softmax (m per row, l rescaled and added to, o rescaled by
+    exp(m_old − m_new) every tile); each tile's p v a fresh ``product``
+    folded into o; o / l and lse = m + log l at the end.  (Tiles wholly
+    above the diagonal, which the kernel skips, add exactly nothing here:
+    their p is 0 and their max below m.)"""
+    t, d = q.shape[-2:]
+    scale = np.float32(d ** -0.5)
+    above = np.triu(np.ones((t, t), bool), 1)
+    mask = np.where(above, np.float32(F.MASK_VALUE), np.float32(0))
+    o = np.zeros(q.shape, np.float32)
+    m = np.full(q.shape[:-1], -np.inf, np.float32)
+    l = np.zeros(q.shape[:-1], np.float32)
+    for j in range(t // ROWS):
+        keys = slice(j * ROWS, (j + 1) * ROWS)
+        kt = np.swapaxes(k[..., keys, :], -1, -2)
+        s = None
+        for kk in range(d // 8):
+            c = slice(8 * kk, 8 * kk + 8)
+            step = product(q[..., c], kt[..., c, :])
+            s = step if s is None else s + step
+        x = s * scale
+        if causal:
+            x = x + mask[:, keys]
+        m_new = np.maximum(m, x.max(-1))
+        alpha = np.exp(m - m_new)
+        p = np.exp(x - m_new[..., None])
+        l = l * alpha + p.sum(-1, dtype=np.float32)
+        o = o * alpha[..., None] + product(p, v[..., keys, :])
+        m = m_new
+    return o / l[..., None], m + np.log(l)
+
+
+FWD_CASES = [((1, 2, 256, 64), True), ((1, 2, 128, 32), False)]
+
+
+@pytest.fixture(scope="module", params=FWD_CASES,
+                ids=lambda c: "x".join(map(str, c[0])) + ("" if c[1]
+                                                          else "-noncausal"))
+def jax_fwd(request):
+    """Inputs from a numpy seed and the JAX package's float32 flash forward
+    on them (JAX's packaged TPU kernel, which theanompi_tpu/models/layers.py
+    calls for attn_impl='flash', in Pallas's TPU interpret mode): o, and
+    lse = m + log l from its residuals."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+    from jax.experimental.pallas.ops.tpu import flash_attention as jfa
+    shape, causal = request.param
+    r = np.random.RandomState(11)
+    q, k, v = (r.standard_normal(shape).astype(np.float32) for _ in range(3))
+    b, h, t, d = shape
+    with pltpu.force_tpu_interpret_mode():
+        o, l, m = jfa._flash_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), None, None, True,
+            causal, d ** -0.5, jfa.BlockSizes.get_default(b, h, t, t, d),
+            False)
+    return (q, k, v, causal), np.asarray(o), np.asarray(m) + np.log(
+        np.asarray(l))
+
+
+def test_b10_f32_replay_within_f32_tol_of_jax(jax_fwd):
+    """The kernel's arithmetic (split TF32, a fold per k-step and per tile,
+    the softmax rescaled every 32 keys) within F32_TOL of the JAX package's
+    float32 flash forward, on o and lse."""
+    ins, want_o, want_lse = jax_fwd
+    o, lse = replay_fwd_f32(*ins)
+    assert _over_tol(o, want_o) <= 1.0
+    assert _over_tol(lse, want_lse) <= 1.0
+
+
+def test_b10_f32_one_pass_tf32_fails_f32_tol(jax_fwd):
+    """The same forward with one TF32 pass a product (no lo terms) is
+    outside F32_TOL of the JAX package's: the split is needed."""
+    ins, want_o, want_lse = jax_fwd
+    o, lse = replay_fwd_f32(*ins, product=_tf32_product)
+    assert max(_over_tol(o, want_o), _over_tol(lse, want_lse)) > 1.0
+
+
 # -- on the card ------------------------------------------------------------
 
 @pytest.fixture

@@ -22,18 +22,18 @@
 // far under the ~20 flops per byte at which the H100's f32 rate would
 // start to limit.  So each kernel makes one pass over device memory:
 //
-//   * One block of 1024 threads owns one 256 x 128 tile; thread (r, l),
-//     r = threadIdx.y < 8, l = threadIdx.x < 128, owns word [r, l] and
-//     walks b = 0..31 over the rows 8b + r of lane l.  A warp is 32
+//   * B3, B5, B6: one block of 1024 threads owns one 256 x 128 tile;
+//     thread (r, l), r = threadIdx.y < 8, l = threadIdx.x < 128, owns word
+//     [r, l] and walks b = 0..31 over the rows 8b + r of lane l.  A warp is 32
 //     consecutive lanes of one row, so each of its loads and stores is 128
 //     contiguous bytes, and each word is read or written exactly once.
 //   * B5 forms c = flat + state in a register and writes |c| and the word:
 //     c itself never reaches device memory, as in the TPU kernel.
 //   * B6 reads its word once and writes 32 residuals; the scale is read
 //     from device memory (a pointer), so the host never waits for it.
-//   * B4 reads the W words of its position and the W scales once, and
-//     writes 32 outputs.  The loop over b is unrolled in part, so each
-//     thread keeps several loads in flight.
+//   * B4 alone splits a tile over 8 blocks of 256 threads (at its kernel
+//     below): a bucket of the bucketed wire, 32 tiles, would otherwise be
+//     32 blocks on 132 SMs.  Its loads and stores are 16 bytes a thread.
 //
 // Arithmetic is the Pallas kernels', operation for operation, with every
 // add and subtract rounded on its own (__fadd_rn / __fsub_rn: no FMA
@@ -107,44 +107,75 @@ residual_kernel(const float* __restrict__ absc,
   }
 }
 
-// packed [W, m, 128] words, scales [W] -> out [32 m 128]
-__global__ void __launch_bounds__(1024)
-unpack_wsum_kernel(const uint32_t* __restrict__ packed,
-                   const float* __restrict__ scales, float* __restrict__ out,
+// B4: packed [W, m, 128] words, scales [W] -> out [32 m 128].  A tile's
+// work is split over kDecodeParts CTAs of 256 threads, so that one 4 MiB
+// bucket (32 tiles) is 256 CTAs on the 132 SMs: CTA (tile, part) takes the
+// bit rows b of [part kDecodeBits, (part + 1) kDecodeBits); its warp r the
+// word row r, its lane g the lanes 4g .. 4g + 3.  A thread reads its four
+// words of each worker as one 16-byte load and each scale once, and writes
+// the four outputs of row 8b + r, lanes 4g.., as one 16-byte store for each
+// of its bits b: a warp's store is one output row, 512 contiguous bytes.
+// Each output is written once; its sum runs in registers over every worker
+// in order (past kMaxW workers too: the words come in chunks, the sums stay
+// in registers): the same adds in the same order at any W and any m, so a
+// bucket's decode is the monolithic one's bit for bit.  On an H100 80GB
+// HBM3 (700 W), `chip_smoke.py --decode-times` (one call, each build twice)
+// read a [1, 256, 128] bucket at 0.0036 ms (one 1024-thread block a tile:
+// 0.0105), [4, 256, 128] at 0.0043, VGG-16's [1, 33784, 128] at 0.199
+// (0.285); 4 CTAs a tile 0.0041 / 0.0049 / 0.198, 16 CTAs 0.0037 / 0.0049
+// / 0.204.
+constexpr int kDecodeThreads = kWordRows * 32;
+constexpr int kDecodeParts = 8;                    // CTAs a tile
+constexpr int kDecodeBits = kBits / kDecodeParts;  // bit rows a thread
+
+__global__ void __launch_bounds__(kDecodeThreads)
+unpack_wsum_kernel(const uint4* __restrict__ packed,
+                   const float* __restrict__ scales, float4* __restrict__ out,
                    int n_workers, size_t m) {
   constexpr int kMaxW = 8;   // workers whose words a thread holds at once
-  const int r = threadIdx.y, l = threadIdx.x;
-  const size_t pos =
-      (static_cast<size_t>(blockIdx.x) * kWordRows + r) * kLanes + l;
-  const size_t base = static_cast<size_t>(blockIdx.x) * kTile;
+  constexpr int kQuads = kLanes / 4;               // 16-byte groups a row
+  const int r = threadIdx.x >> 5, g = threadIdx.x & 31;
+  const size_t tile = blockIdx.x / kDecodeParts;
+  const int b0 = (blockIdx.x % kDecodeParts) * kDecodeBits;
+  const size_t pos = (tile * kWordRows + r) * kQuads + g;
   float total = 0.f;
   for (int w = 0; w < n_workers; ++w) total = __fadd_rn(total, scales[w]);
-  float* o = out + base;
+  float acc[kDecodeBits][4];
+#pragma unroll
+  for (int bb = 0; bb < kDecodeBits; ++bb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[bb][e] = 0.f;
   for (int w0 = 0; w0 < n_workers; w0 += kMaxW) {
-    // workers in chunks of kMaxW: the first chunk starts from 0, later ones
-    // from the partial sums already stored, so the order stays w = 0..W-1
     const int nw = min(kMaxW, n_workers - w0);
-    uint32_t wd[kMaxW];
+    uint4 wd[kMaxW];
     float s2[kMaxW];
 #pragma unroll
     for (int k = 0; k < kMaxW; ++k) {
       if (k < nw) {
-        wd[k] = packed[static_cast<size_t>(w0 + k) * m * kLanes + pos];
+        wd[k] = packed[static_cast<size_t>(w0 + k) * m * kQuads + pos];
         s2[k] = 2.f * scales[w0 + k];
       }
     }
-    const bool last = w0 + nw == n_workers;
-#pragma unroll 8
-    for (int b = 0; b < kBits; ++b) {
-      const int i = elem(b, r, l);
-      float acc = w0 == 0 ? 0.f : o[i];
 #pragma unroll
-      for (int k = 0; k < kMaxW; ++k)
-        if (k < nw)
-          acc = __fadd_rn(acc, static_cast<float>((wd[k] >> b) & 1u) * s2[k]);
-      o[i] = last ? __fsub_rn(acc, total) : acc;
+    for (int k = 0; k < kMaxW; ++k) {
+      if (k < nw) {
+        const uint32_t x[4] = {wd[k].x, wd[k].y, wd[k].z, wd[k].w};
+#pragma unroll
+        for (int bb = 0; bb < kDecodeBits; ++bb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[bb][e] = __fadd_rn(
+                acc[bb][e],
+                static_cast<float>((x[e] >> (b0 + bb)) & 1u) * s2[k]);
+      }
     }
   }
+  float4* o = out + tile * (kTile / 4) + r * kQuads + g;
+#pragma unroll
+  for (int bb = 0; bb < kDecodeBits; ++bb)
+    o[(b0 + bb) * kWordRows * kQuads] =
+        make_float4(__fsub_rn(acc[bb][0], total), __fsub_rn(acc[bb][1], total),
+                    __fsub_rn(acc[bb][2], total), __fsub_rn(acc[bb][3], total));
 }
 
 // ---------------------------------------------------------------------------
@@ -482,13 +513,17 @@ int signed_residual(const float* absc, const uint32_t* words,
   return finish();
 }
 
-// m = packed rows per worker (m % 8 == 0); out has 32 * m * 128 elements
+// m = packed rows per worker (m % 8 == 0); out has 32 * m * 128 elements;
+// packed and out 16-byte aligned
 int unpack_signs_wsum(const uint32_t* packed, const float* scales, float* out,
                       int n_workers, long long m, cudaStream_t stream) {
+  if ((reinterpret_cast<uintptr_t>(packed) | reinterpret_cast<uintptr_t>(out)) & 15)
+    return static_cast<int>(cudaErrorMisalignedAddress);
   if (m > 0 && n_workers > 0)
-    unpack_wsum_kernel<<<static_cast<unsigned>(m / kWordRows),
-                         dim3(kLanes, kWordRows), 0, stream>>>(
-        packed, scales, out, n_workers, static_cast<size_t>(m));
+    unpack_wsum_kernel<<<static_cast<unsigned>(m / kWordRows * kDecodeParts),
+                         kDecodeThreads, 0, stream>>>(
+        reinterpret_cast<const uint4*>(packed), scales,
+        reinterpret_cast<float4*>(out), n_workers, static_cast<size_t>(m));
   return finish();
 }
 

@@ -21,12 +21,11 @@
 //   B12 dQ = sum_k dS k
 //
 // In float32 the TPU kernel's p.astype(v.dtype) (:471, :900, :918, :1258) is
-// the identity: nothing is rounded below float32 here either.  B10's
-// products are true float32 fused multiply-adds (FFMA); B11's and B12's are
-// split TF32 on the tensor cores (below), float32-accurate.  So the kernels
-// agree with the float32 plain versions (ops/flash_attention.py) up to the
-// order and the last bits of float32 sums.  expf and logf are the accurate
-// ones (no fast-math flag).
+// the identity: nothing is rounded below float32 here either.  Every product
+// is split TF32 on the tensor cores (below), float32-accurate.  So the
+// kernels agree with the float32 plain versions (ops/flash_attention.py) up
+// to the order and the last bits of float32 sums.  expf and logf are the
+// accurate ones (no fast-math flag).
 //
 // Bound.  At the LM's shape ([16, 8, 512, 64] f32, causal) one causal product
 // is T^2/2 * D * B * H multiply-adds, 2.15 GFLOP: B10 does two (q k^T, p v),
@@ -35,30 +34,10 @@
 // bytes at 3.35 TB/s: all three are bound by operations.  Done in split TF32
 // (three TF32 products each, 495 TFLOP/s dense: 165 TFLOP/s of
 // float32-accurate work) the same work takes at least 0.026, 0.052 and 0.039
-// ms, still above the bytes (0.020, 0.030, 0.025 ms): B11 and B12 are bound
-// by the tensor cores' operations.
+// ms, still above the bytes (0.020, 0.030, 0.025 ms): all three are bound by
+// the tensor cores' operations.
 //
-// B10's design (B11's and B12's too before their redesign):
-//
-// Design (a plain SIMT kernel, right first; speed is later work).  One CTA of
-// 256 threads per (b*h, 64-row output tile); D in {32, 64, 128}, T a multiple
-// of 64.  The CTA's 64 rows and the current 64-row tile of the other side
-// sit in shared memory, rows padded to D + 1 floats so that the 16 threads
-// that read 16 different rows of one column hit 16 different banks.  Thread
-// (ty, tx) = (tid / 16, tid % 16) owns the 4 x 4 score entries (ty + 16 i,
-// tx + 16 j) of a 64 x 64 tile, and the 4 x D/16 output entries (ty + 16 i,
-// tx + 16 c): a score tile is 16 FFMAs for 8 shared loads per step of D, and
-// a row's 64 scores live in the 16 lanes of one half-warp, so a row max or
-// sum is four xor-shuffles.  Scores, p and dS go through a 64 x 65 tile in
-// shared memory between the score pass and the product pass that consumes
-// them.  The online softmax (B10) keeps m and l per row in registers and
-// rescales the output sums by exp(m_old - m_new).  Causal: tiles wholly
-// above the diagonal are skipped (their p is exactly 0 in float32), the
-// diagonal tile adds the mask from each element's (row, column).  B10 and
-// B12 start the longest rows first.  Each output entry is owned by one
-// thread and summed in a fixed order: no atomics, the same bits every run.
-//
-// B11 and B12: split TF32 on wgmma, fed by a TMA ring.
+// B10, B11 and B12: split TF32 on wgmma, fed by a TMA ring.
 //
 // The split.  A TF32 product keeps 10 bits of each mantissa: ~1e-3 off, far
 // outside chip_smoke.py's F32_FLASH_TOL (2^-14 of max|plain|).  Each float32
@@ -76,8 +55,8 @@
 // weight's gradient: there an error that always leans one way adds up where
 // FFMA's rounding errors cancel.  On an H100 80GB HBM3 (700 W), with the
 // last layer's wq and wk leaves the worst (card vs CPU, against the same
-// leaves with the reference attention on both sides; limit 2.0, the SIMT
-// kernels 1.72):
+// leaves with the reference attention on both sides; limit 2.0; kernels of
+// true float32 FMAs, the first build of all three, 1.72):
 //   * The tensor core reads a float32 bit pattern as its truncation to TF32
 //     (chip_smoke.py's TF32 probe).  Handing it the raw tile as hi and x -
 //     trunc(x) as lo, which it truncates too, cost no conversion but
@@ -88,16 +67,17 @@
 //     192 adds over T = 512.  Each row-reduction product now sums one
 //     streamed tile into a fresh accumulator (12 adds, small terms first)
 //     and the thread adds it to its float32 sum in registers; each k-step of
-//     a score product (3 adds) likewise: 1.75, the SIMT kernels' level (the
+//     a score product (3 adds) likewise: 1.75, the FMA kernels' level (the
 //     control, bf16-rounded probabilities, 15,630), at B11 0.184 and B12
-//     0.148 ms.
+//     0.148 ms.  B10 built the same way keeps it there (1.72).
 //
 // Shape of a CTA.  160 threads per (b*h, 64-row output tile), the bf16
-// kernels' grid and causal skips (B12 starts the longest rows first): warps
-// 0-3 are one consumer warpgroup that owns the tile's 64 rows (wgmma's M),
-// warp 4 the producer, one lane of which issues every copy.  Resident tiles
-// (B11 k and v; B12 q and dO) come in once by TMA; streamed tiles of 32 rows
-// (B11 q and dO with their lse and di rows by bulk copy; B12 k and v) through
+// kernels' grid and causal skips (B10 and B12 start the longest rows first):
+// warps 0-3 are one consumer warpgroup that owns the tile's 64 rows (wgmma's
+// M), warp 4 the producer, one lane of which issues every copy.  Resident
+// tiles (B10 q; B11 k and v; B12 q and dO) come in once by TMA; streamed
+// tiles of 32 rows (B10 and B12 k and v; B11 q and dO with their lse and di
+// rows by bulk copy) through
 // a ring slot with a full/empty mbarrier pair, released as soon as its last
 // reader is done, so the next tile's copy runs under the row-reduction
 // products.  TMA writes a float32 tile in boxes of 32 columns (128 bytes a
@@ -112,21 +92,24 @@
 // Products: every one is wgmma.mma_async m64nNk8 .f32.tf32.tf32, A from
 // registers, B from shared memory; TF32 wgmma reads operands K-major only
 // (imm-trans exists for f16/bf16 alone).
-//   * Score products (B11 s^T = k q^T and dP^T = v dO^T; B12 s = q k^T and
-//     dP = dO v^T) reduce over hd, contiguous on both sides.  A, the
+//   * Score products (B10 s = q k^T; B11 s^T = k q^T and dP^T = v dO^T; B12
+//     s = q k^T and dP = dO v^T) reduce over hd, contiguous on both sides.
+//     A, the
 //     resident tile, is read into the thread's fragment (rows r0, r0 + 8;
 //     columns t, t + 4) a k8 step at a time and split in registers: no
 //     A-side lo tile.  (Holding B12's fragments for every k-step took 64
-//     more registers, which spilled at two CTAs an SM and ran slower.)  B, the streamed tile: the consumers
-//     write its hi part over the raw TMA tile and its lo tile beside it.
-//     Both products of a tile go together, six wgmmas a k-step into fresh
-//     accumulators, folded into the float32 sums in registers.
-//   * Row-reduction products (B11 dV = p^T dO and dK = dS^T q; B12 dQ =
-//     dS k) reduce over the streamed rows.  A is p^T, dS^T or dS, split in
-//     registers straight from the score accumulators; B needs a transposed
-//     copy ([hd][rows], rows contiguous, 128-byte swizzle) as hi and lo,
-//     which the consumers write once a streamed tile.  A tile's product goes
-//     into a fresh accumulator, folded into dK, dV or dQ in registers.
+//     more registers, which spilled at two CTAs an SM and ran slower.)  B,
+//     the streamed tile: the consumers write its hi part over the raw TMA
+//     tile and its lo tile beside it.  Each k-step (three wgmmas, B12 six:
+//     both its products together) goes into fresh accumulators, folded into
+//     the float32 sums in registers.
+//   * Row-reduction products (B10 o = p v; B11 dV = p^T dO and dK = dS^T q;
+//     B12 dQ = dS k) reduce over the streamed rows.  A is p, p^T, dS^T or
+//     dS, split in registers straight from the score accumulators; B needs
+//     a transposed copy ([hd][rows], rows contiguous, 128-byte swizzle) as
+//     hi and lo, which the consumers write once a streamed tile (B10 v's
+//     alone: v is read by no other product).  A tile's product goes into a
+//     fresh accumulator, folded into o, dK, dV or dQ in registers.
 //   Accumulator to A.  The m64nN f32 accumulator gives a thread columns 2t,
 //   2t+1 of each 8-column block (t = lane % 4); the TF32 k8 A fragment
 //   wants t, t+4.  No shuffle: the fragment takes column 2t as k = t and
@@ -137,8 +120,20 @@
 //   read of the raw tile and the lo store.  No score, p or dS goes through
 //   shared memory.
 //
+// B10's online softmax runs on the score accumulator: the thread holds rows
+// r0 and r0 + 8 (8 of a streamed tile's 32 keys each), scales the scores,
+// adds the mask on the diagonal tiles (B12's test for each (row, key) pair),
+// takes the row max over its quad (two xor-shuffles), keeps m per row and l
+// per thread (its keys' share; the quad's four added at the end) in float32,
+// and rescales o by exp(m_old - m_new) in registers before the tile's p v is
+// folded in: the rescale comes every 32 keys.  l sums the float32 p; the
+// product takes hi + lo, within 2^-22 of it.  o = acc / l goes out through
+// q's strides, lse = m + log l to [B, H, T].
+//
 // Shared memory is the binding budget (KB, 1 KB of alignment besides;
 // streamed tiles of 32 rows, one ring stage):
+//   B10 hd 64: q 16; k, v 16; k lo 8; v^T hi and lo 16: 56, three CTAs an
+//       SM.  hd 128: 112, one CTA.  hd 32: 28.
 //   B11 hd 64: k, v 32; q, dO 16; q lo, dO lo 16; q^T and dO^T hi and lo
 //       32; lse and di rows 0.25: 96.25, two CTAs an SM (a second stage,
 //       112.25, does not leave room for two).
@@ -152,13 +147,19 @@
 // threads an SM cap a thread at 168 (three of their ten warps share one
 // quarter of the register file): B11 issues its two score products' k-step
 // one after the other, with one temporary accumulator, where issuing them
-// together spilled.
+// together spilled.  B10 uses 128, 128 and 201: three CTAs an SM cap it at
+// 136 at hd <= 64.  On an H100 80GB HBM3 (700 W), [16, 8, 512, 64] causal
+// (`chip_smoke.py --flash-f32-times` on copies of this file that differ in
+// one choice, one call, each twice), B10 took 0.108 ms at three CTAs an
+// SM, 0.125 at two and 0.112 at three with a second ring stage.  It does
+// not pipeline s_j against p_{j-1} v_{j-1} as the bf16 B10 does: its folds
+// wait on every k-step, and the SM's other CTAs fill those waits.
 //
 // Each output entry is owned by one thread of one CTA and summed in a fixed
 // order: no atomics, the same bits every run.
 //
 // Inputs may be strided views: each tensor comes with its B, H and T strides
-// in elements, the last dim contiguous (the wrapper checks; B11 and B12 also
+// in elements, the last dim contiguous (the wrapper checks; the kernels also
 // need every stride a multiple of 4 and 16-byte aligned bases for TMA, which
 // the wrapper's multiple-of-8 rule gives).  Outputs are written through
 // their strides the same way.  Each C entry launches on the caller's stream,
@@ -172,9 +173,7 @@
 namespace {
 
 constexpr int kTile = 64;                  // rows of a q or k/v tile
-constexpr int kThreads = 256;
 constexpr float kMask = -0.7f * 3.402823466e38f;   // DEFAULT_MASK_VALUE
-constexpr int kSP = kTile + 1;             // padded row of a score tile
 
 struct Strided {                           // element strides of [B, H, T, D]
   long long b, h, t;
@@ -190,165 +189,15 @@ __device__ __forceinline__ long long base(const Strided& st, int b, int h,
   return b * st.b + h * st.h + static_cast<long long>(row0) * st.t;
 }
 
-// A 64 x D tile from global memory into shared rows of D + 1 floats:
-// neighbouring threads read neighbouring columns.
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          long long st_t) {
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    dst[r * (D + 1) + c] = src[r * st_t + c];
-  }
-}
-
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// acc[i][j] += sum_d a[(ty + 16 i) * P + d] * b[(tx + 16 j) * P + d]
-template <int D>
-__device__ __forceinline__ void score_tile(float (&acc)[4][4], const float* a,
-                                           const float* b, int ty, int tx) {
-  constexpr int P = D + 1;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[(ty + 16 * i) * P + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = b[(tx + 16 * j) * P + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// out[i][c] += sum_k s[(ty + 16 i) * kSP + k] * m[k * P + tx + 16 c]
-template <int D>
-__device__ __forceinline__ void product_tile(float (&out)[4][D / 16],
-                                             const float* s, const float* m,
-                                             int ty, int tx) {
-  constexpr int P = D + 1;
-#pragma unroll 4
-  for (int k = 0; k < kTile; ++k) {
-    float sv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) sv[i] = s[(ty + 16 * i) * kSP + k];
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) {
-      const float mv = m[k * P + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) out[i][c] = fmaf(sv[i], mv, out[i][c]);
-    }
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void store_tile(float* dst, long long st_t,
-                                           const float (&v)[4][D / 16],
-                                           int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c)
-      dst[(ty + 16 * i) * st_t + tx + 16 * c] = v[i][c];
-}
-
 // ---------------------------------------------------------------------------
-// B10: o and lse
-// ---------------------------------------------------------------------------
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, Strided sq, Strided sk,
-                     Strided sv, Strided so, int H, int T, float scale,
-                     int causal) {
-  constexpr int P = D + 1;
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* ks = qs + kTile * P;
-  float* vs = ks + kTile * P;
-  float* ps = vs + kTile * P;
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int qb = gridDim.y - 1 - blockIdx.y;         // longest rows first
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  load_tile<D>(qs, q + base(sq, b, h, qb * kTile), sq.t);
-
-  float acc[4][D / 16], m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
-  }
-  const int n_kb = causal ? qb + 1 : T / kTile;
-  for (int kb = 0; kb < n_kb; ++kb) {
-    __syncthreads();                    // the previous tile's readers are done
-    load_tile<D>(ks, k + base(sk, b, h, kb * kTile), sk.t);
-    load_tile<D>(vs, v + base(sv, b, h, kb * kTile), sv.t);
-    __syncthreads();
-    float s[4][4] = {};
-    score_tile<D>(s, qs, ks, ty, tx);
-    const bool diag = causal && kb == qb;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] *= scale;
-        if (diag && tx + 16 * j > ty + 16 * i) s[i][j] += kMask;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        ps[(ty + 16 * i) * kSP + tx + 16 * j] = p;
-        sum += p;
-      }
-      l[i] = l[i] * alpha + half_warp_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-    product_tile<D>(acc, ps, vs, ty, tx);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc[i][c] = acc[i][c] / l[i];
-    if (tx == 0)
-      lse[(static_cast<long long>(blockIdx.x) * T) + qb * kTile + ty + 16 * i] =
-          m[i] + logf(l[i]);
-  }
-  store_tile<D>(o + base(so, b, h, qb * kTile), so.t, acc, ty, tx);
-}
-
-// ---------------------------------------------------------------------------
-// Hopper primitives of B11 and B12: mbarriers, TMA, split-TF32 wgmma
+// Hopper primitives: mbarriers, TMA, split-TF32 wgmma
 // ---------------------------------------------------------------------------
 
 constexpr int kHopperThreads = 160;        // consumer warpgroup + producer warp
 constexpr int kConsumers = 128;
 constexpr uint32_t kHiMask = 0xffffe000u;  // the 19 bits a TF32 keeps
 
-// B11 and B12 stream tiles of 32 rows through a ring of one stage, so that
+// The kernels stream tiles of 32 rows through a ring of one stage, so that
 // at hd <= 64 two CTAs share an SM (at most 96 KB and 168 registers each):
 // one CTA's conversion and elementwise passes run under the other's
 // products.
@@ -357,6 +206,12 @@ constexpr int kStages = 1;                 // ring slots
 template <int D>
 constexpr int min_blocks() {               // CTAs an SM
   return D == 128 ? 1 : 2;
+}
+// B10 keeps fewer tiles and values (56 KB, 128 registers at hd 64): three
+// of its CTAs share an SM
+template <int D>
+constexpr int fwd_min_blocks() {
+  return D == 128 ? 1 : 3;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -573,15 +428,16 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2],
 }
 
 // The consumer warpgroup's pass over a streamed tile of R rows as TMA wrote
-// it at `raw` (offsets from sm): each x is split, hi written back in place
-// and lo to `lo` in the same layout; when kT, hi and lo also go transposed to
-// `thi` and `tlo` ([D][R], 128-byte swizzle) with the row index permuted
+// it at `raw` (offsets from sm): each x is split; when kRow, hi is written
+// back in place and lo to `lo` in the same layout; when kT, hi and lo go
+// transposed to `thi` and `tlo` ([D][R], 128-byte swizzle) with the row
+// index permuted
 // within each group of 8: position 8g + j + 4 par holds row 8g + 2j + par
 // (the note).  Warp w takes the row groups g = w, w + 4, ...; one warp
 // instruction takes rows 8g + {0, 2, 4, 6} + par (lane / 8 = j) and columns
 // 8m..8m+7 (lane % 8 = dd): 32 different banks on the read, the lo store
 // and both transposed stores.
-template <int D, int R, bool kT>
+template <int D, int R, bool kT, bool kRow = true>
 __device__ __forceinline__ void split_tile(unsigned char* sm, uint32_t raw,
                                            uint32_t lo, uint32_t thi,
                                            uint32_t tlo, int warp, int lane) {
@@ -601,8 +457,10 @@ __device__ __forceinline__ void split_tile(unsigned char* sm, uint32_t raw,
                            (((2 * (m & 3) + (dd >> 2)) ^ (r & 7)) << 4);
         uint32_t x = *reinterpret_cast<const uint32_t*>(sm + raw + o), l;
         split(x, x, l);
-        *reinterpret_cast<uint32_t*>(sm + raw + o) = x;     // hi in place
-        *reinterpret_cast<uint32_t*>(sm + lo + o) = l;
+        if constexpr (kRow) {
+          *reinterpret_cast<uint32_t*>(sm + raw + o) = x;   // hi in place
+          *reinterpret_cast<uint32_t*>(sm + lo + o) = l;
+        }
         if constexpr (kT) {
           // element (8m + dd, pos) of the copy: chunk tchunk ^ dd
           const uint32_t ot = trow + (8 * m + dd) * 128 + ((tchunk ^ dd) << 4);
@@ -648,8 +506,9 @@ __device__ __forceinline__ void fold(float (&c)[N], const float (&t)[N],
 // c1 and c2 in float32 registers (the note: the tensor core's own sums
 // truncate).  kPaired issues both products' k-step together (six wgmmas a
 // wait); otherwise one after the other, which needs half the temporaries
-// (B11: 168 registers without a spill).
-template <int D, int R, bool kPaired>
+// (B11: 168 registers without a spill).  Without kSecond, c1 alone
+// (score_product).
+template <int D, int R, bool kPaired, bool kSecond = true>
 __device__ __forceinline__ void score_products(
     float (&c1)[R / 2], float (&c2)[R / 2], const unsigned char* sm,
     uint32_t a1, uint32_t b1hi, uint32_t b1lo, uint32_t a2, uint32_t b2hi,
@@ -662,7 +521,8 @@ __device__ __forceinline__ void score_products(
     for (int i = 0; i < 4; ++i) {
       const uint32_t o = swz(r0 + 8 * (i & 1), 8 * kk + t + 4 * (i >> 1), kTile);
       split(*reinterpret_cast<const uint32_t*>(sm + a1 + o), h1[i], l1[i]);
-      split(*reinterpret_cast<const uint32_t*>(sm + a2 + o), h2[i], l2[i]);
+      if constexpr (kSecond)
+        split(*reinterpret_cast<const uint32_t*>(sm + a2 + o), h2[i], l2[i]);
     }
     if constexpr (kPaired) {
       float t1[R / 2], t2[R / 2];
@@ -683,10 +543,21 @@ __device__ __forceinline__ void score_products(
       float t[R / 2];
       score_step<R>(t, h1, l1, kk, s0 + b1hi, s0 + b1lo);
       fold(c1, t, kk == 0);
-      score_step<R>(t, h2, l2, kk, s0 + b2hi, s0 + b2lo);
-      fold(c2, t, kk == 0);
+      if constexpr (kSecond) {
+        score_step<R>(t, h2, l2, kk, s0 + b2hi, s0 + b2lo);
+        fold(c2, t, kk == 0);
+      }
     }
   }
+}
+
+// One score product, c = A B^T, as score_products computes each of two.
+template <int D, int R>
+__device__ __forceinline__ void score_product(float (&c)[R / 2],
+                                              const unsigned char* sm,
+                                              uint32_t a, uint32_t bhi,
+                                              uint32_t blo, int r0, int t) {
+  score_products<D, R, false, false>(c, c, sm, a, bhi, blo, 0, 0, 0, r0, t);
 }
 
 // acc = A B over the R streamed rows, in split TF32, into a fresh
@@ -734,6 +605,145 @@ __device__ __forceinline__ void store_rows(float* out, const Strided& st,
     for (int half = 0; half < 2; ++half)
       *reinterpret_cast<float2*>(p + (r0 + 8 * half) * st.t + 8 * j + cq) =
           make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+}
+
+// ---------------------------------------------------------------------------
+// B10: o and lse (one CTA per 64-row q tile, k/v tiles streamed)
+// ---------------------------------------------------------------------------
+
+template <int D>
+constexpr uint32_t fwd_bytes() {
+  // q; kStages x (k, v); k lo; v^T hi and lo; the q barrier and a
+  // full/empty pair a stage
+  constexpr uint32_t res = kTile * D * 4, str = kRows * D * 4;
+  return res + kStages * 2 * str + str + 2 * str + 8 * (1 + 2 * kStages);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kHopperThreads, fwd_min_blocks<D>())
+    flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
+                         float* __restrict__ o, float* __restrict__ lse,
+                         Strided so, int H, int T, float scale, int causal) {
+  constexpr int R = kRows, S = kStages;
+  constexpr uint32_t kRes = kTile * D * 4, kStr = R * D * 4;
+  constexpr uint32_t oQ = 0, oRing = kRes;                  // stage: k, v
+  constexpr uint32_t oLo = oRing + S * 2 * kStr;            // k lo
+  constexpr uint32_t oT = oLo + kStr;                       // v^T hi, lo
+  constexpr uint32_t oBar = oT + 2 * kStr;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = aligned_smem(smem_raw);
+  const uint32_t s0 = smem_addr(sm);
+  auto full = [&](int s) { return s0 + oBar + 8 * (1 + s); };
+  auto empty = [&](int s) { return s0 + oBar + 8 * (1 + S + s); };
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int qi = T / kTile - 1 - blockIdx.y;   // the longest rows start first
+  const int n_kv = causal ? (qi + 1) * kTile / R : T / R;   // above skipped
+  if (tid == 0) {
+    mbar_init(s0 + oBar, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {                     // the producer warp
+    if (tid == kConsumers) {
+      mbar_expect(s0 + oBar, kRes);
+      tma_tile<D>(s0 + oQ, &map_q, s0 + oBar, qi * kTile, h, b, kTile);
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % S;
+        if (j >= S) mbar_wait(empty(s), (j / S - 1) & 1);
+        const uint32_t st = s0 + oRing + s * 2 * kStr;
+        mbar_expect(full(s), 2 * kStr);
+        tma_tile<D>(st, &map_k, full(s), j * R, h, b, R);
+        tma_tile<D>(st + kStr, &map_v, full(s), j * R, h, b, R);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup: the thread's rows r0 and r0 + 8 of the tile; its
+  // keys of n8 block jb are 8 jb + cq + {0, 1}
+  const int warp = tid >> 5, lane = tid & 31;
+  const int r0 = 16 * warp + (lane >> 2), t = lane & 3, cq = 2 * t;
+  float oa[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) oa[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // l: the thread's
+
+  mbar_wait(s0 + oBar, 0);
+  for (int j = 0; j < n_kv; ++j) {
+    const int s = j % S;
+    const uint32_t ok = oRing + s * 2 * kStr, ov = ok + kStr;
+    mbar_wait(full(s), (j / S) & 1);
+    consumers_sync();                          // the last tile's product read
+    split_tile<D, R, false>(sm, ok, oLo, 0, 0, warp, lane);
+    split_tile<D, R, true, false>(sm, ov, 0, oT, oT + kStr, warp, lane);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    consumers_sync();
+
+    float sc[R / 2];                           // s = q k^T
+    score_product<D, R>(sc, sm, oQ, ok, oLo, r0, t);
+    mbar_arrive(empty(s));                     // k and v read
+
+    const bool diag = causal && (j + 1) * R > qi * kTile;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < R / 2; ++i) {          // i = 4 jb + 2 half + e
+      const int half = (i >> 1) & 1;
+      float x = sc[i] * scale;
+      if (diag && j * R + 8 * (i >> 2) + cq + (i & 1) > qi * kTile + r0 + 8 * half)
+        x += kMask;
+      sc[i] = x;
+      mx[half] = fmaxf(mx[half], x);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {     // the row max over the quad
+      mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 1));
+      mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 2));
+      const float m_new = fmaxf(m[half], mx[half]);
+      alpha[half] = expf(m[half] - m_new);
+      m[half] = m_new;
+      l[half] *= alpha[half];
+    }
+    uint32_t ph[R / 2], pl[R / 2];             // p, split
+#pragma unroll
+    for (int i = 0; i < R / 2; ++i) {
+      const int half = (i >> 1) & 1;
+      const float p = expf(sc[i] - m[half]);
+      l[half] += p;
+      split(__float_as_uint(p), ph[i], pl[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) oa[i] *= alpha[(i >> 1) & 1];
+    float tmp[D / 2];                          // this tile's p v
+    wgmma_fence();
+    row_product<D, R>(tmp, ph, pl, s0 + oT, s0 + oT + kStr);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(tmp);
+    fold(oa, tmp, false);
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {       // the row's l over the quad
+    l[half] += __shfl_xor_sync(0xffffffffu, l[half], 1);
+    l[half] += __shfl_xor_sync(0xffffffffu, l[half], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) oa[i] = oa[i] / l[(i >> 1) & 1];
+  store_rows<D>(o, so, b, h, qi * kTile, oa, r0, cq);
+  if (t == 0) {
+    float* out = lse + static_cast<long long>(bh) * T + qi * kTile + r0;
+    out[0] = m[0] + logf(l[0]);
+    out[8] = m[1] + logf(l[1]);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1025,29 +1035,11 @@ __global__ void __launch_bounds__(kConsumers)
 // launches
 // ---------------------------------------------------------------------------
 
-template <int D>
-constexpr size_t fwd_smem() {
-  return sizeof(float) * (3 * kTile * (D + 1) + kTile * kSP);
-}
-
 template <typename K>
 int prepare(K kernel, size_t smem) {
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem)));
-}
-
-template <int D>
-int launch_fwd(const float* q, const float* k, const float* v, float* o,
-               float* lse, const long long* s, int B, int H, int T,
-               float scale, int causal, cudaStream_t stream) {
-  constexpr size_t smem = fwd_smem<D>();
-  if (int e = prepare(flash_fwd_f32_kernel<D>, smem)) return e;
-  const dim3 grid(B * H, T / kTile);
-  flash_fwd_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
-      q, k, v, o, lse, strided(s, 0), strided(s, 1), strided(s, 2),
-      strided(s, 3), H, T, scale, causal);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // cuTensorMapEncodeTiled, looked up through the CUDA runtime.
@@ -1093,6 +1085,23 @@ int make_map(CUtensorMap* map, const void* ptr, Strided st, int B, int H,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int D>
+int launch_fwd(const float* q, const float* k, const float* v, float* o,
+               float* lse, const long long* s, int B, int H, int T,
+               float scale, int causal, cudaStream_t stream) {
+  constexpr int R = kRows;
+  CUtensorMap mq, mk, mv;
+  if (int e = make_map<D>(&mq, q, strided(s, 0), B, H, T, kTile)) return e;
+  if (int e = make_map<D>(&mk, k, strided(s, 1), B, H, T, R)) return e;
+  if (int e = make_map<D>(&mv, v, strided(s, 2), B, H, T, R)) return e;
+  constexpr size_t smem = 1024 + fwd_bytes<D>();
+  if (int e = prepare(flash_fwd_f32_kernel<D>, smem)) return e;
+  const dim3 grid(B * H, T / kTile);
+  flash_fwd_f32_kernel<D><<<grid, kHopperThreads, smem, stream>>>(
+      mq, mk, mv, o, lse, strided(s, 3), H, T, scale, causal);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>

@@ -327,7 +327,8 @@ def unpack_signs_wsum_cuda(all_packed: torch.Tensor, scales: torch.Tensor,
                            out=None) -> torch.Tensor:
     """Kernel B4: [W, m, 128] words and f32 [W] scales →
     Σ_w 2·scale_w·bit_w − Σ_w scale_w, f32 [32·m·128]; into ``out`` (a
-    contiguous slice of a longer mean: a bucket's) when given."""
+    contiguous, 16-byte aligned slice of a longer mean: a bucket's) when
+    given."""
     _check_words("unpack_signs_wsum_cuda", all_packed, 3)
     w, m, _ = all_packed.shape
     _check_scales("unpack_signs_wsum_cuda", scales, w)
@@ -335,6 +336,10 @@ def unpack_signs_wsum_cuda(all_packed: torch.Tensor, scales: torch.Tensor,
     out = _out_vec("unpack_signs_wsum_cuda", out, 32 * m * LANES, dev)
     if out is None:
         out = torch.empty(32 * m * LANES, dtype=torch.float32, device=dev)
+    elif out.data_ptr() % 16:
+        raise ValueError(f"unpack_signs_wsum_cuda: out at an address that is "
+                         f"not 16-byte aligned (element offset "
+                         f"{out.storage_offset()})")
     _launch("unpack_signs_wsum_cuda", dev, _lib().unpack_signs_wsum,
             all_packed.data_ptr(), scales.data_ptr(), out.data_ptr(), w, m)
     unpack_signs_wsum_cuda.launches += 1

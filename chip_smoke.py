@@ -15,6 +15,7 @@
     python3 chip_smoke.py --shard         # zero_opt, update_sharding, fsdp
     python3 chip_smoke.py --gan-lm        # GANs, MoE LM, remat, generate
     python3 chip_smoke.py --flash-f32     # the float32 flash kernels (A11)
+    python3 chip_smoke.py --pp-stage      # B10–B12 at a pp stage's shape
 
 1. Fails (exit 2, no result) without CUDA; prints the card's name and power
    limit as ``nvidia-smi`` reports them.
@@ -153,6 +154,16 @@
     its main path (``compute_dtype='float32'``,
     b16, 8 captured Adam steps and a validation batch: 9 · 8 B10 f32, 8 · 8
     B11 and B12 f32, nothing else) and its captured step profiled.
+20b. A pipeline stage (``--pp-stage`` runs this alone): B10–B12 bf16
+    and float32 at the LM row's b16 over ``pp_microbatches`` 4 at pp 2,
+    [4, 8, 512, 64] causal as the model hands them, through the bf16
+    flash phase's and the float32 one's checks at that shape (plain
+    version, rerun bit for bit, device ms beside SDPA's forward and
+    backward, the bound); then one stage's step through the port's
+    pipeline (``pipeline_apply`` over L/pp = 4 stacked blocks, group None)
+    forward and backward in bf16 and float32, its launches read and held
+    to the schedule's, its outputs and gradients against the same blocks
+    applied densely (a pp world itself needs a GPU a rank: CPU tests).
 21. Drives the zoo's main paths: ``BSP().init(devices=1, modelfile=
     'theanompi_tpu_torch.models.googlenet' | '...resnet50' |
     '...cifar10', ...)``, GoogLeNet and ResNet-50 at batch 32, full width,
@@ -399,6 +410,9 @@ LM_CFG = dict(attn_impl="flash", d_model=512, n_head=8, n_layer=8,
               seq_len=512, vocab=32768)
 LM_BATCH = 16
 LM_STEPS = 8
+# a pipeline stage of that row: pp 2, its batch in pp_microbatches = 2·pp
+# microbatches (parallel/pipeline.py), L/pp = 4 blocks a stage
+PP_STAGE = {"pp": 2, "microbatches": 4}
 LM_CHECK_BATCH = 2
 # the flash kernels against their plain versions: both round their f32
 # sums to bf16 once (summed in another order) and round p and dS to bf16
@@ -426,10 +440,15 @@ LM_GRAD_RATIO = 2.0
 F32_FLASH_TOL = (2.0 ** -14, 2.0 ** -14)   # (rtol, atol / max|plain|)
 # (name, [B, H, T, hd], causal, laid out as the model hands them): the
 # LM's main-path shape, one non-causal at hd 128, one strided at hd 32
-# with T a multiple of 64 and not of 128
-F32_FLASH_SHAPES = (("lm", (LM_BATCH, 8, 512, 64), True, True),
-                    ("noncausal", (4, 8, 256, 128), False, False),
-                    ("strided", (2, 4, 320, 32), True, True))
+# with T a multiple of 64 and not of 128, a pp stage's microbatch of the
+# LM's; F32_TIMED are timed
+F32_FLASH_SHAPES = (
+    ("lm", (LM_BATCH, 8, 512, 64), True, True),
+    ("noncausal", (4, 8, 256, 128), False, False),
+    ("strided", (2, 4, 320, 32), True, True),
+    ("pp_stage", (LM_BATCH // PP_STAGE["microbatches"], 8, 512, 64), True,
+     True))
+F32_TIMED = ("lm", "pp_stage")
 # the float32 flash LM at batch 2 on the card (kernels B10–B12 f32, cuBLAS
 # f32 with TF32 off) against the same weights and batch on the CPU (the
 # plain versions): both sides are float32 end to end, so they differ only
@@ -1302,10 +1321,10 @@ def host_us(fn, calls: int = 200, reps: int = 9) -> float:
     return float(min(times))
 
 
-def flash_inputs():
-    """q, k, v and dO at the LM's main-path shape, bf16, laid out as the
-    model hands them (transposed views of [B, T, H, hd])."""
-    b, t = LM_BATCH, LM_CFG["seq_len"]
+def flash_inputs(b: int = LM_BATCH):
+    """q, k, v and dO at the LM's main-path shape (at batch ``b``), bf16,
+    laid out as the model hands them (transposed views of [B, T, H, hd])."""
+    t = LM_CFG["seq_len"]
     h = LM_CFG["n_head"]
     d = LM_CFG["d_model"] // h
     g = torch.Generator(device="cuda").manual_seed(4)
@@ -1389,6 +1408,15 @@ def times_main(flags) -> int:
         torch.backends.cudnn.allow_tf32 = False
         _kernel_build.build(["flash_attention_f32"])
         out["flash_f32"] = flash_f32_main(card)
+    if "--pp-stage" in flags:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        _kernel_build.build(["flash_attention", "flash_attention_f32"])
+        f32 = flash_f32_phase([s for s in F32_FLASH_SHAPES
+                               if s[0] == "pp_stage"])
+        out["pp_stage"] = pp_stage_main(
+            card, flash_phase(batch=LM_BATCH // PP_STAGE["microbatches"]),
+            f32["shapes"]["pp_stage"]["times"])
     if "--lrn-times" in flags:
         out["lrn_times"] = lrn_times()
     if "--flash-times" in flags:
@@ -1502,22 +1530,31 @@ def decode_times() -> dict:
     return res
 
 
-def flash_phase(lib_path: str):
-    """B10–B12 at the LM's main-path shape, bf16, causal, on q, k, v and dO
-    laid out as the model hands them (transposed views of [B, T, H, hd]):
-    the SASS check of B10 and B11; each kernel against its plain version
-    within FLASH_TOL; times, host µs per wrapper call, bounds, and the
-    library yardsticks."""
-    sass = flash_sass_check(lib_path)
-    q, k, v, do = flash_inputs()
-    b, h, t, d = q.shape
-    zero_launches()
+def flash_bwd_run(q, k, v, do):
     o, lse = fa_ops.flash_fwd_cuda(q, k, v)
     di = fa_ops.attention_di(o, do)
     dk, dv = fa_ops.flash_bwd_dkv_cuda(q, k, v, do, lse, di)
-    dq = fa_ops.flash_bwd_dq_cuda(q, k, v, do, lse, di)
+    return o, lse, di, fa_ops.flash_bwd_dq_cuda(q, k, v, do, lse, di), dk, dv
+
+
+def flash_phase(lib_path=None, batch: int = LM_BATCH):
+    """B10–B12 at the LM's main-path shape (or at ``batch``, a pp stage's
+    microbatch of it), bf16, causal, on q, k, v and dO laid out as the
+    model hands them (transposed views of [B, T, H, hd]): given the
+    library, the SASS check of B10 and B11; each kernel against its plain
+    version within FLASH_TOL, a rerun bit for bit; times, host µs per
+    wrapper call, bounds, and the library yardsticks."""
+    sass = flash_sass_check(lib_path) if lib_path else None
+    q, k, v, do = flash_inputs(batch)
+    b, h, t, d = q.shape
+    zero_launches()
+    o, lse, di, dq, dk, dv = flash_bwd_run(q, k, v, do)
     torch.cuda.synchronize()
     checked = launch_counts()
+    for n, a, a2 in zip(("o", "lse", "di", "dq", "dk", "dv"),
+                        (o, lse, di, dq, dk, dv), flash_bwd_run(q, k, v, do)):
+        # bf16 → float32 is exact, so float32 bits compare bf16's
+        check_bits(f"B10–B12 {[b, h, t, d]} rerun {n}", a.float(), a2.float())
     po, plse = fa_ops.flash_fwd_plain(q, k, v)
     pdq, pdk, pdv = fa_ops.flash_bwd_plain(q, k, v, o, lse, do)
     err = {"flash_fwd_cuda": check_close("B10 o", o, po, *FLASH_TOL),
@@ -1643,22 +1680,24 @@ def f32_flash_run(q, k, v, do, causal):
     return o, lse, di, dq, dk, dv
 
 
-def flash_f32_phase():
-    """The float32 B10–B12 (A11) at each of F32_FLASH_SHAPES: every output
+def flash_f32_phase(shapes=F32_FLASH_SHAPES):
+    """The float32 B10–B12 (A11) at each of ``shapes``: every output
     (o, lse, dq, dk, dv) against the float32 plain versions within
     F32_FLASH_TOL (TF32 off), a rerun bit for bit; the SASS check of
-    B10–B12; at the LM's shape each kernel's device ms, host µs a wrapper
-    call, bound (float32 flops in split TF32 at SPLIT_TF32_FLOPS_PER_S, f32
-    bytes; the FFMA bound at F32_FLOPS_PER_S beside it), plain ms and SDPA
-    in float32 (forward; its autograd backward, dQ, dK and dV in one,
-    beside B11 + B12)."""
+    B10–B12; at the F32_TIMED shapes (the LM's at the top level, a pp
+    stage's under its tag's ``times``) each kernel's device ms, host µs a
+    wrapper call, bound (float32 flops in split TF32 at
+    SPLIT_TF32_FLOPS_PER_S, f32 bytes; the FFMA bound at F32_FLOPS_PER_S
+    beside it), plain ms and SDPA in float32 (forward; its autograd
+    backward, dQ, dK and dV in one, beside B11 + B12)."""
     names = ("flash_fwd_f32_cuda", "flash_bwd_dkv_f32_cuda",
              "flash_bwd_dq_f32_cuda")
     out = {"shapes": {}, "sass": flash_sass_check(
         _kernel_build.library_path("flash_attention_f32"),
         ("flash_fwd_f32_kernel", "flash_bwd_dkv_f32_kernel",
          "flash_bwd_dq_f32_kernel"))}
-    for i, (tag, shape, causal, strided) in enumerate(F32_FLASH_SHAPES):
+    for tag, shape, causal, strided in shapes:
+        i = [s[0] for s in F32_FLASH_SHAPES].index(tag)
         q, k, v, do = f32_flash_inputs(shape, strided, 10 + i)
         zero_launches()
         o, lse, di, dq, dk, dv = f32_flash_run(q, k, v, do, causal)
@@ -1688,7 +1727,7 @@ def flash_f32_phase():
         out["shapes"][tag] = {"shape": list(shape), "causal": causal,
                               "strided": strided, "max_abs_err": err,
                               "checked_launches": checked}
-        if tag != "lm":
+        if tag not in F32_TIMED:
             del q, k, v, do, o, lse, di, dq, dk, dv
             continue
         b, h, t, d = shape
@@ -1714,23 +1753,207 @@ def flash_f32_phase():
                  "flash_bwd_dq_f32_cuda": lambda:
                      fa_ops.flash_bwd_dq_f32_cuda(q, k, v, do, lse, di)}
         sizes = flash_bytes_flops(b, h, t, d, elem=4, sfx="_f32")
-        out["shape"] = list(shape)
-        for name in names:
-            plain_ms, lib_ms = plain_lib[name]
-            out[name] = {"max_abs_err": max(
-                             r["max_abs_err"][name]
-                             for r in out["shapes"].values()),
-                         "ms": time_ms(calls[name]),
-                         "host_us": host_us(calls[name]),
-                         "plain_ms": plain_ms, "library_ms": lib_ms,
-                         "ffma_bound_ms": bound(*sizes[name])["bound_ms"],
-                         **bound(*sizes[name], SPLIT_TF32_FLOPS_PER_S)}
+        timed = {name: {"max_abs_err": err[name],
+                        "ms": time_ms(calls[name]),
+                        "host_us": host_us(calls[name]),
+                        "plain_ms": plain_lib[name][0],
+                        "library_ms": plain_lib[name][1],
+                        "ffma_bound_ms": bound(*sizes[name])["bound_ms"],
+                        **bound(*sizes[name], SPLIT_TF32_FLOPS_PER_S)}
+                 for name in names}
+        if tag == "lm":
+            out["shape"] = list(shape)
+            out.update(timed)
+        else:
+            out["shapes"][tag]["times"] = timed
         del q, k, v, do, o, lse, di, dq, dk, dv, ql, kl, vl, lib_out
     for name in names:        # the worst error over every shape
-        out[name]["max_abs_err"] = max(r["max_abs_err"][name]
-                                       for r in out["shapes"].values())
+        if name in out:
+            out[name]["max_abs_err"] = max(r["max_abs_err"][name]
+                                           for r in out["shapes"].values())
     torch.cuda.empty_cache()
     return out
+
+
+def pp_stage_path_phase() -> dict:
+    """One stage of the LM row at pp 2 on the card, through the port's
+    pipeline: PP_STAGE's L/pp = 4 blocks at full width, their rows
+    stacked as the pp tree holds them (``TransformerLM.stack_rows``), run
+    by ``parallel.pipeline.pipeline_apply`` over one stage (group None:
+    the M real ticks that each stage of a pp 2 world runs, each chunk
+    recomputed in its backward) on the embedded b16 batch cut into M = 4
+    microbatches, forward and backward, in bf16 and in float32.  Each
+    run's launches are read and must be the schedule's (2·M·L/pp B10 with
+    the recompute, M·L/pp each of B11 and B12, nothing else).  The output
+    and the gradients of the input and of every stacked row are held
+    against the same rows applied to the whole batch at once (the chunk
+    function on [B, T, D], autograd's own backward): in bf16 each one's
+    relative L2 distance to the float32 model's (reference attention,
+    TF32 off) within LM_GRAD_RATIO times the dense bf16 one's, the LM
+    check's bound.  In float32 the microbatches only reorder float32 sums
+    (a row's gradient over 8192 tokens in four partial sums, matmuls over
+    2048 rows against 8192), but at random init the stage amplifies that
+    (a small-variance LayerNorm input, cancelling sums): each one's
+    distance from the dense float32 one may be at most LM_F32_GRAD_RATIO
+    times the floor measured in the same run, the same stage with the
+    reference attention (no kernel) through the same pipeline against
+    itself applied densely, as the float32 LM check holds its leaves.
+    Device ms of the stage's forward and backward beside the dense run's."""
+    from theanompi_tpu_torch.models.transformer_lm import TransformerLM
+    from theanompi_tpu_torch.parallel import pipeline as pl
+    pp, m = PP_STAGE["pp"], PP_STAGE["microbatches"]
+    n, t = LM_CFG["n_layer"] // pp, LM_CFG["seq_len"]
+    cfg = dict(LM_CFG, n_layer=n, batch_size=LM_BATCH,
+               synthetic_train=LM_BATCH, synthetic_val=LM_BATCH, seed=0,
+               verbose=False, device="cuda")
+    models = {"bf16": TransformerLM(cfg),
+              "f32": TransformerLM(dict(cfg, compute_dtype="float32")),
+              "ref32": TransformerLM(dict(cfg, attn_impl="reference",
+                                          compute_dtype="float32"))}
+    src = tree_leaves(models["bf16"].params)
+    with torch.no_grad():
+        for mdl in models.values():
+            for a, c in zip(tree_leaves(mdl.params), src):
+                a.copy_(c)
+    g = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randint(0, LM_CFG["vocab"], (LM_BATCH, t), generator=g,
+                      device="cuda")
+    # the stage output's gradient, bf16 values, the same on every side
+    dy = torch.randn(LM_BATCH, t, LM_CFG["d_model"], generator=g,
+                     device="cuda").bfloat16().float()
+
+    def inputs(mdl):
+        with torch.no_grad():
+            rows = mdl.stack_rows(mdl.params, range(n))
+            h = mdl._embed(mdl.params, x, mdl._pos_ids(t, x.device))
+        return [r.requires_grad_(True) for r in rows], h.requires_grad_(True)
+
+    def step(mdl, piped, rows, h):
+        stage = mdl.stage_fn(True)
+        if piped:
+            y = pl.unmicrobatch(pl.pipeline_apply(stage, rows,
+                                                  pl.microbatch(h, m)))
+        else:
+            y = stage(rows, h)
+        torch.autograd.backward(y, dy.to(y.dtype))
+        return y.detach()
+
+    def run(mdl, piped):
+        rows, h = inputs(mdl)
+        y = step(mdl, piped, rows, h)
+        return [y, h.grad] + [r.grad for r in rows]
+
+    real = int(pl.build_schedule(pp, 1, m).real[:, 0].sum())
+    per_step = {"fwd": 2 * real * n, "bwd_dkv": real * n, "bwd_dq": real * n}
+    out = {"shape": [LM_BATCH // m, LM_CFG["n_head"], t,
+                     LM_CFG["d_model"] // LM_CFG["n_head"]],
+           "pp": pp, "microbatches": m, "blocks": n,
+           "launches_from_schedule": per_step, "launches": {}}
+    res = {}
+    for key, sfx in (("bf16", ""), ("f32", "_f32")):
+        zero_launches()
+        res[key, "pp"] = run(models[key], True)
+        torch.cuda.synchronize()
+        got = {k: c for k, c in launch_counts().items() if c}
+        want = {f"flash_{k}{sfx}_cuda": c for k, c in per_step.items()}
+        if got != want:
+            raise AssertionError(f"pp stage {key} launches {got}, the "
+                                 f"schedule's {want}")
+        out["launches"].update(got)
+        res[key, "dense"] = run(models[key], False)
+        rows, h = inputs(models[key])
+        out[f"stage{sfx}_ms"] = time_ms(
+            lambda: step(models[key], True, rows, h), reps=5, inner=2,
+            warmup=1)
+        out[f"dense{sfx}_ms"] = time_ms(
+            lambda: step(models[key], False, rows, h), reps=5, inner=2,
+            warmup=1)
+        del rows, h
+    res["ref32"] = run(models["ref32"], False)
+    res["ref32", "pp"] = run(models["ref32"], True)
+    names = ["output", "input grad"] + [
+        "/".join(map(str, p)) for p in models["bf16"]._blk_paths]
+    del models, src
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    r_pp = [rel(a, c) for a, c in zip(res["bf16", "pp"], res["ref32"])]
+    r_dense = [rel(a, c) for a, c in zip(res["bf16", "dense"], res["ref32"])]
+    ratios = [a / max(b, 1e-12) for a, b in zip(r_pp, r_dense)]
+    worst = int(np.argmax(ratios))
+    out["bf16"] = {"rel_l2_max": max(r_pp), "dense_rel_l2_max": max(r_dense),
+                   "ratio_max": ratios[worst], "worst": names[worst]}
+    finite = all(bool(torch.isfinite(a).all()) for a in res["bf16", "pp"])
+    if not finite or ratios[worst] > LM_GRAD_RATIO:
+        raise AssertionError(f"pp stage bf16 against float32: {out['bf16']}"
+                             f", finite {finite}")
+    r32 = [rel(a, b) for a, b in zip(res["f32", "pp"], res["f32", "dense"])]
+    floor = [rel(a, b) for a, b in zip(res["ref32", "pp"], res["ref32"])]
+    ratios = [a / max(b, 1e-30) for a, b in zip(r32, floor)]
+    worst = int(np.argmax(ratios))
+    out["f32"] = {"rel_l2_max": max(r32), "floor_rel_l2_max": max(floor),
+                  "ratio_max": ratios[worst], "worst": names[worst],
+                  "max_abs_err": max(float((a - b).abs().max()) for a, b in
+                                     zip(res["f32", "pp"],
+                                         res["f32", "dense"]))}
+    finite = all(bool(torch.isfinite(a).all()) for a in res["f32", "pp"])
+    if not finite or ratios[worst] > LM_F32_GRAD_RATIO:
+        raise AssertionError(f"pp stage f32 against dense: {out['f32']}, "
+                             f"finite {finite}")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def stage_candidates(timed: dict) -> list:
+    """The flash kernels that a later redesign would take at a shape
+    (ROADMAP §B): under half of their bound, B10 behind SDPA's forward,
+    B11 + B12 behind SDPA's autograd backward."""
+    fwd, dkv, dq = timed
+    out = [k for k, r in timed.items() if r["bound_ms"] < 0.5 * r["ms"]]
+    if timed[fwd]["ms"] > timed[fwd]["library_ms"]:
+        out.append(fwd)
+    if timed[dkv]["ms"] + timed[dq]["ms"] > timed[dq]["library_ms"]:
+        out.append("B11 + B12")
+    return out
+
+
+def pp_stage_main(card: str, bf16: dict, f32: dict) -> dict:
+    """The pp stage phase group (``--pp-stage`` runs it alone): B10–B12 in
+    bf16 (``bf16``, :func:`flash_phase` at the stage's microbatch) and in
+    float32 (``f32``, the ``pp_stage`` shape of :func:`flash_f32_phase`),
+    then one stage's step on the card (:func:`pp_stage_path_phase`)."""
+    path = pp_stage_path_phase()
+    shape = path["shape"]
+    timed = {"bf16": {k: v for k, v in bf16.items()
+                      if k.startswith("flash_")}, "f32": f32}
+    for tag, ks in timed.items():
+        print(f"pp stage flash {tag} {shape} causal, {card}: " + "; ".join(
+            f"{k[:-5]} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, "
+            f"{r['bound_ms'] / r['ms']:.0%} of it, SDPA "
+            f"{r['library_ms']:.4f}, plain {r['plain_ms']:.3f}, max |diff| "
+            f"{r['max_abs_err']:.3e})" for k, r in ks.items())
+            + "; B11 + B12 %.4f ms; candidates %s" % (
+                sum(r["ms"] for k, r in ks.items() if "_bwd_" in k),
+                stage_candidates(ks)), flush=True)
+    print(f"pp stage path: {path['blocks']} blocks, pp {path['pp']}, "
+          f"{path['microbatches']} microbatches of {shape[0]}, "
+          f"pipeline_apply forward + backward: launches {path['launches']} "
+          f"(the schedule's {path['launches_from_schedule']} a dtype); bf16 "
+          f"against float32 worst ratio {path['bf16']['ratio_max']:.3f} "
+          f"({path['bf16']['worst']}); f32 against dense relative L2 max "
+          f"{path['f32']['rel_l2_max']:.2e} (floor {path['f32']['floor_rel_l2_max']:.2e}), "
+          f"worst ratio {path['f32']['ratio_max']:.3f} "
+          f"({path['f32']['worst']}); stage step {path['stage_ms']:.3f}"
+          f" ms (dense {path['dense_ms']:.3f}), f32 "
+          f"{path['stage_f32_ms']:.3f} ms (dense {path['dense_f32_ms']:.3f}),"
+          f" {card}", flush=True)
+    return {"path": path, "bf16": timed["bf16"], "f32": f32,
+            "candidates": stage_candidates(timed["bf16"]),
+            "candidates_f32": stage_candidates(f32)}
 
 
 def tf32_probe_phase() -> dict:
@@ -4930,7 +5153,7 @@ def lrn_totals(rows) -> dict:
 
 
 def kernel_entries(lrn, lrn_g, comp, topk, fpack, flash, alex, goog, vggs,
-                   lm, f32) -> list:
+                   lm, f32, stage=None) -> list:
     out = []
     for label, fn, source, replaces in kernel_rows():
         name = fn.__name__
@@ -4989,6 +5212,16 @@ def kernel_entries(lrn, lrn_g, comp, topk, fpack, flash, alex, goog, vggs,
                      n=comp["n"])
             if label == "unpack_signs_wsum":
                 e["by_workers"] = comp["decode"]
+        if label.startswith("flash_") and stage is not None:
+            # the same kernel at a pipeline stage's microbatch shape, and
+            # its launches in one stage's step of the pp stage path
+            r = stage["f32" if label.endswith("_f32") else "bf16"][name]
+            e["pp_stage"] = dict(
+                shape=stage["path"]["shape"],
+                launches=stage["path"]["launches"][name],
+                launches_from="pp stage path (pipeline_apply)",
+                **{k: r[k] for k in ("ms", "bound_ms", "plain_ms",
+                                      "library_ms", "max_abs_err")})
         out.append(e)
     return out
 
@@ -5224,6 +5457,9 @@ def main() -> int:
         print(f"LM {key} step: {lm_prof['tokens_per_s']:.0f} tokens/s",
               flush=True)
     f32 = flash_f32_main(card)
+    stage = pp_stage_main(
+        card, flash_phase(batch=LM_BATCH // PP_STAGE["microbatches"]),
+        f32["kernels"]["shapes"]["pp_stage"]["times"])
 
     lap("bf16 flash, LM, f32")
     goog = googlenet_main_path_phase()
@@ -5345,7 +5581,7 @@ def main() -> int:
     lap("gan, lm")
 
     kernels = kernel_entries(lrn, lrn_g, comp, topk, fpack, flash, alex,
-                             goog, vggs, lm, f32)
+                             goog, vggs, lm, f32, stage)
     for e in kernels:
         # the bucketed wires' decodes: once a bucket (A7)
         path = {"unpack_signs_wsum": "vgg16_onebit",
@@ -5394,7 +5630,7 @@ def main() -> int:
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"kernels": kernels, "compress": comp, "topk": topk,
                    "factor_pack": fpack, "flash": flash, "lm_check": lm_check,
-                   "flash_f32": f32,
+                   "flash_f32": f32, "pp_stage": stage,
                    "main": dict({"alexnet": alex, "lm": lm,
                                  "googlenet": goog, "resnet50": resnet,
                                  "cifar10": cifar,
@@ -5438,6 +5674,7 @@ if __name__ == "__main__":
                       "--flash-f32-times", "--decode-times",
                       "--input-times", "--update-times", "--lrn-times",
                       "--islands", "--vgg-island-lr", "--launcher",
-                      "--wire", "--shard", "--gan-lm", "--flash-f32"}:
+                      "--wire", "--shard", "--gan-lm", "--flash-f32",
+                      "--pp-stage"}:
         sys.exit(f"chip_smoke: unknown arguments {sorted(_flags)}")
     sys.exit(times_main(_flags) if _flags else main())

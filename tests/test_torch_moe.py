@@ -305,8 +305,10 @@ def test_moe_lm_wires_two_ranks_match_jax_workers(case, tmp_path_factory):
                                           err_msg=k)
 
 
-@pytest.mark.parametrize("cfg", [{"tp": 2}, {"sp": 2}, {"pp": 2}])
+@pytest.mark.parametrize("cfg", [{"tp": 2}, {"sp": 2}, {"pp": 2, "sp": 2}])
 def test_model_parallel_layouts_wait_with_a9d(cfg):
+    """Expert parallelism and the sequence all-to-all wait with A9d, beside
+    pipeline parallelism too (the MoE LM at pp alone is ported)."""
     with pytest.raises(NotImplementedError, match="A9d"):
         _port_lm(**cfg)
 

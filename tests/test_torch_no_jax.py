@@ -130,6 +130,11 @@ logits, labels = torch.randn(4, 6), torch.tensor([0, 1, 2, 5])
 assert torch.allclose(tp.tp_softmax_cross_entropy(logits, labels, pg, 0),
                       L.softmax_cross_entropy(logits, labels))
 assert float(sp.sp_mean(torch.ones(()), pg)) == 1.0
+from theanompi_tpu_torch.parallel import pipeline as pl
+w, xm = torch.randn(2, 4, 4), pl.microbatch(torch.randn(4, 4), 2)
+y = pl.pipeline_apply(lambda rows, h: h @ rows[0][0] @ rows[0][1], [w], xm,
+                      pg)
+assert torch.allclose(pl.unmicrobatch(y), pl.unmicrobatch(xm) @ w[0] @ w[1])
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "theanompi_tpu" or m.startswith("theanompi_tpu."))
@@ -164,7 +169,8 @@ NEW_MODULES = ("theanompi_tpu_torch.native",
                "theanompi_tpu_torch.parallel.moe",
                "theanompi_tpu_torch.parallel.tp",
                "theanompi_tpu_torch.parallel.sp",
-               "theanompi_tpu_torch.ops.ring_attention")
+               "theanompi_tpu_torch.ops.ring_attention",
+               "theanompi_tpu_torch.parallel.pipeline")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

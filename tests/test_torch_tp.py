@@ -328,15 +328,38 @@ def test_grid_coordinates_follow_the_jax_mesh_order():
         Grid(2, 2, 1, 4)
 
 
-@pytest.mark.parametrize("cfg", [{"pp": 2}, {"pp_microbatches": 4},
-                                 {"pp_interleave": 2}])
-def test_pipeline_keys_wait_with_a9d(cfg):
-    from theanompi_tpu_torch.base import model_parallel_degrees
-    with pytest.raises(NotImplementedError, match="A9d"):
+def test_grid_coordinates_with_a_pipe_axis():
+    """World rank ((w·pp + p)·tp + m)·sp + s: the pipe axis between the
+    workers and the model axis (``theanompi_tpu/parallel/mesh.py:98-102``);
+    ``lead`` is pipe 0, model 0, seq 0."""
+    from theanompi_tpu_torch.base import Grid, model_parallel_degrees
+    grids = [Grid(2, 2, 2, r, pp=3) for r in range(24)]
+    assert [(g.worker, g.pipe, g.model, g.seq) for g in grids] == [
+        (w, p, m, s) for w in range(2) for p in range(3) for m in range(2)
+        for s in range(2)]
+    assert [g.world_rank for g in grids if g.lead] == [0, 12]
+    assert model_parallel_degrees({"pp": 3, "tp": 2}) == (2, 1, 3)
+    with pytest.raises(ValueError, match="outside"):
+        Grid(2, 1, 1, 4, pp=2)
+
+
+@pytest.mark.parametrize("cfg,knob", [
+    ({"pp": 4, "n_layer": 8, "pp_interleave": 3}, "pp_interleave"),
+    ({"pp": 4, "n_layer": 8, "pp_interleave": 2, "pp_microbatches": 6},
+     "pp_microbatches"),
+    ({"pp": 1, "pp_interleave": 2}, "'pp'"),
+    ({"pp": 1, "pp_microbatches": 4}, None)])
+def test_pipeline_keys_are_checked_as_in_jax(cfg, knob):
+    """The JAX package's build-time checks of the pipeline keys
+    (``tests/test_pipeline.py:244-255``): n_layer % (pp·v), M % pp, v > 1
+    at pp = 1, each naming its knob; and ``pp_microbatches`` at pp = 1
+    accepted and ignored, as the JAX LM takes it."""
+    if knob is None:
+        m = TransformerLM(dict(mh.LM_CFG, device="cpu", **cfg))
+        assert m.pp == 1 and m.param_specs() is None
+        return
+    with pytest.raises(ValueError, match=knob):
         TransformerLM(dict(mh.LM_CFG, device="cpu", **cfg))
-    if "pp" in cfg:
-        with pytest.raises(NotImplementedError, match="A9d"):
-            model_parallel_degrees(cfg)
 
 
 def test_flash_under_sp_is_refused():

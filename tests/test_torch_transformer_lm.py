@@ -228,7 +228,7 @@ def _get(tree, path):
 
 @pytest.mark.parametrize("cfg,err", [
     ({"tp": 2}, ValueError),          # ported: needs a world of that grid
-    ({"pp": 2}, NotImplementedError),
+    ({"pp": 2}, ValueError),          # ported: needs a world of that grid
     ({"sp": 2}, ValueError),          # ported: needs a world of that grid
     ({"seq_len": 192, "attn_impl": "flash"}, ValueError),
     ({"attn_impl": "ring"}, ValueError),

@@ -10,8 +10,10 @@ Every rank runs on one CPU thread (``torch_port_helper.RANK_ENV``).
 
 The LM is :class:`MPLM`, the port's ``TransformerLM`` whose initial params
 are the global tree in ``config['init_npz']`` (port layout, leaves keyed by
-their ``/``-joined paths: the JAX model's weights, converted), cut to this
-rank's shards.
+their ``/``-joined paths: the JAX model's weights, converted), stacked
+under ``pp`` and cut to this rank's shards; :class:`MPMoELM` is the MoE
+LM's counterpart.  ``pp`` mode runs the pipeline worlds' phases
+(``test_torch_pipeline*.py``).
 """
 
 import json
@@ -23,7 +25,8 @@ import numpy as np
 import torch
 
 from theanompi_tpu_torch.models.model_base import ModelBase
-from theanompi_tpu_torch.models.transformer_lm import TransformerLM
+from theanompi_tpu_torch.models.transformer_lm import (MoETransformerLM,
+                                                       TransformerLM)
 from theanompi_tpu_torch.utils.helper_funcs import (leaf_paths, tree_leaves,
                                                     tree_map)
 
@@ -35,8 +38,8 @@ LM_CFG = dict(verbose=False, batch_size=8, seq_len=16, vocab=32,
               n_layer=2, compute_dtype="float32", scale_lr=False)
 
 
-class MPLM(TransformerLM):
-    """The LM from ``config['init_npz']``'s global params, sharded."""
+class _FromNpz:
+    """Initial params from ``config['init_npz']``'s global ones, sharded."""
 
     def init_params(self, gen):
         path = self.config.get("init_npz")
@@ -46,7 +49,16 @@ class MPLM(TransformerLM):
         with np.load(path) as z:
             it = iter([torch.from_numpy(z["/".join(map(str, p))])
                        for p in leaf_paths(dense)])
-        return self.shard_params(tree_map(lambda _: next(it), dense))
+        return self.shard_params(self._stacked(tree_map(lambda _: next(it),
+                                                        dense)))
+
+
+class MPLM(_FromNpz, TransformerLM):
+    """The LM from ``config['init_npz']``'s global params, sharded."""
+
+
+class MPMoELM(_FromNpz, MoETransformerLM):
+    """The MoE LM from ``config['init_npz']``'s global params, sharded."""
 
 
 def save_init(params, path):
@@ -261,6 +273,89 @@ def _mp_phases(rank, init, args, res):
                 res.update(flat(name + "_loaded", gathered(m)))
 
 
+def dense_of(model, tree=None):
+    """The global params (or a params-shaped ``tree``) in the dense layout:
+    gathered, the pp stack unstacked (a collective)."""
+    return model._unstacked(gathered(model, tree))
+
+
+def _pp_phases(rank, init, args, res):
+    """The pipeline worlds' phases: ``args['phases']`` maps a name to a
+    phase, a session of its own of ``args['cfg']`` updated by the phase's
+    ``cfg``, on the first ``world`` ranks only where it names one.  A phase
+    trains ``steps`` steps (``spc`` a call, under ``rule``), or loads a
+    checkpoint first (``load``: the port's; ``jax_load``: the JAX
+    package's, through ``convert``) and trains ``steps`` more from count
+    ``at``; it records its costs, its global params (``<name>/...``) and
+    in the dense layout (``<name>_dense/...``), and where asked its
+    initial params, the params after step 2 (``step2``), validation,
+    greedy tokens, the Adam moments, the wire's state, and saves
+    (``save``).  A ``refused`` phase records the message of the JAX load
+    it must refuse."""
+    from theanompi_tpu_torch import convert
+    from theanompi_tpu_torch.parallel.exchanger import BSP_Exchanger
+    base = dict(LM_CFG, init_npz=args["init_npz"], **args.get("cfg", {}))
+    for name, ph in args["phases"].items():
+        if rank >= ph.get("world", rank + 1):
+            continue
+        cls = MPMoELM if ph.get("moe") else MPLM
+        with Session(dict(base, **ph.get("cfg", {})), rank, init, name,
+                     cls) as (proc, m):
+            if ph.get("init"):
+                res.update(flat(f"{name}_init", dense_of(m)))
+                res.update(flat(f"{name}_shard", m.params))
+            src = ph.get("load") or ph.get("jax_load")
+            if src and ph.get("refused"):
+                # a load that must raise: its message
+                m.compile_iter_fns(BSP_Exchanger(m.config))
+                try:
+                    convert.checkpoint_from_jax(src, m)
+                except NotImplementedError as e:
+                    res[f"{name}_refused"] = str(e)
+                continue
+            if src:
+                m.compile_iter_fns(BSP_Exchanger(m.config))
+                res[f"{name}_epoch"] = convert.checkpoint_from_jax(src, m) \
+                    if ph.get("jax_load") else m.load(src)
+                res.update(flat(f"{name}_loaded", gathered(m)))
+                res.update(flat(f"{name}_loaded_m",
+                                gathered(m, m.opt_state["m"])))
+                if ph.get("ef"):
+                    res[f"{name}_loaded_ef"] = _ef(m)
+                costs = []            # the data cursor is the checkpoint's
+                for i in range(ph["at"], ph["at"] + ph.get("steps", 1)):
+                    m.train_iter(i)
+                    costs.append(float(m.current_info["cost"]))
+                res[f"{name}_costs"] = costs
+            else:
+                at2 = {}
+
+                def after(i, mm):
+                    if i == 1 and ph.get("step2"):
+                        at2.update(flat(f"{name}_step2", dense_of(mm)))
+
+                res[f"{name}_costs"] = train(
+                    m, rule=ph.get("rule", "bsp"), n_steps=ph.get("steps", 6),
+                    spc=ph.get("spc", 1), after=after)
+                res.update(at2)
+            res.update(flat(name, gathered(m)))
+            res.update(flat(f"{name}_dense", dense_of(m)))
+            res.update(flat(f"{name}_m", gathered(m, m.opt_state["m"])))
+            if ph.get("ef"):
+                res[f"{name}_ef"] = _ef(m)
+            if ph.get("val"):
+                res[f"{name}_val"] = val_first_batch(m)
+            if ph.get("gen"):
+                res[f"{name}_gen"] = m.generate(args["prompt"], 4)
+                res[f"{name}_gen_kv0"] = m.generate(args["prompt"], 4,
+                                                    kv_cache=False)
+            if ph.get("save"):
+                m.save(ph["save"], epoch=0, count=ph.get("steps", 6))
+            if m.grid is not None:
+                res[f"{name}_coord"] = [m.grid.worker, m.grid.pipe,
+                                        m.grid.model, m.grid.seq]
+
+
 def _ef(model):
     """The strategy state's arrays flattened end to end."""
     return np.concatenate([t.reshape(-1).numpy()
@@ -328,7 +423,8 @@ def main(argv):
     mode, rank, _world, init, out, args = argv
     args = json.loads(args)
     res = {}
-    {"mp": _mp_phases, "ring": _ring}[mode](int(rank), init, args, res)
+    {"mp": _mp_phases, "ring": _ring, "pp": _pp_phases}[mode](
+        int(rank), init, args, res)
     np.savez(f"{out}_r{rank}.npz", **res)
     return 0
 

@@ -1,7 +1,7 @@
 """The JAX side of the model-parallel parity tests (``test_torch_tp.py``,
-``test_torch_sp.py``): the JAX package's LM on the 8-device CPU mesh at a
-``worker_mesh(dp, tp=, sp=)``, trained as ``tests/test_tp.py`` trains it,
-and its trees in the port's layout."""
+``test_torch_sp.py``, ``test_torch_pipeline*.py``): the JAX package's LM on
+the 8-device CPU mesh at a ``worker_mesh(dp, tp=, sp=, pp=)``, trained as
+``tests/test_tp.py`` trains it, and its trees in the port's layout."""
 
 import jax
 import jax.numpy as jnp
@@ -19,12 +19,12 @@ from theanompi_tpu_torch.utils.helper_funcs import (get_leaf, jax_leaf_paths,
                                                     leaf_paths, tree_leaves)
 
 
-def jax_lm(dp, tp=1, sp=1, **kw):
+def jax_lm(dp, tp=1, sp=1, pp=1, cls=JLM, **kw):
     cfg = {**mh.LM_CFG, "compute_dtype": jnp.float32,
-           "mesh": worker_mesh(dp, tp=tp, sp=sp), "size": dp, "rank": 0,
-           "tp": tp, "sp": sp, **kw}
+           "mesh": worker_mesh(dp, tp=tp, sp=sp, pp=pp), "size": dp,
+           "rank": 0, "tp": tp, "sp": sp, "pp": pp, **kw}
     cfg.pop("scale_lr")
-    return JLM(cfg)
+    return cls(cfg)
 
 
 def jax_train(m, n, exch=None):
@@ -55,8 +55,12 @@ KEPT = TransformerLM(dict(mh.LM_CFG, device="cpu")).kept_layout_paths()
 
 
 def port_tree(jtree):
-    """A JAX params-shaped tree in the port's layout, ``/``-keyed."""
-    t = convert.params_from_jax(jax.tree.map(np.asarray, jtree), KEPT)
+    """A JAX params-shaped tree in the port's layout, ``/``-keyed (a pp
+    tree's stacked ``blocks`` leaves kept in the JAX layout, as the port
+    keeps them)."""
+    jtree = jax.tree.map(np.asarray, jtree)
+    kept = KEPT | {p for p in jax_leaf_paths(jtree) if p[0] == "blocks"}
+    t = convert.params_from_jax(jtree, kept)
     return {"/".join(map(str, p)): np.asarray(v)
             for p, v in zip(leaf_paths(t), tree_leaves(t))}
 
@@ -109,10 +113,10 @@ def jax_val(m):
     return [float(np.mean(np.asarray(a))) for a in (cost, err, err5)]
 
 
-def dense_tokens(flat_params, prompt, n=4):
+def dense_tokens(flat_params, prompt, n=4, **cfg):
     """The port's dense LM's greedy tokens from ``/``-keyed global params
     (what a model-parallel layout must sample)."""
-    dense = TransformerLM(dict(mh.LM_CFG, device="cpu"))
+    dense = TransformerLM(dict(mh.LM_CFG, device="cpu", **cfg))
     params = {}
     for p in leaf_paths(dense.params):
         node = params

@@ -13,15 +13,15 @@ so no port is opened.  Larger worlds name their rendezvous in the config:
 and ``n_workers``, and ``local_rank``, the rank's GPU on its host; the
 launcher (``launcher.py``) sets all four.
 
-Model parallelism (``tp`` and ``sp`` in the config) makes the world a grid
-of ``n_workers`` × ``tp`` × ``sp`` ranks, in the JAX mesh's axis order
-(``theanompi_tpu/parallel/mesh.py:98-102``): ``workers`` outermost, then
-``model``, ``seq`` innermost.  :class:`Grid` is a rank's place in it and
-its two model-parallel groups; the default process group is the rank's
-``workers`` group (the ranks of its model and seq coordinate), so every
-exchange, metric and checkpoint collective runs over the data-parallel
-workers alone, and ``rank`` and ``size`` stay the JAX package's
-data-parallel ones.
+Model parallelism (``pp``, ``tp`` and ``sp`` in the config) makes the world
+a grid of ``n_workers`` × ``pp`` × ``tp`` × ``sp`` ranks, in the JAX mesh's
+axis order (``theanompi_tpu/parallel/mesh.py:98-102``): ``workers``
+outermost, then ``pipe``, ``model``, ``seq`` innermost.  :class:`Grid` is a
+rank's place in it and its three model-parallel groups; the default process
+group is the rank's ``workers`` group (the ranks of its pipe, model and seq
+coordinate), so every exchange, metric and checkpoint collective runs over
+the data-parallel workers alone, and ``rank`` and ``size`` stay the JAX
+package's data-parallel ones.
 """
 
 from __future__ import annotations
@@ -71,59 +71,73 @@ def _subgroup(store, rank: int, size: int, device: torch.device):
 
 
 class Grid:
-    """A rank's place in the ``dp × tp × sp`` world: its ``(worker, model,
-    seq)`` coordinate, world rank ``(worker·tp + model)·sp + seq``, and its
-    ``model`` and ``seq`` groups (process groups of ``tp`` and ``sp``
-    ranks: the ranks that differ from it in that coordinate alone; None
-    where the degree is 1).  The ``workers`` group is the default one."""
+    """A rank's place in the ``dp × pp × tp × sp`` world: its ``(worker,
+    pipe, model, seq)`` coordinate, world rank ``((worker·pp + pipe)·tp +
+    model)·sp + seq``, and its ``pipe``, ``model`` and ``seq`` groups
+    (process groups of ``pp``, ``tp`` and ``sp`` ranks: the ranks that
+    differ from it in that coordinate alone; None where the degree is 1).
+    The ``workers`` group is the default one."""
 
-    def __init__(self, dp: int, tp: int, sp: int, world_rank: int):
+    AXES = ("pipe", "model", "seq")
+
+    def __init__(self, dp: int, tp: int, sp: int, world_rank: int,
+                 pp: int = 1):
         self.dp, self.tp, self.sp = int(dp), int(tp), int(sp)
-        self.world = self.dp * self.tp * self.sp
+        self.pp = int(pp)
+        self.world = self.dp * self.pp * self.tp * self.sp
         if not 0 <= world_rank < self.world:
             raise ValueError(f"rank {world_rank} outside the world of "
-                             f"{self.dp} workers × tp {self.tp} × sp "
-                             f"{self.sp}")
+                             f"{self.dp} workers × pp {self.pp} × tp "
+                             f"{self.tp} × sp {self.sp}")
         self.world_rank = int(world_rank)
-        self.worker, rem = divmod(self.world_rank, self.tp * self.sp)
+        self.worker, rem = divmod(self.world_rank,
+                                  self.pp * self.tp * self.sp)
+        self.pipe, rem = divmod(rem, self.tp * self.sp)
         self.model, self.seq = divmod(rem, self.sp)
-        self.model_group = self.seq_group = None
+        self.pipe_group = self.model_group = self.seq_group = None
+
+    def size(self, axis: str) -> int:
+        """The degree of a grid axis (``pipe``, ``model`` or ``seq``)."""
+        return {"pipe": self.pp, "model": self.tp, "seq": self.sp}[axis]
+
+    def group(self, axis: str):
+        """The process group of a grid axis (None at degree 1)."""
+        return getattr(self, f"{axis}_group")
 
     @property
     def lead(self) -> bool:
-        """Model 0, seq 0: the coordinate whose workers write what the
-        world holds once (a checkpoint of global arrays)."""
-        return self.model == 0 and self.seq == 0
+        """Pipe 0, model 0, seq 0: the coordinate whose workers write what
+        the world holds once (a checkpoint of global arrays)."""
+        return self.pipe == 0 and self.model == 0 and self.seq == 0
 
     def barrier(self) -> None:
         """Wait until world rank 0 has come here: over the workers group,
-        then the model group, then the seq group, so that a rank passes
-        only after its worker's model 0, seq 0 rank has, and that one only
-        after world rank 0 has."""
+        then the pipe, model and seq groups, so that a rank passes only
+        after its worker's pipe 0, model 0, seq 0 rank has, and that one
+        only after world rank 0 has."""
         dist.barrier()
-        for g in (self.model_group, self.seq_group):
+        for axis in self.AXES:
+            g = self.group(axis)
             if g is not None:
                 g.barrier().wait()
 
     def join(self, store, device: torch.device) -> None:
-        """Make this rank's model and seq groups over the world's store."""
-        w, m, s = self.worker, self.model, self.seq
-        if self.tp > 1:
-            self.model_group = _subgroup(
-                dist.PrefixStore(f"model.w{w}.s{s}/", store), m, self.tp,
-                device)
-        if self.sp > 1:
-            self.seq_group = _subgroup(
-                dist.PrefixStore(f"seq.w{w}.m{m}/", store), s, self.sp,
-                device)
+        """Make this rank's pipe, model and seq groups over the world's
+        store."""
+        w, p, m, s = self.worker, self.pipe, self.model, self.seq
+        for axis, rest in (("pipe", f"w{w}.m{m}.s{s}"),
+                           ("model", f"w{w}.p{p}.s{s}"),
+                           ("seq", f"w{w}.p{p}.m{m}")):
+            if self.size(axis) > 1:
+                setattr(self, f"{axis}_group", _subgroup(
+                    dist.PrefixStore(f"{axis}.{rest}/", store),
+                    getattr(self, axis), self.size(axis), device))
 
 
 def model_parallel_degrees(config: dict) -> tuple:
-    """``(tp, sp)`` of a config; ``pp > 1`` is refused (A9d)."""
-    if int(config.get("pp", 1)) != 1:
-        raise NotImplementedError("pp > 1 (pipeline parallelism) is not "
-                                  "ported yet (A9d)")
-    return int(config.get("tp", 1)), int(config.get("sp", 1))
+    """``(tp, sp, pp)`` of a config."""
+    return (int(config.get("tp", 1)), int(config.get("sp", 1)),
+            int(config.get("pp", 1)))
 
 
 class MeshProcess:
@@ -154,16 +168,16 @@ class MeshProcess:
         ``size`` are then the group's; ``world_rank``, ``group`` and
         ``store`` (the whole world's) are kept.
 
-        With ``tp`` or ``sp`` above 1 the world is the grid of
-        ``n_workers`` × tp × sp ranks (``rank`` names a world rank): this
-        rank joins its ``workers`` group as the default group, and its
-        model and seq groups (:class:`Grid`, ``config['grid']``)."""
-        tp, sp = model_parallel_degrees(self.config)
-        if tp * sp > 1:
+        With ``pp``, ``tp`` or ``sp`` above 1 the world is the grid of
+        ``n_workers`` × pp × tp × sp ranks (``rank`` names a world rank):
+        this rank joins its ``workers`` group as the default group, and its
+        pipe, model and seq groups (:class:`Grid`, ``config['grid']``)."""
+        tp, sp, pp = model_parallel_degrees(self.config)
+        if tp * sp * pp > 1:
             if group_size is not None:
                 raise NotImplementedError(
                     "islands of a model-parallel world are not ported")
-            return self._join_grid(tp, sp)
+            return self._join_grid(tp, sp, pp)
         n = int(self.config.get("n_workers") or 1)
         self.world_rank = int(self.config.get("rank", 0))
         if not 0 <= self.world_rank < n:
@@ -203,9 +217,9 @@ class MeshProcess:
         self.config.update(rank=self.rank, size=self.size,
                            device=str(self.device), verbose=self.verbose)
 
-    def _join_grid(self, tp: int, sp: int) -> None:
+    def _join_grid(self, tp: int, sp: int, pp: int) -> None:
         n = int(self.config.get("n_workers") or 1)
-        grid = Grid(n, tp, sp, int(self.config.get("rank", 0)))
+        grid = Grid(n, tp, sp, int(self.config.get("rank", 0)), pp=pp)
         self.world_rank = grid.world_rank
         self.device = self.init_device()
         if dist.is_initialized():
@@ -213,16 +227,17 @@ class MeshProcess:
                                "world makes its own")
         init = self.config.get("init_method")
         if not init:
-            raise ValueError(f"a world of {grid.world} ranks (tp={tp}, "
-                             f"sp={sp}) needs config 'init_method' "
+            raise ValueError(f"a world of {grid.world} ranks (pp={pp}, "
+                             f"tp={tp}, sp={sp}) needs config 'init_method' "
                              f"(tcp://localhost:<port> or file:///<path>)")
         self.store, _, _ = next(dist.rendezvous(
             str(init), rank=grid.world_rank, world_size=grid.world))
         backend = "nccl" if self.device.type == "cuda" else "gloo"
         dist.init_process_group(
             backend=backend, rank=grid.worker, world_size=n,
-            store=dist.PrefixStore(f"workers.m{grid.model}.s{grid.seq}/",
-                                   self.store))
+            store=dist.PrefixStore(
+                f"workers.p{grid.pipe}.m{grid.model}.s{grid.seq}/",
+                self.store))
         self._owns_group = True
         grid.join(self.store, self.device)
         self.grid = grid

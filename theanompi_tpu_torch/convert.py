@@ -53,9 +53,11 @@ from .utils.helper_funcs import (_jax_shape, get_leaf, jax_leaf_paths,
 def _to_port(a, path, kept: frozenset) -> np.ndarray:
     """One leaf at ``path`` (its keys from the root) in the port's layout."""
     a = np.asarray(a, dtype=np.float32)
+    if path in kept:
+        return a.copy()
     if a.ndim == 4:
         return np.ascontiguousarray(a.transpose(3, 2, 0, 1))
-    if a.ndim == 2 and path not in kept:
+    if a.ndim == 2:
         return np.ascontiguousarray(a.T)
     return a.copy()
 
@@ -102,9 +104,11 @@ def center_leaves_from_params(params, kept: frozenset = frozenset()) -> list:
         # a copy: on the CPU a tensor's numpy view shares its storage
         a = np.array(a.detach().cpu() if hasattr(a, "detach") else a,
                      dtype=np.float32)
-        if a.ndim == 4:
+        if p in kept:
+            pass
+        elif a.ndim == 4:
             a = a.transpose(2, 3, 1, 0)
-        elif a.ndim == 2 and p not in kept:
+        elif a.ndim == 2:
             a = a.T
         out.append(np.ascontiguousarray(a))
     return out
@@ -264,10 +268,11 @@ def checkpoint_from_jax(ckpt_dir: str, model,
     async rule) gives this rank its own row.  Returns the epoch loaded,
     or None when there is none.
 
-    Under tensor parallelism (a model with ``param_specs``) the JAX
-    package's global arrays are converted whole and each rank keeps its
-    shards; a stateful strategy's state or a sharded update layout there
-    is refused (A9d).
+    Under tensor or pipeline parallelism (a model with ``param_specs``)
+    the JAX package's global arrays are converted whole and each rank
+    keeps its shards (under pp the tree is the stacked one, its ``blocks``
+    leaves in the JAX layout in both packages); a stateful strategy's
+    state or a sharded update layout there is refused (A9d).
 
     JAX PRNG keys have no torch counterpart: the checkpoint's step and
     exchange keys are not read, and the model's generators keep the
@@ -286,14 +291,14 @@ def checkpoint_from_jax(ckpt_dir: str, model,
     params = model.params
     split = getattr(model, "param_specs", lambda: None)() is not None
     if split:
-        # tensor parallelism: the JAX package saved the global arrays; they
+        # model parallelism: the JAX package saved the global arrays; they
         # are converted whole and each rank keeps its shards (local_state)
         if model.extra.get("strat") is not None or \
                 model._fsdp is not None or model._zero_layout is not None \
                 or model._ushard_plan is not None:
             raise NotImplementedError(
-                "a JAX checkpoint under tp with a stateful strategy or a "
-                "sharded update layout is not ported yet (A9d)")
+                "a JAX checkpoint under tp or pp with a stateful strategy or "
+                "a sharded update layout is not ported yet (A9d)")
         params = model.gather_params(tree_map(
             lambda p: p.detach(), model.params))
     jpaths = jax_leaf_paths(params)

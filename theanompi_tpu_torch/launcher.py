@@ -19,11 +19,11 @@ waiting in a collective) and returns that rank's exit code.  On ``cuda``
 it refuses, before spawning anything, more ranks than visible GPUs: NCCL
 takes one GPU a rank.
 
-With ``tp`` or ``sp`` above 1 in the config the world is the model-parallel
-grid (``base.Grid``): ``--n-workers`` counts the data-parallel workers, as
-the JAX package's ``n_workers`` does, and the launcher spawns
-``n_workers · tp · sp`` ranks, each line naming ``n_workers`` (the
-workers) and its world ``rank``, one GPU a rank.
+With ``pp``, ``tp`` or ``sp`` above 1 in the config the world is the
+model-parallel grid (``base.Grid``): ``--n-workers`` counts the
+data-parallel workers, as the JAX package's ``n_workers`` does, and the
+launcher spawns ``n_workers · pp · tp · sp`` ranks, each line naming
+``n_workers`` (the workers) and its world ``rank``, one GPU a rank.
 
 ``--num-hosts H`` with ``--coordinator host:port`` composes a world of
 ``H · n_workers`` ranks: host ``h`` runs ranks ``h·K … h·K+K−1`` over
@@ -238,18 +238,18 @@ def main(argv=None) -> int:
         k = 1
     if k < 1:
         p.error(f"--n-workers {k}: at least one rank")
-    # a model-parallel grid: dp workers of tp · sp ranks each
+    # a model-parallel grid: dp workers of pp · tp · sp ranks each
     grid = 1
-    for key in ("tp", "sp"):
+    for key in ("pp", "tp", "sp"):
         v = _config_value(kv, key)
         grid *= int(v) if v else 1
     if grid > 1:
         if args.num_hosts > 1:
-            p.error("a model-parallel world (tp/sp) across hosts is not "
+            p.error("a model-parallel world (pp/tp/sp) across hosts is not "
                     "ported")
         if not device.startswith("cpu") and not emit and \
                 k * grid > visible_gpus():
-            p.error(f"{k} workers × tp·sp {grid} = {k * grid} ranks need "
+            p.error(f"{k} workers × pp·tp·sp {grid} = {k * grid} ranks need "
                     f"{k * grid} GPUs, one a rank; this host has "
                     f"{visible_gpus()}")
     world = k * args.num_hosts

@@ -477,7 +477,8 @@ class ModelBase:
             for k in ("fsdp", "zero_opt", "update_sharding"):
                 if self.config.get(k):
                     raise NotImplementedError(
-                        f"{k} under a model-parallel layout (tp/sp) is not "
+                        f"{k} under a model-parallel layout (tp/pp/sp) is "
+                        f"not "
                         f"ported yet (A9d)")
         size, rank = (dist.get_world_size(), dist.get_rank()) \
             if exchanger.collective else (1, 0)
@@ -732,8 +733,9 @@ class ModelBase:
         per-leaf ``.npy`` snapshot of :meth:`canonical_params` (the center,
         the consensus, the EMA shadow or the params).  A model-parallel
         layout saves the global arrays (:meth:`global_state`), written by
-        its model 0, seq 0 ranks alone, so a checkpoint resumes at any tp
-        or sp.  Rank 0 writes; every rank must call (the gathers are
+        its pipe 0, model 0, seq 0 ranks alone, so a checkpoint resumes at
+        any tp or sp (under pp, at the same pp and ``pp_interleave``: the
+        JAX package's stacked tree).  Rank 0 writes; every rank must call (the gathers are
         collective).  Returns the ``.npz`` path."""
         import os
 

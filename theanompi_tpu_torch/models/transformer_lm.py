@@ -20,16 +20,21 @@ on a CUDA device another compute dtype is refused when the model is built
 (one prefill forward through B10, then one token a step) or by the full
 forward a token.
 
-``tp`` and ``sp`` lay the dense LM over a model-parallel grid of ranks
-(``base.Grid``): ``tp`` shards heads, MLP columns, the vocabulary of the
-embedding and of the head over the ``model`` group (``parallel/tp.py``;
-B10–B12 run on each rank's ``n_head/tp`` heads), ``sp`` the tokens over the
-``seq`` group with ring attention (``parallel/sp.py``).  Each rank holds
-its shard of every leaf (:meth:`TransformerLM.param_specs`: the dim of the
-port's layout that the model group splits), made from the dense model's
-initial params, and feeds its worker's rows and its seq block of tokens.
-Pipeline parallelism, the MoE's expert parallelism and its sequence
-all-to-all are not ported yet and raise (A9d).
+``tp``, ``pp`` and ``sp`` lay the dense LM over a model-parallel grid of
+ranks (``base.Grid``): ``tp`` shards heads, MLP columns, the vocabulary of
+the embedding and of the head over the ``model`` group (``parallel/tp.py``;
+B10–B12 run on each rank's ``n_head/tp`` heads), ``pp`` the block stack
+over the ``pipe`` group, ``pp_microbatches`` microbatches streaming through
+``pp`` stages of ``pp_interleave`` chunks each (``parallel/pipeline.py``),
+and ``sp`` the tokens over the ``seq`` group with ring attention
+(``parallel/sp.py``).  Each rank holds its shard of every leaf
+(:meth:`TransformerLM.param_specs`: the dims its grid axes split), made
+from the dense model's initial params, and feeds its worker's rows and its
+seq block of tokens.  Under ``pp`` the params are the JAX package's tree:
+``blocks`` holds every block leaf stacked on a leading layer dim in
+``stage_permutation`` order, in the JAX layout (``[in, out]`` weights),
+and the pipe group splits that dim.  The MoE's expert parallelism and its
+sequence all-to-all are not ported yet and raise (A9d).
 """
 
 from __future__ import annotations
@@ -39,7 +44,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..parallel.moe import MoE
-from ..utils.helper_funcs import leaf_paths, tree_leaves, tree_map
+from ..utils.helper_funcs import (from_jax_layout, get_leaf, leaf_paths,
+                                  to_jax_layout, tree_leaves, tree_map)
 from . import layers as L
 from .data import DataBase
 from .model_base import ModelBase
@@ -204,6 +210,32 @@ def check_flash_dtype(attn_impl: str, compute_dtype: torch.dtype,
                          f"{compute_dtype}")
 
 
+class Split:
+    """The grid axes that split one leaf: the dim the ``pipe`` group splits
+    and the dim the ``model`` group splits (None where the axis holds the
+    leaf whole)."""
+
+    __slots__ = ("pipe", "model")
+
+    def __init__(self, pipe=None, model=None):
+        self.pipe, self.model = pipe, model
+
+    def axes(self) -> tuple:
+        return tuple(a for a in ("pipe", "model")
+                     if getattr(self, a) is not None)
+
+
+def _nest(paths, values) -> dict:
+    """A nested dict holding ``values`` at ``paths``."""
+    out: dict = {}
+    for p, v in zip(paths, values):
+        node = out
+        for k in p[:-1]:
+            node = node.setdefault(k, {})
+        node[p[-1]] = v
+    return out
+
+
 class TransformerLM(ModelBase):
     batch_size = 16
     epochs = 10
@@ -223,16 +255,9 @@ class TransformerLM(ModelBase):
         for k in ("vocab", "d_model", "n_head", "n_layer", "seq_len"):
             if k in self.config:
                 setattr(self, k, int(self.config[k]))
-        for k in ("pp_microbatches", "pp_interleave"):
-            if int(self.config.get(k, 0 if k == "pp_microbatches" else 1)) \
-                    not in (0, 1):
-                raise NotImplementedError(f"{k} (pipeline parallelism) is "
-                                          f"not ported yet (A9d)")
-        if int(self.config.get("pp", 1)) != 1:
-            raise NotImplementedError("pp > 1 (pipeline parallelism) is not "
-                                      "ported yet (A9d)")
         self.tp = int(self.config.get("tp", 1))
         self.sp = int(self.config.get("sp", 1))
+        self._check_pipeline()
         attn_impl = str(self.config.get("attn_impl", "reference"))
         if attn_impl == "flash" and self.seq_len % 128:
             # the JAX package's build-time check, kept for the same configs
@@ -247,13 +272,14 @@ class TransformerLM(ModelBase):
                              f"ring)")
         check_flash_dtype(attn_impl, cd, self.device)
         grid = self.config.get("grid")
-        if self.tp * self.sp > 1:
+        if self.tp * self.sp * self.pp > 1:
             # the JAX package's mesh check: the grid this rank joined
-            if grid is None or (grid.tp, grid.sp) != (self.tp, self.sp):
+            want = (self.tp, self.sp, self.pp)
+            if grid is None or (grid.tp, grid.sp, grid.pp) != want:
                 raise ValueError(
-                    f"tp={self.tp}, sp={self.sp} need a world of that grid "
-                    f"(base.MeshProcess with the same keys); got "
-                    f"{None if grid is None else (grid.tp, grid.sp)}")
+                    f"tp={self.tp}, sp={self.sp}, pp={self.pp} need a world "
+                    f"of that grid (base.MeshProcess with the same keys); "
+                    f"got {None if grid is None else (grid.tp, grid.sp, grid.pp)}")
             if self.seq_len % self.sp:
                 raise ValueError(f"seq_len={self.seq_len} not divisible by "
                                  f"sp={self.sp}")
@@ -290,6 +316,31 @@ class TransformerLM(ModelBase):
         else:
             self.data = LMData(self.config, self.batch_size)
 
+    def _check_pipeline(self) -> None:
+        """The pipeline keys, as the JAX package checks them
+        (``transformer_lm.py:268-297`` there, and ``pipeline._validate``
+        at build time rather than at the first step): ``pp_microbatches``
+        defaults to ``2·pp`` and is ignored at ``pp = 1``;
+        ``pp_interleave > 1`` needs ``pp > 1``, ``n_layer`` divisible by
+        ``pp·pp_interleave`` and the microbatches by ``pp``."""
+        self.pp = int(self.config.get("pp", 1))
+        self.pp_microbatches = int(self.config.get("pp_microbatches", 0))
+        self.pp_interleave = int(self.config.get("pp_interleave", 1))
+        if self.pp == 1:
+            if self.pp_interleave > 1:
+                raise ValueError(
+                    f"pp_interleave={self.pp_interleave} needs pipeline "
+                    f"parallelism — set the 'pp' config knob > 1 (got "
+                    f"pp={self.pp})")
+            return
+        if self.n_layer % self.pp:
+            raise ValueError(f"n_layer={self.n_layer} not divisible by "
+                             f"pp={self.pp}")
+        self.pp_microbatches = self.pp_microbatches or 2 * self.pp
+        from ..parallel import pipeline as pl
+        pl._validate(self.pp, self.pp_interleave, self.pp_microbatches,
+                     self.n_layer // self.pp)
+
     def layers(self):
         return dict({"embed": self.embed, "pos": self.pos, "ln_f": self.ln_f,
                      "head": self.head}, **{b.name: b for b in self.blocks})
@@ -297,52 +348,84 @@ class TransformerLM(ModelBase):
     # -- the model-parallel layout ------------------------------------------
 
     def param_specs(self):
-        """Which dim of each leaf (port layout) the model group splits,
-        None where every model rank holds it whole; None for a model with
-        no tensor parallelism (``transformer_lm.py:334-376`` there: the
-        sequence group holds every leaf whole)."""
-        if self.tp == 1:
+        """Per leaf of the params, the dims the grid axes split (a
+        :class:`Split`); None for a layout that splits nothing (``tp = pp
+        = 1``; ``transformer_lm.py:334-376`` there: the seq group holds
+        every leaf whole).  Under ``pp`` the pipe group splits each
+        ``blocks`` leaf's leading layer dim, and a tp dim of a block leaf
+        is the JAX layout's, one right of the stacking dim."""
+        if self.tp == 1 and self.pp == 1:
             return None
-        return {"embed": {"w": 0}, "pos": {"w": None},
-                "ln_f": {"scale": None, "bias": None},
-                "head": {"w": 0, "b": 0},
-                **{b.name: b.specs() for b in self.blocks}}
+        tp = 0 if self.tp > 1 else None
+        top = {"embed": {"w": Split(model=tp)}, "pos": {"w": Split()},
+               "ln_f": {"scale": Split(), "bias": Split()},
+               "head": {"w": Split(model=tp), "b": Split(model=tp)}}
+        if self.pp == 1:
+            return {**top, **{b.name: tree_map(lambda d: Split(model=d),
+                                               b.specs())
+                              for b in self.blocks}}
+        spec = self.blocks[0].specs()
+
+        def stacked(path):
+            d = None if spec is None else get_leaf(spec, path)
+            if d is not None and self._blk_ndim[path] == 2 and \
+                    path not in self._blk_kept:
+                d = 1 - d                  # [out, in] → the JAX [in, out]
+            return Split(pipe=0, model=None if d is None else d + 1)
+
+        return {**top, "blocks": _nest(self._blk_paths,
+                                       [stacked(p) for p in self._blk_paths])}
 
     def _dims(self, tree):
-        """Per leaf of a params-shaped ``tree``: the dim the model group
-        splits, None where every model rank holds it whole (a scalar such
-        as Adam's count included)."""
-        return tree_map(lambda a, d: None if np.ndim(a) == 0 else d, tree,
+        """Per leaf of a params-shaped ``tree``: its :class:`Split` (a
+        scalar such as Adam's count is held whole)."""
+        return tree_map(lambda a, s: Split() if np.ndim(a) == 0 else s, tree,
                         self.param_specs())
 
-    def _chunk(self, a, dim: int):
-        """Chunk ``grid.model`` of ``grid.tp`` of ``a`` (a tensor or an
-        array) along ``dim``, contiguous and of its own."""
-        g = self.grid
+    def _chunk(self, a, dim: int, axis: str):
+        """This rank's chunk of ``a`` (a tensor or an array) along ``dim``
+        over the grid ``axis``, contiguous and of its own."""
+        n, i = self.grid.size(axis), getattr(self.grid, axis)
         if isinstance(a, torch.Tensor):
-            return a.chunk(g.tp, dim=dim)[g.model].clone(
+            return a.chunk(n, dim=dim)[i].clone(
                 memory_format=torch.contiguous_format)
-        return np.ascontiguousarray(np.split(np.asarray(a), g.tp,
-                                             axis=dim)[g.model])
+        return np.ascontiguousarray(np.split(np.asarray(a), n, axis=dim)[i])
 
     def shard_params(self, tree):
         """This rank's shard of a global params-shaped tree of tensors or
-        arrays (port layout): each split leaf's chunk along its dim."""
+        arrays: each split leaf's chunk along each axis's dim."""
         if self.param_specs() is None:
             return tree
-        return tree_map(lambda a, d: a if d is None else self._chunk(a, d),
-                        tree, self._dims(tree))
+
+        def cut(a, s):
+            for axis in ("pipe", "model"):
+                if getattr(s, axis) is not None:
+                    a = self._chunk(a, getattr(s, axis), axis)
+            return a
+
+        return tree_map(cut, tree, self._dims(tree))
 
     def gather_params(self, tree):
         """The global tree of a local params-shaped one: each split leaf's
-        shards gathered over the model group and joined (a collective:
-        every model rank calls)."""
+        shards gathered over the model group, then over the pipe group,
+        and joined (a collective: every rank of those groups calls)."""
         if self.param_specs() is None:
             return tree
         from ..parallel.tp import all_gather
-        return tree_map(lambda a, d: a if d is None else torch.cat(
-            list(all_gather(a, self.grid.model_group)), dim=d), tree,
-            self._dims(tree))
+
+        def join(a, s):
+            for axis in ("model", "pipe"):
+                d = getattr(s, axis)
+                if d is not None:
+                    a = torch.cat(list(all_gather(a, self.grid.group(axis))),
+                                  dim=d)
+            return a
+
+        return tree_map(join, tree, self._dims(tree))
+
+    def _split_axes(self) -> tuple:
+        """The grid axes, model first, that split some leaf."""
+        return tuple(a for a in ("model", "pipe") if self.grid.size(a) > 1)
 
     def _params_like(self, tree, fn):
         """``tree`` with ``fn`` applied to each subtree shaped as the params
@@ -355,12 +438,12 @@ class TransformerLM(ModelBase):
 
     def global_state(self, parts):
         """The state parts as global arrays, as a checkpoint holds them (a
-        collective over the model group): each params-shaped subtree
-        gathered (:meth:`gather_params`), and a strategy's state, which
-        each model rank keeps for its own shards, joined in the JAX
-        package's shapes: a flat vector the model ranks' end to end
-        (``[tp·n]``), each array of a per-leaf state on a leading ``[tp]``
-        axis."""
+        collective over the model and pipe groups): each params-shaped
+        subtree gathered (:meth:`gather_params`), and a strategy's state,
+        which each rank keeps for its own shards, joined in the JAX
+        package's shapes: a flat vector the model ranks' end to end, then
+        the pipe ranks' (``[pp·tp·n]``), each array of a per-leaf state on
+        a leading ``[tp]`` axis, then ``[pp]`` (``[pp, tp, ...]``)."""
         if self.param_specs() is None:
             return parts
         from ..parallel.tp import all_gather
@@ -368,10 +451,12 @@ class TransformerLM(ModelBase):
                for k, v in parts.items()}
         st = parts.get("extra", {}).get("strat")
         if st is not None:
-            g = self.grid.model_group
-            out["extra"] = dict(out["extra"], strat=all_gather(
-                st, g).reshape(-1) if isinstance(st, torch.Tensor) else
-                tree_map(lambda a: all_gather(a, g), st))
+            for axis in self._split_axes():
+                g = self.grid.group(axis)
+                st = all_gather(st, g).reshape(-1) \
+                    if isinstance(st, torch.Tensor) else \
+                    tree_map(lambda a, g=g: all_gather(a, g), st)
+            out["extra"] = dict(out["extra"], strat=st)
         return out
 
     def local_state(self, parts):
@@ -383,29 +468,90 @@ class TransformerLM(ModelBase):
                for k, v in parts.items()}
         st = out.get("extra", {}).get("strat")
         if st is not None:
-            out["extra"] = dict(out["extra"], strat=tree_map(
-                lambda a: a[self.grid.model], st) if isinstance(st, list)
-                else self._chunk(st, 0))
+            for axis in reversed(self._split_axes()):
+                i = getattr(self.grid, axis)
+                st = tree_map(lambda a, i=i: a[i], st) \
+                    if isinstance(st, list) else self._chunk(st, 0, axis)
+            out["extra"] = dict(out["extra"], strat=st)
         return out
 
     def init_params(self, gen):
-        """The dense model's initial params (the same draws), cut to this
-        rank's shards."""
-        return self.shard_params(super().init_params(gen))
+        """The dense model's initial params (the same draws), in the pp
+        tree under ``pp`` (:meth:`_stacked`), cut to this rank's shards."""
+        return self.shard_params(self._stacked(super().init_params(gen)))
 
-    def model_split_leaves(self) -> list:
-        """Per leaf (``tree_leaves`` order): True where the model group
-        splits it."""
-        specs = self.param_specs()
-        if specs is None:
-            return [False] * len(tree_leaves(self.params))
-        return tree_leaves(tree_map(lambda a, d: d is not None, self.params,
-                                    specs))
+    def _perm(self) -> np.ndarray:
+        from ..parallel.pipeline import stage_permutation
+        return stage_permutation(self.n_layer, self.pp, self.pp_interleave)
+
+    def _stacked(self, dense):
+        """A dense global tree in the pp layout (``transformer_lm.py:
+        382-393`` there): every block leaf in the JAX layout, stacked on a
+        leading layer dim, row ``j`` holding layer ``stage_permutation[j]``;
+        the tree itself at ``pp = 1``.  Notes a block's leaf paths,
+        dims and kept leaves, which the pp layout reads."""
+        blk = self.blocks[0]
+        self._blk_paths = leaf_paths(dense[blk.name])
+        self._blk_ndim = {p: get_leaf(dense[blk.name], p).dim()
+                          for p in self._blk_paths}
+        self._blk_kept = frozenset(blk.kept_layout_paths())
+        if self.pp == 1:
+            return dense
+        out = {k: v for k, v in dense.items()
+               if k not in {b.name for b in self.blocks}}
+        out["blocks"] = _nest(self._blk_paths,
+                              self.stack_rows(dense, self._perm()))
+        return out
+
+    def stack_rows(self, dense, layers) -> list:
+        """The blocks ``layers`` (depth indices) of a dense tree, each
+        leaf in the JAX layout stacked on a leading layer dim: the
+        ``blocks`` leaves of the pp tree, in ``tree_leaves`` order, which
+        :meth:`stage_fn`'s chunk function takes."""
+        rows = [dense[self.blocks[int(i)].name] for i in layers]
+        return [torch.stack([to_jax_layout(get_leaf(r, p), p, self._blk_kept)
+                             for r in rows]) for p in self._blk_paths]
+
+    def _unstacked(self, tree):
+        """A global pp tree in the dense layout: the stacked rows unstacked
+        through the inverse permutation (``transformer_lm.py:587-607``
+        there), each leaf in the port's layout."""
+        if self.pp == 1:
+            return tree
+        out = {k: v for k, v in tree.items() if k != "blocks"}
+        inv = np.argsort(self._perm())
+        stack = [get_leaf(tree["blocks"], p) for p in self._blk_paths]
+        for i, blk in enumerate(self.blocks):
+            j = int(inv[i])
+            out[blk.name] = _nest(self._blk_paths, [
+                from_jax_layout(a[j], p, self._blk_kept)
+                for a, p in zip(stack, self._blk_paths)])
+        return out
+
+    def kept_layout_paths(self) -> frozenset:
+        """The leaves kept in the JAX layout; under ``pp`` every ``blocks``
+        leaf is."""
+        kept = super().kept_layout_paths()
+        if self.pp == 1:
+            return kept
+        names = {b.name for b in self.blocks}
+        return frozenset({p for p in kept if p[0] not in names}
+                         | {("blocks",) + p for p in self._blk_paths})
+
+    def split_axes_leaves(self) -> list:
+        """Per leaf (``tree_leaves`` order): the grid axes that split it,
+        ``"pipe"`` before ``"model"`` (``()`` where it is whole)."""
+        if self.param_specs() is None:
+            return [()] * len(tree_leaves(self.params))
+        return [s.axes() for s in tree_leaves(self._dims(self.params))]
 
     def reduce_model_grads(self, grads) -> None:
         """The step's gradient leaves, summed in place over the seq group:
         each seq rank's is its token block's share (the loss is
-        :func:`parallel.sp.sp_mean` of the blocks')."""
+        :func:`parallel.sp.sp_mean` of the blocks').  The pipe group needs
+        nothing: each pipe rank computes the head on the broadcast
+        outputs, and the pipeline broadcasts its input's gradient, so a
+        leaf it does not split has the dense gradient on every stage."""
         if self.sp > 1:
             from ..parallel.tp import all_reduce
             for g in grads:
@@ -437,8 +583,47 @@ class TransformerLM(ModelBase):
         return self.head.apply(params["head"],
                                self.ln_f.apply(params["ln_f"], h))
 
+    def stage_fn(self, train: bool):
+        """The pipeline's chunk function: a run of stacked block rows
+        (JAX layout) applied in turn, each row's leaves viewed in the
+        port's layout; ``(y, aux)`` for MoE blocks (the aux summed over the
+        rows)."""
+        tpl, paths, kept = self.blocks[0], self._blk_paths, self._blk_kept
+
+        def stage(rows, h):
+            aux = None
+            for i in range(rows[0].shape[0]):
+                p = _nest(paths, [from_jax_layout(r[i], q, kept)
+                                  for r, q in zip(rows, paths)])
+                out = tpl.apply(p, h, train=train)
+                if isinstance(out, tuple):
+                    h, a = out
+                    aux = a if aux is None else aux + a
+                else:
+                    h = out
+            return h if aux is None else (h, aux)
+
+        return stage
+
+    def _pipeline(self, params, h, train: bool, with_aux: bool = False):
+        """``h`` ``[B, t, D]`` through the pipe group's stages
+        (``transformer_lm.py:423-436`` there): ``pp_microbatches``
+        microbatches streamed through the schedule; with ``with_aux`` also
+        the stages' aux summed over the real ticks."""
+        from ..parallel import pipeline as pl
+        out = pl.pipeline_apply(
+            self.stage_fn(train), tree_leaves(params["blocks"]),
+            pl.microbatch(h, self.pp_microbatches), self.grid.pipe_group,
+            with_aux=with_aux, interleave=self.pp_interleave)
+        if with_aux:
+            return pl.unmicrobatch(out[0]), out[1]
+        return pl.unmicrobatch(out)
+
     def apply_model(self, params, x, *, train: bool, gen, state):
         h = self._embed(params, x, self._pos_ids(x.shape[1], x.device))
+        if self.pp > 1:
+            # each chunk is recomputed in the backward already
+            return self._head(params, self._pipeline(params, h, train))
         remat = train and self.config.get("remat", False)
         for blk in self.blocks:
             if remat:
@@ -513,7 +698,8 @@ class TransformerLM(ModelBase):
         EMA shadow when on, an async rule's center or consensus)."""
         if self.grid is not None:
             # a model-parallel layout: every rank gathers the global params
-            # and samples on a dense twin (the same model)
+            # (unstacked into blocks under pp) and samples on a dense twin
+            # (the same model)
             return self._dense_twin().generate(
                 prompt, max_new_tokens, temperature=temperature, seed=seed,
                 kv_cache=kv_cache, params=self._gathered_dense_params(params))
@@ -554,12 +740,14 @@ class TransformerLM(ModelBase):
     def _gathered_dense_params(self, params=None):
         """The dense layout's params: :meth:`canonical_params` (or
         ``params``, this rank's shards) with every split leaf gathered over
-        the model group; the seq group holds them whole (a collective:
-        every model rank calls)."""
+        the model and pipe groups, the stacked blocks unstacked; the seq
+        group holds them whole (a collective: every rank of those groups
+        calls)."""
         params = self.canonical_params() if params is None else tree_map(
             lambda a: torch.as_tensor(np.asarray(a)) if not isinstance(
                 a, torch.Tensor) else a, params)
-        return self.gather_params(tree_map(lambda a: a.detach(), params))
+        return self._unstacked(self.gather_params(
+            tree_map(lambda a: a.detach(), params)))
 
     def _next_token(self, row, gen, temp: float):
         """Greedy or categorical choice from one ``[B, V]`` logit row (the
@@ -624,11 +812,16 @@ class MoETransformerLM(TransformerLM):
             if int(self.config.get(k, 1)) != 1:
                 raise NotImplementedError(f"MoETransformerLM: {what} is not "
                                           f"ported yet (A9d)")
-        super().build_model()
-        cd = L.as_dtype(self.config.get("compute_dtype", torch.bfloat16))
         for k in ("moe_experts", "moe_every", "moe_topk"):
             if k in self.config:
                 setattr(self, k, int(self.config[k]))
+        if int(self.config.get("pp", 1)) > 1 and self.moe_every != 1:
+            raise ValueError(
+                "pipeline parallelism needs a homogeneous block stack: the "
+                "mixed MoE/dense stack (moe_every > 1) does not stack over "
+                "'pipe'; use moe_every=1 (every block MoE) with pp")
+        super().build_model()
+        cd = L.as_dtype(self.config.get("compute_dtype", torch.bfloat16))
         for k in ("moe_aux", "capacity_factor"):
             if k in self.config:
                 setattr(self, k, float(self.config[k]))
@@ -644,8 +837,16 @@ class MoETransformerLM(TransformerLM):
             for i in range(self.n_layer)]
 
     def _forward(self, params, x, *, train: bool):
-        """Logits and the load-balance loss's mean over the MoE blocks."""
+        """Logits and the load-balance loss's mean over the MoE blocks;
+        under ``pp`` the mean of the microbatches' (each stage's aux rides
+        the pipeline: ``transformer_lm.py:711-742`` there, a known
+        deviation from the dense model's, whose routing fractions are the
+        whole batch's)."""
         h = self._embed(params, x, torch.arange(x.shape[1], device=x.device))
+        if self.pp > 1:
+            h, aux = self._pipeline(params, h, train, with_aux=True)
+            return self._head(params, h), \
+                aux / (self.pp_microbatches * self.n_layer)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         n_moe = 0
         for blk in self.blocks:

@@ -229,16 +229,25 @@ class Exchanger:
             return grads
         leaves = tree_leaves(grads)
         norms = torch._foreach_norm([g.float() for g in leaves])
-        split = self._model_split()
+        split = self._split_axes()
         if any(split):
-            # tensor parallelism: a split leaf's squares summed over the
-            # model group, a replicated one counted once, so every rank
-            # clips by the same global norm (exchanger.py:378-400 there)
+            # model parallelism: a split leaf's squares summed over the
+            # groups that split it, a replicated one counted once, so every
+            # rank clips by the same global norm (exchanger.py:378-400
+            # there); the leaves split alike summed together, in a fixed
+            # order of their axes
             from .tp import all_reduce
             sq = torch.stack(norms).square()
-            mask = torch.tensor(split, device=sq.device)
-            norm = (sq[~mask].sum() + all_reduce(
-                sq[mask].sum(), self.model.grid.model_group)).sqrt()
+            grid = self.model.grid
+            total = None
+            for axes in sorted(set(split), key=lambda a: (len(a), a)):
+                mask = torch.tensor([a == axes for a in split],
+                                    device=sq.device)
+                part = sq[mask].sum()
+                for axis in reversed(axes):
+                    part = all_reduce(part, grid.group(axis))
+                total = part if total is None else total + part
+            norm = total.sqrt()
         else:
             norm = torch.stack(norms).square().sum().sqrt()
         scale = torch.clamp(self.clip / torch.clamp(norm, min=1e-12),
@@ -246,11 +255,11 @@ class Exchanger:
         it = iter(torch._foreach_mul(leaves, scale))
         return tree_map(lambda _: next(it), grads)
 
-    def _model_split(self) -> list:
-        """Per gradient leaf: True where the model group splits it (tensor
-        parallelism); all False for a model without."""
-        fn = getattr(self.model, "model_split_leaves", None)
-        return fn() if fn is not None else [False]
+    def _split_axes(self) -> list:
+        """Per gradient leaf: the grid axes (``pipe``, ``model``) that split
+        it; all empty for a model without model parallelism."""
+        fn = getattr(self.model, "split_axes_leaves", None)
+        return fn() if fn is not None else [()]
 
     def step_update(self, params, opt_state, grads, extra, lr):
         """One local update of the clipped local gradient, in place;
@@ -397,27 +406,33 @@ class BSP_Exchanger(Exchanger):
         return params, opt_state, extra
 
     def _restore_replication(self, grads):
-        """Under tensor parallelism, a strategy that flattens the tree or
-        keeps per-leaf state (``leafwise_state``) compresses each model
-        rank's shards and its copy of the replicated leaves together: their
-        decoded means can differ between the model ranks.  Each replicated
-        leaf is replaced by its mean over the model group
-        (``exchanger.py:639-656`` there; the seq ranks hold the same bits
+        """Under tensor or pipeline parallelism, a strategy that flattens
+        the tree or keeps per-leaf state (``leafwise_state``) compresses
+        each rank's shards and its copy of the leaves its grid axes do not
+        split together: their decoded means can differ between the ranks of
+        those axes.  Each such leaf is replaced by its mean over the model
+        and pipe groups that do not split it (``exchanger.py:639-656``
+        there, ``_restore_replication``; the seq ranks hold the same bits
         already)."""
-        split = self._model_split()
+        split = self._split_axes()
         per_shard = self.strategy.flattens or self.strategy.leafwise_state
         if not per_shard or not any(split):
             return grads
         from .tp import all_reduce
-        group = self.model.grid.model_group
+        grid = self.model.grid
+        active = [a for a in ("pipe", "model") if grid.size(a) > 1]
         leaves = tree_leaves(grads)
-        rep = [g for g, sp in zip(leaves, split) if not sp]
-        mean = [m / group.size() for m in
-                all_reduce(torch.cat([g.reshape(-1) for g in rep]),
-                           group).split([g.numel() for g in rep])]
-        it = iter(mean)
-        out = [g if sp else next(it).view_as(g)
-               for g, sp in zip(leaves, split)]
+        missing = [tuple(a for a in active if a not in s) for s in split]
+        out = list(leaves)
+        for miss in sorted(set(missing) - {()}, key=lambda a: (len(a), a)):
+            idx = [i for i, m in enumerate(missing) if m == miss]
+            flat, n = torch.cat([leaves[i].reshape(-1) for i in idx]), 1
+            for axis in reversed(miss):
+                flat = all_reduce(flat, grid.group(axis))
+                n *= grid.size(axis)
+            for i, m in zip(idx, flat.split([leaves[i].numel()
+                                             for i in idx])):
+                out[i] = (m / n).view_as(leaves[i])
         return _like(grads, out)
 
     def has_exchange(self) -> bool:

@@ -16,9 +16,9 @@ not depend on the order and uses the port's.
 **JAX order.** :func:`flatten_tree_jax` and :func:`unflatten_like_jax` lay
 the same tree out as the JAX package's ``flatten_tree`` does: keys sorted
 at every level, 4-D conv weights as HWIO (``w.permute(2, 3, 1, 0)``), 2-D
-FC weights as ``[in, out]``, and the 2-D leaves whose paths are in
-``kept`` as they are (embedding tables, ``[vocab, dim]`` in both
-packages).  The layer declares which of its leaves those are
+FC weights as ``[in, out]``, and the leaves whose paths are in ``kept`` as
+they are (embedding tables, ``[vocab, dim]`` in both packages; a
+pipeline's stacked block leaves, which the port keeps in the JAX layout).  The layer declares which of its leaves those are
 (``models.layers.Layer.kept_layout``) and the model hands the set over
 (``ModelBase.kept_layout_paths``): a leaf's layout is not guessed from its
 shape or its name.  The topk wire selects per fixed-size chunk of the flat
@@ -115,11 +115,14 @@ def jax_tree_leaves(tree) -> List[Any]:
 def to_jax_layout(t: torch.Tensor, path,
                   kept: frozenset = frozenset()) -> torch.Tensor:
     """A view of the port-layout leaf at ``path`` in the JAX package's
-    layout: OIHW → HWIO, ``[out, in]`` → ``[in, out]``; a 2-D leaf whose
-    path is in ``kept`` (an embedding table) and vectors as they are."""
+    layout: OIHW → HWIO, ``[out, in]`` → ``[in, out]``; a leaf whose path
+    is in ``kept`` (an embedding table, a pipeline's stacked block leaf)
+    and vectors as they are."""
+    if path in kept:
+        return t
     if t.dim() == 4:
         return t.permute(2, 3, 1, 0)
-    if t.dim() == 2 and path not in kept:
+    if t.dim() == 2:
         return t.t()
     return t
 
@@ -128,9 +131,11 @@ def from_jax_layout(t: torch.Tensor, path,
                     kept: frozenset = frozenset()) -> torch.Tensor:
     """Inverse of :func:`to_jax_layout`: HWIO → OIHW, ``[in, out]`` →
     ``[out, in]``, as a view."""
+    if path in kept:
+        return t
     if t.dim() == 4:
         return t.permute(3, 2, 0, 1)
-    if t.dim() == 2 and path not in kept:
+    if t.dim() == 2:
         return t.t()
     return t
 
@@ -138,10 +143,12 @@ def from_jax_layout(t: torch.Tensor, path,
 def _jax_shape(shape, path, kept: frozenset) -> tuple:
     """The JAX layout's shape of the port-layout leaf at ``path`` of
     ``shape``."""
+    if path in kept:
+        return tuple(shape)
     if len(shape) == 4:
         o, i, h, w = shape
         return (h, w, i, o)
-    if len(shape) == 2 and path not in kept:
+    if len(shape) == 2:
         return (shape[1], shape[0])
     return tuple(shape)
 

@@ -16,6 +16,7 @@
     python3 chip_smoke.py --gan-lm        # GANs, MoE LM, remat, generate
     python3 chip_smoke.py --flash-f32     # the float32 flash kernels (A11)
     python3 chip_smoke.py --pp-stage      # B10–B12 at a pp stage's shape
+    python3 chip_smoke.py --ep-rank       # one ep = tp 2 rank's MoE block
 
 1. Fails (exit 2, no result) without CUDA; prints the card's name and power
    limit as ``nvidia-smi`` reports them.
@@ -164,6 +165,23 @@
     forward and backward in bf16 and float32, its launches read and held
     to the schedule's, its outputs and gradients against the same blocks
     applied densely (a pp world itself needs a GPU a rank: CPU tests).
+20c. An ep = tp 2 rank (``--ep-rank`` runs this alone): B10–B12 bf16 and
+    float32 at a tp rank's heads of the LM row, [16, 4, 512, 64] causal as
+    the model hands them, through the same checks and times as 20b; then
+    the MoE LM row's MoE block (4 experts, top-1, capacity factor 1.25) at
+    ep = tp 2, each rank's part built with the model group ``tp.LOCAL``
+    (its 4 heads through B10–B12, its 2 experts through the
+    expert-parallel path), forward and backward in bf16 and float32, the
+    phase adding up what the group's all-reduces add; launches read (one
+    B10, B11 and B12 a rank); the output and every gradient (each rank's
+    shard of a split leaf) held against the dense block: bf16 whole,
+    within LM_GRAD_RATIO of the dense bf16 block's distance from float32;
+    float32 as the attention and the MoE each from the same input, within
+    LM_F32_GRAD_RATIO of the dense float32 half's distance from float64
+    (the float32 whole block only finite: a ~1e-7 reorder can flip a
+    routing choice or a ReLU mask); one rank's block step and the dense
+    block's, each captured in a CUDA graph, timed (the all-to-all and the
+    NCCL model group need a GPU a rank: CPU tests).
 21. Drives the zoo's main paths: ``BSP().init(devices=1, modelfile=
     'theanompi_tpu_torch.models.googlenet' | '...resnet50' |
     '...cifar10', ...)``, GoogLeNet and ResNet-50 at batch 32, full width,
@@ -302,7 +320,10 @@
     with GoogLeNet's shapes beside AlexNet's, and the island, launcher and
     sharded paths' counts;
     B4 and B8 with their bucketed launches and per-bucket times; B10–B12
-    with their launches on the A9c paths), then the card, then the last
+    with their launches on the A9c paths, and under ``pp_stage`` and
+    ``tp_rank`` their times at a pp stage's and a tp rank's shapes and
+    their launches read from the stage and ep rank paths), then the card,
+    then the last
     line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script exits non-zero and prints no result.
@@ -338,7 +359,7 @@ from theanompi_tpu_torch.ops import flash_attention as fa_ops  # noqa: E402
 from theanompi_tpu_torch.ops import lrn as lrn_ops  # noqa: E402
 from theanompi_tpu_torch.models.alex_net import AlexNet  # noqa: E402
 from theanompi_tpu_torch.utils.helper_funcs import (  # noqa: E402
-    leaf_paths, tree_leaves, tree_map)
+    get_leaf, leaf_paths, tree_leaves, tree_map)
 
 # H100 SXM peaks (NVIDIA data sheet, at its 700 W limit): device memory
 # rate, and float32 outside the tensor cores (the kernels' math is f32)
@@ -438,17 +459,22 @@ LM_GRAD_RATIO = 2.0
 # or two: 2^-14 of max|plain| holds both.  A plain TF32 product (10-bit
 # mantissa, ~2^-11) would be ~1e-3 away and fail it
 F32_FLASH_TOL = (2.0 ** -14, 2.0 ** -14)   # (rtol, atol / max|plain|)
+# a tp rank of that row: tp 2 (ep 2 in the MoE LM), n_head/tp = 4 heads a
+# rank, the whole b16 batch
+TP_RANK = {"tp": 2}
 # (name, [B, H, T, hd], causal, laid out as the model hands them): the
 # LM's main-path shape, one non-causal at hd 128, one strided at hd 32
 # with T a multiple of 64 and not of 128, a pp stage's microbatch of the
-# LM's; F32_TIMED are timed
+# LM's, a tp rank's heads of it (appended last: each shape's inputs are
+# seeded by its index); F32_TIMED are timed
 F32_FLASH_SHAPES = (
     ("lm", (LM_BATCH, 8, 512, 64), True, True),
     ("noncausal", (4, 8, 256, 128), False, False),
     ("strided", (2, 4, 320, 32), True, True),
     ("pp_stage", (LM_BATCH // PP_STAGE["microbatches"], 8, 512, 64), True,
-     True))
-F32_TIMED = ("lm", "pp_stage")
+     True),
+    ("tp_rank", (LM_BATCH, 8 // TP_RANK["tp"], 512, 64), True, True))
+F32_TIMED = ("lm", "pp_stage", "tp_rank")
 # the float32 flash LM at batch 2 on the card (kernels B10–B12 f32, cuBLAS
 # f32 with TF32 off) against the same weights and batch on the CPU (the
 # plain versions): both sides are float32 end to end, so they differ only
@@ -571,6 +597,26 @@ def time_ms(fn, reps: int = 10, inner: int = 10, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / inner)
     return float(np.median(times))
+
+
+def graph_ms(fn, reps: int = 5, inner: int = 2) -> float:
+    """Device time of one call of ``fn`` captured in a CUDA graph (three
+    eager calls on a side stream first, as ``parallel/graph.py`` warms a
+    step), its replays timed by :func:`time_ms`: a replay is one host
+    call, so the device sleep covers the host's enqueue however many
+    kernels and autograd nodes ``fn`` runs."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        fn()
+    ms = time_ms(graph.replay, reps=reps, inner=inner, warmup=1)
+    del graph
+    return ms
 
 
 def check_close(name, got, want, rtol, atol_frac):
@@ -1321,12 +1367,12 @@ def host_us(fn, calls: int = 200, reps: int = 9) -> float:
     return float(min(times))
 
 
-def flash_inputs(b: int = LM_BATCH):
-    """q, k, v and dO at the LM's main-path shape (at batch ``b``), bf16,
-    laid out as the model hands them (transposed views of [B, T, H, hd])."""
+def flash_inputs(b: int = LM_BATCH, h: int = LM_CFG["n_head"]):
+    """q, k, v and dO at the LM's main-path shape (at batch ``b``, and
+    ``h`` heads: a tp rank's), bf16, laid out as the model hands them
+    (transposed views of [B, T, H, hd])."""
     t = LM_CFG["seq_len"]
-    h = LM_CFG["n_head"]
-    d = LM_CFG["d_model"] // h
+    d = LM_CFG["d_model"] // LM_CFG["n_head"]
     g = torch.Generator(device="cuda").manual_seed(4)
 
     def mk():
@@ -1417,6 +1463,15 @@ def times_main(flags) -> int:
         out["pp_stage"] = pp_stage_main(
             card, flash_phase(batch=LM_BATCH // PP_STAGE["microbatches"]),
             f32["shapes"]["pp_stage"]["times"])
+    if "--ep-rank" in flags:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        _kernel_build.build(["flash_attention", "flash_attention_f32"])
+        f32 = flash_f32_phase([s for s in F32_FLASH_SHAPES
+                               if s[0] == "tp_rank"])
+        out["ep_rank"] = ep_rank_main(
+            card, flash_phase(heads=LM_CFG["n_head"] // TP_RANK["tp"]),
+            f32["shapes"]["tp_rank"]["times"])
     if "--lrn-times" in flags:
         out["lrn_times"] = lrn_times()
     if "--flash-times" in flags:
@@ -1537,15 +1592,17 @@ def flash_bwd_run(q, k, v, do):
     return o, lse, di, fa_ops.flash_bwd_dq_cuda(q, k, v, do, lse, di), dk, dv
 
 
-def flash_phase(lib_path=None, batch: int = LM_BATCH):
+def flash_phase(lib_path=None, batch: int = LM_BATCH,
+                heads: int = LM_CFG["n_head"]):
     """B10–B12 at the LM's main-path shape (or at ``batch``, a pp stage's
-    microbatch of it), bf16, causal, on q, k, v and dO laid out as the
-    model hands them (transposed views of [B, T, H, hd]): given the
-    library, the SASS check of B10 and B11; each kernel against its plain
-    version within FLASH_TOL, a rerun bit for bit; times, host µs per
-    wrapper call, bounds, and the library yardsticks."""
+    microbatch of it, or at ``heads``, a tp rank's), bf16, causal, on q,
+    k, v and dO laid out as the model hands them (transposed views of
+    [B, T, H, hd]): given the library, the SASS check of B10 and B11; each
+    kernel against its plain version within FLASH_TOL, a rerun bit for
+    bit; times, host µs per wrapper call, bounds, and the library
+    yardsticks."""
     sass = flash_sass_check(lib_path) if lib_path else None
-    q, k, v, do = flash_inputs(batch)
+    q, k, v, do = flash_inputs(batch, heads)
     b, h, t, d = q.shape
     zero_launches()
     o, lse, di, dq, dk, dv = flash_bwd_run(q, k, v, do)
@@ -1951,6 +2008,260 @@ def pp_stage_main(card: str, bf16: dict, f32: dict) -> dict:
           f" ms (dense {path['dense_ms']:.3f}), f32 "
           f"{path['stage_f32_ms']:.3f} ms (dense {path['dense_f32_ms']:.3f}),"
           f" {card}", flush=True)
+    return {"path": path, "bf16": timed["bf16"], "f32": f32,
+            "candidates": stage_candidates(timed["bf16"]),
+            "candidates_f32": stage_candidates(f32)}
+
+
+def ep_rank_path_phase(cfg=None, batch: int = LM_BATCH,
+                       device: str = "cuda") -> dict:
+    """The MoE LM row's MoE block (``cfg``: MOE_CFG's d512, 8 heads, 4
+    experts, top-1, capacity factor 1.25, T512) at ep = tp 2 on the card,
+    each model rank's part built as that rank builds it (``MoEBlock``
+    with the grid coordinate ``Grid(1, 2, 1, r)`` and the model group
+    ``tp.LOCAL``, so the group's all-reduces pass their input through):
+    rank r's heads 4r … 4r+3 through B10–B12 at [16, 4, 512, 64], its
+    experts 2r, 2r+1 through the expert-parallel path (``parallel/moe.py``,
+    the others' choices dropped), forward and backward on the b16 batch
+    (8192 tokens, C = 2560), in bf16 and in float32.  The phase adds up
+    what the model group's all-reduces add: the ranks' partial attention
+    projections and their MoE outputs (disjoint token by token under
+    top-1) in the forward; in the backward the ranks share the block's
+    input and its replicated leaves (the LayerNorms, the router), so
+    autograd sums their gradients there, as ``tp.copy_to_model``'s
+    backward does; the aux (equal on both ranks, checked bit for bit) is
+    back-propagated once, as each rank does.  The launches of the two
+    rank parts are read (B10, B11 and B12 once a rank each, nothing
+    else).
+
+    Held against the dense block (tp 1, ep 1) on the same params and
+    input: the output, the input's gradient, each replicated leaf's
+    gradient and each rank's shard of every split leaf's (its heads' rows
+    or columns, its experts), in relative L2.  bf16, the whole block:
+    each one's distance to the float32 dense block with the reference
+    attention within LM_GRAD_RATIO times the dense bf16 block's.  float32,
+    the block at its two all-reduces, each half from the same input (the
+    attention from the block's input, the MoE from the dense block's
+    ``ln2`` output, so both sides route alike): each one's distance to
+    the float64 half with the reference attention within
+    LM_F32_GRAD_RATIO times the dense float32 half's.  The float32 whole
+    block, whose run gives the float32 launch counts, is only checked
+    finite: a reorder of ~1e-7 there can flip a routing choice or a ReLU
+    mask, which moves an expert's gradient far more than the arithmetic
+    does.  Device ms of one rank's block step (its part alone: its heads
+    and experts, forward and backward) beside the dense block's, each
+    captured in a CUDA graph (:func:`graph_ms`)."""
+    from theanompi_tpu_torch.base import Grid
+    from theanompi_tpu_torch.models.transformer_lm import MoEBlock
+    from theanompi_tpu_torch.parallel import tp as tplib
+    cfg = MOE_CFG if cfg is None else cfg
+    tp = TP_RANK["tp"]
+    d, t = cfg["d_model"], cfg["seq_len"]
+
+    def local_grid(rank):
+        """Model rank ``rank``'s coordinate, its model group ``tp.LOCAL``
+        (the rank's part alone; the phase sums the parts)."""
+        g = Grid(1, tp, 1, rank)
+        g.model_group = tplib.LOCAL
+        return g
+
+    def block(cd, attn_impl, rank=None):
+        return MoEBlock(d, cfg["n_head"], cfg["moe_experts"], cd=cd,
+                        capacity_factor=cfg["capacity_factor"],
+                        top_k=cfg["moe_topk"], attn_impl=attn_impl,
+                        grid=None if rank is None else local_grid(rank))
+
+    p32 = tree_map(lambda a: a.to(device), block(torch.float32, "reference")
+                   .init(torch.Generator().manual_seed(22)))
+    dims = block(torch.float32, "reference", 0).model_dims()
+    paths = leaf_paths(p32)
+    split_dims = [get_leaf(dims, q) for q in paths]
+    g = torch.Generator(device=device).manual_seed(23)
+    x32 = torch.randn(batch, t, d, generator=g, device=device)
+    dy32 = torch.randn(batch, t, d, generator=g, device=device)
+    aux_ct = torch.tensor(float(cfg["moe_aux"]), device=device)
+    sfx = {torch.bfloat16: "", torch.float32: "_f32"}
+
+    def leaves(rank=None):
+        """The block's float32 params (the model's master copy) as new
+        leaves (a rank's shards of the split ones)."""
+        return tree_map(lambda a, dim: (a if rank is None or dim is None
+                                        else a.chunk(tp, dim)[rank])
+                        .clone().requires_grad_(True), p32, dims)
+
+    def rank_step(blk, p, x, dy):
+        """A block forward and backward (a rank's part alone, or dense);
+        the output."""
+        y, aux = blk.apply(p, x, train=True)
+        torch.autograd.backward([y, aux], [dy, aux_ct])
+        return y.detach()
+
+    def run(cd, attn_impl, split, part="block"):
+        """Forward and backward of the ``part`` (the ``block``; its
+        attention alone from its input, ``attn``; its MoE alone from
+        ``h2``, ``moe``) in ``cd``, dense or split over the tp ranks (the
+        ranks' outputs summed, their replicated leaves and input shared);
+        returns [output, input grad] + each replicated leaf's gradient +
+        each rank's shard of each split leaf's, and the launches."""
+        x = (h2_32 if part == "moe" else x32).to(cd, copy=True) \
+            .requires_grad_(True)
+        dy = dy32.to(cd)
+        blks = [block(cd, attn_impl, r) for r in range(tp)] if split else \
+            [block(cd, attn_impl)]
+        # one tensor a replicated leaf, shared by the ranks
+        ps = [leaves(0 if split else None)]
+        ps += [tree_map(lambda a0, a, dim: a0 if dim is None else a,
+                        ps[0], leaves(r), dims) for r in range(1, len(blks))]
+        b0 = blks[0]
+        zero_launches()
+        if part != "moe":
+            h1 = b0.ln1.apply(ps[0]["ln1"], x)
+            a = sum(b.attn.apply(q["attn"], h1, train=True)
+                    for b, q in zip(blks, ps))
+        outs = []
+        if part == "block":
+            x2 = x + a
+            h2 = b0.ln2.apply(ps[0]["ln2"], x2)
+        if part != "attn":
+            outs = [b.moe.apply(q["moe"], x if part == "moe" else h2,
+                                train=True) for b, q in zip(blks, ps)]
+            for _, aux in outs[1:]:
+                check_bits("ep rank aux", aux, outs[0][1])
+        if part == "attn":
+            y = a
+        else:
+            y = sum(o for o, _ in outs) + (x2 if part == "block" else 0)
+        torch.autograd.backward([y] + [o[1] for o in outs[:1]],
+                                [dy] + [aux_ct] * min(1, len(outs)))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launched = {k: c for k, c in launch_counts().items() if c}
+        got = [y.detach(), x.grad]
+        for path, dim in zip(paths, split_dims):
+            if part in ("block", path[0]) or (part == "attn" and
+                                              path[0] == "ln1"):
+                g = [get_leaf(q, path).grad for q in ps]
+                got += g[:1] if dim is None else g if split else list(
+                    g[0].chunk(tp, dim))
+        return [a.float() for a in got], launched
+
+    def names(part):
+        out = ["output", "input grad"]
+        for path, dim in zip(paths, split_dims):
+            q = "/".join(map(str, path))
+            if part in ("block", path[0]) or (part == "attn" and
+                                              path[0] == "ln1"):
+                out += [q] if dim is None else [f"{q} rank {r}"
+                                                for r in range(tp)]
+        return out
+
+    with torch.no_grad():
+        h2_32 = block(torch.float32, "reference").ln2.apply(p32["ln2"], x32)
+    res, out = {}, {"shape": [batch, cfg["n_head"] // tp, t,
+                              d // cfg["n_head"]],
+                    "tp": tp, "experts_per_rank": cfg["moe_experts"] // tp,
+                    "launches": {}}
+    for cd in (torch.bfloat16, torch.float32):
+        res[cd, "split"], launched = run(cd, "flash", True)
+        want = {f"flash_{k}{sfx[cd]}_cuda": tp
+                for k in ("fwd", "bwd_dkv", "bwd_dq")}
+        if device == "cuda" and launched != want:
+            raise AssertionError(f"ep rank {cd} launches {launched}, want "
+                                 f"{want} (one B10, B11, B12 a rank)")
+        out["launches"].update(launched)
+        x, dy = x32.to(cd, copy=True).requires_grad_(True), dy32.to(cd)
+        rb, rp = block(cd, "flash", 0), leaves(0)
+        db, dp = block(cd, "flash"), leaves()
+        out[f"rank_step{sfx[cd]}_ms"] = graph_ms(
+            lambda: rank_step(rb, rp, x, dy))
+        out[f"dense_step{sfx[cd]}_ms"] = graph_ms(
+            lambda: rank_step(db, dp, x, dy))
+        del x, dy, rb, rp, db, dp
+    res["bf16", "dense"], _ = run(torch.bfloat16, "flash", False)
+    res["ref32"], _ = run(torch.float32, "reference", False)
+    for part in ("attn", "moe"):
+        res[part, "split"], _ = run(torch.float32, "flash", True, part)
+        res[part, "dense"], _ = run(torch.float32, "flash", False, part)
+        res[part, "ref64"], _ = run(torch.float64, "reference", False, part)
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    def hold(key, part, got, base, want, limit):
+        """Each entry of ``got``'s distance from ``want`` within ``limit``
+        times ``base``'s."""
+        d_got = [rel(a, b) for a, b in zip(got, want)]
+        d_base = [rel(a, b) for a, b in zip(base, want)]
+        ratios = [a / max(b, 1e-30) for a, b in zip(d_got, d_base)]
+        worst = int(np.argmax(ratios))
+        n = names(part)
+        out[key] = {"rel_l2_max": max(d_got), "base_rel_l2_max": max(d_base),
+                    "ratio_max": ratios[worst], "worst": n[worst],
+                    "entries": len(n),
+                    "by_entry": {k: [a, b] for k, a, b in
+                                 zip(n, d_got, d_base)}}
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        if not finite or ratios[worst] > limit:
+            raise AssertionError(f"ep rank {key}: {out[key]}, finite "
+                                 f"{finite}")
+
+    # bf16, the whole block: the rank sums and the dense bf16 block, each
+    # from the float32 block (reference attention)
+    hold("bf16", "block", res[torch.bfloat16, "split"], res["bf16", "dense"],
+         res["ref32"], LM_GRAD_RATIO)
+    # float32, the block at its two all-reduces (each half's input the
+    # same, so the MoE routes alike): the rank sums and the dense float32
+    # half, each from the float64 half (reference attention)
+    for part in ("attn", "moe"):
+        hold(f"f32_{part}", part, res[part, "split"], res[part, "dense"],
+             res[part, "ref64"], LM_F32_GRAD_RATIO)
+    if not all(bool(torch.isfinite(a).all())
+               for a in res[torch.float32, "split"]):
+        raise AssertionError("ep rank f32 block: not finite")
+    out["f32_max_abs_err"] = max(
+        float((a - b).abs().max()) for part in ("attn", "moe")
+        for a, b in zip(res[part, "split"], res[part, "dense"]))
+    del res
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def ep_rank_main(card: str, bf16: dict, f32: dict) -> dict:
+    """The ep rank phase group (``--ep-rank`` runs it alone): B10–B12 in
+    bf16 (``bf16``, :func:`flash_phase` at a tp rank's heads) and in
+    float32 (``f32``, the ``tp_rank`` shape of :func:`flash_f32_phase`),
+    then one ep = tp 2 rank's MoE block on the card
+    (:func:`ep_rank_path_phase`)."""
+    path = ep_rank_path_phase()
+    shape = path["shape"]
+    timed = {"bf16": {k: v for k, v in bf16.items()
+                      if k.startswith("flash_")}, "f32": f32}
+    for tag, ks in timed.items():
+        print(f"tp rank flash {tag} {shape} causal, {card}: " + "; ".join(
+            f"{k[:-5]} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, "
+            f"{r['bound_ms'] / r['ms']:.0%} of it, SDPA "
+            f"{r['library_ms']:.4f}, plain {r['plain_ms']:.3f}, max |diff| "
+            f"{r['max_abs_err']:.3e})" for k, r in ks.items())
+            + "; B11 + B12 %.4f ms; candidates %s" % (
+                sum(r["ms"] for k, r in ks.items() if "_bwd_" in k),
+                stage_candidates(ks)), flush=True)
+    print(f"ep rank path: MoE block, tp = ep {path['tp']}, "
+          f"{path['experts_per_rank']} experts and {shape[1]} heads a rank, "
+          f"the two ranks' parts summed: launches {path['launches']}; "
+          + "; ".join(f"{k} worst ratio {path[k]['ratio_max']:.3f} "
+                      f"({path[k]['worst']}; relative L2 max "
+                      f"{path[k]['rel_l2_max']:.2e}, dense "
+                      f"{path[k]['base_rel_l2_max']:.2e})"
+                      for k in ("bf16", "f32_attn", "f32_moe"))
+          + f"; rank step captured {path['rank_step_ms']:.4f} ms (dense "
+          f"block {path['dense_step_ms']:.4f}, "
+          f"{path['rank_step_ms'] / path['dense_step_ms']:.3f}×), f32 "
+          f"{path['rank_step_f32_ms']:.4f} ms (dense "
+          f"{path['dense_step_f32_ms']:.4f}, "
+          f"{path['rank_step_f32_ms'] / path['dense_step_f32_ms']:.3f}×), "
+          f"{card}", flush=True)
     return {"path": path, "bf16": timed["bf16"], "f32": f32,
             "candidates": stage_candidates(timed["bf16"]),
             "candidates_f32": stage_candidates(f32)}
@@ -5153,7 +5464,7 @@ def lrn_totals(rows) -> dict:
 
 
 def kernel_entries(lrn, lrn_g, comp, topk, fpack, flash, alex, goog, vggs,
-                   lm, f32, stage=None) -> list:
+                   lm, f32, stage=None, ep=None) -> list:
     out = []
     for label, fn, source, replaces in kernel_rows():
         name = fn.__name__
@@ -5220,6 +5531,16 @@ def kernel_entries(lrn, lrn_g, comp, topk, fpack, flash, alex, goog, vggs,
                 shape=stage["path"]["shape"],
                 launches=stage["path"]["launches"][name],
                 launches_from="pp stage path (pipeline_apply)",
+                **{k: r[k] for k in ("ms", "bound_ms", "plain_ms",
+                                      "library_ms", "max_abs_err")})
+        if label.startswith("flash_") and ep is not None:
+            # at a tp rank's heads, and its launches in the two rank
+            # parts of the ep rank path
+            r = ep["f32" if label.endswith("_f32") else "bf16"][name]
+            e["tp_rank"] = dict(
+                shape=ep["path"]["shape"],
+                launches=ep["path"]["launches"][name],
+                launches_from="ep rank path (two rank parts)",
                 **{k: r[k] for k in ("ms", "bound_ms", "plain_ms",
                                       "library_ms", "max_abs_err")})
         out.append(e)
@@ -5460,6 +5781,9 @@ def main() -> int:
     stage = pp_stage_main(
         card, flash_phase(batch=LM_BATCH // PP_STAGE["microbatches"]),
         f32["kernels"]["shapes"]["pp_stage"]["times"])
+    ep = ep_rank_main(
+        card, flash_phase(heads=LM_CFG["n_head"] // TP_RANK["tp"]),
+        f32["kernels"]["shapes"]["tp_rank"]["times"])
 
     lap("bf16 flash, LM, f32")
     goog = googlenet_main_path_phase()
@@ -5581,7 +5905,7 @@ def main() -> int:
     lap("gan, lm")
 
     kernels = kernel_entries(lrn, lrn_g, comp, topk, fpack, flash, alex,
-                             goog, vggs, lm, f32, stage)
+                             goog, vggs, lm, f32, stage, ep)
     for e in kernels:
         # the bucketed wires' decodes: once a bucket (A7)
         path = {"unpack_signs_wsum": "vgg16_onebit",
@@ -5630,7 +5954,7 @@ def main() -> int:
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"kernels": kernels, "compress": comp, "topk": topk,
                    "factor_pack": fpack, "flash": flash, "lm_check": lm_check,
-                   "flash_f32": f32, "pp_stage": stage,
+                   "flash_f32": f32, "pp_stage": stage, "ep_rank": ep,
                    "main": dict({"alexnet": alex, "lm": lm,
                                  "googlenet": goog, "resnet50": resnet,
                                  "cifar10": cifar,
@@ -5675,6 +5999,6 @@ if __name__ == "__main__":
                       "--input-times", "--update-times", "--lrn-times",
                       "--islands", "--vgg-island-lr", "--launcher",
                       "--wire", "--shard", "--gan-lm", "--flash-f32",
-                      "--pp-stage"}:
+                      "--pp-stage", "--ep-rank"}:
         sys.exit(f"chip_smoke: unknown arguments {sorted(_flags)}")
     sys.exit(times_main(_flags) if _flags else main())

@@ -1,5 +1,6 @@
 """The port's mixture of experts (``parallel/moe.py``) and MoE LM against
-the JAX package's, at one expert shard (``ep = 1``).
+the JAX package's, at one expert shard (``ep = 1``; the grids are
+``test_torch_moe_grid.py``'s).
 
 * the JAX package's ``tests/test_moe.py`` cases at ``ep = 1``: the uniform
   router against the scaled dense MLP (aux exactly 1), capacity dropping
@@ -17,7 +18,8 @@ the JAX package's, at one expert shard (``ep = 1``).
 * the MoE LM under ``onebit`` and ``powersgd1`` at 2 gloo ranks
   (``torch_launch_helper``'s ``gan_lm`` mode) against the JAX workers:
   the 3-D expert leaves through each wire's JAX-order layout;
-* the refusals that wait with model parallelism (A9d).
+* the layer's sharded forms and the MoE LM's grid layouts as each rank
+  builds them (``test_torch_moe_grid.py`` runs them on gloo ranks).
 """
 
 import os
@@ -37,6 +39,7 @@ from theanompi_tpu_torch.models.transformer_lm import \
     MoETransformerLM as TMoELM
 from theanompi_tpu_torch.parallel.moe import MoE as TMoE
 from theanompi_tpu_torch.parallel.moe import top_k_lowest_first
+from theanompi_tpu_torch.parallel import tp as TTP
 from theanompi_tpu_torch.utils import helper_funcs as TH
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -307,16 +310,89 @@ def test_moe_lm_wires_two_ranks_match_jax_workers(case, tmp_path_factory):
 
 @pytest.mark.parametrize("cfg", [{"tp": 2}, {"sp": 2}, {"pp": 2, "sp": 2}])
 def test_model_parallel_layouts_wait_with_a9d(cfg):
-    """Expert parallelism and the sequence all-to-all wait with A9d, beside
-    pipeline parallelism too (the MoE LM at pp alone is ported)."""
-    with pytest.raises(NotImplementedError, match="A9d"):
-        _port_lm(**cfg)
+    """The MoE LM builds at tp 2 (experts over the model group), sp 2
+    (over the seq group) and pp 2 × sp 2 (every block a MoE, stacked over
+    pipe, experts over seq one dim right): each rank of the grid holds its
+    experts of the dense model's initial tables and the router whole
+    (``tests/test_torch_moe_grid.py`` trains these layouts)."""
+    from theanompi_tpu_torch.base import Grid
+    tp, sp, pp = (cfg.get(k, 1) for k in ("tp", "sp", "pp"))
+    every = dict(moe_every=1) if pp > 1 else {}
+    dense = _port_lm(**every)
+    for r in range(tp * sp * pp):
+        g = Grid(1, tp, sp, r, pp=pp)
+        m = _port_lm(grid=g, **cfg, **every)
+        i = g.model if tp > 1 else g.seq
+        e = 4 // (tp * sp)
+        # the MoE block (block1; under pp the pipe rank's stacked row)
+        want = dense.params[f"block{g.pipe if pp > 1 else 1}"]["moe"]
+        got = m.params["block1"]["moe"] if pp == 1 else TH.tree_map(
+            lambda a: a[0], m.params["blocks"]["moe"])
+        for k in ("w1", "b1", "w2", "b2"):
+            np.testing.assert_array_equal(
+                got[k].detach().numpy(),
+                want[k][i * e:(i + 1) * e].detach().numpy(), err_msg=k)
+        np.testing.assert_array_equal(got["wg"].detach().numpy(),
+                                      want["wg"].detach().numpy())
+        axes = {p[-1]: s for p, s in zip(
+            TH.leaf_paths(m.params), m.split_axes_leaves())
+            if "moe" in p}
+        assert ("model" if tp > 1 else "seq") in axes["w1"]
+        assert axes["wg"] == (("pipe",) if pp > 1 else ())
 
 
 @pytest.mark.parametrize("kw", [{"ep": 2}, {"seq_shards": 2}])
 def test_expert_parallel_forms_wait_with_a9d(kw):
-    with pytest.raises(NotImplementedError, match="A9d"):
-        TMoE(16, 4, **kw)
+    """The layer's sharded forms: at ep 2 the two ranks' parts, each run
+    alone on its experts (the group ``tp.LOCAL``), add up to the ep 1 layer's
+    output (rtol 1e-5 / atol 1e-6) with the same aux; at seq_shards 2 the
+    expert tables split over seq and the model group splits nothing
+    (``tests/test_torch_moe_grid.py`` runs both forms on 2 ranks)."""
+    r = np.random.RandomState(4)
+    moe, p = _layer(16, 4, mlp_ratio=2, capacity_factor=1.0)
+    p["wg"] = (r.randn(16, 4) * 0.5).astype(np.float32)
+    x = torch.from_numpy(r.randn(24, 16).astype(np.float32))
+    if "ep" in kw:
+        y1, aux1 = moe.apply(_t(p), x, train=True)
+        ys = []
+        for rank in (0, 1):
+            part = TMoE(16, 4, mlp_ratio=2, capacity_factor=1.0,
+                        compute_dtype="float32", rank=rank,
+                        group=TTP.LOCAL, **kw)
+            mine = {k: v if k == "wg" else v[2 * rank:2 * rank + 2]
+                    for k, v in p.items()}
+            y, aux = part.apply(_t(mine), x, train=True)
+            assert float(aux) == float(aux1)
+            ys.append(y)
+        np.testing.assert_allclose((ys[0] + ys[1]).numpy(), y1.numpy(),
+                                   rtol=1e-5, atol=1e-6)
+        assert part.specs() == {"wg": None, "w1": 0, "b1": 0, "w2": 0,
+                                "b2": 0} and part.seq_specs() is None
+    else:
+        part = TMoE(16, 4, compute_dtype="float32", **kw)
+        assert part.specs() is None
+        assert part.seq_specs() == {"wg": None, "w1": 0, "b1": 0, "w2": 0,
+                                    "b2": 0}
+        with pytest.raises(ValueError, match="divisible"):
+            TMoE(16, 6, seq_shards=4)
+
+
+def test_unjoined_tp_grid_model_raises():
+    """A grid model whose groups were never joined refuses to run at tp 2
+    (no model group: its layers would sum one rank's partial products);
+    with the model group ``tp.LOCAL`` rank 0's part runs alone."""
+    from theanompi_tpu_torch.base import Grid
+    g = Grid(1, 2, 1, 0)
+    m = _port_lm(grid=g, tp=2)
+    x = torch.zeros(2, CFG["seq_len"], dtype=torch.long)
+    with pytest.raises(ValueError, match="no model group"):
+        m.apply_model(m.params, x, train=True, gen=None, state=None)
+    with pytest.raises(ValueError, match="no model group"):
+        TTP.reduce_from_model(torch.ones(3), None)
+    g.model_group = TTP.LOCAL
+    m = _port_lm(grid=g, tp=2)
+    out = m.apply_model(m.params, x, train=True, gen=None, state=None)
+    assert tuple(out.shape) == (2, CFG["seq_len"], CFG["vocab"] // 2)
 
 
 def test_jax_moe_checkpoint_continues_in_port(cpu_group, tmp_path):

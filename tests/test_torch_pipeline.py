@@ -139,6 +139,11 @@ def run(tmp_path_factory):
     jpp.save(jckpt, epoch=0, count=3)
     out = {"jax_saved": port_tree(host(jpp.step_state["params"])),
            "jax_saved_m": port_tree(host(jpp.step_state["opt_state"]["m"]))}
+    # and one of the onebit wire, its error feedback per pipe rank
+    jm = jax_lm(DP, pp=PP, n_layer=N_LAYER, exch_strategy="onebit")
+    onebit_costs = jax_train(jm, 3)
+    jckpt_onebit = str(tmp / "jax_ckpt_onebit")
+    jm.save(jckpt_onebit, epoch=0, count=3)
     ck = str(tmp / "ckpt")
     phases = {
         "bsp": dict(init=True, step2=True, val=True, gen=True),
@@ -158,8 +163,8 @@ def run(tmp_path_factory):
         "v2load": dict(load=os.path.join(ck, "v2"), at=3, steps=3,
                        cfg=dict(pp_interleave=2)),
         "jaxload": dict(jax_load=jckpt, at=3, steps=3),
-        "jaxload_onebit": dict(jax_load=jckpt, refused=True,
-                               cfg=dict(exch_strategy="onebit")),
+        "jaxload_onebit": dict(jax_load=jckpt_onebit, at=3, steps=3,
+                               ef=True, cfg=dict(exch_strategy="onebit")),
     }
     spawned = mh.spawn("pp", DP * PP, tmp, "pp", dict(
         init_npz=init, prompt=PROMPT, phases=phases,
@@ -176,8 +181,10 @@ def run(tmp_path_factory):
                                          n_subb=2), 4)
     out["clip_costs"] = jax_train(jax_lm(DP, pp=PP, n_layer=N_LAYER,
                                          grad_clip=CLIP), 4)
-    jm = jax_lm(DP, pp=PP, n_layer=N_LAYER, exch_strategy="onebit")
-    out["onebit_costs"] = jax_train(jm, 8)
+    for i in range(3, 8):
+        jm.train_iter(i, None)
+        onebit_costs.append(float(jm.current_info["cost"]))
+    out["onebit_costs"] = onebit_costs
     out["onebit"] = port_tree(host(jm.step_state["params"]))
     out["init"] = port_tree(dense.params)
     out["ranks"] = mh.collect(spawned)
@@ -350,10 +357,20 @@ def test_pp_loads_a_jax_pp_checkpoint(run):
 
 
 def test_pp_jax_checkpoint_with_wire_state_waits_with_a9d(run):
-    """A JAX pp checkpoint into a pp model with a stateful wire stays
-    refused (A9d item 5)."""
-    for res in run["ranks"]:
-        assert "A9d" in str(res["jaxload_onebit_refused"])
+    """A JAX pp checkpoint with the onebit wire's state (each pipe rank's
+    error feedback of its own stage, ``[pp·n]`` a worker) loads into the
+    port's onebit pp model: the params bit for bit, each pipe rank's error
+    feedback its own (the two stages' differ, none is zero), and 3 more
+    steps trace the JAX run's."""
+    ranks = run["ranks"]
+    for res in ranks:
+        assert int(res["jaxload_onebit_epoch"]) == 0
+        np.testing.assert_allclose(res["jaxload_onebit_costs"],
+                                   run["onebit_costs"][3:6], **COST_TOL)
+        ef = res["jaxload_onebit_loaded_ef"]
+        assert np.isfinite(ef).all() and np.abs(ef).max() > 0
+    assert not np.array_equal(ranks[0]["jaxload_onebit_loaded_ef"],
+                              ranks[1]["jaxload_onebit_loaded_ef"])
 
 
 def test_pp_generate_matches_dense(run):

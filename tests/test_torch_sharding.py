@@ -173,8 +173,16 @@ def test_center_plan_rows_are_each_ranks_chunks():
 
 
 def test_flat_shard_opt_refuses_model_parallel_arguments():
+    """On a grid the template is the rank's local shards, and its state is
+    one ``ceil(local/N)`` chunk of their flat layout
+    (``tests/test_torch_zero_grid.py`` trains it there); the JAX form's
+    layout arguments are not taken."""
     from theanompi_tpu_torch.utils.opt import momentum
-    with pytest.raises(NotImplementedError, match="A9d"):
+    local = {"w": torch.zeros(5), "b": torch.zeros(2)}
+    for rank in (0, 1):
+        st = TUS.flat_shard_opt(momentum(), 2, local, rank).init(local)
+        assert tuple(st["opt"].shape) == (4,)       # ceil(7 / 2)
+    with pytest.raises(TypeError, match="model_shards"):
         TUS.flat_shard_opt(momentum(), 2, {"w": torch.zeros(4)}, 0,
                            model_shards=2)
 

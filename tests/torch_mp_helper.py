@@ -289,9 +289,10 @@ def _pp_phases(rank, init, args, res):
     ``at``; it records its costs, its global params (``<name>/...``) and
     in the dense layout (``<name>_dense/...``), and where asked its
     initial params, the params after step 2 (``step2``), validation,
-    greedy tokens, the Adam moments, the wire's state, and saves
-    (``save``).  A ``refused`` phase records the message of the JAX load
-    it must refuse."""
+    greedy tokens, the Adam moments (ZeRO-1's joined), the sizes of the
+    optimizer state's tensors, the canonical params (``canon``: the EMA
+    shadow), the wire's state, and saves (``save``).  A ``refused`` phase
+    records the message of the ``compile_iter_fns`` it must refuse."""
     from theanompi_tpu_torch import convert
     from theanompi_tpu_torch.parallel.exchanger import BSP_Exchanger
     base = dict(LM_CFG, init_npz=args["init_npz"], **args.get("cfg", {}))
@@ -304,22 +305,20 @@ def _pp_phases(rank, init, args, res):
             if ph.get("init"):
                 res.update(flat(f"{name}_init", dense_of(m)))
                 res.update(flat(f"{name}_shard", m.params))
-            src = ph.get("load") or ph.get("jax_load")
-            if src and ph.get("refused"):
-                # a load that must raise: its message
-                m.compile_iter_fns(BSP_Exchanger(m.config))
+            if ph.get("refused"):
+                # a layout the compile must refuse: its message
                 try:
-                    convert.checkpoint_from_jax(src, m)
-                except NotImplementedError as e:
+                    m.compile_iter_fns(BSP_Exchanger(m.config))
+                except ValueError as e:
                     res[f"{name}_refused"] = str(e)
                 continue
+            src = ph.get("load") or ph.get("jax_load")
             if src:
                 m.compile_iter_fns(BSP_Exchanger(m.config))
                 res[f"{name}_epoch"] = convert.checkpoint_from_jax(src, m) \
                     if ph.get("jax_load") else m.load(src)
                 res.update(flat(f"{name}_loaded", gathered(m)))
-                res.update(flat(f"{name}_loaded_m",
-                                gathered(m, m.opt_state["m"])))
+                _record_m(res, f"{name}_loaded_m", m)
                 if ph.get("ef"):
                     res[f"{name}_loaded_ef"] = _ef(m)
                 costs = []            # the data cursor is the checkpoint's
@@ -340,7 +339,12 @@ def _pp_phases(rank, init, args, res):
                 res.update(at2)
             res.update(flat(name, gathered(m)))
             res.update(flat(f"{name}_dense", dense_of(m)))
-            res.update(flat(f"{name}_m", gathered(m, m.opt_state["m"])))
+            _record_m(res, f"{name}_m", m)
+            res[f"{name}_opt_sizes"] = np.array(
+                [int(t.numel()) for t in tree_leaves(m.opt_state)
+                 if isinstance(t, torch.Tensor) and t.dim()])
+            if ph.get("canon"):
+                res.update(flat(f"{name}_canon", m.canonical_host_params()))
             if ph.get("ef"):
                 res[f"{name}_ef"] = _ef(m)
             if ph.get("val"):
@@ -354,6 +358,16 @@ def _pp_phases(rank, init, args, res):
             if m.grid is not None:
                 res[f"{name}_coord"] = [m.grid.worker, m.grid.pipe,
                                         m.grid.model, m.grid.seq]
+
+
+def _record_m(res, key, model):
+    """Adam's first moment (an EMA's inner one), gathered into the global
+    params layout (ZeRO-1's chunks joined first), as ``key/...``; nothing
+    for another optimizer."""
+    st = model.unsharded_opt_state()
+    st = st.get("inner", st)
+    if "m" in st:
+        res.update(flat(key, gathered(model, st["m"])))
 
 
 def _ef(model):
@@ -418,12 +432,62 @@ def _ring(rank, init, args, res):
             proc.close()
 
 
+def _moe_layer(rank, init, args, res):
+    """The MoE layer alone on 2 ranks, for each case of ``args['cases']``
+    (``{tag: {"axis": "model" or "seq", "top_k", "cf", "train"}}``):
+    experts over the model group (``ep`` 2) or over the seq group (the
+    all-to-all, ``seq_shards`` 2, each rank a half of the tokens).  Saves
+    ``y``, ``aux`` and the gradients of ``sum(y · ct) + aux`` for this
+    rank's x (its block under seq) and leaves (its experts)."""
+    from theanompi_tpu_torch.base import MeshProcess
+    from theanompi_tpu_torch.parallel.moe import MoE
+    with np.load(args["inputs"]) as z:
+        inp = {k: z[k] for k in z.files}
+    d, E = inp["wg"].shape
+    for axis in ("model", "seq"):
+        cases = {t: c for t, c in args["cases"].items() if c["axis"] == axis}
+        grid = dict(n_workers=1, tp=2) if axis == "model" else \
+            dict(n_workers=1, sp=2)
+        proc = MeshProcess(dict(grid, device="cpu", rank=rank,
+                                init_method=f"{init}_moe_{axis}",
+                                verbose=False))
+        proc.get_internode_comm()
+        try:
+            g = proc.grid
+            i = getattr(g, axis)
+            kw = dict(ep=2, rank=i, group=g.model_group) if axis == "model" \
+                else dict(seq_shards=2, seq_group=g.seq_group)
+            for tag, c in cases.items():
+                moe = MoE(d, E, mlp_ratio=2, top_k=c["top_k"],
+                          capacity_factor=c["cf"], compute_dtype="float32",
+                          **kw)
+                e = E // 2
+                p = {k: torch.from_numpy(np.ascontiguousarray(
+                    inp[k] if k == "wg" else inp[k][i * e:(i + 1) * e]))
+                    .requires_grad_(True) for k in MoE.kept_layout}
+                rows = slice(None) if axis == "model" else slice(
+                    i * len(inp["x"]) // 2, (i + 1) * len(inp["x"]) // 2)
+                x = torch.from_numpy(np.ascontiguousarray(
+                    inp["x"][rows])).requires_grad_(True)
+                y, aux = moe.apply(p, x, train=c["train"])
+                (torch.sum(y * torch.from_numpy(inp["ct"][rows]))
+                 + aux).backward()
+                res[f"{tag}_y"] = y.detach().numpy()
+                res[f"{tag}_aux"] = float(aux)
+                res[f"{tag}_gx"] = x.grad.numpy()
+                for k, v in p.items():
+                    res[f"{tag}_g{k}"] = v.grad.numpy()
+        finally:
+            proc.close()
+
+
 def main(argv):
     torch.set_num_threads(1)
     mode, rank, _world, init, out, args = argv
     args = json.loads(args)
     res = {}
-    {"mp": _mp_phases, "ring": _ring, "pp": _pp_phases}[mode](
+    {"mp": _mp_phases, "ring": _ring, "pp": _pp_phases,
+     "moe_layer": _moe_layer}[mode](
         int(rank), init, args, res)
     np.savez(f"{out}_r{rank}.npz", **res)
     return 0

@@ -113,10 +113,11 @@ def jax_val(m):
     return [float(np.mean(np.asarray(a))) for a in (cost, err, err5)]
 
 
-def dense_tokens(flat_params, prompt, n=4, **cfg):
-    """The port's dense LM's greedy tokens from ``/``-keyed global params
-    (what a model-parallel layout must sample)."""
-    dense = TransformerLM(dict(mh.LM_CFG, device="cpu", **cfg))
+def dense_tokens(flat_params, prompt, n=4, cls=TransformerLM, **cfg):
+    """The port's dense LM's (``cls``, the dense LM by default) greedy
+    tokens from ``/``-keyed global params (what a model-parallel layout
+    must sample)."""
+    dense = cls(dict(mh.LM_CFG, device="cpu", **cfg))
     params = {}
     for p in leaf_paths(dense.params):
         node = params

@@ -104,6 +104,17 @@ class Grid:
         """The process group of a grid axis (None at degree 1)."""
         return getattr(self, f"{axis}_group")
 
+    def shard_of(self, pipe: int, model: int, seq: int) -> int:
+        """The index of the ``(pipe, model, seq)`` coordinate among a
+        worker's ``pp·tp·sp`` ranks (the JAX mesh's order, seq
+        innermost): where its block sits in a state joined over them."""
+        return (pipe * self.tp + model) * self.sp + seq
+
+    @property
+    def shard(self) -> int:
+        """This rank's :meth:`shard_of`."""
+        return self.shard_of(self.pipe, self.model, self.seq)
+
     @property
     def lead(self) -> bool:
         """Pipe 0, model 0, seq 0: the coordinate whose workers write what

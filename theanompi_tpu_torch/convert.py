@@ -47,7 +47,7 @@ from typing import Optional
 import numpy as np
 
 from .utils.helper_funcs import (_jax_shape, get_leaf, jax_leaf_paths,
-                                 leaf_paths, tree_map)
+                                 leaf_paths, tree_leaves, tree_map)
 
 
 def _to_port(a, path, kept: frozenset) -> np.ndarray:
@@ -252,6 +252,86 @@ def _like_port(tree_like, by_path: dict):
     return tree_map(lambda _: by_path[next(paths)], tree_like)
 
 
+def _local_likes(local, kept: frozenset):
+    """``(jax_like, port_like)``: shape-only trees of a rank's local
+    shards, in the JAX layouts (sorted order) and in the port's."""
+    port = tree_map(lambda p: np.broadcast_to(np.float32(0),
+                                              tuple(p.shape)), local)
+    paths = jax_leaf_paths(port)
+    jax_like = _from_paths(paths, [np.broadcast_to(np.float32(0), _jax_shape(
+        tuple(get_leaf(port, p).shape), p, kept)) for p in paths])
+    return jax_like, port
+
+
+def _grid_blocks(model):
+    """``(blocks, order)``: the JAX package's count of grid ranks within a
+    worker (its axes other than ``workers``, ``(pipe, model, seq)`` order),
+    and, in the order of the port's global layout of a strategy's state
+    (over the axes ``model._split_axes()`` names, pipe outermost), the JAX
+    block index of each: a rank's coordinate on an axis the port does not
+    split counts as 0 (the blocks along it are equal)."""
+    g = model.grid
+    ax = model._split_axes()
+
+    def span(a):
+        return range(g.size(a)) if a in ax else range(1)
+
+    order = [g.shard_of(p, m, s) for p in span("pipe")
+             for m in span("model") for s in span("seq")]
+    return g.pp * g.tp * g.sp, order
+
+
+def _grid_strat_from_jax(extra, model, local, kept: frozenset):
+    """A JAX grid checkpoint's strategy state (this worker's row: a flat
+    ``[blocks·n]`` vector, or PowerSGD's per-leaf ``e``, ``q`` with a
+    leading ``[blocks]`` axis, sorted keys) → the port's global layout
+    (:meth:`TransformerLM.global_state`): each rank's block converted with
+    the local templates (onebit's through :func:`flat_from_jax`, PowerSGD's
+    through :func:`powersgd_state_from_jax`, topk's kept in the JAX order),
+    flat blocks end to end, per-leaf arrays stacked on one leading axis a
+    split grid axis."""
+    jax_like, port_like = _local_likes(local, kept)
+    n_blocks, order = _grid_blocks(model)
+    st = model.extra["strat"]
+    if isinstance(st, list):
+        blocks = [powersgd_state_from_jax(
+            [{"e": np.asarray(extra[2 * i])[j],
+              "q": np.asarray(extra[2 * i + 1])[j]}
+             for i in range(len(extra) // 2)], jax_like, port_like, kept)
+            for j in order]
+        lead = [model.grid.size(a) for a in reversed(model._split_axes())]
+        return [{k: np.stack([b[i][k] for b in blocks]).reshape(
+            lead + list(np.shape(blocks[0][i][k]))) for k in ("q", "e")}
+            for i in range(len(blocks[0]))]
+    row = np.asarray(extra[0], np.float32)
+    n = row.size // n_blocks
+    blocks = [row[j * n:(j + 1) * n] for j in order]
+    if model.exchanger.strategy.name != "topk":
+        blocks = [flat_from_jax(b, jax_like, port_like, kept) for b in blocks]
+    return np.concatenate(blocks)
+
+
+def _grid_zero_row(rows, model, local, kept: frozenset) -> np.ndarray:
+    """A JAX grid checkpoint's ZeRO-1 leaf (boxed ``[dp, blocks·chunk]``:
+    each worker's chunk of every grid rank's local flat layout, the JAX
+    order) → this worker's row of the port's (``[blocks·chunk]``, each
+    grid rank's chunk of its local flat layout in the port's order,
+    :meth:`TransformerLM._zero_gather`)."""
+    jax_like, port_like = _local_likes(local, kept)
+    n_blocks, _ = _grid_blocks(model)
+    rows = np.asarray(rows, np.float32)
+    n_w = rows.shape[0]
+    c = rows.shape[1] // n_blocks
+    n_local = sum(int(np.prod(np.shape(v))) for v in tree_leaves(local))
+    out = []
+    for j in range(n_blocks):
+        flat = rows[:, j * c:(j + 1) * c].reshape(-1)[:n_local]
+        port = np.pad(flat_from_jax(flat, jax_like, port_like, kept),
+                      (0, c * n_w - n_local))
+        out.append(port[model.rank * c:(model.rank + 1) * c])
+    return np.concatenate(out)
+
+
 def checkpoint_from_jax(ckpt_dir: str, model,
                         epoch: Optional[int] = None) -> Optional[int]:
     """Load a checkpoint that the JAX package wrote into ``model`` (a port
@@ -268,11 +348,15 @@ def checkpoint_from_jax(ckpt_dir: str, model,
     async rule) gives this rank its own row.  Returns the epoch loaded,
     or None when there is none.
 
-    Under tensor or pipeline parallelism (a model with ``param_specs``)
+    Under tensor, pipeline or sequence parallelism (a model on a grid)
     the JAX package's global arrays are converted whole and each rank
     keeps its shards (under pp the tree is the stacked one, its ``blocks``
-    leaves in the JAX layout in both packages); a stateful strategy's
-    state or a sharded update layout there is refused (A9d).
+    leaves in the JAX layout in both packages).  A stateful strategy's
+    state and ZeRO-1's chunks are kept there per grid rank, each in the
+    layout of that rank's local shards: every rank's block is converted
+    with the local templates (:func:`_grid_strat_from_jax`,
+    :func:`_grid_zero_row`) into the port's global shapes, which the
+    model cuts as it cuts its own checkpoint's.
 
     JAX PRNG keys have no torch counterpart: the checkpoint's step and
     exchange keys are not read, and the model's generators keep the
@@ -289,16 +373,11 @@ def checkpoint_from_jax(ckpt_dir: str, model,
     boxed = set(meta.get("boxed_parts", ()))
     kept = frozenset(model.kept_layout_paths())
     params = model.params
-    split = getattr(model, "param_specs", lambda: None)() is not None
+    local = params
+    split = model.grid is not None
     if split:
         # model parallelism: the JAX package saved the global arrays; they
         # are converted whole and each rank keeps its shards (local_state)
-        if model.extra.get("strat") is not None or \
-                model._fsdp is not None or model._zero_layout is not None \
-                or model._ushard_plan is not None:
-            raise NotImplementedError(
-                "a JAX checkpoint under tp or pp with a stateful strategy or "
-                "a sharded update layout is not ported yet (A9d)")
         params = model.gather_params(tree_map(
             lambda p: p.detach(), model.params))
     jpaths = jax_leaf_paths(params)
@@ -320,6 +399,8 @@ def checkpoint_from_jax(ckpt_dir: str, model,
 
     def chunk_row(rows):
         """JAX flat chunk rows → this rank's row of the port's layout."""
+        if split:
+            return _grid_zero_row(rows, model, local, kept)
         dense = _dense_from_jax_rows(rows, n_total, jax_like, params, kept)
         if fsdp is not None:
             return fsdp.from_dense(dense)[rank]
@@ -410,6 +491,10 @@ def checkpoint_from_jax(ckpt_dir: str, model,
         new_bn = _like_port(model.bn_state,
                             dict(zip(bpaths, bn_state_from_jax(bn))))
         extra = part("extra", rows=cplan is not None)
+        if "strat" in model.extra and not extra:
+            raise ValueError(f"{ckpt_dir}: the checkpoint holds no strategy "
+                             f"state; the port model's "
+                             f"{model.exchanger.strategy.name} keeps one")
         new_extra = {}
         if cplan is not None:                 # a center under the plan
             new_extra = _sharded_rows_from_jax(
@@ -419,6 +504,9 @@ def checkpoint_from_jax(ckpt_dir: str, model,
             new_extra = {"center": port_tree(extra)}
         elif "alpha" in model.extra:          # GoSGD
             new_extra = {"alpha": np.float32(extra[0])}
+        elif model.extra and split:
+            new_extra = {"strat": _grid_strat_from_jax(
+                extra, model, local, kept)}
         elif model.extra:
             strat = model.exchanger.strategy
             st = model.extra["strat"]

@@ -45,8 +45,11 @@ exchanger), and ``fsdp`` the parameters themselves as a flat chunk
 (``parallel/fsdp.py``; ``params`` are then views of a buffer every step
 gathers, and the ``params`` part of the state is the chunk).  Each is
 bit-equal to the unsharded update; a sharded part is saved per rank, as
-``BSP_Exchanger.identical_parts`` says.  The numerics plane of the JAX
-package is not ported yet.
+``BSP_Exchanger.identical_parts`` says.  On a model-parallel grid only
+``zero_opt`` composes (each rank chunks its own local shards over its
+workers group); ``update_sharding`` and ``fsdp`` are refused there, as in
+the JAX package.  The numerics plane of the JAX package is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -204,9 +207,15 @@ class ModelBase:
         params by views of its gathered buffer)."""
         self.opt, self._zero_layout = self._base_opt, None
         if self.config.get("zero_opt"):
+            # on a grid the params are the rank's local shards: each rank
+            # chunks its own local flat layout over its workers group, the
+            # ranks of its (pipe, model, seq) coordinate (model_base.py:
+            # 119-151 there)
             from ..parallel.zero import zero1
+            g = self.grid
+            shards = 1 if g is None else g.pp * g.tp * g.sp
             self.opt = zero1(self.opt, size, self.params, rank)
-            self._zero_layout = {"n": size, "shards": 1,
+            self._zero_layout = {"n": size, "shards": shards,
                                  "local_total": tree_size(self.params)}
         elif self._ushard_plan is not None:
             from ..parallel.update_sharding import shard_opt
@@ -474,12 +483,18 @@ class ModelBase:
                                "base.MeshProcess.get_internode_comm()")
         self.exchanger = exchanger
         if self.grid is not None:
-            for k in ("fsdp", "zero_opt", "update_sharding"):
-                if self.config.get(k):
-                    raise NotImplementedError(
-                        f"{k} under a model-parallel layout (tp/pp/sp) is "
-                        f"not "
-                        f"ported yet (A9d)")
+            # the JAX package's refusals (model_base.py:177-184, :207-212
+            # there): only zero_opt composes with a grid
+            if self.config.get("update_sharding"):
+                raise ValueError(
+                    "update_sharding currently supports pure data-parallel "
+                    "layouts: tensor/pipeline/sequence models use zero_opt")
+            if self.config.get("fsdp"):
+                raise ValueError(
+                    "fsdp shards params over the workers axis; "
+                    "tensor/pipeline/sequence models already shard them "
+                    "over the model axes: fsdp supports pure data-parallel "
+                    "layouts only")
         size, rank = (dist.get_world_size(), dist.get_rank()) \
             if exchanger.collective else (1, 0)
         self._ushard_plan = self._plan_update(size)

@@ -4,7 +4,7 @@ Counterpart of ``theanompi_tpu/models/transformer_lm.py``: ``LMData`` (the
 synthetic token stream, bit-equal to the JAX package's) or, with
 ``data_dir``, the token files of ``data/tokens.py``; the pre-LN
 ``Block``, ``TransformerLM`` and the sparse-FFN ``MoETransformerLM`` (its
-``MoEBlock``s' experts at one shard, ``parallel/moe.py``), trained under
+``MoEBlock``s' mixtures of experts, ``parallel/moe.py``), trained under
 the same model contract as the CNN zoo::
 
     BSP().init(devices=1, modelfile='theanompi_tpu_torch.models.transformer_lm',
@@ -33,8 +33,11 @@ from the dense model's initial params, and feeds its worker's rows and its
 seq block of tokens.  Under ``pp`` the params are the JAX package's tree:
 ``blocks`` holds every block leaf stacked on a leading layer dim in
 ``stage_permutation`` order, in the JAX layout (``[in, out]`` weights),
-and the pipe group splits that dim.  The MoE's expert parallelism and its
-sequence all-to-all are not ported yet and raise (A9d).
+and the pipe group splits that dim.  The MoE LM runs on the same grids:
+its experts shard over the ``model`` group at ``tp > 1`` (expert
+parallelism, ``ep = tp``), over the ``seq`` group at ``sp > 1`` with
+``tp = 1`` (the sequence all-to-all), and its blocks over ``pipe`` when
+every block is a MoE (``moe_every = 1``).
 """
 
 from __future__ import annotations
@@ -123,15 +126,27 @@ class Block(L.Layer):
         self.fc2 = row(mlp_ratio * dim, dim, w_init=("normal", 0.02),
                        activation=None, compute_dtype=cd, name="fc2")
 
-    def specs(self):
+    def model_dims(self) -> dict:
         """The dim of each leaf (port layout) the model group splits, None
-        where it is replicated (``transformer_lm.py:98-110`` there); None
-        when dense."""
-        if self.tp == 1:
-            return None
+        where it is replicated (``transformer_lm.py:98-110`` there); every
+        leaf None at ``tp = 1``."""
+        m = (lambda d: d) if self.tp > 1 else (lambda d: None)
         ln = {"scale": None, "bias": None}
-        return {"ln1": ln, "attn": {"wq": 0, "wk": 0, "wv": 0, "wo": 1},
-                "ln2": ln, "fc1": {"w": 0, "b": 0}, "fc2": {"w": 1, "b": None}}
+        return {"ln1": ln, "attn": {"wq": m(0), "wk": m(0), "wv": m(0),
+                                    "wo": m(1)},
+                "ln2": dict(ln), "fc1": {"w": m(0), "b": m(0)},
+                "fc2": {"w": m(1), "b": None}}
+
+    def specs(self):
+        """:meth:`model_dims`, or None when the model group splits
+        nothing."""
+        return self.model_dims() if self.tp > 1 else None
+
+    def seq_dims(self):
+        """The dims the seq group splits (a partial tree: the leaves it
+        names), or None: the dense block's params are whole on every seq
+        rank."""
+        return None
 
     def sublayers(self):
         return {"ln1": self.ln1, "attn": self.attn, "ln2": self.ln2,
@@ -163,21 +178,38 @@ class Block(L.Layer):
 
 
 class MoEBlock(Block):
-    """A block whose MLP is a top-k mixture of experts (``parallel/moe.py``)
-    at one expert shard.  ``apply`` returns ``(y, aux)``: the load-balance
-    loss rides up to the model's loss.  The KV-cache path runs the MoE per
-    token as the full forward does (drop-free at inference) and drops the
-    aux, a training statistic."""
+    """A block whose MLP is a top-k mixture of experts (``parallel/moe.py``;
+    ``transformer_lm.py:164-229`` there).  On a ``grid`` the attention is
+    the dense block's, and the MoE's experts shard over the model group
+    (``ep = tp``) or, at ``tp = 1``, over the seq group (``seq_shards =
+    sp``).  ``apply`` returns ``(y, aux)``: the load-balance loss rides up
+    to the model's loss.  The KV-cache path runs the MoE per token as the
+    full forward does (drop-free at inference) and drops the aux, a
+    training statistic."""
 
     def __init__(self, dim, n_head, n_experts, mlp_ratio=4, cd=torch.bfloat16,
                  capacity_factor=1.25, top_k=1, attn_impl="reference",
-                 name="moe_block"):
+                 name="moe_block", grid=None):
         super().__init__(dim, n_head, mlp_ratio=mlp_ratio, cd=cd,
-                         attn_impl=attn_impl, name=name)
+                         attn_impl=attn_impl, name=name, grid=grid)
         del self.fc1, self.fc2
+        kw = {} if grid is None else dict(
+            ep=grid.tp, seq_shards=grid.sp, rank=grid.model,
+            group=grid.model_group, seq_group=grid.seq_group)
         self.moe = MoE(dim, n_experts, mlp_ratio=mlp_ratio, top_k=top_k,
                        capacity_factor=capacity_factor, compute_dtype=cd,
-                       name="moe")
+                       name="moe", **kw)
+
+    def model_dims(self) -> dict:
+        dims = super().model_dims()
+        del dims["fc1"], dims["fc2"]
+        dims["moe"] = self.moe.specs() or {k: None for k in
+                                           MoE.kept_layout}
+        return dims
+
+    def seq_dims(self):
+        ms = self.moe.seq_specs()
+        return None if ms is None else {"moe": ms}
 
     def sublayers(self):
         return {"ln1": self.ln1, "attn": self.attn, "ln2": self.ln2,
@@ -211,18 +243,28 @@ def check_flash_dtype(attn_impl: str, compute_dtype: torch.dtype,
 
 
 class Split:
-    """The grid axes that split one leaf: the dim the ``pipe`` group splits
-    and the dim the ``model`` group splits (None where the axis holds the
-    leaf whole)."""
+    """The grid axes that split one leaf: the dim the ``pipe`` group
+    splits, the dim the ``model`` group splits and the dim the ``seq``
+    group splits (None where the axis holds the leaf whole)."""
 
-    __slots__ = ("pipe", "model")
+    AXES = ("pipe", "model", "seq")
+    __slots__ = AXES
 
-    def __init__(self, pipe=None, model=None):
-        self.pipe, self.model = pipe, model
+    def __init__(self, pipe=None, model=None, seq=None):
+        self.pipe, self.model, self.seq = pipe, model, seq
 
     def axes(self) -> tuple:
-        return tuple(a for a in ("pipe", "model")
-                     if getattr(self, a) is not None)
+        return tuple(a for a in self.AXES if getattr(self, a) is not None)
+
+
+def _dim(tree, path):
+    """The value at ``path`` of a partial tree of dims (None where the
+    tree, or the path in it, is missing)."""
+    for k in path:
+        if not isinstance(tree, dict) or k not in tree:
+            return None
+        tree = tree[k]
+    return tree
 
 
 def _nest(paths, values) -> dict:
@@ -350,31 +392,41 @@ class TransformerLM(ModelBase):
     def param_specs(self):
         """Per leaf of the params, the dims the grid axes split (a
         :class:`Split`); None for a layout that splits nothing (``tp = pp
-        = 1``; ``transformer_lm.py:334-376`` there: the seq group holds
-        every leaf whole).  Under ``pp`` the pipe group splits each
-        ``blocks`` leaf's leading layer dim, and a tp dim of a block leaf
-        is the JAX layout's, one right of the stacking dim."""
-        if self.tp == 1 and self.pp == 1:
+        = 1`` and no MoE experts over ``seq``; ``transformer_lm.py:334-376``
+        there: the seq group holds every dense leaf whole).  Under ``pp``
+        the pipe group splits each ``blocks`` leaf's leading layer dim, and
+        a tp or sp dim of a block leaf is the JAX layout's, one right of
+        the stacking dim."""
+        if self.tp == 1 and self.pp == 1 and \
+                all(b.seq_dims() is None for b in self.blocks):
             return None
         tp = 0 if self.tp > 1 else None
         top = {"embed": {"w": Split(model=tp)}, "pos": {"w": Split()},
                "ln_f": {"scale": Split(), "bias": Split()},
                "head": {"w": Split(model=tp), "b": Split(model=tp)}}
         if self.pp == 1:
-            return {**top, **{b.name: tree_map(lambda d: Split(model=d),
-                                               b.specs())
+            return {**top, **{b.name: self._block_splits(b)
                               for b in self.blocks}}
-        spec = self.blocks[0].specs()
+        spec, seq = self.blocks[0].specs(), self.blocks[0].seq_dims()
 
         def stacked(path):
-            d = None if spec is None else get_leaf(spec, path)
+            d, s = _dim(spec, path), _dim(seq, path)
             if d is not None and self._blk_ndim[path] == 2 and \
                     path not in self._blk_kept:
                 d = 1 - d                  # [out, in] → the JAX [in, out]
-            return Split(pipe=0, model=None if d is None else d + 1)
+            return Split(pipe=0, model=None if d is None else d + 1,
+                         seq=None if s is None else s + 1)
 
         return {**top, "blocks": _nest(self._blk_paths,
                                        [stacked(p) for p in self._blk_paths])}
+
+    @staticmethod
+    def _block_splits(blk):
+        """One block's leaves' :class:`Split`: its model and seq dims."""
+        dims, seq = blk.model_dims(), blk.seq_dims()
+        paths = leaf_paths(dims)
+        return _nest(paths, [Split(model=get_leaf(dims, p),
+                                   seq=_dim(seq, p)) for p in paths])
 
     def _dims(self, tree):
         """Per leaf of a params-shaped ``tree``: its :class:`Split` (a
@@ -398,7 +450,7 @@ class TransformerLM(ModelBase):
             return tree
 
         def cut(a, s):
-            for axis in ("pipe", "model"):
+            for axis in Split.AXES:
                 if getattr(s, axis) is not None:
                     a = self._chunk(a, getattr(s, axis), axis)
             return a
@@ -407,14 +459,15 @@ class TransformerLM(ModelBase):
 
     def gather_params(self, tree):
         """The global tree of a local params-shaped one: each split leaf's
-        shards gathered over the model group, then over the pipe group,
-        and joined (a collective: every rank of those groups calls)."""
+        shards gathered over the seq group, the model group, then the pipe
+        group, and joined (a collective: every rank of those groups
+        calls)."""
         if self.param_specs() is None:
             return tree
         from ..parallel.tp import all_gather
 
         def join(a, s):
-            for axis in ("model", "pipe"):
+            for axis in reversed(Split.AXES):
                 d = getattr(s, axis)
                 if d is not None:
                     a = torch.cat(list(all_gather(a, self.grid.group(axis))),
@@ -424,8 +477,10 @@ class TransformerLM(ModelBase):
         return tree_map(join, tree, self._dims(tree))
 
     def _split_axes(self) -> tuple:
-        """The grid axes, model first, that split some leaf."""
-        return tuple(a for a in ("model", "pipe") if self.grid.size(a) > 1)
+        """The grid axes, seq first, then model, then pipe, that split
+        some leaf."""
+        split = set().union(*self.split_axes_leaves())
+        return tuple(a for a in reversed(Split.AXES) if a in split)
 
     def _params_like(self, tree, fn):
         """``tree`` with ``fn`` applied to each subtree shaped as the params
@@ -438,12 +493,21 @@ class TransformerLM(ModelBase):
 
     def global_state(self, parts):
         """The state parts as global arrays, as a checkpoint holds them (a
-        collective over the model and pipe groups): each params-shaped
-        subtree gathered (:meth:`gather_params`), and a strategy's state,
-        which each rank keeps for its own shards, joined in the JAX
-        package's shapes: a flat vector the model ranks' end to end, then
-        the pipe ranks' (``[pp·tp·n]``), each array of a per-leaf state on
-        a leading ``[tp]`` axis, then ``[pp]`` (``[pp, tp, ...]``)."""
+        collective over the grid's groups): each params-shaped subtree
+        gathered (:meth:`gather_params`); a strategy's state, which each
+        rank keeps for its own shards, joined in the JAX package's shapes:
+        a flat vector the seq ranks' end to end where the seq group splits
+        a leaf, then the model ranks', then the pipe ranks'
+        (``[pp·tp·n]``), each array of a per-leaf state on a leading
+        ``[tp]`` axis, then ``[pp]`` (``[pp, tp, ...]``); and ZeRO-1's
+        chunks of the rank's local flat layout every grid rank's end to
+        end (``[pp·tp·sp·chunk]``, the row of the JAX package's boxed
+        ``[dp, shards·chunk]``: :meth:`_zero_gather`)."""
+        if self.grid is None:
+            return parts
+        if self._zero_layout is not None and "opt_state" in parts:
+            parts = dict(parts, opt_state=self._zero_gather(
+                parts["opt_state"]))
         if self.param_specs() is None:
             return parts
         from ..parallel.tp import all_gather
@@ -462,6 +526,11 @@ class TransformerLM(ModelBase):
     def local_state(self, parts):
         """This rank's state from global parts (host arrays or tensors):
         the inverse of :meth:`global_state`."""
+        if self.grid is None:
+            return parts
+        if self._zero_layout is not None and "opt_state" in parts:
+            parts = dict(parts, opt_state=self._zero_chunk(
+                parts["opt_state"]))
         if self.param_specs() is None:
             return parts
         out = {k: self._params_like(v, self.shard_params)
@@ -474,6 +543,36 @@ class TransformerLM(ModelBase):
                     if isinstance(st, list) else self._chunk(st, 0, axis)
             out["extra"] = dict(out["extra"], strat=st)
         return out
+
+    def _zero_gather(self, st):
+        """ZeRO-1's state with each ``[chunk]`` leaf gathered over the seq,
+        model and pipe groups: ``[shards·chunk]``, chunk ``(p·tp + m)·sp +
+        s`` the rank's at that coordinate (the JAX package's ``P(workers,
+        <model axes>)`` order); scalars as they are (a collective)."""
+        from ..parallel.tp import all_gather
+
+        def join(a):
+            if not isinstance(a, torch.Tensor) or a.dim() == 0:
+                return a
+            for axis in reversed(Split.AXES):
+                if self.grid.size(axis) > 1:
+                    a = all_gather(a, self.grid.group(axis)).reshape(-1)
+            return a
+
+        return tree_map(join, st)
+
+    def _zero_chunk(self, st):
+        """This grid rank's ``[chunk]`` of each ``[shards·chunk]`` leaf of a
+        global ZeRO-1 state: :meth:`_zero_gather`'s inverse."""
+        g = self.grid
+
+        def cut(a):
+            if np.ndim(a) == 0:
+                return a
+            c = np.shape(a)[0] // (g.pp * g.tp * g.sp)
+            return a[g.shard * c:(g.shard + 1) * c]
+
+        return tree_map(cut, st)
 
     def init_params(self, gen):
         """The dense model's initial params (the same draws), in the pp
@@ -548,14 +647,17 @@ class TransformerLM(ModelBase):
     def reduce_model_grads(self, grads) -> None:
         """The step's gradient leaves, summed in place over the seq group:
         each seq rank's is its token block's share (the loss is
-        :func:`parallel.sp.sp_mean` of the blocks').  The pipe group needs
+        :func:`parallel.sp.sp_mean` of the blocks'), except a leaf the seq
+        group splits (the MoE's experts under the sequence all-to-all),
+        whose owner has seen every block's slots.  The pipe group needs
         nothing: each pipe rank computes the head on the broadcast
         outputs, and the pipeline broadcasts its input's gradient, so a
         leaf it does not split has the dense gradient on every stage."""
         if self.sp > 1:
             from ..parallel.tp import all_reduce
-            for g in grads:
-                g.copy_(all_reduce(g, self.grid.seq_group))
+            for g, axes in zip(grads, self.split_axes_leaves()):
+                if "seq" not in axes:
+                    g.copy_(all_reduce(g, self.grid.seq_group))
 
     def _local_tokens(self, batch):
         """This rank's block of tokens: ``[B, T/sp]`` of x and y under sp
@@ -797,7 +899,10 @@ class MoETransformerLM(TransformerLM):
     (``moe_topk``, 1 or 2) mixture of ``moe_experts`` experts with capacity
     factor ``capacity_factor``; the load-balance loss, averaged over the
     MoE blocks, joins the objective with the coefficient ``moe_aux``.
-    ``remat`` applies to the dense model only, as in the JAX package."""
+    ``remat`` applies to the dense model only, as in the JAX package.  At
+    ``tp > 1`` the experts shard over the model group beside the
+    tensor-parallel attention, at ``sp > 1`` (``tp = 1``) over the seq
+    group; ``pp`` needs every block a MoE (``moe_every = 1``)."""
 
     moe_experts = 4
     moe_every = 2          # every k-th block is MoE (1 = all blocks)
@@ -806,12 +911,6 @@ class MoETransformerLM(TransformerLM):
     capacity_factor = 1.25
 
     def build_model(self) -> None:
-        for k, what in (("tp", "expert parallelism (ep = tp > 1)"),
-                        ("sp", "the sequence-sharded all-to-all "
-                               "(seq_shards = sp > 1)")):
-            if int(self.config.get(k, 1)) != 1:
-                raise NotImplementedError(f"MoETransformerLM: {what} is not "
-                                          f"ported yet (A9d)")
         for k in ("moe_experts", "moe_every", "moe_topk"):
             if k in self.config:
                 setattr(self, k, int(self.config[k]))
@@ -821,6 +920,13 @@ class MoETransformerLM(TransformerLM):
                 "mixed MoE/dense stack (moe_every > 1) does not stack over "
                 "'pipe'; use moe_every=1 (every block MoE) with pp")
         super().build_model()
+        # the JAX package's checks (transformer_lm.py:687-694 there)
+        if self.tp > 1 and self.moe_experts % self.tp:
+            raise ValueError(f"moe_experts={self.moe_experts} not divisible "
+                             f"by tp/ep={self.tp}")
+        if self.sp > 1 and self.tp == 1 and self.moe_experts % self.sp:
+            raise ValueError(f"moe_experts={self.moe_experts} not divisible "
+                             f"by sp={self.sp} (experts shard over 'seq')")
         cd = L.as_dtype(self.config.get("compute_dtype", torch.bfloat16))
         for k in ("moe_aux", "capacity_factor"):
             if k in self.config:
@@ -830,10 +936,10 @@ class MoETransformerLM(TransformerLM):
             MoEBlock(self.d_model, self.n_head, self.moe_experts, cd=cd,
                      capacity_factor=self.capacity_factor,
                      top_k=self.moe_topk, attn_impl=attn_impl,
-                     name=f"block{i}")
+                     name=f"block{i}", grid=self.grid)
             if (i + 1) % self.moe_every == 0 else
             Block(self.d_model, self.n_head, cd=cd, attn_impl=attn_impl,
-                  name=f"block{i}")
+                  name=f"block{i}", grid=self.grid)
             for i in range(self.n_layer)]
 
     def _forward(self, params, x, *, train: bool):
@@ -841,8 +947,8 @@ class MoETransformerLM(TransformerLM):
         under ``pp`` the mean of the microbatches' (each stage's aux rides
         the pipeline: ``transformer_lm.py:711-742`` there, a known
         deviation from the dense model's, whose routing fractions are the
-        whole batch's)."""
-        h = self._embed(params, x, torch.arange(x.shape[1], device=x.device))
+        whole batch's).  ``x`` is the rank's token block under ``sp``."""
+        h = self._embed(params, x, self._pos_ids(x.shape[1], x.device))
         if self.pp > 1:
             h, aux = self._pipeline(params, h, train, with_aux=True)
             return self._head(params, h), \
@@ -863,8 +969,12 @@ class MoETransformerLM(TransformerLM):
         return self._forward(params, x, train=train)[0]
 
     def loss_and_metrics(self, params, bn_state, batch, gen, train: bool):
+        """The dense LM's cost and error heads (vocab-parallel under tp,
+        averaged over the seq blocks under sp) plus ``moe_aux`` times the
+        aux, which every rank holds whole."""
+        batch = self._local_tokens(batch)
         logits, aux = self._forward(params, batch["x"], train=train)
-        flat = logits.reshape(-1, logits.shape[-1])
-        y = batch["y"].reshape(-1)
-        cost = L.softmax_cross_entropy(flat, y, self._label_smoothing(train))
-        return cost + self.moe_aux * aux, L.errors(flat, y)
+        cost, err = self._heads(logits.reshape(-1, logits.shape[-1]),
+                                batch["y"].reshape(-1),
+                                self._label_smoothing(train))
+        return cost + self.moe_aux * aux, err

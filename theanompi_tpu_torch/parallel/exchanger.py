@@ -256,8 +256,8 @@ class Exchanger:
         return tree_map(lambda _: next(it), grads)
 
     def _split_axes(self) -> list:
-        """Per gradient leaf: the grid axes (``pipe``, ``model``) that split
-        it; all empty for a model without model parallelism."""
+        """Per gradient leaf: the grid axes (``pipe``, ``model``, ``seq``)
+        that split it; all empty for a model without model parallelism."""
         fn = getattr(self.model, "split_axes_leaves", None)
         return fn() if fn is not None else [()]
 
@@ -412,15 +412,17 @@ class BSP_Exchanger(Exchanger):
         split together: their decoded means can differ between the ranks of
         those axes.  Each such leaf is replaced by its mean over the model
         and pipe groups that do not split it (``exchanger.py:639-656``
-        there, ``_restore_replication``; the seq ranks hold the same bits
-        already)."""
+        there, ``_restore_replication``), and over the seq group where that
+        splits some leaf (the MoE's experts; otherwise the seq ranks hold
+        the same bits already)."""
         split = self._split_axes()
         per_shard = self.strategy.flattens or self.strategy.leafwise_state
         if not per_shard or not any(split):
             return grads
         from .tp import all_reduce
         grid = self.model.grid
-        active = [a for a in ("pipe", "model") if grid.size(a) > 1]
+        active = [a for a in ("pipe", "model", "seq")
+                  if any(a in s for s in split)]
         leaves = tree_leaves(grads)
         missing = [tuple(a for a in active if a not in s) for s in split]
         out = list(leaves)

@@ -84,12 +84,38 @@ class _ReduceFromGroup(torch.autograd.Function):
         return g, None
 
 
+class _Local:
+    """The type of :data:`LOCAL`."""
+
+    def __repr__(self) -> str:
+        return "tp.LOCAL"
+
+
+LOCAL = _Local()
+"""A model group that stands for one rank's part run alone: with it
+:func:`copy_to_model` and :func:`reduce_from_model` return their input,
+and the caller adds up what the group's all-reduces would add (the rank
+parts of ``chip_smoke.py``'s ep rank phase).  A group of None, a grid
+whose groups were never joined, raises instead."""
+
+
+def _joined(group):
+    if group is None:
+        raise ValueError("a model-parallel layer has no model group: join "
+                         "the grid's groups (base.Grid.join), or pass "
+                         "tp.LOCAL to run one rank's part alone")
+    return group
+
+
 def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
-    return _CopyToGroup.apply(x, group)
+    """:class:`_CopyToGroup`; ``x`` itself for :data:`LOCAL`."""
+    return x if group is LOCAL else _CopyToGroup.apply(x, _joined(group))
 
 
 def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
-    return _ReduceFromGroup.apply(x, group)
+    """:class:`_ReduceFromGroup`; ``x`` itself for :data:`LOCAL` (the
+    rank's partial sum, which the caller adds up)."""
+    return x if group is LOCAL else _ReduceFromGroup.apply(x, _joined(group))
 
 
 # ---------------------------------------------------------------------------

@@ -301,21 +301,25 @@ def _flat_window(leaves, lo: int, hi: int):
     return segs, offs
 
 
-def flat_shard_opt(opt: OptPair, n_workers: int, params_template, rank: int,
-                   model_shards: int = 1, pspecs=None,
-                   model_axes: tuple = ()) -> OptPair:
+def flat_shard_opt(opt: OptPair, n_workers: int, params_template,
+                   rank: int) -> OptPair:
     """ZeRO-1: one ``ceil(P/N)`` chunk of the whole flattened params per
     rank (the port's flat order and layouts, float32).  ``update`` copies
     this rank's window of the reduced gradient and of the params into
     ``[chunk]`` buffers (pad zeros), runs the inner update on them in
     place, gathers every rank's chunk with one ``all_gather_into_tensor``
-    and copies the result back into the params.  The model-parallel
-    arguments of the JAX package's form are refused: tensor and pipeline
-    layouts are not ported (A9d)."""
-    if model_shards != 1 or pspecs is not None or model_axes:
-        raise NotImplementedError(
-            "flat_shard_opt under model parallelism (model_shards, pspecs, "
-            "model_axes) is not ported yet (A9d)")
+    over the default group and copies the result back into the params.
+
+    Under model parallelism (``update_sharding.py:277`` there) the params
+    are the rank's local shards: ``params_template`` is its local tree and
+    ``n_workers`` and ``rank`` count the ranks of its workers group (the
+    default group: the ranks that share its ``(pipe, model, seq)``
+    coordinate), so the chunk is ``ceil(local/N)`` and nothing else
+    changes.  The JAX form's ``model_shards`` sizes its global host state
+    (the boxed ``[dp, shards·chunk]``, which the port joins only for a
+    checkpoint, ``TransformerLM._zero_gather``), and its ``pspecs`` and
+    ``model_axes`` re-anchor its step's invariance typing after the flat
+    gather; the port needs neither and takes none of them."""
     n_total = tree_size(params_template)
     chunk = chunk_size(n_total, n_workers)
     padded = chunk * n_workers

@@ -17,6 +17,7 @@
     python3 chip_smoke.py --flash-f32     # the float32 flash kernels (A11)
     python3 chip_smoke.py --pp-stage      # B10–B12 at a pp stage's shape
     python3 chip_smoke.py --ep-rank       # one ep = tp 2 rank's MoE block
+    python3 chip_smoke.py --ops           # the operations planes (A10)
 
 1. Fails (exit 2, no result) without CUDA; prints the card's name and power
    limit as ``nvidia-smi`` reports them.
@@ -282,7 +283,28 @@
     monolithic and at 4 MiB (NCCL's kernels, B4, B8, the copies), and of
     AlexNet in grads and params mode with one params-mode exchange timed
     alone; B8's bucket beside one accumulating ``index_put_`` of it.
-30. Data-parallel state sharding (A9a; ``--shard`` runs these alone),
+30. The operations planes (A10 items 1 and 2; ``--ops`` runs these
+    alone), cuDNN deterministic: AlexNet b128 under the BSP session,
+    captured, 8 steps and a validation batch, with ``record_dir``,
+    telemetry, tracing, the numerics plane (every step, then every 4th),
+    ``stall_timeout`` 120 s and the sentry: each step's cost, the params
+    and the momentum bit for bit the planes-off drive's, B1/B2 launched as
+    without the planes; the stream's events, the numerics reports at the
+    JAX cadence's iters, the summary sidecar, a statusz ``health`` reply
+    asked from a host thread while it trains, no stall, no anomaly but a
+    throughput one; the eager step with the plane on bit for bit the
+    planes-off captured run, its sample bit for bit the captured one's,
+    and within its float64 recomputation on the CPU from copies of the
+    sampled step's gradient and params (norms rtol 1e-5, the digest within
+    4e-6 of Σ w·Σ|x|, max|g|, the count and iter exactly);
+    ``steps_per_call`` 4 at every 3 (the window ending at 8 samples 6, the
+    state bit for bit); VGG-16 onebit b32 with the plane (state and B4–B6
+    launches as without it, ``ef_norm`` within rtol 1e-5 of the error
+    state's own float64 norm); an AlexNet whose step writes one +inf into
+    a gradient (the count > 0, ``grad_overflow``, one flight dump); and
+    the captured step's wall and device busy ms and device ops with the
+    planes off, at every 4 and at every 1.
+31. Data-parallel state sharding (A9a; ``--shard`` runs these alone),
     world 1 over NCCL, captured, cuDNN deterministic: AlexNet b128 and
     VGG-16 'D' b32 for 8 steps each under plain BSP, ``zero_opt``,
     ``update_sharding`` and ``fsdp``, each from seed 0: costs, params and
@@ -296,7 +318,7 @@
     allocated device memory, beside plain BSP's; and AlexNet under FSDP
     saved and resumed into a fresh model, its state and two more steps
     bit for bit.
-31. The GANs and the rest of the LM at one rank (A9b, A9c; ``--gan-lm``
+32. The GANs and the rest of the LM at one rank (A9b, A9c; ``--gan-lm``
     runs these alone, with the flash build), cuDNN deterministic where
     runs are compared: WGAN (RMSprop 5e-5, ``n_critic`` 5, clip 0.01) and
     LSGAN (Adam 2e-4, ``n_critic`` 1 and 4), b64, ``base_width`` 64,
@@ -316,7 +338,7 @@
     tokens/s of each, each KV token against the full forward's greedy
     choice after the same prefix; and the LM trained 8 steps from uint16
     token files the script writes under ``build/smoke_tokens``.
-32. Prints ``{"kernels": [...]}`` (B1–B12 and B10–B12 in float32; B1/B2
+33. Prints ``{"kernels": [...]}`` (B1–B12 and B10–B12 in float32; B1/B2
     with GoogLeNet's shapes beside AlexNet's, and the island, launcher and
     sharded paths' counts;
     B4 and B8 with their bucketed launches and per-bucket times; B10–B12
@@ -1439,6 +1461,11 @@ def times_main(flags) -> int:
         torch.backends.cudnn.allow_tf32 = False
         _kernel_build.build(["lrn", "compress", "factor_pack"])
         out["wire"] = wire_main(card)
+    if "--ops" in flags:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        _kernel_build.build(["lrn", "compress"])
+        out["ops"] = ops_main(card)
     if "--shard" in flags:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -3462,7 +3489,15 @@ GRAPH_PATHS = {
 }
 
 
-def drive(path: str, capture: bool, calls: int, spc: int = 1,
+def host_state(model) -> list:
+    """Copies on the host of the whole state a step carries: params,
+    optimizer state, BN state and the wire's or the rule's state."""
+    return [t.detach().cpu().clone() for t in
+            tree_leaves(model.params) + tree_leaves(model.opt_state)
+            + tree_leaves(model.bn_state) + tree_leaves(model.extra)]
+
+
+def drive(path: str, capture: bool, calls: int, spc: int = 1, probe=None,
           **over) -> dict:
     """``calls`` calls of a main path's train step from a fresh model, made
     through the worker as a session makes it (``build_model``,
@@ -3470,7 +3505,9 @@ def drive(path: str, capture: bool, calls: int, spc: int = 1,
     the rule's ``exchange`` hook), launches counted from 0: each call's
     cost (device scalars, cloned), the whole state after (params,
     optimizer, BN and wire or rule state) on the host, and the launch
-    counts.  ``over`` overrides the path's config."""
+    counts.  ``over`` overrides the path's config; ``probe(model)`` runs
+    after the compile (its result, a callable, runs again after the last
+    call, and what that returns is kept as ``probe``)."""
     from theanompi_tpu_torch.worker import WORKERS
     modelfile, modelclass, cfg = GRAPH_PATHS[path]
     cfg = dict(cfg, **over)
@@ -3480,6 +3517,7 @@ def drive(path: str, capture: bool, calls: int, spc: int = 1,
     try:
         model = worker.build_model(modelfile, modelclass)
         model.compile_iter_fns(worker.exchanger, capture=capture)
+        finish = probe(model) if probe is not None else None
         model.data.shuffle_data(model.seed)
         t0 = time.time()
         costs = []
@@ -3489,14 +3527,11 @@ def drive(path: str, capture: bool, calls: int, spc: int = 1,
             costs.append(model.current_info["cost"].clone())
         torch.cuda.synchronize()
         out = {"costs": costs, "secs": time.time() - t0,
+               "probe": finish() if finish is not None else None,
                "graphed": model.train_fn.graphed, "launches": launch_counts(),
                "n_buckets": getattr(worker.exchanger, "n_buckets",
                                     lambda: None)(),
-               "state": [t.detach().cpu().clone() for t in
-                         tree_leaves(model.params)
-                         + tree_leaves(model.opt_state)
-                         + tree_leaves(model.bn_state)
-                         + tree_leaves(model.extra)]}
+               "state": host_state(model)}
         del model
     finally:
         worker.close()
@@ -5397,6 +5432,383 @@ FLASH_F32_SRC = "theanompi_tpu_torch/csrc/flash_attention_f32.cu"
 FLASH_TPU = "jax/experimental/pallas/ops/tpu/flash_attention.py (jax 0.9.0)"
 
 
+# -- the operations planes (A10 items 1 and 2) --------------------------------
+
+OPS_STALL_S = 120.0           # a generous stall_timeout: no step stalls it
+# the numerics sample against its float64 recomputation on the CPU from
+# copies of the sampled step's old params, new params and gradient: the
+# norms are float32 sums of squares (positive terms: a relative error of a
+# few ulps per level of the reduction), rtol OPS_NORM_RTOL; the digest is a
+# float32 sum of signed values, held within OPS_DIGEST_ATOL of
+# Σ_leaf w·Σ|x|; max|g|, the nonfinite count and iter are exact
+OPS_NORM_RTOL = 1e-5
+OPS_DIGEST_ATOL = 4e-6
+
+
+class InfGradAlexNet(AlexNet):
+    """Full-width AlexNet whose step puts one +inf into its first gradient
+    leaf, inside the captured step (the model's gradient hook): the
+    numerics plane must count it, the sentry raise ``grad_overflow``."""
+
+    def reduce_model_grads(self, grads) -> None:
+        g = grads[0]
+        g[(0,) * g.dim()].fill_(float("inf"))
+
+
+def ops_session(modelfile, modelclass, steps, poll_statusz=False, **cfg):
+    """``BSP().init(devices=1, ...).wait()`` at ``printFreq`` 1 (a record,
+    and with the planes a numerics report, every step), launches counted
+    from 0: each step's cost, the state after, the launch counts, the last
+    sample buffer, the sentry's anomalies and the watchdog's stalls; with
+    ``poll_statusz`` a host thread (no CUDA) finds the worker's statusz
+    endpoint in ``record_dir`` while it trains and asks it for ``health``."""
+    import threading
+    from theanompi_tpu_torch.utils import tracing
+    zero_launches()
+    rule = tmpi.BSP()
+    rule.init(devices=1, modelfile=modelfile, modelclass=modelclass,
+              **dict(dict(epochs=1, seed=0, verbose=False, printFreq=1,
+                          synthetic_batches=steps,
+                          synthetic_val_batches=VAL_BATCHES), **cfg))
+    health, halt = {}, threading.Event()
+
+    def poll():
+        while not halt.is_set():
+            docs = tracing.read_statusz_docs(cfg["record_dir"])
+            if docs:
+                try:
+                    health.update(tracing.statusz_query(
+                        f"{docs[0]['host']}:{docs[0]['port']}", "health"))
+                    return
+                except OSError:
+                    pass
+            halt.wait(0.02)
+
+    th = threading.Thread(target=poll, daemon=True) if poll_statusz else None
+    if th is not None:
+        th.start()
+    t0 = time.time()
+    try:
+        rec = rule.wait()
+    finally:
+        halt.set()
+        if th is not None:
+            th.join(timeout=10)
+    torch.cuda.synchronize()
+    m, w = rule.model, rule.worker
+    fn = m.train_fn
+    out = {"costs": [r["cost"] for r in rec.train_records],
+           "secs": time.time() - t0, "launches": launch_counts(),
+           "state": host_state(m),
+           "sample": fn.nx_buf.cpu().clone() if fn._nx is not None else None,
+           "anomalies": list(w.sentry.anomalies) if w.sentry else None,
+           "stalls": w.watchdog.stall_count, "health": health}
+    rule.model = rule.worker = None
+    del m, w, fn, rule
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ops_same(name: str, ref: dict, run: dict, launches=True) -> int:
+    """A planes-on run against the planes-off one, bit for bit: each step's
+    cost (a session's as the printed float), every state tensor, and the
+    launch counts."""
+    if len(ref["costs"]) != len(run["costs"]):
+        raise AssertionError(f"{name}: {len(run['costs'])} costs against "
+                             f"{len(ref['costs'])}")
+    for i, (x, y) in enumerate(zip(ref["costs"], run["costs"])):
+        if float(x) != float(y):
+            raise AssertionError(f"{name}: cost {i} {float(y)!r} against "
+                                 f"{float(x)!r} with the planes off")
+    if len(ref["state"]) != len(run["state"]):
+        raise AssertionError(f"{name}: {len(run['state'])} state tensors "
+                             f"against {len(ref['state'])}")
+    for i, (x, y) in enumerate(zip(ref["state"], run["state"])):
+        check_bits(f"{name} state tensor {i}", y, x)
+    if launches and ref["launches"] != run["launches"]:
+        raise AssertionError(f"{name}: launches {run['launches']} against "
+                             f"{ref['launches']}")
+    return len(ref["state"])
+
+
+def ops_stream(d: str) -> dict:
+    """What a planes-on run left in its ``record_dir``: the events of its
+    stream by kind, its numerics reports' iters, the summary sidecar."""
+    from collections import Counter
+    with open(os.path.join(d, "telemetry_rank0.jsonl")) as f:
+        evs = [json.loads(line) for line in f if line.strip()]
+    with open(os.path.join(d, "telemetry_summary_rank0.json")) as f:
+        summary = json.load(f)
+    return {"kinds": dict(Counter(e["ev"] for e in evs)),
+            "numerics": [e for e in evs if e["ev"] == "numerics"],
+            "summary": summary}
+
+
+def sample_f64(model, stash) -> dict:
+    """The numerics sample of the last sampled step recomputed in float64
+    on the CPU from copies of its gradient, its params before the update
+    and after (the plan's own digest weights), and Σ_leaf w·Σ|x|."""
+    from theanompi_tpu_torch.utils import numerics
+    g = [x.double().cpu() for x in stash["g"]]
+    old = [x.double().cpu() for x in stash["old"]]
+    new = [p.detach().double().cpu() for p in tree_leaves(model.params)]
+    w = model.train_fn._nx._digest_weights(stash["g"][0]).double().cpu()
+
+    def norm(xs):
+        return float(sum(float((x * x).sum()) for x in xs)) ** 0.5
+
+    pn, un = norm(new), norm([a - b for a, b in zip(new, old)])
+    vals = {"iter": float(stash["it"]), "grad_norm": norm(g),
+            "grad_max_abs": max(float(x.abs().max()) for x in g),
+            "nonfinite": float(sum(int((~torch.isfinite(x)).sum())
+                                   for x in g)),
+            "param_norm": pn, "update_norm": un, "update_ratio": un / pn,
+            "digest": float(sum(float(wi) * float(x.sum())
+                                for wi, x in zip(w, new))),
+            "beacon": 1.0, "dist_center": 0.0, "ef_norm": 0.0}
+    assert list(vals) == list(numerics.SAMPLE_KEYS)
+    return {"vals": vals, "digest_scale": float(sum(
+        float(wi) * float(x.abs().sum()) for wi, x in zip(w, new)))}
+
+
+def stash_probe(model):
+    """``drive``'s probe: the numerics plan's gradient and old-params copies
+    of each sampled step kept on the card (the last one's), then
+    :func:`sample_f64` and the sample buffer after the last call."""
+    plan, stash = model.train_fn._nx, {}
+    grad_stats, keep_old = plan.grad_stats, plan.keep_old
+
+    def gs(grads):
+        stash["g"] = [g.detach().clone() for g in grads]
+        stash["it"] = float(model.train_fn._nx_it)
+        return grad_stats(grads)
+
+    def ko(params):
+        old = keep_old(params)
+        stash["old"] = [t.clone() for t in old]
+        return old
+
+    plan.grad_stats, plan.keep_old = gs, ko
+    return lambda: dict(sample_f64(model, stash),
+                        sample=model.train_fn.nx_buf.cpu().clone())
+
+
+def check_sample(name, sample, ref: dict) -> dict:
+    """The card's sample against its float64 recomputation."""
+    from theanompi_tpu_torch.utils import numerics
+    got = dict(zip(numerics.SAMPLE_KEYS, sample.reshape(-1).tolist()))
+    errs = {}
+    for k, want in ref["vals"].items():
+        err = abs(got[k] - want)
+        lim = OPS_DIGEST_ATOL * ref["digest_scale"] if k == "digest" else (
+            OPS_NORM_RTOL * abs(want) if k in ("grad_norm", "param_norm",
+                                               "update_norm", "update_ratio")
+            else 0.0)
+        if not err <= lim:
+            raise AssertionError(f"{name}: sample {k} {got[k]!r} against "
+                                 f"float64 {want!r} (|diff| {err:.3e}, "
+                                 f"limit {lim:.3e})")
+        errs[k] = err / lim if lim else 0.0
+    return errs
+
+
+def ops_main(card: str) -> dict:
+    """The operations planes on the card (``--ops``): AlexNet b128 under
+    BSP, captured, with record_dir, telemetry, tracing, the numerics plane
+    (every 1, then every 4), a generous stall_timeout and the sentry,
+    against the same steps with every plane off (graph_eager_phase's
+    captured drive, or a new one): costs, params and optimizer state bit
+    for bit, the same launches; the stream's events, the numerics reports'
+    iters on the JAX cadence, the summary sidecar, a statusz health reply;
+    the eager step's sample (and state) bit for bit the captured one's and
+    within its float64 recomputation; spc 4 at every 3 (iter 6, the state
+    bit for bit); VGG-16 onebit with numerics (ef_norm against the error
+    state read directly, B4–B6 as before); one injected +inf (nonfinite,
+    ``grad_overflow``, one flight dump); and the step's wall and busy ms
+    with the planes off, at every 4 and at every 1."""
+    from theanompi_tpu_torch.utils import numerics
+    t_group = time.time()
+    out = {}
+    secs = out["phase_s"] = {}
+    t_phase = [time.time()]
+
+    def lap(name):
+        secs[name] = time.time() - t_phase[0]
+        t_phase[0] = time.time()
+    alex_file, alex_cls = GRAPH_PATHS["alexnet"][:2]
+    root = os.path.join("build", "smoke_ops")
+    shutil.rmtree(root, ignore_errors=True)
+    planes = dict(telemetry=True, tracing=True, numerics=True,
+                  stall_timeout=OPS_STALL_S, sentry=True)
+    alex_want = expect(lrn_fwd_cuda=2 * (GRAPH_STEPS + VAL_BATCHES),
+                       lrn_bwd_cuda=2 * GRAPH_STEPS)
+    torch.backends.cudnn.deterministic = True
+    try:
+        # the planes-off reference, made with cuDNN deterministic
+        ref = captured_run("alexnet")
+        lap("reference")
+        runs = {}
+        for every in (1, 4):
+            d = os.path.join(root, f"every{every}")
+            r = runs[every] = ops_session(
+                alex_file, alex_cls, GRAPH_STEPS, poll_statusz=True,
+                batch_size=BATCH, record_dir=d, numerics_every=every,
+                **planes)
+            n = ops_same(f"AlexNet planes on (every {every}) vs off", ref, r,
+                         launches=False)
+            if r["launches"] != alex_want:
+                raise AssertionError(f"AlexNet planes on: launches "
+                                     f"{r['launches']}, expected {alex_want}")
+            st = ops_stream(d)
+            want_kinds = {"run_start", "train_begin", "phase", "train_record",
+                          "gauges", "numerics", "val_record", "statusz",
+                          "train_end"}
+            if not want_kinds <= set(st["kinds"]):
+                raise AssertionError(f"stream every {every}: {st['kinds']}")
+            iters = [e["iter"] for e in st["numerics"]]
+            want_iters = [c for c in range(1, GRAPH_STEPS + 1)
+                          if c % every == 0]
+            if iters != want_iters:
+                raise AssertionError(f"numerics iters at every {every}: "
+                                     f"{iters}, the JAX cadence {want_iters}")
+            if any(e["nonfinite"] or e["divergence"] is not None
+                   for e in st["numerics"]):
+                raise AssertionError(f"numerics reports: {st['numerics']}")
+            hist = st["summary"]["hist"]
+            if hist.get("phase.train", {}).get("count") != GRAPH_STEPS:
+                raise AssertionError(f"summary: {sorted(hist)}")
+            h = r["health"]
+            if not (h.get("ok") and h.get("role") == "worker"
+                    and "uptime_s" in h):
+                raise AssertionError(f"statusz health: {h}")
+            bad = [a for a in r["anomalies"] or []
+                   if a[0] != "throughput_regression"]
+            if bad or r["stalls"]:
+                raise AssertionError(f"sentry {r['anomalies']}, "
+                                     f"{r['stalls']} stalls")
+            out[f"every{every}"] = {
+                "tensors": n, "secs": r["secs"], "kinds": st["kinds"],
+                "numerics_iters": iters, "health": h,
+                "anomalies": r["anomalies"],
+                "last_report": st["numerics"][-1]}
+            print(f"ops planes, AlexNet b{BATCH} every {every}: {n} state "
+                  f"tensors and {GRAPH_STEPS} costs bit for bit the "
+                  f"planes-off run, launches as before, numerics at iters "
+                  f"{iters}, stream {st['kinds']}, statusz health up "
+                  f"{h['uptime_s']} s, sentry {r['anomalies']}", flush=True)
+            lap(f"session_every{every}")
+        # the eager step: its state the captured planes-off run's, its
+        # sample the captured one's, and the float64 recomputation
+        eager = drive("alexnet", False, GRAPH_STEPS, probe=stash_probe,
+                      numerics=True)
+        ops_same("AlexNet eager planes on vs captured off", ref, eager)
+        check_bits("AlexNet sample eager vs captured",
+                   eager["probe"]["sample"], runs[1]["sample"])
+        errs = check_sample("AlexNet sample vs float64",
+                            eager["probe"]["sample"], eager["probe"])
+        out["eager"] = {"sample": dict(zip(
+            numerics.SAMPLE_KEYS, eager["probe"]["sample"][0].tolist())),
+            "err_over_limit": errs}
+        print(f"ops planes: the eager step's sample bit for bit the captured "
+              f"one's, state bit for bit; against float64 (err / limit): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in errs.items() if v),
+              flush=True)
+        lap("eager")
+        # spc 4 at every 3: the window ending at 8 samples count 6
+        spc4 = drive("alexnet", True, GRAPH_STEPS // SPC, spc=SPC,
+                     numerics=True, numerics_every=3,
+                     probe=lambda m: lambda: numerics.host_report(
+                         numerics.to_host(m.numerics_aux)))
+        ops_same("AlexNet spc 4 every 3 vs single steps off",
+                 {"costs": [], "state": ref["state"]},
+                 dict(spc4, costs=[]), launches=False)
+        if spc4["probe"]["iter"] != 6:
+            raise AssertionError(f"spc 4 every 3: iter {spc4['probe']}")
+        out["spc4_every3_iter"] = spc4["probe"]["iter"]
+        print(f"ops planes: spc {SPC} every 3, the state bit for bit, the "
+              f"window's sample iter {spc4['probe']['iter']}", flush=True)
+        del eager, spc4
+        lap("spc4")
+        # VGG-16 onebit: ef_norm against the error state read directly
+        vref = captured_run("vgg16_onebit")
+        lap("vgg16_reference")
+
+        def ef_probe(m):
+            return lambda: {
+                "ef_norm": numerics.host_report(numerics.to_host(
+                    m.numerics_aux))["ef_norm"],
+                "direct": float(m.extra["strat"].double().norm())}
+
+        vgg = drive("vgg16_onebit", True, GRAPH_STEPS, probe=ef_probe,
+                    numerics=True)
+        n = ops_same("VGG-16 onebit numerics on vs off", vref, vgg)
+        ef = vgg["probe"]
+        if not abs(ef["ef_norm"] - ef["direct"]) <= \
+                OPS_NORM_RTOL * ef["direct"] or ef["direct"] <= 0:
+            raise AssertionError(f"VGG-16 onebit ef_norm {ef}")
+        out["vgg16_onebit"] = dict(ef, tensors=n, launches={
+            k: v for k, v in vgg["launches"].items() if v})
+        print(f"ops planes, VGG-16 onebit b{VGG_BATCH}: {n} state tensors "
+              f"bit for bit, launches {out['vgg16_onebit']['launches']} as "
+              f"before, ef_norm {ef['ef_norm']:.6f} against the error "
+              f"state's {ef['direct']:.6f}", flush=True)
+        del vgg
+        lap("vgg16")
+        # one +inf in a gradient leaf
+        d = os.path.join(root, "inf")
+        r = ops_session("chip_smoke", "InfGradAlexNet", 1, batch_size=BATCH,
+                        record_dir=d, **planes)
+        st = ops_stream(d)
+        flights = sorted(f for f in os.listdir(d) if f.startswith("flight"))
+        with open(os.path.join(d, flights[0])) as f:
+            head = json.loads(f.readline())
+        counters = st["summary"]["counters"]
+        if not (st["numerics"] and st["numerics"][0]["nonfinite"] > 0
+                and r["anomalies"] == [("grad_overflow", 1)]
+                and flights == ["flight_rank0.jsonl"]
+                and head["reason"].startswith("sentry grad_overflow")
+                and counters.get("sentry.anomalies") == 1):
+            raise AssertionError(f"injected inf: report {st['numerics']}, "
+                                 f"anomalies {r['anomalies']}, flights "
+                                 f"{flights} {head}, counters {counters}")
+        out["inf"] = {"nonfinite": st["numerics"][0]["nonfinite"],
+                      "anomalies": r["anomalies"], "flight": head["reason"]}
+        print(f"ops planes: one injected +inf: nonfinite "
+              f"{out['inf']['nonfinite']}, sentry {r['anomalies']}, one "
+              f"flight dump ({head['reason']})", flush=True)
+        lap("inf")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    # the planes' cost: the captured step with them off, at every 4, every
+    # 1, and off again (the spread of two runs of one tree)
+    cost = {}
+    for key, cfg in (("off", {}), ("every4", dict(numerics=True,
+                                                  numerics_every=4)),
+                     ("every1", dict(numerics=True)), ("off_again", {})):
+        p = step_profile_phase(alex_file, alex_cls, BATCH, {"lrn": ("lrn_",)},
+                               GRAPH_STEPS, telemetry=bool(cfg), **cfg)
+        cost[key] = {k: p[k] for k in ("wall_ms_per_step",
+                                       "device_busy_ms_per_step",
+                                       "device_idle_share",
+                                       "kernel_calls_per_step")}
+    extra = cost["every1"]["kernel_calls_per_step"] - \
+        cost["off"]["kernel_calls_per_step"]
+    out["cost"] = dict(cost, sampled_extra_ops=extra, card=card)
+    print("ops planes cost, AlexNet b%d captured step: " % BATCH + "; ".join(
+        f"{k} wall {c['wall_ms_per_step']:.3f} ms, busy "
+        f"{c['device_busy_ms_per_step']:.3f} ms, "
+        f"{c['kernel_calls_per_step']:.0f} device ops"
+        for k, c in cost.items())
+        + f"; a sampled step adds {extra:.0f} device ops; on {card}",
+        flush=True)
+    lap("cost")
+    out["secs"] = time.time() - t_group
+    print(f"ops planes group: {out['secs']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in secs.items()) + ")", flush=True)
+    return out
+
+
 def kernel_rows():
     """(label, wrapper, source, TPU kernel it replaces) of B1–B12 (built
     at use: ``--factor-times`` also runs on trees from before
@@ -5898,6 +6310,9 @@ def main() -> int:
                     if "secs" in v})
     wire = wire_main(card)
     lap("wire")
+    ops = ops_main(card)
+    lap("ops planes")
+    phase_s.update({f"ops_{k}": v for k, v in ops["phase_s"].items()})
     _GRAPH_RUNS.clear()
     shard = shard_main(card)
     lap("shard")
@@ -5965,7 +6380,7 @@ def main() -> int:
                                 **{f"vgg16_{k}": v for k, v in vggs.items()}),
                    "rules": rules, "clip": clip, "optimizers": opts,
                    "islands": islands, "launcher": launcher, "wire": wire,
-                   "shard": shard, "gan_lm": a9,
+                   "shard": shard, "gan_lm": a9, "ops": ops,
                    "graph_eager": graph_eager, "spc": spc,
                    "recapture": recapture, "zoo_ref": zoo_ref,
                    "lrn_googlenet": lrn_g, "lrn_sass": lrn_sass,
@@ -5999,6 +6414,6 @@ if __name__ == "__main__":
                       "--input-times", "--update-times", "--lrn-times",
                       "--islands", "--vgg-island-lr", "--launcher",
                       "--wire", "--shard", "--gan-lm", "--flash-f32",
-                      "--pp-stage", "--ep-rank"}:
+                      "--pp-stage", "--ep-rank", "--ops"}:
         sys.exit(f"chip_smoke: unknown arguments {sorted(_flags)}")
     sys.exit(times_main(_flags) if _flags else main())

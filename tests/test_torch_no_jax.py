@@ -8,6 +8,8 @@ import pkgutil
 import subprocess
 import sys
 
+import pytest
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PROBE = r"""
@@ -170,7 +172,14 @@ NEW_MODULES = ("theanompi_tpu_torch.native",
                "theanompi_tpu_torch.parallel.tp",
                "theanompi_tpu_torch.parallel.sp",
                "theanompi_tpu_torch.ops.ring_attention",
-               "theanompi_tpu_torch.parallel.pipeline")
+               "theanompi_tpu_torch.parallel.pipeline",
+               "theanompi_tpu_torch.utils.telemetry",
+               "theanompi_tpu_torch.utils.tracing",
+               "theanompi_tpu_torch.utils.numerics",
+               "theanompi_tpu_torch.utils.sentry",
+               "theanompi_tpu_torch.utils.watchdog")
+
+PLANES = ("telemetry", "tracing", "numerics", "sentry", "watchdog")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -180,6 +189,22 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
     assert n_modules >= 37, r.stdout
+
+
+@pytest.mark.parametrize("name", PLANES)
+def test_operations_planes_import_neither_jax_nor_torch(name):
+    """Each operations plane's module, imported alone in a fresh
+    interpreter, pulls in neither ``jax``, the JAX package nor ``torch``
+    (their host halves are stdlib; ``numerics`` imports torch inside its
+    step sampler only)."""
+    probe = (f"import sys, theanompi_tpu_torch.utils.{name}; "
+             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'jaxlib', 'theanompi_tpu', 'torch')))")
+    r = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
+                       capture_output=True, text=True, timeout=60,
+                       env=dict(os.environ, PYTHONPATH=REPO))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]", r.stdout
 
 
 def test_the_walk_reaches_the_new_modules():
@@ -220,6 +245,13 @@ def test_launched_sharded_workers_import_neither_jax_nor_the_jax_package(
     """The same under ``fsdp=true``, which the launcher passes through to
     each rank's worker."""
     _launch_modules(tmp_path, "fsdp=true")
+
+
+def test_launched_workers_with_the_planes_import_no_jax(tmp_path):
+    """The same with telemetry, tracing, the numerics plane and the
+    watchdog on in each rank."""
+    _launch_modules(tmp_path, f"record_dir={tmp_path / 'rec'}",
+                    "tracing=true", "numerics=true", "stall_timeout=120")
 
 
 def _launch_modules(tmp_path, *kv):

@@ -35,7 +35,12 @@ the rank lines it runs; ``--process-id h`` runs host ``h``'s share.
 to N times when any rank fails (BSP's reaction: the ranks hold one model),
 after a backoff (``--backoff``, ``--backoff-max``); ``--min-uptime`` and
 the crash-loop breaker (``--crash-limit`` failures in ``--crash-window``
-seconds) stop it with a nonzero exit.  Pair it with ``ckpt_dir``.
+seconds) stop it with a nonzero exit.  Pair it with ``ckpt_dir``.  With
+``record_dir`` every failed attempt's flight recordings
+(``flight_rank*.jsonl``: a crash, a ``stall_action=exit`` or a SIGTERM
+dumps them) are swept into ``<record_dir>/crash_attempt<i>_rc<rc>/``
+before the restart, and a supervisor that gives up prints the newest
+recording's tail.
 
 ``--elastic`` (with ``--elastic-steps``, ``--host-devices``,
 ``--center-proc``) and ``--compile-cache`` are refused: membership,
@@ -292,11 +297,29 @@ def main(argv=None) -> int:
     if _config_value(kv, "ckpt_dir") is None:
         print("warning: --supervise without ckpt_dir= restarts training "
               "from scratch each time", file=sys.stderr)
-    from .parallel.membership import Backoff, CrashLoopBreaker
+    from .parallel.membership import (Backoff, CrashLoopBreaker,
+                                      flight_tail_lines)
     backoff = Backoff(base=args.backoff, cap=args.backoff_max) \
         if args.backoff > 0 else None
     breaker = CrashLoopBreaker(limit=args.crash_limit,
                                window_s=args.crash_window)
+    record_dir = _config_value(kv, "record_dir")
+
+    def sweep(attempt: int, rc: int) -> None:
+        # the dead world's flight recordings aside, so the restart's own
+        # dumps cannot overwrite the trail that explains this death
+        if not record_dir:
+            return
+        from .utils.telemetry import sweep_flight_dumps
+        dest = sweep_flight_dumps(record_dir, f"attempt{attempt}_rc{rc}")
+        if dest:
+            print(f"swept flight recordings to {dest}", file=sys.stderr)
+
+    def print_flight_tail() -> None:
+        if record_dir:
+            for line in flight_tail_lines(record_dir):
+                print(line, file=sys.stderr)
+
     rc = 1
     for attempt in range(args.supervise + 1):
         cmds = host_cmds(0, f"tcp://127.0.0.1:{free_port()}")
@@ -306,6 +329,7 @@ def main(argv=None) -> int:
         rc = run_world(cmds)
         if rc == 0:
             return 0
+        sweep(attempt, rc)
         uptime = time.monotonic() - t0
         if args.min_uptime and uptime < args.min_uptime:
             print(f"world exited rc={rc} after only {uptime:.1f}s "
@@ -316,6 +340,7 @@ def main(argv=None) -> int:
             print(f"crash loop: {args.crash_limit} failures within "
                   f"{args.crash_window:.0f}s — giving up (rc={rc})",
                   file=sys.stderr)
+            print_flight_tail()
             return rc
         if attempt < args.supervise:
             delay = backoff.delay(attempt) if backoff else 0.0
@@ -326,6 +351,7 @@ def main(argv=None) -> int:
                 time.sleep(delay)
     print(f"supervised restarts exhausted ({args.supervise}) — giving up "
           f"(rc={rc})", file=sys.stderr)
+    print_flight_tail()
     return rc
 
 

@@ -28,15 +28,24 @@ queue holds whole windows and the step's thread only dequeues
 (:meth:`next_train_window`).  The consumed cursor and the restarts then
 count in windows, and an epoch drops its last ``n_batch_train % k``
 batches, as the JAX package does.
+
+With telemetry on (``utils/telemetry.py``) the loader feeds the JAX
+package's probes: the ``prefetch.queue_depth`` gauge and histogram and the
+``prefetch.dequeues`` / ``prefetch.starved_dequeues`` counters at each
+dequeue, and the producer's ``prefetch.produce_secs`` and
+``prefetch.producer_blocked_secs`` histograms (the serial and the window
+producer; a pooled producer's batches are futures, made off its thread).
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Optional
 
 from ...parallel.steps import stack_host
+from ...utils import telemetry
 
 
 class PrefetchLoader:
@@ -169,7 +178,7 @@ class PrefetchLoader:
             if hasattr(self._data, "get_cursor"):
                 self._consumed_cursor = self._data.get_cursor()
             return batch
-        item = self._q.get()
+        item = self._dequeue()
         if isinstance(item, BaseException):
             raise item
         batch, cursor = item
@@ -194,7 +203,7 @@ class PrefetchLoader:
             if hasattr(self._data, "get_cursor"):
                 self._consumed_cursor = self._data.get_cursor()
             return window
-        item = self._q.get()
+        item = self._dequeue()
         if isinstance(item, BaseException):
             raise item
         window, cursor = item
@@ -204,6 +213,32 @@ class PrefetchLoader:
     def next_val_batch(self, count: int):
         """Validation is served synchronously, on the caller's thread."""
         return self._maybe_put(self._data.next_val_batch(count))
+
+    def _dequeue(self):
+        """One queue pop, instrumented: the queue's depth at the dequeue (0:
+        the step is about to wait on the producer) and the dequeue and
+        starved-dequeue counters."""
+        tm = telemetry.active()
+        if tm.enabled:
+            depth = self._q.qsize()
+            tm.gauge("prefetch.queue_depth", depth)
+            tm.observe("prefetch.queue_depth", depth)
+            tm.counter("prefetch.dequeues")
+            if depth == 0:
+                tm.counter("prefetch.starved_dequeues")
+        return self._q.get()
+
+    @staticmethod
+    def _put(q: queue.Queue, item, t_made: float, tm) -> None:
+        """``item`` into the queue, with the producer's times: how long it
+        took to make (since ``t_made``) and how long the full queue held it
+        back."""
+        if tm.enabled:
+            tm.observe("prefetch.produce_secs", time.time() - t_made)
+        t0 = time.time()
+        q.put(item)
+        if tm.enabled:
+            tm.observe("prefetch.producer_blocked_secs", time.time() - t0)
 
     # -- producer ------------------------------------------------------------
     def _producer(self, n_batches: int, q: queue.Queue,
@@ -218,15 +253,17 @@ class PrefetchLoader:
                                               "plan_train_batch"):
                 self._producer_pooled(n_batches, q, stop)
                 return
+            tm = telemetry.active()
             for i in range(n_batches):
                 if stop.is_set():
                     return
+                t0 = time.time()
                 batch = self._maybe_put(self._data.next_train_batch(i + 1))
                 cursor = self._data.get_cursor() \
                     if hasattr(self._data, "get_cursor") else {}
                 if stop.is_set():     # a restart raced the load: drop it
                     return
-                q.put((batch, cursor))
+                self._put(q, (batch, cursor), t0, tm)
         except BaseException as e:    # surfaced in the consumer
             q.put(e)
 
@@ -270,10 +307,12 @@ class PrefetchLoader:
         pool = ThreadPoolExecutor(self.n_workers,
                                   thread_name_prefix="para_load") \
             if pooled else None
+        tm = telemetry.active()
         try:
             for w in range(n_batches // k):
                 if stop.is_set():
                     return
+                t0 = time.time()
                 if pooled:
                     plans = [self._data.plan_train_batch(w * k + j + 1)
                              for j in range(k)]
@@ -288,7 +327,7 @@ class PrefetchLoader:
                 window = self._stage(stack_host(batches))
                 if stop.is_set():     # a restart raced the staging: drop it
                     return
-                q.put((window, cursor))
+                self._put(q, (window, cursor), t0, tm)
         finally:
             if pool is not None:
                 pool.shutdown(wait=False)

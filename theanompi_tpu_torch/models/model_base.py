@@ -48,8 +48,10 @@ bit-equal to the unsharded update; a sharded part is saved per rank, as
 ``BSP_Exchanger.identical_parts`` says.  On a model-parallel grid only
 ``zero_opt`` composes (each rank chunks its own local shards over its
 workers group); ``update_sharding`` and ``fsdp`` are refused there, as in
-the JAX package.  The numerics plane of the JAX package is not ported
-yet.
+the JAX package.  ``numerics=true`` (``numerics_every``) samples the
+step's gradient, parameter and update statistics inside the train step
+(``utils/numerics.py``); :attr:`ModelBase.numerics_aux` holds the last
+call's per-worker sample (None while the plane is off).
 """
 
 from __future__ import annotations
@@ -95,8 +97,6 @@ class ModelBase:
                   "optimizer", "momentum", "weight_decay", "steps_per_call"):
             if k in self.config:
                 setattr(self, k, self.config[k])
-        if self.config.get("numerics"):
-            raise NotImplementedError("config 'numerics' is not ported yet")
         self._refuse_sharding_keys()
         self.seed = int(self.config.get("seed", self.seed))
         self.current_lr = float(self.learning_rate)
@@ -607,6 +607,15 @@ class ModelBase:
             rows = int(y.shape[1] if window else y.shape[0])
             recorder.train_error(count, cost, err, rows * k * self.size)
         self.current_info.update(cost=cost, error=err)
+
+    @property
+    def numerics_aux(self):
+        """The numerics plane's per-worker sample of the last train call
+        (a dict of ``[n_workers]`` columns over ``numerics.SAMPLE_KEYS``,
+        on the device; the template, ``iter = -1``, after a call with no
+        due step), or None when the plane is off."""
+        fn = self.train_fn
+        return None if fn is None else fn.numerics_aux()
 
     def _take(self, batch):
         """A batch as the step's tensors: a staged one claimed for the

@@ -59,9 +59,14 @@ processes: island ``i`` reads the data stream ``seed + island_base + i``),
 ``wire_retries`` / ``wire_deadline``, ``center_restore`` (a joining
 island starts from the center), ``island_throttle`` (seconds of sleep
 after each step, one number or ``{island: seconds}``: a deliberate
-straggler), ``run_seconds`` (the session's budget, 60).  Leases, the
-chaos trigger and the round spans of the JAX package wait for ROADMAP
-A10 and are refused; so are ``steps_per_call > 1`` and bucketed wires.
+straggler), ``run_seconds`` (the session's budget, 60).  ``telemetry``
+/ ``record_dir`` turn on the process's telemetry (the island steps'
+phase events, the ``wire.*`` counters, the ``numerics.dist_center``
+gauge: ``‖delta‖`` of each exchange) and ``tracing`` a ``round`` span a
+round, whose context rides the wire into the center's handler span.
+Leases, the chaos trigger, device profiling and the fleet monitor wait
+for ROADMAP A10 and are refused; so are ``steps_per_call > 1`` and
+bucketed wires.
 """
 
 from __future__ import annotations
@@ -76,12 +81,13 @@ import torch
 import torch.distributed as dist
 
 from ..base import MeshProcess, resolve_device
+from ..utils import telemetry, tracing
 from ..utils.helper_funcs import (_jax_shape, from_jax_layout, jax_leaf_paths,
                                   leaf_paths, to_jax_layout, tree_leaves)
 
-# config keys of the JAX package's islands that need ROADMAP A10
-_A10_KEYS = ("lease_dir", "chaos_dir", "chaos", "tracing", "telemetry",
-             "trace_dir", "metrics_addr")
+# config keys of the JAX package's islands that need the rest of ROADMAP
+# A10 (leases, chaos, device profiling, the fleet monitor)
+_A10_KEYS = ("lease_dir", "chaos_dir", "chaos", "trace_dir", "metrics_addr")
 
 
 class ElasticCenter:
@@ -143,7 +149,10 @@ class ElasticCenter:
             if self._leaves is None:
                 self._leaves = [np.array(x, np.float32) for x in leaves]
 
-    def pull_leaves(self) -> List[np.ndarray]:
+    def pull_leaves(self, trace=None) -> List[np.ndarray]:
+        """The center's leaves (copies).  ``trace``, here and in the pushes,
+        is the caller's span context: a center behind the wire carries it
+        (``center_server.RemoteCenter``), one in memory has no span."""
         with self._lock:
             assert self._leaves is not None, "center not initialized yet"
             return [np.array(x) for x in self._leaves]
@@ -162,7 +171,7 @@ class ElasticCenter:
             self.updates_by_island.get(island, 0) + 1
 
     def push_delta_leaves(self, deltas: List[np.ndarray],
-                          island: int) -> None:
+                          island: int, trace=None) -> None:
         """EASGD: center += α·delta."""
         a = self.alpha
         with self._lock:
@@ -174,7 +183,7 @@ class ElasticCenter:
             self._count(island)
 
     def push_pull_leaves(self, deltas: List[np.ndarray],
-                         island: int) -> List[np.ndarray]:
+                         island: int, trace=None) -> List[np.ndarray]:
         """ASGD downpour: center += delta, and the new center returned, in
         one atomic op (a demoted island gets the center unchanged)."""
         with self._lock:
@@ -185,6 +194,12 @@ class ElasticCenter:
                                 for c, d in zip(self._leaves, deltas)]
                 self._count(island)
             return [np.array(x) for x in self._leaves]
+
+
+def _ctx(trace) -> dict:
+    """A center call's keyword for the round span's context: none without
+    one (any center object then serves, its leaf-list surface alone)."""
+    return {} if trace is None else {"trace": trace}
 
 
 class CenterLink:
@@ -248,6 +263,15 @@ class CenterLink:
         self._in = into               # port order and layout, views
         self._jpaths, self._kept = jpaths, kept
         self.records: List[Dict[str, float]] = []
+        # ‖delta‖ of the last exchange (float64 on the host), kept with
+        # telemetry on and on the island's rank 0: its distance to the
+        # center, the island's divergence proxy
+        self.last_dist: Optional[float] = None
+
+    def _note_dist(self, host: Optional[List[np.ndarray]]) -> None:
+        if host is not None and telemetry.active().enabled:
+            self.last_dist = float(np.sqrt(sum(
+                float(np.sum(np.square(x, dtype=np.float64))) for x in host)))
 
     @property
     def bytes_per_crossing(self) -> int:
@@ -344,11 +368,11 @@ class CenterLink:
         return [c if c.dtype == p.dtype else c.to(p.dtype)
                 for p, c in zip(self._params, self._in)]
 
-    def _call(self, fn, *args):
+    def _call(self, fn, *args, **kw):
         """One center call: its wall seconds and the center's apply
         seconds."""
         t = time.perf_counter()
-        out = fn(*args)
+        out = fn(*args, **kw)
         dt = time.perf_counter() - t
         srv = getattr(self.center, "last_srv", None)
         return out, dt, (float(srv.get("a", 0.0)) if srv else dt)
@@ -366,10 +390,11 @@ class CenterLink:
         self._lead(lambda: self.center.ensure_init_leaves(host), None)
 
     @torch.no_grad()
-    def anchor(self, set_params: bool = False) -> None:
+    def anchor(self, set_params: bool = False, trace=None) -> None:
         """``dev_in`` ← the center (ASGD's anchor); with ``set_params`` the
         params too (a rejoin, or ASGD's resync after an outage)."""
-        self._lead(lambda: self.up(self.center.pull_leaves()), None)
+        self._lead(lambda: self.up(self.center.pull_leaves(**_ctx(trace))),
+                   None)
         self._bcast_in()
         if set_params:
             torch._foreach_copy_(self._params, self._cast_in())
@@ -378,14 +403,15 @@ class CenterLink:
     # -- the exchanges ---------------------------------------------------------
 
     @torch.no_grad()
-    def easgd(self) -> Dict[str, float]:
+    def easgd(self, trace=None) -> Dict[str, float]:
         """Pull, ``p ← p − α·(p − c)``, push ``delta = p − c`` (the
-        replicas' mean delta in an island of more than one device)."""
+        replicas' mean delta in an island of more than one device);
+        ``trace`` is the round span's context."""
         t0 = time.perf_counter()
         self.sync()
         t1 = time.perf_counter()
         leaves, w1, a1 = self._lead(
-            lambda: self._call(self.center.pull_leaves))
+            lambda: self._call(self.center.pull_leaves, **_ctx(trace)))
         t2 = time.perf_counter()
         if self.lead:
             self.up(leaves)
@@ -397,18 +423,21 @@ class CenterLink:
         torch._foreach_add_(ps, delta, alpha=-self.alpha)
         host = self._mean_down(delta)
         del delta
+        self._note_dist(host)
         t4 = time.perf_counter()
         _, w2, a2 = self._lead(lambda: self._call(
-            self.center.push_delta_leaves, host, self.island))
+            self.center.push_delta_leaves, host, self.island,
+            **_ctx(trace)))
         t5 = time.perf_counter()
         return self._record(drain=t1 - t0, wire=w1 + w2, apply=a1 + a2,
                             h2d=t3 - t2, d2h=t4 - t3, total=t5 - t0)
 
     @torch.no_grad()
-    def asgd(self) -> Dict[str, float]:
+    def asgd(self, trace=None) -> Dict[str, float]:
         """Push ``delta = p − anchor`` (the replicas' mean less the anchor
         in an island of more than one device); the new center returned is
-        the anchor and every replica's params."""
+        the anchor and every replica's params.  ``trace`` is the round
+        span's context."""
         t0 = time.perf_counter()
         self.sync()
         t1 = time.perf_counter()
@@ -422,9 +451,11 @@ class CenterLink:
             if self.lead:
                 self.dev_out.sub_(self.dev_in)
                 host = self._to_host()
+        self._note_dist(host)
         t2 = time.perf_counter()
         leaves, w, a = self._lead(lambda: self._call(
-            self.center.push_pull_leaves, host, self.island))
+            self.center.push_pull_leaves, host, self.island,
+            **_ctx(trace)))
         t3 = time.perf_counter()
         if self.lead:
             self.up(leaves)
@@ -533,13 +564,30 @@ class IslandRunner(threading.Thread):
         anchored = True
         if self.rule == "asgd":
             link.anchor()
+        # the operations planes: a round span a round (minted at the
+        # round's first step, ended after its exchange, its context riding
+        # the wire into the center's span), and with either plane on a
+        # recorder under the island's steps, whose load and stage buckets
+        # give the span a measured stage_s and, with telemetry on, the
+        # phase events
+        tr, tm = tracing.active(), telemetry.active()
+        rec = None
+        if tr.enabled or tm.enabled:
+            from ..utils.recorder import Recorder
+            rec = Recorder({"verbose": False, "rank": self.island_id})
+            rec.telemetry = tm
+        rnd, stage_base = None, 0.0
         count = 0
         t_round, slept = time.perf_counter(), 0.0
         # an island of more than one device stops where its rank 0 says,
         # after an exchange
         while grouped or not self.stop_event.is_set():
             count += 1
-            model.train_iter(count)
+            if rnd is None and tr.enabled:
+                rnd = tr.begin("round", island=self.island_id, count=count)
+                stage_base = rec.t_sec_total["load"] + \
+                    rec.t_sec_total["stage"]
+            model.train_iter(count, rec)
             self.steps_done += 1
             if self.throttle_s:
                 time.sleep(self.throttle_s)
@@ -549,32 +597,56 @@ class IslandRunner(threading.Thread):
             link.sync()
             self.round_s.append(time.perf_counter() - t_round - slept)
             self.costs.append(float(model.current_info["cost"]))
+            ctx = None
+            if rnd is not None:
+                rnd.note(train_s=round(time.time() - rnd.t0, 6),
+                         steps=self.sync_freq, rule=self.rule,
+                         stage_s=round(rec.t_sec_total["load"]
+                                       + rec.t_sec_total["stage"]
+                                       - stage_base, 6))
+                ctx = rnd.ctx()
+            outcome = "exchanged"
+            link.last_dist = None
             try:
                 if self.rule == "easgd":
-                    link.easgd()
+                    link.easgd(**_ctx(ctx))
                 elif anchored:
-                    link.asgd()
+                    link.asgd(**_ctx(ctx))
                 else:
                     # resync after an outage: the interrupted push_pull may
                     # have landed with its reply lost, and a delta against
                     # the old anchor would apply it twice: take the center
                     # as it is and start the accumulation again
-                    link.anchor(set_params=True)
+                    link.anchor(set_params=True, **_ctx(ctx))
                     anchored = True
                 self.exchanges_done += 1
             except WireGiveUp:
+                outcome = "skipped"
                 self.exchanges_skipped += 1
                 anchored = False
+                if tm.enabled:
+                    tm.counter("wire.exchange_skipped")
             except CenterUninitialized:
                 # the center came back without its state: re-seed it from
                 # this island's params and carry on
+                outcome = "reseeded"
                 self.exchanges_skipped += 1
+                if tm.enabled:
+                    tm.counter("wire.center_reseed")
                 try:
                     link.seed(mean=True)
                     if self.rule == "asgd":
                         link.anchor()
                 except (WireGiveUp, CenterUninitialized):
                     pass               # the next exchange tries again
+            if link.last_dist is not None and tm.enabled:
+                # islands share no collective: this island's ‖delta‖ to
+                # the center is its divergence proxy
+                tm.gauge("numerics.dist_center", link.last_dist)
+                tm.gauge("numerics.divergence", link.last_dist)
+            if rnd is not None:
+                rnd.end(outcome=outcome)
+                rnd = None
             if grouped and self._lead_says_stop(model.device):
                 break
             t_round, slept = time.perf_counter(), 0.0
@@ -622,8 +694,9 @@ class AsyncEASGDTrainer:
         for k in _A10_KEYS:
             if self.config.get(k):
                 raise NotImplementedError(
-                    f"async islands with {k!r}: leases, chaos and tracing "
-                    f"are not ported yet (ROADMAP A10)")
+                    f"async islands with {k!r}: leases, chaos, device "
+                    f"profiling and the fleet monitor are not ported yet "
+                    f"(ROADMAP A10)")
         if int(self.config.get("steps_per_call", 1)) != 1:
             raise NotImplementedError(
                 "async islands take one step a call (steps_per_call=1)")
@@ -637,6 +710,16 @@ class AsyncEASGDTrainer:
                 n_workers > 1 and self.config.get("init_method")):
             self._join_island(n_workers)
         proc = self._proc
+        # the process's telemetry (a launched rank's stream is its world
+        # rank's; in-process islands share one) and tracing, closed at the
+        # end of the run
+        self._telemetry = None
+        if any(self.config.get(k) for k in ("telemetry", "record_dir",
+                                            "tracing")):
+            tm = telemetry.init(dict(
+                self.config, rank=0 if proc is None else proc.world_rank))
+            tracing.init(self.config)
+            self._telemetry = tm if tm.enabled else None
         self._island_devices = self._devices()
         self.model_factory = model_factory
         self.stop_event = threading.Event()
@@ -790,6 +873,10 @@ class AsyncEASGDTrainer:
         if self._server is not None and not self.config.get(
                 "center_keep_serving"):
             self._server.stop()
+        if self._telemetry is not None:
+            self._telemetry.event("train_end", islands=len(self.islands))
+            self._telemetry.close()
+            self._telemetry = None
         for r in self.islands:
             if r.error is not None:
                 raise r.error

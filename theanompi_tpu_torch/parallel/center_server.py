@@ -28,9 +28,14 @@ takes pushes and pulls from an island of either package.  Ops: ``init``
 op), ``demote`` / ``readmit`` (a demoted island's pushes are dropped),
 ``stats``.  Replies carry the server's time split ``srv = {"q": lock
 wait, "a": apply}`` in seconds; ``stats`` adds the totals of both
-(``queue_s``, ``apply_s``, over ``n_ops`` ops).  The membership leases,
-the fleet monitor and telemetry (``--lease-dir``, ``--metrics-addr``,
-``--record-dir``) wait for ROADMAP A10 and are refused.
+(``queue_s``, ``apply_s``, over ``n_ops`` ops).  A request that carries
+the v2 ``trace`` context gets a ``center.<op>`` server span in the
+telemetry stream, parented to the client's ``wire.<op>`` span
+(``utils/tracing.py``).  ``center_main --record-dir`` streams the
+center's telemetry (rank -1) and serves a ``statusz`` endpoint
+registered there.  The membership leases and the fleet monitor
+(``--lease-dir``, ``--metrics-addr``) wait for ROADMAP A10 and are
+refused.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..utils import telemetry, tracing
 from . import wire
 from .async_easgd import ElasticCenter
 from .wire import (ConnectionClosed, CorruptPayload, DedupWindow,
@@ -207,16 +213,27 @@ class CenterServer:
         return out, {"q": round(q, 6), "a": round(a, 6)}
 
     def _dispatch(self, sock, header: dict, body: bytes) -> None:
-        """Answer one request (its optional ``trace`` field is ignored)."""
+        """Answer one request; one that carries the ``trace`` context gets
+        a ``center.<op>`` span, parented to the client's span (a dedup
+        twin's tagged ``dedup``)."""
         center, dedup = self.center, self.dedup
         op = header.get("op")
         tok = header.get("tok")
+        trc = header.get("trace")
+        t_acc = time.time()
 
-        def reply(hdr, rbody=b"", srv=None):
+        def reply(hdr, rbody=b"", srv=None, dedup_reply=False):
             h = dict(hdr)
             if srv is not None:
                 h["srv"] = srv
             wire.send_msg(sock, h, rbody)
+            tm = telemetry.active()
+            if trc and tm.enabled:
+                tracing.emit_server_span(
+                    tm, trc, str(op), t0=t_acc, dt=time.time() - t_acc,
+                    q=(srv or {}).get("q"), a=(srv or {}).get("a"),
+                    island=header.get("island"), dedup=dedup_reply,
+                    ok=bool(h.get("ok")))
 
         if op in ("push", "push_pull"):
             dup, cached = dedup.check(tok, op)
@@ -225,19 +242,21 @@ class CenterServer:
                     # the original is still being applied and may fail:
                     # the twin must retry the same token, not be acked
                     reply({"ok": False, "retry": True, "busy": True,
-                           "error": "request in flight — retry"})
+                           "error": "request in flight — retry"},
+                          dedup_reply=True)
                     return
                 # a retry of a request that landed: reply, don't reapply
                 hdr = dict(cached[0]) if cached is not None else {"ok": True}
                 hdr["dedup"] = True
                 if cached is not None and cached[1] is not None:
-                    reply(hdr, cached[1])
+                    reply(hdr, cached[1], dedup_reply=True)
                 elif op == "push":
-                    reply(hdr)
+                    reply(hdr, dedup_reply=True)
                 else:
                     # a push_pull replay: the current center, a valid
                     # (fresher) anchor for the downpour algebra
-                    reply(hdr, pack_leaves(center.pull_leaves()))
+                    reply(hdr, pack_leaves(center.pull_leaves()),
+                          dedup_reply=True)
                 return
         if op in ("pull", "push", "push_pull") and center._leaves is None:
             # a respawned center with no usable snapshot: say so
@@ -376,7 +395,9 @@ class RemoteCenter:
     one tokened round trip, retried with bounded backoff and reconnect
     through timeouts, drops, corruption and center restarts, and ending
     in :class:`~.wire.WireGiveUp` when the center stays unreachable past
-    the deadline.  ``last_srv`` is the last reply's server time split."""
+    the deadline.  ``last_srv`` is the last reply's server time split.
+    ``pull_leaves``, ``push_delta_leaves`` and ``push_pull_leaves`` take
+    the caller's span context (``trace``), which rides the request."""
 
     def __init__(self, addr: str, alpha: float = 0.5,
                  client_id=None, connect_timeout: float = 5.0,
@@ -396,20 +417,20 @@ class RemoteCenter:
     def ensure_init_leaves(self, leaves: List[np.ndarray]) -> None:
         self._wire.request({"op": "init"}, pack_leaves(leaves))
 
-    def pull_leaves(self) -> List[np.ndarray]:
-        _, body = self._wire.request({"op": "pull"})
+    def pull_leaves(self, trace: Optional[dict] = None) -> List[np.ndarray]:
+        _, body = self._wire.request({"op": "pull"}, trace=trace)
         return unpack_leaves(body)
 
-    def push_delta_leaves(self, deltas: List[np.ndarray],
-                          island: int) -> None:
+    def push_delta_leaves(self, deltas: List[np.ndarray], island: int,
+                          trace: Optional[dict] = None) -> None:
         self._wire.request({"op": "push", "island": int(island)},
-                           pack_leaves(deltas))
+                           pack_leaves(deltas), trace=trace)
 
-    def push_pull_leaves(self, deltas: List[np.ndarray],
-                         island: int) -> List[np.ndarray]:
+    def push_pull_leaves(self, deltas: List[np.ndarray], island: int,
+                         trace: Optional[dict] = None) -> List[np.ndarray]:
         _, body = self._wire.request({"op": "push_pull",
                                       "island": int(island)},
-                                     pack_leaves(deltas))
+                                     pack_leaves(deltas), trace=trace)
         return unpack_leaves(body)
 
     def demote_island(self, island: int) -> None:
@@ -456,17 +477,28 @@ def center_main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--idle-timeout", type=float, default=120.0)
     ap.add_argument("--max-seconds", type=float, default=0.0,
                     help="self-terminate after this long (0 = forever)")
-    # the JAX package's membership lease, telemetry and fleet monitor:
-    # refused below
-    for flag in ("--lease-dir", "--record-dir", "--metrics-addr"):
+    ap.add_argument("--record-dir", default=None,
+                    help="stream the center's telemetry (rank -1) and its "
+                         "server spans there; serve statusz")
+    ap.add_argument("--run-id", default=None)
+    ap.add_argument("--lease-id", type=int, default=0,
+                    help="the center's id in the statusz roster")
+    # the JAX package's membership lease and fleet monitor: refused below
+    for flag in ("--lease-dir", "--metrics-addr"):
         ap.add_argument(flag, default=None)
     args = ap.parse_args(argv)
-    for flag in ("lease_dir", "record_dir", "metrics_addr"):
+    for flag in ("lease_dir", "metrics_addr"):
         if getattr(args, flag):
             raise NotImplementedError(
-                f"--{flag.replace('_', '-')}: membership leases, telemetry "
-                f"and the fleet monitor are not ported yet (ROADMAP A10)")
+                f"--{flag.replace('_', '-')}: membership leases and the "
+                f"fleet monitor are not ported yet (ROADMAP A10)")
 
+    # flush every 2 events: the center emits few, valuable events (server
+    # spans) and may die by SIGKILL, which a 64-event buffer would lose
+    tm = telemetry.init({"record_dir": args.record_dir, "rank": -1,
+                         "run_id": args.run_id,
+                         "telemetry_flush_every": 2}) \
+        if args.record_dir else telemetry.active()
     srv = CenterServer(alpha=args.alpha, snapshot_dir=args.snapshot_dir,
                        snapshot_every_s=args.snapshot_every,
                        idle_timeout_s=args.idle_timeout)
@@ -475,6 +507,15 @@ def center_main(argv: Optional[List[str]] = None) -> int:
     print(f"center: serving on {host}:{port} "
           f"({'restored from snapshot' if restored else 'fresh'})",
           file=sys.stderr, flush=True)
+    statusz = None
+    if args.record_dir:
+        statusz = tracing.StatuszServer(
+            "center", ident=args.lease_id, run_dir=args.record_dir,
+            telemetry_=tm,
+            extra=lambda: {"n_updates": srv.center.n_updates,
+                           "dedup_hits": srv.dedup.hits,
+                           "addr": f"{host}:{port}"})
+        statusz.start()
     halt = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: halt.set())
     try:
@@ -486,6 +527,12 @@ def center_main(argv: Optional[List[str]] = None) -> int:
         if args.max_seconds and time.time() - t0 > args.max_seconds:
             break
     srv.stop(final_snapshot=True)
+    if statusz is not None:
+        statusz.stop()
+    if tm.enabled:
+        tm.event("train_end", center=True, n_updates=srv.center.n_updates,
+                 dedup_hits=srv.dedup.hits)
+        tm.close()
     print(f"center: stopped after {srv.center.n_updates} updates "
           f"({srv.dedup.hits} dedup hits)", file=sys.stderr, flush=True)
     return 0

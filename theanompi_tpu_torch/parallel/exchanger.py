@@ -52,12 +52,14 @@ names the state parts a checkpoint may keep once for all ranks.
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils import telemetry, tracing
 from ..utils.helper_funcs import tree_leaves, tree_map
 from . import buckets, topology
 from . import update_sharding as ushard
@@ -295,22 +297,45 @@ class Exchanger:
     def check_capture(self) -> None:
         """Raise when the exchange cannot be captured in a CUDA graph."""
 
+    def numerics_extra(self, params, extra) -> Dict[str, list]:
+        """What the numerics plane (``utils/numerics.py``) reads of the
+        rule, as leaf lists, all optional: ``beacon_tree``, a params-shaped
+        tree the rule keeps bit-identical on every rank (its digest is the
+        beacon); ``center``, the center the replica's distance is taken
+        to; ``ef_state``, a wire's error state.  The base rule trains
+        locally: nothing is replicated, nothing is a center."""
+        return {}
+
     def exchange(self, recorder=None, count: int = 0) -> None:
         """The worker's hook after each train step: the exchange when due
         (the model's ``exchange_fn``, :class:`steps.ExchangeStep`), timed
         into the recorder's ``comm`` bucket — its enqueueing, and with
         ``sync_each_iter`` its wait.  A no-op when the cadence is fused
-        into the train step's window."""
+        into the train step's window.  With tracing on it is an
+        ``exchange`` span; with telemetry on it feeds the
+        ``exchange.dispatch_secs`` histogram (the host's enqueueing) and
+        the ``exchange.count`` counters."""
         if self.fused or not self.due(count):
             return
+        tm = telemetry.active()
+        tr = tracing.active()
+        sp = tr.begin("exchange", count=count,
+                      rule=self.name) if tr.enabled else None
         if recorder:
             recorder.start()
+        t0 = time.time() if tm.enabled else 0.0
         self.model.exchange_fn(count)
+        if tm.enabled:
+            tm.observe("exchange.dispatch_secs", time.time() - t0)
+            tm.counter("exchange.count")
+            tm.counter(f"exchange.count.{self.name}")
         if recorder:
             if self.config.get("sync_each_iter", False) and \
                     self.model.device.type == "cuda":
                 torch.cuda.synchronize(self.model.device)
             recorder.end("comm")
+        if sp is not None:
+            sp.end()
 
     def canonical_params(self):
         """The parameters validation and the ``.npy`` snapshot read: the
@@ -440,6 +465,19 @@ class BSP_Exchanger(Exchanger):
     def has_exchange(self) -> bool:
         return self.mode == "params"
 
+    def numerics_extra(self, params, extra) -> Dict[str, list]:
+        """Grads mode with a reducing strategy: every rank applied the same
+        reduced gradient, so the params are the beacon (a stateful wire
+        too: its decoded mean is the same on every rank).  Params mode is
+        sampled before its exchange, and ``none`` reduces nothing: no
+        beacon.  A stateful wire's error state is ``ef_state``."""
+        out = {}
+        if self.mode == "grads" and self.strategy.name != "none":
+            out["beacon_tree"] = tree_leaves(params)
+        if self.strategy.stateful and "strat" in extra:
+            out["ef_state"] = tree_leaves(extra["strat"])
+        return out
+
     @torch.no_grad()
     def exchange_body(self, count: int, gen=None) -> None:
         """Params mode: the parameters replaced by the strategy's mean of
@@ -477,6 +515,13 @@ class _CenterExchanger(Exchanger):
 
     def has_exchange(self) -> bool:
         return True
+
+    def numerics_extra(self, params, extra) -> Dict[str, list]:
+        """The center, identical on every rank (each applies the same
+        summed delta): the beacon, and what ``‖w − c‖`` is taken to (the
+        full center under ``update_sharding``: a gather)."""
+        center = tree_leaves(self.unshard_extra(extra)["center"])
+        return {"beacon_tree": center, "center": center}
 
     @torch.no_grad()
     def canonical_params(self):

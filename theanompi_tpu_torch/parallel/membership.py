@@ -2,16 +2,20 @@
 
 Counterpart of ``theanompi_tpu/parallel/membership.py``, of which
 :class:`Backoff` (the wire client's retries and the launcher's supervised
-restarts sleep by it) and :class:`CrashLoopBreaker` (the launcher's
-``--crash-limit``) are ported, copies.  Worker leases, the elastic
-supervisor and the flight-recorder tail are not ported yet (ROADMAP A10).
+restarts sleep by it), :class:`CrashLoopBreaker` (the launcher's
+``--crash-limit``) and :func:`flight_tail_lines` (what the supervisor
+prints of a dead world's flight recording) are ported, copies.  Worker
+leases and the elastic supervisor are not ported yet (ROADMAP A10).
 """
 
 from __future__ import annotations
 
+import glob
+import json
+import os
 import random
 from collections import deque
-from typing import Optional
+from typing import List, Optional
 
 from ..utils.clock import WALL
 
@@ -60,3 +64,31 @@ class CrashLoopBreaker:
         while self._times and now - self._times[0] > self.window_s:
             self._times.popleft()
         return len(self._times) >= self.limit
+
+
+def flight_tail_lines(record_dir: str, n: int = 12) -> List[str]:
+    """The last ``n`` events of the NEWEST flight recording under
+    ``record_dir`` (crash sweeps included), one per line: what a crash-loop
+    exit prints so the death isn't silent."""
+    paths = (glob.glob(os.path.join(record_dir, "flight_rank*.jsonl")) +
+             glob.glob(os.path.join(record_dir, "crash_*",
+                                    "flight_rank*.jsonl")))
+    if not paths:
+        return []
+    newest = max(paths, key=os.path.getmtime)
+    lines: List[str] = [f"flight tail ({newest}):"]
+    try:
+        with open(newest) as f:
+            raw = [ln.strip() for ln in f if ln.strip()]
+    except OSError:
+        return []
+    for ln in raw[-n:]:
+        try:
+            ev = json.loads(ln)
+        except ValueError:
+            continue
+        detail = {k: v for k, v in ev.items()
+                  if k not in ("ts", "run", "rank", "ev")}
+        lines.append(f"  ts={ev.get('ts')} rank={ev.get('rank')} "
+                     f"{ev.get('ev')} {detail}")
+    return lines

@@ -54,6 +54,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils import numerics
 from ..utils.helper_funcs import tree_leaves, tree_map
 from . import graph as graph_lib
 
@@ -149,7 +150,7 @@ class _Captured:
 
     def __init__(self):
         self._stream = None
-        self._graphs: Dict[int, tuple] = {}   # key -> (graph, out, state)
+        self._graphs: Dict[object, tuple] = {}   # key -> (graph, out, state)
         self._graph: Optional[graph_lib.StepGraph] = None   # the last used
         self._captured_state = None
 
@@ -171,7 +172,7 @@ class _Captured:
         return captured is not None and len(now) == len(captured) and \
             all(a is b for a, b in zip(now, captured))
 
-    def _run_captured(self, key: int, eager: Callable, static: Callable,
+    def _run_captured(self, key, eager: Callable, static: Callable,
                       gens) -> Optional[torch.Tensor]:
         """A replay of ``key``'s graph while its state is current (its
         outputs cloned: the next replay rewrites them); else this call run
@@ -252,6 +253,21 @@ class TrainStep(_Captured):
         self._lr_host = None
         self._static: Optional[Dict[str, torch.Tensor]] = None
         self._stager: Optional[PinnedStager] = None
+        # the numerics plane (None when off): the sampled step of the
+        # current call (-1: none), its count on the device, this rank's
+        # sample and every worker's ([n, len(SAMPLE_KEYS)], the aux)
+        self._nx = numerics.graph_plan(model, exchanger)
+        self._nx_j = -1
+        self.nx_sampled = False
+        if self._nx is not None:
+            k = len(numerics.SAMPLE_KEYS)
+            n = self.size if exchanger.collective else 1
+            self._nx_it = torch.zeros((), dtype=torch.float32,
+                                      device=self.device)
+            self._nx_sample = torch.zeros(k, dtype=torch.float32,
+                                          device=self.device)
+            self.nx_buf = self._nx_sample.view(1, k) if n == 1 else \
+                torch.zeros(n, k, dtype=torch.float32, device=self.device)
         _Captured.__init__(self)
 
     # -- inputs --------------------------------------------------------------
@@ -300,8 +316,13 @@ class TrainStep(_Captured):
 
     def _body(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """``n_steps`` full steps in place; ``[2, n_steps]`` costs and
-        errors, means over the ranks."""
+        errors, means over the ranks.  With the numerics plane, step
+        ``self._nx_j`` is sampled (its gradient's statistics before the
+        update, a float32 copy of its params before the update, the sample
+        after it, before the step's exchange) and the sample is gathered
+        over the ranks."""
         m = self.model
+        nx, js = self._nx, self._nx_j
         costs, errs = [], []
         for j in range(self.n_steps):
             b = batch if self.n_steps == 1 else \
@@ -313,6 +334,9 @@ class TrainStep(_Captured):
                     m.loss_and_metrics, m.params, m.bn_state, b,
                     self._gens[j], self.n_subb)
                 m.reduce_model_grads(tree_leaves(grads))
+                if j == js:
+                    gstats = nx.grad_stats(tree_leaves(grads))
+                    before = nx.keep_old(tree_leaves(m.params))
                 old = m.snapshot_update(m.params, m.opt_state) \
                     if self._counts is not None else None
                 self.exchanger.step_update(m.params, m.opt_state, grads,
@@ -321,12 +345,18 @@ class TrainStep(_Captured):
                     m.postprocess_update(old, m.params, m.opt_state,
                                          self._counts[j])
             self.exchanger.sync_bn(m.bn_state)
+            if j == js:
+                nx.compute(before, tree_leaves(m.params), gstats, m.extra,
+                           self._nx_it, self._nx_sample)
             c = self._first + j
             if self._exch is not None and c % self._exch.exchange_freq == 0:
                 self._exch.exchange_body(
                     c, self._xgens[j] if self._xgens else None)
             costs.append(cost)
             errs.append(err)
+        if js >= 0 and self.nx_buf.shape[0] > 1:
+            from .update_sharding import all_gather_into
+            all_gather_into(self.nx_buf.view(-1), self._nx_sample)
         out = torch.stack(costs + errs)
         if self.exchanger.collective:
             dist.all_reduce(out)
@@ -358,6 +388,30 @@ class TrainStep(_Captured):
         return self._first % self._exch.exchange_freq \
             if self._exch is not None else 0
 
+    def _numerics_step(self) -> None:
+        """The numerics plane's host predicate for this call: which step
+        it samples (the last whose count is due; -1 for none, and then the
+        call replays the plane-off graph), its count on the device, and
+        whether the aux holds a sample after the call."""
+        j = self._nx.sampled_step(self._first, self.n_steps)
+        self._nx_j = j
+        self.nx_sampled = j >= 0
+        if j >= 0:
+            self._nx_it.fill_(float(self._first + j))
+
+    def numerics_aux(self):
+        """The last call's per-worker sample (the JAX package's aux: a dict
+        of ``[n_workers]`` columns; device tensors after a sampled call,
+        the template after one that sampled nothing); None when the plane
+        is off."""
+        if self._nx is None:
+            return None
+        if self.nx_sampled:
+            return numerics.aux_dict(self.nx_buf)
+        t = self._nx.template()
+        return {k: [t[i]] * self.nx_buf.shape[0]
+                for i, k in enumerate(numerics.SAMPLE_KEYS)}
+
     def __call__(self, batch, lr, count: int):
         inputs = batch if batch is self._static else self.take(batch)
         lr = float(lr)
@@ -372,12 +426,16 @@ class TrainStep(_Captured):
                                     first + j))
         for j, g in enumerate(self._xgens):
             self._exch.seed_draws(g, first + j)
+        key = self._phase()
+        if self._nx is not None:
+            self._numerics_step()
+            key = (key, self._nx_j)
         if not self.graphed:
             out = self._body(inputs)
         else:
             if self._exch is not None:
                 self._exch.check_capture()
-            out = self._run_captured(self._phase(),
+            out = self._run_captured(key,
                                      lambda: self._body(inputs),
                                      lambda: self._body(self._static),
                                      self._gens + self._xgens)

@@ -24,13 +24,18 @@ byte on the wire is the same:
   timeouts, bounded exponential-backoff retries (``membership.Backoff``)
   and transparent reconnect.
 
-Version 2's optional header fields: a request MAY carry ``trace`` (the
-JAX package's causal-tracing context), which the port's server accepts
-and ignores; a reply MAY carry ``srv = {"q": queue_s, "a": apply_s}``,
-the server's time split, which the port's server stamps and its client
-keeps (``WireClient.last_srv``).  Telemetry and tracing are not ported
-(ROADMAP A10): where the JAX client ticks telemetry counters, the port's
-counts in :attr:`WireClient.counters`.
+Version 2's optional header fields: a request MAY carry ``trace``
+(``{"t": trace_id, "s": span_id}``, the causal-tracing context): the
+client stamps it when its caller passes a span's context, and the server
+parents its ``center.<op>`` span to it; a reply MAY carry ``srv = {"q":
+queue_s, "a": apply_s}``, the server's time split, which the port's
+server stamps and its client keeps (``WireClient.last_srv``).  With
+telemetry on (``utils/telemetry.py``) the client feeds the JAX package's
+``wire.retry`` / ``wire.timeout`` / ``wire.corrupt`` / ``wire.reconnect``
+/ ``wire.giveup`` counters, the ``wire.rtt``, ``wire.server_queue`` and
+``wire.server_apply`` histograms, the ``wire.outage_s`` gauge and the
+``wire`` events; :attr:`WireClient.counters` counts the same five names
+whether telemetry is on or not.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..utils import telemetry, tracing
 from ..utils.clock import WALL
 
 #: Protocol version stamped into every header; both ends refuse a
@@ -56,6 +62,9 @@ WIRE_VERSION = 2
 #: What the client counts (the JAX package's telemetry counter names,
 #: without the ``wire.`` prefix).
 WIRE_COUNTERS = ("retry", "timeout", "corrupt", "reconnect", "giveup")
+
+#: The wire's telemetry event kind (an outage's end, a give-up).
+WIRE_EVENT = "wire"
 
 # sanity bounds: a corrupted length prefix must not allocate the universe
 # (the body bound sits below a u32's range, so it can trigger)
@@ -251,18 +260,23 @@ class DedupWindow:
             if window is not None and (op, seq) in window:
                 self.hits += 1
                 entry = window[(op, seq)]
-                return True, INFLIGHT if entry is None else entry
-            if seq <= self.seq_hwm.get(w, -1):
+                hit = INFLIGHT if entry is None else entry
+            elif seq <= self.seq_hwm.get(w, -1):
                 # an old retry (or a post-restart replay) of a request that
                 # landed: the mark only advances in record(), so applied
                 self.hits += 1
-                return True, None
-            if window is None:
-                window = self._seen[w] = OrderedDict()
-            window[(op, seq)] = None        # claim
-            while len(window) > self.depth:
-                window.popitem(last=False)
-            return False, None
+                hit = None
+            else:
+                if window is None:
+                    window = self._seen[w] = OrderedDict()
+                window[(op, seq)] = None        # claim
+                while len(window) > self.depth:
+                    window.popitem(last=False)
+                return False, None
+        tm = telemetry.active()
+        if tm.enabled:
+            tm.counter("wire.dedup_hit")
+        return True, hit
 
     def record(self, token: Optional[dict], op: str,
                reply_header: dict, reply_body: Optional[bytes] = b"",
@@ -341,7 +355,7 @@ class WireClient:
     def __init__(self, addr: str, client_id: Any = None, *,
                  op_timeout_s: float = 20.0, connect_timeout_s: float = 5.0,
                  max_retries: int = 8, deadline_s: float = 120.0,
-                 backoff=None, clock=None):
+                 backoff=None, clock=None, telemetry_=None):
         host, port = str(addr).rsplit(":", 1)
         self.addr = (host, int(port))
         self.clock = clock or WALL
@@ -355,6 +369,7 @@ class WireClient:
             from .membership import Backoff
             backoff = Backoff(base=0.2, factor=2.0, cap=5.0)
         self.backoff = backoff
+        self.telemetry = telemetry_
         self.counters: Dict[str, int] = {k: 0 for k in WIRE_COUNTERS}
         #: the last successful reply's ``srv`` time split (None if absent)
         self.last_srv: Optional[dict] = None
@@ -365,6 +380,12 @@ class WireClient:
         # eviction and center restarts — a fresh incarnation counting from
         # 0 would have every push deduped as an old retry
         self._seq = int(self.clock.now() * 1000)
+        self._outage_t0: Optional[float] = None
+        self._last_attempts = 1       # attempts of the last request
+
+    def _tm(self):
+        return self.telemetry if self.telemetry is not None \
+            else telemetry.active()
 
     def _connect(self) -> socket.socket:
         s = socket.create_connection(self.addr,
@@ -380,14 +401,81 @@ class WireClient:
                 pass
             self._sock = None
 
-    def request(self, header: dict, body: bytes = b"") -> Tuple[dict, bytes]:
+    def _count(self, name: str) -> None:
+        """One of :data:`WIRE_COUNTERS`, here and in the registry."""
+        self.counters[name] += 1
+        tm = self._tm()
+        if tm.enabled:
+            tm.counter("wire." + name)
+
+    def _note_ok(self, dt: float, srv: Optional[dict]) -> None:
+        tm = self._tm()
+        if self._outage_t0 is not None:
+            outage = self.clock.now() - self._outage_t0
+            self._outage_t0 = None
+            if tm.enabled:
+                tm.gauge("wire.outage_s", round(outage, 3))
+                tm.event("gauges", **{"wire.outage_s": round(outage, 3)})
+                tm.event(WIRE_EVENT, kind="outage", w=self.client_id,
+                         secs=round(outage, 3))
+        if tm.enabled:
+            tm.observe("wire.rtt", dt)
+            if srv:
+                # the reply's time split: the RTT into wire transit, the
+                # center's queue and its apply, with tracing off too
+                if srv.get("q") is not None:
+                    tm.observe("wire.server_queue", float(srv["q"]))
+                if srv.get("a") is not None:
+                    tm.observe("wire.server_apply", float(srv["a"]))
+
+    def _note_fail(self, counter: Optional[str] = None) -> None:
+        if self._outage_t0 is None:
+            self._outage_t0 = self.clock.now()
+        if counter:
+            self._count(counter)
+
+    def request(self, header: dict, body: bytes = b"",
+                trace: Optional[dict] = None) -> Tuple[dict, bytes]:
         """One request/response round trip, retried through failures; the
-        token stamped here makes a re-sent mutating op apply once."""
+        token stamped here makes a re-sent mutating op apply once.
+
+        ``trace`` (a span's ``ctx()``) mints ONE ``wire.<op>`` span id
+        here and stamps ``{"t": trace, "s": span}`` into the header, so
+        every retry re-sends the same ids and the server's spans join this
+        client span; the span event (with telemetry on) carries the whole
+        round trip, the server's ``q``/``a`` split and the retry count, and
+        a give-up ends it with ``ok=false``."""
         h = dict(header)
+        op = str(header.get("op"))
         with self._lock:
             h["tok"] = {"w": self.client_id, "seq": self._seq}
             self._seq += 1
-            return self._request_locked(h, body)
+            sid = None
+            if trace is not None:
+                sid = tracing.new_span_id()
+                h["trace"] = {"t": trace.get("t"), "s": sid}
+            t_req = time.time()
+            try:
+                resp, rbody = self._request_locked(h, body)
+            except BaseException as e:
+                tm = self._tm()
+                if trace is not None and tm.enabled:
+                    tracing.emit_wire_span(
+                        tm, trace, op, span=sid, t0=t_req,
+                        dt=time.time() - t_req, ok=False,
+                        err=repr(e)[:120],
+                        retries=self._last_attempts - 1)
+                raise
+            if trace is not None:
+                tm = self._tm()
+                if tm.enabled:
+                    srv = resp.get("srv") or {}
+                    tracing.emit_wire_span(
+                        tm, trace, op, span=sid, t0=t_req,
+                        dt=time.time() - t_req, q=srv.get("q"),
+                        a=srv.get("a"), dedup=bool(resp.get("dedup")),
+                        ok=True, retries=self._last_attempts - 1)
+            return resp, rbody
 
     def _request_locked(self, header: dict, body: bytes
                         ) -> Tuple[dict, bytes]:
@@ -396,8 +484,9 @@ class WireClient:
         attempts = 0
         for attempt in range(self.max_retries + 1):
             attempts = attempt + 1
+            self._last_attempts = attempts
             if attempt:
-                self.counters["retry"] += 1
+                self._note_fail("retry")
                 delay = self.backoff.delay(attempt - 1)
                 if self.clock.now() + delay - t_start > self.deadline_s:
                     break
@@ -406,7 +495,8 @@ class WireClient:
                 if self._sock is None:
                     self._sock = self._connect()
                     if attempt:
-                        self.counters["reconnect"] += 1
+                        self._count("reconnect")
+                t0 = time.time()
                 send_msg(self._sock, header, body)
                 resp, rbody = recv_msg(self._sock)
                 if not resp.get("ok"):
@@ -416,7 +506,7 @@ class WireClient:
                         # token again
                         last_err = WireError(str(resp.get("error")))
                         if not resp.get("busy"):
-                            self.counters["corrupt"] += 1
+                            self._note_fail("corrupt")
                         continue
                     if resp.get("uninit"):
                         raise CenterUninitialized(
@@ -424,27 +514,33 @@ class WireClient:
                     raise RemoteOpError(
                         f"center server error: {resp.get('error')}")
                 self.last_srv = resp.get("srv")
+                self._note_ok(time.time() - t0, self.last_srv)
                 return resp, rbody
             except socket.timeout as e:
                 # the reply may still be in flight: the stream is no
                 # longer frame-aligned, so the connection is dropped
                 last_err = e
-                self.counters["timeout"] += 1
+                self._note_fail("timeout")
                 self._drop()
             except CorruptPayload as e:
                 # the reply's body was corrupted; framing stayed aligned
                 last_err = e
-                self.counters["corrupt"] += 1
+                self._note_fail("corrupt")
             except VersionMismatch:
                 self._drop()
                 raise
             except (WireError, OSError) as e:
                 last_err = e
+                self._note_fail()
                 self._drop()
             if self.clock.now() - t_start > self.deadline_s:
                 break
         self._drop()
-        self.counters["giveup"] += 1
+        self._count("giveup")
+        tm = self._tm()
+        if tm.enabled:
+            tm.event(WIRE_EVENT, kind="giveup", w=self.client_id,
+                     op=str(header.get("op")), err=repr(last_err)[:200])
         raise WireGiveUp(
             f"center {self.addr[0]}:{self.addr[1]} unreachable: gave up "
             f"on op {header.get('op')!r} after {attempts} attempts / "

@@ -1,10 +1,14 @@
 """Wall-clock section timing + metric accumulation.
 
-Counterpart of ``theanompi_tpu/utils/recorder.py`` without its telemetry
-hook: per-iteration section timers, images/sec, train cost/error and val
-top-1/top-5 accumulation, printing every ``printFreq`` iterations, and
-per-epoch dumps that a resumed run loads back.  The reference reported
-"time per 5120 images", so the bucket names and that unit are kept.
+Counterpart of ``theanompi_tpu/utils/recorder.py``: per-iteration section
+timers, images/sec, train cost/error and val top-1/top-5 accumulation,
+printing every ``printFreq`` iterations, and per-epoch dumps that a
+resumed run loads back.  The reference reported "time per 5120 images",
+so the bucket names and that unit are kept.  With telemetry on
+(``utils/telemetry.py``; the worker points :attr:`Recorder.telemetry` at
+the live registry) every ``end(section)`` feeds one ``phase.<section>``
+histogram sample and one ``phase`` event, and every printed train or
+validation record becomes a ``train_record`` or ``val_record`` event.
 
 Train metrics arrive as device scalars and are read back (``float`` of a
 tensor) only at print cadence, so the card's queue stays full between
@@ -21,14 +25,19 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from . import telemetry
+
 IMAGES_PER_REPORT = 5120
 
-# the JAX package's telemetry.PHASES
-SECTIONS = ("compile", "train", "comm", "wait", "load", "stage", "val")
+SECTIONS = telemetry.PHASES
 RECORD_KEYS = tuple("t_" + s for s in SECTIONS if s != "val")
 
 
 class Recorder:
+    # the process-wide telemetry registry (the worker points this at the
+    # live one); the inert default costs one attribute check a bracket
+    telemetry = telemetry.DISABLED
+
     def __init__(self, config: Optional[dict] = None):
         config = config or {}
         self.verbose: bool = config.get("verbose", True)
@@ -65,6 +74,8 @@ class Recorder:
         self.t_sec[section] += dt
         self.t_sec_total[section] += dt
         self._t0 = None
+        if self.telemetry.enabled:
+            self.telemetry.phase(section, dt)
         return dt
 
     def reset_rate(self) -> None:
@@ -122,6 +133,8 @@ class Recorder:
                    time_per_5120=self.time_per_5120(),
                    wall=time.time() - self._wall_start)
         self._all_records.append(rec)
+        if self.telemetry.enabled:
+            self.telemetry.event("train_record", **rec)
         if self.verbose and self.rank == 0:
             print(f"iter {count}: cost {cost:.4f} err {err:.4f} | "
                   f"train {rec['t_train']:.3f}s comm {rec['t_comm']:.3f}s "
@@ -151,6 +164,8 @@ class Recorder:
             "t_compile": self.t_sec_total["compile"],
         }
         self.epoch_records.append(rec)
+        if self.telemetry.enabled:
+            self.telemetry.event("val_record", **rec)
         if self.verbose and self.rank == 0:
             print(f"validation @ iter {count}: cost {rec['val_cost']:.4f} "
                   f"top-1 err {rec['val_error']:.4f} "

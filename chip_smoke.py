@@ -18,6 +18,7 @@
     python3 chip_smoke.py --pp-stage      # B10–B12 at a pp stage's shape
     python3 chip_smoke.py --ep-rank       # one ep = tp 2 rank's MoE block
     python3 chip_smoke.py --ops           # the operations planes (A10)
+    python3 chip_smoke.py --elastic       # the elastic islands (A10 3, 4a)
 
 1. Fails (exit 2, no result) without CUDA; prints the card's name and power
    limit as ``nvidia-smi`` reports them.
@@ -260,13 +261,33 @@
     rendezvous on cuda:0, launch 2 B1 a forward and 2 B2 a backward, and
     end with the params of the same config trained through ``BSP()`` in
     this process, bit for bit; then ``--supervise 2 --backoff 0.1`` over
-    2 epochs with a checkpoint each, once left alone and once with its
-    worker SIGKILLed as ``LATEST`` reads 0: the killed run restarts,
-    resumes from epoch 0 and ends with the unkilled run's final
-    checkpoint, bit for bit; and one rank more than the visible GPUs is
-    refused before anything is spawned.  Prints the seconds from launch
-    to the first step, the step ms beside the in-process session's, and
-    the seconds from the SIGKILL to the first resumed step.
+    2 epochs with a checkpoint each, once left alone and, beside it on
+    the card at the same time, once with its worker SIGKILLed as
+    ``LATEST`` reads 0: the killed run restarts, resumes from epoch 0 and
+    ends with the unkilled run's final checkpoint, bit for bit; and one
+    rank more than the visible GPUs is refused before anything is
+    spawned.  Prints the seconds from launch to the first step, the step
+    ms beside the in-process session's, and the seconds from the SIGKILL
+    to the first resumed step.
+28a. The elastic islands (A10 items 3 and 4a; ``--elastic`` runs them
+    alone): one ``run_elastic`` EASGD run, 2 islands of AlexNet b128
+    (``ElasticAlexNet``: full width, bf16, captured, the numerics plane
+    on, traced) in processes of their own around a supervised center
+    process, the fleet monitor on, under a progress-gated chaos schedule
+    (``ELASTIC_FAULTS``): island 1 SIGKILLed, then island 2's first params
+    leaf corrupted in place.  Checks exit 0 and both faults landed;
+    island 1's ``worker_leave`` and its ``worker_join`` with ``rejoin``,
+    its respawn starting from the center's params; in each island process
+    that exited (the respawned one included) params on cuda:0, finite, a
+    finite cost, a captured step and B1/B2 launched twice a step;
+    ``replica_divergence`` on island 2, none before the corruption, and
+    ``audit_alerts`` ok; the fleet monitor's exposition (its collector
+    restored from its last snapshot) holding, for each island, a line of
+    every series an island streams, ``hbm_headroom_bytes`` positive from
+    the card; a finite ``center_final.npz``.  Prints the seconds from the kill to the leave,
+    to the rejoin, to the respawn's first step and first exchange, from
+    the corruption to its application and to the alert, and the islands'
+    steps a second before and after the faults.
 29. The exchange wire's remaining forms (A7; ``--wire`` runs these
     alone), world 1 over NCCL, cuDNN deterministic, each run from the
     same seed: AlexNet b128 8 captured steps under ``exch_mode='params'``
@@ -353,6 +374,9 @@ TF32 is off for the whole run (float32 comparisons need it off; the main
 paths compute in bfloat16 and are unaffected).
 """
 
+import atexit
+import concurrent.futures
+import contextlib
 import ctypes
 import gc
 import json
@@ -361,6 +385,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
@@ -1456,6 +1481,9 @@ def times_main(flags) -> int:
     if "--launcher" in flags:
         _kernel_build.build(["lrn"])
         out["launcher"] = launcher_main(card)
+    if "--elastic" in flags:
+        _kernel_build.build(["lrn"])
+        out["elastic"] = elastic_main(card)
     if "--wire" in flags:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -3751,7 +3779,9 @@ ALEX_MODEL = ("theanompi_tpu_torch.models.alex_net", "AlexNet")
 # every island shares the one card, with the main paths' seed; the
 # synthetic set of 8 batches wraps; the islands' budget (run_seconds)
 # covers the model's build and capture too: the straggler starts its 4th
-# step (its first exchange) only if its start-up took under 24 − 3·3 s
+# step (its first exchange) only if its start-up took under 24 − 3·3 s;
+# at 20 s the fast island made 3 exchanges of its least 3 and the phase
+# took no less time
 ISLAND_CFG = dict(device="cuda:0", alpha=0.5, synthetic_batches=8, seed=0,
                   verbose=False)
 ISLAND_SECONDS = 24
@@ -3804,13 +3834,17 @@ def free_port() -> int:
 
 
 def start_center(port: int) -> subprocess.Popen:
-    """The port's center as a process of its own (``center_main``), once
-    it accepts connections."""
-    import socket
-    p = subprocess.Popen(
+    """The port's center as a process of its own (``center_main``),
+    started; :func:`wait_center` waits for it to accept connections."""
+    return subprocess.Popen(
         [sys.executable, "-m", "theanompi_tpu_torch.parallel.center_server",
          "--port", str(port), "--alpha", str(ISLAND_CFG["alpha"])],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def wait_center(p: subprocess.Popen, port: int) -> subprocess.Popen:
+    """``p`` once the center accepts connections on ``port``."""
+    import socket
     deadline = time.time() + 60
     while True:
         if p.poll() is not None:
@@ -3925,7 +3959,9 @@ def island_procs_phase(name, rule, model, cfg, least: int = 3) -> dict:
     center in a third (``center_main`` on a free port); island 1 is the
     straggler.  Checks every island's params (on the card, finite), its
     launches, the straggler not blocking, the center's count and its
-    leaves (finite, moved)."""
+    leaves (finite, moved).  The center process starts beside the
+    islands' (an island's first call rides the wire's retries until it
+    answers)."""
     port = free_port()
     center = start_center(port)
     addr = f"127.0.0.1:{port}"
@@ -3940,6 +3976,7 @@ def island_procs_phase(name, rule, model, cfg, least: int = 3) -> dict:
                              island_throttle=STRAGGLER_S if i else 0.0))],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
             for i in range(2)]
+        wait_center(center, port)
         outs = []
         for i, p in enumerate(procs):
             out, err = p.communicate(timeout=base["run_seconds"] + 240)
@@ -4310,13 +4347,16 @@ def read_latest(ckpt: str):
 
 def launcher_supervise_phase() -> dict:
     """``--supervise 2 --backoff 0.1``, 2 epochs of SUPERVISE_STEPS with a
-    checkpoint each: a run left alone, then one whose worker (the
-    launcher's child, not the launcher) is SIGKILLed once ``LATEST``
-    reads 0.  The killed run exits 0 after restarting in the backoff and
-    resuming from epoch 0, ends at ``LATEST`` 1, and its final checkpoint
-    equals the other's array for array, bit for bit.  Returns the seconds
-    from the SIGKILL to the resumed process's first step (synchronized):
-    the time to recover."""
+    checkpoint each: a run left alone and, beside it on the card at the
+    same time, one whose worker (the launcher's child, not the launcher)
+    is SIGKILLed once ``LATEST`` reads 0.  The unkilled run never
+    restarts and ends at ``LATEST`` 1; the killed run exits 0 after
+    restarting in the backoff and resuming from epoch 0, ends at
+    ``LATEST`` 1, and its final checkpoint equals the other's array for
+    array, bit for bit (cuDNN deterministic: sharing the card changes no
+    bit).  Returns the seconds from the SIGKILL to the resumed process's
+    first step (synchronized): the time to recover, with the unkilled run
+    sharing the card and the host."""
     import signal
     cfg = dict(LAUNCH_CFG, synthetic_batches=SUPERVISE_STEPS, epochs=2,
                printFreq=SUPERVISE_STEPS)
@@ -4324,15 +4364,12 @@ def launcher_supervise_phase() -> dict:
     for d in dirs.values():
         shutil.rmtree(d, ignore_errors=True)
     args = ("--n-workers", "1", "--supervise", "2", "--backoff", "0.1")
-    r = subprocess.run(launcher_cmd(*args, **cfg, ckpt_dir=dirs["whole"]),
-                       cwd=HERE, capture_output=True, text=True, timeout=600)
-    whole_log = r.stdout + r.stderr
-    if r.returncode != 0 or "restarting in" in whole_log or \
-            read_latest(dirs["whole"]) != "1":
-        raise AssertionError(f"unkilled supervised run exited "
-                             f"{r.returncode}:\n{whole_log[-4000:]}")
+    whole_path = os.path.join(LAUNCH_DIR, "whole.log")
     log_path = os.path.join(LAUNCH_DIR, "killed.log")
-    with open(log_path, "w") as log:
+    with open(whole_path, "w") as whole_log, open(log_path, "w") as log:
+        whole = subprocess.Popen(
+            launcher_cmd(*args, **cfg, ckpt_dir=dirs["whole"]), cwd=HERE,
+            stdout=whole_log, stderr=subprocess.STDOUT, text=True)
         sup = subprocess.Popen(
             launcher_cmd(*args, **cfg, ckpt_dir=dirs["killed"]), cwd=HERE,
             stdout=log, stderr=subprocess.STDOUT, text=True)
@@ -4349,14 +4386,22 @@ def launcher_supervise_phase() -> dict:
             t_kill = time.time()
             os.kill(worker[0], signal.SIGKILL)
             rc = sup.wait(timeout=600)
+            rc_whole = whole.wait(timeout=600)
         finally:
-            if sup.poll() is None:
-                sup.terminate()         # the launcher stops its ranks
-                try:
-                    sup.wait(timeout=30)
-                except subprocess.TimeoutExpired:
-                    sup.kill()
-                    sup.wait()
+            for p in (sup, whole):
+                if p.poll() is None:
+                    p.terminate()       # the launcher stops its ranks
+                    try:
+                        p.wait(timeout=30)
+                    except subprocess.TimeoutExpired:
+                        p.kill()
+                        p.wait()
+    with open(whole_path) as f:
+        whole_out = f.read()
+    if rc_whole != 0 or "restarting in" in whole_out or \
+            read_latest(dirs["whole"]) != "1":
+        raise AssertionError(f"unkilled supervised run exited "
+                             f"{rc_whole}:\n{whole_out[-4000:]}")
     with open(log_path) as f:
         out = f.read()
     if rc != 0 or "restarting in" not in out or \
@@ -4392,34 +4437,376 @@ def launcher_refusal_phase() -> dict:
 
 def launcher_main(card: str) -> dict:
     """The launcher phases: world 1 over NCCL through the launcher against
-    the in-process session, the supervised SIGKILL, the refusal; prints
-    their numbers."""
+    the in-process session, the supervised SIGKILL, the refusal (a launcher
+    of its own, run beside the others); prints their numbers.  World 1's
+    launch shares the host with the refusal's launcher, and the killed
+    supervised run the card with the unkilled one, so their seconds are
+    taken under that contention."""
     gc.collect()
     torch.cuda.empty_cache()         # the launched rank shares the card
-    t0 = time.time()
-    res = {"world1": launcher_world1_phase()}
-    w = res["world1"]
-    w["secs"] = time.time() - t0
-    print(f"launcher world 1 (NCCL over the launcher's TCP rendezvous, "
-          f"{w['device']}): AlexNet b{BATCH} {STEPS} steps, launch to first "
-          f"step {w['launch_to_first_step_s']:.1f} s, step "
-          f"{w['child_step_ms']:.2f} ms (in-process session "
-          f"{w['session_step_ms']:.2f} ms), launches "
-          f"{ {k: v for k, v in w['launches'].items() if v} }, "
-          f"{w['leaves_bit_equal']} param leaves bit-equal to the session "
-          f"on {card}", flush=True)
-    t0 = time.time()
-    res["supervise"] = s = launcher_supervise_phase()
-    s["secs"] = time.time() - t0
-    print(f"launcher --supervise: SIGKILL after epoch 0's checkpoint, "
-          f"'{s['restart_line']}', first resumed step {s['recover_s']:.1f} s "
-          f"after the kill, final checkpoint bit-equal to the unkilled run "
-          f"({s['arrays_bit_equal']} arrays) on {card}", flush=True)
-    res["refusal"] = f = launcher_refusal_phase()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        refusal = pool.submit(launcher_refusal_phase)
+        t0 = time.time()
+        res = {"world1": launcher_world1_phase()}
+        w = res["world1"]
+        w["secs"] = time.time() - t0
+        print(f"launcher world 1 (NCCL over the launcher's TCP rendezvous, "
+              f"{w['device']}): AlexNet b{BATCH} {STEPS} steps, launch to "
+              f"first step {w['launch_to_first_step_s']:.1f} s (beside the "
+              f"refusal's launcher), step {w['child_step_ms']:.2f} ms "
+              f"(in-process session {w['session_step_ms']:.2f} ms), launches "
+              f"{ {k: v for k, v in w['launches'].items() if v} }, "
+              f"{w['leaves_bit_equal']} param leaves bit-equal to the "
+              f"session on {card}", flush=True)
+        t0 = time.time()
+        res["supervise"] = s = launcher_supervise_phase()
+        s["secs"] = time.time() - t0
+        print(f"launcher --supervise: SIGKILL after epoch 0's checkpoint, "
+              f"'{s['restart_line']}', first resumed step "
+              f"{s['recover_s']:.1f} s after the kill (beside the unkilled "
+              f"supervised run on the card), final checkpoint bit-equal to "
+              f"the unkilled run ({s['arrays_bit_equal']} arrays) on {card}",
+              flush=True)
+        res["refusal"] = f = refusal.result()
     print(f"launcher refused --n-workers {torch.cuda.device_count() + 1} "
           f"in {f['secs']:.1f} s (rc {f['rc']}): {f['message']}", flush=True)
     return res
 
+
+
+# -- the elastic islands (A10 items 3 and 4a) ----------------------------------
+
+ELASTIC_DIR = os.path.join(HERE, "build", "smoke_elastic")
+# each island's step goal (~1 step/s with its exchanges on an H100): island
+# 2 outlives both faults and its alert, and the respawned island 1 makes
+# several exchanges after its rejoin
+ELASTIC_STEPS = 24
+# the corrupt fault's scale, added to island 2's first params leaf (the
+# JAX package's flatten order: conv1's bias, 96 values), so its ‖p − c‖
+# jumps by about ELASTIC_SCALE·√96 ≈ 49 at its next exchange
+ELASTIC_SCALE = 5.0
+# the fleet series every island streams (step times, steps, the beacon,
+# the wire's round trip, the card's headroom)
+ELASTIC_SERIES = ("steps", "step_p99", "divergence", "wire_rtt_p50",
+                  "hbm_headroom_bytes")
+# the faults, progress-gated: seconds after the first lease with a step;
+# island 2 exchanges (healthy) before the corruption, which it applies at
+# its next round (≤ ~4.3 s) and which is alerted within a streamer
+# interval and an evaluation after it
+ELASTIC_FAULTS = f"kill@2:1,corrupt@6:2:{ELASTIC_SCALE:g}"
+# replica_divergence's threshold on ‖p − c‖: above the healthy drift of
+# AlexNet's islands at sync_freq 4, under the corruption's jump
+ELASTIC_DIVERGENCE = 20.0
+# a respawn on the card takes ~15 s (a process, the model's build and its
+# capture): the heartbeat rule must not demote the respawned island
+ELASTIC_HEARTBEAT_S = 60.0
+ELASTIC_CFG = dict(device="cuda:0", batch_size=BATCH, synthetic_batches=8,
+                   seed=0, alpha=0.5, sync_freq=4, numerics=True,
+                   numerics_every=4, tracing=True, fleetmon=True,
+                   fleetmon_divergence=ELASTIC_DIVERGENCE,
+                   fleetmon_heartbeat_s=ELASTIC_HEARTBEAT_S,
+                   fleetmon_eval_s=0.5, metrics_interval_s=0.5,
+                   telemetry_flush_every=4, center_snapshot_every_s=10.0,
+                   verbose=False)
+
+
+class ElasticAlexNet(AlexNet):
+    """Full-width AlexNet as an elastic island's model (``run_elastic``
+    with modelfile ``chip_smoke``): every launch count set to 0 as it is
+    built; as its process exits it writes
+    ``<smoke_out>/island<id>_pid<pid>.json``: its launch counts, its steps,
+    the params' devices and finiteness, whether its step ran captured, its
+    last cost, the wall clock of its first step, and the float64 sum of
+    |params| as built (the seed's) and at its first step (after the
+    island's ``center_restore``)."""
+
+    def __init__(self, config=None):
+        zero_launches()
+        super().__init__(config)
+        self._steps = 0
+        self._abs = [self._abs_sum(), None]
+        self._t_step1 = None
+        atexit.register(self._report)
+
+    def _abs_sum(self) -> float:
+        with torch.no_grad():
+            return float(sum(p.double().abs().sum()
+                             for p in tree_leaves(self.params)))
+
+    def train_iter(self, count, recorder=None):
+        if self._abs[1] is None:
+            self._abs[1] = self._abs_sum()
+            self._t_step1 = time.time()
+        super().train_iter(count, recorder)
+        self._steps += 1
+
+    def _report(self) -> None:
+        torch.cuda.synchronize()
+        params = tree_leaves(self.params)
+        cost = self.current_info.get("cost")
+        doc = {"island": int(self.config.get("island", -1)),
+               "pid": os.getpid(), "steps": self._steps,
+               "launches": launch_counts(),
+               "devices": sorted({str(p.device) for p in params}),
+               "finite": all(bool(torch.isfinite(p).all()) for p in params),
+               "graphed": bool(self.train_fn.graphed),
+               "cost": None if cost is None else float(cost),
+               "t_step1": self._t_step1, "abs_init": self._abs[0],
+               "abs_step1": self._abs[1]}
+        with open(os.path.join(self.config["smoke_out"],
+                               f"island{doc['island']}_pid{os.getpid()}"
+                               f".json"), "w") as f:
+            json.dump(doc, f)
+
+
+@contextlib.contextmanager
+def fds_to(path: str):
+    """This process's stdout and stderr, and those of every process it
+    starts meanwhile, into ``path``."""
+    sys.stdout.flush()
+    sys.stderr.flush()
+    saved = [os.dup(1), os.dup(2)]
+    with open(path, "w") as f:
+        os.dup2(f.fileno(), 1)
+        os.dup2(f.fileno(), 2)
+    try:
+        yield
+    finally:
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os.dup2(saved[0], 1)
+        os.dup2(saved[1], 2)
+        for fd in saved:
+            os.close(fd)
+
+
+def run_events(record_dir: str) -> list:
+    """Every telemetry event of a run, each process's stream merged."""
+    import glob
+    events = []
+    for path in sorted(glob.glob(os.path.join(record_dir,
+                                              "telemetry_rank*.jsonl"))):
+        with open(path) as f:
+            events += [json.loads(ln) for ln in f if ln.strip()]
+    return events
+
+
+def first_ts(events, **match):
+    hits = [e["ts"] for e in events
+            if all(e.get(k) == v for k, v in match.items())]
+    if not hits:
+        raise AssertionError(f"elastic: no event {match}")
+    return min(hits)
+
+
+def elastic_phase(model=("chip_smoke", "ElasticAlexNet"),
+                  cfg=ELASTIC_CFG, steps: int = ELASTIC_STEPS) -> dict:
+    """One elastic EASGD run on the card (``run_elastic``): 2 islands of
+    full-width AlexNet b128 (bf16, captured, the numerics plane on, traced)
+    in processes of their own around a supervised center process, the
+    fleet monitor on, under a progress-gated chaos schedule: island 1
+    SIGKILLed, then island 2's params corrupted in place.  Checks: exit 0
+    and both faults landed; island 1's leave and its rejoin, restored from
+    the center; in each island process that exited (the respawned one
+    included) params on cuda:0, finite, a finite cost, a captured step and
+    B1/B2 twice a step; the corrupted island's ``replica_divergence``
+    alert, none before the corruption, and ``audit_alerts`` ok; the
+    exposition of the collector restored from its last snapshot holding
+    each island's streamed series, a positive ``hbm_headroom_bytes`` from
+    the card among them; a finite ``center_final.npz``.  Returns the times to
+    recover and the islands' steps a second around the faults."""
+    from theanompi_tpu_torch.parallel import membership as mb
+    from theanompi_tpu_torch.utils import chaos, fleetmon
+    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    rec = os.path.join(ELASTIC_DIR, "rec")
+    out_dir = os.path.join(ELASTIC_DIR, "islands")
+    os.makedirs(out_dir)
+    os.makedirs(rec)
+    schedule = chaos.parse_schedule(ELASTIC_FAULTS)
+    log = os.path.join(ELASTIC_DIR, "elastic.log")
+    t0 = time.time()
+    with fds_to(log):
+        rc = mb.run_elastic(
+            "easgd", *model, dict(cfg, smoke_out=out_dir), 2,
+            record_dir=rec, steps=steps, chaos_schedule=schedule,
+            center_proc=True, timeout_s=600,
+            supervisor_kw=dict(poll_s=0.2, backoff=mb.Backoff(base=0.3),
+                               lease_timeout=60.0))
+    run_s = time.time() - t0
+    with open(log) as f:
+        tail = f.read()[-6000:]
+    if rc != 0 or any(f.error is not None or not f.applied
+                      for f in schedule):
+        raise AssertionError(f"elastic run exited {rc}, faults "
+                             f"{[(f, f.error) for f in schedule]}:\n{tail}")
+    ev = run_events(rec)
+    t_kill = first_ts(ev, ev="fault_injected", kind="kill", worker=1)
+    t_corrupt = first_ts(ev, ev="fault_injected", kind="corrupt", worker=2)
+    leaves = [e for e in ev if e["ev"] == "worker_leave" and
+              e.get("worker") == 1 and e["ts"] >= t_kill and
+              e.get("reason") in ("crashed", "wedged", "lease_expired")]
+    if not leaves:
+        raise AssertionError(f"elastic: island 1 never left after the kill")
+    t_leave = leaves[0]["ts"]
+    t_rejoin = first_ts(ev, ev="worker_join", worker=1, rejoin=True)
+    if t_rejoin < t_leave:
+        raise AssertionError("elastic: island 1 rejoined before it left")
+    finished = {e["worker"] for e in ev if e["ev"] == "worker_leave"
+                and e.get("reason") == "finished"}
+    joins2 = [e for e in ev if e["ev"] == "worker_join"
+              and e.get("worker") == 2]
+    if finished != {1, 2} or len(joins2) != 1:
+        raise AssertionError(f"elastic: finished {finished}, island 2 "
+                             f"joined {len(joins2)} times")
+    # each island process that exited: its own report
+    reps = {}
+    for name in sorted(os.listdir(out_dir)):
+        with open(os.path.join(out_dir, name)) as f:
+            r = json.load(f)
+        reps.setdefault(r["island"], []).append(r)
+    if sorted(reps) != [1, 2] or len(reps[1]) != 1 or len(reps[2]) != 1:
+        raise AssertionError(f"elastic: island reports {sorted(reps)}: "
+                             f"{reps}")
+    for w, (r,) in reps.items():
+        name = f"elastic island {w} (pid {r['pid']})"
+        check_island_state(name, r["devices"], r["finite"], r["graphed"])
+        if r["cost"] is None or not np.isfinite(r["cost"]) or \
+                r["steps"] < steps:
+            raise AssertionError(f"{name}: {r['steps']} steps, cost "
+                                 f"{r['cost']}")
+        island_lrn_check(name, r["launches"], r["steps"])
+    respawn = reps[1][0]
+    if respawn["t_step1"] < t_rejoin or \
+            respawn["abs_step1"] == respawn["abs_init"]:
+        raise AssertionError(f"elastic: the respawned island 1 did not "
+                             f"start from the center: {respawn}")
+    # its first exchange: the first round span it ended as exchanged
+    rounds = sorted((e["t0"] + e["dt"], e["rank"]) for e in ev
+                    if e["ev"] == "span" and e.get("name") == "round"
+                    and e.get("outcome") == "exchanged")
+    t_exch1 = min(t for t, r in rounds if r == 1 and t > t_rejoin)
+    # the corruption: applied by island 2 at its next exchange round, and
+    # caught by replica_divergence on island 2, never before it
+    t_applied = first_ts(ev, ev="corrupt_applied", island=2)
+    alerts = [e for e in ev if e["ev"] == fleetmon.ALERT_EVENT]
+    div = [a for a in alerts if a["rule"] == "replica_divergence"]
+    early = [a for a in div if a["ts"] < t_corrupt]
+    if early:
+        raise AssertionError(f"elastic: replica_divergence before the "
+                             f"corruption: {early}")
+    t_alert = first_ts(div, worker=2)
+    # the beacon's period: island 2's exchange round, plus one streamer
+    # interval; the audit's budget for the symptom
+    ends2 = sorted(t for t, r in rounds if r == 2)
+    period = float(np.median(np.diff(ends2))) if len(ends2) > 1 else 0.0
+    interval = 2.0 * period + cfg["metrics_interval_s"]
+    with open(os.path.join(rec, chaos.REALIZED_SCHEDULE)) as f:
+        realized = [json.loads(ln) for ln in f if ln.strip()]
+    rules = fleetmon.default_rules(heartbeat_s=cfg["fleetmon_heartbeat_s"],
+                                   divergence=cfg["fleetmon_divergence"])
+    ok, lines = fleetmon.audit_alerts(alerts, realized, rules,
+                                      cfg["fleetmon_eval_s"], interval)
+    if not ok or not any("corrupt on w2 -> replica_divergence" in ln
+                         for ln in lines):
+        raise AssertionError("elastic: alert audit failed:\n"
+                             + "\n".join(lines))
+    # the exposition as it stood while the islands streamed: the
+    # collector restored from its last snapshot, their clean departures
+    # (``retired``) taken back; a line of each series an island streams,
+    # for both islands, and the card's headroom
+    with open(os.path.join(rec, "fleetmon_snap", "fleetmon_state.json")) as f:
+        snap = json.load(f)["collector"]
+    collector = fleetmon.FleetCollector()
+    collector.restore(dict(snap, retired=[]))
+    expo = collector.expose_text().splitlines()
+    missing = [(n, w) for n in ELASTIC_SERIES for w in (1, 2)
+               if not any(ln.startswith(f'theanompi_{n}{{rank="{w}",')
+                          for ln in expo)]
+    hbm = [float(ln.split()[-1]) for ln in expo
+           if ln.startswith("theanompi_hbm_headroom_bytes{")]
+    if missing or min(hbm, default=0.0) <= 0:
+        raise AssertionError(f"elastic exposition: no line of {missing}, "
+                             f"hbm_headroom_bytes {hbm}")
+    # the beacon's values: the healthy drift before the corruption, and
+    # the jump after it (the collector's rings)
+    rings = snap["series"]
+    beacon = {w: {"healthy_max": max([v for t, v in rings[str(w)].get(
+                      "divergence", []) if t < t_corrupt] or [float("nan")]),
+                  "after_max": max([v for t, v in rings[str(w)].get(
+                      "divergence", []) if t >= t_corrupt] or [float("nan")])}
+              for w in (1, 2)}
+    with np.load(os.path.join(rec, "center_final.npz")) as z:
+        n_leaves = len(z.files)
+        if not n_leaves or not all(np.isfinite(z[k]).all()
+                                   for k in z.files):
+            raise AssertionError("elastic: center_final.npz not finite")
+    with open(os.path.join(rec, "center_stats.json")) as f:
+        cstats = json.load(f)
+    # the islands' steps a second around the faults, from their phase
+    # events: before the kill (from the first step), and after: island 2
+    # from its alert to its end, the respawned island 1 from its first
+    # step to its end
+    steps = {w: sorted(e["ts"] for e in ev if e["ev"] == "phase"
+                       and e.get("sec") == "train" and e["rank"] == w)
+             for w in (1, 2)}
+    t_first = min(ts[0] for ts in steps.values())
+
+    def rate(w, a, b):
+        n = sum(a <= t <= b for t in steps[w])
+        return n / (b - a) if b > a else float("nan")
+    end = {w: first_ts(ev, ev="train_end", rank=w) for w in (1, 2)}
+    rates = {"before_kill": {w: rate(w, t_first, t_kill) for w in (1, 2)},
+             "island2_after_alert": rate(2, t_alert, end[2]),
+             "island1_respawned": rate(1, respawn["t_step1"], end[1])}
+    return {"run_s": run_s, "kill_to_leave_s": t_leave - t_kill,
+            "leave_to_rejoin_s": t_rejoin - t_leave,
+            "rejoin_to_first_step_s": respawn["t_step1"] - t_rejoin,
+            "rejoin_to_first_exchange_s": t_exch1 - t_rejoin,
+            "corrupt_to_applied_s": t_applied - t_corrupt,
+            "corrupt_to_alert_s": t_alert - t_corrupt,
+            "round_s": period, "audit": lines, "divergence": beacon,
+            "alerts": [(a["rule"], a["worker"], a["value"]) for a in alerts],
+            "steps_per_s": rates,
+            "islands": {w: {k: r[0][k] for k in ("pid", "steps", "cost",
+                                                 "launches")}
+                        for w, r in reps.items()},
+            "hbm_headroom_bytes": min(hbm), "center_leaves": n_leaves,
+            "center": {k: cstats.get(k) for k in ("n_updates", "by_island",
+                                                  "center_downs")}}
+
+
+def elastic_main(card: str) -> dict:
+    """The elastic group (``--elastic``): one ``run_elastic`` run; prints
+    its numbers."""
+    compute_mode()
+    gc.collect()
+    torch.cuda.empty_cache()          # the islands share the card
+    t0 = time.time()
+    r = elastic_phase()
+    r["secs"] = time.time() - t0
+    s = r["steps_per_s"]
+    print(f"elastic EASGD (2 AlexNet b{BATCH} islands, center process, "
+          f"fleet monitor, faults {ELASTIC_FAULTS}): kill -> leave "
+          f"{r['kill_to_leave_s']:.2f} s, leave -> rejoin "
+          f"{r['leave_to_rejoin_s']:.2f} s, rejoin -> first step "
+          f"{r['rejoin_to_first_step_s']:.1f} s, -> first exchange "
+          f"{r['rejoin_to_first_exchange_s']:.1f} s; corrupt -> applied "
+          f"{r['corrupt_to_applied_s']:.2f} s, -> replica_divergence "
+          f"{r['corrupt_to_alert_s']:.2f} s (round {r['round_s']:.2f} s; "
+          f"‖p − c‖ before / after the corruption " + ", ".join(
+              f"island {w} {d['healthy_max']:.3f} / {d['after_max']:.3f}"
+              for w, d in r["divergence"].items()) + "); "
+          f"steps/s before the kill {s['before_kill'][1]:.2f} / "
+          f"{s['before_kill'][2]:.2f}, island 2 after its alert "
+          f"{s['island2_after_alert']:.2f}, respawned island 1 "
+          f"{s['island1_respawned']:.2f}; launches "
+          f"{ {w: {k: v for k, v in i['launches'].items() if v} for w, i in r['islands'].items()} }; "
+          f"hbm headroom {r['hbm_headroom_bytes'] / 2**30:.1f} GiB; alerts "
+          f"{r['alerts']}; center {r['center']}; group {r['secs']:.1f} s "
+          f"on {card}", flush=True)
+    for ln in r["audit"]:
+        print(ln, flush=True)
+    return r
 
 
 # -- the exchange wire's remaining forms (A7): params mode, Ring, buckets ----
@@ -6308,6 +6695,8 @@ def main() -> int:
     lap("launcher")
     phase_s.update({f"launcher_{k}": v["secs"] for k, v in launcher.items()
                     if "secs" in v})
+    elastic = elastic_main(card)
+    lap("elastic")
     wire = wire_main(card)
     lap("wire")
     ops = ops_main(card)
@@ -6361,6 +6750,10 @@ def main() -> int:
                 # the rank the launcher started (its own process's count)
                 "alexnet_launched_rank":
                     launcher["world1"]["launches"][name],
+                # each elastic island process that exited, the respawned
+                # island 1 included: 2 a step
+                **{f"alexnet_elastic_island{w}": i["launches"][name]
+                   for w, i in elastic["islands"].items()},
                 # the A9a layouts (zero_opt, update_sharding, fsdp)
                 **{f"alexnet_shard_{k}": r["launches"][name]
                    for k, r in shard["alexnet"].items()}}
@@ -6379,7 +6772,8 @@ def main() -> int:
                                  "alexnet_files_windows": windows},
                                 **{f"vgg16_{k}": v for k, v in vggs.items()}),
                    "rules": rules, "clip": clip, "optimizers": opts,
-                   "islands": islands, "launcher": launcher, "wire": wire,
+                   "islands": islands, "launcher": launcher,
+                   "elastic": elastic, "wire": wire,
                    "shard": shard, "gan_lm": a9, "ops": ops,
                    "graph_eager": graph_eager, "spc": spc,
                    "recapture": recapture, "zoo_ref": zoo_ref,
@@ -6414,6 +6808,6 @@ if __name__ == "__main__":
                       "--input-times", "--update-times", "--lrn-times",
                       "--islands", "--vgg-island-lr", "--launcher",
                       "--wire", "--shard", "--gan-lm", "--flash-f32",
-                      "--pp-stage", "--ep-rank", "--ops"}:
+                      "--pp-stage", "--ep-rank", "--ops", "--elastic"}:
         sys.exit(f"chip_smoke: unknown arguments {sorted(_flags)}")
     sys.exit(times_main(_flags) if _flags else main())

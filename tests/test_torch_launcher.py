@@ -18,8 +18,11 @@ package's, and the worlds it starts on CPU gloo.
   restarts and ends bit-equal to an unkilled run; the crash-loop breaker,
   ``--min-uptime`` and an exhausted restart budget exit nonzero; a rank
   that raises stops its world with no child left.
-* The refusals: the A10 flags, the keys the launcher owns, more ranks than
-  visible GPUs, a ``local_rank`` past the device count.
+* Elastic mode: ``--elastic`` with ``--elastic-steps``, ``--host-devices
+  1`` and ``--center-proc`` runs islands on the CPU to their step goal;
+  an island of more devices, a stray elastic flag and BSP are refused.
+* The refusals: ``--compile-cache``, the keys the launcher owns, more
+  ranks than visible GPUs, a ``local_rank`` past the device count.
 
 Every world runs with ``OMP_NUM_THREADS=1`` (ranks share this host's
 cores) and a timeout.
@@ -459,14 +462,87 @@ def test_crash_loop_breaker_matches_jax():
 
 # -- refusals ---------------------------------------------------------------------
 
-@pytest.mark.parametrize("flag", [["--elastic", "2"], ["--elastic-steps", "4"],
-                                  ["--host-devices", "2"], ["--center-proc"],
-                                  ["--compile-cache", "/tmp/cache"]])
+@pytest.mark.parametrize("flag", [["--compile-cache", "/tmp/cache"]])
 def test_a10_flags_are_refused(flag, capsys):
     with pytest.raises(SystemExit) as e:
         TL.main(flag + ["device=cpu"])
     assert e.value.code != 0
     assert "ROADMAP A10" in capsys.readouterr().err
+
+
+# -- elastic mode ------------------------------------------------------------------
+
+# (flags, islands, each island's step goal)
+ELASTIC_CASES = {
+    "elastic": (["--elastic", "2", "--host-devices", "1"], 2, 32),
+    "elastic_steps": (["--elastic", "2", "--host-devices", "1",
+                       "--elastic-steps", "6"], 2, 6),
+    "center_proc": (["--elastic", "1", "--host-devices", "1",
+                     "--elastic-steps", "6", "--center-proc"], 1, 6),
+}
+
+
+def _events(record_dir):
+    import glob
+    import json
+    out = []
+    for path in glob.glob(os.path.join(record_dir, "telemetry_rank*.jsonl")):
+        with open(path) as f:
+            out += [json.loads(ln) for ln in f if ln.strip()]
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(ELASTIC_CASES))
+def test_elastic_flags_run(case, tmp_path):
+    """``--elastic N`` (with ``--elastic-steps``, ``--host-devices 1``,
+    ``--center-proc``) runs N EASGD islands of ``TinyLRNNet`` on the CPU
+    around a center under the elastic supervisor: exit 0, every island
+    joined once and left ``finished`` after its step goal, the center's
+    final leaves saved; with ``--center-proc`` the center's own process
+    beat its lease and streamed its telemetry (rank -1)."""
+    flags, n, steps = ELASTIC_CASES[case]
+    rec = str(tmp_path / "rec")
+    rc, out = _launch(["--rule", "easgd", "--modelfile", "torch_port_helper",
+                       "--modelclass", "TinyLRNNet", *flags,
+                       "--record-dir", rec, "sync_freq=2"])
+    assert rc == 0, out[-3000:]
+    events = _events(rec)
+    ids = set(range(1, n + 1))
+    assert {e["worker"] for e in events if e["ev"] == "worker_leave"
+            and e.get("reason") == "finished"} == ids
+    assert sorted(e["worker"] for e in events
+                  if e["ev"] == "worker_join") == sorted(ids)
+    ends = {e["rank"]: e for e in events if e["ev"] == "train_end"
+            and e["rank"] in ids}
+    assert set(ends) == ids and \
+        all(e["steps"] >= steps and e["exchanges"] >= 1
+            for e in ends.values()), ends
+    assert os.path.exists(os.path.join(rec, "center_final.npz"))
+    leases = TM.read_leases(os.path.join(rec, "membership"))
+    assert {w: d["status"] for w, d in leases.items()} == \
+        {w: "left" for w in ids}
+    if case == "center_proc":
+        center = TM.read_leases(os.path.join(rec, "membership", "center"))
+        assert center[0]["status"] == "left"
+        assert any(e["ev"] == "train_end" and e.get("center")
+                   for e in events if e["rank"] == -1)
+
+
+@pytest.mark.parametrize("argv,msg", [
+    (["--elastic", "2", "--rule", "easgd", "--host-devices", "2"],
+     "--n-workers 2"),
+    (["--elastic-steps", "4"], "--elastic N"),
+    (["--center-proc", "--n-workers", "1"], "--elastic N"),
+    (["--elastic", "2", "--rule", "bsp", "--host-devices", "1"],
+     "center-based rule")])
+def test_elastic_refusals_say_why(argv, msg, capsys):
+    """An island of more devices than one is a launched world of its own
+    in the port; the elastic flags need ``--elastic``; BSP has no elastic
+    mode."""
+    with pytest.raises(SystemExit) as e:
+        TL.main(argv + ["device=cpu"])
+    assert e.value.code != 0
+    assert msg in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("kv", ["rank=1", "n_workers=2", "local_rank=0",

@@ -141,6 +141,43 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "theanompi_tpu" or m.startswith("theanompi_tpu."))
 assert not bad, bad
+# the fleet monitor, the chaos harness and the membership plane run without
+# JAX: a streamer feeds a collector, the monkey kills a process, and the
+# controller ranks stragglers through scripts/telemetry_report.py
+import json, subprocess, time
+from theanompi_tpu_torch.parallel import membership
+from theanompi_tpu_torch.utils import chaos, fleetmon, telemetry
+fm = fleetmon.FleetMonServer()
+fh, fp = fm.start()
+tm = telemetry.Telemetry(rank=1, run_id="nojax")
+tm.observe("phase.train", 0.1)
+st = fleetmon.MetricStreamer(f"{fh}:{fp}", rank=1, telemetry_=tm)
+assert st.push()
+st.stop(final=True)
+fm.stop()
+assert fm.collector.retired == {1}
+p = subprocess.Popen(["sleep", "30"])
+monkey = chaos.ChaosMonkey(chaos.parse_schedule("kill@0:1"),
+                           pid_of=lambda t: p.pid)
+monkey.start()
+assert p.wait(timeout=10) == -9
+monkey.stop()
+rd = tempfile.mkdtemp()
+for r in range(3):
+    with open(os.path.join(rd, f"telemetry_rank{r}.jsonl"), "w") as f:
+        for i in range(30):
+            f.write(json.dumps({"ts": time.time() + i, "run": "r", "rank": r,
+                                "ev": "phase", "sec": "train",
+                                "dt": 0.5 if r == 2 else 0.01}) + "\n")
+ctl = membership.MembershipController(record_dir=rd, straggle_windows=2)
+for w in range(3):
+    ctl.join(w)
+assert ctl.check_stragglers() == [2]
+assert membership._load_report_module() is not None
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "theanompi_tpu" or m.startswith("theanompi_tpu."))
+assert not bad, bad
 """
 
 NEW_MODULES = ("theanompi_tpu_torch.native",
@@ -177,9 +214,12 @@ NEW_MODULES = ("theanompi_tpu_torch.native",
                "theanompi_tpu_torch.utils.tracing",
                "theanompi_tpu_torch.utils.numerics",
                "theanompi_tpu_torch.utils.sentry",
-               "theanompi_tpu_torch.utils.watchdog")
+               "theanompi_tpu_torch.utils.watchdog",
+               "theanompi_tpu_torch.utils.fleetmon",
+               "theanompi_tpu_torch.utils.chaos")
 
-PLANES = ("telemetry", "tracing", "numerics", "sentry", "watchdog")
+PLANES = ("telemetry", "tracing", "numerics", "sentry", "watchdog",
+          "fleetmon", "chaos")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -200,6 +240,39 @@ def test_operations_planes_import_neither_jax_nor_torch(name):
     probe = (f"import sys, theanompi_tpu_torch.utils.{name}; "
              "print(sorted(m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'theanompi_tpu', 'torch')))")
+    r = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
+                       capture_output=True, text=True, timeout=60,
+                       env=dict(os.environ, PYTHONPATH=REPO))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]", r.stdout
+
+
+def test_membership_and_its_straggler_ranking_import_no_jax_or_torch(
+        tmp_path):
+    """``parallel/membership.py`` imported alone, its straggler ranking run
+    (``scripts/telemetry_report.py``, loaded by file path) and its fleet
+    monitor tick taken: neither ``jax``, the JAX package nor ``torch`` is
+    imported; the island's process imports torch only when it starts."""
+    rd = str(tmp_path)
+    for r in range(3):
+        with open(os.path.join(rd, f"telemetry_rank{r}.jsonl"), "w") as f:
+            for i in range(30):
+                f.write(json.dumps({"ts": 1e9 + i, "run": "r", "rank": r,
+                                    "ev": "phase", "sec": "train",
+                                    "dt": 0.5 if r == 2 else 0.01}) + "\n")
+    probe = (
+        "import sys\n"
+        "from theanompi_tpu_torch.parallel import membership as mb\n"
+        "from theanompi_tpu_torch.utils import fleetmon\n"
+        f"ctl = mb.MembershipController(record_dir={rd!r}, "
+        "straggle_windows=2, straggle_window_s=5.0)\n"
+        "[ctl.join(w) for w in range(3)]\n"
+        "assert ctl.check_stragglers() == [2], ctl.status()\n"
+        "sup = mb.ElasticSupervisor(lambda w, a: ['true'], [1], "
+        f"{rd!r}, fleetmon=fleetmon.FleetMonServer())\n"
+        "sup._tick_fleetmon()\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'theanompi_tpu', 'torch')))")
     r = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
                        capture_output=True, text=True, timeout=60,
                        env=dict(os.environ, PYTHONPATH=REPO))
@@ -254,18 +327,30 @@ def test_launched_workers_with_the_planes_import_no_jax(tmp_path):
                     "tracing=true", "numerics=true", "stall_timeout=120")
 
 
-def _launch_modules(tmp_path, *kv):
+def test_launched_elastic_islands_import_no_jax(tmp_path):
+    """``launcher --elastic 2 --host-devices 1`` with the fleet monitor
+    and a record dir: each island's process, as it exits, lists which of
+    ``jax`` and the JAX package it imported: none."""
+    _launch_modules(tmp_path, f"record_dir={tmp_path / 'rec'}",
+                    "fleetmon=true", "sync_freq=2",
+                    launch=["--rule", "easgd", "--elastic", "2",
+                            "--host-devices", "1", "--elastic-steps", "4"],
+                    ranks=(1, 2))
+
+
+def _launch_modules(tmp_path, *kv, launch=("--n-workers", "2",
+                                           "device=cpu"), ranks=(0, 1)):
     here = os.path.join(REPO, "tests")
     out = str(tmp_path / "mods")
     r = subprocess.run(
         [sys.executable, "-m", "theanompi_tpu_torch.launcher",
          "--modelfile", "torch_launch_helper", "--modelclass", "ModulesNet",
-         "--n-workers", "2", "device=cpu", f"modules_out={out}", *kv],
+         *launch, f"modules_out={out}", *kv],
         cwd=REPO, capture_output=True, text=True, timeout=180,
         env=dict(os.environ, OMP_NUM_THREADS="1",
                  PYTHONPATH=os.pathsep.join([here, REPO])))
     assert r.returncode == 0, (r.stdout + r.stderr)[-3000:]
-    for rank in range(2):
+    for rank in ranks:
         with open(f"{out}_r{rank}.json") as f:
             got = json.load(f)
         assert got["bad"] == [] and got["n"] > 100, got

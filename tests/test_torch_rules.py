@@ -424,14 +424,9 @@ def test_session_api_trains_each_rule_on_cpu(rule):
 
 
 @pytest.mark.parametrize("rule,cfg,exc,match", [
-    # async islands: one device an island (devices=2 over one island),
-    # and the leases and the chaos trigger (A10)
+    # async islands: one device an island (devices=2 over one island)
     ("EASGD", {"easgd_mode": "async", "async_islands": 1, "devices": 2},
      NotImplementedError, "more than one device"),
-    ("ASGD", {"asgd_mode": "async", "lease_dir": "leases"},
-     NotImplementedError, "A10"),
-    ("EASGD", {"easgd_mode": "async", "chaos_dir": "chaos"},
-     NotImplementedError, "A10"),
     ("BSP", {"exch_mode": "gradients"}, ValueError, "exch_mode"),
     ("BSP", {"exch_strategy": "ring8"}, ValueError, "ring8"),
     # the JAX package's sharding refusals (at world 1 it accepts
@@ -455,6 +450,77 @@ def test_refused_modes_and_keys_raise(rule, cfg, exc, match):
            modelclass="TinyLRNNet", device="cpu", verbose=False, **cfg)
     with pytest.raises(exc, match=match):
         r.wait()
+
+
+@pytest.mark.parametrize("key", ["lease_dir", "chaos_dir"])
+def test_island_lease_and_chaos_keys_run(key, tmp_path):
+    """The islands' membership keys run: ``lease_dir`` beats one lease an
+    island (its id the worker id), ``chaos_dir`` is read at an exchange
+    round, its ``corrupt`` trigger consumed and applied."""
+    import json
+    import os
+    import theanompi_tpu_torch as T
+    from theanompi_tpu_torch.parallel import membership
+    d = str(tmp_path / key)
+    rec = str(tmp_path / "rec")
+    cfg = {"easgd_mode": "async", "async_islands": 2, "sync_freq": 2,
+           "run_seconds": 3, "island_base": 4, "record_dir": rec, key: d}
+    if key == "chaos_dir":
+        os.makedirs(d)
+        with open(os.path.join(d, "corrupt_w5.json"), "w") as f:
+            json.dump({"target": 5, "scale": 0.5}, f)
+    r = T.EASGD()
+    r.init(devices=1, modelfile="torch_port_helper", modelclass="TinyLRNNet",
+           device="cpu", verbose=False, **cfg)
+    tr = r.wait()
+    assert all(i["exchanges"] >= 1 for i in tr.stats()["islands"])
+    if key == "lease_dir":
+        docs = membership.read_leases(d)
+        assert sorted(docs) == [4, 5]
+        assert all(doc["status"] == "live" and doc["step"] >= 1 and
+                   doc["pid"] == os.getpid() for doc in docs.values())
+    else:
+        assert os.listdir(d) == []               # the trigger consumed
+        with open(os.path.join(rec, "telemetry_rank0.jsonl")) as f:
+            evs = [json.loads(ln) for ln in f if ln.strip()]
+        assert [(e["island"], e["scale"]) for e in evs
+                if e["ev"] == "corrupt_applied"] == [(5, 0.5)]
+
+
+def test_island_corrupt_adds_in_place_to_the_first_jax_leaf(tmp_path):
+    """The ``corrupt`` perturbation: the trigger's scale added to the first
+    params leaf in the JAX package's flatten order, in place (the tensor
+    the step reads keeps its storage), every other leaf untouched; a
+    trigger without a scale adds 1e-3."""
+    import json
+    import os
+    import threading
+    from theanompi_tpu_torch.parallel.async_easgd import (CenterLink,
+                                                          ElasticCenter,
+                                                          IslandRunner)
+    from theanompi_tpu_torch.utils.helper_funcs import (jax_leaf_paths,
+                                                        leaf_paths,
+                                                        tree_leaves)
+    m = helper.TinyLRNNet({"device": "cpu", "verbose": False})
+    link = CenterLink(m, ElasticCenter(alpha=0.5), 0)
+    runner = IslandRunner(0, None, {}, None, 2, threading.Event())
+    first = leaf_paths(m.params).index(jax_leaf_paths(m.params)[0])
+    for scale, want in ((0.25, 0.25), (0.0, 1e-3)):
+        path = str(tmp_path / "corrupt_w0.json")
+        with open(path, "w") as f:
+            json.dump({"target": 0, "scale": scale}, f)
+        before = [t.clone() for t in tree_leaves(m.params)]
+        ptrs = [t.data_ptr() for t in tree_leaves(m.params)]
+        runner._corrupt(link, path)
+        assert not os.path.exists(path)
+        after = tree_leaves(m.params)
+        assert [t.data_ptr() for t in after] == ptrs
+        for i, (a, b) in enumerate(zip(before, after)):
+            want_i = a + want if i == first else a
+            assert torch.equal(b, want_i), i
+    runner._corrupt(link, str(tmp_path / "absent.json"))    # no trigger
+    assert all(torch.equal(a, b) for a, b in zip(after,
+                                                 tree_leaves(m.params)))
 
 
 @pytest.mark.parametrize("rule,cfg", [

@@ -640,8 +640,59 @@ def test_center_snapshots_restore_across_packages(writer, reader, tmp_path):
     assert meta["updates_by_island"] == {"3": 1} and len(leaves) == 3
 
 
-def test_center_main_refuses_the_membership_flags():
-    with pytest.raises(NotImplementedError, match="A10"):
-        TCS.center_main(["--port", "0", "--lease-dir", "/nonexistent"])
-    with pytest.raises(NotImplementedError, match="A10"):
-        TCS.center_main(["--port", "0", "--metrics-addr", "127.0.0.1:1"])
+@pytest.mark.parametrize("reader", ["jax", "torch"])
+def test_center_main_beats_a_lease_and_streams_metrics(reader, tmp_path):
+    """``center_main --lease-dir --lease-id --metrics-addr``: the center's
+    lease, read by ``reader``'s ``read_leases``, beats while it serves and
+    says ``left`` after a SIGTERM; its metric snapshots (rank -1, role
+    center, its update count as steps) reach a fleet monitor, whose
+    collector retires it on the clean exit."""
+    import os
+    import signal
+    import subprocess
+    import sys
+    from theanompi_tpu_torch.utils import fleetmon
+    from theanompi_tpu_torch.utils import telemetry as TT
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    lease_dir = str(tmp_path / "lease")
+    fm = fleetmon.FleetMonServer(telemetry_=TT.DISABLED)
+    fh, fp = fm.start()
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    p = subprocess.Popen(
+        [sys.executable, "-m", "theanompi_tpu_torch.parallel.center_server",
+         "--port", str(port), "--lease-dir", lease_dir, "--lease-id", "0",
+         "--metrics-addr", f"{fh}:{fp}", "--record-dir", str(tmp_path),
+         "--max-seconds", "120"],
+        cwd=repo, env=dict(os.environ, PYTHONPATH=repo),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    read = PKGS[reader][2].read_leases
+    try:
+        deadline = time.time() + 60
+        while time.time() < deadline and not (
+                read(lease_dir) and fm.collector.samples_ingested >= 2):
+            assert p.poll() is None, p.communicate()[0]
+            time.sleep(0.1)
+        doc = read(lease_dir)[0]
+        assert doc["status"] == "live" and doc["pid"] == p.pid and \
+            doc["step"] == 0
+        assert fm.collector.roles == {-1: "center"}
+        assert fm.collector.series[-1]["steps"].latest()[1] == 0.0
+        rc = TCS.RemoteCenter(f"127.0.0.1:{port}", client_id="w3")
+        rc.ensure_init_leaves(_leaves(1))
+        rc.push_delta_leaves(_leaves(2), 3)
+        rc.close()
+        while time.time() < deadline and \
+                fm.collector.series[-1]["steps"].latest()[1] < 1:
+            time.sleep(0.1)
+        assert fm.collector.series[-1]["steps"].latest()[1] == 1.0
+        p.send_signal(signal.SIGTERM)
+        assert p.wait(timeout=30) == 0, p.communicate()[0]
+        assert read(lease_dir)[0]["status"] == "left"
+        assert fm.collector.retired == {-1}
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        fm.stop()

@@ -117,12 +117,13 @@ class CrashNet(TinyLRNNet):
 
 class ModulesNet(TinyLRNNet):
     """Writes, as its process exits, which of ``jax`` and the JAX package
-    its process imported, to ``<modules_out>_r<rank>.json``."""
+    its process imported, to ``<modules_out>_r<rank>.json`` (an elastic
+    island's: ``<rank>`` its island id)."""
 
     def __init__(self, config=None):
         super().__init__(config)
         atexit.register(self._modules, str(self.config["modules_out"]),
-                        self.rank)
+                        self.config.get("island", self.rank))
 
     @staticmethod
     def _modules(out, rank):

@@ -4,6 +4,8 @@ multi-process tests.
 * :class:`TinyLRNNet` — Conv → LRN → Pool → FC: the AlexNet block at toy
   width.
 * :class:`TinyDropNet` — :class:`TinyLRNNet` with dropout before its FC.
+* :class:`SleepyLRNNet` — :class:`TinyLRNNet` that sleeps ``iter_sleep``
+  seconds a step (the elastic chaos tests).
 * :class:`TinyVGGNet` — Conv 3×3 SAME → Pool 2/2 → Conv → Pool → FC: the
   VGG block at toy width, the model of the onebit tests.
 * :class:`TinyLM` — the transformer LM at toy size (float32, reference
@@ -129,6 +131,17 @@ class TinyLRNNet(ModelBase):
                  activation=None, compute_dtype="float32", name="fc"),
         ])
         self.data = TinyData(self.config, self.batch_size)
+
+
+class SleepyLRNNet(TinyLRNNet):
+    """:class:`TinyLRNNet` slowed by ``iter_sleep`` seconds a step (0.05):
+    a wide window for the chaos tests' faults to land mid-run (the
+    counterpart of ``tests/conftest.py``'s ``SleepyModel``)."""
+
+    def train_iter(self, count, recorder=None):
+        import time
+        time.sleep(float(self.config.get("iter_sleep", 0.05)))
+        super().train_iter(count, recorder)
 
 
 class _FromNpz:

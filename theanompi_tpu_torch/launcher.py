@@ -42,9 +42,17 @@ dumps them) are swept into ``<record_dir>/crash_attempt<i>_rc<rc>/``
 before the restart, and a supervisor that gives up prints the newest
 recording's tail.
 
-``--elastic`` (with ``--elastic-steps``, ``--host-devices``,
-``--center-proc``) and ``--compile-cache`` are refused: membership,
-the center's own process and the compile cache wait for ROADMAP A10.
+``--elastic N`` runs EASGD or ASGD as N elastic islands, a process
+each, around a center (``parallel/membership.run_elastic``): an island
+that dies is respawned alone and restores its params from the center,
+with no world restart.  ``--elastic-steps K`` is each island's local-step
+goal (32), ``--center-proc`` runs the center as a supervised process of
+its own, and ``--host-devices 1`` runs the islands on the CPU (0, the
+default: on the card, as ``device`` names it; an island of more devices
+is refused, as it is a launched world of its own in the port).
+``fleetmon=true`` in the config starts the fleet monitor, whose alerts
+the supervisor acts on.  ``--compile-cache`` is refused: the compile
+cache waits for ROADMAP A10.
 """
 
 from __future__ import annotations
@@ -181,24 +189,35 @@ def main(argv=None) -> int:
     p.add_argument("--record-dir", default=None, metavar="DIR",
                    help="the record_dir=DIR config key: every rank's "
                         "recorder writes there")
-    # the JAX launcher's elastic and cache flags: refused until A10
-    p.add_argument("--elastic", type=int, default=0, metavar="N")
-    p.add_argument("--elastic-steps", type=int, default=None, metavar="K")
-    p.add_argument("--host-devices", type=int, default=0, metavar="K")
-    p.add_argument("--center-proc", action="store_true")
+    p.add_argument("--elastic", type=int, default=0, metavar="N",
+                   help="elastic mode (easgd/asgd): N island processes "
+                        "around a center, each respawned alone when it "
+                        "dies (parallel/membership.py)")
+    p.add_argument("--elastic-steps", type=int, default=None, metavar="K",
+                   help="elastic mode: each island's local-step goal "
+                        "(default 32)")
+    p.add_argument("--host-devices", type=int, default=0, metavar="K",
+                   help="elastic mode: 1 runs the islands on the CPU; 0 "
+                        "(default) on the card")
+    p.add_argument("--center-proc", action="store_true",
+                   help="elastic mode: the center as a supervised process "
+                        "of its own (snapshots, respawn from the snapshot, "
+                        "the center_down/center_restored pair)")
+    # the JAX launcher's compile cache: refused until A10
     p.add_argument("--compile-cache", default=None, metavar="DIR")
     p.add_argument("config", nargs="*", help="key=value model/worker config")
     args = p.parse_args(argv)
 
-    for flag, value in (("--elastic", args.elastic),
-                        ("--elastic-steps", args.elastic_steps),
-                        ("--host-devices", args.host_devices),
-                        ("--center-proc", args.center_proc),
-                        ("--compile-cache", args.compile_cache)):
-        if value:
-            p.error(f"{flag} is not ported yet: elastic membership, the "
-                    f"center's own process and the compile cache wait for "
-                    f"ROADMAP A10")
+    if args.compile_cache:
+        p.error("--compile-cache is not ported yet: the compile cache "
+                "waits for ROADMAP A10")
+    if not args.elastic:
+        for flag, value in (("--elastic-steps", args.elastic_steps),
+                            ("--host-devices", args.host_devices),
+                            ("--center-proc", args.center_proc)):
+            if value:
+                p.error(f"{flag} is a flag of elastic mode: pass "
+                        f"--elastic N")
     kv = list(args.config)
     owned = [c for c in kv if c.partition("=")[0] in RANK_KEYS]
     if owned:
@@ -219,6 +238,9 @@ def main(argv=None) -> int:
             _config_value(kv, "run_id") is None:
         # one run id for every host and restart of this launch
         kv.append(f"run_id=run{int(time.time())}")
+
+    if args.elastic > 0:
+        return _elastic(p, args, kv)
 
     device = _config_value(kv, "device") or "cuda"
     emit = args.emit_only or (args.num_hosts > 1 and args.process_id is None)
@@ -353,6 +375,34 @@ def main(argv=None) -> int:
           f"(rc={rc})", file=sys.stderr)
     print_flight_tail()
     return rc
+
+
+def _elastic(p, args, kv: List[str]) -> int:
+    """``--elastic N``: the islands and their center under the elastic
+    supervisor (``parallel/membership.run_elastic``)."""
+    from .parallel.membership import _host_devices, parse_kv, run_elastic
+    if args.rule not in ("easgd", "asgd"):
+        p.error(f"--elastic needs a center-based rule (easgd/asgd), not "
+                f"{args.rule!r}: BSP's answer to a lost rank is "
+                f"--supervise (a world restart from the checkpoint)")
+    if args.num_hosts > 1 or args.supervise or args.n_workers:
+        p.error("--elastic supervises its own island processes on this "
+                "host: it takes neither --num-hosts, --supervise nor "
+                "--n-workers")
+    try:
+        _host_devices(args.host_devices)
+    except NotImplementedError as e:
+        p.error(str(e))
+    device = _config_value(kv, "device") or "cuda"
+    if not args.host_devices and not device.startswith("cpu") and \
+            visible_gpus() == 0:
+        p.error("CUDA is not available; pass --host-devices 1 to run the "
+                "islands on the CPU")
+    steps = 32 if args.elastic_steps is None else args.elastic_steps
+    return run_elastic(args.rule, args.modelfile, args.modelclass,
+                       parse_kv(kv), args.elastic, steps=steps,
+                       host_devices=args.host_devices,
+                       center_proc=args.center_proc)
 
 
 if __name__ == "__main__":

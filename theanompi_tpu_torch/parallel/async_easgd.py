@@ -64,14 +64,22 @@ straggler), ``run_seconds`` (the session's budget, 60).  ``telemetry``
 phase events, the ``wire.*`` counters, the ``numerics.dist_center``
 gauge: ``‖delta‖`` of each exchange) and ``tracing`` a ``round`` span a
 round, whose context rides the wire into the center's handler span.
-Leases, the chaos trigger, device profiling and the fleet monitor wait
-for ROADMAP A10 and are refused; so are ``steps_per_call > 1`` and
+``lease_dir`` beats one membership lease an island
+(``parallel/membership.py``, the island id its worker id), each step;
+``chaos_dir`` is where the chaos harness drops an island's ``corrupt``
+trigger (``corrupt_w<id>.json``, ``utils/chaos.py``), which the island
+consumes at its next exchange round by adding the trigger's ``scale`` to
+its first params leaf (the JAX package's flatten order), in place on the
+tensor its step reads.  Device profiling (``trace_dir``) waits for
+ROADMAP A10 item 5 and is refused; so are ``steps_per_call > 1`` and
 bucketed wires.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
+import os
 import threading
 import time
 from typing import Callable, Dict, List, Optional
@@ -85,9 +93,9 @@ from ..utils import telemetry, tracing
 from ..utils.helper_funcs import (_jax_shape, from_jax_layout, jax_leaf_paths,
                                   leaf_paths, to_jax_layout, tree_leaves)
 
-# config keys of the JAX package's islands that need the rest of ROADMAP
-# A10 (leases, chaos, device profiling, the fleet monitor)
-_A10_KEYS = ("lease_dir", "chaos_dir", "chaos", "trace_dir", "metrics_addr")
+# config keys of the JAX package's islands that wait for ROADMAP A10
+# (device profiling)
+_A10_KEYS = ("trace_dir",)
 
 
 class ElasticCenter:
@@ -483,7 +491,8 @@ class IslandRunner(threading.Thread):
     def __init__(self, island_id: int, model_factory: Callable, config: dict,
                  center, sync_freq: int, stop_event: threading.Event,
                  throttle_s: float = 0.0, rule: str = "easgd",
-                 group_size: int = 1, alpha: Optional[float] = None):
+                 group_size: int = 1, alpha: Optional[float] = None,
+                 lease=None):
         super().__init__(daemon=True)
         self.island_id = island_id
         self.config = config
@@ -497,6 +506,7 @@ class IslandRunner(threading.Thread):
         # only its rank 0 has a ``center`` (``alpha`` names α for the rest)
         self.group_size = int(group_size)
         self.alpha = alpha
+        self.lease = lease                    # membership.WorkerLease | None
         self.steps_done = 0
         self.exchanges_done = 0
         # center outages survived: the island trained on locally and
@@ -511,6 +521,12 @@ class IslandRunner(threading.Thread):
         self.round_s: List[float] = []
         self.costs: List[float] = []
         self.run_s = 0.0
+        # the largest ‖delta‖ since take_dist_peak() last read it: the
+        # divergence beacon a metric streamer samples, so an exchange's
+        # spike outlives the exchanges after it (EASGD at α = 0.5 closes
+        # a gap in one exchange)
+        self._dist_peak: Optional[float] = None
+        self._peak_lock = threading.Lock()
         self._model_factory = model_factory
 
     def run(self) -> None:
@@ -577,6 +593,12 @@ class IslandRunner(threading.Thread):
             rec = Recorder({"verbose": False, "rank": self.island_id})
             rec.telemetry = tm
         rnd, stage_base = None, 0.0
+        # the chaos harness's corrupt trigger for this island, consumed at
+        # its next exchange round
+        chaos_dir = self.config.get("chaos_dir")
+        corrupt_path = os.path.join(
+            str(chaos_dir), f"corrupt_w{self.island_id}.json") \
+            if chaos_dir else None
         count = 0
         t_round, slept = time.perf_counter(), 0.0
         # an island of more than one device stops where its rank 0 says,
@@ -589,6 +611,8 @@ class IslandRunner(threading.Thread):
                     rec.t_sec_total["stage"]
             model.train_iter(count, rec)
             self.steps_done += 1
+            if self.lease is not None:
+                self.lease.beat(self.steps_done)
             if self.throttle_s:
                 time.sleep(self.throttle_s)
                 slept += self.throttle_s
@@ -597,6 +621,8 @@ class IslandRunner(threading.Thread):
             link.sync()
             self.round_s.append(time.perf_counter() - t_round - slept)
             self.costs.append(float(model.current_info["cost"]))
+            if corrupt_path is not None:
+                self._corrupt(link, corrupt_path)
             ctx = None
             if rnd is not None:
                 rnd.note(train_s=round(time.time() - rnd.t0, 6),
@@ -644,12 +670,51 @@ class IslandRunner(threading.Thread):
                 # the center is its divergence proxy
                 tm.gauge("numerics.dist_center", link.last_dist)
                 tm.gauge("numerics.divergence", link.last_dist)
+                with self._peak_lock:
+                    self._dist_peak = max(self._dist_peak or 0.0,
+                                          link.last_dist)
             if rnd is not None:
                 rnd.end(outcome=outcome)
                 rnd = None
             if grouped and self._lead_says_stop(model.device):
                 break
             t_round, slept = time.perf_counter(), 0.0
+
+    def take_dist_peak(self) -> Optional[float]:
+        """The largest ‖delta‖ (telemetry on) since the last call, or None
+        when no exchange measured one since."""
+        with self._peak_lock:
+            peak, self._dist_peak = self._dist_peak, None
+        return peak
+
+    @torch.no_grad()
+    def _corrupt(self, link: "CenterLink", path: str) -> None:
+        """The chaos ``corrupt`` fault, from the inside, past every wire
+        CRC: a trigger file at ``path`` (read and removed by the island's
+        rank 0, its scale broadcast to the island's other ranks) adds its
+        ``scale`` (0: 1e-3) to the first params leaf in the JAX package's
+        flatten order, in place: the captured step reads that very
+        tensor."""
+        scale = 0.0
+        if link.lead and os.path.exists(path):
+            try:
+                with open(path) as f:
+                    doc = json.load(f)
+                os.remove(path)
+                scale = float(doc.get("scale", 0.0)) or 1e-3
+            except (OSError, ValueError):
+                scale = 0.0
+        if self.group_size > 1:
+            t = torch.tensor([scale], dtype=torch.float64,
+                             device=link.device)
+            dist.broadcast(t, 0)
+            scale = float(t.item())
+        if scale:
+            link._params[link._order[0]].add_(scale)
+            tm = telemetry.active()
+            if tm.enabled:
+                tm.event("corrupt_applied", island=self.island_id,
+                         scale=scale)
 
     def _lead_says_stop(self, device) -> bool:
         """The island's rank 0's stop, broadcast to its other ranks."""
@@ -694,9 +759,8 @@ class AsyncEASGDTrainer:
         for k in _A10_KEYS:
             if self.config.get(k):
                 raise NotImplementedError(
-                    f"async islands with {k!r}: leases, chaos, device "
-                    f"profiling and the fleet monitor are not ported yet "
-                    f"(ROADMAP A10)")
+                    f"async islands with {k!r}: device profiling is not "
+                    f"ported yet (ROADMAP A10)")
         if int(self.config.get("steps_per_call", 1)) != 1:
             raise NotImplementedError(
                 "async islands take one step a call (steps_per_call=1)")
@@ -843,12 +907,20 @@ class AsyncEASGDTrainer:
         ``island_throttle``) maps a local island index to the seconds it
         sleeps after each step."""
         throttle = self._throttle() if throttle is None else throttle
+        lease_dir = self.config.get("lease_dir")
         for i in self._local:
+            lease = None
+            if lease_dir and (self._proc is None or self._proc.rank == 0):
+                # one heartbeat lease an island, on its rank 0; island ids
+                # are the membership's worker ids, unique across processes
+                from .membership import WorkerLease
+                lease = WorkerLease(lease_dir, self._island_base + i)
             r = IslandRunner(self._island_base + i, self.model_factory,
                              self._island_config(i), self.center,
                              self.sync_freq, self.stop_event,
                              throttle_s=throttle.get(i, 0.0), rule=self.rule,
-                             group_size=self.island_size, alpha=self.alpha)
+                             group_size=self.island_size, alpha=self.alpha,
+                             lease=lease)
             self.islands.append(r)
             r.start()
 

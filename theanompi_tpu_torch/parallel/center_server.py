@@ -33,9 +33,11 @@ the v2 ``trace`` context gets a ``center.<op>`` server span in the
 telemetry stream, parented to the client's ``wire.<op>`` span
 (``utils/tracing.py``).  ``center_main --record-dir`` streams the
 center's telemetry (rank -1) and serves a ``statusz`` endpoint
-registered there.  The membership leases and the fleet monitor
-(``--lease-dir``, ``--metrics-addr``) wait for ROADMAP A10 and are
-refused.
+registered there; ``--lease-dir`` beats a membership lease (id
+``--lease-id``), by which the elastic supervisor sees a wedged center
+(``parallel/membership.py``); ``--metrics-addr`` streams the center's
+metric snapshots (rank -1, role ``center``) to the fleet monitor
+(``utils/fleetmon.py``).
 """
 
 from __future__ import annotations
@@ -402,13 +404,14 @@ class RemoteCenter:
     def __init__(self, addr: str, alpha: float = 0.5,
                  client_id=None, connect_timeout: float = 5.0,
                  op_timeout_s: float = 20.0, max_retries: int = 8,
-                 deadline_s: float = 120.0, backoff=None):
+                 deadline_s: float = 120.0, backoff=None, telemetry_=None):
         self.alpha = float(alpha)
         self._wire = WireClient(addr, client_id=client_id,
                                 op_timeout_s=op_timeout_s,
                                 connect_timeout_s=connect_timeout,
                                 max_retries=max_retries,
-                                deadline_s=deadline_s, backoff=backoff)
+                                deadline_s=deadline_s, backoff=backoff,
+                                telemetry_=telemetry_)
 
     @property
     def last_srv(self) -> Optional[dict]:
@@ -461,7 +464,10 @@ def center_main(argv: Optional[List[str]] = None) -> int:
     """Run the center as a process of its own:
     ``python -m theanompi_tpu_torch.parallel.center_server --port P``.
     Restores from ``--snapshot-dir`` when a snapshot is there, snapshots
-    periodically and serves until SIGTERM (or ``--max-seconds``)."""
+    periodically and serves until SIGTERM (or ``--max-seconds``).  The
+    elastic supervisor spawns it as it spawns an island: it beats a lease
+    (``--lease-dir``, id ``--lease-id``, default 0) so a wedged center is
+    seen, and with ``--metrics-addr`` streams to the fleet monitor."""
     import argparse
     import signal
     import sys
@@ -481,17 +487,16 @@ def center_main(argv: Optional[List[str]] = None) -> int:
                     help="stream the center's telemetry (rank -1) and its "
                          "server spans there; serve statusz")
     ap.add_argument("--run-id", default=None)
+    ap.add_argument("--lease-dir", default=None,
+                    help="beat a membership lease there (the elastic "
+                         "supervisor's view of a wedged center)")
     ap.add_argument("--lease-id", type=int, default=0,
-                    help="the center's id in the statusz roster")
-    # the JAX package's membership lease and fleet monitor: refused below
-    for flag in ("--lease-dir", "--metrics-addr"):
-        ap.add_argument(flag, default=None)
+                    help="the center's id in its lease and the statusz "
+                         "roster")
+    ap.add_argument("--metrics-addr", default=None,
+                    help="the fleet monitor's collector (host:port): the "
+                         "center streams its metric snapshots there")
     args = ap.parse_args(argv)
-    for flag in ("lease_dir", "metrics_addr"):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')}: membership leases and the "
-                f"fleet monitor are not ported yet (ROADMAP A10)")
 
     # flush every 2 events: the center emits few, valuable events (server
     # spans) and may die by SIGKILL, which a 64-event buffer would lose
@@ -516,6 +521,19 @@ def center_main(argv: Optional[List[str]] = None) -> int:
                            "dedup_hits": srv.dedup.hits,
                            "addr": f"{host}:{port}"})
         statusz.start()
+    lease = None
+    if args.lease_dir:
+        from .membership import WorkerLease
+        lease = WorkerLease(args.lease_dir, args.lease_id, telemetry_=tm)
+        lease.beat(srv.center.n_updates)
+    # the center's snapshots (rank -1, role center) beside the islands'
+    streamer = None
+    if args.metrics_addr:
+        from ..utils.fleetmon import MetricStreamer
+        streamer = MetricStreamer(
+            args.metrics_addr, rank=-1, role="center", telemetry_=tm,
+            extra=lambda: {"steps": srv.center.n_updates})
+        streamer.start()
     halt = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: halt.set())
     try:
@@ -524,11 +542,17 @@ def center_main(argv: Optional[List[str]] = None) -> int:
         pass
     t0 = time.time()
     while not halt.wait(0.2):
+        if lease is not None:
+            lease.beat(srv.center.n_updates)   # throttled to one a 2 s
         if args.max_seconds and time.time() - t0 > args.max_seconds:
             break
     srv.stop(final_snapshot=True)
+    if streamer is not None:
+        streamer.stop(final=True)     # a clean exit retires the rank
     if statusz is not None:
         statusz.stop()
+    if lease is not None:
+        lease.release()
     if tm.enabled:
         tm.event("train_end", center=True, n_updates=srv.center.n_updates,
                  dedup_hits=srv.dedup.hits)

@@ -236,8 +236,10 @@ class DedupWindow:
     restart too (the server then synthesizes a reply; the op is NOT
     reapplied)."""
 
-    def __init__(self, depth: int = 128):
+    def __init__(self, depth: int = 128, telemetry_=None):
         self.depth = int(depth)
+        # the registry its hits count into (default: the process's)
+        self.telemetry = telemetry_
         self._lock = threading.Lock()
         # client -> OrderedDict[(op, seq) -> (header, body) | None]
         self._seen: Dict[str, OrderedDict] = {}
@@ -273,7 +275,8 @@ class DedupWindow:
                 while len(window) > self.depth:
                     window.popitem(last=False)
                 return False, None
-        tm = telemetry.active()
+        tm = self.telemetry if self.telemetry is not None \
+            else telemetry.active()
         if tm.enabled:
             tm.counter("wire.dedup_hit")
         return True, hit

@@ -22,9 +22,14 @@ step, reported at print cadence; ``utils/numerics.py``), the training
 sentry (on with telemetry, ``sentry=false`` opts out; ``utils/sentry.py``)
 and the stall watchdog (``stall_timeout`` seconds, ``stall_action``
 ``'trace'`` or ``'exit'``: exit code 42 after the flight dump, for
-``launcher.py --supervise``; ``utils/watchdog.py``).  Device profiling
-(``trace_dir``), chaos, membership leases (``lease_dir``) and the fleet
-monitor (``metrics_addr``) are not ported yet and are refused.
+``launcher.py --supervise``; ``utils/watchdog.py``), the membership
+lease (``lease_dir``: a ``WorkerLease`` beaten each iteration, each
+validation batch and each epoch's end, released on a clean exit;
+``parallel/membership.py``) and the fleet monitor's streamer
+(``metrics_addr``, with telemetry on: the rank's metric snapshots every
+``metrics_interval_s``; ``utils/fleetmon.py``).  Device profiling
+(``trace_dir``) is not ported yet and is refused; the JAX worker reads no
+``chaos`` key, and neither does this one.
 
 :func:`main` is the per-rank command line the launcher composes
 (``theanompi_tpu_torch/launcher.py``):
@@ -48,9 +53,6 @@ from .utils.watchdog import StallWatchdog
 # the JAX worker's keys that wait for later operations planes, with why
 _REFUSED = {
     "trace_dir": "device profiling (devprof on torch.profiler)",
-    "chaos": "the chaos harness, which drives elastic membership",
-    "lease_dir": "membership leases",
-    "metrics_addr": "the fleet monitor (fleetmon)",
 }
 
 
@@ -126,6 +128,13 @@ class Worker(MeshProcess):
         telem = self.telemetry
         rank = self.world_rank
         stall_action = str(config.get("stall_action", "trace"))
+        # the membership lease: beaten wherever the watchdog is (it
+        # throttles itself, so a step costs one clock read, not a write)
+        lease = None
+        if config.get("lease_dir"):
+            from .parallel.membership import WorkerLease
+            lease = WorkerLease(config["lease_dir"], rank, telemetry_=telem)
+            lease.beat(count)
         # the training sentry: NaN, loss spike, throughput regression and
         # the numerics anomalies, at print cadence; on with telemetry
         sentry = None
@@ -141,6 +150,16 @@ class Worker(MeshProcess):
                 telemetry_=telem, tracer_=self.tracing)
             statusz.start()
         self.statusz = statusz
+        # the fleet monitor's streamer: a daemon thread reading the
+        # registry this loop feeds
+        streamer = None
+        if telem.enabled and config.get("metrics_addr"):
+            from .utils.fleetmon import MetricStreamer
+            streamer = MetricStreamer(
+                str(config["metrics_addr"]), rank=rank, role="worker",
+                interval_s=float(config.get("metrics_interval_s", 1.0)),
+                telemetry_=telem)
+            streamer.start()
 
         def on_stall(elapsed, label):
             # the monitor thread's: host work only, never CUDA (a hung
@@ -177,6 +196,8 @@ class Worker(MeshProcess):
                         model.train_iter(count, self.recorder)
                         self.exchanger.exchange(self.recorder, count)
                         watchdog.beat(f"epoch {epoch} iter {count}")
+                        if lease is not None:
+                            lease.beat(count)
                         rec = self.recorder.print_train_info(count, spc)
                         if rec and telem.enabled:
                             telem.system_snapshot(
@@ -199,6 +220,8 @@ class Worker(MeshProcess):
                     for _ in range(model.data.n_batch_val):
                         model.val_iter(count, self.recorder)
                         watchdog.beat(f"epoch {epoch} val @ iter {count}")
+                        if lease is not None:
+                            lease.beat(count)
                     model.end_val()
                     self.recorder.print_val_info(count)
                     if ckpt_dir:
@@ -206,6 +229,8 @@ class Worker(MeshProcess):
                     if config.get("record_dir"):
                         self.recorder.save(config["record_dir"])
                     watchdog.beat(f"epoch {epoch} end (ckpt/records saved)")
+                    if lease is not None:
+                        lease.beat(count, epoch=epoch)
                     if sentry is not None:
                         # the next record's images/sec spans validation and
                         # the checkpoint: not a throughput regression
@@ -219,9 +244,16 @@ class Worker(MeshProcess):
                 telem.close()
             if statusz is not None:
                 statusz.stop(deregister=False)   # listed as down
+            if streamer is not None:
+                # silent: the collector's heartbeat age alerts on it
+                streamer.stop(final=False)
             raise
         if statusz is not None:
             statusz.stop()
+        if streamer is not None:
+            streamer.stop(final=True)      # retired, not a lost heartbeat
+        if lease is not None:
+            lease.release()     # a clean departure: 'finished', not a death
         if telem.enabled:
             telem.event("train_end", secs=round(time.time() - t0, 3),
                         epochs=epochs - start_epoch)

@@ -338,7 +338,15 @@
     all-reduce, copy and optimizer kernels' device ms, the peak of
     allocated device memory, beside plain BSP's; and AlexNet under FSDP
     saved and resumed into a fresh model, its state and two more steps
-    bit for bit.
+    bit for bit.  Elastic resume (A10): AlexNet's ``zero_opt`` and
+    ``fsdp`` world-1 checkpoints rewritten with this script's own numpy as
+    the files of 2 and 4 workers, each loaded into a fresh captured model
+    (a refit 2 → 1 and 4 → 1): params, momentum and the chunk bit for bit,
+    then two more steps of the three models, costs and state bit for bit,
+    B1 and B2 launches counted; the loads' seconds.  Under ``fsdp`` an
+    ``async_ckpt`` save whose next step runs before the write is joined:
+    every array of the landed file equal to a synchronous save of the same
+    count, the file loading bit for bit; its blocking and join seconds.
 32. The GANs and the rest of the LM at one rank (A9b, A9c; ``--gan-lm``
     runs these alone, with the flash build), cuDNN deterministic where
     runs are compared: WGAN (RMSprop 5e-5, ``n_critic`` 5, clip 0.01) and
@@ -5126,6 +5134,141 @@ def fsdp_resume_check(model, worker, modelfile, modelclass, count) -> dict:
     return {"tensors": n, "steps_after": 2}
 
 
+REFIT_CKPT = os.path.join("build", "smoke_refit_ckpt")
+
+
+def rewrite_ckpt(src: str, dst: str, n: int) -> None:
+    """A world-1 checkpoint rewritten, with this script's own numpy, as
+    the files ``n`` workers of a ZeRO-1 or FSDP run would have written:
+    each boxed ``[1, flat]`` leaf's flat vector zero-padded to ``n`` equal
+    rows, each boxed counter ``[1]`` repeated, and the ``n_workers`` and
+    ``zero``/``fsdp`` meta set to match."""
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src, dst)
+    with open(os.path.join(src, "ckpt_epoch0.json")) as f:
+        meta = json.load(f)
+    boxed = set(meta["boxed_parts"])
+    with np.load(os.path.join(src, "ckpt_epoch0.npz")) as z:
+        arrays = {k: z[k] for k in z.files}
+    for k, a in arrays.items():
+        if k.split("__")[0] not in boxed:
+            continue
+        if a.ndim == 1:
+            arrays[k] = np.repeat(a, n)
+            continue
+        flat = a.reshape(-1)
+        c = -(-flat.size // n)
+        arrays[k] = np.concatenate(
+            [flat, np.zeros(c * n - flat.size, a.dtype)]).reshape(n, c)
+        if "fsdp" in meta:
+            meta["fsdp"].update(n=n, chunk=c)
+    meta["n_workers"] = n
+    if "zero" in meta:
+        meta["zero"]["n"] = n
+    np.savez(os.path.join(dst, "ckpt_epoch0.npz"), **arrays)
+    with open(os.path.join(dst, "ckpt_epoch0.json"), "w") as f:
+        json.dump(meta, f)
+
+
+def raw_state(model) -> list:
+    """The state parts as the step keeps them (ZeRO-1's and FSDP's
+    chunks), host copies."""
+    return [t.detach().cpu().clone() for part in
+            model._state_parts().values() for t in tree_leaves(part)
+            if isinstance(t, torch.Tensor)]
+
+
+def refit_check(model, worker, modelfile, modelclass, count, key,
+                async_save=False) -> dict:
+    """Elastic resume on the card: ``model``'s world-1 checkpoint after
+    step ``count``, rewritten by :func:`rewrite_ckpt` as the files of 2
+    and of 4 workers, each loaded into a fresh captured model, which
+    refits 2 → 1 and 4 → 1: the unsharded params and optimizer state and
+    the chunk bit for bit; then two more steps of the three models, costs
+    and state bit for bit, their B1 and B2 launches counted.  With
+    ``async_save``: a synchronous save, then an ``async_ckpt`` save of the
+    same count and the next step before ``wait_pending_ckpt``: every array
+    of the landed file equal to the synchronous one's, and the file loads
+    bit for bit."""
+    from theanompi_tpu_torch.parallel.exchanger import BSP_Exchanger
+    t_all = time.time()
+    base = os.path.join(REFIT_CKPT, key)
+    shutil.rmtree(base, ignore_errors=True)
+    src = os.path.join(base, "w1")
+    model.save(src, 0, count)
+    want, want_raw = unsharded_state(model), raw_state(model)
+    out, loaded, n_t = {}, {}, 0
+    for n in (2, 4):
+        d = os.path.join(base, f"w{n}")
+        rewrite_ckpt(src, d, n)
+        m = worker.build_model(modelfile, modelclass)
+        m.compile_iter_fns(BSP_Exchanger(worker.config))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        if m.load(d) != 0:
+            raise AssertionError(f"{key} refit {n}->1: no checkpoint")
+        torch.cuda.synchronize()
+        out[f"load_{n}to1_s"] = time.time() - t0
+        for i, (x, y) in enumerate(zip(want, unsharded_state(m))):
+            check_bits(f"{key} refit {n}->1 tensor {i}", y, x)
+            n_t += 1
+        for i, (x, y) in enumerate(zip(want_raw, raw_state(m))):
+            check_bits(f"{key} refit {n}->1 chunk {i}", y, x)
+        loaded[n] = m
+    zero_launches()
+    for c in (count + 1, count + 2):
+        model.train_iter(c)
+        for n, m in loaded.items():
+            m.train_iter(c)
+            check_bits(f"{key} refit {n}->1 step {c} cost",
+                       m.current_info["cost"], model.current_info["cost"])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    if launches != expect(lrn_fwd_cuda=12, lrn_bwd_cuda=12):
+        raise AssertionError(f"{key} refit: launches {launches}, want 2 "
+                             f"B1 and 2 B2 a step of 3 models x 2 steps")
+    now = unsharded_state(model)
+    for n, m in loaded.items():
+        for i, (x, y) in enumerate(zip(now, unsharded_state(m))):
+            check_bits(f"{key} refit {n}->1 stepped tensor {i}", y, x)
+    out.update(tensors=n_t, steps_after=2, launches=launches)
+    if async_save:
+        c = count + 2
+        sync_d, async_d = (os.path.join(base, w) for w in ("sync", "async"))
+        t0 = time.time()
+        model.save(sync_d, 0, c)
+        out["sync_save_s"] = time.time() - t0
+        want = unsharded_state(model)
+        model.config["async_ckpt"] = True
+        try:
+            t0 = time.time()
+            model.save(async_d, 0, c)
+            out["async_save_blocking_s"] = time.time() - t0
+            model.train_iter(c + 1)        # in place while the write runs
+            t0 = time.time()
+            model.wait_pending_ckpt()
+            out["async_wait_after_step_s"] = time.time() - t0
+        finally:
+            model.config["async_ckpt"] = False
+        with np.load(os.path.join(sync_d, "ckpt_epoch0.npz")) as a, \
+                np.load(os.path.join(async_d, "ckpt_epoch0.npz")) as b:
+            if sorted(a.files) != sorted(b.files):
+                raise AssertionError("async save: other arrays")
+            for k in a.files:
+                if not np.array_equal(a[k], b[k]):
+                    raise AssertionError(f"async save: {k} differs from the "
+                                         f"synchronous save")
+            out["async_arrays"] = len(a.files)
+        m = loaded[2]
+        if m.load(async_d) != 0:
+            raise AssertionError("async save: no checkpoint")
+        for i, (x, y) in enumerate(zip(want, unsharded_state(m))):
+            check_bits(f"async save load tensor {i}", y, x)
+    del loaded, m
+    out["secs"] = time.time() - t_all
+    return out
+
+
 def shard_run(path: str, key: str) -> dict:
     """One key on one model: GRAPH_STEPS captured steps from seed 0,
     launches counted from 0, the peak of allocated device memory from
@@ -5133,7 +5276,8 @@ def shard_run(path: str, key: str) -> dict:
     was allocated before the model was built), the state after
     (unsharded, on the host); then PROFILE_STEPS profiled steps
     (``profile_model``) and, for AlexNet under FSDP, the save → resume
-    check."""
+    check; for AlexNet under ``zero_opt`` and FSDP the refit from 2- and
+    4-worker files, and under FSDP the async save (:func:`refit_check`)."""
     from theanompi_tpu_torch.worker import WORKERS
     modelfile, modelclass, cfg = SHARD_PATHS[path]
     cfg = dict(cfg, n_workers=1, seed=0, verbose=False,
@@ -5171,10 +5315,14 @@ def shard_run(path: str, key: str) -> dict:
         out["profile"] = profile_model(
             model, lambda rec, c: None, modelclass, cfg["batch_size"],
             SHARD_GROUPS, PROFILE_STEPS, count=steps)
+        count = steps + 2 + 2 * PROFILE_STEPS
         if (path, key) == ("alexnet", "fsdp"):
             out["resume"] = fsdp_resume_check(
-                model, worker, modelfile, modelclass,
-                steps + 2 + 2 * PROFILE_STEPS)
+                model, worker, modelfile, modelclass, count)
+            count += 2
+        if path == "alexnet" and key in ("zero_opt", "fsdp"):
+            out["refit"] = refit_check(model, worker, modelfile, modelclass,
+                                       count, key, async_save=key == "fsdp")
         del model
     finally:
         worker.close()
@@ -5238,6 +5386,26 @@ def shard_main(card: str) -> dict:
     rs = res["alexnet"]["fsdp"]["resume"]
     print(f"shard: AlexNet fsdp save -> resume: {rs['tensors']} tensors and "
           f"{rs['steps_after']} more steps bit for bit", flush=True)
+    for key in ("zero_opt", "fsdp"):
+        rf = res["alexnet"][key]["refit"]
+        print(f"shard: AlexNet {key} refit from 2- and 4-worker files: "
+              f"{rf['tensors']} tensors and the chunks bit for bit, loads "
+              f"2->1 {rf['load_2to1_s']:.2f} s, 4->1 {rf['load_4to1_s']:.2f} "
+              f"s; {rf['steps_after']} more steps of 3 models bit for bit, "
+              f"B1 {rf['launches']['lrn_fwd_cuda']} B2 "
+              f"{rf['launches']['lrn_bwd_cuda']} launches; checks "
+              f"{rf['secs']:.1f} s on {card}", flush=True)
+    rf = res["alexnet"]["fsdp"]["refit"]
+    print(f"shard: AlexNet fsdp async save: {rf['async_arrays']} arrays equal "
+          f"to the synchronous save of the same count after the next step "
+          f"ran, loads bit for bit; blocking "
+          f"{rf['async_save_blocking_s']:.2f} s, joined "
+          f"{rf['async_wait_after_step_s']:.2f} s after the step (sync save "
+          f"{rf['sync_save_s']:.2f} s) on {card}", flush=True)
+    res["refit_secs"] = sum(res["alexnet"][k]["refit"]["secs"]
+                            for k in ("zero_opt", "fsdp"))
+    print(f"shard: the refit and async-save checks took "
+          f"{res['refit_secs']:.1f} s of the group", flush=True)
     res["secs"] = time.time() - t0
     print(f"shard phases passed in {res['secs']:.1f}s", flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
@@ -6756,7 +6924,10 @@ def main() -> int:
                    for w, i in elastic["islands"].items()},
                 # the A9a layouts (zero_opt, update_sharding, fsdp)
                 **{f"alexnet_shard_{k}": r["launches"][name]
-                   for k, r in shard["alexnet"].items()}}
+                   for k, r in shard["alexnet"].items()},
+                # the refit checks: 3 models x 2 steps after the loads
+                **{f"alexnet_shard_{k}_refit": r["refit"]["launches"][name]
+                   for k, r in shard["alexnet"].items() if "refit" in r}}
     total_s = time.time() - t_all
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

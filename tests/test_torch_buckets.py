@@ -31,8 +31,8 @@ against the JAX package's (``theanompi_tpu/parallel/buckets.py``,
   ``n_buckets``: this ports ``test_bucketed_bsp_window_collective_count``
   (``:247-266``), which reads the JAX profiler's trace, by counting calls.
 
-The masked-membership case (``tests/test_buckets.py:201-210``) waits for
-elastic membership (A10, ``set_active_ranks``).
+The masked-membership case (``tests/test_buckets.py:201-210``) is held in
+``tests/test_torch_mesh_membership.py``.
 """
 
 import os

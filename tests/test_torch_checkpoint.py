@@ -197,20 +197,31 @@ def test_mid_epoch_save_and_load_under_para_load(cpu_group, tmp_path):
 
 
 def test_refused_layouts(cpu_group, tmp_path):
+    """What was refused loads now: an ``async_ckpt`` save writes a valid
+    file, and a BSP grads-mode checkpoint, which keeps one replica, loads
+    when it names 4 workers (the JAX package's elastic resume,
+    ``tests/test_checkpoint_and_data.py:143``)."""
     m = helper.TinyLRNNet({"device": "cpu", "verbose": False,
                            "async_ckpt": True})
     m.compile_iter_fns()
-    with pytest.raises(NotImplementedError, match="async_ckpt"):
-        m.save(str(tmp_path), 0)
+    m.save(str(tmp_path / "async"), 0)
+    m.wait_pending_ckpt()
+    assert ckpt.checkpoint_valid(str(tmp_path / "async"), 0)
     ok = helper.TinyLRNNet({"device": "cpu", "verbose": False})
     ok.compile_iter_fns()
+    ok.data.shuffle_data(0)
+    for c in (1, 2):
+        ok.train_iter(c)
     ok.save(str(tmp_path), 0)
     meta_path = tmp_path / "ckpt_epoch0.json"
     meta = json.loads(meta_path.read_text())
+    assert meta["boxed_parts"] == []
     meta["n_workers"] = 4
     meta_path.write_text(json.dumps(meta))
-    with pytest.raises(NotImplementedError, match="4 workers"):
-        ok.load(str(tmp_path))
+    back = helper.TinyLRNNet({"device": "cpu", "verbose": False, "seed": 5})
+    back.compile_iter_fns()
+    assert back.load(str(tmp_path)) == 0
+    _same_states(helper.state_arrays(ok), helper.state_arrays(back))
 
 
 # -- a checkpoint the JAX package wrote -----------------------------------

@@ -1,7 +1,7 @@
 """The port's elastic membership (``theanompi_tpu_torch/parallel/
-membership.py``) against the JAX package's ``parallel/membership.py``,
-without the in-mesh side (``MeshReactor``, ``set_active_ranks``: ROADMAP
-A10 item 4b).
+membership.py``) against the JAX package's ``parallel/membership.py``;
+the in-world side (``MeshReactor``, ``set_active_ranks``) is
+``tests/test_torch_mesh_membership.py``'s.
 
 * Leases: a beat's document and heartbeat gauges; lease files written by
   either package's ``WorkerLease`` read by the other's ``read_leases``.

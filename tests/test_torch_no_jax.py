@@ -174,6 +174,34 @@ for w in range(3):
     ctl.join(w)
 assert ctl.check_stragglers() == [2]
 assert membership._load_report_module() is not None
+# in-world membership, the refit and the async save run without JAX: the
+# reactor demotes three ranks of four (rank 1's gossip then comes back to
+# it alone), the layouts re-partition, and a checkpoint that names 4
+# workers loads on 1
+from theanompi_tpu_torch.parallel import exchanger as X
+gx = X.GOSGD_Exchanger({"gosgd_peers": "iid"})
+gx.prepare(type("M", (), {"rank": 1})(), 4)
+reactor = membership.MeshReactor(gx)
+for w in (0, 2, 3):
+    reactor.on_demote(w, {})
+assert gx.active_key() == (1,)
+assert gx._route([torch.ones(2)], 0)[0].tolist() == [1.0, 1.0]
+assert zero.rechunk_boxed(np.ones((2, 3), np.float32), 3, 1, 5).shape == \
+    (3, 2)
+assert lay.rechunk(lay.chunk_host(tree)).shape == (2, lay.chunk)
+cm = Cifar10_model({"device": "cpu", "verbose": False,
+                    "synthetic_train": 256, "async_ckpt": True})
+cm.compile_iter_fns()
+cd = tempfile.mkdtemp()
+cm.save(cd, 0)
+cm.wait_pending_ckpt()
+meta_p = os.path.join(cd, "ckpt_epoch0.json")
+with open(meta_p) as f:
+    meta = json.load(f)
+meta["n_workers"] = 4
+with open(meta_p, "w") as f:
+    json.dump(meta, f)
+assert cm.load(cd) == 0
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "theanompi_tpu" or m.startswith("theanompi_tpu."))

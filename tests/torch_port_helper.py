@@ -514,17 +514,19 @@ RANK_ENV = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1",
             "MKL_DYNAMIC": "FALSE"}
 
 
-def run_ranks(mode, world, tmp_path, tag, *args, timeout=120):
-    """Run ``mode`` in ``world`` processes over one gloo group (a file
-    store in ``tmp_path``), each on one CPU thread (``RANK_ENV``); returns
-    each rank's output as a dict of arrays, in rank order."""
+def run_ranks(mode, world, tmp_path, tag, *args, timeout=120,
+              script="torch_port_helper.py"):
+    """Run ``mode`` of ``script`` (this one by default) in ``world``
+    processes over one gloo group (a file store in ``tmp_path``), each on
+    one CPU thread (``RANK_ENV``); returns each rank's output as a dict of
+    arrays, in rank order."""
     here = os.path.dirname(os.path.abspath(__file__))
     init = "file://" + os.path.join(str(tmp_path), f"store_{tag}")
     out = os.path.join(str(tmp_path), f"out_{tag}")
     env = dict(os.environ, **RANK_ENV, PYTHONPATH=os.pathsep.join(
         [here, os.path.dirname(here), os.environ.get("PYTHONPATH", "")]))
     procs = [subprocess.Popen(
-        [sys.executable, os.path.join(here, "torch_port_helper.py"), mode,
+        [sys.executable, os.path.join(here, script), mode,
          str(r), str(world), init, out, *map(str, args)], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         for r in range(world)]
     logs = [p.communicate(timeout=timeout)[0].decode() for p in procs]

@@ -320,15 +320,17 @@ def _grid_zero_row(rows, model, local, kept: frozenset) -> np.ndarray:
     jax_like, port_like = _local_likes(local, kept)
     n_blocks, _ = _grid_blocks(model)
     rows = np.asarray(rows, np.float32)
-    n_w = rows.shape[0]
     c = rows.shape[1] // n_blocks
     n_local = sum(int(np.prod(np.shape(v))) for v in tree_leaves(local))
+    # the port's chunk over this run's workers (rows of another count
+    # re-partition)
+    cn = -(-n_local // model.size)
     out = []
     for j in range(n_blocks):
         flat = rows[:, j * c:(j + 1) * c].reshape(-1)[:n_local]
         port = np.pad(flat_from_jax(flat, jax_like, port_like, kept),
-                      (0, c * n_w - n_local))
-        out.append(port[model.rank * c:(model.rank + 1) * c])
+                      (0, cn * model.size - n_local))
+        out.append(port[model.rank * cn:(model.rank + 1) * cn])
     return np.concatenate(out)
 
 
@@ -345,8 +347,11 @@ def checkpoint_from_jax(ckpt_dir: str, model,
     in the JAX order, as it is; PowerSGD's through
     :func:`powersgd_state_from_jax`) and the data cursor.  A part the JAX
     package stored per worker (``[n_workers, ...]``, every part under an
-    async rule) gives this rank its own row.  Returns the epoch loaded,
-    or None when there is none.
+    async rule) gives this rank its own row.  A checkpoint of another
+    worker count refits as ``ModelBase.load`` refits the port's: the parts
+    kept once load whole, ZeRO-1's and FSDP's rows re-partition, and any
+    other per-worker part raises ``ValueError`` with the JAX package's
+    text.  Returns the epoch loaded, or None when there is none.
 
     Under tensor, pipeline or sequence parallelism (a model on a grid)
     the JAX package's global arrays are converted whole and each rank
@@ -396,6 +401,30 @@ def checkpoint_from_jax(ckpt_dir: str, model,
     jax_like = _from_paths(jpaths, [np.broadcast_to(np.float32(0), jax_shapes[p])
                                     for p in jpaths])
     n_total = sum(int(np.prod(s)) for s in jax_shapes.values())
+    # a checkpoint of another worker count: the parts kept once load
+    # whole, ZeRO-1's and FSDP's chunk rows re-partition through the dense
+    # flat (their counters from row 0); every other per-worker part raises
+    n_saved = int(meta.get("n_workers", model.size))
+    same = n_saved == model.size
+    if not same:
+        refit = ("params", "opt_state") if fsdp is not None else \
+            ("opt_state",) if zero is not None else ()
+        stuck = sorted(boxed - set(refit))
+        if stuck:
+            from .models.model_base import refit_refusal
+            raise ValueError(f"{ckpt_dir}: "
+                             f"{refit_refusal(n_saved, stuck)}")
+        if fsdp is not None and int(meta["fsdp"]["total"]) != n_total:
+            raise ValueError(
+                f"{ckpt_dir}: fsdp checkpoint holds "
+                f"{meta['fsdp']['total']} params, model has {n_total}: a "
+                f"different model config")
+        if zero is not None and int(meta["zero"]["local_total"]) != \
+                int(zero["local_total"]):
+            raise ValueError(
+                f"{ckpt_dir}: zero checkpoint layout {meta['zero']} does "
+                f"not match the model's {zero}: a different model or grid "
+                f"config")
 
     def chunk_row(rows):
         """JAX flat chunk rows → this rank's row of the port's layout."""
@@ -419,11 +448,6 @@ def checkpoint_from_jax(ckpt_dir: str, model,
             n = sum(1 for f in z.files if f.startswith(key + "__"))
             leaves = [z[f"{key}__{i}"] for i in range(n)]
             if key in boxed:
-                if int(meta.get("n_workers", 1)) != model.size:
-                    raise ValueError(
-                        f"{ckpt_dir}: '{key}' holds the state of "
-                        f"{meta.get('n_workers')} workers; this run has "
-                        f"{model.size}")
                 if not rows:
                     leaves = [a[model.rank] for a in leaves]
             elif rows:
@@ -474,9 +498,11 @@ def checkpoint_from_jax(ckpt_dir: str, model,
             return cur
 
         if fsdp is not None or zero is not None or uplan is not None:
+            # a counter's row: row 0 of another worker count's (all equal)
             new_opt = _sharded_rows_from_jax(
-                model.opt_state, part("opt_state", rows=True), rank,
-                chunk_row, leaf_plan(uplan), jax_shapes, kept)
+                model.opt_state, part("opt_state", rows=True),
+                rank if same else 0, chunk_row, leaf_plan(uplan),
+                jax_shapes, kept)
         else:
             new_opt = opt_tree(model.opt_state, part("opt_state"))
         bn = part("bn_state")

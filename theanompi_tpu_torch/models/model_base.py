@@ -24,7 +24,9 @@ CPU raises.  On the card the train step is a CUDA graph replay
 ``[k, ...]`` window, as the JAX package's scanned dispatch.
 ``para_load`` wraps the data object in the background loader
 (``data/prefetch.py``), whose producer stages each batch, or each whole
-window, onto the card; ``save``/``load`` checkpoint the state.
+window, onto the card; ``save``/``load`` checkpoint the state
+(``async_ckpt``: the disk write on a thread of its own), and ``load``
+refits a checkpoint of another worker count where the layout allows it.
 
 Under an async rule (EASGD, ASGD, GoSGD) every rank's replica, optimizer
 state and BatchNorm stats are its own: the exchanger's exchange mixes the
@@ -137,6 +139,10 @@ class ModelBase:
         self.exchange_fn = None
         self.exchanger = None
         self._val = None
+        self._capture: Optional[bool] = None
+        # async_ckpt: the write in flight, and its failure
+        self._ckpt_thread = None
+        self._ckpt_exc: Optional[BaseException] = None
         self.current_info: Dict[str, Any] = {}
 
     def _refuse_sharding_keys(self) -> None:
@@ -230,8 +236,8 @@ class ModelBase:
                 raise NotImplementedError(
                     f"fsdp laid out for rank {self._fsdp.rank} of "
                     f"{self._fsdp.n_workers}, compiled for rank {rank} of "
-                    f"{size}: a refit onto another world is not ported yet "
-                    f"(A10)")
+                    f"{size}: a model's world is fixed when it is built "
+                    f"(a checkpoint refits onto another world at load)")
 
     def _wrap_para_load(self) -> None:
         """The reference's ``para_load=True``: a background loader whose
@@ -550,12 +556,24 @@ class ModelBase:
                 self.data.set_window(spc, self._stage_window)
             else:
                 self.data.set_window(0)
-        self.train_fn = steps.build_train_step(self, self.exchanger,
-                                               n_steps=spc, capture=capture)
-        self.exchange_fn = \
-            steps.ExchangeStep(self, self.exchanger, capture) \
-            if self.exchanger.has_exchange() and spc == 1 else None
+        self._capture = capture
+        self.rebuild_steps()
         self.val_fn = steps.build_val_step(self)
+
+    def rebuild_steps(self) -> None:
+        """The train step and the exchange step built again over the
+        state as it stands: what an exchanger's changed active set needs
+        when its cadence is fused into the window (``MeshReactor``).
+        Unlike :meth:`compile_iter_fns` it leaves the params, the
+        optimizer state, the BN state and ``extra`` (a center, GoSGD's α)
+        as they are; a captured step captures again at its next call."""
+        spc = int(self.steps_per_call)
+        self.train_fn = steps.build_train_step(self, self.exchanger,
+                                               n_steps=spc,
+                                               capture=self._capture)
+        self.exchange_fn = \
+            steps.ExchangeStep(self, self.exchanger, self._capture) \
+            if self.exchanger.has_exchange() and spc == 1 else None
 
     # -- contract: iteration -----------------------------------------------
 
@@ -649,10 +667,11 @@ class ModelBase:
         return self._full_of(st["ema"])
 
     def canonical_host_params(self):
-        """:meth:`canonical_params` as a tree of float32 numpy arrays, the
-        global ones under a model-parallel layout (a collective there)."""
+        """:meth:`canonical_params` as a tree of float32 numpy arrays of
+        their own, the global ones under a model-parallel layout (a
+        collective there)."""
         params = tree_map(lambda p: p.detach(), self.canonical_params())
-        return tree_map(lambda p: p.cpu().numpy(),
+        return tree_map(_host_copy,
                         self.global_state({"params": params})["params"])
 
     def begin_val(self) -> None:
@@ -743,11 +762,18 @@ class ModelBase:
         ident = set(self.exchanger.identical_parts())
         return tuple(k for k in self._state_parts() if k not in ident)
 
-    def _refuse_ckpt_layouts(self) -> None:
-        if self.config.get("async_ckpt"):
-            raise NotImplementedError("async_ckpt is not ported yet")
+    def _check_compiled(self) -> None:
         if self.opt_state is None:
             raise RuntimeError("save/load need compile_iter_fns() first")
+
+    def _barrier(self) -> None:
+        """Every rank of the world here (the grid's order under a
+        model-parallel layout); nothing at world 1."""
+        import torch.distributed as dist
+        if self.grid is not None:
+            self.grid.barrier()
+        elif dist.is_initialized() and dist.get_world_size() > 1:
+            dist.barrier()
 
     def save(self, ckpt_dir: str, epoch: int, count: int = 0) -> str:
         """Checkpoint the state: the parts identical on every rank once
@@ -759,16 +785,23 @@ class ModelBase:
         layout saves the global arrays (:meth:`global_state`), written by
         its pipe 0, model 0, seq 0 ranks alone, so a checkpoint resumes at
         any tp or sp (under pp, at the same pp and ``pp_interleave``: the
-        JAX package's stacked tree).  Rank 0 writes; every rank must call (the gathers are
-        collective).  Returns the ``.npz`` path."""
-        import os
+        JAX package's stacked tree).  Rank 0 writes; every rank must call
+        (the gathers are collective).  Returns the ``.npz`` path.
 
-        import torch.distributed as dist
-        self._refuse_ckpt_layouts()
+        Every array is a host copy, made before this returns, so a later
+        step that updates the state in place cannot reach the file.  With
+        ``async_ckpt`` the copies still block the caller, and the disk
+        write runs on a thread of its own, one in flight at a time (a
+        newer save joins the older first); :meth:`wait_pending_ckpt` joins
+        it and raises its failure."""
+        import os
+        self._check_compiled()
+        self.wait_pending_ckpt()
         per_rank = self._per_rank_parts()
         parts = self.global_state(self._state_parts())
         snapshot = self.canonical_host_params()
         path = os.path.join(ckpt_dir, f"ckpt_epoch{epoch}.npz")
+        write = None
         if self.grid is None or self.grid.lead:
             # (the other coordinates of a grid hold the same global arrays)
             state = {}
@@ -777,24 +810,58 @@ class ModelBase:
                     tree = tree_map(self._gather_ranks, tree)
                 elif self.rank == 0:
                     tree = tree_map(
-                        lambda l: l.detach().cpu().numpy()
+                        lambda l: _host_copy(l)
                         if isinstance(l, torch.Tensor) else np.int32(l),
                         tree)
                 state[k] = tree
             if self.rank == 0:
                 cursor = self.data.get_cursor() \
                     if hasattr(self.data, "get_cursor") else None
+                if cursor:
+                    cursor = {k: np.array(v) if isinstance(v, np.ndarray)
+                              else v for k, v in cursor.items()}
                 gen = torch.Generator().manual_seed(self.step_seed)
-                ckpt_lib.save_checkpoint(
-                    ckpt_dir, state, epoch, count,
-                    rng_states={"step": gen.get_state()}, cursor=cursor,
-                    params_npy=snapshot,
-                    extra_meta=self._layout_meta(per_rank))
-        if self.grid is not None:
-            self.grid.barrier()       # the files exist before anyone reads
-        elif dist.is_initialized() and dist.get_world_size() > 1:
-            dist.barrier()
+                kwargs = dict(rng_states={"step": gen.get_state()},
+                              cursor=cursor, params_npy=snapshot,
+                              extra_meta=self._layout_meta(per_rank))
+
+                def write():
+                    ckpt_lib.save_checkpoint(ckpt_dir, state, epoch, count,
+                                             **kwargs)
+        if write is not None:
+            if self.config.get("async_ckpt"):
+                self._write_async(write)
+            else:
+                write()
+        self._barrier()           # a synchronous file exists before anyone reads
         return path
+
+    def _write_async(self, write) -> None:
+        """``write()`` on a daemon thread; its exception is kept for
+        :meth:`wait_pending_ckpt`."""
+        import threading
+
+        def run():
+            try:
+                write()
+            except BaseException as e:
+                self._ckpt_exc = e
+
+        self._ckpt_exc = None
+        self._ckpt_thread = threading.Thread(target=run, daemon=True,
+                                             name="async-ckpt")
+        self._ckpt_thread.start()
+
+    def wait_pending_ckpt(self) -> None:
+        """Block until an async checkpoint write in flight (if any) lands,
+        and raise its failure here: a swallowed write error would let a
+        supervisor resume from an older epoch with no signal."""
+        if self._ckpt_thread is not None:
+            self._ckpt_thread.join()
+            self._ckpt_thread = None
+            exc, self._ckpt_exc = self._ckpt_exc, None
+            if exc is not None:
+                raise RuntimeError("async checkpoint write failed") from exc
 
     def _layout_meta(self, per_rank) -> dict:
         """The checkpoint's layout facts, as the JAX package writes them:
@@ -811,34 +878,84 @@ class ModelBase:
         return meta
 
     def _gather_ranks(self, t):
-        """``[size, ...]`` on the host: every rank's ``t``, in rank order."""
+        """``[size, ...]`` on the host: every rank's ``t``, in rank order
+        (a new array)."""
         import torch.distributed as dist
         if self.size == 1:
-            return t.detach().cpu().numpy()[None]
+            return _host_copy(t)[None]
         parts = [torch.empty_like(t) for _ in range(self.size)]
         dist.all_gather(parts, t.detach().contiguous())
         return torch.stack(parts).cpu().numpy()
+
+    def _refit(self, meta: dict, n_saved: int):
+        """How a checkpoint of ``n_saved`` workers refits onto this
+        model's ``size``: ``(parts, saved_width, rechunk)`` — the parts
+        whose ``[chunk]`` rows re-partition (FSDP's params and optimizer
+        state; ZeRO-1's optimizer state, ``[shards·chunk]`` rows on a
+        grid), the width of the file's rows, and the function from the
+        saved rows to ``[size, chunk]``; ``((), 0, None)`` for a layout
+        with no chunks.  A checkpoint of another model config raises."""
+        from ..parallel.update_sharding import chunk_size
+        n = self.size
+        if self._fsdp is not None and "fsdp" in meta:
+            fs, lay = meta["fsdp"], self._fsdp
+            if int(fs["total"]) != lay.n_total:
+                raise ValueError(
+                    f"fsdp checkpoint holds {fs['total']} params, model "
+                    f"has {lay.n_total}: a different model config")
+            return ("params", "opt_state"), int(fs["chunk"]), lay.rechunk
+        if self._zero_layout is not None and "zero" in meta:
+            zs, lay = meta["zero"], self._zero_layout
+            shards, total = lay["shards"], lay["local_total"]
+            if (int(zs["shards"]), int(zs["local_total"])) != (shards, total):
+                raise ValueError(
+                    f"zero checkpoint layout {zs} does not match the "
+                    f"model's {lay}: a different model or grid config")
+            from ..parallel.zero import rechunk_boxed
+            return (("opt_state",), shards * chunk_size(total, n_saved),
+                    lambda x: rechunk_boxed(x, n, shards, total))
+        return (), 0, None
 
     def load(self, ckpt_dir: str, epoch: Optional[int] = None) -> Optional[int]:
         """Restore what :meth:`save` wrote (call after ``compile_iter_fns``):
         params, optimizer state, BN state, this rank's row of the per-rank
         parts, the dropout stream's seed and the data cursor, so training
         replays bit-identically from the save point.  Returns the epoch
-        restored from, or None when there is no checkpoint."""
-        self._refuse_ckpt_layouts()
+        restored from, or None when there is no checkpoint.  Waits for an
+        ``async_ckpt`` write in flight first.
+
+        A checkpoint that another worker count wrote refits, as in the JAX
+        package: the parts kept once (BSP grads mode) load whole; ZeRO-1's
+        and FSDP's chunk rows re-partition onto this count (:meth:`_refit`),
+        their scalar counters (Adam's ``t``) taken from row 0; any other
+        part kept per rank (a wire's error feedback, an async rule's
+        replicas) raises ``ValueError``."""
+        self._check_compiled()
+        self.wait_pending_ckpt()
+        if self.config.get("async_ckpt"):
+            self._barrier()               # rank 0's write has landed
         meta = ckpt_lib.peek_meta(ckpt_dir, epoch)
         if meta is None:
             return None
-        if int(meta.get("n_workers", self.size)) != self.size:
-            raise NotImplementedError(
-                f"the checkpoint was written by {meta['n_workers']} workers; "
-                f"resuming on {self.size} (elastic or worker-count refit) is "
-                f"not ported yet")
         boxed = set(meta.get("boxed_parts", ()))
+        n, n_saved = self.size, int(meta.get("n_workers", self.size))
+        refit_parts, saved_width, rechunk = (), 0, None
+        if n_saved != n:
+            refit_parts, saved_width, rechunk = self._refit(meta, n_saved)
+            stuck = sorted(boxed - set(refit_parts))
+            if stuck:
+                raise ValueError(refit_refusal(n_saved, stuck))
 
         def shape_of(k):
-            return lambda l: (self.size,) + tuple(l.shape) \
-                if k in boxed else tuple(getattr(l, "shape", ()))
+            def shape(l):
+                s = tuple(getattr(l, "shape", ()))
+                if k in refit_parts:
+                    if len(s) > 1:
+                        raise ValueError(f"unexpected chunked state leaf "
+                                         f"shape {s} in {k!r}")
+                    return (n_saved, saved_width) if s else (n_saved,)
+                return (n,) + s if k in boxed else s
+            return shape
 
         template = {k: tree_map(lambda l, f=shape_of(k): _Shaped(f(l)), tree)
                     for k, tree in self.global_state(
@@ -847,6 +964,10 @@ class ModelBase:
                                             int(meta["epoch"]))
         if restored is None:
             return None
+        for k in refit_parts:
+            restored[k] = tree_map(
+                lambda x: rechunk(x) if x.ndim == 2 else
+                np.broadcast_to(x[:1], (n,)).copy(), restored[k])
         mine = self.local_state({
             k: tree_map(lambda a: a[self.rank], restored[k])
             if k in boxed else restored[k] for k in template})
@@ -871,6 +992,22 @@ class ModelBase:
         if self._fsdp is not None:
             self._fsdp.gather_params()     # the views read the loaded chunks
         return int(meta["epoch"])
+
+
+def refit_refusal(n_saved: int, stuck) -> str:
+    """The JAX package's message for per-rank state that no worker-count
+    refit carries (``ModelBase.load``, ``convert.checkpoint_from_jax``)."""
+    return (f"checkpoint was saved on {n_saved} workers; part(s) {stuck} "
+            f"hold per-worker state (exchange-strategy error feedback / "
+            f"diverged replicas) with no worker-count refit — resume on "
+            f"{n_saved} workers, or use elastic resume with the portable "
+            f"layouts (BSP / ZeRO-1 / FSDP; see docs/api.md)")
+
+
+def _host_copy(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values as a numpy array of their own (on the CPU a
+    tensor's ``.numpy()`` is a view that the next step rewrites)."""
+    return t.detach().to("cpu", copy=True).numpy()
 
 
 class _Shaped:

@@ -38,7 +38,17 @@ islands around a center, ``parallel/async_easgd.py``) runs under
 ``bucket_bytes > 0`` is the bucketed wire (``parallel/buckets.py``): BSP
 hands it to its strategy, EASGD and ASGD sum their deltas by the
 planner's buckets, and GoSGD sends its message as one point-to-point
-message a bucket.  Elastic membership is not ported yet (A10).
+message a bucket.
+
+Elastic membership (``parallel/membership.py``'s ``MeshReactor``):
+:meth:`Exchanger.set_active_ranks` shrinks the set of ranks the async
+rules mix without stopping the run.  A demoted rank trains locally and
+keeps issuing every collective of the exchange, in the same order, with
+zeros as its share (each rank is a process of its own, and a skipped
+all-reduce would hang the group); its replica, and GoSGD's α, stay bit
+for bit as they were, while its copy of a center takes the same update
+as every other rank's.  BSP refuses: its reaction is the supervised
+world restart (``launcher --supervise``).
 
 ``update_sharding=true`` at world > 1 shards the extra state a rule keeps
 identical on every rank (``shardable_extra``: the EASGD and ASGD centers)
@@ -110,6 +120,9 @@ class Exchanger:
         # update_sharding's plan over shardable_extra (None: inactive)
         self._ushard_plan: Optional[ushard.UpdatePlan] = None
         self._ushard_keys: tuple = ()
+        # elastic membership: None, every rank mixes; else the sorted
+        # tuple of the active ranks (set_active_ranks)
+        self._active_ranks: Optional[tuple] = None
 
     def prepare(self, model, size: int) -> None:
         self.model = model
@@ -342,9 +355,59 @@ class Exchanger:
         replica itself."""
         return self.model.params
 
+    # -- elastic membership (parallel/membership.py) -------------------------
+
+    def supports_elastic(self) -> bool:
+        """True when the rule's exchange tolerates a change of membership
+        (the async rules: per-rank push-pull or gossip); BSP's reaction to
+        a lost rank is a supervised world restart."""
+        return False
+
     def set_active_ranks(self, active) -> None:
-        raise NotImplementedError(
-            "elastic membership (set_active_ranks) is not ported yet (A10)")
+        """Shrink or re-grow the set of ranks the exchange mixes, without
+        stopping the run: ``active`` a collection of rank ids, or None (or
+        every rank) for full membership.  :meth:`prepare` runs again, so
+        GoSGD's tables are drawn over the new set.  A demoted rank keeps
+        training locally; a readmitted one re-enters the mixing with what
+        it has.  A step captured for another set is captured again
+        (``steps._Captured`` keys its graphs by :meth:`active_key`); a
+        fused cadence also rebuilds its step (``MeshReactor``)."""
+        if not self.supports_elastic():
+            raise NotImplementedError(
+                f"{type(self).__name__} ({self.name}) cannot shrink its "
+                f"membership: BSP-family rules react to host loss via "
+                f"`launcher --supervise` world restart (docs/design.md "
+                f"§14 reaction matrix)")
+        if self.model is None:
+            raise RuntimeError("set_active_ranks before prepare()")
+        n = self.size
+        if active is None:
+            self._active_ranks = None
+        else:
+            act = tuple(sorted({int(a) for a in active}))
+            if not act or not all(0 <= a < n for a in act):
+                raise ValueError(
+                    f"active ranks {act} outside the {n}-rank world (or "
+                    f"empty): at least one rank must remain active")
+            self._active_ranks = None if len(act) == n else act
+        self.prepare(self.model, n)
+
+    def active_mask(self) -> np.ndarray:
+        """``[size]`` float32 participation mask (1 = active)."""
+        mask = np.ones(self.size, np.float32)
+        if self._active_ranks is not None:
+            mask[:] = 0.0
+            mask[list(self._active_ranks)] = 1.0
+        return mask
+
+    def active_key(self) -> Optional[tuple]:
+        """The active set as a captured graph's key (None: every rank)."""
+        return self._active_ranks
+
+    def _is_active(self) -> bool:
+        """Whether this rank mixes in the exchange."""
+        act = self._active_ranks
+        return act is None or self.rank in act
 
 
 class LocalExchanger(Exchanger):
@@ -516,6 +579,9 @@ class _CenterExchanger(Exchanger):
     def has_exchange(self) -> bool:
         return True
 
+    def supports_elastic(self) -> bool:
+        return True
+
     def numerics_extra(self, params, extra) -> Dict[str, list]:
         """The center, identical on every rank (each applies the same
         summed delta): the beacon, and what ``‖w − c‖`` is taken to (the
@@ -549,7 +615,8 @@ class EASGD_Exchanger(_CenterExchanger):
     and writing one: the delta, the pull of ``p`` as a lerp toward ``c``,
     and ``c += (α / size) · Σ delta`` (the JAX package rounds ``/ size``
     and ``α ·`` apart; these differ from its bits by an ulp, not in
-    law)."""
+    law).  Under a shrunk membership the mean is over the active ranks:
+    a demoted rank's delta is zeros and it skips the pull."""
 
     name = "easgd"
 
@@ -560,11 +627,18 @@ class EASGD_Exchanger(_CenterExchanger):
 
     @torch.no_grad()
     def exchange_body(self, count: int, gen=None) -> None:
+        act = self._active_ranks
+        n_act = self.size if act is None else len(act)
+        mine = self._is_active()
+
         def algebra(ps, cs):
             delta = torch._foreach_sub(ps, cs)
-            torch._foreach_lerp_(ps, cs, self.alpha)
+            if mine:
+                torch._foreach_lerp_(ps, cs, self.alpha)
+            else:
+                torch._foreach_zero_(delta)
             self._sum_tree(_like(self.model.params, delta))
-            torch._foreach_add_(cs, delta, alpha=self.alpha / self.size)
+            torch._foreach_add_(cs, delta, alpha=self.alpha / n_act)
 
         self._center_body(algebra)
 
@@ -572,7 +646,9 @@ class EASGD_Exchanger(_CenterExchanger):
 class ASGD_Exchanger(_CenterExchanger):
     """Downpour push-pull: every ``sync_freq`` steps (default 1) the
     center absorbs the SUM of the ranks' deltas ``p − c`` and every rank
-    restarts from the new center."""
+    restarts from the new center.  Under a shrunk membership only the
+    active ranks' deltas are summed and only they restart; a demoted rank
+    keeps its replica."""
 
     name = "asgd"
 
@@ -582,11 +658,16 @@ class ASGD_Exchanger(_CenterExchanger):
 
     @torch.no_grad()
     def exchange_body(self, count: int, gen=None) -> None:
+        mine = self._is_active()
+
         def algebra(ps, cs):
             delta = torch._foreach_sub(ps, cs)
+            if not mine:
+                torch._foreach_zero_(delta)
             self._sum_tree(_like(self.model.params, delta))
             torch._foreach_add_(cs, delta)
-            torch._foreach_copy_(ps, cs)
+            if mine:
+                torch._foreach_copy_(ps, cs)
 
         self._center_body(algebra)
 
@@ -615,7 +696,15 @@ class GOSGD_Exchanger(Exchanger):
     gate comes from a generator on the device seeded from ``(gosgd_seed,
     rank, count)``, and the pick is drawn on the host from ``(gosgd_seed,
     count)``, so every rank picks the same table.  At world 1 the route
-    is the identity."""
+    is the identity.
+
+    Under a shrunk membership the tables are drawn over the ``m`` active
+    ranks and lifted to full width (``topology.embed_active``: a demoted
+    rank is a fixed point), ``shift`` routes on the active sub-ring with
+    ``s`` in ``1 .. m-1``, a demoted rank's send gate is off, and its
+    ``p`` and α stay as they were.  A fixed point is a local delivery: the
+    rank takes its own buffer back, with no send or receive (one active
+    rank gets its own α/2 back, so Σα is conserved)."""
 
     name = "gosgd"
     uses_draws = True
@@ -634,12 +723,21 @@ class GOSGD_Exchanger(Exchanger):
     def prepare(self, model, size: int) -> None:
         super().prepare(model, size)
         self.rank = int(model.rank)
+        active = self._active()
+        m, n = len(active), self.size
         if self.peers_mode == "perm":
-            self._tables = topology.derangements(
-                self.size, self.n_perms, seed=0x605 + self.family_seed)
+            self._tables = topology.embed_active(topology.derangements(
+                m, self.n_perms, seed=0x605 + self.family_seed), active, n)
         elif self.peers_mode == "iid":
-            self._tables = topology.iid_maps(
-                self.size, self.n_perms, seed=0x1d1 + self.family_seed)
+            self._tables = topology.embed_active(topology.iid_maps(
+                m, self.n_perms, seed=0x1d1 + self.family_seed), active, n)
+
+    def _active(self) -> list:
+        act = self._active_ranks
+        return list(range(self.size)) if act is None else list(act)
+
+    def supports_elastic(self) -> bool:
+        return True
 
     def _extra_full_template(self) -> Dict[str, Any]:
         return {"alpha": torch.ones((), dtype=torch.float32,
@@ -662,15 +760,18 @@ class GOSGD_Exchanger(Exchanger):
     def rounds(self, count: int) -> list:
         """The routing of the exchange after step ``count``: a list of
         rounds, each a list of ``(sender, receiver)`` pairs with distinct
-        senders and distinct receivers; ``[]`` at world 1."""
+        senders and distinct receivers (a demoted rank's pair is ``(d,
+        d)``, or absent under ``shift``); ``[]`` at world 1."""
         n = self.size
         if n == 1:
             return []
         r = np.random.RandomState(step_seed(_ROUTE_TAG, self.family_seed,
                                             count) % 2 ** 32)
         if self.peers_mode == "shift":
-            s = int(r.randint(1, n))
-            return [[(i, (i + s) % n) for i in range(n)]]
+            act = self._active()
+            m = len(act)
+            s = int(r.randint(1, m)) if m > 1 else 1
+            return [[(act[j], act[(j + s) % m]) for j in range(m)]]
         dest = self._tables[int(r.randint(len(self._tables)))]
         if self.peers_mode == "perm":
             return [[(i, int(dest[i])) for i in range(n)]]
@@ -680,7 +781,8 @@ class GOSGD_Exchanger(Exchanger):
         """What this rank receives of each message buffer: the sum of the
         buffers sent to it (zeros if none), ``bufs`` themselves at world
         1.  In each round every buffer travels as a message of its own,
-        all of the round's sends and receives in flight at once."""
+        all of the round's sends and receives in flight at once; a pair
+        ``(d, d)`` is delivered locally."""
         rounds = self.rounds(count)
         if not rounds:
             return bufs
@@ -688,6 +790,9 @@ class GOSGD_Exchanger(Exchanger):
         for pairs in rounds:
             ops, got = [], None
             for s, d in pairs:
+                if s == d == self.rank:
+                    got = [b.clone() for b in bufs]
+                    continue
                 if s == self.rank:
                     ops += [dist.P2POp(dist.isend, b, d) for b in bufs]
                 if d == self.rank:
@@ -707,6 +812,9 @@ class GOSGD_Exchanger(Exchanger):
         alpha = self.model.extra["alpha"]
         send = torch.rand((), generator=gen, device=alpha.device) \
             < self.p_share
+        mine = self._is_active()
+        if not mine:
+            send = torch.zeros_like(send)
         w_send = torch.where(send, alpha * 0.5, torch.zeros_like(alpha))
         w_keep = alpha - w_send
         if self.plan is None:
@@ -729,6 +837,8 @@ class GOSGD_Exchanger(Exchanger):
             w_recv = recv[-1][0]
             got = tree_leaves(buckets.unpack(recv[:-1], self.model.params,
                                              self.plan))
+        if not mine:
+            return                  # p and α verbatim off the active set
         new_alpha = w_keep + w_recv
         torch._foreach_mul_(ps, w_keep)
         torch._foreach_add_(ps, got)

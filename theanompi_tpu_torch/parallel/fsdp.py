@@ -25,10 +25,9 @@ they pick for the unsharded leaf, and the step is bit-equal to plain BSP
 on the card as on the CPU.  The flat vector is ``total`` long (the last
 leaf's end), padded with zeros to ``chunk · N``; ``n_total`` counts the
 parameters alone.  The JAX package's layout is dense and in its own order:
-``convert.py`` maps its rows.
-
-The JAX package's ``rechunk`` (a refit onto another worker count) belongs
-to elastic resume, which the port refuses (A10).
+``convert.py`` maps its rows.  :meth:`FsdpLayout.rechunk` re-partitions
+a checkpoint's rows onto another worker count (a resume on another world,
+``ModelBase.load``).
 """
 
 from __future__ import annotations
@@ -104,6 +103,23 @@ class FsdpLayout:
         for o, n in zip(self.offsets, self.sizes):
             flat[o:o + n] = dense[d:d + n]
             d += n
+        return flat.reshape(self.n_workers, self.chunk)
+
+    def rechunk(self, boxed_saved) -> np.ndarray:
+        """A checkpoint's ``[n_saved, chunk_saved]`` rows of this layout
+        re-partitioned onto this layout's ``[n_workers, chunk]``: the rows
+        end to end are the same padded flat vector, cut to ``total`` and
+        padded again.  Rows of another width are another model's (or
+        another layout's): ``ValueError``."""
+        boxed = np.asarray(boxed_saved, np.float32)
+        n_s = int(boxed.shape[0])
+        if boxed.ndim != 2 or boxed.shape[1] != chunk_size(self.total, n_s):
+            raise ValueError(
+                f"fsdp rows of shape {boxed.shape} are not the chunks of a "
+                f"{self.total}-element flat layout over {n_s} workers: a "
+                f"different model config")
+        flat = np.zeros(self.padded, np.float32)
+        flat[:self.total] = boxed.reshape(-1)[:self.total]
         return flat.reshape(self.n_workers, self.chunk)
 
     def host_params_from_chunks(self, boxed_chunks):

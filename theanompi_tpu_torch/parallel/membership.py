@@ -19,10 +19,12 @@ against a center.  So an island that dies is respawned alone:
   ``check_stragglers()`` demotes an island that
   ``scripts/telemetry_report.py``'s windowed ranking charges with
   ``straggle_windows`` straggles.
-* **:class:`CenterReactor`** — demotes and readmits islands at the
-  EASGD/ASGD center: a demoted island's pushes are dropped, its pulls
-  still served.  (In-mesh demotion, the JAX package's ``MeshReactor`` and
-  ``Exchanger.set_active_ranks``, is not ported: ROADMAP A10 item 4b.)
+* **Reactors** — :class:`CenterReactor` demotes and readmits islands at
+  the EASGD/ASGD center: a demoted island's pushes are dropped, its pulls
+  still served.  :class:`MeshReactor` drives an in-world exchanger's
+  ``set_active_ranks``: GoSGD's tables drawn again without the demoted
+  rank, EASGD's and ASGD's exchange masked.  BSP has no shrink reaction:
+  its reaction is a supervised world restart (``launcher --supervise``).
 * **:class:`ElasticSupervisor`** — spawns the island processes, sees a
   death (an exit, or a lease expired), respawns with :class:`Backoff`,
   trips a :class:`CrashLoopBreaker` when failures cluster, supervises the
@@ -299,6 +301,51 @@ class CenterReactor(Reactor):
 
     def on_readmit(self, worker, info):
         self._call(worker, "readmit")
+
+
+class MeshReactor(Reactor):
+    """In-world shrink: the exchanger's ``set_active_ranks`` over every
+    rank not demoted (GoSGD's tables drawn over the active ranks, EASGD's
+    and ASGD's exchange masked).  Every rank runs one, driven by the same
+    controller sequence, since each rank's exchange must know the set.
+    When the exchange cadence is fused into the train step's window
+    (``steps_per_call > 1``) the model rebuilds its step functions
+    (``ModelBase.rebuild_steps``), which keeps the optimizer state, the
+    center and α as they are."""
+
+    def __init__(self, exchanger, model=None):
+        self.exchanger = exchanger
+        self.model = model
+        self.demoted: set = set()
+
+    def _apply(self) -> None:
+        size = getattr(self.exchanger, "size", None)
+        assert size, "MeshReactor needs a prepared exchanger"
+        active = [r for r in range(size) if r not in self.demoted]
+        self.exchanger.set_active_ranks(active)
+        if getattr(self.exchanger, "fused", False):
+            # the window's step runs the exchange: rebuilt for the new set
+            assert self.model is not None, (
+                "MeshReactor on a fused-cadence exchanger needs the model "
+                "(MeshReactor(exchanger, model=...)) so its step is rebuilt "
+                "for the new active set")
+            self.model.rebuild_steps()
+
+    def on_demote(self, worker, info):
+        self.demoted.add(int(worker))
+        self._apply()
+
+    def on_leave(self, worker, info):
+        self.demoted.add(int(worker))
+        self._apply()
+
+    def on_join(self, worker, info):
+        self.demoted.discard(int(worker))
+        self._apply()
+
+    def on_readmit(self, worker, info):
+        self.demoted.discard(int(worker))
+        self._apply()
 
 
 # -- the controller ----------------------------------------------------------
@@ -1156,8 +1203,8 @@ def run_elastic(rule: str, modelfile: str, modelclass: str,
             f"elastic process membership needs a center-based rule "
             f"(easgd/asgd), got {rule!r} — BSP preemption tolerance is "
             f"`launcher --supervise` (world restart from the newest "
-            f"checkpoint); GoSGD's demotion is in-mesh (ROADMAP A10 "
-            f"item 4b)")
+            f"checkpoint); GoSGD demotion is in-mesh "
+            f"(Exchanger.set_active_ranks)")
     from .center_server import (CenterServer, RemoteCenter, load_snapshot,
                                 snapshot_path)
     record_dir = record_dir or config.get("record_dir")

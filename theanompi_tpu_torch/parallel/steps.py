@@ -144,9 +144,10 @@ def _host_or_claimed(batch, device: torch.device) -> Dict[str, torch.Tensor]:
 
 class _Captured:
     """What a step captured on the card keeps: one CUDA graph per key (a
-    window's phase; the exchange has one), each with the tensors its
-    capture returned and the state tensors it was captured with, and the
-    side stream its warm-up and capture run on."""
+    window's phase, and the exchanger's active set: a graph freezes the
+    membership it was captured under), each with the tensors its capture
+    returned and the state tensors it was captured with, and the side
+    stream its warm-up and capture run on."""
 
     def __init__(self):
         self._stream = None
@@ -426,7 +427,7 @@ class TrainStep(_Captured):
                                     first + j))
         for j, g in enumerate(self._xgens):
             self._exch.seed_draws(g, first + j)
-        key = self._phase()
+        key = (self._phase(), self.exchanger.active_key())
         if self._nx is not None:
             self._numerics_step()
             key = (key, self._nx_j)
@@ -451,7 +452,8 @@ class ExchangeStep(_Captured):
     replayed after; GoSGD's send gate draws from a generator registered
     with the graph and seeded from ``(gosgd_seed, rank, count)`` before
     each call.  Its state identity check and launch counts are the train
-    step's (:class:`_Captured`)."""
+    step's (:class:`_Captured`); a graph is kept for each active set the
+    exchanger meets (``Exchanger.set_active_ranks``)."""
 
     def __init__(self, model, exchanger, capture: Optional[bool] = None):
         self.model, self.exchanger = model, exchanger
@@ -471,7 +473,7 @@ class ExchangeStep(_Captured):
             body()
             return
         self.exchanger.check_capture()
-        self._run_captured(0, body, body,
+        self._run_captured(self.exchanger.active_key(), body, body,
                            [self.gen] if self.exchanger.uses_draws else [])
 
 

@@ -81,8 +81,8 @@ def embed_active(sub_tables: np.ndarray, active: Sequence[int],
     tables: every inactive rank is a fixed point (``table[r][d] == d`` —
     its α and replica are untouched until readmission), and the active
     ranks route among themselves exactly as ``sub_tables`` prescribes
-    over ``range(len(active))``.  At full membership, the only one the
-    port runs, it is the identity embedding."""
+    over ``range(len(active))``.  At full membership it is the identity
+    embedding."""
     act = np.asarray(list(active), dtype=np.int64)
     tables = np.tile(np.arange(n), (len(sub_tables), 1))
     if len(sub_tables) and len(act):

@@ -9,7 +9,10 @@ at ``steps_per_call > 1`` the step's window runs it), runs the per-epoch
 validation loop and prints through the recorder; with ``ckpt_dir`` it
 checkpoints at
 the end of every epoch (after validation) and, with ``resume=True``,
-restores the newest valid checkpoint before training.
+restores the newest valid checkpoint before training (one of another
+worker count too, where its layout refits: ``ModelBase.load``).  With
+``async_ckpt`` the write in flight lands before the loop returns, also
+while an exception unwinds it.
 
 The operations planes ride the loop as in the JAX package, each off
 unless the config turns it on, each costing one attribute check when off:
@@ -40,6 +43,7 @@ validation batch and each epoch's end, released on a clean exit;
 
 from __future__ import annotations
 
+import sys
 import time
 from typing import Optional
 
@@ -248,6 +252,21 @@ class Worker(MeshProcess):
                 # silent: the collector's heartbeat age alerts on it
                 streamer.stop(final=False)
             raise
+        finally:
+            # async_ckpt: an epoch's write in flight lands even while an
+            # exception (or Ctrl-C) unwinds the loop; the daemon writer
+            # would otherwise die mid-write.  Its own failure surfaces on a
+            # clean exit and never hides the unwinding error.
+            unwinding = sys.exc_info()[0] is not None
+            wait = getattr(model, "wait_pending_ckpt", None)
+            try:
+                if wait is not None:
+                    wait()
+            except Exception as ckpt_exc:
+                if not unwinding:
+                    raise
+                print(f"async checkpoint ALSO failed during unwind: "
+                      f"{ckpt_exc!r}", file=sys.stderr, flush=True)
         if statusz is not None:
             statusz.stop()
         if streamer is not None:
@@ -307,8 +326,6 @@ def main(argv=None) -> int:
     with ``<rule>_mode=async`` train islands through the session API
     (``sync_rule``); every other run builds the rule's worker and model
     and runs the epoch loop."""
-    import sys
-
     argv = sys.argv[1:] if argv is None else list(argv)
     if len(argv) < 3:
         print("usage: python -m theanompi_tpu_torch.worker <rule> "

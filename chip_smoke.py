@@ -266,9 +266,13 @@
     ``LATEST`` reads 0: the killed run restarts, resumes from epoch 0 and
     ends with the unkilled run's final checkpoint, bit for bit; and one
     rank more than the visible GPUs is refused before anything is
-    spawned.  Prints the seconds from launch to the first step, the step
-    ms beside the in-process session's, and the seconds from the SIGKILL
-    to the first resumed step.
+    spawned.  The killed run takes ``--compile-cache build/smoke_cc``
+    (emptied first): its first worker's start-up line shows ``lrn`` as a
+    miss with nvcc's seconds, the restarted worker's as a hit, each with
+    the start-up by part.  The supervised runs and the refusal run beside
+    the world-1 phase.  Prints the seconds from launch to the first step,
+    the step ms beside the in-process session's, and the seconds from the
+    SIGKILL to the first resumed step.
 28a. The elastic islands (A10 items 3 and 4a; ``--elastic`` runs them
     alone): one ``run_elastic`` EASGD run, 2 islands of AlexNet b128
     (``ElasticAlexNet``: full width, bf16, captured, the numerics plane
@@ -324,7 +328,13 @@
     state's own float64 norm); an AlexNet whose step writes one +inf into
     a gradient (the count > 0, ``grad_overflow``, one flight dump); and
     the captured step's wall and device busy ms and device ops with the
-    planes off, at every 4 and at every 1.
+    planes off, at every 4 and at every 1.  The every-1 session also
+    takes ``trace_dir`` (``trace_start`` 3, ``trace_iters`` 4): its state
+    and launches as above, and ``devprof``'s profile of the window: 4
+    train dispatches, one lane, the compute per dispatch within 10% of the
+    every-1 profile's device busy ms, the ``device.*`` gauges and one
+    ``device_profile`` event in the stream; prints the top ops and the
+    comm ops NCCL shows at world 1.
 31. Data-parallel state sharding (A9a; ``--shard`` runs these alone),
     world 1 over NCCL, captured, cuDNN deterministic: AlexNet b128 and
     VGG-16 'D' b32 for 8 steps each under plain BSP, ``zero_opt``,
@@ -4196,6 +4206,8 @@ LAUNCH_CFG = dict(batch_size=BATCH, synthetic_batches=STEPS,
 # the supervised phase's epochs: long enough that a SIGKILL landing right
 # after epoch 0's checkpoint finds epoch 1 still running
 SUPERVISE_STEPS = 16
+# the killed supervised run's compile cache, emptied at the phase's start
+SMOKE_CC = os.path.join(HERE, "build", "smoke_cc")
 
 
 class SmokeAlexNet(AlexNet):
@@ -4362,14 +4374,17 @@ def launcher_supervise_phase() -> dict:
     restarting in the backoff and resuming from epoch 0, ends at
     ``LATEST`` 1, and its final checkpoint equals the other's array for
     array, bit for bit (cuDNN deterministic: sharing the card changes no
-    bit).  Returns the seconds from the SIGKILL to the resumed process's
-    first step (synchronized): the time to recover, with the unkilled run
-    sharing the card and the host."""
+    bit).  The killed run takes ``--compile-cache`` (SMOKE_CC, emptied
+    first): its first worker's ``compile cache`` start-up line names
+    ``lrn`` a miss with nvcc's seconds, the restarted worker's a hit, and
+    each prints its start-up by part.  Returns the seconds from the
+    SIGKILL to the resumed process's first step (synchronized): the time
+    to recover, with the unkilled run sharing the card and the host."""
     import signal
     cfg = dict(LAUNCH_CFG, synthetic_batches=SUPERVISE_STEPS, epochs=2,
                printFreq=SUPERVISE_STEPS)
     dirs = {k: os.path.join(LAUNCH_DIR, k) for k in ("whole", "killed")}
-    for d in dirs.values():
+    for d in list(dirs.values()) + [SMOKE_CC]:
         shutil.rmtree(d, ignore_errors=True)
     args = ("--n-workers", "1", "--supervise", "2", "--backoff", "0.1")
     whole_path = os.path.join(LAUNCH_DIR, "whole.log")
@@ -4379,7 +4394,8 @@ def launcher_supervise_phase() -> dict:
             launcher_cmd(*args, **cfg, ckpt_dir=dirs["whole"]), cwd=HERE,
             stdout=whole_log, stderr=subprocess.STDOUT, text=True)
         sup = subprocess.Popen(
-            launcher_cmd(*args, **cfg, ckpt_dir=dirs["killed"]), cwd=HERE,
+            launcher_cmd(*args, "--compile-cache", SMOKE_CC, **cfg,
+                         ckpt_dir=dirs["killed"]), cwd=HERE,
             stdout=log, stderr=subprocess.STDOUT, text=True)
         try:
             deadline = time.time() + 300
@@ -4425,7 +4441,39 @@ def launcher_supervise_phase() -> dict:
                        os.path.join(dirs["whole"], "ckpt_epoch1.npz"))
     return {"recover_s": step1[1] - t_kill, "arrays_bit_equal": n,
             "restart_line": [ln for ln in out.splitlines()
-                             if "restarting in" in ln][0]}
+                             if "restarting in" in ln][0],
+            **compile_cache_lines(out)}
+
+
+def compile_cache_lines(out: str) -> dict:
+    """The killed supervised run's two workers' start-up lines: ``lrn`` a
+    miss (nvcc's seconds) in the first, a hit in the restarted one, each
+    with the start-up by part."""
+    cache = [ln for ln in out.splitlines() if ln.startswith("compile cache [")]
+    parts = [ln for ln in out.splitlines() if ln.startswith("start-up (")]
+    if len(cache) != 2 or len(parts) != 2 or \
+            "kernels: miss" not in cache[0] or \
+            "{'lrn': 'miss'}" not in cache[0] or \
+            "kernels: hit" not in cache[1] or \
+            "{'lrn': 'hit'}" not in cache[1]:
+        raise AssertionError(f"compile cache lines {cache}, start-up "
+                             f"lines {parts}")
+
+    def secs(line):
+        return float(line.split("kernels: ")[1].split("(")[1].split("s)")[0])
+
+    def points(line):
+        return {k: None if v == "-" else float(v) for k, v in
+                (p.rsplit(" ", 1) for p in
+                 line.split(": ", 1)[1].split(", "))}
+
+    with open(os.path.join(SMOKE_CC, "manifest.json")) as f:
+        (entry,) = json.load(f).values()
+    return {"cache_lines": cache, "startup_lines": parts,
+            "lrn_miss_s": secs(cache[0]), "lrn_hit_s": secs(cache[1]),
+            "nvcc_s": entry["build_secs"], "manifest": entry,
+            "startup_miss": points(parts[0]),
+            "startup_hit": points(parts[1])}
 
 
 def launcher_refusal_phase() -> dict:
@@ -4452,8 +4500,10 @@ def launcher_main(card: str) -> dict:
     taken under that contention."""
     gc.collect()
     torch.cuda.empty_cache()         # the launched rank shares the card
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
         refusal = pool.submit(launcher_refusal_phase)
+        t_sup = time.time()
+        supervise = pool.submit(launcher_supervise_phase)
         t0 = time.time()
         res = {"world1": launcher_world1_phase()}
         w = res["world1"]
@@ -4466,15 +4516,20 @@ def launcher_main(card: str) -> dict:
               f"{ {k: v for k, v in w['launches'].items() if v} }, "
               f"{w['leaves_bit_equal']} param leaves bit-equal to the "
               f"session on {card}", flush=True)
-        t0 = time.time()
-        res["supervise"] = s = launcher_supervise_phase()
-        s["secs"] = time.time() - t0
+        res["supervise"] = s = supervise.result()
+        s["secs"] = time.time() - t_sup
         print(f"launcher --supervise: SIGKILL after epoch 0's checkpoint, "
               f"'{s['restart_line']}', first resumed step "
               f"{s['recover_s']:.1f} s after the kill (beside the unkilled "
-              f"supervised run on the card), final checkpoint bit-equal to "
-              f"the unkilled run ({s['arrays_bit_equal']} arrays) on {card}",
-              flush=True)
+              f"supervised run and the world-1 phase on the card), final "
+              f"checkpoint bit-equal to the unkilled run "
+              f"({s['arrays_bit_equal']} arrays) on {card}", flush=True)
+        print(f"launcher --supervise --compile-cache: first worker "
+              f"{s['cache_lines'][0]!r}; restarted worker "
+              f"{s['cache_lines'][1]!r}; nvcc {s['nvcc_s']:.2f} s for lrn "
+              f"(manifest); start-up by part, s from process start, miss "
+              f"{s['startup_miss']}, hit {s['startup_hit']}; the phase "
+              f"{s['secs']:.1f} s on {card}", flush=True)
         res["refusal"] = f = refusal.result()
     print(f"launcher refused --n-workers {torch.cuda.device_count() + 1} "
           f"in {f['secs']:.1f} s (rc {f['rc']}): {f['message']}", flush=True)
@@ -6057,7 +6112,8 @@ def ops_session(modelfile, modelclass, steps, poll_statusz=False, **cfg):
            "state": host_state(m),
            "sample": fn.nx_buf.cpu().clone() if fn._nx is not None else None,
            "anomalies": list(w.sentry.anomalies) if w.sentry else None,
-           "stalls": w.watchdog.stall_count, "health": health}
+           "stalls": w.watchdog.stall_count, "health": health,
+           "profile": w.device_profile}
     rule.model = rule.worker = None
     del m, w, fn, rule
     gc.collect()
@@ -6168,6 +6224,48 @@ def check_sample(name, sample, ref: dict) -> dict:
     return errs
 
 
+# the traced ops session's trace directory
+OPS_TRACE = os.path.join("build", "smoke_ops", "trace")
+
+
+def ops_trace_check(r: dict, st: dict) -> dict:
+    """The traced every-1 session's devprof profile: 4 train dispatches
+    (the window, steps 3–6), one lane (the card), compute on it, the
+    ``device.*`` gauges in the summary; prints the top ops and the comm
+    ops NCCL shows at world 1 (a collective there may be a copy)."""
+    from theanompi_tpu_torch.utils import devprof
+    prof = r["profile"]
+    if prof is None or prof["train_dispatches"] != 4 or \
+            prof["lanes"] != 1 or not prof["compute_secs"] > 0:
+        raise AssertionError(f"devprof profile of the traced session: "
+                             f"{prof and {k: v for k, v in prof.items() if k != 'top_ops'}}")
+    want = {g for g, k in zip(devprof.DEVICE_GAUGES,
+                              ("compute_secs", "comm_secs",
+                               "exposed_comm_secs", "overlap_ratio",
+                               "lanes")) if prof[k] is not None}
+    gauges = set(st["summary"]["gauges"])
+    if not want <= gauges:
+        raise AssertionError(f"device gauges {sorted(gauges)}, want "
+                             f"{sorted(want)}")
+    comm = sorted({o["op"] for o in prof["top_ops"] if o["comm"]})
+    print("devprof top ops: " + "; ".join(
+        f"{o['op'][:70]} {o['secs'] * 1e3:.3f} ms x{o['count']}"
+        for o in prof["top_ops"][:5]) + f"; NCCL comm ops at world 1: "
+        f"{comm or 'none'} (comm {prof['comm_secs']:.6f} s); modules "
+        f"{ {k: v['compute_secs'] for k, v in prof['modules'].items()} }",
+        flush=True)
+    return {"train_dispatches": prof["train_dispatches"],
+            "lanes": prof["lanes"], "compute_secs": prof["compute_secs"],
+            "compute_ms_per_dispatch":
+                prof["compute_secs"] * 1e3 / prof["train_dispatches"],
+            "comm_secs": prof["comm_secs"], "comm_ops": comm,
+            "bubble_fraction": prof["bubble_fraction"],
+            "n_op_events": prof["n_op_events"],
+            "top_ops": prof["top_ops"][:5], "modules": prof["modules"],
+            "trace_secs": prof["trace_secs"],
+            "trace_bytes": prof["trace_bytes"], "secs": r["secs"]}
+
+
 def ops_main(card: str) -> dict:
     """The operations planes on the card (``--ops``): AlexNet b128 under
     BSP, captured, with record_dir, telemetry, tracing, the numerics plane
@@ -6206,10 +6304,14 @@ def ops_main(card: str) -> dict:
         runs = {}
         for every in (1, 4):
             d = os.path.join(root, f"every{every}")
+            # the every-1 session traced (its graph captured at step 1, so
+            # the window replays it): devprof's window, read below
+            trace = dict(trace_dir=OPS_TRACE, trace_start=3,
+                         trace_iters=4) if every == 1 else {}
             r = runs[every] = ops_session(
                 alex_file, alex_cls, GRAPH_STEPS, poll_statusz=True,
                 batch_size=BATCH, record_dir=d, numerics_every=every,
-                **planes)
+                **planes, **trace)
             n = ops_same(f"AlexNet planes on (every {every}) vs off", ref, r,
                          launches=False)
             if r["launches"] != alex_want:
@@ -6219,6 +6321,12 @@ def ops_main(card: str) -> dict:
             want_kinds = {"run_start", "train_begin", "phase", "train_record",
                           "gauges", "numerics", "val_record", "statusz",
                           "train_end"}
+            if trace:
+                want_kinds.add("device_profile")
+                if st["kinds"]["device_profile"] != 1:
+                    raise AssertionError(f"stream every {every}: "
+                                         f"{st['kinds']}")
+                out["traced"] = ops_trace_check(r, st)
             if not want_kinds <= set(st["kinds"]):
                 raise AssertionError(f"stream every {every}: {st['kinds']}")
             iters = [e["iter"] for e in st["numerics"]]
@@ -6350,6 +6458,28 @@ def ops_main(card: str) -> dict:
     extra = cost["every1"]["kernel_calls_per_step"] - \
         cost["off"]["kernel_calls_per_step"]
     out["cost"] = dict(cost, sampled_extra_ops=extra, card=card)
+    # devprof's compute per dispatch against the profile's busy ms a step
+    # of the same planes setting (every 1, captured)
+    tr = out["traced"]
+    busy = cost["every1"]["device_busy_ms_per_step"]
+    ratio = tr["compute_ms_per_dispatch"] / busy
+    tr.update(profile_busy_ms_per_step=busy, ratio=ratio)
+    if not 0.9 <= ratio <= 1.1:
+        raise AssertionError(f"devprof compute {tr['compute_ms_per_dispatch']}"
+                             f" ms a dispatch against the profile's busy "
+                             f"{busy} ms a step: ratio {ratio}")
+    print(f"devprof, AlexNet b{BATCH} every 1, traced window of "
+          f"{tr['train_dispatches']} dispatches: compute "
+          f"{tr['compute_ms_per_dispatch']:.4f} ms a dispatch (the union of "
+          f"the card's device ops over its streams) against the profile's "
+          f"busy {busy:.4f} ms a step (the sum of its device events' "
+          f"times: overlapping events counted twice), ratio {ratio:.4f}; "
+          f"{tr['lanes']} lane, bubble {tr['bubble_fraction']}; the traced "
+          f"session {tr['secs']:.1f} s against the untraced every-4 one's "
+          f"{runs[4]['secs']:.1f} s, the window's host seconds "
+          + ", ".join(f"{k} {v:.2f}" for k, v in tr["trace_secs"].items())
+          + f", trace {tr['trace_bytes'] / 1e6:.2f} MB gzipped; on {card}",
+          flush=True)
     print("ops planes cost, AlexNet b%d captured step: " % BATCH + "; ".join(
         f"{k} wall {c['wall_ms_per_step']:.3f} ms, busy "
         f"{c['device_busy_ms_per_step']:.3f} ms, "

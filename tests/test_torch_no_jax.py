@@ -244,10 +244,12 @@ NEW_MODULES = ("theanompi_tpu_torch.native",
                "theanompi_tpu_torch.utils.sentry",
                "theanompi_tpu_torch.utils.watchdog",
                "theanompi_tpu_torch.utils.fleetmon",
-               "theanompi_tpu_torch.utils.chaos")
+               "theanompi_tpu_torch.utils.chaos",
+               "theanompi_tpu_torch.utils.devprof",
+               "theanompi_tpu_torch.utils.compile_cache")
 
 PLANES = ("telemetry", "tracing", "numerics", "sentry", "watchdog",
-          "fleetmon", "chaos")
+          "fleetmon", "chaos", "devprof", "compile_cache")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -256,7 +258,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                        env=dict(os.environ, PYTHONPATH=REPO))
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 37, r.stdout
+    assert n_modules >= 39, r.stdout
 
 
 @pytest.mark.parametrize("name", PLANES)

@@ -58,6 +58,11 @@ its own, ``helper_mode`` and ``helper_out``:
   writes each
   case's params, optimizer state and BN state by path
   (``<case>/params/<path>``, ``<case>/opt/<path>``, ``<case>/bn/<path>``).
+* ``helper_mode=ustate``: joins the world once and builds each of
+  ``USTATE_CASES`` (plain BSP, ``zero_opt``, ``update_sharding`` at
+  ``USHARD_MIN_BYTES``, ``fsdp``) on ``TinyLRNNet`` through the ``BSP``
+  session, writing each one's ``devprof.update_state_report`` to
+  ``<helper_out>_r<rank>.json``.
 * ``helper_mode=islands``: this rank's island of an async world
   (``AsyncEASGDTrainer``), each island stopping after
   ``helper_exchanges`` exchanges; writes this rank's params at the start
@@ -598,6 +603,25 @@ def shard(config, out):
     np.savez(f"{out}_r{proc.rank}.npz", **res)
 
 
+USTATE_CASES = {"plain": {}, "zero": {"zero_opt": True}, "ushard": dict(_US),
+                "fsdp": {"fsdp": True}}
+
+
+def ustate(config, out):
+    from theanompi_tpu_torch.base import MeshProcess
+    from theanompi_tpu_torch.utils import devprof
+    proc = MeshProcess(dict(config, verbose=False))
+    proc.get_internode_comm()
+    try:
+        res = {case: devprof.update_state_report(
+            _session("BSP", "TinyLRNNet", config, **cfg).model)
+            for case, cfg in USTATE_CASES.items()}
+    finally:
+        proc.close()
+    with open(f"{out}_r{proc.rank}.json", "w") as f:
+        json.dump(res, f)
+
+
 def wires(config, out):
     from theanompi_tpu_torch import BSP
     from theanompi_tpu_torch.base import MeshProcess
@@ -738,6 +762,8 @@ def main(argv):
         shard(config, out)
     elif mode == "gan_lm":
         gan_lm(config, out)
+    elif mode == "ustate":
+        ustate(config, out)
     else:
         islands(config, modelclass, out)
     return 0

@@ -27,6 +27,7 @@ package's data-parallel ones.
 from __future__ import annotations
 
 import importlib
+import time
 from typing import Optional
 
 import torch
@@ -276,4 +277,6 @@ class MeshProcess:
     def build_model(self, modelfile: str, modelclass: str):
         """Import the model by dotted module path + class name."""
         mod = importlib.import_module(modelfile)
-        return getattr(mod, modelclass)(self.config)
+        model = getattr(mod, modelclass)(self.config)
+        self.t_model_built = time.time()      # the worker's start-up record
+        return model

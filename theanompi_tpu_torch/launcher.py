@@ -51,8 +51,13 @@ its own, and ``--host-devices 1`` runs the islands on the CPU (0, the
 default: on the card, as ``device`` names it; an island of more devices
 is refused, as it is a launched world of its own in the port).
 ``fleetmon=true`` in the config starts the fleet monitor, whose alerts
-the supervisor acts on.  ``--compile-cache`` is refused: the compile
-cache waits for ROADMAP A10.
+the supervisor acts on.
+
+``--compile-cache DIR`` passes ``compile_cache=DIR`` to every rank whose
+config does not set the key (``utils/compile_cache.py``: the kernel
+libraries built once into ``DIR``, so a restarted or resumed rank loads
+them instead of running ``nvcc``; ``$THEANOMPI_COMPILE_CACHE`` is the
+default, read by each rank).
 """
 
 from __future__ import annotations
@@ -203,14 +208,14 @@ def main(argv=None) -> int:
                    help="elastic mode: the center as a supervised process "
                         "of its own (snapshots, respawn from the snapshot, "
                         "the center_down/center_restored pair)")
-    # the JAX launcher's compile cache: refused until A10
-    p.add_argument("--compile-cache", default=None, metavar="DIR")
+    p.add_argument("--compile-cache", default=None, metavar="DIR",
+                   help="the compile_cache=DIR config key on every rank: "
+                        "the kernel libraries built once into DIR, so "
+                        "supervised restarts and resumes skip nvcc "
+                        "(defaults to $THEANOMPI_COMPILE_CACHE if set)")
     p.add_argument("config", nargs="*", help="key=value model/worker config")
     args = p.parse_args(argv)
 
-    if args.compile_cache:
-        p.error("--compile-cache is not ported yet: the compile cache "
-                "waits for ROADMAP A10")
     if not args.elastic:
         for flag, value in (("--elastic-steps", args.elastic_steps),
                             ("--host-devices", args.host_devices),
@@ -232,6 +237,8 @@ def main(argv=None) -> int:
     if args.num_hosts > 1 and args.supervise:
         p.error("--supervise restarts a world on one host; a world across "
                 "hosts is not supervised")
+    if args.compile_cache and _config_value(kv, "compile_cache") is None:
+        kv.append(f"compile_cache={args.compile_cache}")
     if args.record_dir and _config_value(kv, "record_dir") is None:
         kv.append(f"record_dir={args.record_dir}")
     if _config_value(kv, "record_dir") and \

@@ -138,6 +138,7 @@ class ModelBase:
         self.val_fn = None
         self.exchange_fn = None
         self.exchanger = None
+        self.compile_cache = None
         self._val = None
         self._capture: Optional[bool] = None
         # async_ckpt: the write in flight, and its failure
@@ -479,9 +480,20 @@ class ModelBase:
         eager step (a comparison or a debugging run: no config key selects
         it, and nothing falls back to it).  Under ``para_load`` with
         ``steps_per_call > 1`` the loader's producer stages whole windows
-        (``para_load_window``, default true, as in the JAX package)."""
+        (``para_load_window``, default true, as in the JAX package).
+
+        It also resolves the compile cache (``utils/compile_cache.py``:
+        the ``compile_cache`` key, else ``$THEANOMPI_COMPILE_CACHE``) as
+        ``model.compile_cache``; on the card the kernel libraries not yet
+        loaded load through it at first use.  :attr:`compile_info` says
+        where each compiled surface came from."""
         import torch.distributed as dist
+        from ..ops import _kernel_build
         from ..parallel.exchanger import BSP_Exchanger
+        from ..utils import compile_cache
+        self.compile_cache = compile_cache.resolve(self.config)
+        if self.device.type == "cuda":
+            _kernel_build.use_cache(self.compile_cache)
         exchanger = exchanger or BSP_Exchanger(self.config)
         if exchanger.collective and not dist.is_initialized():
             raise RuntimeError("no torch.distributed process group: build the "
@@ -559,6 +571,37 @@ class ModelBase:
         self._capture = capture
         self.rebuild_steps()
         self.val_fn = steps.build_val_step(self)
+
+    @property
+    def compile_info(self) -> Dict[str, dict]:
+        """One entry a compiled surface, as the JAX package's
+        ``compile_info``: ``kernels``, the kernel libraries this process
+        loaded (``cache``: ``hit``, ``miss`` or ``deserialize_fallback``
+        through the compile cache, ``off`` without one or on the CPU,
+        ``unused`` before any load; ``compile_secs``, their sum;
+        ``libraries``: each one's rung), and ``train`` and ``exchange``,
+        the captured steps (``not storable``, the first capture's
+        seconds; ``off`` when eager)."""
+        from ..ops import _kernel_build
+        loads = _kernel_build.loads() if self.device.type == "cuda" else {}
+        rungs = {n: i["cache"] for n, i in loads.items()}
+        if self.device.type != "cuda" or self.compile_cache is None or \
+                not self.compile_cache.enabled:
+            kind = "off"
+        else:
+            kind = next((r for r in ("deserialize_fallback", "miss", "off")
+                         if r in rungs.values()),
+                        "hit" if rungs else "unused")
+        info = {"kernels": {
+            "cache": kind, "libraries": rungs,
+            "compile_secs": round(sum(i["compile_secs"]
+                                      for i in loads.values()), 3)
+            if loads else None}}
+        for surface, fn in (("train", self.train_fn),
+                            ("exchange", self.exchange_fn)):
+            if fn is not None:
+                info[surface] = fn.capture_info()
+        return info
 
     def rebuild_steps(self) -> None:
         """The train step and the exchange step built again over the

@@ -70,9 +70,10 @@ round, whose context rides the wire into the center's handler span.
 trigger (``corrupt_w<id>.json``, ``utils/chaos.py``), which the island
 consumes at its next exchange round by adding the trigger's ``scale`` to
 its first params leaf (the JAX package's flatten order), in place on the
-tensor its step reads.  Device profiling (``trace_dir``) waits for
-ROADMAP A10 item 5 and is refused; so are ``steps_per_call > 1`` and
-bucketed wires.
+tensor its step reads.  The islands take no device profile: a config's
+``trace_dir`` is accepted and read by nothing (one verbose line says so),
+as the JAX package's islands read none.  ``steps_per_call > 1`` and
+bucketed wires are refused.
 """
 
 from __future__ import annotations
@@ -92,10 +93,6 @@ from ..base import MeshProcess, resolve_device
 from ..utils import telemetry, tracing
 from ..utils.helper_funcs import (_jax_shape, from_jax_layout, jax_leaf_paths,
                                   leaf_paths, to_jax_layout, tree_leaves)
-
-# config keys of the JAX package's islands that wait for ROADMAP A10
-# (device profiling)
-_A10_KEYS = ("trace_dir",)
 
 
 class ElasticCenter:
@@ -756,11 +753,10 @@ class AsyncEASGDTrainer:
         self.n_islands = int(self.config.get("async_islands", 2))
         self.alpha = float(self.config.get("alpha", 0.5))
         self.sync_freq = int(self.config.get("sync_freq", 4))
-        for k in _A10_KEYS:
-            if self.config.get(k):
-                raise NotImplementedError(
-                    f"async islands with {k!r}: device profiling is not "
-                    f"ported yet (ROADMAP A10)")
+        if self.config.get("trace_dir") and \
+                self.config.get("verbose", True):
+            print("trace_dir: an island takes no device profile (the JAX "
+                  "package's islands read no trace_dir)", flush=True)
         if int(self.config.get("steps_per_call", 1)) != 1:
             raise NotImplementedError(
                 "async islands take one step a call (steps_per_call=1)")

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import os
 import threading
+import time
 import traceback
 from typing import Callable, Dict, Sequence
 
@@ -94,6 +95,9 @@ class StepGraph:
             self.graph.register_generator_state(g)
         # kernel wrapper -> launches one replay makes
         self.launches: Dict[Callable, int] = {}
+        # the host seconds the capture took (a graph cannot be saved: a
+        # new process captures again, compile_cache's "not storable")
+        self.capture_secs: float = 0.0
 
     def capture(self, fn: Callable):
         """Record ``fn()`` into the graph (nothing runs) and return its
@@ -101,6 +105,7 @@ class StepGraph:
         wrappers = kernel_wrappers()
         with CAPTURE_LOCK:
             before = [k.launches for k in wrappers]
+            t0 = time.perf_counter()
             try:
                 with torch.cuda.graph(self.graph, stream=self.stream,
                                       capture_error_mode="thread_local"):
@@ -111,6 +116,7 @@ class StepGraph:
                 recorded = [k.launches - n for k, n in zip(wrappers, before)]
                 for k, n in zip(wrappers, before):
                     k.launches = n        # a capture launches nothing
+                self.capture_secs = time.perf_counter() - t0
         self.launches = {k: n for k, n in zip(wrappers, recorded) if n}
         return out
 

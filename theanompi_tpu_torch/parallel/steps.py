@@ -154,11 +154,22 @@ class _Captured:
         self._graphs: Dict[object, tuple] = {}   # key -> (graph, out, state)
         self._graph: Optional[graph_lib.StepGraph] = None   # the last used
         self._captured_state = None
+        self._capture_secs: list = []            # each capture's seconds
 
     @property
     def graphed(self) -> bool:
         """True when the step runs as a CUDA graph replay."""
         return self.capture and self.device.type == "cuda"
+
+    def capture_info(self) -> dict:
+        """The step's ``compile_info`` entry: a CUDA graph cannot be
+        saved, so a captured step says ``not storable`` with the seconds
+        its first capture took (None before it), and its captures so far;
+        an eager step, ``off``."""
+        secs = self._capture_secs
+        return {"cache": "not storable" if self.graphed else "off",
+                "compile_secs": round(secs[0], 3) if secs else None,
+                "captures": len(secs), "storable": False}
 
     def _state_leaves(self) -> list:
         return [l for part in self.model._state_parts().values()
@@ -201,6 +212,7 @@ class _Captured:
             self._graph = None
             g = graph_lib.StepGraph(s, gens)
             captured = g.capture(static)
+            self._capture_secs.append(g.capture_secs)
         state = self._state_leaves()
         self._graphs[key] = (g, captured, state)
         self._graph, self._captured_state = g, state

@@ -30,9 +30,27 @@ lease (``lease_dir``: a ``WorkerLease`` beaten each iteration, each
 validation batch and each epoch's end, released on a clean exit;
 ``parallel/membership.py``) and the fleet monitor's streamer
 (``metrics_addr``, with telemetry on: the rank's metric snapshots every
-``metrics_interval_s``; ``utils/fleetmon.py``).  Device profiling
-(``trace_dir``) is not ported yet and is refused; the JAX worker reads no
-``chaos`` key, and neither does this one.
+``metrics_interval_s``; ``utils/fleetmon.py``) and device profiling
+(``trace_dir``: a ``torch.profiler`` window of ``trace_iters`` steps, 5,
+from the step ``trace_start``, 5, rounded up to whole ``steps_per_call``
+windows, each ``train_iter`` call a ``record_function`` span; the
+profiler warms up over the call before the window; after it the card is
+synchronized, the trace written to
+``<trace_dir>/iter<count>/rank<r>.pt.trace.json.gz`` and attributed by
+``utils/devprof.py``: the ``device.*`` gauges with telemetry on, the
+breakdown printed when verbose).  The JAX worker reads no ``chaos`` key,
+and neither does this one.
+
+The start-up record (``Worker.startup``, printed when verbose, a
+``startup`` event with telemetry on) gives the seconds from the process's
+start to ``torch`` imported, the CUDA context ready, the model built, the
+kernel libraries loaded (the last load by the first step's end; None when
+the step loads none), the first capture done (the first ``train_iter``
+call returned on the host) and the first step done (the card
+synchronized).  With a compile cache (``compile_cache=<dir>`` or
+``$THEANOMPI_COMPILE_CACHE``: ``utils/compile_cache.py``) the verbose
+worker prints the JAX worker's line after it: ``compile cache
+[<counters>] kernels: <rung> (<secs>s) | train: not storable (<secs>s)``.
 
 :func:`main` is the per-rank command line the launcher composes
 (``theanompi_tpu_torch/launcher.py``):
@@ -43,21 +61,42 @@ validation batch and each epoch's end, released on a clean exit;
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 from typing import Optional
 
+import torch
+from torch.profiler import record_function
+
 from .base import MeshProcess
+from .ops import _kernel_build
 from .parallel.exchanger import get_exchanger
-from .utils import numerics, telemetry, tracing
+from .utils import devprof, numerics, telemetry, tracing
 from .utils.recorder import Recorder
 from .utils.sentry import TrainingSentry
 from .utils.watchdog import StallWatchdog
 
-# the JAX worker's keys that wait for later operations planes, with why
-_REFUSED = {
-    "trace_dir": "device profiling (devprof on torch.profiler)",
-}
+_T_TORCH = time.time()        # torch is imported (the start-up record)
+
+
+def process_start() -> float:
+    """The wall clock at which this process started (``/proc``; the
+    import of this module where that cannot be read)."""
+    try:
+        with open("/proc/self/stat") as f:
+            ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+        with open("/proc/uptime") as f:
+            uptime = float(f.read().split()[0])
+        return time.time() - uptime + ticks / os.sysconf("SC_CLK_TCK")
+    except (OSError, ValueError, IndexError):
+        return _T_TORCH
+
+
+def startup_line(rec: dict) -> str:
+    """The verbose start-up line of a :attr:`Worker.startup` record."""
+    return "start-up (s from process start): " + ", ".join(
+        f"{k} " + ("-" if v is None else f"{v:.2f}") for k, v in rec.items())
 
 
 class Worker(MeshProcess):
@@ -67,16 +106,18 @@ class Worker(MeshProcess):
 
     def __init__(self, config: Optional[dict] = None):
         super().__init__(config)
-        for k, what in _REFUSED.items():
-            if self.config.get(k):
-                raise NotImplementedError(
-                    f"config {k!r}: {what} is not ported yet (ROADMAP A10)")
+        self._t0 = process_start()
+        self.startup = {"torch": _T_TORCH - self._t0}
         stall_action = str(self.config.get("stall_action", "trace"))
         if stall_action not in ("trace", "exit"):
             raise ValueError(f"unknown stall_action {stall_action!r}: use "
                              f"'trace' (diagnostic dump only) or 'exit' "
                              f"(exit for a supervised restart)")
         self.get_internode_comm()
+        self.startup["cuda"] = None
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)     # the context is made
+            self.startup["cuda"] = time.time() - self._t0
         try:
             # process-wide telemetry and tracing, tagged with the world
             # rank (a grid's ranks share their worker's): every component
@@ -97,6 +138,8 @@ class Worker(MeshProcess):
     def run(self, model) -> Recorder:
         """The reference's ``run(model)`` epoch/batch loop."""
         config = self.config
+        self.startup["model"] = getattr(self, "t_model_built",
+                                        time.time()) - self._t0
         self.recorder.start()
         model.compile_iter_fns(self.exchanger)
         self.recorder.end("compile")
@@ -131,6 +174,17 @@ class Worker(MeshProcess):
         self.recorder.reset_rate()
         telem = self.telemetry
         rank = self.world_rank
+        cuda = model.device.type == "cuda"
+        # device profiling: a torch.profiler window of trace_iters steps
+        # from trace_start, rounded up to whole steps_per_call windows
+        trace_dir = config.get("trace_dir")
+        trace_start = int(config.get("trace_start", 5))
+        trace_iters = max(1, int(config.get("trace_iters", 5)))
+        trace_pending = bool(trace_dir)
+        trace = None
+        trace_stop_at = None
+        first_call = True
+        self.device_profile = None
         stall_action = str(config.get("stall_action", "trace"))
         # the membership lease: beaten wherever the watchdog is (it
         # throttles itself, so a step costs one clock read, not a write)
@@ -185,6 +239,63 @@ class Worker(MeshProcess):
         watchdog = StallWatchdog(float(config.get("stall_timeout", 0)),
                                  on_stall=on_stall)
         self.watchdog = watchdog
+
+        def stop_trace():
+            # the window's work drained, the trace written, then attributed
+            # (device-time breakdown: the host's comm bucket goes blind
+            # once a collective overlaps the backward)
+            nonlocal trace, trace_stop_at
+            t0 = time.perf_counter()
+            if cuda:
+                torch.cuda.synchronize(model.device)
+            t, trace, trace_stop_at = trace, None, None
+            sync_secs = time.perf_counter() - t0
+            path = t.stop()
+            if self.verbose:
+                print(f"profiler trace saved to {path}", flush=True)
+            t0 = time.perf_counter()
+            try:
+                prof = devprof.profile_dir(os.path.dirname(path),
+                                           name=t.name)
+            except Exception as e:
+                prof = None
+                print(f"devprof: trace attribution failed ({e!r})",
+                      flush=True)
+            self.device_profile = prof
+            if prof is not None:
+                # what the window cost the host, by part
+                prof["trace_secs"] = {
+                    "start": t.start_secs, "sync": sync_secs,
+                    "export": t.stop_secs,
+                    "parse": time.perf_counter() - t0}
+                prof["trace_bytes"] = os.path.getsize(path)
+                if telem.enabled:
+                    devprof.feed_telemetry(prof, telem)
+                if self.verbose:
+                    print(devprof.format_profile(prof, top=5), flush=True)
+            if sentry is not None:
+                # the synchronize and the parse are dead wall time inside
+                # the next record's images/sec window
+                sentry.notice_discontinuity()
+
+        def first_step_done():
+            # the start-up record's last points, and its lines
+            self.startup["capture"] = (time.time() - self._t0) \
+                if model.train_fn.graphed else None
+            if cuda:
+                torch.cuda.synchronize(model.device)
+            self.startup["step"] = time.time() - self._t0
+            done = [i["t_done"] for i in _kernel_build.loads().values()] \
+                if cuda else []
+            self.startup["kernels"] = max(done) - self._t0 if done else None
+            rec = {k: self.startup.get(k) for k in
+                   ("torch", "cuda", "model", "kernels", "capture", "step")}
+            self.startup = rec
+            if telem.enabled:
+                telem.event("startup", **rec)
+            if self.verbose:
+                print(startup_line(rec), flush=True)
+                self._log_compile_cache(model)
         if telem.enabled:
             telem.event("train_begin", rule=config.get("rule", self.rule),
                         model=type(model).__name__, spc=spc,
@@ -197,8 +308,35 @@ class Worker(MeshProcess):
                     model.data.shuffle_data(epoch + model.seed)
                     for _ in range(model.data.n_batch_train // spc):
                         count += spc
-                        model.train_iter(count, self.recorder)
+                        if trace_pending and count + spc >= trace_start:
+                            # the profiler warms up over the call before
+                            # the window, where there is one (devprof.Trace)
+                            warm = count < trace_start
+                            first = count + spc if warm else count
+                            trace = devprof.Trace(
+                                trace_dir, name=f"rank{rank}",
+                                session=f"iter{first:08d}", cuda=cuda,
+                                warmup=warm)
+                            trace.start()
+                            trace_pending = False
+                            trace_stop_at = first + max(
+                                1, (trace_iters + spc - 1) // spc) * spc
+                        elif trace is not None and trace.warming:
+                            if cuda:
+                                torch.cuda.synchronize(model.device)
+                            trace.record()
+                        # devprof's dispatch anchor, on the host around
+                        # the call (a replay, or the first call's eager
+                        # step and capture)
+                        with record_function(devprof.TRAIN_DISPATCH_SPAN):
+                            model.train_iter(count, self.recorder)
+                        if first_call:
+                            first_call = False
+                            first_step_done()
                         self.exchanger.exchange(self.recorder, count)
+                        if trace_stop_at is not None and \
+                                count + spc >= trace_stop_at:
+                            stop_trace()
                         watchdog.beat(f"epoch {epoch} iter {count}")
                         if lease is not None:
                             lease.beat(count)
@@ -240,6 +378,13 @@ class Worker(MeshProcess):
                         # the checkpoint: not a throughput regression
                         sentry.notice_discontinuity()
         except BaseException as e:
+            if trace is not None:
+                # a failed run leaves no profiler running in its process
+                try:
+                    trace.stop()
+                except Exception:
+                    pass
+                trace = None
             # the flight trail next to the records, then the error;
             # launcher --supervise sweeps the dumps aside before restarting
             if telem.enabled:
@@ -267,6 +412,8 @@ class Worker(MeshProcess):
                     raise
                 print(f"async checkpoint ALSO failed during unwind: "
                       f"{ckpt_exc!r}", file=sys.stderr, flush=True)
+        if trace is not None:      # the window outlived training: flush it
+            stop_trace()
         if statusz is not None:
             statusz.stop()
         if streamer is not None:
@@ -281,6 +428,20 @@ class Worker(MeshProcess):
             print(f"training finished in {time.time() - t0:.1f}s "
                   f"({epochs - start_epoch} epochs)", flush=True)
         return self.recorder
+
+    def _log_compile_cache(self, model) -> None:
+        """The JAX worker's start-up line for the compile cache: each
+        surface's rung and seconds, and the process counters."""
+        cache = getattr(model, "compile_cache", None)
+        if cache is None or not cache.enabled:
+            return
+        parts = [f"{k}: {v['cache']}"
+                 + (f" ({v['compile_secs']:.1f}s)"
+                    if v.get("compile_secs") is not None else "")
+                 + (f" {v['libraries']}" if v.get("libraries") else "")
+                 for k, v in model.compile_info.items()]
+        print(f"compile cache [{cache.describe()}] " + " | ".join(parts),
+              flush=True)
 
 
 class BSP_Worker(Worker):

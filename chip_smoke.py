@@ -18,7 +18,7 @@
     python3 chip_smoke.py --pp-stage      # B10–B12 at a pp stage's shape
     python3 chip_smoke.py --ep-rank       # one ep = tp 2 rank's MoE block
     python3 chip_smoke.py --ops           # the operations planes (A10)
-    python3 chip_smoke.py --elastic       # the elastic islands (A10 3, 4a)
+    python3 chip_smoke.py --elastic       # the elastic islands, simfleet
 
 1. Fails (exit 2, no result) without CUDA; prints the card's name and power
    limit as ``nvidia-smi`` reports them.
@@ -279,7 +279,14 @@
     on, traced) in processes of their own around a supervised center
     process, the fleet monitor on, under a progress-gated chaos schedule
     (``ELASTIC_FAULTS``): island 1 SIGKILLed, then island 2's first params
-    leaf corrupted in place.  Checks exit 0 and both faults landed;
+    leaf corrupted in place.  The schedule is the one the port's
+    ``simfleet.FleetSim`` realizes at the live width (2 islands, one
+    center shard, the fleet monitor on, no gossip mesh), exported and
+    replayed (``simfleet.fidelity``), and the live per-island membership
+    sequence must equal the simulated one.  Beside the run, on the host,
+    ``python -m theanompi_tpu_torch.tools.simfleet_run --gate``
+    (128-worker determinism, the 512-worker invariant suite under its
+    CPU budget) must pass.  Checks exit 0 and both faults landed;
     island 1's ``worker_leave`` and its ``worker_join`` with ``rejoin``,
     its respawn starting from the center's params; in each island process
     that exited (the respawned one included) params on cuda:0, finite, a
@@ -291,7 +298,9 @@
     the card; a finite ``center_final.npz``.  Prints the seconds from the kill to the leave,
     to the rejoin, to the respawn's first step and first exchange, from
     the corruption to its application and to the alert, and the islands'
-    steps a second before and after the faults.
+    steps a second before and after the faults; on a line of its own both
+    membership sequences, the simulation's CPU seconds and the gate's CPU
+    seconds and event-log digests.
 29. The exchange wire's remaining forms (A7; ``--wire`` runs these
     alone), world 1 over NCCL, cuDNN deterministic, each run from the
     same seed: AlexNet b128 8 captured steps under ``exch_mode='params'``
@@ -4679,13 +4688,30 @@ def elastic_phase(model=("chip_smoke", "ElasticAlexNet"),
     the card among them; a finite ``center_final.npz``.  Returns the times to
     recover and the islands' steps a second around the faults."""
     from theanompi_tpu_torch.parallel import membership as mb
+    from theanompi_tpu_torch.simfleet import fidelity
     from theanompi_tpu_torch.utils import chaos, fleetmon
     shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
     rec = os.path.join(ELASTIC_DIR, "rec")
     out_dir = os.path.join(ELASTIC_DIR, "islands")
     os.makedirs(out_dir)
     os.makedirs(rec)
-    schedule = chaos.parse_schedule(ELASTIC_FAULTS)
+    # the schedule as the port's FleetSim realizes it at the live width (2
+    # islands, one center shard, the fleet monitor on, no gossip mesh),
+    # exported and replayed: the live run must reproduce the simulated
+    # membership sequence
+    t_sim = time.process_time()
+    fleet, realized_path = fidelity.simulate(
+        os.path.join(ELASTIC_DIR, "sim"), n_workers=2,
+        schedule=ELASTIC_FAULTS, steps=steps, sync_freq=cfg["sync_freq"],
+        fleetmon=True, min_at=0.0)
+    sim_cpu_s = time.process_time() - t_sim
+    sim_seq = fidelity.sim_membership_sequence(fleet)
+    schedule = chaos.schedule_from_realized(realized_path)
+    planned = chaos.parse_schedule(ELASTIC_FAULTS)
+    if [(f.kind, f.at, f.target, f.duration) for f in schedule] != \
+            [(f.kind, f.at, f.target, f.duration) for f in planned]:
+        raise AssertionError(f"elastic: the simulated fleet realized "
+                             f"{fleet.realized}, not {planned}")
     log = os.path.join(ELASTIC_DIR, "elastic.log")
     t0 = time.time()
     with fds_to(log):
@@ -4702,6 +4728,10 @@ def elastic_phase(model=("chip_smoke", "ElasticAlexNet"),
                       for f in schedule):
         raise AssertionError(f"elastic run exited {rc}, faults "
                              f"{[(f, f.error) for f in schedule]}:\n{tail}")
+    live_seq = fidelity.live_membership_sequence(rec)
+    if live_seq != sim_seq:
+        raise AssertionError(f"elastic: the live membership sequence "
+                             f"{live_seq} is not the simulated {sim_seq}")
     ev = run_events(rec)
     t_kill = first_ts(ev, ev="fault_injected", kind="kill", worker=1)
     t_corrupt = first_ts(ev, ev="fault_injected", kind="corrupt", worker=2)
@@ -4821,7 +4851,10 @@ def elastic_phase(model=("chip_smoke", "ElasticAlexNet"),
     rates = {"before_kill": {w: rate(w, t_first, t_kill) for w in (1, 2)},
              "island2_after_alert": rate(2, t_alert, end[2]),
              "island1_respawned": rate(1, respawn["t_step1"], end[1])}
-    return {"run_s": run_s, "kill_to_leave_s": t_leave - t_kill,
+    return {"run_s": run_s, "sim_seq": sim_seq, "live_seq": live_seq,
+            "sim_cpu_s": sim_cpu_s, "sim_sha256": fleet.log.sha256(),
+            "sim_events": fleet.summary["events"],
+            "kill_to_leave_s": t_leave - t_kill,
             "leave_to_rejoin_s": t_rejoin - t_leave,
             "rejoin_to_first_step_s": respawn["t_step1"] - t_rejoin,
             "rejoin_to_first_exchange_s": t_exch1 - t_rejoin,
@@ -4838,15 +4871,51 @@ def elastic_phase(model=("chip_smoke", "ElasticAlexNet"),
                                                   "center_downs")}}
 
 
+def simfleet_gate(proc) -> dict:
+    """The result of ``python -m theanompi_tpu_torch.tools.simfleet_run
+    --gate`` run as ``proc``: its CPU seconds, the determinism pair's
+    digest and the 512-worker run's event-log digest."""
+    out = proc.communicate(timeout=600)[0]
+    m = re.search(r"simfleet gate: PASS \(([0-9.]+)s CPU of ([0-9.]+)s",
+                  out)
+    if proc.returncode != 0 or m is None:
+        raise AssertionError(f"simfleet gate exited {proc.returncode}:\n"
+                             f"{out[-4000:]}")
+    return {"cpu_s": float(m.group(1)), "budget_s": float(m.group(2)),
+            "pair": re.search(r"identical log \(([0-9a-f]+)", out).group(1),
+            "sha256": re.search(r"event-log sha256: ([0-9a-f]+)",
+                                out).group(1)}
+
+
 def elastic_main(card: str) -> dict:
-    """The elastic group (``--elastic``): one ``run_elastic`` run; prints
-    its numbers."""
+    """The elastic group (``--elastic``): the simfleet gate on the host
+    beside one ``run_elastic`` run whose schedule the port's FleetSim
+    realized; prints their numbers."""
     compute_mode()
     gc.collect()
     torch.cuda.empty_cache()          # the islands share the card
     t0 = time.time()
-    r = elastic_phase()
+    # the width rehearsal (128-worker determinism, the 512-worker
+    # invariant suite) in a process of its own, beside the islands
+    gate = subprocess.Popen(
+        [sys.executable, "-m", "theanompi_tpu_torch.tools.simfleet_run",
+         "--gate"], cwd=HERE, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        r = elastic_phase()
+        r["simfleet_gate"] = simfleet_gate(gate)
+    finally:
+        if gate.poll() is None:
+            gate.kill()
+            gate.communicate()
     r["secs"] = time.time() - t0
+    g = r["simfleet_gate"]
+    print(f"elastic cross-check: live membership {r['live_seq']} == the "
+          f"port's FleetSim's {r['sim_seq']} (sim {r['sim_cpu_s']:.3f} s "
+          f"CPU, {r['sim_events']} events, log sha256 "
+          f"{r['sim_sha256'][:16]}); simfleet gate on the host: PASS in "
+          f"{g['cpu_s']:.1f} s CPU of {g['budget_s']:.0f} s (pair "
+          f"{g['pair']}, 512-worker log sha256 {g['sha256']})", flush=True)
     s = r["steps_per_s"]
     print(f"elastic EASGD (2 AlexNet b{BATCH} islands, center process, "
           f"fleet monitor, faults {ELASTIC_FAULTS}): kill -> leave "

@@ -246,7 +246,19 @@ NEW_MODULES = ("theanompi_tpu_torch.native",
                "theanompi_tpu_torch.utils.fleetmon",
                "theanompi_tpu_torch.utils.chaos",
                "theanompi_tpu_torch.utils.devprof",
-               "theanompi_tpu_torch.utils.compile_cache")
+               "theanompi_tpu_torch.utils.compile_cache",
+               "theanompi_tpu_torch.simfleet",
+               "theanompi_tpu_torch.simfleet.clock",
+               "theanompi_tpu_torch.simfleet.events",
+               "theanompi_tpu_torch.simfleet.transport",
+               "theanompi_tpu_torch.simfleet.fleet",
+               "theanompi_tpu_torch.simfleet.health",
+               "theanompi_tpu_torch.simfleet.invariants",
+               "theanompi_tpu_torch.simfleet.fidelity",
+               "theanompi_tpu_torch.simfleet.drill",
+               "theanompi_tpu_torch.tools",
+               "theanompi_tpu_torch.tools.simfleet_run",
+               "theanompi_tpu_torch.tools.chaos_run")
 
 PLANES = ("telemetry", "tracing", "numerics", "sentry", "watchdog",
           "fleetmon", "chaos", "devprof", "compile_cache")
@@ -258,7 +270,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                        env=dict(os.environ, PYTHONPATH=REPO))
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 39, r.stdout
+    assert n_modules >= 50, r.stdout
 
 
 @pytest.mark.parametrize("name", PLANES)
@@ -270,6 +282,37 @@ def test_operations_planes_import_neither_jax_nor_torch(name):
     probe = (f"import sys, theanompi_tpu_torch.utils.{name}; "
              "print(sorted(m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'theanompi_tpu', 'torch')))")
+    r = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
+                       capture_output=True, text=True, timeout=60,
+                       env=dict(os.environ, PYTHONPATH=REPO))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]", r.stdout
+
+
+# the fault drill's model (``simfleet.drill``) imports torch: an island
+# process imports it
+SIM_MODULES = tuple(m for m in NEW_MODULES
+                    if m.split(".")[1] in ("simfleet", "tools")
+                    and not m.endswith(".drill"))
+
+
+@pytest.mark.parametrize("name", SIM_MODULES)
+def test_simfleet_and_tools_import_neither_jax_nor_torch(name):
+    """Each module of the simulator and of the tools, imported alone in a
+    fresh interpreter, pulls in neither ``jax``, the JAX package nor
+    ``torch``; the simulator's modules run a small fleet with the health
+    plane on and check its invariants without them."""
+    probe = (f"import sys, importlib; importlib.import_module({name!r})\n")
+    if name.split(".")[1] == "simfleet":
+        probe += (
+            "from theanompi_tpu_torch.simfleet import FleetSim, "
+            "check_invariants\n"
+            "f = FleetSim(n_workers=8, steps=200, sync_freq=4, seed=1, "
+            "n_faults=2, net_n_faults=2, fleetmon=True)\n"
+            "f.run()\n"
+            "assert all(ok for _, ok, _ in check_invariants(f))\n")
+    probe += ("print(sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'theanompi_tpu', 'torch')))")
     r = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
                        capture_output=True, text=True, timeout=60,
                        env=dict(os.environ, PYTHONPATH=REPO))

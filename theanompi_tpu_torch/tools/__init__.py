@@ -1,0 +1,9 @@
+"""The port's command-line tools, each run as ``python -m
+theanompi_tpu_torch.tools.<name>``:
+
+* ``simfleet_run`` — rehearse a fault schedule at production width in
+  virtual time (``simfleet``), its determinism gate, and the live
+  fidelity cross-check;
+* ``chaos_run`` — an audited chaos run of the elastic islands or of a
+  supervised BSP world.
+"""

@@ -4,7 +4,9 @@ A copy of ``theanompi_tpu/utils/clock.py`` (the port imports nothing of
 the JAX package).  The wire's retry deadlines, backoff sleeps and the
 seed of its request sequence numbers compare times; they read them
 through a :class:`Clock`, so a simulator can drive the same logic in
-virtual time (the JAX package's simfleet, not ported).
+virtual time: ``simfleet``'s :class:`~theanompi_tpu_torch.simfleet.clock
+.VirtualClock` drives the membership controller, the crash-loop breaker
+and the fleet collector this way.
 
 * :class:`Clock` — the two-method contract (``now()``/``sleep()``).
 * :class:`WallClock` / :data:`WALL` — the default: ``now()`` is

@@ -253,7 +253,13 @@
     launch 2 B1 and 2 B2 a step (each process's own counts; the threads'
     together).  Prints each island's step ms, pace (steps/s, img/s) and
     its exchanges' medians by part (drain, d2h, wire, the center's
-    apply, h2d) and bytes.
+    apply, h2d) and bytes.  Beside the islands, on the host, the port's
+    lint gate (``python -m theanompi_tpu_torch.tools.lint
+    --check-baseline --no-cache``) runs in a process of its own and must
+    exit 0: oracle-pair then holds every kernel of this checkout to its
+    plain version, its CPU test and its ``kernel_rows()`` row on the
+    machine that builds the kernels.  Prints its findings, baselined
+    entries and CPU seconds.
 28. The launcher (A6; ``--launcher`` runs these alone): ``python -m
     theanompi_tpu_torch.launcher --n-workers 1`` trains AlexNet b128
     (``SmokeAlexNet``, this script as the modelfile) in a rank of its own,
@@ -4176,10 +4182,51 @@ def vgg_island_lr() -> dict:
     return out
 
 
+def lint_gate(proc) -> dict:
+    """The result of the port's lint gate run as ``proc`` (``python -m
+    theanompi_tpu_torch.tools.lint --check-baseline --no-cache --format
+    json``): its findings, baselined entries and stale entries, and the
+    process's own CPU seconds (from its rusage) and wall seconds.  Raises
+    unless it exits 0."""
+    out = proc.stdout.read()
+    _, status, ru = os.wait4(proc.pid, 0)
+    proc.returncode = os.waitstatus_to_exitcode(status)
+    if proc.returncode != 0:
+        raise AssertionError(f"lint gate exited {proc.returncode}:\n"
+                             f"{out[-4000:]}")
+    rep = json.loads(out)
+    return {"findings": len(rep["findings"]), "baselined": rep["baselined"],
+            "stale": len(rep["stale_baseline"]),
+            "cpu_s": ru.ru_utime + ru.ru_stime}
+
+
 def islands_main(card: str) -> dict:
     """Every island phase: the exchange against its plain recomputation,
-    the threads, then each cross-process phase; prints their numbers."""
+    the threads, then each cross-process phase; prints their numbers.
+    Beside them, on the host, the port's lint gate (``lint_gate``), which
+    holds every kernel of this checkout to its plain version, its CPU test
+    and its row here."""
     compute_mode()
+    gate = subprocess.Popen(
+        [sys.executable, "-m", "theanompi_tpu_torch.tools.lint",
+         "--check-baseline", "--no-cache", "--format", "json"], cwd=HERE,
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        res = islands_phases(card)
+        res["lint_gate"] = g = lint_gate(gate)
+    finally:
+        if gate.returncode is None and gate.poll() is None:
+            gate.kill()
+            gate.communicate()
+    print(f"lint gate on the host (python -m theanompi_tpu_torch.tools.lint "
+          f"--check-baseline --no-cache): PASS, {g['findings']} findings, "
+          f"{g['baselined']} baselined, {g['stale']} stale, "
+          f"{g['cpu_s']:.1f} s CPU", flush=True)
+    return res
+
+
+def islands_phases(card: str) -> dict:
+    """The island phases of :func:`islands_main`."""
     t0 = time.time()
     res = {"exchange_check": island_exchange_check_phase()}
     res["exchange_check"]["secs"] = time.time() - t0

@@ -71,10 +71,10 @@ def test_explicit_rows_pad_and_refusals():
         TF.matmul_pack(a, q, transpose=True)
     with pytest.raises(TypeError, match="float32"):
         TF.matmul_pack(a.double(), q)
-    before = TF.matmul_pack_cuda.launches
+    before = TF.matmul_pack_group_cuda.launches
     with pytest.raises(ValueError, match="CUDA"):
         TF.matmul_pack_cuda(a, q)
-    assert TF.matmul_pack_cuda.launches == before
+    assert TF.matmul_pack_group_cuda.launches == before
 
 
 @pytest.mark.cuda
@@ -272,16 +272,16 @@ def _check_group(got, mats, qs, transposes):
 @pytest.mark.cuda
 def test_matmul_pack_group_launches_once_per_pass_on_card():
     """One launch for a pass of up to 64 leaves, two for 70; the one-leaf
-    entry counts its own."""
+    entry is a pass of one leaf, counted on the group wrapper."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     for shapes, launches in ((VGG16_SHAPES, 1),
                              ([(9, 33 + i) for i in range(70)], 2)):
         n = len(shapes)
         mats, qs = _card_group(shapes, [True] * n, 2, n)
-        before = (TF.matmul_pack_group_cuda.launches,
-                  TF.matmul_pack_cuda.launches)
+        before = TF.matmul_pack_group_cuda.launches
         got = TF.matmul_pack_group_cuda(mats, qs, [True] * n)
-        assert (TF.matmul_pack_group_cuda.launches - before[0],
-                TF.matmul_pack_cuda.launches - before[1]) == (launches, 0)
+        assert TF.matmul_pack_group_cuda.launches - before == launches
+        TF.matmul_pack_cuda(mats[0], qs[0], transpose=True)
+        assert TF.matmul_pack_group_cuda.launches - before == launches + 1
         assert len(list(_check_group(got, mats, qs, [True] * n))) == n

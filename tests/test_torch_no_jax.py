@@ -44,10 +44,11 @@ loader.set_window(2)
 loader.shuffle_data(1)
 assert loader.next_train_window(2)["x"].shape[0] == 2
 loader.close()
-# the graph helper gathers the twelve kernels' wrappers (B9's one-leaf
-# entry too, and B10-B12's float32 three) without JAX
+# the graph helper gathers the twelve kernels' wrappers (B10-B12's
+# float32 three too; B9's one-leaf entry is a pass of the group wrapper)
+# without JAX
 from theanompi_tpu_torch.parallel import graph
-assert len(graph.kernel_wrappers()) == 16
+assert len(graph.kernel_wrappers()) == 15
 # the zoo builds, and its synthetic Cifar10 set is made, without JAX
 from theanompi_tpu_torch.models.googlenet import GoogLeNet
 from theanompi_tpu_torch.models.resnet50 import ResNet50
@@ -258,7 +259,20 @@ NEW_MODULES = ("theanompi_tpu_torch.native",
                "theanompi_tpu_torch.simfleet.drill",
                "theanompi_tpu_torch.tools",
                "theanompi_tpu_torch.tools.simfleet_run",
-               "theanompi_tpu_torch.tools.chaos_run")
+               "theanompi_tpu_torch.tools.chaos_run",
+               "theanompi_tpu_torch.tools.lint",
+               "theanompi_tpu_torch.analysis",
+               "theanompi_tpu_torch.analysis.core",
+               "theanompi_tpu_torch.analysis.cache",
+               "theanompi_tpu_torch.analysis.engine",
+               "theanompi_tpu_torch.analysis.protocol",
+               "theanompi_tpu_torch.analysis.cli",
+               "theanompi_tpu_torch.analysis.checkers",
+               "theanompi_tpu_torch.analysis.checkers.host_concurrency",
+               "theanompi_tpu_torch.analysis.checkers.protocol_conformance",
+               "theanompi_tpu_torch.analysis.checkers.telemetry_hot_path",
+               "theanompi_tpu_torch.analysis.checkers.schema_drift",
+               "theanompi_tpu_torch.analysis.checkers.oracle_pair")
 
 PLANES = ("telemetry", "tracing", "numerics", "sentry", "watchdog",
           "fleetmon", "chaos", "devprof", "compile_cache")
@@ -270,7 +284,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                        env=dict(os.environ, PYTHONPATH=REPO))
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 50, r.stdout
+    assert n_modules >= 90, r.stdout
 
 
 @pytest.mark.parametrize("name", PLANES)
@@ -294,6 +308,23 @@ def test_operations_planes_import_neither_jax_nor_torch(name):
 SIM_MODULES = tuple(m for m in NEW_MODULES
                     if m.split(".")[1] in ("simfleet", "tools")
                     and not m.endswith(".drill"))
+
+LINT_MODULES = tuple(m for m in NEW_MODULES if m.split(".")[1] == "analysis")
+
+
+@pytest.mark.parametrize("name", LINT_MODULES)
+def test_lint_modules_import_neither_jax_nor_torch(name):
+    """Each module of the port's lint, imported alone in a fresh
+    interpreter, pulls in neither ``jax``, the JAX package nor ``torch``
+    (the schema-drift probes import what they probe when they run)."""
+    probe = (f"import sys, importlib; importlib.import_module({name!r}); "
+             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'jaxlib', 'theanompi_tpu', 'torch')))")
+    r = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
+                       capture_output=True, text=True, timeout=60,
+                       env=dict(os.environ, PYTHONPATH=REPO))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]", r.stdout
 
 
 @pytest.mark.parametrize("name", SIM_MODULES)

@@ -1,0 +1,27 @@
+"""The port's lint: whole-program checks of the host code of
+``theanompi_tpu_torch`` and of ``chip_smoke.py``.
+
+Ten checks: the host-concurrency pass (shared-state-race, lock-ordering,
+signal-safety, daemon-discipline) over the engine's call graph and thread
+roles (``engine.py``); the wire's contracts (wire-contract, retry-safety,
+state-machine) over the endpoint model (``protocol.py``);
+telemetry-hot-path; schema-drift, which probes live objects; and
+oracle-pair, which holds every CUDA kernel to its plain version, its CPU
+test and its card comparison.  ``python -m theanompi_tpu_torch.tools.lint``
+runs them (``cli.py``).
+
+The package is stdlib; schema-drift's probes import the port's modules
+they probe.  Nothing here imports ``jax`` or the JAX package.
+
+A finding is silenced on its line (or the line after a comment of its
+own) by ``# tpulint: disable=<check>[,<check>...]``.  Findings kept on
+purpose live in ``tpulint_torch_baseline.json``, one justification each.
+"""
+
+from . import checkers as _checkers  # noqa: F401  (registers the checks)
+from .core import (CHECKERS, Checker, Finding, SourceFile,  # noqa: F401
+                   collect_files, compare_baseline, load_baseline, run_lint,
+                   save_baseline)
+
+__all__ = ["CHECKERS", "Checker", "Finding", "SourceFile", "collect_files",
+           "compare_baseline", "load_baseline", "run_lint", "save_baseline"]

@@ -147,7 +147,8 @@ def use_cache(cache) -> None:
     ``build/kernels/``).  Process-wide, as the table of loaded libraries
     is: the kernel wrappers load without a model at hand."""
     global _cache
-    _cache = cache
+    with _lock:        # islands' threads set it too, and load reads it
+        _cache = cache
 
 
 def _load(name: str, cache):

@@ -392,6 +392,17 @@ topk_decode_cuda.launches = 0
 KERNELS = (pack_signs_cuda, unpack_signs_wsum_cuda, pack_signs_encode_cuda,
            signed_residual_cuda, topk_encode_cuda, topk_decode_cuda)
 
+#: each kernel wrapper's plain version (the CPU path, and what the card's
+#: output is held to)
+CUDA_PLAINS = {
+    "pack_signs_cuda": "pack_signs_plain",
+    "unpack_signs_wsum_cuda": "unpack_signs_weighted_sum_plain",
+    "pack_signs_encode_cuda": "pack_signs_encode_plain",
+    "signed_residual_cuda": "signed_residual_plain",
+    "topk_encode_cuda": "topk_encode_plain",
+    "topk_decode_cuda": "topk_decode_plain",
+}
+
 
 # ---------------------------------------------------------------------------
 # public API: by device

@@ -31,9 +31,10 @@ Two implementations of each, chosen by the tensors' device alone:
 * ``matmul_pack_plain`` / ``matmul_pack_group_plain`` — ``torch.matmul``
   and a zero pad, the jnp oracle ``matmul_pack_jnp`` in torch ops; what a
   CPU tensor runs.
-* ``matmul_pack_cuda`` / ``matmul_pack_group_cuda`` — the hand-written
-  Hopper kernel B9 of ``csrc/factor_pack.cu`` (one leaf, or a pass of up
-  to 64 leaves per launch); each counts its launches in ``.launches``.
+* ``matmul_pack_group_cuda`` — the hand-written Hopper kernel B9 of
+  ``csrc/factor_pack.cu`` (a pass of up to 64 leaves per launch), which
+  counts its launches in ``.launches``; ``matmul_pack_cuda`` is a pass of
+  one leaf through it.
 """
 
 from __future__ import annotations
@@ -251,23 +252,27 @@ def matmul_pack_cuda(a: torch.Tensor, q: torch.Tensor,
                      rows_pad: Optional[int] = None,
                      transpose: bool = False) -> torch.Tensor:
     """Kernel B9 for one leaf: the product of a contiguous CUDA ``a`` (or
-    its transpose, read in place) and ``q``, stored as a ``[rows_pad,
-    rank]`` tile whose pad rows are +0 (a pass of one leaf, bit for bit
-    the tile that leaf gets in a group)."""
+    its transpose, read in place) and ``q`` as a ``[rows_pad, rank]`` tile
+    whose pad rows are +0.  It is a pass of one leaf through
+    :func:`matmul_pack_group_cuda` (whose count its launch adds to), so the
+    tile is bit for bit the one that leaf gets in a group."""
     _, rows_pad = _shapes("matmul_pack_cuda", a, q, rows_pad, transpose)
-    dev = _kernel_build.on_card("matmul_pack_cuda", a, q)
-    out = torch.empty((rows_pad, q.shape[1]), dtype=torch.float32, device=dev)
-    if out.numel():
-        matmul_pack_cuda.launches += _launch("matmul_pack_cuda", dev, [a], [q],
-                                             [transpose], [rows_pad], out)
-    return out
+    _kernel_build.on_card("matmul_pack_cuda", a, q)
+    tile = matmul_pack_group_cuda([a], [q], [transpose])
+    if rows_pad > tile.shape[0]:
+        tile = torch.cat([tile, tile.new_zeros((rows_pad - tile.shape[0],
+                                                tile.shape[1]))])
+    return tile
 
 
-# launch counts: each wrapper adds one where it launches the kernel
+# launch counts: the wrapper adds one where it launches the kernel
 matmul_pack_group_cuda.launches = 0
-matmul_pack_cuda.launches = 0
 
-KERNELS = (matmul_pack_group_cuda, matmul_pack_cuda)
+KERNELS = (matmul_pack_group_cuda,)
+
+#: the kernel wrapper's plain version (the CPU path, and what the card's
+#: output is held to)
+CUDA_PLAINS = {"matmul_pack_group_cuda": "matmul_pack_group_plain"}
 
 
 def matmul_pack(a: torch.Tensor, q: torch.Tensor,

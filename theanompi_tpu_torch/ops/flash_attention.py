@@ -291,14 +291,25 @@ flash_bwd_dq_f32_cuda.launches = 0
 
 KERNELS = (flash_fwd_cuda, flash_bwd_dkv_cuda, flash_bwd_dq_cuda,
            flash_fwd_f32_cuda, flash_bwd_dkv_f32_cuda, flash_bwd_dq_f32_cuda)
-# each dtype's (B10, B11, B12)
-BY_DTYPE = {torch.bfloat16: KERNELS[:3], torch.float32: KERNELS[3:]}
+
+#: each kernel wrapper's plain version (the CPU path, and what the card's
+#: output is held to)
+CUDA_PLAINS = {
+    "flash_fwd_cuda": "flash_fwd_plain",
+    "flash_bwd_dkv_cuda": "flash_bwd_plain",
+    "flash_bwd_dq_cuda": "flash_bwd_plain",
+    "flash_fwd_f32_cuda": "flash_fwd_plain",
+    "flash_bwd_dkv_f32_cuda": "flash_bwd_plain",
+    "flash_bwd_dq_f32_cuda": "flash_bwd_plain",
+}
 
 
 def _kernels(t: torch.Tensor):
     """The (B10, B11, B12) wrappers of ``t``'s dtype (the bf16 ones for any
     other dtype: they refuse it, naming the dtypes the kernels take)."""
-    return BY_DTYPE.get(t.dtype, BY_DTYPE[torch.bfloat16])
+    if t.dtype == torch.float32:
+        return flash_fwd_f32_cuda, flash_bwd_dkv_f32_cuda, flash_bwd_dq_f32_cuda
+    return flash_fwd_cuda, flash_bwd_dkv_cuda, flash_bwd_dq_cuda
 
 
 def _fwd_cuda(q, k, v, causal, sm_scale):

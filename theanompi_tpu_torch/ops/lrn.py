@@ -182,6 +182,10 @@ lrn_bwd_cuda.launches = 0
 
 KERNELS = (lrn_fwd_cuda, lrn_bwd_cuda)
 
+#: each kernel wrapper's plain version (the CPU path, and what the card's
+#: output is held to)
+CUDA_PLAINS = {"lrn_fwd_cuda": "lrn_plain", "lrn_bwd_cuda": "lrn_bwd_plain"}
+
 
 class LRNFunction(torch.autograd.Function):
     """B1 forward, B2 backward; saves ``x`` only."""

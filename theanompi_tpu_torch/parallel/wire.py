@@ -63,6 +63,14 @@ WIRE_VERSION = 2
 #: without the ``wire.`` prefix).
 WIRE_COUNTERS = ("retry", "timeout", "corrupt", "reconnect", "giveup")
 
+#: Histograms: a request's round trip on success, and the server's split
+#: of it from the reply's ``srv`` field (queue wait at the center's lock,
+#: apply under it).
+WIRE_HISTS = ("wire.rtt", "wire.server_queue", "wire.server_apply")
+#: Gauges: the seconds the last outage lasted, set when a connection
+#: heals (the report draws it as a counter track).
+WIRE_GAUGES = ("wire.outage_s",)
+
 #: The wire's telemetry event kind (an outage's end, a give-up).
 WIRE_EVENT = "wire"
 

@@ -5,5 +5,8 @@ theanompi_tpu_torch.tools.<name>``:
   virtual time (``simfleet``), its determinism gate, and the live
   fidelity cross-check;
 * ``chaos_run`` — an audited chaos run of the elastic islands or of a
-  supervised BSP world.
+  supervised BSP world;
+* ``lint`` — the whole-program checks of the port's host code and its
+  kernels' plain/test/card triples, with its baseline
+  (``tpulint_torch_baseline.json``).
 """

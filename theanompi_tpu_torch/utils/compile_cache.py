@@ -56,6 +56,7 @@ import hashlib
 import json
 import os
 import sys
+import threading
 import time
 from typing import Any, Callable, Dict, Iterable, Optional
 
@@ -95,6 +96,9 @@ class CompileCache:
         self.enabled = bool(enabled and cache_dir)
         self.counters = {"hits": 0, "misses": 0, "deserialize_fallbacks": 0,
                          "serialize_unsupported": 0}
+        # the libraries load on a pool's threads (``_kernel_build.prewarm``):
+        # the counters and the manifest's read-modify-write take this lock
+        self._lock = threading.Lock()
         if self.enabled:
             try:
                 os.makedirs(self.cache_dir, exist_ok=True)
@@ -113,7 +117,8 @@ class CompileCache:
     def _tick(self, kind: str) -> None:
         """Bump a ladder counter, mirrored into the process telemetry
         registry (``compile_cache.<kind>``)."""
-        self.counters[kind] += 1
+        with self._lock:
+            self.counters[kind] += 1
         from . import telemetry
         tm = telemetry.active()
         if tm.enabled:
@@ -234,18 +239,21 @@ class CompileCache:
             pass                              # metadata only — never fatal
 
     def _record_manifest(self, key, name, toolkit, build_secs, nbytes):
-        m = self.load_manifest()
-        m[key] = {"name": name, "nvcc": toolkit,
-                  "build_secs": round(build_secs, 2), "bytes": int(nbytes),
-                  "created": time.time(), "hits": 0, "last_hit": None}
-        self._save_manifest(m)
+        with self._lock:
+            m = self.load_manifest()
+            m[key] = {"name": name, "nvcc": toolkit,
+                      "build_secs": round(build_secs, 2),
+                      "bytes": int(nbytes), "created": time.time(),
+                      "hits": 0, "last_hit": None}
+            self._save_manifest(m)
 
     def _bump_manifest(self, key):
-        m = self.load_manifest()
-        if key in m:
-            m[key]["hits"] = int(m[key].get("hits", 0)) + 1
-            m[key]["last_hit"] = time.time()
-            self._save_manifest(m)
+        with self._lock:
+            m = self.load_manifest()
+            if key in m:
+                m[key]["hits"] = int(m[key].get("hits", 0)) + 1
+                m[key]["last_hit"] = time.time()
+                self._save_manifest(m)
 
     # -- reporting ---------------------------------------------------------
 

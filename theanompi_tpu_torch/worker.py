@@ -350,7 +350,7 @@ class Worker(MeshProcess):
                         n_report = None
                         aux = model.numerics_aux if rec and telem.enabled \
                             else None
-                        if aux is not None:
+                        if telem.enabled and aux is not None:
                             n_report = numerics.host_report(
                                 numerics.to_host(aux))
                             numerics.record(telem, n_report, rank=rank)

@@ -452,6 +452,15 @@ BF16_FLOPS_PER_S = 989e12        # dense, tensor cores
 # F32_FLOPS_PER_S
 SPLIT_TF32_FLOPS_PER_S = 495e12 / 3
 
+#: The deliberate bf16 roundings of the phases' references (the lint's
+#: dtype-flow reads this).
+NONBITEXACT = {
+    "pp_stage_path_phase": "the stage output's gradient is made of bf16 "
+                           "values, the same on every side of the comparison",
+    "attention_bf16_probs": "the reference rounds the probabilities to bf16 "
+                            "before P·V, as the flash kernel does",
+}
+
 BATCH = 128
 STEPS = 8
 VAL_BATCHES = 1
@@ -3783,6 +3792,82 @@ def host_windows(wire_u8: bool, k: int) -> list:
     return sums + [checksum(data.next_val_batch(0)["x"])]
 
 
+def capture_witness_phase() -> dict:
+    """What the card does with each host effect the lint's capture-purity
+    names, each captured alone in a ``parallel.graph.StepGraph`` on a side
+    stream: a ``.item()`` (a read back: capture must refuse it, with
+    ``CaptureError``), a host clock (captured, then frozen: every replay
+    gives the capture's stamp), and a draw from a generator not handed to
+    the graph (refused, or frozen: two replays draw the same values).
+    Fails if the ``.item()`` capture does not raise, or if memory freed
+    after the refusals stays reserved."""
+    from theanompi_tpu_torch.parallel.graph import CaptureError, StepGraph
+    x = torch.arange(1.0, 4097.0, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    out = {}
+
+    def attempt(name, fn):
+        g = StepGraph(side)
+        t0 = time.time()
+        try:
+            with torch.cuda.stream(side):
+                res = g.capture(fn)
+        except CaptureError as e:
+            out[name] = {"captured": False, "error": str(e)[:240],
+                         "secs": time.time() - t0}
+            torch.cuda.synchronize()
+            return None, None
+        out[name] = {"captured": True, "secs": time.time() - t0}
+        return g, res
+
+    # a sync to the host inside the capture
+    attempt("item", lambda: x.sum().item())
+    if out["item"]["captured"]:
+        raise AssertionError("capture witness: .item() was captured; "
+                             "StepGraph must refuse a read back")
+    # a host clock: captured once, replayed with the capture's stamp
+    g, res = attempt("host_clock", lambda: x * (time.time() % 1000.0))
+    if g is not None:
+        stamps = []
+        for _ in range(2):
+            time.sleep(0.01)
+            with torch.cuda.stream(side):
+                g.replay()
+            side.synchronize()
+            stamps.append(float(res[0]))
+        out["host_clock"].update(frozen=stamps[0] == stamps[1],
+                                 replay_stamps=stamps)
+    # a draw from a generator the graph was not given
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    g, res = attempt("unregistered_draw", lambda: torch.rand(
+        8, generator=gen, device="cuda"))
+    if g is not None:
+        draws = []
+        for _ in range(2):
+            with torch.cuda.stream(side):
+                g.replay()
+            side.synchronize()
+            draws.append(res.clone())
+        out["unregistered_draw"]["frozen"] = bool(torch.equal(*draws))
+    torch.cuda.synchronize()
+    # the refused captures gave back what they took: 2 GiB freed after
+    # them returns to the card (the allocator routes nothing into a dead
+    # graph's pool)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    big = torch.empty(2 ** 31, dtype=torch.uint8, device="cuda")
+    del big
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out["reserved_kept_mib"] = (torch.cuda.memory_reserved() - base) / 2 ** 20
+    if out["reserved_kept_mib"] > 256:
+        raise AssertionError(f"capture witness: {out['reserved_kept_mib']:.0f}"
+                             f" MiB stay reserved after the refused "
+                             f"captures: a dead graph's pool holds them")
+    return out
+
+
 def window_files_phase(wire_u8: bool) -> dict:
     """AlexNet from the batch files under ``para_load`` at
     ``steps_per_call = SPC``: the producer stages whole windows, the
@@ -4195,8 +4280,18 @@ def lint_gate(proc) -> dict:
         raise AssertionError(f"lint gate exited {proc.returncode}:\n"
                              f"{out[-4000:]}")
     rep = json.loads(out)
+    from theanompi_tpu_torch.analysis.checkers import CHECK_GROUPS
+    secs = rep.get("cpu_seconds", {})
+    group_of = {c: g for g, cs in CHECK_GROUPS.items() for c in cs}
+    by_group = {"parse+index": secs.get("parse", 0.0) +
+                secs.get("index", 0.0)}
+    for name, v in secs.items():
+        if name not in ("parse", "index"):
+            g = group_of.get(name, "other")
+            by_group[g] = by_group.get(g, 0.0) + v
     return {"findings": len(rep["findings"]), "baselined": rep["baselined"],
             "stale": len(rep["stale_baseline"]),
+            "checks": len(secs) - 2, "cpu_by_group": by_group,
             "cpu_s": ru.ru_utime + ru.ru_stime}
 
 
@@ -4219,9 +4314,11 @@ def islands_main(card: str) -> dict:
             gate.kill()
             gate.communicate()
     print(f"lint gate on the host (python -m theanompi_tpu_torch.tools.lint "
-          f"--check-baseline --no-cache): PASS, {g['findings']} findings, "
-          f"{g['baselined']} baselined, {g['stale']} stale, "
-          f"{g['cpu_s']:.1f} s CPU", flush=True)
+          f"--check-baseline --no-cache): PASS, {g['checks']} checks, "
+          f"{g['findings']} findings, {g['baselined']} baselined, "
+          f"{g['stale']} stale, {g['cpu_s']:.1f} s CPU (by group: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in g["cpu_by_group"].items())
+          + ")", flush=True)
     return res
 
 
@@ -7086,6 +7183,20 @@ def main() -> int:
     graph_eager = timed("graph_eager", graph_eager_phase)
     spc = timed("spc", spc_phase)
     recapture = timed("recapture", recapture_phase)
+    witness = timed("capture_witness", capture_witness_phase)
+    w = witness
+    print("capture witness (what capture-purity names, on the card): "
+          f".item() refused ({w['item']['error'][-70:]}); host clock "
+          + (f"captured, replays frozen at its stamp: "
+             f"{w['host_clock']['frozen']}" if w["host_clock"]["captured"]
+             else f"refused ({w['host_clock']['error'][:60]})")
+          + "; unregistered generator's draw "
+          + (f"captured, replays frozen: "
+             f"{w['unregistered_draw']['frozen']}"
+             if w["unregistered_draw"]["captured"]
+             else f"refused ({w['unregistered_draw']['error'][-70:]})")
+          + f"; after the refusals {w['reserved_kept_mib']:.0f} MiB of a "
+            f"freed 2 GiB stay reserved", flush=True)
     for path in set(_GRAPH_RUNS) - set(WIRE_REUSED):
         del _GRAPH_RUNS[path]
     windows = {}
@@ -7194,6 +7305,7 @@ def main() -> int:
                    "shard": shard, "gan_lm": a9, "ops": ops,
                    "graph_eager": graph_eager, "spc": spc,
                    "recapture": recapture, "zoo_ref": zoo_ref,
+                   "capture_witness": witness,
                    "lrn_googlenet": lrn_g, "lrn_sass": lrn_sass,
                    "native_loader": loader, "u8_logits": u8, "htod": htod,
                    "profile": profs, "card": card, "build_s": build_s,

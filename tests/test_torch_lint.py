@@ -666,15 +666,35 @@ def test_committed_baseline_is_empty():
 
 
 def test_cli_list_checks_names_the_ten_checks():
+    """The ten host-side checks and the eleven of the dataflow half, then
+    every JAX check beside its port counterpart; a JAX name is an alias
+    for ``--only``."""
     r = _lint("--list-checks")
     assert r.returncode == 0
-    names = [ln.split(":")[0] for ln in r.stdout.splitlines()]
+    checks, _, mapping = r.stdout.partition("\n\n")
+    names = [ln.split(":")[0] for ln in checks.splitlines()]
     assert names == sorted([
         "shared-state-race", "lock-ordering", "signal-safety",
         "daemon-discipline", "wire-contract", "retry-safety",
         "state-machine", "telemetry-hot-path", "schema-drift",
-        "oracle-pair"])
-    assert set(CHECK_GROUPS) == {"concurrency", "protocol"}
+        "oracle-pair",
+        "collective-discipline", "exchange-symmetry", "rng-discipline",
+        "capture-purity", "cache-key", "graph-key", "dtype-flow",
+        "static-alias", "shard-rebuild-dominance", "group-schema",
+        "package-boundary"])
+    assert set(CHECK_GROUPS) == {"concurrency", "protocol", "spmd",
+                                 "compile-surface"}
+    from theanompi_tpu.analysis.core import CHECKERS as JCHECKERS
+    pairs = dict(ln.strip().split(" -> ")
+                 for ln in mapping.splitlines()[1:] if " -> " in ln)
+    assert set(pairs) == set(JCHECKERS)
+    assert set(pairs.values()) == set(names)
+    assert pairs["trace-purity"] == "capture-purity"
+    assert pairs["retrace-hazard"] == "graph-key"
+    r = _lint("--only", "trace-purity", "--format", "json", "--no-cache",
+              "chip_smoke.py")
+    assert r.returncode == 0 and "capture-purity" in \
+        json.loads(r.stdout)["cpu_seconds"]
 
 
 def test_cli_exit_codes(tmp_path):

@@ -1,14 +1,20 @@
-"""The port's lint: whole-program checks of the host code of
-``theanompi_tpu_torch`` and of ``chip_smoke.py``.
+"""The port's lint: whole-program checks of ``theanompi_tpu_torch`` and of
+``chip_smoke.py``.
 
-Ten checks: the host-concurrency pass (shared-state-race, lock-ordering,
-signal-safety, daemon-discipline) over the engine's call graph and thread
-roles (``engine.py``); the wire's contracts (wire-contract, retry-safety,
+21 checks, the JAX lint's each redesigned for the port: the
+host-concurrency pass (shared-state-race, lock-ordering, signal-safety,
+daemon-discipline) over the engine's call graph and thread roles
+(``engine.py``); the wire's contracts (wire-contract, retry-safety,
 state-machine) over the endpoint model (``protocol.py``);
-telemetry-hot-path; schema-drift, which probes live objects; and
-oracle-pair, which holds every CUDA kernel to its plain version, its CPU
-test and its card comparison.  ``python -m theanompi_tpu_torch.tools.lint``
-runs them (``cli.py``).
+telemetry-hot-path; schema-drift, which probes live objects; oracle-pair,
+which holds every CUDA kernel to its plain version, its CPU test and its
+card comparison; and, on the engine's dataflow half (summaries of
+collectives, point-to-point and seeds closed over the call graph), the
+SPMD checks (collective-discipline, exchange-symmetry, group-schema,
+shard-rebuild-dominance), the capture checks (capture-purity, graph-key,
+static-alias), rng-discipline, the compile surface (cache-key, graph-key,
+dtype-flow) and package-boundary.  ``python -m
+theanompi_tpu_torch.tools.lint`` runs them (``cli.py``).
 
 The package is stdlib; schema-drift's probes import the port's modules
 they probe.  Nothing here imports ``jax`` or the JAX package.

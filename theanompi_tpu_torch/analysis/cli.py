@@ -9,10 +9,14 @@
   (sorted, repo-relative), keeping the justifications of the entries that
   remain; a new entry gets ``TODO: justify``.
 * ``--format json`` (or ``--json``): the findings with a stable
-  ``fingerprint`` each, the baseline delta and the cache status;
+  ``fingerprint`` each, the baseline delta, the cache status and the CPU
+  seconds of the parse, the index and each check that ran (none on a
+  cache hit);
   ``--format sarif``: a SARIF 2.1.0 log of the new findings.
-* ``--only``/``--disable``: checker names or the groups ``concurrency``
-  and ``protocol``, comma-separated; ``--list-checks`` prints them.
+* ``--only``/``--disable``: checker names, the groups ``concurrency``,
+  ``protocol``, ``spmd`` and ``compile-surface``, or a JAX check's name
+  (its port counterpart), comma-separated; ``--list-checks`` prints the
+  checks and each JAX check beside its counterpart.
 * ``--diff REF``: only the ``.py`` files changed against a git ref
   (``CACHED``: the staged index against HEAD), within the lint's paths.
   A partial run judges no baseline entry stale and cannot rewrite the
@@ -35,7 +39,7 @@ import sys
 from typing import Dict, List, Optional
 
 from . import cache as cache_mod
-from .checkers import CHECK_GROUPS
+from .checkers import CHECK_GROUPS, JAX_COUNTERPARTS
 from .core import (BASELINE_NAME, CHECKERS, DEFAULT_PATHS, Finding,
                    compare_baseline, file_scoped_checkers, iter_py_paths,
                    load_baseline, run_lint, save_baseline, select)
@@ -53,6 +57,7 @@ def _split(value: Optional[str]) -> Optional[List[str]]:
         return None
     out: List[str] = []
     for v in (v.strip() for v in value.split(",")):
+        v = JAX_COUNTERPARTS.get(v, v)
         for name in CHECK_GROUPS.get(v, (v,) if v else ()):
             if name not in out:
                 out.append(name)
@@ -102,7 +107,7 @@ def _disk_extra(root: str, selected: List[str], lint_rels) -> List[str]:
     return extra
 
 
-def _cached_run(root, paths, only, disable, cache_dir=None):
+def _cached_run(root, paths, only, disable, cache_dir=None, timings=None):
     """The checks through the result cache: ``(findings, status)``, the
     status ``hit`` or ``miss``."""
     selected = sorted(select(only, disable))
@@ -124,7 +129,7 @@ def _cached_run(root, paths, only, disable, cache_dir=None):
         if hit is not None:
             file_cache[rel] = hit
     findings = run_lint(root, paths=paths, only=only, disable=disable,
-                        file_cache=file_cache or None)
+                        file_cache=file_cache or None, timings=timings)
     by_path: Dict[str, List[Finding]] = {}
     for f in findings:
         if f.check in fsc:
@@ -209,6 +214,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.list_checks:
         for name in sorted(CHECKERS):
             print(f"{name}: {CHECKERS[name].description}")
+        print("\nthe JAX lint's checks and their port counterparts:")
+        for name in sorted(set(CHECKERS) - set(JAX_COUNTERPARTS.values())
+                           | set(JAX_COUNTERPARTS)):
+            print(f"  {name} -> {JAX_COUNTERPARTS.get(name, name)}")
         return 0
     root = os.path.abspath(args.root or _repo_root())
     baseline_path = args.baseline or os.path.join(root, BASELINE_NAME)
@@ -230,14 +239,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     if missing:
         return _err(f"no such path(s): {', '.join(missing)}")
     only, disable = _split(args.only), _split(args.disable)
+    timings: Dict[str, float] = {}
     try:
         if args.no_cache:
             findings = run_lint(root, paths=args.paths or None, only=only,
-                                disable=disable)
+                                disable=disable, timings=timings)
             cache_status = "off"
         else:
             findings, cache_status = _cached_run(
-                root, args.paths or None, only, disable, args.cache_dir)
+                root, args.paths or None, only, disable, args.cache_dir,
+                timings)
     except KeyError as e:
         return _err(e.args[0])
 
@@ -282,7 +293,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                           "new": [enrich(f) for f in new],
                           "baselined": len(matched),
                           "stale_baseline": stale,
-                          "cache": cache_status}, indent=2, sort_keys=True))
+                          "cache": cache_status,
+                          "cpu_seconds": {k: round(v, 3)
+                                          for k, v in timings.items()}},
+                         indent=2, sort_keys=True))
     else:
         for f in new:
             print(f.render())

@@ -23,6 +23,7 @@ import hashlib
 import json
 import os
 import re
+import time
 from dataclasses import dataclass
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -149,6 +150,14 @@ class SourceFile:
                 self._suppress.setdefault(target, set()).update(
                     c.strip() for c in m.group(1).split(",") if c.strip())
 
+    @property
+    def nodes(self) -> List[ast.AST]:
+        """Every node of the tree (``ast.walk`` order), walked once."""
+        nodes = self.__dict__.get("_nodes")
+        if nodes is None:
+            nodes = self.__dict__["_nodes"] = list(ast.walk(self.tree))
+        return nodes
+
     def suppressed(self, line: int, check: str) -> bool:
         s = self._suppress.get(line, ())
         return check in s or "all" in s
@@ -230,12 +239,18 @@ def collect_files(root: str, paths: Optional[Sequence[str]] = None
 def run_lint(root: str, paths: Optional[Sequence[str]] = None,
              only: Optional[Sequence[str]] = None,
              disable: Optional[Sequence[str]] = None,
-             file_cache: Optional[Dict[str, List[Finding]]] = None
+             file_cache: Optional[Dict[str, List[Finding]]] = None,
+             timings: Optional[Dict[str, float]] = None
              ) -> List[Finding]:
     """The selected checkers over the file set, findings sorted by path and
     line, suppressed ones dropped.  ``file_cache`` holds per-path findings
     of the file-scoped checkers from an earlier run over the same bytes:
-    those paths skip ``check_file`` and take the cached findings."""
+    those paths skip ``check_file`` and take the cached findings.
+    ``timings`` receives the CPU seconds of the parse (``parse``), of the
+    engine's index (``index``) and of each checker."""
+    clock = time.process_time
+    timings = {} if timings is None else timings
+    t0 = clock()
     selected = select(only, disable)
     files: List[SourceFile] = []
     findings: List[Finding] = []
@@ -247,10 +262,13 @@ def run_lint(root: str, paths: Optional[Sequence[str]] = None,
                 findings.append(Finding("parse-error", rel.replace(os.sep, "/"),
                                         int(e.lineno or 1), 0,
                                         f"cannot parse: {e.msg}"))
+    timings["parse"] = clock() - t0
     index = None
     if files and any(c.needs_engine for c in selected.values()):
         from .engine import ProgramIndex
+        t0 = clock()
         index = ProgramIndex(files)
+        timings["index"] = clock() - t0
 
     by_path = {sf.path: sf for sf in files}
     cached = set(file_cache or ())
@@ -261,12 +279,14 @@ def run_lint(root: str, paths: Optional[Sequence[str]] = None,
 
     for name in sorted(selected):
         checker = selected[name]
+        t0 = clock()
         for sf in files:
             if sf.path not in cached and checker.applies_to(sf.path):
                 findings.extend(f for f in checker.check_file(sf) if keep(f))
         if index is not None and checker.needs_engine:
             findings.extend(f for f in checker.check_program(index) if keep(f))
         findings.extend(f for f in checker.check_project(files) if keep(f))
+        timings[name] = clock() - t0
     for path in cached & set(by_path):
         findings.extend(f for f in file_cache[path]
                         if f.check in selected or f.check == "parse-error")

@@ -299,6 +299,9 @@ class TransformerLM(ModelBase):
                 setattr(self, k, int(self.config[k]))
         self.tp = int(self.config.get("tp", 1))
         self.sp = int(self.config.get("sp", 1))
+        # read once here: the captured step's forward reads no config knob
+        # (a knob changed later would not reach a replayed graph)
+        self.remat = bool(self.config.get("remat", False))
         self._check_pipeline()
         attn_impl = str(self.config.get("attn_impl", "reference"))
         if attn_impl == "flash" and self.seq_len % 128:
@@ -726,7 +729,7 @@ class TransformerLM(ModelBase):
         if self.pp > 1:
             # each chunk is recomputed in the backward already
             return self._head(params, self._pipeline(params, h, train))
-        remat = train and self.config.get("remat", False)
+        remat = train and self.remat
         for blk in self.blocks:
             if remat:
                 # the block's forward again in the backward: its activations

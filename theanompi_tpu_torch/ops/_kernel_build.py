@@ -98,6 +98,13 @@ def library_key(name: str) -> str:
     return compile_cache.library_key(src, NVCC_FLAGS, toolkit_version())
 
 
+def library_key_parts(name: str) -> dict:
+    """What :func:`library_key` hashes, for the cache's manifest."""
+    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
+        src = f.read()
+    return compile_cache.key_parts(src, NVCC_FLAGS, toolkit_version())
+
+
 def library_path(name: str) -> str:
     """Where the library goes without a cache (``build/kernels/``)."""
     return os.path.join(BUILD_DIR, f"{name}-{library_key(name)[:16]}.so")
@@ -155,7 +162,8 @@ def _load(name: str, cache):
     lib, info = cache.library(
         name, library_key(name), toolkit_version(),
         build=lambda path: _nvcc({name: path})[name],
-        open_lib=ctypes.CDLL, default_path=library_path(name))
+        open_lib=ctypes.CDLL, default_path=library_path(name),
+        parts=library_key_parts(name))
     info["t_done"] = time.time()
     return lib, info
 

@@ -46,6 +46,14 @@ MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 TILE = 64                  # the kernels' q and k/v tile rows
 HEAD_DIMS = (32, 64, 128)
 DTYPES = (torch.bfloat16, torch.float32)   # the kernels' instantiations
+#: The plain versions' deliberate roundings (the lint's dtype-flow reads
+#: this): each mirrors the kernel it is held to.
+NONBITEXACT = {
+    "flash_fwd_plain": "p is rounded to the input type before P·V, as the "
+                       "forward kernel rounds it",
+    "flash_bwd_plain": "p and dS are rounded to the input type before their "
+                       "products, as the backward kernels round them",
+}
 
 
 def _scale(q: torch.Tensor, sm_scale: Optional[float]) -> float:

@@ -257,9 +257,10 @@ class Exchanger:
             grid = self.model.grid
             total = None
             for axes in sorted(set(split), key=lambda a: (len(a), a)):
-                mask = torch.tensor([a == axes for a in split],
-                                    device=sq.device)
-                part = sq[mask].sum()
+                # the leaves split alike, picked by index: views of ``sq``,
+                # no host → device copy (a captured step refuses one)
+                part = torch.stack([sq[i] for i, a in enumerate(split)
+                                    if a == axes]).sum()
                 for axis in reversed(axes):
                     part = all_reduce(part, grid.group(axis))
                 total = part if total is None else total + part

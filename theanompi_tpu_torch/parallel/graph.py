@@ -16,7 +16,13 @@ callable and what a replay needs besides the graph itself:
 * the refusal: an operation the graph cannot hold (a read back to the
   host, a synchronize, an op that refuses capture) raises
   :class:`CaptureError` naming the operation's line in the step's code.
-  Nothing runs the step eagerly instead.
+  Nothing runs the step eagerly instead.  A refused capture gives back
+  what it took: the caching allocator stops routing the thread's
+  allocations into the graph's private memory pool, and releases the
+  pool (a refusal inside the capture, such as a read back, stops it
+  before the allocator is told, and every later allocation of the
+  process would land in a pool nothing frees), and the thread's current
+  stream is the one it had before.
 
 Capture uses CUDA's thread-local mode: the ``para_load`` producer keeps
 staging batches on its own thread and stream while the step is captured,
@@ -93,6 +99,9 @@ class StepGraph:
         self.graph = torch.cuda.CUDAGraph()
         for g in generators:
             self.graph.register_generator_state(g)
+        # the graph's private memory pool, named up front so that a
+        # refused capture can give it back (``_abandon``)
+        self.pool = torch.cuda.graph_pool_handle()
         # kernel wrapper -> launches one replay makes
         self.launches: Dict[Callable, int] = {}
         # the host seconds the capture took (a graph cannot be saved: a
@@ -106,11 +115,14 @@ class StepGraph:
         with CAPTURE_LOCK:
             before = [k.launches for k in wrappers]
             t0 = time.perf_counter()
+            prev = torch.cuda.current_stream(self.stream.device)
             try:
-                with torch.cuda.graph(self.graph, stream=self.stream,
+                with torch.cuda.graph(self.graph, pool=self.pool,
+                                      stream=self.stream,
                                       capture_error_mode="thread_local"):
                     out = fn()
             except Exception as e:
+                self._abandon(prev)
                 raise CaptureError(describe(e)) from e
             finally:
                 recorded = [k.launches - n for k, n in zip(wrappers, before)]
@@ -119,6 +131,19 @@ class StepGraph:
                 self.capture_secs = time.perf_counter() - t0
         self.launches = {k: n for k, n in zip(wrappers, recorded) if n}
         return out
+
+    def _abandon(self, prev: torch.cuda.Stream) -> None:
+        """After a refused capture: ``prev`` current again, and, unless the
+        capture's end already did it, the allocator's routing into the
+        graph's pool ended and the pool released (the graph, never
+        captured, will not release it)."""
+        torch.cuda.set_stream(prev)
+        dev = self.stream.device.index
+        try:
+            torch.cuda.memory._cuda_endAllocateToPool(dev, self.pool)
+        except RuntimeError:
+            return            # the capture's end stopped it; the graph owns
+        torch.cuda.memory._cuda_releasePool(dev, self.pool)
 
     def replay(self) -> None:
         """One replay on the current stream; each kernel's count grows by

@@ -76,6 +76,13 @@ import torch
 from ..models import layers as L
 from .tp import copy_to_model, reduce_from_model
 
+#: The deliberate roundings (the lint's dtype-flow reads this).
+NONBITEXACT = {
+    "MoE._combine": "each gate is rounded to the compute dtype before the "
+                    "float32 combine, as the JAX package's combine einsum "
+                    "takes it in the compute dtype",
+}
+
 
 def top_k_lowest_first(probs: torch.Tensor, k: int):
     """``lax.top_k`` over the last dim: the k largest values, descending,

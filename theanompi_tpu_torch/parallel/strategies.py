@@ -50,6 +50,13 @@ from ..utils.helper_funcs import (flatten_tree, flatten_tree_jax,
                                   unflatten_like_jax)
 from . import buckets
 
+#: The deliberate roundings (the lint's dtype-flow reads this).
+NONBITEXACT = {
+    "Ring.__call__": "the chunk a rank owns is rounded to the wire dtype "
+                     "before the allgather, so every rank, the owner too, "
+                     "holds the same bits",
+}
+
 
 class Strategy:
     """Base: ``(tree, state, *, size) -> (mean_tree, new_state)``."""

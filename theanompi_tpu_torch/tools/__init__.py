@@ -6,7 +6,11 @@ theanompi_tpu_torch.tools.<name>``:
   fidelity cross-check;
 * ``chaos_run`` — an audited chaos run of the elastic islands or of a
   supervised BSP world;
-* ``lint`` — the whole-program checks of the port's host code and its
-  kernels' plain/test/card triples, with its baseline
-  (``tpulint_torch_baseline.json``).
+* ``lint`` — the whole-program checks of the port: its host code, what
+  runs on the card and across ranks, and its kernels' plain/test/card
+  triples, with its baseline (``tpulint_torch_baseline.json``);
+* ``precommit_lint`` — the lint over the staged content, as a git
+  pre-commit hook;
+* ``explain_program`` — the kernel-library cache's manifest, and which
+  key part split two entries.
 """

@@ -74,12 +74,17 @@ class _EntryMismatch(Exception):
     """Header/toolkit disagreement or damage: the load-fallback rung."""
 
 
+def key_parts(source: bytes, flags: Iterable[str], toolkit: str) -> dict:
+    """What a library's key hashes: its source's sha256, the flags and the
+    toolkit that builds it (the manifest keeps them beside each entry)."""
+    return {"source": hashlib.sha256(source).hexdigest(),
+            "flags": list(flags), "nvcc": toolkit}
+
+
 def library_key(source: bytes, flags: Iterable[str], toolkit: str) -> str:
     """Content-addressed key of one library: its source, the flags and the
     toolkit that builds it."""
-    parts = {"source": hashlib.sha256(source).hexdigest(),
-             "flags": list(flags), "nvcc": toolkit}
-    blob = json.dumps(parts, sort_keys=True)
+    blob = json.dumps(key_parts(source, flags, toolkit), sort_keys=True)
     return hashlib.sha256(blob.encode("utf-8")).hexdigest()[:40]
 
 
@@ -162,11 +167,14 @@ class CompileCache:
 
     def library(self, name: str, key: str, toolkit: str,
                 build: Callable[[str], float], open_lib: Callable[[str], Any],
-                default_path: str):
+                default_path: str, parts: Optional[dict] = None):
         """Return ``(library, info)`` for one kernel library.
 
         ``build(path)`` compiles it to ``path`` and returns the seconds it
         took (raising when the compiler fails); ``open_lib(path)`` loads it.
+        ``parts`` (:func:`key_parts`) goes into the manifest beside a new
+        entry, so that ``tools/explain_program --diff`` can name the part
+        that split two keys.
         ``info``: ``cache`` ∈ {hit, miss, deserialize_fallback, off},
         ``compile_secs`` (the whole rung: the build for a miss, the open
         for a hit), ``key``, ``path``, ``serialized``."""
@@ -206,7 +214,7 @@ class CompileCache:
         try:
             self._write_header(name, key, toolkit)
             self._record_manifest(key, name, toolkit, secs,
-                                  os.path.getsize(path))
+                                  os.path.getsize(path), parts)
             info["serialized"] = True
         except OSError as e:
             # the library is built and usable; only persistence is lost
@@ -238,13 +246,20 @@ class CompileCache:
         except OSError:
             pass                              # metadata only — never fatal
 
-    def _record_manifest(self, key, name, toolkit, build_secs, nbytes):
+    def _record_manifest(self, key, name, toolkit, build_secs, nbytes,
+                         parts: Optional[dict] = None):
+        """One entry: its library's name, the toolkit, the key's other parts
+        (the source's sha256 and the flags, when given), the build's
+        seconds and bytes."""
         with self._lock:
             m = self.load_manifest()
             m[key] = {"name": name, "nvcc": toolkit,
                       "build_secs": round(build_secs, 2),
                       "bytes": int(nbytes), "created": time.time(),
                       "hits": 0, "last_hit": None}
+            if parts:
+                m[key].update(source=parts.get("source"),
+                              flags=list(parts.get("flags", ())))
             self._save_manifest(m)
 
     def _bump_manifest(self, key):

@@ -151,9 +151,10 @@ class GraphPlan:
         grid = self.model.grid
         total = None
         for axes in sorted(set(split), key=lambda a: (len(a), a)):
-            mask = torch.tensor([a == axes for a in split],
-                                device=per_leaf.device)
-            part = per_leaf[mask].sum()
+            # picked by index: views of ``per_leaf``, no host → device
+            # copy (a captured step refuses one)
+            part = torch.stack([per_leaf[i] for i, a in enumerate(split)
+                                if a == axes]).sum()
             for axis in reversed(axes):
                 part = all_reduce(part, grid.group(axis))
             total = part if total is None else total + part

@@ -19,6 +19,7 @@
     python3 chip_smoke.py --ep-rank       # one ep = tp 2 rank's MoE block
     python3 chip_smoke.py --ops           # the operations planes (A10)
     python3 chip_smoke.py --elastic       # the elastic islands, simfleet
+    python3 chip_smoke.py --tools         # the port's tools (A13)
 
 1. Fails (exit 2, no result) without CUDA; prints the card's name and power
    limit as ``nvidia-smi`` reports them.
@@ -306,7 +307,13 @@
     the corruption to its application and to the alert, and the islands'
     steps a second before and after the faults; on a line of its own both
     membership sequences, the simulation's CPU seconds and the gate's CPU
-    seconds and event-log digests.
+    seconds and event-log digests.  While the islands run, a thread takes
+    ``tools.fleetz``'s frame (its ``--json --iterations 1`` rows) every
+    0.25 s until one holds the live roster (both islands, the center, the
+    supervisor, none DOWN); after the run ``tools.telemetry_report`` reads
+    the record dir (``--json``, ``--trace``): every stream (the center's
+    rank -1 among them), island 1's leave and rejoin, traced rounds, both
+    islands ranked, spans in the trace.
 29. The exchange wire's remaining forms (A7; ``--wire`` runs these
     alone), world 1 over NCCL, cuDNN deterministic, each run from the
     same seed: AlexNet b128 8 captured steps under ``exch_mode='params'``
@@ -392,7 +399,24 @@
     tokens/s of each, each KV token against the full forward's greedy
     choice after the same prefix; and the LM trained 8 steps from uint16
     token files the script writes under ``build/smoke_tokens``.
-33. Prints ``{"kernels": [...]}`` (B1–B12 and B10–B12 in float32; B1/B2
+33. The port's tools (A13; ``--tools`` runs these alone, after profiling
+    the AlexNet synthetic row), each run in this process through its
+    ``main(argv)`` on the card: ``profile_model alexnet 128 5`` (AlexNet
+    b128 BSP captured, 5 traced dispatches after the profiler's warm-up;
+    its launches, one lane, B1 and B2 twice a dispatch in the trace (their
+    places among its op classes printed), and devprof's compute a
+    dispatch within 10% of the AlexNet synthetic row's device busy ms a
+    step less its HtoD copy);
+    ``scaling_sweep`` AlexNet b128 at world 1 under ``allreduce`` and
+    ``onebit`` (img/s a row; B1/B2, and the onebit wire's B4–B6, launched
+    once a step, B3 not); ``loader_bench --prefetch --u8-wire`` over the
+    ``para_load`` phase's batch files (host img/s and GB/s, and the pinned
+    staging rate to the card); ``async_vs_sync_easgd --seconds 10``
+    (Cifar10 b16: 20 synchronous-cadence steps against 2 island threads
+    sharing the card); ``rules_time_to_acc 0.5 --epochs 2`` (the four
+    rules at world 1 on synthetic Cifar10, 512 samples, finite validation
+    costs).  Prints each tool's numbers and the group's seconds by tool.
+34. Prints ``{"kernels": [...]}`` (B1–B12 and B10–B12 in float32; B1/B2
     with GoogLeNet's shapes beside AlexNet's, and the island, launcher and
     sharded paths' counts;
     B4 and B8 with their bucketed launches and per-bucket times; B10–B12
@@ -412,6 +436,7 @@ import concurrent.futures
 import contextlib
 import ctypes
 import gc
+import io
 import json
 import os
 import re
@@ -438,6 +463,8 @@ from theanompi_tpu_torch.ops import factor_pack as fp_ops  # noqa: E402
 from theanompi_tpu_torch.ops import flash_attention as fa_ops  # noqa: E402
 from theanompi_tpu_torch.ops import lrn as lrn_ops  # noqa: E402
 from theanompi_tpu_torch.models.alex_net import AlexNet  # noqa: E402
+from theanompi_tpu_torch.tools.loader_bench import (  # noqa: E402
+    smooth_mean_chw, write_batch_files)
 from theanompi_tpu_torch.utils.helper_funcs import (  # noqa: E402
     get_leaf, leaf_paths, tree_leaves, tree_map)
 
@@ -1526,6 +1553,14 @@ def times_main(flags) -> int:
     if "--elastic" in flags:
         _kernel_build.build(["lrn"])
         out["elastic"] = elastic_main(card)
+    if "--tools" in flags:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        _kernel_build.build(["lrn", "compress"])
+        busy = step_profile_phase(
+            "theanompi_tpu_torch.models.alex_net", "AlexNet", BATCH,
+            {"lrn": ("lrn_",)}, PROFILE_STEPS)
+        out["tools"] = tools_main(card, busy)
     if "--wire" in flags:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -3225,35 +3260,6 @@ RAW = 256
 U8_LOGITS_RTOL = 0.02
 
 
-def smooth_mean_chw() -> np.ndarray:
-    """A CHW mean image of the reference's kind: smooth, ~110-135."""
-    yy, xx = np.meshgrid(np.arange(RAW), np.arange(RAW), indexing="ij")
-    plane = 8.0 * np.sin(2 * np.pi * yy / RAW) * np.cos(2 * np.pi * xx / RAW)
-    return np.stack([120.0 + 5.0 * c + plane
-                     for c in range(3)]).astype(np.float32)
-
-
-def write_batch_files(root: str, n_train: int, n_val: int,
-                      mean: bool = True, seed: int = 7) -> str:
-    """ImageNet-layout ``.npy`` batch files made from ``seed``: bc01 uint8
-    [128, 3, 256, 256] (25.2 MB each) in ``train_hkl/`` and ``val_hkl/``,
-    the label files, and a CHW ``img_mean.npy`` unless ``mean`` is off
-    (then the reader's scalar mean, 122).  ``.npy``: the card's machine
-    has no h5py for ``.hkl``."""
-    shutil.rmtree(root, ignore_errors=True)
-    rng = np.random.default_rng(seed)
-    for sub, n in (("train_hkl", n_train), ("val_hkl", n_val)):
-        os.makedirs(os.path.join(root, sub))
-        for j in range(n):
-            np.save(os.path.join(root, sub, f"{j:04d}.npy"),
-                    rng.integers(0, 256, (BATCH, 3, RAW, RAW), np.uint8))
-        np.save(os.path.join(root, sub.split("_")[0] + "_labels.npy"),
-                rng.integers(0, 1000, n * BATCH).astype(np.int32))
-    if mean:
-        np.save(os.path.join(root, "img_mean.npy"), smooth_mean_chw())
-    return root
-
-
 _WEIGHTS = {}
 
 
@@ -3426,7 +3432,7 @@ def u8_logits_phase() -> dict:
     from theanompi_tpu_torch.models.alex_net import AlexNet
     from theanompi_tpu_torch.models.data.imagenet import ImageNet_data
     scalar_dir = os.path.join("build", "smoke_imagenet_scalar")
-    write_batch_files(scalar_dir, 1, 1, mean=False)
+    write_batch_files(scalar_dir, 1, 1, BATCH, mean=False)
     model = AlexNet({"batch_size": 2, "synthetic_batches": 1,
                      "synthetic_val_batches": 1, "seed": 0})
     out = {}
@@ -4857,14 +4863,22 @@ def elastic_phase(model=("chip_smoke", "ElasticAlexNet"),
         raise AssertionError(f"elastic: the simulated fleet realized "
                              f"{fleet.realized}, not {planned}")
     log = os.path.join(ELASTIC_DIR, "elastic.log")
+    roster, stop = {"frames": 0, "live": None}, threading.Event()
+    watcher = threading.Thread(target=fleetz_watch, args=(rec, roster, stop),
+                               daemon=True)
     t0 = time.time()
-    with fds_to(log):
-        rc = mb.run_elastic(
-            "easgd", *model, dict(cfg, smoke_out=out_dir), 2,
-            record_dir=rec, steps=steps, chaos_schedule=schedule,
-            center_proc=True, timeout_s=600,
-            supervisor_kw=dict(poll_s=0.2, backoff=mb.Backoff(base=0.3),
-                               lease_timeout=60.0))
+    watcher.start()
+    try:
+        with fds_to(log):
+            rc = mb.run_elastic(
+                "easgd", *model, dict(cfg, smoke_out=out_dir), 2,
+                record_dir=rec, steps=steps, chaos_schedule=schedule,
+                center_proc=True, timeout_s=600,
+                supervisor_kw=dict(poll_s=0.2, backoff=mb.Backoff(base=0.3),
+                                   lease_timeout=60.0))
+    finally:
+        stop.set()
+        watcher.join(timeout=30)
     run_s = time.time() - t0
     with open(log) as f:
         tail = f.read()[-6000:]
@@ -4979,6 +4993,12 @@ def elastic_phase(model=("chip_smoke", "ElasticAlexNet"),
             raise AssertionError("elastic: center_final.npz not finite")
     with open(os.path.join(rec, "center_stats.json")) as f:
         cstats = json.load(f)
+    if roster["live"] is None:
+        raise AssertionError(f"fleetz: no frame of {roster['frames']} held "
+                             f"the live roster (both islands, the center, "
+                             f"the supervisor, none DOWN): "
+                             f"{roster.get('last')}")
+    report = elastic_report(rec)
     # the islands' steps a second around the faults, from their phase
     # events: before the kill (from the first step), and after: island 2
     # from its alert to its end, the respawned island 1 from its first
@@ -5011,8 +5031,65 @@ def elastic_phase(model=("chip_smoke", "ElasticAlexNet"),
                                                  "launches")}
                         for w, r in reps.items()},
             "hbm_headroom_bytes": min(hbm), "center_leaves": n_leaves,
+            "fleetz": {"frames": roster["frames"],
+                       "live_at_s": roster["live"]["ts"] - t0,
+                       "rows": [{k: r.get(k) for k in ("role", "id", "pid",
+                                                       "iter", "steps")}
+                                for r in roster["live"]["rows"]]},
+            "report": report,
             "center": {k: cstats.get(k) for k in ("n_updates", "by_island",
                                                   "center_downs")}}
+
+
+def fleetz_watch(rec: str, roster: dict, stop: threading.Event) -> None:
+    """``tools.fleetz``'s frame (``--json --iterations 1``) taken every
+    0.25 s while the elastic run lives, until one holds the live roster:
+    both islands, the center and the supervisor, none DOWN (exit 0)."""
+    from theanompi_tpu_torch.tools import fleetz
+    while not stop.is_set():
+        rc, rows = fleetz.frame(rec)
+        roster["frames"] += 1
+        roles = [(r.get("role"), r.get("id")) for r in rows]
+        roster["last"] = (rc, roles)
+        if rc == 0 and {("worker", 1), ("worker", 2)} <= set(roles) and \
+                {"center", "supervisor"} <= {role for role, _ in roles}:
+            roster["live"] = {"rows": rows, "ts": time.time()}
+            return
+        stop.wait(0.25)
+
+
+def elastic_report(rec: str) -> dict:
+    """``tools.telemetry_report <rec> --json --trace`` over the elastic
+    run's record dir: every stream read (the supervisor's rank 0, the
+    center's rank -1, both islands), island 1's leave and rejoin among the
+    membership transitions, traced exchange rounds, a straggler ranking
+    of both islands, spans in the Perfetto trace."""
+    from theanompi_tpu_torch.tools import telemetry_report
+    rep_path = os.path.join(ELASTIC_DIR, "report.json")
+    trace_path = os.path.join(ELASTIC_DIR, "report_trace.json")
+    text = run_tool(telemetry_report.main,
+                    [rec, "--json", rep_path, "--trace", trace_path])
+    with open(os.path.join(ELASTIC_DIR, "report.txt"), "w") as f:
+        f.write(text)
+    with open(rep_path) as f:
+        rep = json.load(f)
+    with open(trace_path) as f:
+        spans = sum(1 for e in json.load(f)["traceEvents"]
+                    if e.get("ph") == "X")
+    members = [(e["ev"], e.get("worker")) for e in rep["membership_events"]]
+    ranked = sorted(r["rank"] for r in rep["straggler_ranking"])
+    if not ({-1, 0, 1, 2} <= set(rep["ranks"])
+            and ("worker_leave", 1) in members
+            and ("worker_join", 1) in members
+            and rep["traces"].get("rounds", 0) > 0
+            and {1, 2} <= set(ranked) and spans > 0):
+        raise AssertionError(f"telemetry_report over {rec}: ranks "
+                             f"{rep['ranks']}, membership {members}, "
+                             f"rounds {rep['traces'].get('rounds')}, "
+                             f"ranking {ranked}, {spans} spans")
+    return {"ranks": rep["ranks"], "events": rep["events"],
+            "rounds": rep["traces"]["rounds"], "straggler_ranking":
+                rep["straggler_ranking"], "trace_spans": spans}
 
 
 def simfleet_gate(proc) -> dict:
@@ -5080,6 +5157,15 @@ def elastic_main(card: str) -> dict:
           f"hbm headroom {r['hbm_headroom_bytes'] / 2**30:.1f} GiB; alerts "
           f"{r['alerts']}; center {r['center']}; group {r['secs']:.1f} s "
           f"on {card}", flush=True)
+    fz, rp = r["fleetz"], r["report"]
+    print(f"elastic, the port's tools: a fleetz frame held the live roster "
+          f"{[(x['role'], x['id']) for x in fz['rows']]} at "
+          f"{fz['live_at_s']:.1f} s ({fz['frames']} frames); "
+          f"telemetry_report over the record dir: ranks {rp['ranks']}, "
+          f"{rp['events']} events, {rp['rounds']} traced rounds, "
+          f"{rp['trace_spans']} spans, straggler ranking "
+          f"{[(x['rank'], x['windows_straggled']) for x in rp['straggler_ranking']]}",
+          flush=True)
     for ln in r["audit"]:
         print(ln, flush=True)
     return r
@@ -6179,7 +6265,7 @@ def input_times() -> dict:
     from theanompi_tpu_torch.utils.recorder import Recorder
     from theanompi_tpu_torch.worker import BSP_Worker
     _kernel_build.build(["lrn"])
-    write_batch_files(DATA_DIR, FILE_STEPS, VAL_BATCHES)
+    write_batch_files(DATA_DIR, FILE_STEPS, VAL_BATCHES, BATCH)
     rows = []
 
     def one(cfg, threads=None):
@@ -6707,6 +6793,252 @@ def ops_main(card: str) -> dict:
     return out
 
 
+# -- the port's tools (A13) -----------------------------------------------------
+
+TOOLS_DIR = os.path.join(HERE, "build", "smoke_tools")
+TOOLS_PROFILE_ITERS = 5          # the traced dispatches of profile_model
+SWEEP_WARMUP, SWEEP_ITERS = 2, 8
+# the ratio of devprof's compute a dispatch to the profiler's busy ms a
+# step (the ops group's bound on its traced session)
+DEVPROF_RATIO = (0.9, 1.1)
+
+
+def run_tool(main, argv) -> str:
+    """A tool's ``main(argv)`` in this process, its standard output
+    captured; raises on a nonzero exit."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    if rc != 0:
+        raise AssertionError(f"{main.__module__} {argv} exited {rc}:\n"
+                             f"{buf.getvalue()[-3000:]}")
+    return buf.getvalue()
+
+
+def tools_profile_phase(busy: dict) -> dict:
+    """``tools.profile_model alexnet 128 5 --json``: AlexNet b128 BSP,
+    captured, 5 traced dispatches after the profiler's warm-up.  Its
+    launches (5 warm-up calls, the warm-up dispatch and the window: B1 and
+    B2 twice a call), one lane, B1 and B2 in the trace twice a dispatch
+    (their places among its op classes by device time reported),
+    and devprof's compute a dispatch within ``DEVPROF_RATIO`` of
+    ``busy``'s device busy ms a step less its host → device copies (the
+    tool replays one staged batch; ``busy`` is the AlexNet synthetic
+    row's profile, whose steps each copy their batch)."""
+    from theanompi_tpu_torch.tools import profile_model
+    from theanompi_tpu_torch.utils import devprof
+    path = os.path.join(TOOLS_DIR, "profile_alexnet.json")
+    trace = os.path.join(TOOLS_DIR, "profile_trace")
+    shutil.rmtree(trace, ignore_errors=True)
+    saved = os.environ.get("PROFILE_DIR")
+    os.environ["PROFILE_DIR"] = trace
+    zero_launches()
+    try:
+        text = run_tool(profile_model.main, [
+            "alexnet", str(BATCH), str(TOOLS_PROFILE_ITERS), "--json", path])
+    finally:
+        if saved is None:
+            os.environ.pop("PROFILE_DIR")
+        else:
+            os.environ["PROFILE_DIR"] = saved
+    calls = 6 + TOOLS_PROFILE_ITERS
+    launches = launch_counts()
+    want = expect(lrn_fwd_cuda=2 * calls, lrn_bwd_cuda=2 * calls)
+    if launches != want:
+        raise AssertionError(f"profile_model launches {launches}, expected "
+                             f"{want}")
+    with open(path) as f:
+        doc = json.load(f)
+    if doc["train_dispatches"] != TOOLS_PROFILE_ITERS or doc["lanes"] != 1 \
+            or not doc["compute_secs"] > 0 or doc["platform"] != "gpu":
+        raise AssertionError(f"profile_model: "
+                             f"{ {k: v for k, v in doc.items() if k != 'top_ops'} }")
+    events = devprof.load_dir_events(trace)
+    lrn = {k: [e for e in events if devprof.is_device_op(e)
+               and k in e.get("name", "")]
+           for k in ("lrn_fwd_kernel", "lrn_bwd_kernel")}
+    for k, evs in lrn.items():
+        if len(evs) != 2 * TOOLS_PROFILE_ITERS or \
+                not all(e.get("dur", 0) > 0 for e in evs):
+            names = sorted({devprof.op_class(e.get("name", ""))
+                            for e in events if devprof.is_device_op(e)})
+            raise AssertionError(f"profile_model trace: {len(evs)} {k} "
+                                 f"events, expected "
+                                 f"{2 * TOOLS_PROFILE_ITERS}; device ops "
+                                 f"{names[:40]}")
+    # B1's and B2's places among the window's op classes by device time
+    # (devprof's ``top_ops`` keeps the first 15, the JAX schema's cut)
+    totals = {}
+    for e in events:
+        if devprof.is_device_op(e):
+            c = devprof.op_class(e.get("name", ""))
+            totals[c] = totals.get(c, 0.0) + float(e.get("dur", 0.0))
+    order = sorted(totals, key=lambda c: -totals[c])
+    ranks = {k: next(i + 1 for i, c in enumerate(order) if k in c)
+             for k in lrn}
+    compute_ms = doc["compute_secs"] * 1e3 / doc["train_dispatches"]
+    busy_ms = busy["device_busy_ms_per_step"] - busy["htod_ms_per_step"]
+    ratio = compute_ms / busy_ms
+    if not DEVPROF_RATIO[0] <= ratio <= DEVPROF_RATIO[1]:
+        raise AssertionError(f"profile_model compute {compute_ms} ms a "
+                             f"dispatch against the profiler's busy "
+                             f"{busy_ms} ms a step: ratio {ratio}")
+    return {"compute_ms_per_dispatch": compute_ms,
+            "profiler_busy_ms_per_step": busy_ms, "ratio": ratio,
+            "lrn_op_class_rank": ranks, "op_classes": len(order),
+            "lrn_ms_per_dispatch": {k: sum(e["dur"] for e in evs) / 1e3
+                                    / TOOLS_PROFILE_ITERS
+                                    for k, evs in lrn.items()},
+            "top_ops": doc["top_ops"][:6], "launches": {
+                k: v for k, v in launches.items() if v},
+            "printed": text.splitlines()[0]}
+
+
+def tools_sweep_phase() -> dict:
+    """``tools.scaling_sweep --model alexnet --batch-size 128 --strategies
+    allreduce onebit --json`` at world 1: a row a strategy with the card
+    named, and the launches of both runs (B1/B2 twice a step each; the
+    onebit wire's B4, B5 and B6 once a step, B3 not on the step)."""
+    from theanompi_tpu_torch.tools import scaling_sweep
+    zero_launches()
+    text = run_tool(scaling_sweep.main, [
+        "--model", "alexnet", "--batch-size", str(BATCH), "--strategies",
+        "allreduce", "onebit", "--iters", str(SWEEP_ITERS), "--warmup",
+        str(SWEEP_WARMUP), "--json"])
+    launches = launch_counts()
+    n = SWEEP_WARMUP + SWEEP_ITERS
+    want = expect(lrn_fwd_cuda=2 * 2 * n, lrn_bwd_cuda=2 * 2 * n,
+                  pack_signs_encode_cuda=n, signed_residual_cuda=n,
+                  unpack_signs_wsum_cuda=n)
+    if launches != want:
+        raise AssertionError(f"scaling_sweep launches {launches}, expected "
+                             f"{want}")
+    rows = [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+    if [(r["strategy"], r["workers"]) for r in rows] != \
+            [("allreduce", 1), ("onebit", 1)] or \
+            not all(r["images_per_sec"] > 0 and r.get("card") for r in rows):
+        raise AssertionError(f"scaling_sweep rows {rows}")
+    return {"rows": rows,
+            "launches": {k: v for k, v in launches.items() if v}}
+
+
+def tools_loader_phase() -> dict:
+    """``tools.loader_bench --prefetch --u8-wire`` over the ``para_load``
+    phase's batch files (written again unless there): the host pipeline's
+    images and GB a second, and the pinned staging rate to the card."""
+    from theanompi_tpu_torch.tools import loader_bench
+    loader_bench.ensure_dataset(FILE_STEPS, BATCH, DATA_DIR, VAL_BATCHES)
+    text = run_tool(loader_bench.main, [
+        "--data-dir", DATA_DIR, "--batches", str(FILE_STEPS),
+        "--batch-size", str(BATCH), "--epochs", "2", "--prefetch",
+        "--u8-wire"])
+    out = json.loads(text.strip().splitlines()[-1])
+    if out["images"] != (2 * FILE_STEPS - 1) * BATCH or \
+            not out["value"] > 0 or not out["staging_gb_per_sec"] > 0 or \
+            not out.get("card"):
+        raise AssertionError(f"loader_bench: {out}")
+    return out
+
+
+def tools_async_sync_phase() -> dict:
+    """``tools.async_vs_sync_easgd --seconds 10``: Cifar10 b16, 20
+    synchronous-cadence EASGD steps at world 1 against 2 island threads
+    sharing the card for 10 s; both rates positive, the note saying the
+    ratio is a harness check."""
+    from theanompi_tpu_torch.tools import async_vs_sync_easgd
+    text = run_tool(async_vs_sync_easgd.main, [
+        "--seconds", "10", "--steps", "20",
+        "--out", os.path.join(TOOLS_DIR, "async_vs_sync_easgd.json")])
+    out = json.loads(text.strip().splitlines()[-1])
+    if not (out["sync_easgd_samples_per_sec"] > 0
+            and out["async_islands_samples_per_sec"] > 0
+            and "harness check" in out["note"] and out.get("card")):
+        raise AssertionError(f"async_vs_sync_easgd: {out}")
+    return out
+
+
+def tools_rules_phase() -> dict:
+    """``tools.rules_time_to_acc 0.5 --epochs 2`` at world 1 on Cifar10
+    synthetic (512 training, 128 validation samples, b16): a row a rule,
+    two finite validation costs each, the card in ``platform``."""
+    from theanompi_tpu_torch.tools import rules_time_to_acc
+    path = os.path.join(TOOLS_DIR, "rules_time_to_acc.json")
+    run_tool(rules_time_to_acc.main, [
+        "0.5", "--epochs", "2", "--synthetic-train", "512",
+        "--synthetic-val", "128", "--out", path])
+    with open(path) as f:
+        rows = [json.loads(ln) for ln in f if ln.strip()]
+    if [r["rule"] for r in rows] != ["BSP", "EASGD", "ASGD", "GOSGD"] or \
+            not all(len(r["val_cost_by_epoch"]) == 2
+                    and all(np.isfinite(r["val_cost_by_epoch"]))
+                    and r["platform"].startswith("gpu") for r in rows):
+        raise AssertionError(f"rules_time_to_acc rows {rows}")
+    return {r["rule"]: {k: r[k] for k in ("acc_by_epoch",
+                                          "val_cost_by_epoch",
+                                          "wall_secs_total", "platform")}
+            for r in rows}
+
+
+def tools_main(card: str, busy: dict) -> dict:
+    """The tools group (``--tools``): the port's tools run in this process
+    as a user runs them (``main(argv)``), on the card; ``busy`` is the
+    AlexNet synthetic row's profile.  Prints each tool's numbers and the
+    group's seconds by phase."""
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    os.makedirs(TOOLS_DIR)
+    out, secs = {}, {}
+    t_group = time.time()
+    for name, fn, args in (("profile_model", tools_profile_phase, (busy,)),
+                           ("scaling_sweep", tools_sweep_phase, ()),
+                           ("loader_bench", tools_loader_phase, ()),
+                           ("async_vs_sync_easgd", tools_async_sync_phase,
+                            ()),
+                           ("rules_time_to_acc", tools_rules_phase, ())):
+        t0 = time.time()
+        out[name] = fn(*args)
+        secs[name] = time.time() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    p = out["profile_model"]
+    print(f"tools.profile_model AlexNet b{BATCH} BSP captured, "
+          f"{TOOLS_PROFILE_ITERS} traced dispatches: devprof compute "
+          f"{p['compute_ms_per_dispatch']:.4f} ms a dispatch against the "
+          f"profiler's busy {p['profiler_busy_ms_per_step']:.4f} ms a step "
+          f"(less its HtoD copy), ratio {p['ratio']:.4f}; B1/B2 "
+          + ", ".join(f"{k} {ms:.4f} ms a dispatch (op class "
+                      f"#{p['lrn_op_class_rank'][k]} of {p['op_classes']})"
+                      for k, ms in p["lrn_ms_per_dispatch"].items())
+          + f"; launches {p['launches']} on {card}", flush=True)
+    print("tools.scaling_sweep AlexNet b%d world 1: " % BATCH + "; ".join(
+        f"{r['strategy']} {r['images_per_sec']:.1f} img/s "
+        f"({r['time_per_5120']:.3f} s/5120)"
+        for r in out["scaling_sweep"]["rows"])
+        + f"; launches {out['scaling_sweep']['launches']} on {card}",
+        flush=True)
+    lb = out["loader_bench"]
+    print(f"tools.loader_bench {lb['metric']}: {lb['value']:.1f} img/s, "
+          f"{lb['gb_per_sec_out']:.3f} GB/s out of the host pipeline; "
+          f"pinned staging to the card {lb['staging_images_per_sec']:.1f} "
+          f"img/s, {lb['staging_gb_per_sec']:.3f} GB/s on {card}",
+          flush=True)
+    av = out["async_vs_sync_easgd"]
+    print(f"tools.async_vs_sync_easgd Cifar10 b{av['batch_per_chip']}: sync "
+          f"{av['sync_easgd_samples_per_sec']:.1f} samples/s, "
+          f"{av['islands']} islands {av['async_islands_samples_per_sec']:.1f}"
+          f", ratio {av['async_over_sync']:.3f} ({av['note']}) on {card}",
+          flush=True)
+    print("tools.rules_time_to_acc Cifar10 world 1, 2 epochs: " + "; ".join(
+        f"{k} acc {r['acc_by_epoch']} val cost "
+        f"{[round(c, 4) for c in r['val_cost_by_epoch']]} in "
+        f"{r['wall_secs_total']:.1f} s" for k, r in
+        out["rules_time_to_acc"].items()) + f" on {card}", flush=True)
+    out["phase_s"] = secs
+    out["secs"] = time.time() - t_group
+    print(f"tools group: {out['secs']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in secs.items()) + ")", flush=True)
+    return out
+
+
 def kernel_rows():
     """(label, wrapper, source, TPU kernel it replaces) of B1–B12 (built
     at use: ``--factor-times`` also runs on trees from before
@@ -6965,7 +7297,7 @@ def main() -> int:
           + f"; para_load runs {FILE_WORKERS} workers x "
           f"{loader['para_load_threads']} threads", flush=True)
     t0 = time.time()
-    write_batch_files(DATA_DIR, FILE_STEPS, VAL_BATCHES)
+    write_batch_files(DATA_DIR, FILE_STEPS, VAL_BATCHES, BATCH)
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     print(f"wrote {FILE_STEPS} + {VAL_BATCHES} .npy batch files in "
           f"{time.time() - t0:.1f}s", flush=True)
@@ -7004,6 +7336,9 @@ def main() -> int:
         for w in ("f32", "u8")), flush=True)
 
     lap("AlexNet paths")
+    tools = tools_main(card, profs["alexnet"])
+    lap("tools")
+    phase_s.update({f"tools_{k}": v for k, v in tools["phase_s"].items()})
     vggs = {}
     for strategy, shape, groups in (
             ("onebit", (comp["n"],),
@@ -7275,6 +7610,11 @@ def main() -> int:
                 # the rank the launcher started (its own process's count)
                 "alexnet_launched_rank":
                     launcher["world1"]["launches"][name],
+                # the tools: profile_model's run, the sweep's two
+                "alexnet_profile_model":
+                    tools["profile_model"]["launches"][name],
+                "alexnet_scaling_sweep":
+                    tools["scaling_sweep"]["launches"][name],
                 # each elastic island process that exited, the respawned
                 # island 1 included: 2 a step
                 **{f"alexnet_elastic_island{w}": i["launches"][name]
@@ -7301,7 +7641,7 @@ def main() -> int:
                                 **{f"vgg16_{k}": v for k, v in vggs.items()}),
                    "rules": rules, "clip": clip, "optimizers": opts,
                    "islands": islands, "launcher": launcher,
-                   "elastic": elastic, "wire": wire,
+                   "elastic": elastic, "wire": wire, "tools": tools,
                    "shard": shard, "gan_lm": a9, "ops": ops,
                    "graph_eager": graph_eager, "spc": spc,
                    "recapture": recapture, "zoo_ref": zoo_ref,
@@ -7337,6 +7677,7 @@ if __name__ == "__main__":
                       "--input-times", "--update-times", "--lrn-times",
                       "--islands", "--vgg-island-lr", "--launcher",
                       "--wire", "--shard", "--gan-lm", "--flash-f32",
-                      "--pp-stage", "--ep-rank", "--ops", "--elastic"}:
+                      "--pp-stage", "--ep-rank", "--ops", "--elastic",
+                      "--tools"}:
         sys.exit(f"chip_smoke: unknown arguments {sorted(_flags)}")
     sys.exit(times_main(_flags) if _flags else main())

@@ -10,7 +10,8 @@ the in-world side (``MeshReactor``, ``set_active_ranks``) is
   the same join, leave and demote transitions; a stale lease cannot
   resurrect a dead worker; a clean finish is not a death; straggler
   demotion with its floor, from a given ranking and from the telemetry
-  streams of a run (``scripts/telemetry_report.py`` loaded by path).
+  streams of a run (the JAX controller through ``scripts/telemetry_report.py``
+  loaded by path, the port's through its own ``tools/telemetry_report.py``).
 * The center's reactions: ``CenterReactor`` demotes and readmits on a
   port center in memory and behind the wire, and defers through an
   outage, then flushes; the ``center_down`` / ``center_restored`` pair.
@@ -241,9 +242,10 @@ def test_straggler_demotion_and_min_active_floor():
 
 
 def test_straggler_ranking_sourced_from_telemetry_streams(tmp_path):
-    """The controller reads ``scripts/telemetry_report.py``'s windowed
-    ranking over real per-rank stream files: rank 2's long train phases
-    get it demoted, in the port's controller as in the JAX package's."""
+    """The controller reads the run report's windowed ranking (the port's
+    ``tools/telemetry_report.py``) over real per-rank stream files: rank
+    2's long train phases get it demoted, in the port's controller as in
+    the JAX package's."""
     t0 = time.time()
     for rank in range(3):
         with open(tmp_path / f"telemetry_rank{rank}.jsonl", "w") as f:

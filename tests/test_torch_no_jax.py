@@ -144,7 +144,7 @@ bad = sorted(m for m in sys.modules
 assert not bad, bad
 # the fleet monitor, the chaos harness and the membership plane run without
 # JAX: a streamer feeds a collector, the monkey kills a process, and the
-# controller ranks stragglers through scripts/telemetry_report.py
+# controller ranks stragglers through the port's tools/telemetry_report.py
 import json, subprocess, time
 from theanompi_tpu_torch.parallel import membership
 from theanompi_tpu_torch.utils import chaos, fleetmon, telemetry
@@ -261,6 +261,16 @@ NEW_MODULES = ("theanompi_tpu_torch.native",
                "theanompi_tpu_torch.tools.simfleet_run",
                "theanompi_tpu_torch.tools.chaos_run",
                "theanompi_tpu_torch.tools.lint",
+               "theanompi_tpu_torch.tools._world",
+               "theanompi_tpu_torch.tools.telemetry_report",
+               "theanompi_tpu_torch.tools.fleetz",
+               "theanompi_tpu_torch.tools.plot_records",
+               "theanompi_tpu_torch.tools.profile_model",
+               "theanompi_tpu_torch.tools.loader_bench",
+               "theanompi_tpu_torch.tools.scaling_sweep",
+               "theanompi_tpu_torch.tools.gosgd_mixing",
+               "theanompi_tpu_torch.tools.async_vs_sync_easgd",
+               "theanompi_tpu_torch.tools.rules_time_to_acc",
                "theanompi_tpu_torch.analysis",
                "theanompi_tpu_torch.analysis.core",
                "theanompi_tpu_torch.analysis.cache",
@@ -354,7 +364,7 @@ def test_simfleet_and_tools_import_neither_jax_nor_torch(name):
 def test_membership_and_its_straggler_ranking_import_no_jax_or_torch(
         tmp_path):
     """``parallel/membership.py`` imported alone, its straggler ranking run
-    (``scripts/telemetry_report.py``, loaded by file path) and its fleet
+    (the port's ``tools/telemetry_report.py``, imported) and its fleet
     monitor tick taken: neither ``jax``, the JAX package nor ``torch`` is
     imported; the island's process imports torch only when it starts."""
     rd = str(tmp_path)
@@ -458,3 +468,20 @@ def _launch_modules(tmp_path, *kv, launch=("--n-workers", "2",
         with open(f"{out}_r{rank}.json") as f:
             got = json.load(f)
         assert got["bad"] == [] and got["n"] > 100, got
+
+
+def test_tools_load_nothing_of_the_jax_tree_by_path():
+    """No tool reaches into the JAX tree by file path: no module spec
+    made from a file, no path built to ``scripts/`` or ``theanompi_tpu/``
+    (the port keeps its own copy of what it needs)."""
+    import theanompi_tpu_torch.tools as tools
+    root = tools.__path__[0]
+    for name in sorted(os.listdir(root)):
+        if not name.endswith(".py"):
+            continue
+        with open(os.path.join(root, name)) as f:
+            src = f.read()
+        assert "spec_from_file_location" not in src, name
+        assert '"scripts"' not in src and "'scripts'" not in src, name
+        assert '"theanompi_tpu"' not in src and \
+            "'theanompi_tpu'" not in src, name

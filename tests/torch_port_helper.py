@@ -85,6 +85,7 @@ import torch
 from theanompi_tpu_torch.models import layers as L
 from theanompi_tpu_torch.models.data import DataBase
 from theanompi_tpu_torch.models.model_base import ModelBase
+from theanompi_tpu_torch.models.cifar10 import Cifar10_model
 from theanompi_tpu_torch.models.resnet50 import ResNet50
 from theanompi_tpu_torch.models.transformer_lm import TransformerLM
 
@@ -258,6 +259,23 @@ class TinyResNet(ResNet50):
 
 class TinyResNetFrom(_FromNpz, TinyResNet):
     """:class:`TinyResNet` from ``config['init_npz']``."""
+
+
+def zero_dropout(layers) -> None:
+    """Every ``Dropout`` among ``layers`` (nested too) at rate 0."""
+    for layer in layers:
+        zero_dropout(getattr(layer, "layers", ()))
+        if type(layer).__name__ == "Dropout":
+            layer.rate = 0.0
+
+
+class Cifar10NoDrop(Cifar10_model):
+    """The port's ``Cifar10_model`` with its dropout at rate 0: runs held
+    against the JAX model with its dropout zeroed the same way."""
+
+    def __init__(self, config=None):
+        super().__init__(config)
+        zero_dropout(self.seq.layers)
 
 
 TINY_LM = dict(vocab=32, d_model=16, n_head=2, n_layer=1, seq_len=16,

@@ -34,8 +34,8 @@ from the declared list is caught too:
 * thread roles: every Thread and Timer in ``membership.py`` and
   ``chaos.py`` resolves to its entry function in the engine.
 
-The report (``scripts/telemetry_report.py``, stdlib, loaded by file path
-as ``parallel/membership.py`` loads it) must consume every event kind.
+The report (the port's ``tools/telemetry_report.py``, stdlib, loaded by
+file path from the tree under check) must consume every event kind.
 The probes import the port's stdlib planes and numpy; the center probe
 imports ``center_server``, which imports torch (about three seconds of a
 cold run on a CPU host).  None imports ``jax`` or the JAX package.
@@ -60,7 +60,7 @@ SENTRY_PATH = f"{_UTILS}/sentry.py"
 CHAOS_PATH = f"{_UTILS}/chaos.py"
 NUMERICS_PATH = f"{_UTILS}/numerics.py"
 COMPILE_CACHE_PATH = f"{_UTILS}/compile_cache.py"
-REPORT_PATH = "scripts/telemetry_report.py"
+REPORT_PATH = "theanompi_tpu_torch/tools/telemetry_report.py"
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
@@ -791,7 +791,7 @@ def center_protocol_errors(center_server, root: Optional[str] = None
 
 
 def load_report(root: Optional[str] = None):
-    """``scripts/telemetry_report.py`` loaded by file path (stdlib), or
+    """The port's ``tools/telemetry_report.py`` loaded by file path (stdlib), or
     None when it is absent or broken (its checks are then skipped)."""
     path = os.path.join(root or _ROOT, REPORT_PATH)
     if not os.path.exists(path):

@@ -123,13 +123,15 @@ def _stop(procs, grace_s: float) -> None:
 
 
 def run_world(cmds: List[List[str]], poll_s: float = 0.05,
-              grace_s: float = 5.0) -> int:
-    """Run one process per command until every one exits 0 (returns 0) or
-    one fails (returns its code; the rest are stopped)."""
+              grace_s: float = 5.0, env: Optional[dict] = None) -> int:
+    """Run one process per command (in ``env``, default this process's
+    environment) until every one exits 0 (returns 0) or one fails
+    (returns its code; the rest are stopped)."""
     procs = []
     try:
         for c in cmds:
-            procs.append(subprocess.Popen(c, start_new_session=True))
+            procs.append(subprocess.Popen(c, start_new_session=True,
+                                          env=env))
         while True:
             rcs = [p.poll() for p in procs]
             for r, rc in enumerate(rcs):

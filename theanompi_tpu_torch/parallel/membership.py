@@ -17,7 +17,7 @@ against a center.  So an island that dies is respawned alone:
   ``worker_join`` / ``worker_leave`` / ``worker_demote`` transitions (one
   telemetry event each, and the reactors' callbacks), and
   ``check_stragglers()`` demotes an island that
-  ``scripts/telemetry_report.py``'s windowed ranking charges with
+  ``tools/telemetry_report.py``'s windowed ranking charges with
   ``straggle_windows`` straggles.
 * **Reactors** — :class:`CenterReactor` demotes and readmits islands at
   the EASGD/ASGD center: a demoted island's pushes are dropped, its pulls
@@ -61,7 +61,7 @@ from ..utils import telemetry, tracing
 from ..utils.clock import WALL
 
 # The membership transition vocabulary (the JAX package's, which
-# scripts/telemetry_report.py renders).  A readmitted straggler re-enters
+# tools/telemetry_report.py renders).  A readmitted straggler re-enters
 # via ``worker_join`` with ``reason='readmit'``.
 MEMBERSHIP_EVENTS = ("worker_join", "worker_leave", "worker_demote")
 
@@ -350,34 +350,13 @@ class MeshReactor(Reactor):
 
 # -- the controller ----------------------------------------------------------
 
-_REPORT_MODULE: Any = None          # module-level cache: exec once/process
-
-
 def _load_report_module():
-    """``scripts/telemetry_report.py`` by FILE path (a script, not a
-    package module; stdlib-only by contract) — the ONE windowed straggler
-    ranking, not a re-implementation.  Cached after the first load (the
-    supervisor polls it); None — with ONE stderr warning, since a silent
-    None quietly disables straggler demotion — when absent/broken."""
-    global _REPORT_MODULE
-    if _REPORT_MODULE is not None:
-        return _REPORT_MODULE if _REPORT_MODULE is not False else None
-    root = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    path = os.path.join(root, "scripts", "telemetry_report.py")
-    import importlib.util
-    try:
-        spec = importlib.util.spec_from_file_location(
-            "_membership_telemetry_report", path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-    except Exception as e:
-        print(f"membership: scripts/telemetry_report.py unavailable "
-              f"({e!r}) — straggler demotion disabled", file=sys.stderr)
-        _REPORT_MODULE = False
-        return None
-    _REPORT_MODULE = mod
-    return mod
+    """The port's run report (``tools/telemetry_report.py``, stdlib): the
+    ONE windowed straggler ranking, not a re-implementation.  Imported as
+    a module of the package, so an installed port has it; a missing
+    report is an ImportError, never a silently disabled demotion."""
+    from ..tools import telemetry_report
+    return telemetry_report
 
 
 class MembershipController:
@@ -538,14 +517,14 @@ class MembershipController:
     # -- straggler loop -----------------------------------------------------
 
     def straggler_ranking(self) -> List[dict]:
-        """The windowed ranking from ``scripts/telemetry_report.py`` over
+        """The windowed ranking from ``tools/telemetry_report.py`` over
         this run's merged per-rank streams (``record_dir``).  When the
         streams carry causal-tracing ``span`` events, the report's
         root-cause table is computed from the SAME parse and stashed for
         :meth:`check_stragglers` to cite in its demote events."""
-        mod = _load_report_module()
-        if mod is None or not self.record_dir:
+        if not self.record_dir:
             return []
+        mod = _load_report_module()
         events = mod.load_events(self.record_dir)
         rc_fn = getattr(mod, "straggler_root_cause", None)
         if rc_fn is not None:

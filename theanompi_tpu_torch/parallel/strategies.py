@@ -517,36 +517,48 @@ class PowerSGD(Strategy):
         return tree_map(lambda _: next(it), tree), state
 
 
+# every strategy by its reference-compatible config string (``powersgd<r>``
+# names PowerSGD at rank r besides these); topk and powersgd take kwargs
+STRATEGIES = {
+    "none": NoComm,
+    "nocomm": NoComm,
+    "allreduce": AllReduce,
+    "ar": AllReduce,
+    "nccl32": AllReduce,
+    "nccl16": lambda: AllReduce(wire_dtype=torch.bfloat16),
+    "bf16": lambda: AllReduce(wire_dtype=torch.bfloat16),
+    "asa32": Ring,
+    "ring": Ring,
+    "copper": Ring,
+    "asa16": lambda: Ring(wire_dtype=torch.bfloat16),
+    "ring16": lambda: Ring(wire_dtype=torch.bfloat16),
+    "copper16": lambda: Ring(wire_dtype=torch.bfloat16),
+    "onebit": OneBit,
+    "compressed": OneBit,
+    "topk": TopK,
+    "powersgd": PowerSGD,
+}
+
+
+def is_strategy(name: str) -> bool:
+    """Whether :func:`get_strategy` resolves ``name``."""
+    name = name.lower()
+    return name in STRATEGIES or (name.startswith("powersgd")
+                                  and name[8:].isdigit())
+
+
 def get_strategy(name: str, **kwargs) -> Strategy:
     """Resolve a strategy by its reference-compatible config string;
     ``kwargs`` go to ``topk`` and ``powersgd``."""
     name = name.lower()
-    table = {
-        "none": NoComm,
-        "nocomm": NoComm,
-        "allreduce": AllReduce,
-        "ar": AllReduce,
-        "nccl32": AllReduce,
-        "nccl16": lambda: AllReduce(wire_dtype=torch.bfloat16),
-        "bf16": lambda: AllReduce(wire_dtype=torch.bfloat16),
-        "asa32": Ring,
-        "ring": Ring,
-        "copper": Ring,
-        "asa16": lambda: Ring(wire_dtype=torch.bfloat16),
-        "ring16": lambda: Ring(wire_dtype=torch.bfloat16),
-        "copper16": lambda: Ring(wire_dtype=torch.bfloat16),
-        "onebit": OneBit,
-        "compressed": OneBit,
-        "topk": lambda: TopK(**kwargs),
-        "powersgd": lambda: PowerSGD(**kwargs),
-    }
     if name.startswith("powersgd") and name[8:].isdigit():
         # 'powersgd4' etc.; an explicit rank kwarg must not silently lose
         assert "rank" not in kwargs or int(kwargs["rank"]) == int(name[8:]), \
             f"strategy name {name!r} conflicts with rank={kwargs['rank']}"
         return PowerSGD(rank=int(name[8:]))
     try:
-        return table[name]()
+        make = STRATEGIES[name]
     except KeyError:
         raise ValueError(f"unknown exchange strategy {name!r}; have "
-                         f"{sorted(table)}")
+                         f"{sorted(STRATEGIES)}")
+    return make(**kwargs) if name in ("topk", "powersgd") else make()

@@ -52,13 +52,17 @@ class SyncRule:
         self.modelfile, self.modelclass = modelfile, modelclass
         return self
 
-    def wait(self):
-        """Run training to completion and return the recorder.  The process
-        group this rank created is left again on the way out."""
+    def wait(self, prepare=None):
+        """Run training to completion and return the recorder.  ``prepare``,
+        when given, is called as ``prepare(worker, model)`` on the built
+        model before its run (to load its starting parameters, say).  The
+        process group this rank created is left again on the way out."""
         self.worker = WORKERS[self.rule](self.config)
         try:
             self.model = self.worker.build_model(self.modelfile,
                                                  self.modelclass)
+            if prepare is not None:
+                prepare(self.worker, self.model)
             self.recorder = self.worker.run(self.model)
         finally:
             self.worker.close()
@@ -90,14 +94,17 @@ class _CenterRule(SyncRule):
     """An async rule with a center: ``<rule>_mode='sync'`` (default) runs
     the exchange inside this rank's step, ``'async'`` the islands."""
 
-    def wait(self):
+    def wait(self, prepare=None):
         mode = self.config.get(f"{self.rule}_mode", "sync")
         if mode == "async":
+            if prepare is not None:
+                raise ValueError("prepare applies to the 'sync' mode; the "
+                                 "islands build their own models")
             return _run_async_islands(self, self.rule)
         if mode != "sync":
             raise ValueError(f"{self.rule}_mode={mode!r}; have 'sync', "
                              f"'async'")
-        return super().wait()
+        return super().wait(prepare)
 
 
 class EASGD(_CenterRule):

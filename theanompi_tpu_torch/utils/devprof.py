@@ -770,11 +770,13 @@ class Trace:
 
 class _Capture:
     """Result holder for :func:`capture` — ``.profile`` is populated when
-    the context exits (None if the profiler emitted no usable trace)."""
+    the context exits (None if the profiler emitted no usable trace);
+    ``.record()`` ends a ``warmup`` capture's warm-up."""
 
-    def __init__(self, trace_dir: str):
+    def __init__(self, trace_dir: str, trace: "Trace"):
         self.trace_dir = trace_dir
         self.profile: Optional[Dict[str, Any]] = None
+        self.record = trace.record
 
 
 class capture:
@@ -788,16 +790,22 @@ class capture:
 
     The caller synchronizes before the context exits: the profiler only
     sees device work that has already run.  Attribution never raises into
-    the training loop; an anonymous capture's directory is removed."""
+    the training loop; an anonymous capture's directory is removed.
+    ``warmup`` starts the window in the profiler's warm-up (:class:`Trace`)
+    until the caller, after a synchronize, calls ``cap.record()``;
+    ``name`` and ``session`` place the file as :class:`Trace` does (one
+    session, a file a rank)."""
 
     def __init__(self, trace_dir: Optional[str] = None,
-                 cuda: Optional[bool] = None):
+                 cuda: Optional[bool] = None, warmup: bool = False,
+                 name: str = "host", session: Optional[str] = None):
         self._own_dir = trace_dir is None
         if trace_dir is None:
             import tempfile
             trace_dir = tempfile.mkdtemp(prefix="devprof_")
-        self._cap = _Capture(trace_dir)
-        self._trace = Trace(trace_dir, cuda=cuda)
+        self._trace = Trace(trace_dir, name=name, session=session, cuda=cuda,
+                            warmup=warmup)
+        self._cap = _Capture(trace_dir, self._trace)
 
     def __enter__(self) -> _Capture:
         self._trace.start()
